@@ -1,0 +1,161 @@
+"""Batch pipeline: many-pair FASTA -> bucketed device fills -> TSV scores.
+
+Port of ``aligntools_tpu/pipeline.py``'s score-only path: a multi-record
+FASTA/Q (gz ok) is read with the native parser, consecutive records pair
+up (q1, t1, q2, t2, ...), pairs are scored in chunks on one device
+(``batch.batch_scores``), and results stream out as TSV, byte for byte
+the JAX package's:
+
+    name1  name2  score
+
+One global bucket partition covers the whole run; a one-worker prefetch
+overlaps the next chunk's fills with formatting the previous chunk;
+``--resume`` checkpoints chunk completion through the shared Manifest.
+Fit junction sites come from each target record's header comment.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import time as _time
+from concurrent.futures import ThreadPoolExecutor
+
+from aligntools_tpu.io.fasta import parse_junctions, read_records
+from aligntools_tpu.params import AlignParams
+from aligntools_tpu.utils.checkpoint import Manifest
+from aligntools_tpu.utils.profiling import Counters, stopwatch
+
+
+def read_pair_records(path: str):
+    """All records; consecutive records pair (q, t). Odd counts are an
+    error (a dangling query with no target). Copied from
+    ``aligntools_tpu/pipeline.py``, whose module reaches jax."""
+    records = list(read_records(path))
+    if len(records) % 2:
+        raise ValueError(
+            f"{path}: {len(records)} records — batch input must pair up "
+            f"(query, target) consecutively"
+        )
+    return [(records[i], records[i + 1]) for i in range(0, len(records), 2)]
+
+
+def run_pipeline(
+    mode: str,
+    path: str,
+    params: AlignParams = AlignParams(),
+    *,
+    device,
+    use_sites: bool = False,
+    scores_only: bool = False,
+    sharded: bool = False,
+    chunk_size: int = 16384,
+    manifest_path: str | None = None,
+    out_path: str | None = None,
+    band: int | None = None,
+) -> Counters:
+    """Score every pair in ``path`` on ``device``; returns run counters.
+
+    TSV goes to stdout, or to ``out_path``, which the pipeline then owns:
+    with a manifest, each chunk's end byte offset is checkpointed and a
+    resumed run truncates any torn chunk back to the last completed
+    watermark before appending. ``sharded``, ``band``, alignment rows
+    (``scores_only`` False outside edit) and targets past 32,768 columns
+    are not ported yet and raise ValueError."""
+    from aligntools_tpu_torch.batch import _bucket_keys, batch_scores
+
+    if sharded:
+        raise ValueError("--sharded is not ported to aligntools_tpu_torch yet")
+    if band is not None:
+        raise ValueError("--band is not ported to aligntools_tpu_torch yet")
+    if not scores_only and mode != "edit":
+        raise ValueError(
+            "alignment rows are not ported to aligntools_tpu_torch yet; "
+            "pass --scores-only"
+        )
+    if mode != "fit" and use_sites:
+        raise ValueError("junction sites are only meaningful in fit mode")
+    counters = Counters()
+    with stopwatch(counters, "io_seconds"):
+        rec_pairs = read_pair_records(path)
+    # ONE bucket partition for the whole run, sliced per chunk; it refuses
+    # unported shapes before any output is opened
+    with stopwatch(counters, "encode_seconds"):
+        global_keys = _bucket_keys(
+            [(a.seq, b.seq) for a, b in rec_pairs], 64, 128
+        )
+    manifest = None
+    if manifest_path:
+        manifest = Manifest.load_or_create(
+            manifest_path, os.path.abspath(path), mode, chunk_size,
+            len(rec_pairs),
+        )
+    own_out = out_path is not None
+    if own_out:
+        # Binary: tell()/truncate() must be real byte offsets for the
+        # manifest watermark. r+b keeps completed chunks for resume.
+        out = open(out_path, "r+b" if os.path.exists(out_path) else "w+b")
+        wm = manifest.watermark() if manifest else 0
+        out.seek(wm)
+        out.truncate(wm)  # drop any torn chunk from a killed run
+    else:
+        out = sys.stdout
+
+    chunks = [
+        rec_pairs[i : i + chunk_size]
+        for i in range(0, len(rec_pairs), chunk_size)
+    ]
+
+    def compute(ci, chunk):
+        """Score one chunk (on the prefetch worker: the NEXT chunk's
+        encode + fills overlap the main thread's formatting)."""
+        keys = global_keys[ci * chunk_size : ci * chunk_size + len(chunk)]
+        pairs = [(a.seq, b.seq) for a, b in chunk]
+        sites_list = None
+        if use_sites:
+            sites_list = [
+                parse_junctions(b.comment) if b.comment else []
+                for _, b in chunk
+            ]
+        return pairs, list(
+            batch_scores(mode, pairs, params, sites_list, device=device,
+                         counters=counters, keys=keys)
+        )
+
+    pending = [
+        (ci, chunk)
+        for ci, chunk in enumerate(chunks)
+        if not (manifest and manifest.is_done(ci))
+    ]
+    pool = ThreadPoolExecutor(1)
+    try:
+        with stopwatch(counters, "seconds"):
+            fut = pool.submit(compute, *pending[0]) if pending else None
+            for pi, (ci, chunk) in enumerate(pending):
+                pairs, results = fut.result()
+                if pi + 1 < len(pending):
+                    fut = pool.submit(compute, *pending[pi + 1])
+                tfmt = _time.perf_counter()
+                lines = []
+                for k, ((a, b), r) in enumerate(zip(chunk, results)):
+                    name1 = a.name.decode("latin-1")
+                    name2 = b.name.decode("latin-1")
+                    if mode == "edit":
+                        lines.append(f"{name1}\t{name2}\t{int(r)}")
+                    else:
+                        lines.append(f"{name1}\t{name2}\t{float(r):.6f}")
+                    counters.pairs += 1
+                    counters.cells += len(pairs[k][0]) * len(pairs[k][1])
+                text = "\n".join(lines) + "\n"
+                out.write(text.encode("latin-1") if own_out else text)
+                out.flush()
+                if own_out:
+                    os.fsync(out.fileno())  # durable before manifest says done
+                if manifest:
+                    manifest.mark_done(ci, out.tell() if own_out else None)
+                counters.format_seconds += _time.perf_counter() - tfmt
+    finally:
+        pool.shutdown(wait=False, cancel_futures=True)
+        if own_out:
+            out.close()
+    return counters

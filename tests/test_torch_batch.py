@@ -1,0 +1,140 @@
+"""The port's score-only batch path against the JAX package's.
+
+Bucketing must give the same shape keys, and ``batch_scores`` on the CPU
+(the kernels' plain versions) must equal ``aligntools_tpu.batch.
+batch_scores(..., engine="pallas")`` exactly, for every mode."""
+
+import numpy as np
+import pytest
+import torch
+
+from aligntools_tpu import batch as jbatch
+from aligntools_tpu.params import AlignParams
+from aligntools_tpu.spec import engine as spec
+from aligntools_tpu.utils.synth import clustered_pairs
+from aligntools_tpu_torch import backend
+from aligntools_tpu_torch import batch as tbatch
+
+ALPHA = list(b"ACGT")
+
+
+def _rand_pairs(rng, count, qlo, qhi, tlo, thi, fit=False):
+    out = []
+    for _ in range(count):
+        q = bytes(rng.choice(ALPHA, int(rng.integers(qlo, qhi))).tolist())
+        lo = max(tlo, len(q)) if fit else tlo
+        t = bytes(rng.choice(ALPHA, int(rng.integers(lo, thi))).tolist())
+        out.append((q, t))
+    return out
+
+
+def test_bucket_keys_match_jax():
+    pairs = clustered_pairs(512)
+    assert max(len(t) for _, t in pairs) <= 32768
+    for floors in ((64, 128), (16, 128)):
+        want = jbatch._bucket_keys(pairs, *floors)
+        assert tbatch._bucket_keys(pairs, *floors) == want
+    assert len(set(want)) > 1
+
+
+@pytest.mark.parametrize("x", [1, 63, 64, 65, 300, 3000, 32768, 32769, 70000])
+def test_bucket_len_matches_jax(x):
+    for floor in (16, 64, 128):
+        assert tbatch.bucket_len(x, floor) == jbatch.bucket_len(x, floor, 1)
+
+
+@pytest.mark.parametrize("mode", ["global", "local", "overlap", "edit", "fit",
+                                  "fit-s"])
+def test_batch_scores_match_jax(mode):
+    rng = np.random.default_rng(41)
+    fit = mode.startswith("fit")
+    pairs = _rand_pairs(rng, 14, 1, 70, 1, 300, fit=fit)  # several buckets
+    p = AlignParams(match=2, mismatch=-3, gap_open=-4, gap_extend=-1)
+    sites = None
+    if mode == "fit-s":
+        sites = [sorted(int(x) for x in rng.integers(0, len(t), 3))
+                 for _, t in pairs]
+    jmode = "fit" if fit else mode
+    want = jbatch.batch_scores(jmode, pairs, p, sites, engine="pallas")
+    got = tbatch.batch_scores(jmode, pairs, p, sites, device="cpu")
+    assert got.dtype == want.dtype
+    assert np.array_equal(got, want)
+    if mode == "fit-s":  # and the spec oracle, quirk included
+        for k in range(3):
+            assert got[k] == spec.spec_fit(*pairs[k], p, sites[k]).score
+
+
+@pytest.mark.parametrize("mode", ["global", "local", "fit", "overlap", "edit"])
+def test_padding_invariance(mode):
+    """A pair's score alone equals its score inside a mixed batch that pads
+    it into a larger bucket beside other pairs."""
+    rng = np.random.default_rng(13)
+    q = bytes(rng.choice(ALPHA, 20).tolist())
+    t = bytes(rng.choice(ALPHA, 37).tolist())
+    big = (bytes(rng.choice(ALPHA, 300).tolist()),
+           bytes(rng.choice(ALPHA, 900).tolist()))
+    partner = (bytes(rng.choice(ALPHA, 21).tolist()),
+               bytes(rng.choice(ALPHA, 30).tolist()))
+    solo = tbatch.batch_scores(mode, [(q, t)], device="cpu")[0]
+    mixed = tbatch.batch_scores(mode, [partner, (q, t), big], device="cpu")
+    assert mixed[1] == solo
+    keys = tbatch._bucket_keys([partner, (q, t), big], 64, 128)
+    assert keys[1] != keys[2]
+
+
+def test_f32_exact_guard():
+    pairs = [(b"ACGT" * 10, b"ACGT" * 20)]
+    huge = AlignParams(match=1 << 20)
+    with pytest.raises(ValueError, match="float32 exact-integer range"):
+        tbatch.batch_scores("local", pairs, huge, device="cpu")
+    with pytest.raises(ValueError, match="float32 exact-integer range"):
+        tbatch.batch_scores("edit", pairs, AlignParams(mismatch=1 << 20),
+                            device="cpu")
+
+
+def test_flat_ceiling():
+    """Targets up to 32,768 columns run on the flat fills; one past it
+    would need the column-blocked fill, which is not ported."""
+    q = b"ACGTTGCA"
+    t = (b"ACGT" * 8192)[:-4] + b"TGCA"
+    got = tbatch.batch_scores("local", [(q, t)], device="cpu")
+    assert got[0] == 8.0
+    assert tbatch._bucket_keys([(q, t)], 64, 128) == [(64, 32768)]
+    with pytest.raises(ValueError, match="column-blocked"):
+        tbatch.batch_scores("local", [(q, t), (q, t + b"A")], device="cpu")
+
+
+def test_fit_length_guard():
+    with pytest.raises(ValueError, match="first sequence must be shorter"):
+        tbatch.batch_scores("fit", [(b"ACGTACGT", b"ACG")], device="cpu")
+
+
+def test_rows_are_not_ported():
+    pairs = [(b"ACGT", b"AGT")]
+    with pytest.raises(NotImplementedError, match="rows"):
+        tbatch.align_batch("global", pairs, traceback=True, device="cpu")
+    # edit has no rows: the score path serves traceback=True as well
+    assert tbatch.align_batch("edit", pairs, traceback=True,
+                              device="cpu") == [
+        spec.spec_edit(b"ACGT", b"AGT")]
+
+
+def test_counters_and_empty_input():
+    from aligntools_tpu.utils.profiling import Counters
+
+    c = Counters()
+    pairs = [(b"ACGT", b"ACGTT"), (b"GATTACA" * 20, b"GCATGCA" * 40)]
+    tbatch.batch_scores("local", pairs, device="cpu", counters=c)
+    keys = tbatch._bucket_keys(pairs, 64, 128)
+    assert c.padded_cells == sum(m * n for m, n in keys)
+    assert tbatch.align_batch("local", [], traceback=False,
+                              device="cpu") == []
+
+
+def test_resolve_device(monkeypatch):
+    assert backend.resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="unsupported device"):
+        backend.resolve_device("meta")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        backend.resolve_device("cuda")

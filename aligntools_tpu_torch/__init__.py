@@ -7,8 +7,8 @@ for bit against the JAX package. Importing this package loads neither
 torch nor jax; ``align_batch`` / ``batch_scores`` load torch on first use.
 """
 
-from aligntools_tpu.params import AlignParams, MODES
-from aligntools_tpu.version import __version__
+from aligntools_tpu_torch.params import AlignParams, MODES
+from aligntools_tpu_torch.version import __version__
 
 __all__ = ["AlignParams", "MODES", "__version__", "align_batch",
            "batch_scores"]

@@ -1,10 +1,11 @@
 """``aligntools-torch`` CLI: the port's batch surface.
 
-    aligntools-torch batch MODE FASTA --scores-only [options]
-    python3 -m aligntools_tpu_torch batch MODE FASTA --scores-only [options]
+    aligntools-torch batch MODE FASTA [options]
+    python3 -m aligntools_tpu_torch batch MODE FASTA [options]
 
-Records pair up consecutively (q1, t1, q2, t2, ...); TSV scores go to
-stdout or ``--out``, byte for byte ``aligntools batch --scores-only``'s.
+Records pair up consecutively (q1, t1, q2, t2, ...); the TSV (alignment
+rows by default, CIGAR with ``--cigar``, scores with ``--scores-only``)
+goes to stdout or ``--out``, byte for byte ``aligntools batch``'s.
 ``--device`` picks the device explicitly (default ``cuda``): there is no
 silent fallback to the CPU. Errors print ``FATAL ERROR: ...`` and exit
 255, as ``aligntools batch`` does.
@@ -17,7 +18,7 @@ import sys
 
 _USAGE = (
     "\nUsage:   aligntools-torch batch <mode> [options] <pairs.fa>\n\n"
-    "Score-only batched alignment (PyTorch / CUDA); see "
+    "Batched alignment (PyTorch / CUDA); see "
     "`aligntools-torch batch --help`.\n\n"
 )
 
@@ -25,8 +26,8 @@ _USAGE = (
 def run_batch(args: list[str]) -> int:
     ap = argparse.ArgumentParser(
         prog="aligntools-torch batch",
-        description="Batched score-only alignment of many pairs on one "
-                    "CUDA GPU (or the CPU, by name)",
+        description="Batched alignment of many pairs on one CUDA GPU (or "
+                    "the CPU, by name)",
     )
     ap.add_argument("mode", choices=["global", "local", "fit", "overlap",
                                      "edit"])
@@ -40,8 +41,9 @@ def run_batch(args: list[str]) -> int:
     ap.add_argument("-s", action="store_true",
                     help="fit: junction sites from each target's comment")
     ap.add_argument("--scores-only", action="store_true",
-                    help="scores without alignment rows (required outside "
-                         "edit: rows are not ported yet)")
+                    help="skip traceback (fastest)")
+    ap.add_argument("--cigar", action="store_true",
+                    help="emit CIGAR strings instead of gapped rows")
     ap.add_argument("--chunk-size", type=int, default=16384)
     ap.add_argument("--out", metavar="FILE", default=None,
                     help="output TSV file owned by the pipeline (with "
@@ -57,7 +59,7 @@ def run_batch(args: list[str]) -> int:
                     help="where the fills run (default cuda; cpu runs the "
                          "kernels' plain PyTorch versions)")
     ns = ap.parse_args(args)
-    from aligntools_tpu.params import AlignParams
+    from aligntools_tpu_torch.params import AlignParams
     from aligntools_tpu_torch.backend import resolve_device
     from aligntools_tpu_torch.pipeline import run_pipeline
 
@@ -73,7 +75,7 @@ def run_batch(args: list[str]) -> int:
             ns.mode, ns.fasta, p, device=resolve_device(ns.device),
             use_sites=ns.s, scores_only=ns.scores_only, sharded=ns.sharded,
             chunk_size=ns.chunk_size, manifest_path=ns.resume,
-            out_path=ns.out, band=ns.band,
+            out_path=ns.out, band=ns.band, cigar=ns.cigar,
         )
     except (OSError, ValueError, RuntimeError) as err:
         sys.stderr.write(f"FATAL ERROR: {err}\n")

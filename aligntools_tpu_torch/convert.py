@@ -5,7 +5,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from aligntools_tpu.params import AlignParams
+from aligntools_tpu_torch.params import AlignParams
 
 
 def params_matrix(p: AlignParams, device="cpu") -> torch.Tensor:

@@ -1,9 +1,10 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
-``nvcc`` compiles every ``csrc/*.cu`` of the package into one shared
-library with a plain C interface (no PyTorch headers, so a build takes
-seconds). The library's name carries a digest of the sources and the
-flags, so a stale build is never loaded; the build writes to a temporary
+``nvcc`` compiles every ``csrc/*.cu`` of the package, one process per
+source, all started together, and links them into one shared library with
+a plain C interface (no PyTorch headers, so a build takes seconds). The
+library's name carries a digest of the sources and the flags, so a stale
+build is never loaded; the build writes to a temporary
 name and renames, so a concurrent or interrupted build never leaves a
 half-written library under the final name. A missing ``nvcc`` or a failed
 compile raises: the kernels have no fallback on a CUDA tensor.
@@ -59,25 +60,47 @@ def library_path() -> str:
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             h.update(f.read())
-    return os.path.join(BUILD_DIR, f"libscan_fill-{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"libkernels-{h.hexdigest()[:16]}.so")
+
+
+def _run(procs) -> None:
+    """Wait for every (cmd, Popen), killing any left on a timeout; raise
+    if one failed."""
+    try:
+        outs = [p.communicate(timeout=600)[0] for _, p in procs]
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for (cmd, p), out in zip(procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}")
 
 
 def _compile(path: str) -> None:
+    """One nvcc per source, all started together, then one link."""
     sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in sources]
+    nvcc = _nvcc()
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+
+    def start(cmd):
+        return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+
     try:
-        r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-        if r.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({r.returncode}): {' '.join(cmd)}\n"
-                f"{r.stdout}{r.stderr}"
-            )
+        _run([start([nvcc, *compile_flags, "-c", "-o", obj, src])
+              for src, obj in zip(sources, objs)])
+        _run([start([nvcc, *NVCC_FLAGS, "-o", tmp, *objs])])
         os.replace(tmp, path)
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        for f in (tmp, *objs):
+            if os.path.exists(f):
+                os.remove(f)
 
 
 def load() -> ctypes.CDLL:

@@ -223,6 +223,23 @@ def _kernels():
     return _lib
 
 
+def check_tensors(want, device):
+    """Raise unless every (name, tensor, dtype, shape) of ``want`` has its
+    dtype and shape, lies contiguous on ``device``, a CPU or CUDA device."""
+    for name, x, dtype, shape in want:
+        if x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(
+                f"{name}: want {dtype} {shape}, got {x.dtype} "
+                f"{tuple(x.shape)}"
+            )
+        if x.device != device:
+            raise ValueError(f"{name} is on {x.device}, qs on {device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+
+
 def _check(m_pad, n_pad, qs, ts, ns, ms, params, allow=None):
     B = qs.shape[0] if qs.dim() == 2 else -1
     want = [("qs", qs, torch.int32, (B, m_pad)),
@@ -232,18 +249,7 @@ def _check(m_pad, n_pad, qs, ts, ns, ms, params, allow=None):
             ("params", params, torch.float32, (1, 8))]
     if allow is not None:
         want.append(("allow", allow, torch.float32, (B, n_pad)))
-    for name, x, dtype, shape in want:
-        if x.dtype != dtype or tuple(x.shape) != shape:
-            raise ValueError(
-                f"{name}: want {dtype} {shape}, got {x.dtype} "
-                f"{tuple(x.shape)}"
-            )
-        if x.device != qs.device:
-            raise ValueError(f"{name} is on {x.device}, qs on {qs.device}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if qs.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {qs.device}")
+    check_tensors(want, qs.device)
 
 
 def _launch(kernel, lead, m_pad, n_pad, tensors, out):

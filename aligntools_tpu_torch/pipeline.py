@@ -1,12 +1,13 @@
-"""Batch pipeline: many-pair FASTA -> bucketed device fills -> TSV scores.
+"""Batch pipeline: many-pair FASTA -> bucketed device work -> TSV.
 
-Port of ``aligntools_tpu/pipeline.py``'s score-only path: a multi-record
-FASTA/Q (gz ok) is read with the native parser, consecutive records pair
-up (q1, t1, q2, t2, ...), pairs are scored in chunks on one device
-(``batch.batch_scores``), and results stream out as TSV, byte for byte
-the JAX package's:
+Port of ``aligntools_tpu/pipeline.py``: a multi-record FASTA/Q (gz ok) is
+read with the native parser, consecutive records pair up (q1, t1, q2, t2,
+...), pairs are aligned in chunks on one device (``batch.align_batch``),
+and results stream out as TSV, byte for byte the JAX package's:
 
-    name1  name2  score
+    name1  name2  score  row1  row2     (the default)
+    name1  name2  score  CIGAR          (cigar)
+    name1  name2  score                 (scores_only, and edit)
 
 One global bucket partition covers the whole run; a one-worker prefetch
 overlaps the next chunk's fills with formatting the previous chunk;
@@ -21,10 +22,11 @@ import sys
 import time as _time
 from concurrent.futures import ThreadPoolExecutor
 
-from aligntools_tpu.io.fasta import parse_junctions, read_records
-from aligntools_tpu.params import AlignParams
-from aligntools_tpu.utils.checkpoint import Manifest
-from aligntools_tpu.utils.profiling import Counters, stopwatch
+from aligntools_tpu_torch.io.fasta import parse_junctions, read_records
+from aligntools_tpu_torch.params import AlignParams
+from aligntools_tpu_torch.utils.checkpoint import Manifest
+from aligntools_tpu_torch.utils.cigar import rows_to_cigar
+from aligntools_tpu_torch.utils.profiling import Counters, stopwatch
 
 
 def read_pair_records(path: str):
@@ -53,26 +55,21 @@ def run_pipeline(
     manifest_path: str | None = None,
     out_path: str | None = None,
     band: int | None = None,
+    cigar: bool = False,
 ) -> Counters:
-    """Score every pair in ``path`` on ``device``; returns run counters.
+    """Align every pair in ``path`` on ``device``; returns run counters.
 
     TSV goes to stdout, or to ``out_path``, which the pipeline then owns:
     with a manifest, each chunk's end byte offset is checkpointed and a
     resumed run truncates any torn chunk back to the last completed
-    watermark before appending. ``sharded``, ``band``, alignment rows
-    (``scores_only`` False outside edit) and targets past 32,768 columns
-    are not ported yet and raise ValueError."""
-    from aligntools_tpu_torch.batch import _bucket_keys, batch_scores
+    watermark before appending. ``sharded``, ``band`` and targets past
+    32,768 columns are not ported yet and raise ValueError."""
+    from aligntools_tpu_torch.batch import _bucket_keys, align_batch
 
     if sharded:
         raise ValueError("--sharded is not ported to aligntools_tpu_torch yet")
     if band is not None:
         raise ValueError("--band is not ported to aligntools_tpu_torch yet")
-    if not scores_only and mode != "edit":
-        raise ValueError(
-            "alignment rows are not ported to aligntools_tpu_torch yet; "
-            "pass --scores-only"
-        )
     if mode != "fit" and use_sites:
         raise ValueError("junction sites are only meaningful in fit mode")
     counters = Counters()
@@ -107,8 +104,8 @@ def run_pipeline(
     ]
 
     def compute(ci, chunk):
-        """Score one chunk (on the prefetch worker: the NEXT chunk's
-        encode + fills overlap the main thread's formatting)."""
+        """Align one chunk (on the prefetch worker: the NEXT chunk's
+        encode + fills + walks overlap the main thread's formatting)."""
         keys = global_keys[ci * chunk_size : ci * chunk_size + len(chunk)]
         pairs = [(a.seq, b.seq) for a, b in chunk]
         sites_list = None
@@ -117,10 +114,9 @@ def run_pipeline(
                 parse_junctions(b.comment) if b.comment else []
                 for _, b in chunk
             ]
-        return pairs, list(
-            batch_scores(mode, pairs, params, sites_list, device=device,
-                         counters=counters, keys=keys)
-        )
+        return pairs, align_batch(
+            mode, pairs, params, sites_list, traceback=not scores_only,
+            device=device, counters=counters, keys=keys)
 
     pending = [
         (ci, chunk)
@@ -142,8 +138,17 @@ def run_pipeline(
                     name2 = b.name.decode("latin-1")
                     if mode == "edit":
                         lines.append(f"{name1}\t{name2}\t{int(r)}")
+                    elif scores_only:
+                        lines.append(f"{name1}\t{name2}\t{r.score:.6f}")
+                    elif cigar:
+                        lines.append(
+                            f"{name1}\t{name2}\t{r.score:.6f}\t"
+                            f"{rows_to_cigar(r.row1, r.row2)}")
                     else:
-                        lines.append(f"{name1}\t{name2}\t{float(r):.6f}")
+                        lines.append(
+                            f"{name1}\t{name2}\t{r.score:.6f}\t"
+                            f"{r.row1.decode('latin-1')}\t"
+                            f"{r.row2.decode('latin-1')}")
                     counters.pairs += 1
                     counters.cells += len(pairs[k][0]) * len(pairs[k][1])
                 text = "\n".join(lines) + "\n"

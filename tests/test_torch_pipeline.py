@@ -1,6 +1,10 @@
 """``aligntools-torch batch``: TSV byte parity with the JAX pipeline, the
-port's import boundary, and its refusals."""
+port's import boundary, its copies of the JAX package's pure modules, and
+its refusals."""
 
+import ast
+import glob
+import gzip
 import os
 import subprocess
 import sys
@@ -43,35 +47,65 @@ def _params_of(args):
     return p
 
 
-def _compare(tmp_path, mode, fasta, args=(), chunk=16384):
-    want_path = tmp_path / f"{mode}.jax.tsv"
-    got_path = tmp_path / f"{mode}.torch.tsv"
+# the TSV kinds: name1 name2 score [row1 row2 | CIGAR]
+OUTPUTS = {"scores": ("--scores-only",), "rows": (), "cigar": ("--cigar",)}
+
+
+def _compare(tmp_path, mode, fasta, args=(), chunk=16384, output="scores"):
+    want_path = tmp_path / f"{mode}.{output}.jax.tsv"
+    got_path = tmp_path / f"{mode}.{output}.torch.tsv"
     jax_run_pipeline(mode, fasta, _params_of(args), use_sites="-s" in args,
-                     scores_only=True, engine="pallas", chunk_size=chunk,
+                     scores_only=output == "scores", cigar=output == "cigar",
+                     engine="pallas", chunk_size=chunk,
                      out_path=str(want_path))
-    rc = main(["batch", mode, fasta, *args, "--scores-only", "--device",
+    rc = main(["batch", mode, fasta, *args, *OUTPUTS[output], "--device",
                "cpu", "--chunk-size", str(chunk), "--out", str(got_path)])
     assert rc == 0
     want = want_path.read_bytes()
     assert want and got_path.read_bytes() == want
+    return want
 
 
-@pytest.mark.parametrize("mode,args", [
+FIXTURE_CASES = [
     ("global", ()), ("local", ()), ("overlap", ()), ("edit", ()),
     ("fit", ("-m", "2", "-u", "-2", "-s")),
-])
+]
+
+
+@pytest.mark.parametrize("mode,args", FIXTURE_CASES)
 def test_fixture_tsv_matches_jax(tmp_path, mode, args):
     _compare(tmp_path, mode, os.path.join(REPO, "test", f"test_{mode}.fa"),
              args)
 
 
-@pytest.mark.parametrize("mode,args", [
+@pytest.mark.parametrize("output", ["rows", "cigar"])
+@pytest.mark.parametrize("mode,args", [c for c in FIXTURE_CASES
+                                       if c[0] != "edit"])
+def test_fixture_rows_tsv_matches_jax(tmp_path, mode, args, output):
+    want = _compare(tmp_path, mode,
+                    os.path.join(REPO, "test", f"test_{mode}.fa"), args,
+                    output=output)
+    assert len(want.split(b"\t")) == (5 if output == "rows" else 4)
+
+
+SYNTHETIC_CASES = [
     ("global", ("-m", "2", "-u", "-3", "-o", "-4")), ("local", ()),
     ("overlap", ("-o", "-3")), ("edit", ("-u", "1")), ("fit", ()),
     ("fit", ("-s", "-j", "-6")),
-])
+]
+
+
+@pytest.mark.parametrize("mode,args", SYNTHETIC_CASES)
 def test_synthetic_tsv_matches_jax(tmp_path, mode, args):
     _compare(tmp_path, mode, _synthetic_fasta(tmp_path), args, chunk=16)
+
+
+@pytest.mark.parametrize("output", ["rows", "cigar"])
+@pytest.mark.parametrize("mode,args", [c for c in SYNTHETIC_CASES
+                                       if c[0] != "edit"])
+def test_synthetic_rows_tsv_matches_jax(tmp_path, mode, args, output):
+    _compare(tmp_path, mode, _synthetic_fasta(tmp_path), args, chunk=16,
+             output=output)
 
 
 def test_resume_keeps_completed_chunks(tmp_path):
@@ -87,25 +121,106 @@ def test_resume_keeps_completed_chunks(tmp_path):
     assert out.read_bytes() == first
 
 
+PORT_FILES = sorted(
+    glob.glob(os.path.join(REPO, "aligntools_tpu_torch", "**", "*.py"),
+              recursive=True)) + [os.path.join(REPO, "chip_smoke.py")]
+BLOCKED = ("jax", "jaxlib", "aligntools_tpu")
+
+
 def test_port_imports_no_jax():
+    """Every module of the port, and chip_smoke, imports with jax, jaxlib
+    and the JAX package blocked at the import system, and then runs a
+    small rows batch on the CPU."""
+    mods = [os.path.relpath(p, REPO)[:-3].replace(os.sep, ".")
+            for p in PORT_FILES if not p.endswith("__main__.py")]
     code = (
         "import sys\n"
-        "for k in [k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib')]:\n"
+        f"BLOCKED = {BLOCKED!r}\n"
+        "for k in [k for k in sys.modules if k.split('.')[0] in BLOCKED]:\n"
         "    del sys.modules[k]\n"
         "class Block:\n"
         "    def find_spec(self, name, path=None, target=None):\n"
-        "        if name.split('.')[0] in ('jax', 'jaxlib'):\n"
-        "            raise ImportError('jax import: ' + name)\n"
+        "        if name.split('.')[0] in BLOCKED:\n"
+        "            raise ImportError('blocked import: ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
-        "import aligntools_tpu_torch\n"
-        "from aligntools_tpu_torch import (backend, batch, cli, convert,\n"
-        "    exact, pipeline)\n"
-        "from aligntools_tpu_torch.ops import _build, scan\n"
+        "import importlib\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from aligntools_tpu_torch import align_batch\n"
+        "r = align_batch('global', [(b'ACGT', b'AGT')], traceback=True,\n"
+        "                device='cpu')\n"
+        "assert (r[0].row1, r[0].row2) == (b'ACGT', b'A-GT'), r\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_port_source_names_no_jax_import(path):
+    """No import statement of the port (at any depth: inside functions
+    too) names jax or the JAX package."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in BLOCKED, (path, node.lineno)
+
+
+def test_read_records_match_jax(tmp_path):
+    """The port's parser (native and pure Python) gives the JAX package's
+    records on every test/*.fa and on a gzipped FASTQ."""
+    from aligntools_tpu.io import fasta as jfasta
+    from aligntools_tpu_torch.io import fasta as tfasta
+
+    fq = tmp_path / "reads.fq.gz"
+    with gzip.open(fq, "wb") as f:
+        f.write(b"@r1 c1\nACGT\n+\nIIII\n@r2\nGG\nTT\n+\nII\nII\n")
+    paths = sorted(glob.glob(os.path.join(REPO, "test", "*.fa"))) + [str(fq)]
+    fields = ("name", "comment", "seq", "qual")
+    for path in paths:
+        want = [tuple(getattr(r, k) for k in fields)
+                for r in jfasta.read_records(path)]
+        assert want
+        got = [tuple(getattr(r, k) for k in fields)
+               for r in tfasta.read_records(path)]
+        assert got == want, path
+        with tfasta._open_maybe_gzip(path) as f:
+            py = [tuple(getattr(r, k) for k in fields)
+                  for r in tfasta.parse_records(f)]
+        assert py == want, path
+    assert tfasta.parse_junctions(b"100||-3| 7x|") == [100, -3, 7]
+
+
+def test_copied_modules_agree_with_their_sources():
+    import dataclasses
+
+    from aligntools_tpu import params as jparams
+    from aligntools_tpu.spec import engine as spec
+    from aligntools_tpu.utils import cigar as jcigar
+    from aligntools_tpu.utils import synth as jsynth
+    from aligntools_tpu.version import __version__ as jversion
+    from aligntools_tpu_torch import params as tparams
+    from aligntools_tpu_torch.utils import cigar as tcigar
+    from aligntools_tpu_torch.utils import synth as tsynth
+    from aligntools_tpu_torch.version import __version__ as tversion
+
+    assert dataclasses.asdict(tparams.AlignParams()) == dataclasses.asdict(
+        jparams.AlignParams())
+    assert tparams.MODES == jparams.MODES
+    assert [f.name for f in dataclasses.fields(tparams.AlignResult)] == [
+        f.name for f in dataclasses.fields(spec.AlignResult)]
+    assert tversion == jversion
+    assert tsynth.clustered_pairs(64, 3) == jsynth.clustered_pairs(64, 3)
+    for rows in ((b"AC-GT", b"ACGG-"), (b"", b""), (b"--A", b"GT-")):
+        assert tcigar.rows_to_cigar(*rows) == jcigar.rows_to_cigar(*rows)
 
 
 def test_device_cuda_without_cuda_fails_clearly(tmp_path):
@@ -119,14 +234,6 @@ def test_device_cuda_without_cuda_fails_clearly(tmp_path):
     assert r.returncode != 0
     assert "FATAL ERROR" in r.stderr and "cuda" in r.stderr
     assert r.stdout == ""
-
-
-@pytest.mark.parametrize("mode", ["global", "local", "fit", "overlap"])
-def test_rows_are_refused(tmp_path, capsys, mode):
-    fasta = _synthetic_fasta(tmp_path, 2)
-    assert main(["batch", mode, fasta, "--device", "cpu"]) == 255
-    err = capsys.readouterr().err
-    assert "FATAL ERROR" in err and "--scores-only" in err
 
 
 @pytest.mark.parametrize("flag", [["--sharded"], ["--band", "32"]])

@@ -7,13 +7,19 @@ from pinned host memory, are widened to the kernels' int32 sentinel layout
 there (query pad -1, target pad -2), and its work is launched without a
 sync.
 
-  scores   one score fill per bucket (``ops/scan.py``); every bucket is
-           dispatched before one device->host pull collects every score;
-  rows     one pointer fill (``ops/ptr.py``) and one traceback walk
-           (``engine/device_tb.py``) per bucket, the walk's starts derived
-           from the fill's outputs on the device; buckets are collected in
-           flush waves of two pulls each (scalars, then the walked columns),
-           bounded by a device-memory budget for the pointer tensors.
+  scores   one score fill per bucket (``ops/scan.py``, or for targets
+           past PALLAS_FLAT_MAX_N_PAD columns the column-blocked fill of
+           ``ops/blocked.py``); every bucket is dispatched before one
+           device->host pull collects every score;
+  rows     one pointer fill (``ops/ptr.py``, or ``ops/blocked.py`` past the
+           flat ceiling) and one traceback walk (``engine/device_tb.py``)
+           per bucket, the walk's starts derived from the fill's outputs on
+           the device; buckets are collected in flush waves of two pulls
+           each (scalars, then the walked columns), bounded by a
+           device-memory budget for the pointer tensors.
+
+A pair with an empty side has no DP cell: it gets its result on the host
+(``_empty_result``) and joins no bucket's fill.
 
 Padding is mask-correct by construction: DP values flow only rightward and
 downward, and each kernel reads its pair's true (m, n). PyTorch runs
@@ -38,15 +44,18 @@ from aligntools_tpu_torch.backend import resolve_device
 from aligntools_tpu_torch.convert import params_matrix
 from aligntools_tpu_torch.engine import device_tb
 from aligntools_tpu_torch.exact import check_f32_exact
+from aligntools_tpu_torch.ops import blocked
 from aligntools_tpu_torch.ops.ptr import ptr_fill
 from aligntools_tpu_torch.ops.scan import fit_scores, scores
 from aligntools_tpu_torch.params import AlignParams, AlignResult
 
+NEG = float("-inf")
+
 # copied from aligntools_tpu/engine/select.py (that package imports jax):
-# the JAX package scores targets past PALLAS_FLAT_MAX_N_PAD on its
-# column-blocked kernel, which is not ported, so the port refuses them;
-# bucket_len keeps the BLOCKED_C_BLK snap so its shape budget (which long
-# queries reach too) is the JAX package's
+# targets past PALLAS_FLAT_MAX_N_PAD columns go to the column-blocked fills
+# (select.use_blocked), and their n_pad snaps to BLOCKED_C_BLK multiples,
+# so the bucket keys are the JAX package's. The snap is part of that key
+# parity; the CUDA kernels' own column block (blocked.C_BLK) divides it.
 PALLAS_FLAT_MAX_N_PAD = 32768
 BLOCKED_C_BLK = 16384
 
@@ -85,8 +94,12 @@ def _align_m(x: int, m_floor: int) -> int:
 
 
 def _align_n(x: int, n_floor: int) -> int:
-    """Smallest valid n_pad >= x: multiple of 128, floored."""
-    return max(n_floor, -(-int(x) // 128) * 128)
+    """Smallest valid n_pad >= x: multiple of 128, floored; above the flat
+    ceiling snapped to BLOCKED_C_BLK multiples."""
+    b = max(n_floor, -(-int(x) // 128) * 128)
+    if b > PALLAS_FLAT_MAX_N_PAD:
+        b = -(-b // BLOCKED_C_BLK) * BLOCKED_C_BLK
+    return b
 
 
 def _bucket_keys(pairs, m_floor, n_floor):
@@ -98,20 +111,12 @@ def _bucket_keys(pairs, m_floor, n_floor):
     bucket the candidate is the single cut (along m or n, over sorted
     aligned values, evaluated exactly with prefix/suffix maxes of the other
     dimension) that minimizes that bucket's cells — until MAX_BUCKETS
-    shapes exist or no split saves any cells. A target past the flat
-    ceiling raises ValueError."""
+    shapes exist or no split saves any cells."""
     P = len(pairs)
     if P == 0:
         return []
     ms = np.fromiter((len(q) for q, _ in pairs), np.int64, P)
     ns = np.fromiter((len(t) for _, t in pairs), np.int64, P)
-    if ns.max() > PALLAS_FLAT_MAX_N_PAD:
-        k = int(ns.argmax())
-        raise ValueError(
-            f"pair {k}: a target of {ns[k]} > {PALLAS_FLAT_MAX_N_PAD} "
-            f"columns needs the column-blocked fill, which is not ported "
-            f"to aligntools_tpu_torch yet"
-        )
     m_al = np.fromiter((_align_m(x, m_floor) for x in ms), np.int64, P)
     n_al = np.fromiter((_align_n(x, n_floor) for x in ns), np.int64, P)
     # budget floor: never fewer shapes than the pow2 partition would use
@@ -169,13 +174,16 @@ def _bucket_keys(pairs, m_floor, n_floor):
 
 
 def _bucketize(pairs, sites_list, keys=None):
-    """Group pairs into shape buckets. ``keys``: optional precomputed
-    per-pair (m_pad, n_pad) keys (the pipeline computes one global
-    partition over the whole run and slices it per chunk)."""
+    """Group pairs into shape buckets; a pair with an empty side joins none.
+    ``keys``: optional precomputed per-pair (m_pad, n_pad) keys (the
+    pipeline computes one global partition over the whole run and slices
+    it per chunk)."""
     buckets: dict[tuple[int, int], _Bucket] = {}
     if keys is None:
         keys = _bucket_keys(pairs, 64, 128)
     for k, key in enumerate(keys):
+        if not pairs[k][0] or not pairs[k][1]:
+            continue
         b = buckets.get(key)
         if b is None:
             b = buckets[key] = _Bucket(key[0], key[1], [], None, None, None,
@@ -245,6 +253,11 @@ def _dispatch_scores(mode, b, pmat, use_jump, device, counters):
     if counters is not None:
         counters.padded_cells += len(b.idx) * b.m_pad * b.n_pad
     qs, ts, allow, ns, ms = _bucket_tensors(b, device)
+    jump = use_jump and mode == "fit"
+    if b.n_pad > PALLAS_FLAT_MAX_N_PAD:
+        return blocked.blocked_scores(mode, jump, b.m_pad, b.n_pad,
+                                      blocked.C_BLK, qs, ts, allow, ns, ms,
+                                      pmat)
     if mode == "fit":
         if allow is None:
             allow = torch.ones((len(b.idx), b.n_pad), device=device)
@@ -313,8 +326,13 @@ def _dispatch_rows(mode, b, pmat, jump, device, counters):
     if jump and allow is None:
         allow = torch.ones((len(b.idx), b.n_pad), device=device)
     rpb = layout.rows_per_byte(mode, jump, b.m_pad)
-    score, a, bb, ptrs = ptr_fill(mode, jump, b.m_pad, b.n_pad, qs, ts,
-                                  allow, ns, ms, pmat, rpb)
+    if b.n_pad > PALLAS_FLAT_MAX_N_PAD:
+        score, a, bb, ptrs = blocked.blocked_ptr_fill(
+            mode, jump, b.m_pad, b.n_pad, blocked.C_BLK, qs, ts, allow, ns,
+            ms, pmat, rpb)
+    else:
+        score, a, bb, ptrs = ptr_fill(mode, jump, b.m_pad, b.n_pad, qs, ts,
+                                      allow, ns, ms, pmat, rpb)
     starts = device_tb.walk_starts(mode, score, a, bb, ms, ns)
     cols1, cols2, scal = device_tb.walk(mode, rpb, ptrs, qs, ts, starts)
     # the f32 scores ride the int32 scalars as their bit pattern (exact);
@@ -375,6 +393,39 @@ def _align_rows(mode, buckets, pairs, pmat, jump, device, counters, results):
     _collect_rows_wave(mode, pending, pairs, results, counters)
 
 
+def _empty_result(mode, q, t, params, traceback):
+    """The result of a pair with an empty side (m = 0 or n = 0), which has
+    no DP cell: the borders and finish of the per-pair machines of
+    ``aligntools_tpu/engine/scan.py``, which the JAX package's align_batch
+    runs off the accelerator, read at (m, n).
+
+      global   the (L, M, U) latch at (m, n): row 0 when m = 0 (L(0, 0) = o,
+               M(0, 0) = 0, U(0, n) = o + e*n, L and M -inf past column 0),
+               column 0 after m rows when n = 0 (L = o + e*m, M = U = -inf);
+               the score is their maximum, and the rows are gaps against
+               the other side
+      local    no real cell: -inf, empty rows
+      overlap  the bottom row over j < n: M(0, 0) = 0 when m = 0 < n, no
+               column when n = 0: -inf; empty rows
+      fit      (m <= n is required) as overlap with row 0's M = 0: 0.0 when
+               n > 0, else -inf, which has no traceback start
+      edit     M(m, n) = max(m, n)
+    """
+    m, n = len(q), len(t)
+    if mode == "edit":
+        return max(m, n)
+    if mode == "global":
+        o, e = float(params.gap_open), float(params.gap_extend)
+        if m == 0:
+            fin = (o if n == 0 else NEG, 0.0 if n == 0 else NEG, o + e * n)
+        else:
+            fin = (o + e * m, NEG, NEG)
+        rows = (q + b"-" * n, b"-" * m + t) if traceback else (b"", b"")
+        return AlignResult(max(fin), *rows)
+    score = 0.0 if mode in ("overlap", "fit") and m == 0 < n else NEG
+    return AlignResult(score, b"", b"")
+
+
 def align_batch(
     mode: str,
     pairs: Sequence[tuple[bytes, bytes]],
@@ -404,9 +455,15 @@ def align_batch(
     device = resolve_device(device)
     use_jump = sites_list is not None
     t0 = time.perf_counter()
+    results: list = [None] * len(pairs)
+    for k, (q, t) in enumerate(pairs):
+        if not q or not t:
+            if mode == "fit" and traceback and not t:
+                raise RuntimeError(
+                    "fit: no finite traceback start (reference UB)")
+            results[k] = _empty_result(mode, q, t, params, traceback)
     buckets = _bucketize(pairs, sites_list if use_jump else None, keys=keys)
     tf = _tick(counters, "encode_seconds", t0)
-    results: list = [None] * len(pairs)
     if not buckets:
         return results
     pmat = params_matrix(params, device)

@@ -46,85 +46,13 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "block_scan.cuh"
+
 namespace {
 
-constexpr float NEG = -INFINITY;
 constexpr int BIG = 1 << 30;
 constexpr int GLOBAL = 0, LOCAL = 1, FIT = 2, OVERLAP = 3;
 constexpr int MAX_THREADS = 1024;
-
-// Exclusive prefix-max over the block's threads of NV values each, seeded
-// with the column-0 term, and the block-wide maximum of each value without
-// the seed. One __syncthreads(); the caller syncs again before `tot` is
-// reused.
-template <int NV>
-__device__ __forceinline__ void scan_max(float (&v)[NV], const float (&seed)[NV],
-                                         float (&total)[NV], float (&tot)[NV][32]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  float below[NV];
-#pragma unroll
-  for (int c = 0; c < NV; ++c) {
-    float x = v[c];
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const float y = __shfl_up_sync(0xffffffffu, x, d);
-      if (lane >= d) x = fmaxf(x, y);
-    }
-    if (lane == 31) tot[c][warp] = x;
-    below[c] = __shfl_up_sync(0xffffffffu, x, 1);
-  }
-  __syncthreads();
-#pragma unroll
-  for (int c = 0; c < NV; ++c) {
-    float p = seed[c], all = NEG;
-    for (int w = 0; w < nw; ++w) {
-      if (w < warp) p = fmaxf(p, tot[c][w]);
-      all = fmaxf(all, tot[c][w]);
-    }
-    v[c] = lane > 0 ? fmaxf(p, below[c]) : p;
-    total[c] = all;
-  }
-}
-
-// Block-wide max of NV floats (red_f) or min of an int (red_i); the result
-// is valid in every thread. One __syncthreads(); each scratch array is used
-// at most once between two of the row's barriers.
-template <int NV>
-__device__ __forceinline__ void reduce_max(float (&v)[NV], float (&red)[NV][32]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int c = 0; c < NV; ++c) {
-#pragma unroll
-    for (int d = 16; d > 0; d >>= 1) v[c] = fmaxf(v[c], __shfl_xor_sync(0xffffffffu, v[c], d));
-    if (lane == 0) red[c][warp] = v[c];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int c = 0; c < NV; ++c) {
-    float r = red[c][0];
-    for (int w = 1; w < (int)(blockDim.x >> 5); ++w) r = fmaxf(r, red[c][w]);
-    v[c] = r;
-  }
-}
-
-__device__ __forceinline__ int reduce_min(int v, int (&red)[32]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) v = min(v, __shfl_xor_sync(0xffffffffu, v, d));
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  int r = red[0];
-  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) r = min(r, red[w]);
-  return r;
-}
-
-// Store the staged byte-row (n_pad bytes, a multiple of 16) as 16-byte words.
-__device__ __forceinline__ void store_row(const uint8_t* stage, uint8_t* dst, int n_pad) {
-  const uint4* s = reinterpret_cast<const uint4*>(stage);
-  uint4* d = reinterpret_cast<uint4*>(dst);
-  for (int w = threadIdx.x; w < n_pad / 16; w += blockDim.x) d[w] = s[w];
-}
 
 // Per-thread strip of the pair's whole padded row: columns j0 .. j0+cnt-1.
 struct Strip {
@@ -270,7 +198,7 @@ ptr_affine_kernel(const int* __restrict__ qs, const int* __restrict__ ts,
     }
     const float seed[3] = {useed, NEG, NEG};
     float total[3];
-    scan_max<3>(v, seed, total, tot);
+    block_exclusive<MaxF>(v, seed, total, tot);
     float run_u = v[0], run_j = v[1];
     float mprev = mborder, jcv = NEG;  // M(i, j-1); J entry into column j
     if (s.j0 > 1 && s.cnt > 0) {
@@ -313,7 +241,7 @@ ptr_affine_kernel(const int* __restrict__ qs, const int* __restrict__ ts,
       int fj = BIG;
       for (int k = 0; k < s.cnt && fj == BIG; ++k)
         if (s.j0 + k <= s.n && Mr[s.slot(k)] == total[2]) fj = s.j0 + k;
-      acc_b = reduce_min(fj, red_i);
+      acc_b = block_reduce<MinI>(fj, red_i);
       acc_s = total[2];
       acc_a = i;
     }
@@ -325,14 +253,14 @@ ptr_affine_kernel(const int* __restrict__ qs, const int* __restrict__ ts,
         mx[0] = fmaxf(mx[0], Mr[s.slot(k)]);
         mx[1] = fmaxf(mx[1], Lr[s.slot(k)]);
       }
-      reduce_max<2>(mx, red_f);
+      block_reduce<MaxF>(mx, red_f);
       const bool use_l = mx[1] > mx[0];
       const float want = use_l ? mx[1] : mx[0];
       const float* row = use_l ? Lr : Mr;
       int fj = BIG;
       for (int k = 0; k < s.cnt && fj == BIG; ++k)
         if (s.j0 + k <= s.n - 1 && row[s.slot(k)] == want) fj = s.j0 + k;
-      acc_b = reduce_min(fj, red_i);
+      acc_b = block_reduce<MinI>(fj, red_i);
       acc_s = fmaxf(mx[0], mx[1]);
       acc_a = use_l ? 1 : 0;
     }
@@ -399,7 +327,7 @@ ptr_overlap_kernel(const int* __restrict__ qs, const int* __restrict__ ts,
     }
     const float seed[1] = {0.f};  // M(i, 0) = 0
     float total[1];
-    scan_max<1>(v, seed, total, tot);
+    block_exclusive<MaxF>(v, seed, total, tot);
     float run = v[0];
     // M(i, j0-1), as the left neighbour computes it
     float mprev = run + o * (float)(s.j0 - 1);
@@ -421,11 +349,11 @@ ptr_overlap_kernel(const int* __restrict__ qs, const int* __restrict__ ts,
       // the bottom row over columns 1..n-1, with the j = 0 zero candidate
       float mx[1] = {NEG};
       for (int k = 0; k < s.cnt && s.j0 + k <= s.n - 1; ++k) mx[0] = fmaxf(mx[0], Mr[s.slot(k)]);
-      reduce_max<1>(mx, red_f);
+      block_reduce<MaxF>(mx, red_f);
       int fj = BIG;
       for (int k = 0; k < s.cnt && fj == BIG; ++k)
         if (s.j0 + k <= s.n - 1 && Mr[s.slot(k)] == mx[0]) fj = s.j0 + k;
-      fj = reduce_min(fj, red_i);
+      fj = block_reduce<MinI>(fj, red_i);
       acc_s = fmaxf(mx[0], 0.f);
       acc_a = mx[0] > 0.f ? fj : 0;
     }

@@ -27,57 +27,9 @@
 #include <cmath>
 #include <cuda_runtime.h>
 
+#include "block_scan.cuh"
+
 namespace {
-
-constexpr float NEG = -INFINITY;
-
-struct MaxF {
-  __device__ static float op(float a, float b) { return fmaxf(a, b); }
-};
-struct MinI {
-  __device__ static int op(int a, int b) { return min(a, b); }
-};
-
-// Exclusive prefix over the block's threads (in thread order) of NV
-// values each, combined with the column-0 term `seed`. Contains one
-// __syncthreads(); the caller syncs again before `tot` is reused.
-template <class Op, class T, int NV>
-__device__ __forceinline__ void block_exclusive(T (&v)[NV], const T (&seed)[NV],
-                                                T (&tot)[NV][32]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  T below[NV];
-#pragma unroll
-  for (int c = 0; c < NV; ++c) {
-    T x = v[c];
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const T y = __shfl_up_sync(0xffffffffu, x, d);
-      if (lane >= d) x = Op::op(x, y);
-    }
-    if (lane == 31) tot[c][warp] = x;
-    below[c] = __shfl_up_sync(0xffffffffu, x, 1);
-  }
-  __syncthreads();
-#pragma unroll
-  for (int c = 0; c < NV; ++c) {
-    T p = seed[c];
-    for (int w = 0; w < warp; ++w) p = Op::op(p, tot[c][w]);
-    v[c] = lane > 0 ? Op::op(p, below[c]) : p;
-  }
-}
-
-// Block-wide reduction; the result is valid in every thread.
-template <class Op, class T>
-__device__ __forceinline__ T block_reduce(T v, T (&tot)[32]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) v = Op::op(v, __shfl_xor_sync(0xffffffffu, v, d));
-  if (lane == 0) tot[warp] = v;
-  __syncthreads();
-  T r = tot[0];
-  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) r = Op::op(r, tot[w]);
-  return r;
-}
 
 // This thread's strip of its pair: columns j0 .. j0+cnt-1 (1-based).
 struct Strip {

@@ -3,7 +3,8 @@
 ``nvcc`` compiles every ``csrc/*.cu`` of the package, one process per
 source, all started together, and links them into one shared library with
 a plain C interface (no PyTorch headers, so a build takes seconds). The
-library's name carries a digest of the sources and the flags, so a stale
+library's name carries a digest of the sources, the ``csrc/*.cuh`` headers
+they share and the flags, so a stale
 build is never loaded; the build writes to a temporary
 name and renames, so a concurrent or interrupted build never leaves a
 half-written library under the final name. A missing ``nvcc`` or a failed
@@ -53,8 +54,10 @@ def _nvcc() -> str:
 
 
 def library_path() -> str:
-    """Where the build of the current sources lives."""
-    sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    """Where the build of the current sources (and the headers they
+    include) lives."""
+    sources = sorted(glob.glob(os.path.join(CSRC, "*.cu"))
+                     + glob.glob(os.path.join(CSRC, "*.cuh")))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
         h.update(os.path.basename(src).encode())

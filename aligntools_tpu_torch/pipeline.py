@@ -62,8 +62,9 @@ def run_pipeline(
     TSV goes to stdout, or to ``out_path``, which the pipeline then owns:
     with a manifest, each chunk's end byte offset is checkpointed and a
     resumed run truncates any torn chunk back to the last completed
-    watermark before appending. ``sharded``, ``band`` and targets past
-    32,768 columns are not ported yet and raise ValueError."""
+    watermark before appending. Targets past the flat fills' 32,768
+    columns run on the column-blocked fills; ``sharded`` and ``band`` are
+    not ported yet and raise ValueError."""
     from aligntools_tpu_torch.batch import _bucket_keys, align_batch
 
     if sharded:
@@ -75,8 +76,7 @@ def run_pipeline(
     counters = Counters()
     with stopwatch(counters, "io_seconds"):
         rec_pairs = read_pair_records(path)
-    # ONE bucket partition for the whole run, sliced per chunk; it refuses
-    # unported shapes before any output is opened
+    # ONE bucket partition for the whole run, sliced per chunk
     with stopwatch(counters, "encode_seconds"):
         global_keys = _bucket_keys(
             [(a.seq, b.seq) for a, b in rec_pairs], 64, 128

@@ -19,9 +19,14 @@ Phases, one JSON line each:
            (rpb 2, 512 MB of pointers) and fit+jump at 64 x (512 x 32768)
            (rpb 1, 1 GB); then the walk kernel against its plain version
            on each of those pointer tensors (every column and scalar);
-  buckets  every bucket the main path below builds, on the card: the
-           score kernel against plain for the score runs, and the pointer
-           kernel and the walk against plain for the rows runs;
+  blocked  the column-blocked kernels (targets past 32,768 columns)
+           against their plain versions, bit for bit: L1, the six score
+           variants and the pointer fill at ten (mode, rows-per-byte)
+           layouts on 8 ragged pairs in a (1,024, 65,536) bucket, at the
+           kernels' own column block and a smaller one; L2, fit+jump score
+           and pointer fills at the reference fixture's shape, 64 pairs of
+           1,327 x 114,491 (9.75 GB of pointers); warm median times of
+           both;
   slice    the port's main path through cli.main in-process, on a
            20,000-pair clustered set (m ~ 300, n ~ 3,000) and on its first
            2,000 pairs with junction sites in the target headers:
@@ -34,14 +39,35 @@ Phases, one JSON line each:
                      version ran. Each rows TSV's score column equals its
                      scores TSV, and 64 sampled lines of each equal the
                      port's own `--device cpu` run on those pairs (the CPU
-                     tests hold that against the JAX package).
+                     tests hold that against the JAX package);
+  buckets  meanwhile, every bucket those runs built, on the card: the score
+           kernel against plain for the score runs, and the pointer kernel
+           and the walk against plain for the rows runs;
+  long     the port's main path on long targets through cli.main (L3):
+           `batch fit -s` on 256+ seeded pairs (m ~ 1,300, n 40,000 to
+           131,072, three junction sites each; enough that the pointer
+           budget splits the rows run into two or more waves), rows cold
+           and warm and `--scores-only`; `batch global` and `batch local`
+           on its first 64 pairs; `batch local` on the first 2,000
+           clustered pairs plus 32 long ones (flat and blocked buckets in
+           one run). The blocked kernels launched, no plain version ran;
+           each rows TSV's score column equals its scores TSV, and 4 lines
+           sampled from the 16 cheapest long pairs with n <= 60,000 (and,
+           for L3, the cheapest pair with n > 100,000) equal the port's
+           `--device cpu` run. Meanwhile (`buckets` lines) every bucket's
+           fill against plain on the card, the walk on every flat bucket
+           and on L3's blocked bucket of the narrowest target.
+
+The `--device cpu` runs of the sampled pairs go in processes of one thread
+each, beside the bucket checks, which are the longest phases.
 
     python3 chip_smoke.py --profile TRACE.json
 
 adds a `profile` phase: one more warm rows `batch local` run on the 20,000
-pairs under torch.profiler, with the device's busy time per op and its
-split between fill, walk, copies and allocation (the zero fills of new
-tensors), against the wall, and its Chrome trace written to TRACE.json.
+pairs and one more warm L3 `batch fit -s` rows run under torch.profiler,
+with the device's busy time per op and its split between fill, walk,
+copies and allocation (the zero fills of new tensors), against the wall,
+and their Chrome traces written to TRACE.json and TRACE.long.json.
 
 Then the kernels' summary line (each kernel's time, launches on the main
 path, bound and plain time), the card's name and power limit as nvidia-smi
@@ -81,6 +107,12 @@ KERNELS = {
             "ptr_fill.cu", ()),
     "walk": ("aligntools_tpu/engine/device_tb.py:56 _walk_affine, "
              ":166 _walk_overlap", "walk.cu", ()),
+    "blocked_scores": ("aligntools_tpu/ops/pallas_blocked.py:48 "
+                       "_blocked_affine_kernel (entry blocked_scores:332)",
+                       "blocked_fill.cu", ()),
+    "blocked_ptr": ("aligntools_tpu/ops/pallas_blocked.py:375 "
+                    "_blocked_ptr_kernel (entry blocked_ptr_fill:764)",
+                    "blocked_fill.cu", ()),
 }
 # (B, m_pad, n_pad, ragged lengths, score variants)
 SHAPES = [
@@ -99,6 +131,21 @@ PTR_SHAPES = [
     (256, 2048, 2048, False, (("local", False, 2),)),
     (64, 512, 32768, True, (("fit", True, 1),)),
 ]
+# the blocked phase: L1 (B, m_pad, n_pad), ragged, at the kernels' column
+# block and this smaller one; L2 (B, m_pad, n_pad, m, n), the reference's
+# fit fixture (test/tmp.fa, 1,327 x 114,491)
+BLOCKED_L1 = (8, 1024, 65536)
+SMALL_C_BLK = 2048
+BLOCKED_L2 = (64, 1328, 114688, 1327, 114491)
+# the long-target slice (L3): pairs; the CPU-checked samples are drawn
+# from the LONG_POOL cheapest long pairs (m * n) with a target of at most
+# LONG_SAMPLE_MAX_N (the plain versions on the CPU: ~15 s a pair), plus,
+# for L3 itself, the cheapest pair with a target past LONG_FAR_N
+LONG_PAIRS = 256
+LONG_SAMPLES = 4
+LONG_POOL = 16
+LONG_SAMPLE_MAX_N = 60000
+LONG_FAR_N = 100000
 
 # The least time the card could take for the same work: the
 # larger of the operations over 33.5 T op/s (67 TFLOP/s of f32 counts an
@@ -131,7 +178,12 @@ def bound(ops, nbytes):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj):
+    if "phase" in obj:  # seconds since the start, for the phase budget
+        obj = {**obj, "t_s": round(time.perf_counter() - T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -149,12 +201,19 @@ def nvidia_smi_line():
     return r.stdout.strip().splitlines()[0]
 
 
-def kernel_inputs(B, m_pad, n_pad, ragged, seed, device):
+def kernel_inputs(B, m_pad, n_pad, ragged, seed, device, lengths=None,
+                  sites=None):
+    """Seeded kernel inputs: ragged lengths (m in [m_pad/2, m_pad], n in
+    [n_pad/2, n_pad], n >= m), the (m, n) ``lengths`` of every pair, or
+    full buckets; ``allow`` closed at 5% of the columns, or at ``sites``
+    junction sites a target. Returns (args, true cells)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     alpha = np.frombuffer(b"ACGT", dtype=np.uint8).astype(np.int32)
-    if ragged:
+    if lengths:
+        ms, ns = np.full((B, 1), lengths[0]), np.full((B, 1), lengths[1])
+    elif ragged:
         ms = rng.integers(m_pad // 2, m_pad + 1, (B, 1))
         ns = np.maximum(rng.integers(n_pad // 2, n_pad + 1, (B, 1)), ms)
     else:
@@ -163,7 +222,12 @@ def kernel_inputs(B, m_pad, n_pad, ragged, seed, device):
     ts = rng.choice(alpha, (B, n_pad))
     qs[np.arange(m_pad)[None, :] >= ms] = -1
     ts[np.arange(n_pad)[None, :] >= ns] = -2
-    allow = (rng.random((B, n_pad)) > 0.05).astype(np.float32)
+    if sites:
+        allow = np.ones((B, n_pad), np.float32)
+        for k in range(B):
+            allow[k, rng.integers(0, ns[k, 0], sites)] = 0.0
+    else:
+        allow = (rng.random((B, n_pad)) > 0.05).astype(np.float32)
     pm = np.array([[1, -2, -5, -1, -10, 0, 0, 0]], np.float32)
     from aligntools_tpu_torch.convert import kernel_inputs_from_numpy
 
@@ -178,8 +242,17 @@ def input_bytes(args, with_allow):
     return sum(x.numel() * x.element_size() for x in xs)
 
 
-def run_variant(scan, variant, m_pad, n_pad, args, plain):
+def run_variant(scan, variant, m_pad, n_pad, args, plain, c_blk=None):
+    """A score fill: the plain version, the blocked kernel at column block
+    ``c_blk``, or the flat kernel."""
     qs, ts, allow, ns, ms, pm = args
+    if c_blk and not plain:
+        from aligntools_tpu_torch.ops import blocked
+
+        mode = variant.split("+")[0]
+        return blocked.blocked_scores(mode, variant == "fit+jump", m_pad,
+                                      n_pad, c_blk, qs, ts, allow, ns, ms,
+                                      pm)
     if variant.startswith("fit"):
         fn = scan.fit_scores_plain if plain else scan.fit_scores
         return fn(variant == "fit+jump", m_pad, n_pad, qs, ts, allow, ns, ms,
@@ -196,6 +269,17 @@ def timed_ms(torch, fn):
     end.record()
     end.synchronize()
     return start.elapsed_time(end)
+
+
+def timed_call(torch, fn):
+    """(fn's result, its CUDA-event time in ms)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def turns(torch, kernel, plain, rounds=2):
@@ -220,10 +304,10 @@ def max_err(torch, got, want):
     return float(diff.max()) if diff.numel() else 0.0
 
 
-def compare(torch, scan, variant, m_pad, n_pad, args):
-    """Kernel and plain version on the same inputs: (bit_equal,
-    max_abs_err)."""
-    k_out = run_variant(scan, variant, m_pad, n_pad, args, False)
+def compare(torch, scan, variant, m_pad, n_pad, args, c_blk=None):
+    """Kernel (the blocked one at ``c_blk``) and plain version on the same
+    inputs: (bit_equal, max_abs_err)."""
+    k_out = run_variant(scan, variant, m_pad, n_pad, args, False, c_blk)
     torch.cuda.synchronize()
     p_out = run_variant(scan, variant, m_pad, n_pad, args, True)
     torch.cuda.synchronize()
@@ -258,13 +342,26 @@ def phase_kernels(torch, scan):
     return results
 
 
-def ptr_compare(torch, ptr, tb, mode, jump, rpb, m_pad, n_pad, args):
-    """Pointer kernel vs plain, then walk kernel vs plain on the kernel's
-    pointers: (fill_equal, fill_err, walk_equal, walk_err, k_out, walk
-    outputs, starts)."""
+def ptr_fill(ptr, mode, jump, m_pad, n_pad, args, rpb, c_blk=None):
+    """The pointer kernel: the blocked one at column block ``c_blk``, or
+    the flat one."""
     qs, ts, allow, ns, ms, pm = args
-    k_out = ptr.ptr_fill(mode, jump, m_pad, n_pad, qs, ts, allow, ns, ms, pm,
-                         rpb)
+    if c_blk:
+        from aligntools_tpu_torch.ops import blocked
+
+        return blocked.blocked_ptr_fill(mode, jump, m_pad, n_pad, c_blk, qs,
+                                        ts, allow, ns, ms, pm, rpb)
+    return ptr.ptr_fill(mode, jump, m_pad, n_pad, qs, ts, allow, ns, ms, pm,
+                        rpb)
+
+
+def ptr_compare(torch, ptr, tb, mode, jump, rpb, m_pad, n_pad, args,
+                c_blk=None, walk=True):
+    """Pointer kernel vs plain, then (``walk``) walk kernel vs plain on the
+    kernel's pointers: (fill_equal, fill_err, walk_equal, walk_err, k_out,
+    walk outputs, starts, the plain walk's ms)."""
+    qs, ts, allow, ns, ms, pm = args
+    k_out = ptr_fill(ptr, mode, jump, m_pad, n_pad, args, rpb, c_blk)
     torch.cuda.synchronize()
     p_out = ptr.ptr_fill_plain(mode, jump, m_pad, n_pad, qs, ts, allow, ns,
                                ms, pm, rpb)
@@ -273,16 +370,18 @@ def ptr_compare(torch, ptr, tb, mode, jump, rpb, m_pad, n_pad, args):
     f_err = max([max_err(torch, k, p) for k, p in zip(k_out[:3], p_out[:3])]
                 + [0.0 if torch.equal(k_out[3], p_out[3]) else float("inf")])
     del p_out
+    if not walk:
+        return f_equal, f_err, True, 0.0, k_out, None, None, None
     starts = tb.walk_starts(mode, *k_out[:3], ms, ns)
     w_k = tb.walk(mode, rpb, k_out[3], qs, ts, starts)
     torch.cuda.synchronize()
-    w_p = tb.walk_plain(mode, rpb, k_out[3], qs, ts, starts)
-    torch.cuda.synchronize()
+    w_p, w_plain_ms = timed_call(
+        torch, lambda: tb.walk_plain(mode, rpb, k_out[3], qs, ts, starts))
     w_equal = all(torch.equal(k, p) for k, p in zip(w_k, w_p))
     w_err = max([max_err(torch, w_k[2], w_p[2])]
                 + [0.0 if torch.equal(k, p) else float("inf")
                    for k, p in zip(w_k[:2], w_p[:2])])
-    return f_equal, f_err, w_equal, w_err, k_out, w_k, starts
+    return f_equal, f_err, w_equal, w_err, k_out, w_k, starts, w_plain_ms
 
 
 def phase_ptr(torch, ptr, tb):
@@ -293,8 +392,9 @@ def phase_ptr(torch, ptr, tb):
         for mode, jump, rpb in cases:
             variant = mode + ("+jump" if jump else "")
             shape = f"{B}x{m_pad}x{n_pad}"
-            f_eq, f_err, w_eq, w_err, k_out, w_k, starts = ptr_compare(
-                torch, ptr, tb, mode, jump, rpb, m_pad, n_pad, args)
+            f_eq, f_err, w_eq, w_err, k_out, w_k, starts, w_plain = (
+                ptr_compare(torch, ptr, tb, mode, jump, rpb, m_pad, n_pad,
+                            args))
             fill = (lambda: ptr.ptr_fill(mode, jump, m_pad, n_pad, qs, ts,
                                          allow, ns, ms, pm, rpb))
             fill_plain = (lambda: ptr.ptr_fill_plain(
@@ -314,27 +414,156 @@ def phase_ptr(torch, ptr, tb):
                   f"pointer fill {variant} rpb {rpb} at {shape}: kernel != "
                   f"plain")
             fills.append(row)
-            ptrs = k_out[3]
-            steps = int(w_k[2][0].sum())
-            ms_k, ms_p = turns(
-                torch, lambda: tb.walk(mode, rpb, ptrs, qs, ts, starts),
-                lambda: tb.walk_plain(mode, rpb, ptrs, qs, ts, starts),
-                rounds=1)
-            b_ms, b_by = bound(WALK_OPS_PER_STEP * steps,
-                               WALK_BYTES_PER_STEP * steps + 28 * B)
-            row = {"phase": "walk", "variant": f"{variant}/rpb{rpb}",
-                   "shape": shape, "bit_equal": w_eq, "max_abs_err": w_err,
-                   "tolerance": TOL, "ms": ms_k, "plain_ms": ms_p,
-                   "bound_ms": b_ms, "bound_by": b_by, "steps": steps,
-                   "longest_walk": int(w_k[2][0].max())}
-            emit(row)
-            check(w_eq and w_err == 0.0,
-                  f"walk {variant} rpb {rpb} at {shape}: kernel != plain")
-            walks.append(row)
-            del k_out, w_k, ptrs
+            walks.append(walk_row(torch, tb, mode, rpb, variant, shape,
+                                  k_out[3], qs, ts, starts, w_k, w_eq, w_err,
+                                  w_plain))
+            del k_out, w_k
         del args, qs, ts, allow, ns, ms, pm
         torch.cuda.empty_cache()
     return fills, walks
+
+
+def walk_row(torch, tb, mode, rpb, variant, shape, ptrs, qs, ts, starts,
+             w_k, w_eq, w_err, plain_ms):
+    """Time the walk kernel (warm median of two; the plain version's time
+    is its one comparison call's) and check it against plain."""
+    tb.walk(mode, rpb, ptrs, qs, ts, starts)
+    ms_k = statistics.median(
+        timed_ms(torch, lambda: tb.walk(mode, rpb, ptrs, qs, ts, starts))
+        for _ in range(2))
+    steps = int(w_k[2][0].sum())
+    B = qs.shape[0]
+    b_ms, b_by = bound(WALK_OPS_PER_STEP * steps,
+                       WALK_BYTES_PER_STEP * steps + 28 * B)
+    row = {"phase": "walk", "variant": f"{variant}/rpb{rpb}",
+           "shape": shape, "bit_equal": w_eq, "max_abs_err": w_err,
+           "tolerance": TOL, "ms": ms_k, "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "steps": steps,
+           "longest_walk": int(w_k[2][0].max())}
+    emit(row)
+    check(w_eq and w_err == 0.0,
+          f"walk {variant} rpb {rpb} at {shape}: kernel != plain")
+    return row
+
+
+def blocked_check(torch, label, kernel_at, plain, c_blks):
+    """The blocked kernel at each column block of ``c_blks`` against one
+    call of the plain version; returns the largest error (scores, start
+    info; pointer bytes are compared for equality)."""
+    want = plain()
+    torch.cuda.synchronize()
+    want = want if isinstance(want, tuple) else (want,)
+    worst = 0.0
+    for c_blk in c_blks:
+        got = kernel_at(c_blk)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        equal = all(torch.equal(g, w) for g, w in zip(got, want))
+        err = max(max_err(torch, g, w) if g.dtype != torch.uint8
+                  else 0.0 if torch.equal(g, w) else float("inf")
+                  for g, w in zip(got, want))
+        check(equal and err == 0.0, f"{label}, c_blk {c_blk}: kernel != "
+              f"plain")
+        worst = max(worst, err)
+        del got
+    return worst
+
+
+def phase_blocked(torch, scan, ptr):
+    """The column-blocked kernels against their plain versions: L1 at two
+    column blocks, L2 at the reference fixture's shape. (The walk on
+    blocked pointers is held against its plain version on an L3 bucket.)"""
+    from aligntools_tpu_torch.ops import blocked
+
+    rows = []
+    B, m_pad, n_pad = BLOCKED_L1
+    args, cells = kernel_inputs(B, m_pad, n_pad, True, SEED + 1, "cuda",
+                                sites=3)
+    qs, ts, allow, ns, ms, pm = args
+    shape = f"{B}x{m_pad}x{n_pad}"
+    both = (blocked.C_BLK, SMALL_C_BLK)
+    for variant in ("global", "local", "overlap", "edit", "fit", "fit+jump"):
+        def kernel(c_blk=blocked.C_BLK):
+            return run_variant(scan, variant, m_pad, n_pad, args, False,
+                               c_blk)
+
+        def plain():
+            return run_variant(scan, variant, m_pad, n_pad, args, True)
+
+        err = blocked_check(torch, f"blocked scores {variant} at {shape}",
+                            kernel, plain, both)
+        ms_k, ms_p = turns(torch, kernel, plain)
+        rows.append(blocked_row("blocked_scores", "L1", variant, shape,
+                                cells, ms_k, ms_p, args, 4 * B, err))
+    for mode, jump, rpb in PTR_SHAPES[0][4]:
+        variant = mode + ("+jump" if jump else "")
+
+        def kernel(c_blk=blocked.C_BLK):
+            return ptr_fill(ptr, mode, jump, m_pad, n_pad, args, rpb, c_blk)
+
+        def plain():
+            return ptr.ptr_fill_plain(mode, jump, m_pad, n_pad, qs, ts, allow,
+                                      ns, ms, pm, rpb)
+
+        err = blocked_check(torch, f"blocked pointer fill {variant} rpb "
+                            f"{rpb} at {shape}", kernel, plain, both)
+        ms_k, ms_p = turns(torch, kernel, plain, rounds=1)
+        rows.append(blocked_row("blocked_ptr", "L1", f"{variant}/rpb{rpb}",
+                                shape, cells, ms_k, ms_p, args,
+                                12 * B + B * m_pad * n_pad // rpb, err))
+    del args, qs, ts, allow, ns, ms, pm
+    # L2: fit+jump at the fixture's shape, the score and the pointer fill
+    B, m_pad, n_pad, m, n = BLOCKED_L2
+    args, cells = kernel_inputs(B, m_pad, n_pad, False, SEED + 2, "cuda",
+                                lengths=(m, n), sites=3)
+    qs, ts, allow, ns, ms, pm = args
+    shape = f"{B}x{m_pad}x{n_pad}"
+
+    def kernel(c_blk=blocked.C_BLK):
+        return run_variant(scan, "fit+jump", m_pad, n_pad, args, False, c_blk)
+
+    def plain():
+        return run_variant(scan, "fit+jump", m_pad, n_pad, args, True)
+
+    err = blocked_check(torch, f"blocked scores fit+jump at {shape}", kernel,
+                        plain, both[:1])
+    ms_k, ms_p = turns(torch, kernel, plain, rounds=1)
+    rows.append(blocked_row("blocked_scores", "L2", "fit+jump", shape, cells,
+                            ms_k, ms_p, args, 4 * B, err))
+
+    def kernel(c_blk=blocked.C_BLK):
+        return ptr_fill(ptr, "fit", True, m_pad, n_pad, args, 1, c_blk)
+
+    def plain():
+        return ptr.ptr_fill_plain("fit", True, m_pad, n_pad, qs, ts, allow,
+                                  ns, ms, pm, 1)
+
+    err = blocked_check(torch, f"blocked pointer fill fit+jump at {shape}",
+                        kernel, plain, both[:1])
+    torch.cuda.empty_cache()
+    ms_k, ms_p = turns(torch, kernel, plain, rounds=1)
+    rows.append(blocked_row("blocked_ptr", "L2", "fit+jump/rpb1", shape,
+                            cells, ms_k, ms_p, args,
+                            12 * B + B * m_pad * n_pad, err))
+    del args, qs, ts, allow, ns, ms, pm
+    torch.cuda.empty_cache()
+    return rows
+
+
+def blocked_row(kernel, level, variant, shape, cells, ms_k, ms_p, args,
+                out_bytes, err=0.0):
+    """One blocked-kernel timing line, with its bound."""
+    ops = (SCORE_OPS[variant.split("/")[0]]
+           + (PTR_EXTRA_OPS[variant.split("/")[0]]
+              if kernel == "blocked_ptr" else 0)) * cells
+    b_ms, b_by = bound(ops, input_bytes(args, "jump" in variant) + out_bytes)
+    row = {"phase": "blocked", "kernel": kernel, "level": level,
+           "variant": variant, "shape": shape, "bit_equal": err == 0.0,
+           "max_abs_err": err, "tolerance": TOL, "ms": ms_k, "plain_ms": ms_p,
+           "bound_ms": b_ms, "bound_by": b_by, "true_cells": cells,
+           "gcups": cells / ms_k / 1e6}
+    emit(row)
+    return row
 
 
 def write_fasta(path, pairs, sites=None, names=None):
@@ -361,26 +590,74 @@ def read_lines(path):
         return f.read().splitlines()
 
 
-def check_rows_tsv(cli, work, rows_tsv, scores_tsv, pairs, mode, sites):
-    """The rows TSV's names and score column equal the scores TSV's; 64
-    sampled lines equal the port's --device cpu run on those pairs."""
-    rows, scores = read_lines(rows_tsv), read_lines(scores_tsv)
-    check(len(rows) == len(scores) == len(pairs),
-          f"{mode}: {len(rows)} rows lines, {len(scores)} score lines for "
-          f"{len(pairs)} pairs")
-    for k, (r, s) in enumerate(zip(rows, scores)):
-        check(r.split("\t")[:3] == s.split("\t"),
-              f"{mode}: line {k}: rows and scores runs disagree")
-    picks = sorted(random.Random(SEED).sample(range(len(pairs)), SAMPLES))
-    sample_fa = os.path.join(work, f"{mode}-sample.fa")
-    write_fasta(sample_fa, [pairs[k] for k in picks],
-                [sites[k] for k in picks] if sites else None, names=picks)
-    cpu_tsv = os.path.join(work, f"{mode}-sample.cpu.tsv")
-    run_cli(cli, ["batch", mode, sample_fa, *(["-s"] if sites else []),
-                  "--device", "cpu", "--out", cpu_tsv])
-    for k, line in zip(picks, read_lines(cpu_tsv)):
-        check(rows[k] == line, f"{mode}: pair {k}: card and CPU rows differ")
-    return len(picks)
+def sample(pool, k):
+    """k seeded picks from ``pool``, in order."""
+    return sorted(random.Random(SEED).sample(list(pool), k))
+
+
+def start_cpu_checks(work, runs):
+    """For each run (tag, mode, rows TSV, scores TSV, pairs, sites, groups
+    of sampled pair indices): check that the rows TSV's names and score
+    column equal the scores TSV's, and start the port's `batch --device
+    cpu` run on each group's pairs, one process of one thread a group, so
+    that the checks on the card go on beside them. Returns the jobs for
+    finish_cpu_checks."""
+    jobs = []
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    try:
+        for tag, mode, rows_tsv, scores_tsv, pairs, sites, groups in runs:
+            rows, scores = read_lines(rows_tsv), read_lines(scores_tsv)
+            check(len(rows) == len(scores) == len(pairs),
+                  f"{tag}: {len(rows)} rows lines, {len(scores)} score lines "
+                  f"for {len(pairs)} pairs")
+            for k, (r, sc) in enumerate(zip(rows, scores)):
+                check(r.split("\t")[:3] == sc.split("\t"),
+                      f"{tag}: line {k}: rows and scores runs disagree")
+            for g, picks in enumerate(groups):
+                name = f"{tag}-sample{g}"
+                fasta = os.path.join(work, f"{name}.fa")
+                write_fasta(fasta, [pairs[k] for k in picks],
+                            [sites[k] for k in picks] if sites else None,
+                            names=picks)
+                out = os.path.join(work, f"{name}.cpu.tsv")
+                cmd = [sys.executable, "-m", "aligntools_tpu_torch", "batch",
+                       mode, fasta, *(["-s"] if sites else []), "--device",
+                       "cpu", "--out", out]
+                jobs.append((tag, rows, picks, out, cmd, subprocess.Popen(
+                    cmd, cwd=ROOT, env=env, stdout=subprocess.DEVNULL,
+                    stderr=subprocess.PIPE, text=True)))
+    except BaseException:
+        stop_cpu_checks(jobs)
+        raise
+    return jobs
+
+
+def stop_cpu_checks(jobs):
+    for *_, p in jobs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def finish_cpu_checks(jobs):
+    """Wait for the CPU runs and hold every sampled line of the card's rows
+    TSV equal to theirs. Returns {tag: lines checked}."""
+    checked = {}
+    try:
+        for tag, rows, picks, out, cmd, p in jobs:
+            err = p.communicate(timeout=900)[1]
+            check(p.returncode == 0,
+                  f"{' '.join(cmd)} exited {p.returncode}: {err}")
+            lines = read_lines(out)
+            check(len(lines) == len(picks), f"{tag}: {len(lines)} CPU lines "
+                  f"for {len(picks)} pairs")
+            for k, line in zip(picks, lines):
+                check(rows[k] == line,
+                      f"{tag}: pair {k}: card and CPU rows differ")
+            checked[tag] = checked.get(tag, 0) + len(picks)
+    finally:
+        stop_cpu_checks(jobs)
+    return checked
 
 
 def main_path_buckets(pairs, sites):
@@ -398,53 +675,81 @@ def main_path_buckets(pairs, sites):
 
 
 def phase_buckets(torch, scan, ptr, tb, variant, pairs, sites, params,
-                  rows):
+                  rows, long_walks=None):
     """Kernel vs plain on every bucket the main path builds for ``pairs``,
     at the bucket's own B: the score kernel, or (``rows``) the pointer
-    kernel and the walk."""
+    kernel and the walk. Walks over long targets take the plain version
+    ~0.65 ms a step, up to the target's length: on blocked buckets the walk
+    is held against it only when ``long_walks`` is a list, on the blocked
+    bucket of the narrowest target, whose walk row is appended there."""
     from aligntools_tpu_torch import batch, layout
     from aligntools_tpu_torch.convert import params_matrix
+    from aligntools_tpu_torch.ops import blocked
 
     pm = params_matrix(params, "cuda")
     mode, jump = variant.split("+")[0], variant.endswith("+jump")
-    shapes, worst = [], 0.0
-    for b in main_path_buckets(pairs, sites):
+    shapes, worst, walks = [], 0.0, 0
+    buckets = main_path_buckets(pairs, sites)
+    blocked_buckets = [b for b in buckets
+                       if b.n_pad > batch.PALLAS_FLAT_MAX_N_PAD]
+    walk_long = (min(blocked_buckets,
+                     key=lambda b: (b.n_pad, b.m_pad, len(b.idx)))
+                 if rows and long_walks is not None and blocked_buckets
+                 else None)
+    for b in buckets:
         qs, ts, allow, ns, ms = batch._bucket_tensors(b, torch.device("cuda"))
         shape = f"{len(b.idx)}x{b.m_pad}x{b.n_pad}"
+        long = b.n_pad > batch.PALLAS_FLAT_MAX_N_PAD
+        c_blk = blocked.C_BLK if long else None
         if rows:
             rpb = layout.rows_per_byte(mode, jump, b.m_pad)
-            f_eq, f_err, w_eq, w_err, *_ = ptr_compare(
-                torch, ptr, tb, mode, jump, rpb, b.m_pad, b.n_pad,
-                (qs, ts, allow, ns, ms, pm))
+            walk = not long or b is walk_long
+            walks += walk
+            f_eq, f_err, w_eq, w_err, k_out, w_k, starts, w_plain = (
+                ptr_compare(torch, ptr, tb, mode, jump, rpb, b.m_pad,
+                            b.n_pad, (qs, ts, allow, ns, ms, pm), c_blk,
+                            walk))
+            if b is walk_long:
+                long_walks.append(walk_row(
+                    torch, tb, mode, rpb, variant, f"{shape}/blocked",
+                    k_out[3], qs, ts, starts, w_k, w_eq, w_err, w_plain))
+            del k_out, w_k
             equal, err = f_eq and w_eq, max(f_err, w_err)
             shape += f"/rpb{rpb}"
         else:
             equal, err = compare(torch, scan, variant, b.m_pad, b.n_pad,
-                                 (qs, ts, allow, ns, ms, pm))
+                                 (qs, ts, allow, ns, ms, pm), c_blk)
         check(equal and err == 0.0,
               f"{variant} on main-path bucket {shape}: kernel != plain"
               + (" (pointer fill or walk)" if rows else ""))
-        shapes.append(shape)
+        shapes.append(shape + ("/blocked" if long else ""))
         worst = max(worst, err)
         del qs, ts, allow, ns, ms
     torch.cuda.empty_cache()
     row = {"phase": "buckets", "path": "rows" if rows else "scores",
            "variant": variant, "buckets": len(shapes), "shapes": shapes,
+           **({"walks_checked": walks} if rows else {}),
            "bit_equal": True, "max_abs_err": worst, "tolerance": TOL}
     emit(row)
     return row
 
 
 def counts(scan, ptr, tb):
-    return ({**scan.launches, "ptr": ptr.launches, "walk": tb.launches},
+    from aligntools_tpu_torch.ops import blocked
+
+    return ({**scan.launches, "ptr": ptr.launches, "walk": tb.launches,
+             **blocked.launches},
             {"scan": scan.plain_calls, "ptr": ptr.plain_calls,
-             "walk": tb.plain_calls})
+             "walk": tb.plain_calls, "blocked": blocked.plain_calls})
 
 
 def reset_counts(scan, ptr, tb):
+    from aligntools_tpu_torch.ops import blocked
+
     scan.reset_counts()
     ptr.reset_counts()
     tb.reset_counts()
+    blocked.reset_counts()
 
 
 def phase_slice(torch, scan, ptr, tb, work, trace_path):
@@ -471,19 +776,6 @@ def phase_slice(torch, scan, ptr, tb, work, trace_path):
     for mode in ("global", "overlap", "edit", "fit"):
         runs_in[mode] = (small_fa, small, small_cells,
                          sites if mode == "fit" else None)
-
-    checked_buckets = [phase_buckets(torch, scan, ptr, tb, "local", pairs,
-                                     None, params, False)]
-    for variant in ("global", "overlap", "edit", "fit+jump"):
-        checked_buckets.append(phase_buckets(
-            torch, scan, ptr, tb, variant, small,
-            sites if variant == "fit+jump" else None, params, False))
-    checked_buckets.append(phase_buckets(torch, scan, ptr, tb, "local",
-                                         pairs, None, params, True))
-    for variant in ("global", "overlap", "fit+jump"):
-        checked_buckets.append(phase_buckets(
-            torch, scan, ptr, tb, variant, small,
-            sites if variant == "fit+jump" else None, params, True))
 
     def run(mode, label, rows):
         fasta, ps, n_cells, s = runs_in[mode]
@@ -528,36 +820,188 @@ def phase_slice(torch, scan, ptr, tb, work, trace_path):
 
     with open(cold, "rb") as a, open(rows_tsv["local"], "rb") as b:
         check(a.read() == b.read(), "local: cold and warm rows TSVs differ")
-    checked = {}
-    for mode, tsv in rows_tsv.items():
-        _, ps, _, s = runs_in[mode]
-        checked[mode] = check_rows_tsv(cli, work, tsv, scores_tsv[mode], ps,
-                                       mode, s)
+    if trace_path:
+        phase_profile(torch, cli, ["batch", "local", big], work, trace_path)
+
+    # the CPU runs of the sampled pairs go on beside the bucket checks
+    jobs = start_cpu_checks(work, [
+        (mode, mode, tsv, scores_tsv[mode], runs_in[mode][1],
+         runs_in[mode][3], [sample(range(len(runs_in[mode][1])), SAMPLES)])
+        for mode, tsv in rows_tsv.items()])
+    try:
+        checked_buckets = [phase_buckets(torch, scan, ptr, tb, "local",
+                                         pairs, None, params, False)]
+        for variant in ("global", "overlap", "edit", "fit+jump"):
+            checked_buckets.append(phase_buckets(
+                torch, scan, ptr, tb, variant, small,
+                sites if variant == "fit+jump" else None, params, False))
+        checked_buckets.append(phase_buckets(torch, scan, ptr, tb, "local",
+                                             pairs, None, params, True))
+        for variant in ("global", "overlap", "fit+jump"):
+            checked_buckets.append(phase_buckets(
+                torch, scan, ptr, tb, variant, small,
+                sites if variant == "fit+jump" else None, params, True))
+        checked = finish_cpu_checks(jobs)
+    finally:
+        stop_cpu_checks(jobs)
     emit({"phase": "slice", "rows_equal_scores": sorted(rows_tsv),
           "cpu_checked": checked})
-    if trace_path:
-        phase_profile(torch, cli, big, work, trace_path)
     launches = {**{k: score_launches[k] for k in scan.launches},
                 "ptr": rows_launches["ptr"], "walk": rows_launches["walk"]}
     return launches, checked_buckets
 
 
-PROFILE_GROUPS = (("fill", ("ptr_affine", "ptr_overlap")),
+def long_pairs(P, seed):
+    """The L3 read set: m ~ lognormal(1,300, 0.2), n uniform in 40,000 to
+    131,072, random ACGT; three junction sites a target."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    alpha = np.frombuffer(b"ACGT", dtype=np.uint8)
+    ms = np.exp(rng.normal(np.log(1300), 0.2, P)).astype(int)
+    ns = rng.integers(40000, 131073, P)
+    pairs = [(alpha[rng.integers(0, 4, m)].tobytes(),
+              alpha[rng.integers(0, 4, n)].tobytes()) for m, n in zip(ms, ns)]
+    sites = [sorted(int(x) for x in rng.integers(0, n, 3)) for n in ns]
+    return pairs, sites
+
+
+def phase_long(torch, scan, ptr, tb, work, trace_path):
+    """The main path on long targets (L3, global/local on its first 64, and
+    a mixed flat + blocked local run): the runs, with the counts set to 0
+    just before and read just after, then every bucket against plain while
+    the CPU runs of the sampled pairs go on."""
+    from aligntools_tpu_torch import batch, cli
+    from aligntools_tpu_torch.params import AlignParams
+    from aligntools_tpu_torch.utils.synth import clustered_pairs
+
+    params = AlignParams()
+    # enough pairs that the rows run's padded pointers pass the budget
+    budget = int(batch._hbm_budget(torch.device("cuda"))
+                 * batch.PTR_BUDGET_FRAC)
+    P = LONG_PAIRS
+    while True:
+        pairs, sites = long_pairs(P, SEED)
+        ptr_bytes = sum(m * n for m, n in batch._bucket_keys(pairs, 64, 128))
+        if ptr_bytes > budget:
+            break
+        P += 32
+    emit({"phase": "long", "pairs": P, "padded_pointer_bytes": ptr_bytes,
+          "pointer_budget": budget,
+          "true_cells": sum(len(q) * len(t) for q, t in pairs)})
+    mixed = clustered_pairs(2000, seed=SEED) + pairs[:32]
+    runs_in = {  # label -> (mode, pairs, sites)
+        "fit": ("fit", pairs, sites),
+        "global": ("global", pairs[:64], None),
+        "local": ("local", pairs[:64], None),
+        "mixed": ("local", mixed, None),
+    }
+    fastas = {}
+    for label, (mode, ps, s) in runs_in.items():
+        fastas[label] = os.path.join(work, f"long-{label}.fa")
+        write_fasta(fastas[label], ps, s)
+
+    waves = [0]
+    collect = batch._collect_rows_wave
+
+    def counted(mode, pends, *rest):  # the router's flush waves
+        waves[0] += bool(pends)
+        return collect(mode, pends, *rest)
+
+    def run(label, run_label, rows):
+        mode, ps, s = runs_in[label]
+        tsv = os.path.join(work, f"long-{label}-{'rows' if rows else 'scores'}"
+                                 f"-{run_label}.tsv")
+        argv = ["batch", mode, fastas[label], *(["-s"] if s else []),
+                *([] if rows else ["--scores-only"]), "--out", tsv]
+        waves[0] = 0
+        wall, report = run_cli(cli, argv)
+        n_cells = sum(len(q) * len(t) for q, t in ps)
+        emit({"phase": "long", "path": "rows" if rows else "scores",
+              "run": f"{label} ({mode}{' -s' if s else ''}) {run_label}",
+              "pairs": len(ps), "seconds": wall,
+              "pairs_per_s": len(ps) / wall,
+              "true_gcups": n_cells / wall / 1e9,
+              **({"waves": waves[0]} if rows else {}), "counters": report})
+        return tsv
+
+    batch._collect_rows_wave = counted
+    try:
+        reset_counts(scan, ptr, tb)
+        cold = run("fit", "cold", True)
+        check(waves[0] >= 2, f"L3 rows ran in {waves[0]} wave(s); the "
+              f"pointer budget should split it")
+        rows_tsv = {"fit": run("fit", "warm", True)}
+        scores_tsv = {"fit": run("fit", "warm", False)}
+        for label in ("global", "local", "mixed"):
+            rows_tsv[label] = run(label, "cold", True)
+            scores_tsv[label] = run(label, "cold", False)
+        torch.cuda.synchronize()
+        launches, plain = counts(scan, ptr, tb)
+    finally:
+        batch._collect_rows_wave = collect
+    emit({"phase": "long", "launches": launches, "plain_calls": plain})
+    for name in ("blocked_scores", "blocked_ptr", "walk"):
+        check(launches[name] > 0,
+              f"kernel {name} never launched on the long-target path")
+    check(not any(plain.values()), f"plain versions ran on the long-target "
+          f"path: {plain}")
+    with open(cold, "rb") as a, open(rows_tsv["fit"], "rb") as b:
+        check(a.read() == b.read(), "L3: cold and warm rows TSVs differ")
+    if trace_path:
+        root, ext = os.path.splitext(trace_path)
+        phase_profile(torch, cli, ["batch", "fit", fastas["fit"], "-s"], work,
+                      f"{root}.long{ext}")
+
+    runs = []
+    for label, tsv in rows_tsv.items():
+        mode, ps, s = runs_in[label]
+        cost = sorted(range(len(ps)),
+                      key=lambda k: len(ps[k][0]) * len(ps[k][1]))
+        pool = [k for k in cost if batch.PALLAS_FLAT_MAX_N_PAD < len(ps[k][1])
+                <= LONG_SAMPLE_MAX_N][:LONG_POOL]
+        groups = [sample(pool, min(LONG_SAMPLES, len(pool)))]
+        if label == "fit":  # and one target past LONG_FAR_N columns
+            groups.append([next(k for k in cost
+                                if len(ps[k][1]) > LONG_FAR_N)])
+        runs.append((f"long-{label}", mode, tsv, scores_tsv[label], ps, s,
+                     groups))
+    # the CPU runs of the sampled pairs go on beside the bucket checks
+    jobs = start_cpu_checks(work, runs)
+    try:
+        checked_buckets, long_walks = [], []
+        for label, (mode, ps, s) in runs_in.items():
+            variant = "fit+jump" if s else mode
+            for rows in (False, True):
+                checked_buckets.append(phase_buckets(
+                    torch, scan, ptr, tb, variant, ps, s, params, rows,
+                    long_walks if label == "fit" else None))
+        check(long_walks, "no L3 bucket's walk was held against plain")
+        checked = finish_cpu_checks(jobs)
+    finally:
+        stop_cpu_checks(jobs)
+    emit({"phase": "long", "rows_equal_scores": sorted(rows_tsv),
+          "cpu_checked": checked})
+    return launches, checked_buckets, long_walks
+
+
+PROFILE_GROUPS = (("fill", ("ptr_affine", "ptr_overlap", "bptr_")),
                   ("walk", ("walk_kernel",)),
                   ("copies", ("Memcpy", "memcpy")),
                   ("allocation", ("Memset", "memset", "FillFunctor")))
 
 
-def phase_profile(torch, cli, fasta, work, trace_path):
-    """One more warm rows `batch local` run under torch.profiler: device
-    time per op (CUDA kernels and copies) against the run's wall clock."""
+def phase_profile(torch, cli, argv, work, trace_path):
+    """One more warm rows run (``argv``, the CLI's) under torch.profiler:
+    device time per op (CUDA kernels and copies) against the run's wall
+    clock."""
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(os.path.dirname(trace_path), exist_ok=True)
-    tsv = os.path.join(work, "local-profiled.tsv")
+    tsv = os.path.join(work, "profiled.tsv")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        wall, report = run_cli(cli, ["batch", "local", fasta, "--out", tsv])
+        wall, report = run_cli(cli, [*argv, "--out", tsv])
         torch.cuda.synchronize()
     ops = []
     for ev in prof.key_averages():
@@ -575,17 +1019,27 @@ def phase_profile(torch, cli, fasta, work, trace_path):
                       if any(k in o["op"] for k in keys)), "other")
         split[group] += o["ms"]
     prof.export_chrome_trace(trace_path)
-    emit({"phase": "profile", "mode": "local", "path": "rows",
+    emit({"phase": "profile", "run": " ".join(argv[1:2] + argv[3:]),
+          "path": "rows",
           "wall_s": wall, "device_busy_ms": busy,
           "busy_share": busy / 1000 / wall, "split_ms": split,
           "counters": report, "device_ops": ops[:12], "trace": trace_path})
     check(busy > 0, "torch.profiler recorded no device time")
 
 
-def summary(rows, ptr_rows, walk_rows, bucket_rows, launches):
+def summary(rows, ptr_rows, walk_rows, bucket_rows, launches, blocked_rows,
+            long_buckets):
+    """The kernels line: each kernel's representative timing, its launches
+    on its path's main-path run, and its largest error over every check."""
     out = []
     for name, (replaces, src, variants) in KERNELS.items():
-        if name == "ptr":
+        if name.startswith("blocked"):
+            # the representative timing: L2, the fixture's shape
+            timed = [r for r in blocked_rows if r["kernel"] == name]
+            path = "scores" if name == "blocked_scores" else "rows"
+            mine = timed + [r for r in long_buckets if r["path"] == path]
+            timed = [r for r in timed if r["level"] == "L2"]
+        elif name == "ptr":
             timed, mine = ptr_rows, ptr_rows + [
                 r for r in bucket_rows if r["path"] == "rows"]
         elif name == "walk":
@@ -618,7 +1072,9 @@ def main(argv=None):
                                              "CUDA port on one GPU")
     ap.add_argument("--profile", metavar="TRACE.json", default=None,
                     help="also profile one warm 20,000-pair rows local run "
-                         "and write its Chrome trace here")
+                         "and one warm long-target fit -s rows run, and "
+                         "write their Chrome traces here (the second with "
+                         ".long before the extension)")
     opts = ap.parse_args(argv)
     try:
         import torch
@@ -650,14 +1106,18 @@ def main(argv=None):
 
     rows = phase_kernels(torch, scan)
     ptr_rows, walk_rows = phase_ptr(torch, ptr, tb)
+    blocked_rows = phase_blocked(torch, scan, ptr)
+    trace = opts.profile and os.path.abspath(opts.profile)
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as work:
-        launches, bucket_rows = phase_slice(
-            torch, scan, ptr, tb, work,
-            opts.profile and os.path.abspath(opts.profile))
-
-    emit({"kernels": summary(rows, ptr_rows, walk_rows, bucket_rows,
-                             launches)})
+        launches, bucket_rows = phase_slice(torch, scan, ptr, tb, work, trace)
+        long_launches, long_buckets, long_walks = phase_long(
+            torch, scan, ptr, tb, work, trace)
+    launches.update(blocked_scores=long_launches["blocked_scores"],
+                    blocked_ptr=long_launches["blocked_ptr"])
+    emit({"kernels": summary(rows, ptr_rows, walk_rows + long_walks,
+                             bucket_rows, launches, blocked_rows,
+                             long_buckets)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

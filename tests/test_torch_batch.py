@@ -98,14 +98,68 @@ def test_f32_exact_guard():
 
 def test_flat_ceiling():
     """Targets up to 32,768 columns run on the flat fills; one past it
-    would need the column-blocked fill, which is not ported."""
+    goes to the column-blocked fills, in a bucket snapped to 16,384."""
     q = b"ACGTTGCA"
     t = (b"ACGT" * 8192)[:-4] + b"TGCA"
     got = tbatch.batch_scores("local", [(q, t)], device="cpu")
     assert got[0] == 8.0
     assert tbatch._bucket_keys([(q, t)], 64, 128) == [(64, 32768)]
-    with pytest.raises(ValueError, match="column-blocked"):
-        tbatch.batch_scores("local", [(q, t), (q, t + b"A")], device="cpu")
+    pairs = [(q, t), (q, t + b"A")]
+    assert tbatch._bucket_keys(pairs, 64, 128) == [(64, 32768), (64, 49152)]
+    assert list(tbatch.batch_scores("local", pairs, device="cpu")) == [8.0,
+                                                                       8.0]
+
+
+def test_bucket_keys_long_targets_match_jax():
+    rng = np.random.default_rng(17)
+    pairs = clustered_pairs(64, seed=9)
+    for n in (32768, 32769, 33000, 49152, 49153, 70000):
+        pairs.append((bytes(rng.choice(ALPHA, 100).tolist()),
+                      bytes(rng.choice(ALPHA, n).tolist())))
+    for floors in ((64, 128), (16, 128)):
+        want = jbatch._bucket_keys(pairs, *floors)
+        assert tbatch._bucket_keys(pairs, *floors) == want
+    assert {key[1] for key in want[-6:]} == {32768, 49152, 65536, 81920}
+    assert tbatch._bucket_keys(pairs[-4:-3], 64, 128) == [(112, 49152)]
+
+
+def _long_pairs(seed, fit=False):
+    """Two targets of 33,000-40,000 columns (one bucket of n_pad 49,152,
+    the column-blocked fills' regime) and two short pairs."""
+    rng = np.random.default_rng(seed)
+    pairs = []
+    for k in range(4):
+        m = int(rng.integers(20, 65))
+        lo, hi = (33000, 40001) if k < 2 else (m if fit else 1, 300)
+        pairs.append((bytes(rng.choice(ALPHA, m).tolist()),
+                      bytes(rng.choice(ALPHA, int(rng.integers(lo, hi)))
+                            .tolist())))
+    return pairs
+
+
+@pytest.mark.parametrize("mode", ["global", "local", "overlap", "edit", "fit",
+                                  "fit-s"])
+def test_align_batch_long_targets_match_jax(mode):
+    """Scores and alignment rows of long targets (the blocked fills'
+    plain versions here) equal the JAX package's align_batch."""
+    fit = mode.startswith("fit")
+    pairs = _long_pairs(5, fit)
+    sites = None
+    if mode == "fit-s":
+        rng = np.random.default_rng(6)
+        sites = [sorted(int(x) for x in rng.integers(0, len(t), 3))
+                 for _, t in pairs]
+    jmode = "fit" if fit else mode
+    p = AlignParams(match=2, mismatch=-3, gap_open=-4, gap_extend=-1)
+    for traceback in (False,) if mode == "edit" else (False, True):
+        want = jbatch.align_batch(jmode, pairs, _jp(p), sites,
+                                  traceback=traceback)
+        got = tbatch.align_batch(jmode, pairs, p, sites, traceback=traceback,
+                                 device="cpu")
+        if mode != "edit":
+            want = [(r.score, r.row1, r.row2) for r in want]
+            got = [(r.score, r.row1, r.row2) for r in got]
+        assert got == want
 
 
 def test_fit_length_guard():
@@ -232,3 +286,48 @@ def test_resolve_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
         backend.resolve_device("cuda")
+
+
+# pairs with an empty side, where each mode allows them (fit needs m <= n)
+EMPTY = {"global": [(b"", b"ACGT"), (b"ACG", b""), (b"", b"")],
+         "fit": [(b"", b"ACGT"), (b"", b"")]}
+for _mode in ("local", "overlap", "edit"):
+    EMPTY[_mode] = EMPTY["global"]
+
+
+def _results(fn):
+    """Results as comparable tuples, or the exception's type and text."""
+    try:
+        return [r if isinstance(r, int) else (r.score, r.row1, r.row2)
+                for r in fn()]
+    except (RuntimeError, ValueError) as err:
+        return type(err).__name__, str(err)
+
+
+@pytest.mark.parametrize("traceback", [False, True])
+@pytest.mark.parametrize("mode", ["global", "local", "overlap", "edit", "fit",
+                                  "fit-s"])
+def test_empty_pairs_match_jax(mode, traceback):
+    """A pair with an empty side, alone and mixed into a batch of normal
+    pairs, gets the JAX package's align_batch result: its engines' borders
+    read at (m, n), or the same error."""
+    fit = mode.startswith("fit")
+    jmode = "fit" if fit else mode
+    rng = np.random.default_rng(23)
+    normal = _rand_pairs(rng, 5, 1, 40, 1, 120, fit=fit)
+    batches = [[e] for e in EMPTY[jmode]]
+    batches.append(normal[:2] + EMPTY[jmode] + normal[2:])
+    batches.append(normal[:2] + EMPTY[jmode][:1] + normal[2:])
+    for p in (AlignParams(), AlignParams(match=2, mismatch=-3, gap_open=-4,
+                                         gap_extend=-1)):
+        for pairs in batches:
+            sites = ([[1, 2]] * len(pairs)) if mode == "fit-s" else None
+            want = _results(lambda: jbatch.align_batch(
+                jmode, pairs, _jp(p), sites, traceback=traceback))
+            got = _results(lambda: tbatch.align_batch(
+                jmode, pairs, p, sites, traceback=traceback, device="cpu"))
+            assert got == want, (pairs, p)
+    if fit and traceback:  # (b"", b"") has no traceback start
+        with pytest.raises(RuntimeError, match="no finite traceback start"):
+            tbatch.align_batch("fit", [(b"", b"")], traceback=True,
+                               device="cpu")

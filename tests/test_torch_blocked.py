@@ -1,0 +1,119 @@
+"""The port's column-blocked fills against the JAX package's Pallas ones.
+
+The same seeded numpy inputs go through ``pallas_blocked.blocked_scores``
+and ``blocked_ptr_fill`` (interpret mode on the CPU) and through the
+port's entries of the same names on CPU tensors, which run the flat
+fills' plain PyTorch versions. At B 8, m_pad 64, n_pad 512 and c_blk 128
+(four column blocks) everything is compared exactly: every score (edit's
+as an integer), the start info a/b and every byte of the pointer tensor,
+pad rows and pad columns included."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from aligntools_tpu.ops import pallas_blocked as jblocked
+from aligntools_tpu_torch import convert
+from aligntools_tpu_torch.ops import blocked
+
+B, M_PAD, N_PAD, C_BLK = 8, 64, 512, 128
+ALPHA = list(b"ACGT")
+# the cases of tests/test_blocked.py: six score variants, nine
+# (mode, jump, rows per byte) pointer layouts
+SCORE_CASES = [("global", False), ("local", False), ("fit", False),
+               ("fit", True), ("overlap", False), ("edit", False)]
+PTR_CASES = [
+    ("global", False, 1), ("local", False, 1), ("fit", True, 1),
+    ("overlap", False, 1), ("global", False, 2), ("local", False, 2),
+    ("fit", False, 2), ("overlap", False, 2), ("overlap", False, 4),
+]
+
+
+def blocked_inputs(seed, fit):
+    """Ragged pairs over four column blocks in the kernels' int32 sentinel
+    layout (query pad -1, target pad -2), three junction sites per target
+    (allow = 0 there), and the params row."""
+    rng = np.random.default_rng(seed)
+    ms = rng.integers(1, M_PAD + 1, B)
+    ns = rng.integers(1, N_PAD + 1, B)
+    ms[0], ns[0] = M_PAD, N_PAD
+    ns[1] = C_BLK  # ends on a block edge
+    if fit:
+        ns = np.maximum(ns, ms)
+    qs = np.full((B, M_PAD), -1, np.int32)
+    ts = np.full((B, N_PAD), -2, np.int32)
+    allow = np.ones((B, N_PAD), np.float32)
+    for k in range(B):
+        qs[k, : ms[k]] = rng.choice(ALPHA, ms[k])
+        ts[k, : ns[k]] = rng.choice(ALPHA, ns[k])
+        allow[k, rng.integers(0, ns[k], 3)] = 0.0
+    pm = np.zeros((1, 8), np.float32)
+    pm[0, :5] = [2, -3, -4, -1, -7]
+    return (qs, ts, allow, ns[:, None].astype(np.int32),
+            ms[:, None].astype(np.int32), pm)
+
+
+def port_args(arrs):
+    return convert.kernel_inputs_from_numpy(*arrs, "cpu")
+
+
+@pytest.mark.parametrize("mode,use_jump", SCORE_CASES)
+def test_blocked_scores_match_jax(mode, use_jump):
+    arrs = blocked_inputs(61, mode == "fit")
+    want = np.asarray(jblocked.blocked_scores(
+        mode, use_jump, M_PAD, N_PAD, C_BLK, True,
+        *(jnp.asarray(a) for a in arrs)))
+    before = blocked.plain_calls
+    got = blocked.blocked_scores(mode, use_jump, M_PAD, N_PAD, C_BLK,
+                                 *port_args(arrs))
+    assert blocked.plain_calls == before + 1
+    assert got.dtype == (torch.int32 if mode == "edit" else torch.float32)
+    if mode == "edit":  # the Pallas kernel carries edit in f32
+        want = want.astype(np.int32)
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("mode,use_jump,rpb", PTR_CASES)
+def test_blocked_ptr_fill_matches_jax(mode, use_jump, rpb):
+    arrs = blocked_inputs(67, mode == "fit")
+    want = jblocked.blocked_ptr_fill(
+        mode, use_jump, M_PAD, N_PAD, C_BLK, True,
+        *(jnp.asarray(a) for a in arrs), rows_per_byte=rpb)
+    got = blocked.blocked_ptr_fill(mode, use_jump, M_PAD, N_PAD, C_BLK,
+                                   *port_args(arrs), rpb)
+    assert got[3].shape == (B, M_PAD // rpb, N_PAD)
+    for name, g, w in zip(("score", "a", "b", "ptrs"), got, want):
+        assert np.array_equal(g.numpy(), np.asarray(w)), name
+
+
+@pytest.mark.parametrize("kind", ["scores", "ptr"])
+def test_blocked_results_do_not_depend_on_c_blk(kind):
+    args = port_args(blocked_inputs(71, True))
+    outs = []
+    for c_blk in (C_BLK, 2 * C_BLK):
+        if kind == "scores":
+            outs.append((blocked.blocked_scores(
+                "fit", True, M_PAD, N_PAD, c_blk, *args),))
+        else:
+            outs.append(blocked.blocked_ptr_fill(
+                "local", False, M_PAD, N_PAD, c_blk, *args, 2))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+def test_blocked_entries_check_their_blocks():
+    qs, ts, allow, ns, ms, pm = port_args(blocked_inputs(73, False))
+    with pytest.raises(ValueError, match="divides n_pad"):
+        blocked.blocked_scores("local", False, M_PAD, N_PAD, 96, qs, ts,
+                               None, ns, ms, pm)
+    with pytest.raises(ValueError, match="divides n_pad"):
+        blocked.blocked_ptr_fill("local", False, M_PAD, N_PAD, 1024, qs, ts,
+                                 None, ns, ms, pm, 1)
+    q48, m48 = qs[:, :48].contiguous(), torch.clamp(ms, max=48)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        blocked.blocked_ptr_fill("overlap", False, 48, N_PAD, C_BLK, q48, ts,
+                                 None, ns, m48, pm, 4)
+    with pytest.raises(ValueError, match="jump state"):
+        blocked.blocked_scores("local", True, M_PAD, N_PAD, C_BLK, qs, ts,
+                               allow, ns, ms, pm)

@@ -12,7 +12,7 @@ import torch
 from aligntools_tpu_torch import batch as tbatch
 from aligntools_tpu_torch import convert
 from aligntools_tpu_torch.engine import device_tb
-from aligntools_tpu_torch.ops import ptr, scan
+from aligntools_tpu_torch.ops import blocked, ptr, scan
 from aligntools_tpu_torch.params import AlignParams
 from aligntools_tpu_torch.utils.synth import clustered_pairs
 
@@ -121,3 +121,119 @@ def test_rows_on_card_equal_cpu(cuda, mode):
     want = tbatch.align_batch(jmode, pairs, AlignParams(), sites,
                               traceback=True, device="cpu")
     assert got == want
+
+
+BLOCKED_SCORE_CASES = [("global", False), ("local", False), ("fit", False),
+                       ("fit", True), ("overlap", False), ("edit", False)]
+BLOCKED_PTR_CASES = [
+    ("global", False, 1), ("local", False, 1), ("fit", True, 1),
+    ("overlap", False, 1), ("global", False, 2), ("local", False, 2),
+    ("fit", False, 2), ("overlap", False, 2), ("overlap", False, 4),
+]
+
+
+def _blocked_inputs(seed, c_blk, fit, B=8, m_pad=64, n_pad=16384):
+    """Ragged pairs over several column blocks: one full pair, one target
+    ending on a block edge, one inside the first block."""
+    rng = np.random.default_rng(seed)
+    alpha = np.frombuffer(b"ACGT", dtype=np.uint8).astype(np.int32)
+    ms = rng.integers(1, m_pad + 1, (B, 1)).astype(np.int32)
+    ns = rng.integers(1, n_pad + 1, (B, 1)).astype(np.int32)
+    ms[0], ns[0] = m_pad, n_pad
+    ns[1], ns[2] = c_blk, c_blk // 2 + 1
+    if fit:
+        ns = np.maximum(ns, ms)
+    qs = rng.choice(alpha, (B, m_pad))
+    ts = rng.choice(alpha, (B, n_pad))
+    qs[np.arange(m_pad)[None, :] >= ms] = -1
+    ts[np.arange(n_pad)[None, :] >= ns] = -2
+    allow = (rng.random((B, n_pad)) > 0.1).astype(np.float32)
+    pm = np.array([[2, 3, -4, -1, -7, 0, 0, 0]], np.float32)
+    return m_pad, n_pad, (qs, ts, allow, ns, ms, pm)
+
+
+@pytest.mark.parametrize("c_blk", [128, 2048, blocked.C_BLK])
+@pytest.mark.parametrize("mode,use_jump", BLOCKED_SCORE_CASES)
+def test_blocked_scores_kernel_equals_plain(cuda, mode, use_jump, c_blk):
+    m_pad, n_pad, arrs = _blocked_inputs(13, c_blk, mode == "fit")
+    qs, ts, allow, ns, ms, pm = convert.kernel_inputs_from_numpy(*arrs, cuda)
+    before = blocked.launches["blocked_scores"]
+    got = blocked.blocked_scores(mode, use_jump, m_pad, n_pad, c_blk, qs, ts,
+                                 allow, ns, ms, pm)
+    torch.cuda.synchronize()
+    assert blocked.launches["blocked_scores"] == before + 1
+    if mode == "fit":
+        want = scan.fit_scores_plain(use_jump, m_pad, n_pad, qs, ts, allow,
+                                     ns, ms, pm)
+    else:
+        want = scan.scores_plain(mode, m_pad, n_pad, qs, ts, ns, ms, pm)
+    assert torch.equal(got, want), (got, want)
+
+
+@pytest.mark.parametrize("c_blk", [128, 2048, blocked.C_BLK])
+@pytest.mark.parametrize("mode,use_jump,rpb", BLOCKED_PTR_CASES)
+def test_blocked_ptr_kernel_equals_plain(cuda, mode, use_jump, rpb, c_blk):
+    """Score, a, b and every pointer byte, pad rows and columns included."""
+    m_pad, n_pad, arrs = _blocked_inputs(17, c_blk, mode == "fit")
+    qs, ts, allow, ns, ms, pm = convert.kernel_inputs_from_numpy(*arrs, cuda)
+    before = blocked.launches["blocked_ptr"]
+    got = blocked.blocked_ptr_fill(mode, use_jump, m_pad, n_pad, c_blk, qs,
+                                   ts, allow, ns, ms, pm, rpb)
+    torch.cuda.synchronize()
+    assert blocked.launches["blocked_ptr"] == before + 1
+    want = ptr.ptr_fill_plain(mode, use_jump, m_pad, n_pad, qs, ts, allow,
+                              ns, ms, pm, rpb)
+    for name, g, w in zip(("score", "a", "b", "ptrs"), got, want):
+        bad = (g != w).nonzero()
+        assert torch.equal(g, w), (name, bad[:8].tolist(), len(bad))
+
+
+def _long_pairs(seed, count=6, fit=False):
+    rng = np.random.default_rng(seed)
+    pairs = []
+    for k in range(count):
+        m = int(rng.integers(20, 200))
+        lo, hi = (33000, 60000) if k % 2 == 0 else (m if fit else 1, 900)
+        pairs.append((bytes(rng.choice(list(b"ACGT"), m).tolist()),
+                      bytes(rng.choice(list(b"ACGT"), int(rng.integers(lo, hi)))
+                            .tolist())))
+    return pairs
+
+
+@pytest.mark.parametrize("mode", ["global", "local", "overlap", "fit-s",
+                                  "edit"])
+def test_long_targets_on_card_equal_cpu(cuda, mode):
+    """A batch with targets past 32,768 columns (blocked fills) beside short
+    ones (flat fills): scores and rows on the card equal the CPU run."""
+    fit = mode.startswith("fit")
+    pairs = _long_pairs(19, fit=fit)
+    sites = None
+    if fit:
+        rng = np.random.default_rng(20)
+        sites = [sorted(int(x) for x in rng.integers(0, len(t), 3))
+                 for _, t in pairs]
+    jmode = mode[:3] if fit else mode
+    before = dict(blocked.launches)
+    for traceback in (False,) if mode == "edit" else (False, True):
+        got = tbatch.align_batch(jmode, pairs, AlignParams(), sites,
+                                 traceback=traceback, device="cuda")
+        want = tbatch.align_batch(jmode, pairs, AlignParams(), sites,
+                                  traceback=traceback, device="cpu")
+        assert got == want
+    assert blocked.launches["blocked_scores"] > before["blocked_scores"]
+    if mode != "edit":
+        assert blocked.launches["blocked_ptr"] > before["blocked_ptr"]
+
+
+@pytest.mark.parametrize("mode", ["global", "local", "overlap", "fit", "edit"])
+def test_empty_pairs_on_card_equal_cpu(cuda, mode):
+    pairs = [(b"", b"ACGT"), (b"ACGTA", b"ACGTT"), (b"", b"")]
+    if mode != "fit":
+        pairs.append((b"ACG", b""))
+    for traceback in (False, True):
+        if mode == "fit" and traceback:
+            pairs = pairs[:2]  # (b"", b"") has no traceback start
+        got = tbatch.align_batch(mode, pairs, AlignParams(),
+                                 traceback=traceback, device="cuda")
+        assert got == tbatch.align_batch(mode, pairs, AlignParams(),
+                                         traceback=traceback, device="cpu")

@@ -1,6 +1,6 @@
 """``aligntools-torch batch``: TSV byte parity with the JAX pipeline, the
 port's import boundary, its copies of the JAX package's pure modules, and
-its refusals."""
+its refusals of the options it does not port."""
 
 import ast
 import glob
@@ -51,12 +51,13 @@ def _params_of(args):
 OUTPUTS = {"scores": ("--scores-only",), "rows": (), "cigar": ("--cigar",)}
 
 
-def _compare(tmp_path, mode, fasta, args=(), chunk=16384, output="scores"):
+def _compare(tmp_path, mode, fasta, args=(), chunk=16384, output="scores",
+             engine="pallas"):
     want_path = tmp_path / f"{mode}.{output}.jax.tsv"
     got_path = tmp_path / f"{mode}.{output}.torch.tsv"
     jax_run_pipeline(mode, fasta, _params_of(args), use_sites="-s" in args,
                      scores_only=output == "scores", cigar=output == "cigar",
-                     engine="pallas", chunk_size=chunk,
+                     engine=engine, chunk_size=chunk,
                      out_path=str(want_path))
     rc = main(["batch", mode, fasta, *args, *OUTPUTS[output], "--device",
                "cpu", "--chunk-size", str(chunk), "--out", str(got_path)])
@@ -245,16 +246,55 @@ def test_unported_options_are_refused(tmp_path, capsys, flag):
     assert "FATAL ERROR" in err and flag[0] in err and "not ported" in err
 
 
-def test_long_targets_are_refused_before_output(tmp_path, capsys):
-    fasta = tmp_path / "long.fa"
-    fasta.write_text(">q0\nACGT\n>t0\nACG\n>q1\nACGT\n>t1\n"
-                     + "A" * 32769 + "\n")
-    out = tmp_path / "o.tsv"
-    assert main(["batch", "local", str(fasta), "--scores-only", "--device",
-                 "cpu", "--out", str(out)]) == 255
-    err = capsys.readouterr().err
-    assert "FATAL ERROR: pair 1" in err and "column-blocked" in err
-    assert not out.exists()
+def _long_fasta(tmp_path):
+    """Two targets past the flat fills' 32,768 columns (the column-blocked
+    fills' regime) between short pairs, junction sites in every target
+    header."""
+    rng = np.random.default_rng(29)
+    lines = []
+    for k, (m, n) in enumerate([(30, 200), (50, 33000), (20, 90),
+                                (60, 36500)]):
+        q = bytes(rng.choice(ALPHA, m).tolist()).decode()
+        t = bytes(rng.choice(ALPHA, n).tolist()).decode()
+        sl = sorted(int(x) for x in rng.integers(0, n, 3))
+        lines += [f">q{k}\n{q}", f">t{k} {'|'.join(map(str, sl))}\n{t}"]
+    path = tmp_path / "long.fa"
+    path.write_text("\n".join(lines) + "\n")
+    return str(path)
+
+
+@pytest.mark.parametrize("mode,args,output", [
+    ("local", (), "rows"), ("fit", ("-s",), "rows"),
+    ("overlap", (), "cigar"), ("global", (), "scores"),
+    ("edit", (), "scores"),
+])
+def test_long_target_tsv_matches_jax(tmp_path, mode, args, output):
+    _compare(tmp_path, mode, _long_fasta(tmp_path), args, output=output)
+
+
+def _empty_records_fasta(tmp_path, mode):
+    """Records that pair up as (empty, ACGT), (ACG, empty) and a normal
+    pair; fit (which needs m <= n) gets (empty, ACGT) only."""
+    recs = [("", "ACGT"), ("ACG", ""), ("ACGTA", "ACGTT")]
+    if mode == "fit":
+        recs = [recs[0], recs[2]]
+    path = tmp_path / "empty.fa"
+    path.write_text("".join(f">q{k}\n{q}\n>t{k}\n{t}\n"
+                            for k, (q, t) in enumerate(recs)))
+    return str(path)
+
+
+@pytest.mark.parametrize("mode,output", [
+    (mode, output) for mode in ("global", "local", "overlap", "edit", "fit")
+    for output in (("scores",) if mode == "edit" else OUTPUTS)])
+def test_empty_records_tsv_matches_jax(tmp_path, mode, output):
+    """A record with no sequence pairs up, and its pair's line is the JAX
+    pipeline's: its engines' borders (which its Pallas score route does not
+    give on such pairs), not a kernel's -inf."""
+    want = _compare(tmp_path, mode, _empty_records_fasta(tmp_path, mode),
+                    output=output, engine="auto")
+    if mode == "global":
+        assert want.startswith(b"q0\tt0\t-9.000000")
 
 
 def test_usage_without_batch(capsys):

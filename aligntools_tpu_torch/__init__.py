@@ -1,9 +1,9 @@
 """aligntools_tpu_torch — the PyTorch / CUDA port of aligntools_tpu.
 
-The score-only batch path (``aligntools-torch batch MODE FASTA
---scores-only``) on one NVIDIA Hopper GPU, with hand-written CUDA fills
-for the global/local, overlap, edit and fit(+jump) score kernels, held bit
-for bit against the JAX package. Importing this package loads neither
+The batch path (``aligntools-torch batch MODE FASTA``: alignment rows,
+CIGAR or scores, long targets, ``--band``) on one NVIDIA Hopper GPU, with
+hand-written CUDA fills and walk, held bit for bit against the JAX
+package. Importing this package loads neither
 torch nor jax; ``align_batch`` / ``batch_scores`` load torch on first use.
 """
 

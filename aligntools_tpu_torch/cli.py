@@ -54,7 +54,9 @@ def run_batch(args: list[str]) -> int:
                     help="multi-device data parallelism (not ported yet: "
                          "refused)")
     ap.add_argument("--band", type=int, default=None, metavar="W",
-                    help="banded fill (not ported yet: refused)")
+                    help="banded fill, O(m*W) work: full rows (or scores "
+                         "with --scores-only); exact when the optimal "
+                         "path stays in band")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="where the fills run (default cuda; cpu runs the "
                          "kernels' plain PyTorch versions)")

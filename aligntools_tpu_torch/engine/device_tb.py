@@ -22,6 +22,15 @@ a walk that reaches row 0 before column 0, and leaves that step out of the
 count), an inactive pair keeps its state, and out-of-range indices clamp
 as a JAX gather does.
 
+With ``band`` the walk reads the banded fill's pointers in window
+coordinates (``ops/banded.py``; the counterpart of
+``aligntools_tpu/engine/banded.py:_walk_banded``, a host loop there): cell
+(i, j) at ``ptrs[b, i-1, j - i + band]``, rows-per-byte 1 (the banded byte
+has layout.py's rpb-1 layout), target chars from the fill's ``te`` plane at
+``band + j``. A step whose lane falls outside [0, 2*band+1) is the JAX
+walk's "left the band" (affine) or "unset-pointer hazard" (overlap): it
+sets bit 2 of ``err`` (an unset pointer sets bit 1) and ends the walk.
+
 Scalars stay int32 (the JAX package folds them into one float32 stack,
 which would round past 2^24); a bucket's float32 scores ride along as
 their int32 bit pattern, so one device-to-host copy carries both exactly.
@@ -39,6 +48,8 @@ from aligntools_tpu_torch.ops.scan import check_tensors
 
 # walk states (the JAX walk's, and native/aligntools_native.cpp's)
 LOW, MID, UPP, JUMP, DONE, ERR = 0, 1, 2, 3, 4, 5
+ERR_UNSET, ERR_LEFT_BAND = 1, 2  # the bits of scal[3]
+SYNC_EVERY = 16  # steps of walk_plain between its checks for active pairs
 GAP = ord("-")
 MODES = ("global", "local", "fit", "overlap")
 
@@ -77,11 +88,12 @@ def _chars(plane, bidx, idx):
     return plane[bidx, idx.clamp(0, plane.shape[1] - 1)].to(torch.uint8)
 
 
-def walk_plain(mode, rpb, ptrs, qs, ts, starts):
+def walk_plain(mode, rpb, ptrs, qs, ts, starts, band=None):
     """Plain version of ``walk`` (any device)."""
     global plain_calls
     plain_calls += 1
     B, m_pad, n_pad = qs.shape[0], qs.shape[1], ts.shape[1]
+    window = band is not None
     dev = qs.device
     n_steps = m_pad + n_pad + 1
     bidx = torch.arange(B, device=dev)
@@ -89,7 +101,7 @@ def walk_plain(mode, rpb, ptrs, qs, ts, starts):
     cols1 = torch.zeros((n_steps, B), dtype=torch.uint8, device=dev)
     cols2 = torch.zeros_like(cols1)
     count = torch.zeros(B, dtype=torch.int32, device=dev)
-    err = torch.zeros(B, dtype=torch.bool, device=dev)
+    err = torch.zeros(B, dtype=torch.int32, device=dev)
     gap = torch.tensor(GAP, dtype=torch.uint8, device=dev)
     nul = torch.zeros((), dtype=torch.uint8, device=dev)
     overlap = mode == "overlap"
@@ -101,13 +113,21 @@ def walk_plain(mode, rpb, ptrs, qs, ts, starts):
             active = (state < DONE) & (i > 0)
             if mode != "fit":
                 active &= j > 0
-        if not bool(active.any()):
+        # a step with no active pair changes nothing, so the host asks
+        # (and waits for the device) only every SYNC_EVERY steps
+        if k % SYNC_EVERY == 0 and not bool(active.any()):
             break
         row = torch.clamp_min(i - 1, 0)
         jc = torch.clamp_min(j - 1, 0)
+        if window:  # lane k of row i-1; outside the band ends the walk
+            jc = j - i + band
+            out = (jc < 0) | (jc >= 2 * band + 1)
         if overlap:
             byte = _gather(ptrs, bidx, row // rpb, jc)
             code = (byte >> ((row % rpb) * (8 // rpb))) & 0x3
+            if window:
+                code = torch.where(out, L.OV_UNSET, code)
+                err |= torch.where(active & out, ERR_LEFT_BAND, 0)
             bad = active & ((code == L.OV_UNSET) | (i <= 0))
             takes_q = code != L.OV_LEFT  # DIAG and RIGHT consume a query char
             takes_t = code != L.OV_RIGHT  # LEFT and DIAG consume a target char
@@ -136,23 +156,26 @@ def walk_plain(mode, rpb, ptrs, qs, ts, starts):
                                         torch.where(j_is_jump, JUMP, MID))))
             takes_q = (state == LOW) | (state == MID)
             takes_t = state != LOW
+            if window:  # no step: the walk stops where it left the band
+                err |= torch.where(active & out, ERR_LEFT_BAND, 0)
+                state = torch.where(active & out, ERR, state)
+                active = active & ~out
         ni = torch.where(active & takes_q, i - 1, i)
         nj = torch.where(active & takes_t, j - 1, j)
         c1 = torch.where(takes_q, _chars(qs, bidx, ni), gap)
-        c2 = torch.where(takes_t, _chars(ts, bidx, nj), gap)
+        c2 = torch.where(takes_t, _chars(ts, bidx, nj + (band or 0)), gap)
         cols1[k] = torch.where(active, c1, nul)
         cols2[k] = torch.where(active, c2, nul)
         if overlap:
-            err |= bad
+            err |= torch.where(bad & (err == 0), ERR_UNSET, 0)
             done |= bad | (nj == 0)
             count += (active & ~bad).to(torch.int32)
         else:
-            err |= active & (nxt == ERR)
+            err |= torch.where(active & (nxt == ERR), ERR_UNSET, 0)
             state = torch.where(active, nxt, state)
             count += active.to(torch.int32)
         i, j = ni, nj
-    scal = torch.stack([count, i.to(torch.int32), j.to(torch.int32),
-                        err.to(torch.int32)])
+    scal = torch.stack([count, i.to(torch.int32), j.to(torch.int32), err])
     return cols1, cols2, scal
 
 
@@ -172,14 +195,14 @@ def _kernel():
         fn = _build.load().at_walk
         P, I = ctypes.c_void_p, ctypes.c_int
         # mode, rpb, ptrs, qs, ts, starts, cols1, cols2, scal, B, m_pad,
-        # n_pad, rows, threads, stream
-        fn.argtypes = [I, I, P, P, P, P, P, P, P, I, I, I, I, I, P]
+        # n_pad, rows, row width, band (-1 flat), threads, stream
+        fn.argtypes = [I, I, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
-def _check(mode, rpb, ptrs, qs, ts, starts):
+def _check(mode, rpb, ptrs, qs, ts, starts, band):
     if mode not in MODES:
         raise ValueError(f"unknown walk mode {mode!r}")
     B, m_pad = qs.shape if qs.dim() == 2 else (-1, -1)
@@ -187,20 +210,27 @@ def _check(mode, rpb, ptrs, qs, ts, starts):
     if rpb not in (1, 2, 4) or m_pad % rpb or (rpb == 4 and mode != "overlap"):
         raise ValueError(f"rows_per_byte {rpb} is not a {mode} layout for "
                          f"m_pad {m_pad}")
-    check_tensors([("ptrs", ptrs, torch.uint8, (B, m_pad // rpb, n_pad)),
+    width = n_pad
+    if band is not None:
+        width = ptrs.shape[2] if ptrs.dim() == 3 else -1
+        if rpb != 1 or band < 0 or width < 2 * band + 1 or m_pad < 1:
+            raise ValueError(f"a window walk needs rows_per_byte 1 and "
+                             f"(B, m_pad, >= 2*band+1) pointers, band {band}")
+    check_tensors([("ptrs", ptrs, torch.uint8, (B, m_pad // rpb, width)),
                    ("qs", qs, torch.int32, (B, m_pad)),
                    ("ts", ts, torch.int32, (B, n_pad)),
                    ("starts", starts, torch.int32, (3, B))], qs.device)
 
 
-def walk(mode, rpb, ptrs, qs, ts, starts):
+def walk(mode, rpb, ptrs, qs, ts, starts, band=None):
     """Walk every pair of a bucket from ``starts`` ((3, B) int32 state, i,
     j); returns (cols1, cols2, scal) as the module docstring lays them out.
-    ``qs``/``ts`` are the fill's int32 sentinel char planes."""
+    ``qs``/``ts`` are the fill's int32 sentinel char planes; with ``band``
+    the pointers are the banded fill's window and ``ts`` its ``te``."""
     starts = starts.contiguous()
-    _check(mode, rpb, ptrs, qs, ts, starts)
+    _check(mode, rpb, ptrs, qs, ts, starts, band)
     if qs.device.type == "cpu":
-        return walk_plain(mode, rpb, ptrs, qs, ts, starts)
+        return walk_plain(mode, rpb, ptrs, qs, ts, starts, band)
     global launches
     B, m_pad = qs.shape
     n_pad = ts.shape[1]
@@ -213,7 +243,8 @@ def walk(mode, rpb, ptrs, qs, ts, starts):
         err = _kernel()(MODES.index(mode), rpb, ptrs.data_ptr(),
                         qs.data_ptr(), ts.data_ptr(), starts.data_ptr(),
                         cols1.data_ptr(), cols2.data_ptr(), scal.data_ptr(),
-                        B, m_pad, n_pad, ptrs.shape[1], THREADS, stream)
+                        B, m_pad, n_pad, ptrs.shape[1], ptrs.shape[2],
+                        -1 if band is None else band, THREADS, stream)
     if err != 0:
         raise RuntimeError(f"walk kernel launch failed: CUDA error {err}")
     launches += 1

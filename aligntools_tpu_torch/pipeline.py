@@ -9,7 +9,10 @@ and results stream out as TSV, byte for byte the JAX package's:
     name1  name2  score  CIGAR          (cigar)
     name1  name2  score                 (scores_only, and edit)
 
-One global bucket partition covers the whole run; a one-worker prefetch
+With ``band`` the pairs go to the banded engine (``engine/banded.py``):
+its scores for ``scores_only`` and edit, its rows otherwise, and no bucket
+partition is built. Otherwise one global bucket partition covers the whole
+run; a one-worker prefetch
 overlaps the next chunk's fills with formatting the previous chunk;
 ``--resume`` checkpoints chunk completion through the shared Manifest.
 Fit junction sites come from each target record's header comment.
@@ -22,8 +25,10 @@ import sys
 import time as _time
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
+
 from aligntools_tpu_torch.io.fasta import parse_junctions, read_records
-from aligntools_tpu_torch.params import AlignParams
+from aligntools_tpu_torch.params import AlignParams, AlignResult
 from aligntools_tpu_torch.utils.checkpoint import Manifest
 from aligntools_tpu_torch.utils.cigar import rows_to_cigar
 from aligntools_tpu_torch.utils.profiling import Counters, stopwatch
@@ -63,24 +68,29 @@ def run_pipeline(
     with a manifest, each chunk's end byte offset is checkpointed and a
     resumed run truncates any torn chunk back to the last completed
     watermark before appending. Targets past the flat fills' 32,768
-    columns run on the column-blocked fills; ``sharded`` and ``band`` are
-    not ported yet and raise ValueError."""
+    columns run on the column-blocked fills; ``band`` runs the banded
+    engine; ``sharded`` is not ported yet and raises ValueError. A +inf
+    banded edit distance (an empty sequence) raises ValueError: it has no
+    integer to print."""
     from aligntools_tpu_torch.batch import _bucket_keys, align_batch
+    from aligntools_tpu_torch.engine import banded
 
     if sharded:
         raise ValueError("--sharded is not ported to aligntools_tpu_torch yet")
-    if band is not None:
-        raise ValueError("--band is not ported to aligntools_tpu_torch yet")
     if mode != "fit" and use_sites:
         raise ValueError("junction sites are only meaningful in fit mode")
+    if band is not None and use_sites:
+        raise ValueError("--band does not support the fit jump state")
     counters = Counters()
     with stopwatch(counters, "io_seconds"):
         rec_pairs = read_pair_records(path)
     # ONE bucket partition for the whole run, sliced per chunk
-    with stopwatch(counters, "encode_seconds"):
-        global_keys = _bucket_keys(
-            [(a.seq, b.seq) for a, b in rec_pairs], 64, 128
-        )
+    global_keys = None
+    if band is None:
+        with stopwatch(counters, "encode_seconds"):
+            global_keys = _bucket_keys(
+                [(a.seq, b.seq) for a, b in rec_pairs], 64, 128
+            )
     manifest = None
     if manifest_path:
         manifest = Manifest.load_or_create(
@@ -106,8 +116,24 @@ def run_pipeline(
     def compute(ci, chunk):
         """Align one chunk (on the prefetch worker: the NEXT chunk's
         encode + fills + walks overlap the main thread's formatting)."""
-        keys = global_keys[ci * chunk_size : ci * chunk_size + len(chunk)]
         pairs = [(a.seq, b.seq) for a, b in chunk]
+        if band is not None:
+            if mode == "edit" or scores_only:
+                scores, _ = banded.banded_batch_scores(
+                    mode, pairs, band, params, device=device,
+                    counters=counters)
+                if mode == "edit":
+                    if not np.isfinite(scores).all():
+                        raise ValueError(
+                            "banded edit distance is +inf (an empty "
+                            "sequence: no in-band path)")
+                    return pairs, list(scores)
+                return pairs, [AlignResult(float(s), b"", b"")
+                               for s in scores]
+            return pairs, banded.banded_align_batch(
+                mode, pairs, band, params, device=device,
+                counters=counters)[0]
+        keys = global_keys[ci * chunk_size : ci * chunk_size + len(chunk)]
         sites_list = None
         if use_sites:
             sites_list = [

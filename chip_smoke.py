@@ -42,7 +42,9 @@ Phases, one JSON line each:
                      tests hold that against the JAX package);
   buckets  meanwhile, every bucket those runs built, on the card: the score
            kernel against plain for the score runs, and the pointer kernel
-           and the walk against plain for the rows runs;
+           against plain for the rows runs, with the walk against plain on
+           every bucket of the 20,000-pair local run and on every fourth
+           of the 2,000-pair runs, whose walks cross the whole target;
   long     the port's main path on long targets through cli.main (L3):
            `batch fit -s` on 256+ seeded pairs (m ~ 1,300, n 40,000 to
            131,072, three junction sites each; enough that the pointer
@@ -58,16 +60,38 @@ Phases, one JSON line each:
            fill against plain on the card, the walk on every flat bucket
            and on L3's blocked bucket of the narrowest target.
 
+  banded   the banded path (`--band`). BK1: the banded kernel's nine
+           variants (scores for all five modes, pointers for global, local,
+           fit and overlap) against their plain versions, bit for bit, at 64
+           x 4,096 (W = 128) and 2,048 x 512 (W = 64), similar pairs (1%
+           substitutions, m = n), warm medians of both, GCUPS over band
+           cells and over true cells. BS: the port's main path through
+           cli.main on 20,000 seeded long-read-vs-consensus pairs (m
+           lognormal, median 2,000, sigma 0.2; the target is the query with
+           1% substitutions and 0.5% single-base indels) at `--band 128`:
+           `batch local` and `batch global` rows cold and warm and
+           `--scores-only`; on the first 2,000 `batch overlap`, `batch fit`
+           (targets with a 64-base random tail, so m <= n), rows and scores,
+           and `batch edit`. The banded kernel and the walk launched, no
+           plain version ran; each rows TSV's score column equals its scores
+           TSV, and 64 sampled lines equal the port's `--device cpu` run.
+           Meanwhile (`buckets` lines) every slab of those runs, kernel
+           against plain on the card (one plain call a slab holds both the
+           rows run's pointer fill and the scores run's score fill), and the
+           walk against plain on each rows run's first slab.
+
 The `--device cpu` runs of the sampled pairs go in processes of one thread
 each, beside the bucket checks, which are the longest phases.
 
     python3 chip_smoke.py --profile TRACE.json
 
 adds a `profile` phase: one more warm rows `batch local` run on the 20,000
-pairs and one more warm L3 `batch fit -s` rows run under torch.profiler,
+pairs, one more warm L3 `batch fit -s` rows run and one more warm BS
+`batch local --band 128` rows run under torch.profiler,
 with the device's busy time per op and its split between fill, walk,
 copies and allocation (the zero fills of new tensors), against the wall,
-and their Chrome traces written to TRACE.json and TRACE.long.json.
+and their Chrome traces written to TRACE.json, TRACE.long.json and
+TRACE.banded.json.
 
 Then the kernels' summary line (each kernel's time, launches on the main
 path, bound and plain time), the card's name and power limit as nvidia-smi
@@ -113,6 +137,9 @@ KERNELS = {
     "blocked_ptr": ("aligntools_tpu/ops/pallas_blocked.py:375 "
                     "_blocked_ptr_kernel (entry blocked_ptr_fill:764)",
                     "blocked_fill.cu", ()),
+    "banded": ("aligntools_tpu/ops/pallas_banded.py:61 _banded_kernel "
+               "(entries banded_pallas_scores:356, banded_pallas_full:369)",
+               "banded_fill.cu", ()),
 }
 # (B, m_pad, n_pad, ragged lengths, score variants)
 SHAPES = [
@@ -146,6 +173,19 @@ LONG_SAMPLES = 4
 LONG_POOL = 16
 LONG_SAMPLE_MAX_N = 60000
 LONG_FAR_N = 100000
+# the banded phase: BK1 (B, m = n, W), benchmarks/probe_banded.py's shapes;
+# BS pairs, the run's band, and the share of the pairs the slower modes run
+BANDED_BK1 = [(64, 4096, 128), (2048, 512, 64)]
+BANDED_VARIANTS = [("global", True), ("local", True), ("fit", True),
+                   ("overlap", True), ("global", False), ("local", False),
+                   ("fit", False), ("overlap", False), ("edit", False)]
+BS_PAIRS = 20000
+BS_SMALL = 2000
+BS_BAND = 128
+# the slice phase holds the walk against plain on every bucket of the
+# 20,000-pair local rows run and on every SMALL_WALK_EVERY-th bucket of the
+# 2,000-pair global, overlap and fit -s rows runs
+SMALL_WALK_EVERY = 4
 
 # The least time the card could take for the same work: the
 # larger of the operations over 33.5 T op/s (67 TFLOP/s of f32 counts an
@@ -424,12 +464,14 @@ def phase_ptr(torch, ptr, tb):
 
 
 def walk_row(torch, tb, mode, rpb, variant, shape, ptrs, qs, ts, starts,
-             w_k, w_eq, w_err, plain_ms):
+             w_k, w_eq, w_err, plain_ms, band=None):
     """Time the walk kernel (warm median of two; the plain version's time
-    is its one comparison call's) and check it against plain."""
-    tb.walk(mode, rpb, ptrs, qs, ts, starts)
+    is its one comparison call's) and check it against plain. ``band``: a
+    window walk over banded pointers."""
+    tb.walk(mode, rpb, ptrs, qs, ts, starts, band)
     ms_k = statistics.median(
-        timed_ms(torch, lambda: tb.walk(mode, rpb, ptrs, qs, ts, starts))
+        timed_ms(torch, lambda: tb.walk(mode, rpb, ptrs, qs, ts, starts,
+                                        band))
         for _ in range(2))
     steps = int(w_k[2][0].sum())
     B = qs.shape[0]
@@ -597,15 +639,16 @@ def sample(pool, k):
 
 def start_cpu_checks(work, runs):
     """For each run (tag, mode, rows TSV, scores TSV, pairs, sites, groups
-    of sampled pair indices): check that the rows TSV's names and score
-    column equal the scores TSV's, and start the port's `batch --device
-    cpu` run on each group's pairs, one process of one thread a group, so
-    that the checks on the card go on beside them. Returns the jobs for
-    finish_cpu_checks."""
+    of sampled pair indices[, more CLI arguments]): check that the rows
+    TSV's names and score column equal the scores TSV's, and start the
+    port's `batch --device cpu` run on each group's pairs, one process of
+    one thread a group, so that the checks on the card go on beside them.
+    Returns the jobs for finish_cpu_checks."""
     jobs = []
     env = dict(os.environ, OMP_NUM_THREADS="1")
     try:
-        for tag, mode, rows_tsv, scores_tsv, pairs, sites, groups in runs:
+        for tag, mode, rows_tsv, scores_tsv, pairs, sites, groups, *more in (
+                runs):
             rows, scores = read_lines(rows_tsv), read_lines(scores_tsv)
             check(len(rows) == len(scores) == len(pairs),
                   f"{tag}: {len(rows)} rows lines, {len(scores)} score lines "
@@ -621,8 +664,9 @@ def start_cpu_checks(work, runs):
                             names=picks)
                 out = os.path.join(work, f"{name}.cpu.tsv")
                 cmd = [sys.executable, "-m", "aligntools_tpu_torch", "batch",
-                       mode, fasta, *(["-s"] if sites else []), "--device",
-                       "cpu", "--out", out]
+                       mode, fasta, *(["-s"] if sites else []),
+                       *(more[0] if more else []), "--device", "cpu", "--out",
+                       out]
                 jobs.append((tag, rows, picks, out, cmd, subprocess.Popen(
                     cmd, cwd=ROOT, env=env, stdout=subprocess.DEVNULL,
                     stderr=subprocess.PIPE, text=True)))
@@ -675,13 +719,14 @@ def main_path_buckets(pairs, sites):
 
 
 def phase_buckets(torch, scan, ptr, tb, variant, pairs, sites, params,
-                  rows, long_walks=None):
+                  rows, long_walks=None, walk_every=1):
     """Kernel vs plain on every bucket the main path builds for ``pairs``,
     at the bucket's own B: the score kernel, or (``rows``) the pointer
     kernel and the walk. Walks over long targets take the plain version
     ~0.65 ms a step, up to the target's length: on blocked buckets the walk
     is held against it only when ``long_walks`` is a list, on the blocked
-    bucket of the narrowest target, whose walk row is appended there."""
+    bucket of the narrowest target, whose walk row is appended there; on
+    flat buckets, on every ``walk_every``-th bucket."""
     from aligntools_tpu_torch import batch, layout
     from aligntools_tpu_torch.convert import params_matrix
     from aligntools_tpu_torch.ops import blocked
@@ -696,14 +741,14 @@ def phase_buckets(torch, scan, ptr, tb, variant, pairs, sites, params,
                      key=lambda b: (b.n_pad, b.m_pad, len(b.idx)))
                  if rows and long_walks is not None and blocked_buckets
                  else None)
-    for b in buckets:
+    for k, b in enumerate(buckets):
         qs, ts, allow, ns, ms = batch._bucket_tensors(b, torch.device("cuda"))
         shape = f"{len(b.idx)}x{b.m_pad}x{b.n_pad}"
         long = b.n_pad > batch.PALLAS_FLAT_MAX_N_PAD
         c_blk = blocked.C_BLK if long else None
         if rows:
             rpb = layout.rows_per_byte(mode, jump, b.m_pad)
-            walk = not long or b is walk_long
+            walk = b is walk_long if long else k % walk_every == 0
             walks += walk
             f_eq, f_err, w_eq, w_err, k_out, w_k, starts, w_plain = (
                 ptr_compare(torch, ptr, tb, mode, jump, rpb, b.m_pad,
@@ -735,21 +780,23 @@ def phase_buckets(torch, scan, ptr, tb, variant, pairs, sites, params,
 
 
 def counts(scan, ptr, tb):
-    from aligntools_tpu_torch.ops import blocked
+    from aligntools_tpu_torch.ops import banded, blocked
 
     return ({**scan.launches, "ptr": ptr.launches, "walk": tb.launches,
-             **blocked.launches},
+             **blocked.launches, "banded": banded.launches},
             {"scan": scan.plain_calls, "ptr": ptr.plain_calls,
-             "walk": tb.plain_calls, "blocked": blocked.plain_calls})
+             "walk": tb.plain_calls, "blocked": blocked.plain_calls,
+             "banded": banded.plain_calls})
 
 
 def reset_counts(scan, ptr, tb):
-    from aligntools_tpu_torch.ops import blocked
+    from aligntools_tpu_torch.ops import banded, blocked
 
     scan.reset_counts()
     ptr.reset_counts()
     tb.reset_counts()
     blocked.reset_counts()
+    banded.reset_counts()
 
 
 def phase_slice(torch, scan, ptr, tb, work, trace_path):
@@ -837,10 +884,14 @@ def phase_slice(torch, scan, ptr, tb, work, trace_path):
                 sites if variant == "fit+jump" else None, params, False))
         checked_buckets.append(phase_buckets(torch, scan, ptr, tb, "local",
                                              pairs, None, params, True))
+        # the walk on every SMALL_WALK_EVERY-th bucket of the 2,000-pair
+        # runs, whose walks cross the whole target (the plain walk ~1 ms a
+        # step on the card): the cut that pays for the banded phase
         for variant in ("global", "overlap", "fit+jump"):
             checked_buckets.append(phase_buckets(
                 torch, scan, ptr, tb, variant, small,
-                sites if variant == "fit+jump" else None, params, True))
+                sites if variant == "fit+jump" else None, params, True,
+                walk_every=SMALL_WALK_EVERY))
         checked = finish_cpu_checks(jobs)
     finally:
         stop_cpu_checks(jobs)
@@ -985,7 +1036,283 @@ def phase_long(torch, scan, ptr, tb, work, trace_path):
     return launches, checked_buckets, long_walks
 
 
-PROFILE_GROUPS = (("fill", ("ptr_affine", "ptr_overlap", "bptr_")),
+def banded_kernel_inputs(torch, B, L, band, seed):
+    """BK1's inputs on the card: B queries of L random bases, each target
+    the query with 1% substitutions (m = n = L), in the banded kernel's
+    layout, default parameters."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    alpha = np.frombuffer(b"ACGT", dtype=np.uint8).astype(np.int32)
+    qs = rng.choice(alpha, (B, L))
+    ts = qs.copy()
+    mut = rng.random((B, L)) < 0.01
+    ts[mut] = rng.choice(alpha, int(mut.sum()))
+    te = np.full((B, band + L + 2 * band + 2), -2, np.int32)
+    te[:, band : band + L] = ts
+    lens = np.full((B, 1), L, np.int32)
+    pm = np.array([[1, -2, -5, -1, 0, 0, 0, 0]], np.float32)
+    return [torch.from_numpy(np.ascontiguousarray(x, dtype)).cuda()
+            for x, dtype in ((qs, np.int32), (te, np.int32), (lens, np.int32),
+                             (lens, np.int32), (pm, np.float32))]
+
+
+def band_cells(ms, ns, band):
+    """Cells of the matrices inside the band: what the recurrence needs."""
+    import numpy as np
+
+    total = 0
+    for m, n in zip(ms, ns):
+        i = np.arange(1, m + 1)
+        total += int(np.clip(np.minimum(n, i + band) - np.maximum(1, i - band)
+                             + 1, 0, None).sum())
+    return total
+
+
+def phase_banded_kernels(torch, banded):
+    """BK1: the nine variants against plain, bit for bit, and timed."""
+    rows = []
+    for B, L, band in BANDED_BK1:
+        args = banded_kernel_inputs(torch, B, L, band, SEED + 3)
+        cells, V = B * L * L, 2 * band + 1
+        need = band_cells([L] * B, [L] * B, band)
+        in_bytes = sum(x.numel() * x.element_size() for x in args)
+        shape = f"{B}x{L}/W{band}"
+        for mode, with_ptrs in BANDED_VARIANTS:
+            fn = banded.banded_full if with_ptrs else banded.banded_scores
+            plain = (banded.banded_full_plain if with_ptrs
+                     else banded.banded_scores_plain)
+            got = fn(mode, band, *args)
+            torch.cuda.synchronize()
+            # the plain version's time is its one comparison call's
+            want, ms_p = timed_call(torch, lambda: plain(mode, band, *args))
+            equal = all(torch.equal(g, w) for g, w in zip(got, want))
+            err = max([max_err(torch, g, w) for g, w in zip(got[:4], want)]
+                      + [0.0 if not with_ptrs or torch.equal(got[4], want[4])
+                         else float("inf")])
+            del got, want
+            ms_k = statistics.median(
+                timed_ms(torch, lambda: fn(mode, band, *args))
+                for _ in range(3))
+            out_bytes = 8 * B + (8 * B + B * L * banded.lanes_padded(band)
+                                 if with_ptrs else 0)
+            ops = (SCORE_OPS[mode]
+                   + (PTR_EXTRA_OPS[mode] if with_ptrs else 0)) * need
+            b_ms, b_by = bound(ops, in_bytes + out_bytes)
+            row = {"phase": "banded", "level": "BK1",
+                   "variant": f"{mode}/ptrs" if with_ptrs else mode,
+                   "shape": shape, "bit_equal": equal, "max_abs_err": err,
+                   "tolerance": TOL, "ms": ms_k, "plain_ms": ms_p,
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "band_cells": B * L * V, "band_cells_in_matrix": need,
+                   "true_cells": cells,
+                   "gcups_band": B * L * V / ms_k / 1e6,
+                   "gcups_true": cells / ms_k / 1e6}
+            emit(row)
+            check(equal and err == 0.0,
+                  f"banded {row['variant']} at {shape}: kernel != plain")
+            rows.append(row)
+        del args
+        torch.cuda.empty_cache()
+    return rows
+
+
+def similar_pairs(P, seed):
+    """BS: long reads against their consensus. m ~ lognormal(median 2,000,
+    sigma 0.2) random bases; the target is the query with 1% substitutions
+    and 0.5% single-base indels (half insertions, half deletions)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    alpha = np.frombuffer(b"ACGT", dtype=np.uint8)
+    pairs = []
+    for m in np.exp(rng.normal(np.log(2000), 0.2, P)).astype(int):
+        q = alpha[rng.integers(0, 4, m)]
+        t = q.copy()
+        sub = rng.random(m) < 0.01
+        t[sub] = alpha[rng.integers(0, 4, int(sub.sum()))]
+        at = np.flatnonzero(rng.random(m) < 0.005)
+        ins = rng.random(len(at)) < 0.5
+        copies = np.ones(m, int)
+        copies[at[~ins]] = 0
+        copies[at[ins]] = 2
+        t = np.repeat(t, copies)
+        # an inserted base follows its position's own
+        t[(np.cumsum(copies) - 1)[at[ins]]] = alpha[
+            rng.integers(0, 4, int(ins.sum()))]
+        pairs.append((q.tobytes(), t.tobytes()))
+    return pairs
+
+
+def banded_slab_checks(torch, tb, ebanded, banded, mode, pairs, params,
+                       walk_rows=None):
+    """Kernel vs plain on every slab the BS runs of ``mode`` fill: one plain
+    call a slab holds the pointer-emitting fill of the rows run (every byte)
+    and the score fill of the scores run (best and edge) where both fill it
+    (the pointer budget cuts no slab at BS's size), and the walk is held
+    against plain on the rows run's first slab, timed into ``walk_rows``
+    when given."""
+    from aligntools_tpu_torch import batch
+    from aligntools_tpu_torch.convert import params_matrix
+
+    dev = torch.device("cuda")
+    pm = params_matrix(params, dev)
+    budget = int(batch._hbm_budget(dev) * batch.PTR_BUDGET_FRAC)
+    score_plan = ebanded.plan(pairs, BS_BAND)
+    rows_plan = (ebanded.plan(pairs, BS_BAND, budget) if mode != "edit"
+                 else [])
+    slabs = ([(sl, True, sl in score_plan) for sl in rows_plan]
+             + [(sl, False, True) for sl in score_plan
+                if sl not in rows_plan])
+    shapes, worst, walks = [], 0.0, 0
+    for (idx, m_pad), rows, scores in slabs:
+        s = ebanded._slab(idx, pairs, m_pad)
+        qs, te, ns, ms = ebanded._slab_tensors(s, BS_BAND, dev)
+        args = (mode, BS_BAND, qs, te, ns, ms, pm)
+        shape = f"{len(idx)}x{m_pad}/W{BS_BAND}"
+        got = banded.banded_full(*args) if rows else ()
+        got_s = banded.banded_scores(*args) if scores else ()
+        torch.cuda.synchronize()
+        want = (banded.banded_full_plain(*args) if rows
+                else banded.banded_scores_plain(*args))
+        torch.cuda.synchronize()
+        equal = all(torch.equal(g, w) for g, w in zip(got, want))
+        equal &= all(torch.equal(g, w) for g, w in zip(got_s, want))
+        err = max([max_err(torch, g, w) for g, w in zip(got[:4], want)]
+                  + [max_err(torch, g, w) for g, w in zip(got_s, want)])
+        del want, got_s
+        if rows and not walks:
+            starts = tb.walk_starts(mode, got[0], got[2], got[3], ms, ns)
+            w_k = tb.walk(mode, 1, got[4], qs, te, starts, BS_BAND)
+            torch.cuda.synchronize()
+            w_p, w_plain = timed_call(torch, lambda: tb.walk_plain(
+                mode, 1, got[4], qs, te, starts, BS_BAND))
+            w_eq = all(torch.equal(k, p) for k, p in zip(w_k, w_p))
+            w_err = max([max_err(torch, w_k[2], w_p[2])]
+                        + [0.0 if torch.equal(k, p) else float("inf")
+                           for k, p in zip(w_k[:2], w_p[:2])])
+            if walk_rows is not None:
+                walk_rows.append(walk_row(
+                    torch, tb, mode, 1, f"{mode}/banded", f"{shape}/BS",
+                    got[4], qs, te, starts, w_k, w_eq, w_err, w_plain,
+                    BS_BAND))
+            walks += 1
+            equal, err = equal and w_eq, max(err, w_err)
+            del w_k, w_p
+        check(equal and err == 0.0, f"banded {mode} on BS slab {shape}: "
+              f"kernel != plain")
+        shapes.append(shape + ("/rows" if rows else "")
+                      + ("/scores" if scores else ""))
+        worst = max(worst, err)
+        del got, qs, te, ns, ms
+    torch.cuda.empty_cache()
+    row = {"phase": "buckets", "path": "banded", "variant": mode,
+           "buckets": len(shapes), "shapes": shapes, "walks_checked": walks,
+           "bit_equal": True, "max_abs_err": worst, "tolerance": TOL}
+    emit(row)
+    return row
+
+
+def phase_banded(torch, scan, ptr, tb, work, trace_path):
+    """BS: the banded path through cli.main, its launches counted from 0,
+    then every slab against plain while the CPU runs of the samples go
+    on."""
+    import numpy as np
+
+    from aligntools_tpu_torch import cli
+    from aligntools_tpu_torch.engine import banded as ebanded
+    from aligntools_tpu_torch.ops import banded
+    from aligntools_tpu_torch.params import AlignParams
+
+    pairs = similar_pairs(BS_PAIRS, SEED)
+    small = pairs[:BS_SMALL]
+    rng = np.random.default_rng(SEED + 5)
+    alpha = np.frombuffer(b"ACGT", dtype=np.uint8)
+    fit_pairs = [(q, t + alpha[rng.integers(0, 4, 64)].tobytes())
+                 for q, t in small]
+    fastas = {}
+    for label, ps in (("big", pairs), ("small", small), ("fit", fit_pairs)):
+        fastas[label] = os.path.join(work, f"bs-{label}.fa")
+        write_fasta(fastas[label], ps)
+    runs_in = {"local": ("big", pairs), "global": ("big", pairs),
+               "overlap": ("small", small), "fit": ("fit", fit_pairs),
+               "edit": ("small", small)}
+    emit({"phase": "banded", "level": "BS", "pairs": len(pairs),
+          "band": BS_BAND, "true_cells": sum(len(q) * len(t)
+                                             for q, t in pairs),
+          "band_cells_in_matrix": band_cells(
+              [len(q) for q, _ in pairs], [len(t) for _, t in pairs],
+              BS_BAND)})
+
+    def run(mode, label, rows):
+        fa, ps = runs_in[mode]
+        tsv = os.path.join(work, f"bs-{mode}-{'rows' if rows else 'scores'}"
+                                 f"-{label}.tsv")
+        argv = ["batch", mode, fastas[fa], "--band", str(BS_BAND),
+                *([] if rows else ["--scores-only"]), "--out", tsv]
+        wall, report = run_cli(cli, argv)
+        n_cells = sum(len(q) * len(t) for q, t in ps)
+        emit({"phase": "banded", "level": "BS",
+              "path": "rows" if rows else "scores", "mode": mode,
+              "run": label, "pairs": len(ps), "seconds": wall,
+              "pairs_per_s": len(ps) / wall,
+              "true_gcups": n_cells / wall / 1e9, "counters": report})
+        return tsv
+
+    # the banded path: its launches start here
+    reset_counts(scan, ptr, tb)
+    rows_tsv, scores_tsv, cold = {}, {}, {}
+    for mode in ("local", "global"):
+        cold[mode] = run(mode, "cold", True)
+        rows_tsv[mode] = run(mode, "warm", True)
+        scores_tsv[mode] = run(mode, "warm", False)
+    for mode in ("overlap", "fit"):
+        rows_tsv[mode] = run(mode, "cold", True)
+        scores_tsv[mode] = run(mode, "cold", False)
+    scores_tsv["edit"] = rows_tsv["edit"] = run("edit", "cold", False)
+    torch.cuda.synchronize()
+    launches, plain = counts(scan, ptr, tb)
+    emit({"phase": "banded", "level": "BS", "launches": launches,
+          "plain_calls": plain})
+    for name in ("banded", "walk"):
+        check(launches[name] > 0,
+              f"kernel {name} never launched on the banded path")
+    check(not any(plain.values()), f"plain versions ran on the banded path: "
+          f"{plain}")
+    for mode in ("local", "global"):
+        with open(cold[mode], "rb") as a, open(rows_tsv[mode], "rb") as b:
+            check(a.read() == b.read(),
+                  f"BS {mode}: cold and warm rows TSVs differ")
+    if trace_path:
+        root, ext = os.path.splitext(trace_path)
+        phase_profile(torch, cli, ["batch", "local", fastas["big"], "--band",
+                                   str(BS_BAND)], work,
+                      f"{root}.banded{ext}")
+
+    # the CPU runs of the sampled pairs go on beside the slab checks
+    jobs = start_cpu_checks(work, [
+        (f"bs-{mode}", mode, rows_tsv[mode], scores_tsv[mode],
+         runs_in[mode][1], None,
+         [sample(range(len(runs_in[mode][1])), SAMPLES)],
+         ["--band", str(BS_BAND)]) for mode in rows_tsv])
+    try:
+        params = AlignParams()
+        checked_buckets, walks = [], []
+        for mode in runs_in:
+            checked_buckets.append(banded_slab_checks(
+                torch, tb, ebanded, banded, mode, runs_in[mode][1], params,
+                walks if mode == "local" else None))
+        checked = finish_cpu_checks(jobs)
+    finally:
+        stop_cpu_checks(jobs)
+    emit({"phase": "banded", "level": "BS",
+          "rows_equal_scores": sorted(m for m in rows_tsv if m != "edit"),
+          "cpu_checked": checked})
+    return launches, checked_buckets, walks
+
+
+PROFILE_GROUPS = (("fill", ("ptr_affine", "ptr_overlap", "bptr_",
+                            "banded_")),
                   ("walk", ("walk_kernel",)),
                   ("copies", ("Memcpy", "memcpy")),
                   ("allocation", ("Memset", "memset", "FillFunctor")))
@@ -1028,12 +1355,16 @@ def phase_profile(torch, cli, argv, work, trace_path):
 
 
 def summary(rows, ptr_rows, walk_rows, bucket_rows, launches, blocked_rows,
-            long_buckets):
+            long_buckets, banded_rows, banded_buckets):
     """The kernels line: each kernel's representative timing, its launches
     on its path's main-path run, and its largest error over every check."""
     out = []
     for name, (replaces, src, variants) in KERNELS.items():
-        if name.startswith("blocked"):
+        if name == "banded":
+            # the representative timing: BK1's local pointers at W = 128
+            timed, mine = banded_rows, banded_rows + banded_buckets
+            timed = [r for r in timed if r["variant"] == "local/ptrs"]
+        elif name.startswith("blocked"):
             # the representative timing: L2, the fixture's shape
             timed = [r for r in blocked_rows if r["kernel"] == name]
             path = "scores" if name == "blocked_scores" else "rows"
@@ -1071,10 +1402,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch / "
                                              "CUDA port on one GPU")
     ap.add_argument("--profile", metavar="TRACE.json", default=None,
-                    help="also profile one warm 20,000-pair rows local run "
-                         "and one warm long-target fit -s rows run, and "
-                         "write their Chrome traces here (the second with "
-                         ".long before the extension)")
+                    help="also profile one warm 20,000-pair rows local run, "
+                         "one warm long-target fit -s rows run and one warm "
+                         "banded local rows run, and write their Chrome "
+                         "traces here (the second and third with .long and "
+                         ".banded before the extension)")
     opts = ap.parse_args(argv)
     try:
         import torch
@@ -1107,17 +1439,24 @@ def main(argv=None):
     rows = phase_kernels(torch, scan)
     ptr_rows, walk_rows = phase_ptr(torch, ptr, tb)
     blocked_rows = phase_blocked(torch, scan, ptr)
+    from aligntools_tpu_torch.ops import banded
+
+    banded_rows = phase_banded_kernels(torch, banded)
     trace = opts.profile and os.path.abspath(opts.profile)
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as work:
         launches, bucket_rows = phase_slice(torch, scan, ptr, tb, work, trace)
         long_launches, long_buckets, long_walks = phase_long(
             torch, scan, ptr, tb, work, trace)
+        banded_launches, banded_buckets, banded_walks = phase_banded(
+            torch, scan, ptr, tb, work, trace)
     launches.update(blocked_scores=long_launches["blocked_scores"],
-                    blocked_ptr=long_launches["blocked_ptr"])
-    emit({"kernels": summary(rows, ptr_rows, walk_rows + long_walks,
+                    blocked_ptr=long_launches["blocked_ptr"],
+                    banded=banded_launches["banded"])
+    emit({"kernels": summary(rows, ptr_rows,
+                             walk_rows + long_walks + banded_walks,
                              bucket_rows, launches, blocked_rows,
-                             long_buckets)})
+                             long_buckets, banded_rows, banded_buckets)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,7 @@ import torch
 from aligntools_tpu_torch import batch as tbatch
 from aligntools_tpu_torch import convert
 from aligntools_tpu_torch.engine import device_tb
-from aligntools_tpu_torch.ops import blocked, ptr, scan
+from aligntools_tpu_torch.ops import banded, blocked, ptr, scan
 from aligntools_tpu_torch.params import AlignParams
 from aligntools_tpu_torch.utils.synth import clustered_pairs
 
@@ -237,3 +237,129 @@ def test_empty_pairs_on_card_equal_cpu(cuda, mode):
                                  traceback=traceback, device="cuda")
         assert got == tbatch.align_batch(mode, pairs, AlignParams(),
                                          traceback=traceback, device="cpu")
+
+
+BANDED_VARIANTS = [("global", True), ("local", True), ("fit", True),
+                   ("overlap", True), ("global", False), ("local", False),
+                   ("fit", False), ("overlap", False), ("edit", False)]
+
+
+def _banded_inputs(seed, band, fit, B=13, m_pad=96):
+    """Ragged similar pairs in the banded kernel's layout: an empty query,
+    a full-height one, |n - m| == band exactly, the rest within the band
+    (fit: n >= m)."""
+    rng = np.random.default_rng(seed)
+    V = 2 * band + 1
+    ms = rng.integers(0, m_pad + 1, B)
+    ms[0], ms[1] = 0, m_pad
+    ns = np.maximum(ms + rng.integers(-band, band + 1, B), 0)
+    ns[2] = ms[2] + band
+    if fit:
+        ns = np.maximum(ns, ms)
+    n_max = int(ns.max())
+    qs = np.full((B, m_pad), -1, np.int32)
+    te = np.full((B, band + max(n_max, m_pad) + V + 1), -2, np.int32)
+    for k in range(B):
+        q = rng.choice(ALPHA_I32, ms[k])
+        t = np.concatenate([q, rng.choice(ALPHA_I32, max(0, ns[k] - ms[k]))])
+        t = t[: ns[k]].copy()
+        mut = rng.random(len(t)) < 0.05
+        t[mut] = rng.choice(ALPHA_I32, int(mut.sum()))
+        qs[k, : ms[k]] = q
+        te[k, band : band + ns[k]] = t
+    pm = np.array([[2, -3, -4, -1, 0, 0, 0, 0]], np.float32)
+    return [torch.from_numpy(x).cuda() for x in (
+        qs, te, ns[:, None].astype(np.int32), ms[:, None].astype(np.int32),
+        pm)]
+
+
+ALPHA_I32 = np.frombuffer(b"ACGT", dtype=np.uint8).astype(np.int32)
+
+
+@pytest.mark.parametrize("band", [1, 17, 128, 1000])
+@pytest.mark.parametrize("mode,emit", BANDED_VARIANTS)
+def test_banded_kernel_equals_plain(cuda, mode, emit, band):
+    """best, edge (and a, b, every pointer byte, pad lanes included); at
+    W = 1,000 the window's 2,001 lanes take 512 threads of 4 lanes."""
+    args = _banded_inputs(23 + band, band, mode == "fit")
+    before = banded.launches
+    fn = banded.banded_full if emit else banded.banded_scores
+    plain = banded.banded_full_plain if emit else banded.banded_scores_plain
+    got = fn(mode, band, *args)
+    torch.cuda.synchronize()
+    assert banded.launches == before + 1
+    want = plain(mode, band, *args)
+    for name, g, w in zip(("best", "edge", "a", "b", "ptrs"), got, want):
+        bad = (g != w).nonzero()
+        assert torch.equal(g, w), (name, bad[:8].tolist(), len(bad))
+
+
+@pytest.mark.parametrize("m_pad", [0, 1])
+@pytest.mark.parametrize("mode,emit", [("local", True), ("overlap", True),
+                                       ("edit", False)])
+def test_banded_kernel_on_flat_slabs(cuda, mode, emit, m_pad):
+    args = _banded_inputs(29, 8, False, B=5, m_pad=m_pad)
+    fn = banded.banded_full if emit else banded.banded_scores
+    plain = banded.banded_full_plain if emit else banded.banded_scores_plain
+    got = fn(mode, 8, *args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, plain(mode, 8, *args)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("band", [17, 128])
+@pytest.mark.parametrize("mode", ["global", "local", "fit", "overlap"])
+def test_banded_walk_kernel_equals_plain(cuda, mode, band):
+    """The window walk on the kernel's pointers, and on pointers that send
+    every walk out of the band."""
+    qs, te, ns, ms, pm = _banded_inputs(31, band, mode == "fit")
+    best, edge, a, b, ptrs = banded.banded_full(mode, band, qs, te, ns, ms,
+                                                pm)
+    starts = device_tb.walk_starts(mode, best, a, b, ms, ns)
+    for p in (ptrs, torch.full_like(ptrs, 0x02 if mode == "overlap"
+                                    else 0x00)):
+        before = device_tb.launches
+        wk = device_tb.walk(mode, 1, p, qs, te, starts, band)
+        torch.cuda.synchronize()
+        assert device_tb.launches == before + 1
+        wp = device_tb.walk_plain(mode, 1, p, qs, te, starts, band)
+        for name, g, w in zip(("cols1", "cols2", "scal"), wk, wp):
+            assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("mode", ["global", "local", "fit", "overlap",
+                                  "edit"])
+def test_banded_engine_on_card_equals_cpu(cuda, mode, monkeypatch):
+    """Scores and rows of similar pairs (and empty sequences) on the card
+    equal the CPU run, in groups of 16, and a CUDA tensor never reaches a
+    plain version."""
+    from aligntools_tpu_torch.engine import banded as ebanded
+
+    monkeypatch.setattr(ebanded, "GROUP_PAIRS_MIN", 16)
+    rng = np.random.default_rng(37)
+    pairs = []
+    for _ in range(40):
+        q = bytes(rng.choice(list(b"ACGT"), int(rng.integers(50, 400)))
+                  .tolist())
+        t = bytearray(q)
+        for _ in range(len(t) // 50):
+            t[int(rng.integers(0, len(t)))] = int(rng.choice(list(b"ACGT")))
+        pairs.append((q, bytes(t) + b"ACGT"[: int(rng.integers(0, 4))]))
+    pairs += [(b"", b"AC"), (b"", b"")]
+    band = 32
+    banded.reset_counts()
+    device_tb.reset_counts()
+    got_s = ebanded.banded_batch_scores(mode, pairs, band, device="cuda")
+    got_r = (ebanded.banded_align_batch(mode, pairs[:-2], band,
+                                        device="cuda")
+             if mode != "edit" else None)
+    assert banded.plain_calls == 0 and device_tb.plain_calls == 0
+    assert banded.launches > 1
+    want_s = ebanded.banded_batch_scores(mode, pairs, band, device="cpu")
+    for g, w in zip(got_s, want_s):
+        assert np.array_equal(g, w)
+    if got_r is not None:
+        want_r = ebanded.banded_align_batch(mode, pairs[:-2], band,
+                                            device="cpu")
+        assert got_r[0] == want_r[0]
+        assert np.array_equal(got_r[1], want_r[1])

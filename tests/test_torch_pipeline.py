@@ -237,7 +237,7 @@ def test_device_cuda_without_cuda_fails_clearly(tmp_path):
     assert r.stdout == ""
 
 
-@pytest.mark.parametrize("flag", [["--sharded"], ["--band", "32"]])
+@pytest.mark.parametrize("flag", [["--sharded"]])
 def test_unported_options_are_refused(tmp_path, capsys, flag):
     fasta = _synthetic_fasta(tmp_path, 2)
     assert main(["batch", "local", fasta, "--scores-only", "--device", "cpu",

@@ -8,7 +8,7 @@ import torch
 from aligntools_tpu_torch.params import AlignParams
 
 
-def params_matrix(p: AlignParams, device="cpu") -> torch.Tensor:
+def params_matrix(p: AlignParams, device) -> torch.Tensor:
     """(1, 8) float32 [match, mismatch, gap_open, gap_extend, jump, 0, 0, 0]
     — the kernels' params row, as ``aligntools_tpu/batch.py``
     (``_params_mat_np`` / ``_kernel_widen``) lays it out."""

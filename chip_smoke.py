@@ -7,6 +7,20 @@ Phases, one JSON line each:
 
   device   the card (nvidia-smi name and power limit), torch and CUDA
            versions, and the time to build the kernels from csrc/;
+  probe    the ceiling probe (aligntools_tpu_torch.tools.vpu_probe, the
+           counterpart of tools/vpu_probe.py): the chain loops of each
+           instantiation of csrc/vpu_probe.cu in its SASS (cuobjdump),
+           failing one with fewer than a link's three ops a max; its nine
+           variants against plain, bit for bit, at the JAX shapes and an
+           odd element count, chain 64; then, its launches counted from 0,
+           vmem_ceiling(), vpu_roofline() and roofline_ops_per_sec() for
+           float32 and int32 at the JAX defaults: T op/s, ops a clock an SM
+           at the SM clock nvidia-smi reads under each one's launch, and the
+           fraction of PEAK_OPS, failing a reading above 105% of the issue
+           ceiling (a folded chain); fill_scaling (local fill GCUPS at the
+           JAX tile-sweep cases). The measured float32 and int32 rates give
+           every later timing row its `probe_ms` (counted ops over the
+           rate), beside `bound_ms` (over the published peak);
   kernels  each score kernel against its plain PyTorch version on the
            card, bit for bit, for global, local, overlap, edit, fit and
            fit+jump at B=64 ragged pairs of (512, 2048), plus local at the
@@ -94,9 +108,9 @@ and their Chrome traces written to TRACE.json, TRACE.long.json and
 TRACE.banded.json.
 
 Then the kernels' summary line (each kernel's time, launches on the main
-path, bound and plain time), the card's name and power limit as nvidia-smi
-prints them, and, last, {"ok": true, "device": {...}}. Any failure exits
-nonzero before that line; so does a host without CUDA.
+path, bound, probe_ms and plain time), the card's name and power limit as
+nvidia-smi prints them, and, last, {"ok": true, "device": {...}}. Any
+failure exits nonzero before that line; so does a host without CUDA.
 """
 
 import argparse
@@ -140,6 +154,11 @@ KERNELS = {
     "banded": ("aligntools_tpu/ops/pallas_banded.py:61 _banded_kernel "
                "(entries banded_pallas_scores:356, banded_pallas_full:369)",
                "banded_fill.cu", ()),
+    "probe_chain": ("tools/vpu_probe.py:77 vmem_ceiling (body :90-97, call "
+                    ":101)", "vpu_probe.cu", ()),
+    "probe_ilp": ("tools/vpu_probe.py:124 roofline_ops_per_sec (body "
+                  ":143-156, call :161), :177 vpu_roofline (body :192-205, "
+                  "call :210)", "vpu_probe.cu", ()),
 }
 # (B, m_pad, n_pad, ragged lengths, score variants)
 SHAPES = [
@@ -218,6 +237,17 @@ def bound(ops, nbytes):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+# the card's chained max+add rates in op/s, measured by the probe phase
+# (roofline_ops_per_sec at its defaults) before any fill is timed
+PROBE_RATES = {}
+
+
+def probe_ms(ops, integer=False):
+    """The counted ops over the measured rate: float32's, or int32's for
+    the int32 fills (edit) and the walk."""
+    return ops / PROBE_RATES["int32" if integer else "float32"] * 1e3
+
+
 T0 = time.perf_counter()
 
 
@@ -232,13 +262,255 @@ def check(cond, msg):
         raise RuntimeError(msg)
 
 
-def nvidia_smi_line():
+def smi_query(fields, fmt="csv,noheader,nounits"):
+    """nvidia-smi's first line for ``fields`` of the card."""
     r = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
+        ["nvidia-smi", f"--query-gpu={fields}", f"--format={fmt}"],
+        capture_output=True, text=True, timeout=60, check=True)
     return r.stdout.strip().splitlines()[0]
+
+
+def nvidia_smi_line():
+    return smi_query("name,power.limit", "csv,noheader")
+
+
+# the probe phase: each variant against plain at the JAX shapes (one chain:
+# vmem_ceiling's, several: the ILP probes') and at an odd element count,
+# PROBE_CHECK_CHAIN links; a reading above PROBE_GUARD of the issue
+# ceiling (128 instructions an SM a clock at the card's top SM clock, times
+# the ops an instruction does where a link takes the fewest instructions it
+# can) fails, and so does a chain loop in the SASS that lacks a link's ops
+PROBE_CHECK_CHAIN = 64
+PROBE_SHAPES = {1: (32, 1024), 8: (64, 2048)}
+PROBE_RAGGED = (37, 129)
+PROBE_GUARD = 1.05
+LANES_PER_SM_CLOCK = 128
+CHAIN_UNROLL = 4  # the `#pragma unroll` of csrc/vpu_probe.cu's chain loop
+SASS_MAX = ("FMNMX", "IMNMX", "VIMNMX", "VIADDMNMX", "HMNMX2")
+SASS_ONE_OP = ("FADD", "VIADD", "HADD2", "HFMA2", "IMAD.IADD") + SASS_MAX
+SASS_FORMS = {"F32": ("float32", "plain"), "I32": ("int32", "plain"),
+              "I32Dpx": ("int32", "dpx"), "I16": ("int16", "plain"),
+              "I16x2Dpx": ("int16", "dpx"), "BF16x2": ("bfloat16", "x2")}
+
+
+def smi_under_load(torch, vp, load):
+    """(clocks.sm MHz, power.draw W) as nvidia-smi reads them while
+    ``load`` runs on the card again and again, until the query returns. The
+    load's launches are left out of the probe's counts."""
+    import threading
+
+    box, counts = {}, dict(vp.launches)
+
+    def query():
+        try:
+            box["out"] = smi_query("clocks.sm,power.draw")
+        except Exception as err:  # re-raised below, in the caller
+            box["err"] = err
+
+    th = threading.Thread(target=query)
+    th.start()
+    while th.is_alive():
+        load()
+        torch.cuda.synchronize()
+    th.join()
+    vp.launches.update(counts)
+    if "err" in box:
+        raise box["err"]
+    clk, power = (f.strip() for f in box["out"].split(","))
+    try:
+        return float(clk), float(power)
+    except ValueError:  # a card that reports no power draw ("[N/A]")
+        return float(clk), None
+
+
+def sass_ops(opcode, operands):
+    """Adds, subtracts and maxes one SASS instruction does on a register:
+    2 for a fused add-max, an IADD3 one fewer than its sources."""
+    import re
+
+    if opcode.startswith("VIADDMNMX"):
+        return 2
+    if opcode.startswith(SASS_ONE_OP):
+        return 1
+    if opcode == "IADD3":
+        return sum(not re.fullmatch(r"!?U?P(T|\d)|U?RZ", o)
+                   for o in operands[1:]) - 1
+    return 0
+
+
+def sass_chain_loops(sass):
+    """Per chain_kernel instantiation (dtype, form, width) of a
+    ``cuobjdump -sass`` listing, each innermost loop that holds a max:
+    its instructions, maxes and ops (``sass_ops``)."""
+    import re
+
+    code, key = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"chain_kernelINS_(\d+)(\w+?)ELi(\d+)E", line)
+            key = m and (*SASS_FORMS[m.group(2)[:int(m.group(1))]],
+                         int(m.group(3)))
+            if key:
+                code[key] = []
+            continue
+        ins = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?"
+                       r"([A-Z][A-Z0-9_.]*)\s*([^;]*);", line)
+        if key and ins:
+            ops = [o.strip() for o in ins.group(3).split(",") if o.strip()]
+            code[key].append((int(ins.group(1), 16), ins.group(2), ops))
+    out = {}
+    for key, ins in code.items():
+        back = [(int(ops[0], 16), at) for at, op, ops in ins
+                if op == "BRA" and int(ops[0], 16) < at]
+        out[key] = []
+        for lo, hi in back:
+            if any(lo <= l2 and h2 <= hi and (l2, h2) != (lo, hi)
+                   for l2, h2 in back):
+                continue  # holds another loop
+            body = [(op, ops) for at, op, ops in ins if lo <= at <= hi]
+            maxes = sum(op.startswith(SASS_MAX) for op, _ in body)
+            if maxes:
+                out[key].append({"instructions": len(body), "maxes": maxes,
+                                 "ops": sum(sass_ops(*i) for i in body)})
+    return out
+
+
+def sass_check(loops, variants, ops_per_link):
+    """Raises unless every variant has chain loops, the largest with
+    CHAIN_UNROLL * width maxes or more, and each loop at least
+    ``ops_per_link`` ops a max: a folded chain has fewer."""
+    for dtype, form, width in variants:
+        mine = loops.get((dtype, form, width))
+        check(mine, f"SASS: no chain loop for {dtype}/{form}/{width}")
+        top = max(lp["maxes"] for lp in mine)
+        check(top >= CHAIN_UNROLL * width, f"SASS {dtype}/{form}/{width}: "
+              f"{top} maxes in the chain loop, below {CHAIN_UNROLL * width}")
+        for lp in mine:
+            check(lp["ops"] >= ops_per_link * lp["maxes"],
+                  f"SASS {dtype}/{form}/{width}: {lp['ops']} ops for "
+                  f"{lp['maxes']} maxes: the chain was folded")
+
+
+def cuobjdump_sass(lib_path):
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    check(os.access(tool, os.X_OK), "cuobjdump is missing: the probe's "
+          "SASS cannot be checked for a folded chain")
+    return subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+
+
+def phase_probe(torch, vp, build):
+    """The ceiling probe (tools/vpu_probe.py's kernels): each
+    instantiation's chain loops in the SASS, the nine variants against
+    plain, then the probe's entry points at the JAX defaults with their
+    launches counted from 0, the rates beside the SM clock read under each
+    one's own launch, and fill_scaling. Sets PROBE_RATES."""
+    import numpy as np
+
+    loops = sass_chain_loops(cuobjdump_sass(build.library_path()))
+    emit({"phase": "probe", "sass_chain_loops": {
+        "/".join(map(str, k)): v for k, v in loops.items()}})
+    sass_check(loops, vp.VARIANTS, vp.OPS_PER_LINK)
+    worst = 0.0
+    for dtype, form, width in vp.VARIANTS:
+        tdt = vp.DTYPES[dtype][0]
+        for shape in (PROBE_SHAPES[width], PROBE_RAGGED):
+            rng = np.random.default_rng(SEED)
+            a, b = (torch.from_numpy(rng.integers(-8, 9, shape)).to(
+                "cuda", tdt) for _ in range(2))
+            got = vp.chain(a, b, PROBE_CHECK_CHAIN, width, form)
+            torch.cuda.synchronize()
+            want = vp.chain_plain(a, b, PROBE_CHECK_CHAIN, width)
+            err = max_err(torch, got.float(), want.float())
+            equal = bool(torch.equal(got, want))
+            emit({"phase": "probe", "variant": f"{dtype}/{form}/{width}",
+                  "shape": f"{shape[0]}x{shape[1]}",
+                  "chain": PROBE_CHECK_CHAIN, "bit_equal": equal,
+                  "max_abs_err": err, "tolerance": TOL})
+            check(equal and err == 0.0, f"probe {dtype}/{form}/{width} at "
+                  f"{shape}: kernel != plain")
+            worst = max(worst, err)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    top_mhz = float(smi_query("clocks.max.sm"))
+
+    # the probe path: its launches start here
+    vp.reset_counts()
+    rows = []
+
+    def rate_rows(probe, results):
+        for r in results:
+            # the clock under this reading's own launch
+            dt = vp.DTYPES[r["dtype"]][0]
+            a, b = (torch.full(r["shape"], v, dtype=dt, device="cuda")
+                    for v in (1, 0))
+            mhz, watts = smi_under_load(torch, vp, vp.launcher(
+                a, b, r["chain"], r["width"], r["form"]))
+            per_clk = r["ops_per_s"] / (mhz * 1e6 * sms)
+            ceiling = LANES_PER_SM_CLOCK * vp.ops_per_instruction(
+                r["dtype"], r["form"])
+            row = {"phase": "probe", "probe": probe,
+                   "variant": f"{r['dtype']}/{r['form']}/{r['width']}",
+                   "shape": f"{r['shape'][0]}x{r['shape'][1]}",
+                   "chain": r["chain"], "measures": r["measures"],
+                   "ms": r["seconds"] * 1e3, "tops": r["ops_per_s"] / 1e12,
+                   "clocks_sm_mhz": mhz, "power_w": watts,
+                   "ops_per_clk_per_sm": per_clk,
+                   "issue_ceiling_ops_per_clk_per_sm": ceiling,
+                   "fraction_of_peak_ops": r["ops_per_s"] / PEAK_OPS}
+            emit(row)
+            check(r["ops_per_s"] <= PROBE_GUARD * ceiling * top_mhz * 1e6
+                  * sms, f"probe {row['variant']}: {row['tops']:.3f} T op/s "
+                  f"is above {PROBE_GUARD:.0%} of the issue ceiling at "
+                  f"{top_mhz} MHz: the chain was folded")
+            rows.append(row)
+
+    rate_rows("vmem_ceiling", vp.vmem_ceiling())
+    rate_rows("vpu_roofline", vp.vpu_roofline())
+    for dtype in ("float32", "int32"):
+        shape, chain, width = PROBE_SHAPES[8], 4096, 8
+        PROBE_RATES[dtype] = vp.roofline_ops_per_sec(dtype)
+        ops = vp.OPS_PER_LINK * width * shape[0] * shape[1] * chain
+        rate_rows("roofline_ops_per_sec", [{
+            "dtype": dtype, "form": "plain", "width": width, "shape": shape,
+            "chain": chain, "seconds": ops / PROBE_RATES[dtype],
+            "ops_per_s": PROBE_RATES[dtype],
+            "measures": "issue rate, 8 independent chains a thread"}])
+    torch.cuda.synchronize()
+    launches, plain = dict(vp.launches), vp.plain_calls
+    emit({"phase": "probe", "launches": launches, "plain_calls": plain,
+          "sms": sms, "clocks_max_sm_mhz": top_mhz,
+          "rates_tops": {k: v / 1e12 for k, v in PROBE_RATES.items()}})
+    for name in launches:
+        check(launches[name] > 0, f"kernel {name} never launched on the "
+              f"probe path")
+    check(plain == 0, f"the plain version ran on the probe path: {plain}")
+    for r in vp.fill_scaling():
+        emit({"phase": "probe", **r})
+        check(r["exact"], f"fill_scaling {r['B']}x{r['L']}: repeat runs "
+              f"differ")
+
+    # the representative timings: vmem_ceiling's float32 and the float32
+    # roofline, each against one call of the plain version at its shape;
+    # probe_ms is null for the roofline, whose rate it would divide by
+    out = {}
+    for name, probe in (("probe_chain", "vmem_ceiling"),
+                        ("probe_ilp", "roofline_ops_per_sec")):
+        rep = next(r for r in rows if r["probe"] == probe
+                   and r["variant"].startswith("float32/"))
+        width = int(rep["variant"].rsplit("/", 1)[1])
+        shape = PROBE_SHAPES[width]
+        a, b = (torch.full(shape, v, dtype=torch.float32, device="cuda")
+                for v in (1.0, 0.0))
+        _, plain_ms = timed_call(torch, lambda: vp.chain_plain(
+            a, b, rep["chain"], width))
+        ops = vp.OPS_PER_LINK * width * shape[0] * shape[1] * rep["chain"]
+        b_ms, b_by = bound(ops, 3 * 4 * shape[0] * shape[1])
+        out[name] = {**rep, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "max_abs_err": worst,
+                     "probe_ms": probe_ms(ops) if width == 1 else None}
+    return launches, out
 
 
 def kernel_inputs(B, m_pad, n_pad, ragged, seed, device, lengths=None,
@@ -372,7 +644,10 @@ def phase_kernels(torch, scan):
                 "shape": f"{B}x{m_pad}x{n_pad}", "ragged": ragged,
                 "bit_equal": equal, "max_abs_err": err, "tolerance": TOL,
                 "ms": ms_k, "plain_ms": ms_p, "bound_ms": b_ms,
-                "bound_by": b_by, "true_cells": cells,
+                "bound_by": b_by,
+                "probe_ms": probe_ms(SCORE_OPS[variant] * cells,
+                                     variant == "edit"),
+                "true_cells": cells,
                 "gcups": cells / ms_k / 1e6, "plain_gcups": cells / ms_p / 1e6,
             }
             emit(row)
@@ -441,13 +716,14 @@ def phase_ptr(torch, ptr, tb):
                 mode, jump, m_pad, n_pad, qs, ts, allow, ns, ms, pm, rpb))
             ms_k, ms_p = turns(torch, fill, fill_plain, rounds=1)
             ptr_bytes = k_out[3].numel()
-            b_ms, b_by = bound(
-                (SCORE_OPS[variant] + PTR_EXTRA_OPS[variant]) * cells,
-                input_bytes(args, jump) + ptr_bytes + 12 * B)
+            ops = (SCORE_OPS[variant] + PTR_EXTRA_OPS[variant]) * cells
+            b_ms, b_by = bound(ops, input_bytes(args, jump) + ptr_bytes
+                               + 12 * B)
             row = {"phase": "ptr", "variant": f"{variant}/rpb{rpb}",
                    "shape": shape, "bit_equal": f_eq, "max_abs_err": f_err,
                    "tolerance": TOL, "ms": ms_k, "plain_ms": ms_p,
-                   "bound_ms": b_ms, "bound_by": b_by, "true_cells": cells,
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "probe_ms": probe_ms(ops), "true_cells": cells,
                    "ptr_bytes": ptr_bytes, "gcups": cells / ms_k / 1e6}
             emit(row)
             check(f_eq and f_err == 0.0,
@@ -480,7 +756,9 @@ def walk_row(torch, tb, mode, rpb, variant, shape, ptrs, qs, ts, starts,
     row = {"phase": "walk", "variant": f"{variant}/rpb{rpb}",
            "shape": shape, "bit_equal": w_eq, "max_abs_err": w_err,
            "tolerance": TOL, "ms": ms_k, "plain_ms": plain_ms,
-           "bound_ms": b_ms, "bound_by": b_by, "steps": steps,
+           "bound_ms": b_ms, "bound_by": b_by,
+           "probe_ms": probe_ms(WALK_OPS_PER_STEP * steps, True),
+           "steps": steps,
            "longest_walk": int(w_k[2][0].max())}
     emit(row)
     check(w_eq and w_err == 0.0,
@@ -602,7 +880,8 @@ def blocked_row(kernel, level, variant, shape, cells, ms_k, ms_p, args,
     row = {"phase": "blocked", "kernel": kernel, "level": level,
            "variant": variant, "shape": shape, "bit_equal": err == 0.0,
            "max_abs_err": err, "tolerance": TOL, "ms": ms_k, "plain_ms": ms_p,
-           "bound_ms": b_ms, "bound_by": b_by, "true_cells": cells,
+           "bound_ms": b_ms, "bound_by": b_by,
+           "probe_ms": probe_ms(ops, variant == "edit"), "true_cells": cells,
            "gcups": cells / ms_k / 1e6}
     emit(row)
     return row
@@ -1104,6 +1383,7 @@ def phase_banded_kernels(torch, banded):
                    "shape": shape, "bit_equal": equal, "max_abs_err": err,
                    "tolerance": TOL, "ms": ms_k, "plain_ms": ms_p,
                    "bound_ms": b_ms, "bound_by": b_by,
+                   "probe_ms": probe_ms(ops, mode == "edit"),
                    "band_cells": B * L * V, "band_cells_in_matrix": need,
                    "true_cells": cells,
                    "gcups_band": B * L * V / ms_k / 1e6,
@@ -1355,12 +1635,14 @@ def phase_profile(torch, cli, argv, work, trace_path):
 
 
 def summary(rows, ptr_rows, walk_rows, bucket_rows, launches, blocked_rows,
-            long_buckets, banded_rows, banded_buckets):
+            long_buckets, banded_rows, banded_buckets, probe_reps):
     """The kernels line: each kernel's representative timing, its launches
     on its path's main-path run, and its largest error over every check."""
     out = []
     for name, (replaces, src, variants) in KERNELS.items():
-        if name == "banded":
+        if name in probe_reps:
+            timed = mine = [probe_reps[name]]
+        elif name == "banded":
             # the representative timing: BK1's local pointers at W = 128
             timed, mine = banded_rows, banded_rows + banded_buckets
             timed = [r for r in timed if r["variant"] == "local/ptrs"]
@@ -1381,7 +1663,7 @@ def summary(rows, ptr_rows, walk_rows, bucket_rows, launches, blocked_rows,
                             and r["variant"] in variants]
         # the representative timing: the rows path's local at rpb 2 on the
         # bench.py shape for the pointer fill and the walk, else the first
-        # shape's last variant
+        # shape's last variant (the probe's: its float32 row)
         rep = next((r for r in timed if r["variant"] == "local/rpb2"
                     and r["shape"] == "256x2048x2048"),
                    [r for r in timed if r["shape"] == timed[0]["shape"]][-1])
@@ -1392,7 +1674,7 @@ def summary(rows, ptr_rows, walk_rows, bucket_rows, launches, blocked_rows,
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": rep["ms"], "plain_ms": rep["plain_ms"],
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
-            "library_ms": None,
+            "probe_ms": rep["probe_ms"], "library_ms": None,
             "variant": rep["variant"], "shape": rep["shape"],
         })
     return out
@@ -1422,6 +1704,7 @@ def main(argv=None):
     from aligntools_tpu_torch.backend import resolve_device
     from aligntools_tpu_torch.engine import device_tb as tb
     from aligntools_tpu_torch.ops import _build, ptr, scan
+    from aligntools_tpu_torch.tools import vpu_probe
 
     smi = nvidia_smi_line()
     resolve_device("cuda")  # raises unless the card is sm_90
@@ -1436,6 +1719,7 @@ def main(argv=None):
           "build_s": _build.build_seconds, "load_s": t1 - t0,
           "native_parser": parser, "parser_build_s": time.perf_counter() - t1})
 
+    probe_launches, probe_reps = phase_probe(torch, vpu_probe, _build)
     rows = phase_kernels(torch, scan)
     ptr_rows, walk_rows = phase_ptr(torch, ptr, tb)
     blocked_rows = phase_blocked(torch, scan, ptr)
@@ -1452,11 +1736,12 @@ def main(argv=None):
             torch, scan, ptr, tb, work, trace)
     launches.update(blocked_scores=long_launches["blocked_scores"],
                     blocked_ptr=long_launches["blocked_ptr"],
-                    banded=banded_launches["banded"])
+                    banded=banded_launches["banded"], **probe_launches)
     emit({"kernels": summary(rows, ptr_rows,
                              walk_rows + long_walks + banded_walks,
                              bucket_rows, launches, blocked_rows,
-                             long_buckets, banded_rows, banded_buckets)})
+                             long_buckets, banded_rows, banded_buckets,
+                             probe_reps)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -14,6 +14,7 @@ from aligntools_tpu_torch import convert
 from aligntools_tpu_torch.engine import device_tb
 from aligntools_tpu_torch.ops import banded, blocked, ptr, scan
 from aligntools_tpu_torch.params import AlignParams
+from aligntools_tpu_torch.tools import vpu_probe
 from aligntools_tpu_torch.utils.synth import clustered_pairs
 
 pytestmark = pytest.mark.cuda
@@ -363,3 +364,48 @@ def test_banded_engine_on_card_equals_cpu(cuda, mode, monkeypatch):
                                             device="cpu")
         assert got_r[0] == want_r[0]
         assert np.array_equal(got_r[1], want_r[1])
+
+
+# the probe's JAX shapes at a short chain, and an odd element count (the
+# packed forms' scalar tail)
+PROBE_SHAPES = [(64, 2048), (7, 13)]
+
+
+@pytest.mark.parametrize("shape", PROBE_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype,form,width", vpu_probe.VARIANTS, ids=str)
+def test_probe_kernel_equals_plain(cuda, dtype, form, width, shape):
+    tdt = vpu_probe.DTYPES[dtype][0]
+    rng = np.random.default_rng(41)
+    a = torch.from_numpy(rng.integers(-8, 9, shape)).to(cuda, tdt)
+    b = torch.from_numpy(rng.integers(-8, 9, shape)).to(cuda, tdt)
+    key = "probe_chain" if width == 1 else "probe_ilp"
+    before = vpu_probe.launches[key]
+    got = vpu_probe.chain(a, b, 64, width, form)
+    torch.cuda.synchronize()
+    assert vpu_probe.launches[key] == before + 1
+    want = vpu_probe.chain_plain(a, b, 64, width)
+    assert got.dtype == tdt and torch.equal(got, want)
+
+
+def test_probe_kernel_refuses_what_it_lacks(cuda):
+    x = torch.zeros((4, 8), dtype=torch.int16, device=cuda)
+    for dtype, form, width in (("int16", "x2", 8), ("int16", "dpx", 1),
+                               ("int16", "plain", 4)):
+        with pytest.raises(ValueError, match="no kernel variant"):
+            vpu_probe.chain(x, x, 3, width, form)
+    with pytest.raises(ValueError, match="unsupported dtype"):
+        vpu_probe.chain(x.double(), x.double(), 3, 1)
+    with pytest.raises(ValueError, match="4-byte aligned"):
+        vpu_probe.chain(x.view(-1)[1:], x.view(-1)[1:], 3, 8, "dpx")
+    # the C entry point refuses an uninstantiated (dtype, form, width)
+    lib = vpu_probe._kernel()
+    stream = torch.cuda.current_stream().cuda_stream
+    assert lib.at_vpu_chain(2, 2, 8, x.data_ptr(), x.data_ptr(),
+                            x.data_ptr(), x.numel(), 3, stream) != 0
+
+
+def test_probe_main_quick_on_card(cuda, capsys):
+    assert vpu_probe.main(["--quick"]) == 0
+    out = capsys.readouterr().out
+    assert out.count("Tops/s") == 4 + 6  # elementwise dtypes, roofline forms
+    assert "exact=True" in out

@@ -125,13 +125,13 @@ def test_resume_keeps_completed_chunks(tmp_path):
 PORT_FILES = sorted(
     glob.glob(os.path.join(REPO, "aligntools_tpu_torch", "**", "*.py"),
               recursive=True)) + [os.path.join(REPO, "chip_smoke.py")]
-BLOCKED = ("jax", "jaxlib", "aligntools_tpu")
+BLOCKED = ("jax", "jaxlib", "aligntools_tpu", "tools")
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, and chip_smoke, imports with jax, jaxlib
-    and the JAX package blocked at the import system, and then runs a
-    small rows batch on the CPU."""
+    """Every module of the port, and chip_smoke, imports with jax, jaxlib,
+    the JAX package and its ``tools/`` blocked at the import system, and
+    then runs a small rows batch on the CPU."""
     mods = [os.path.relpath(p, REPO)[:-3].replace(os.sep, ".")
             for p in PORT_FILES if not p.endswith("__main__.py")]
     code = (

@@ -54,7 +54,7 @@ def _pmat(p):
 
 @pytest.mark.parametrize("pname", sorted(PARAMS))
 def test_params_matrix_layout(pname):
-    got = convert.params_matrix(PARAMS[pname])
+    got = convert.params_matrix(PARAMS[pname], "cpu")
     assert got.dtype == torch.float32
     assert np.array_equal(got.numpy(), _pmat(PARAMS[pname]))
 

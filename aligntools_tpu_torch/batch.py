@@ -283,7 +283,12 @@ def _tick(counters, field: str, t0: float) -> float:
 # the dispatch window flushes (collects) when the outstanding buckets'
 # pointer bytes would pass it. A pair that cannot fit alone would need the
 # checkpoint-rescan engine (aligntools_tpu/engine/rescan.py), which is not
-# ported: such a run is refused before anything is dispatched.
+# ported: such a run is refused before anything is dispatched. The blocked
+# fills' wavefront buffers (ops/blocked._scratch: block edges, counters,
+# start-info candidates, ~16 * (m_pad + 1) bytes a pair and column block)
+# are left out of the budget: they are at most 16 * rpb / c_blk of the
+# pointer bytes (0.8% at rpb 1 and c_blk 2,048, 3.1% at overlap's rpb 4),
+# freed with the fill, and fit in the device memory the budget leaves.
 # ---------------------------------------------------------------------------
 
 PTR_BUDGET_FRAC = 0.45  # share of device memory the pointer tensors may use

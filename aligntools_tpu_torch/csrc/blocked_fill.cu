@@ -1,44 +1,67 @@
 // Column-blocked DP fills for Hopper (sm_90a): targets past the flat fills'
-// 32,768 columns, streamed in c_blk-wide column blocks, one CTA per pair.
+// 32,768 columns, cut into c_blk-wide column blocks that run as a wavefront,
+// one CTA per (pair, column block).
 //
 // Replaces ops/pallas_blocked.py:
-//   _blocked_affine_kernel (entry blocked_scores): the score fill of global,
-//     local, fit(+jump), overlap and edit (edit in int32 here; the Pallas
-//     kernel carries it in f32);
-//   _blocked_ptr_kernel (entry blocked_ptr_fill): the fill with packed
+//   :48 _blocked_affine_kernel (entry blocked_scores): the score fill of
+//     global, local, fit(+jump), overlap and edit (edit in int32 here; the
+//     Pallas kernel carries it in f32);
+//   :375 _blocked_ptr_kernel (entry blocked_ptr_fill): the fill with packed
 //     pointers and traceback-start info for global, local, fit(+jump) and
 //     overlap, rpb DP rows per byte (1, 2, or 4 for overlap).
 // Both compute exactly the flat fills' function (csrc/scan_fill.cu,
 // csrc/ptr_fill.cu; the plain versions ops/scan.py and ops/ptr.py): the same
 // scores, start info and pointer bytes, pad rows and pad columns included.
 //
-// Design. A CTA walks its pair's column blocks c = 0, 1, ... in order. Inside
-// a block it runs the flat kernels' strip machinery over c_blk columns:
+// Design. The grid holds one CTA for each (pair, column block). Inside its
+// block a CTA runs the flat kernels' strip machinery over c_blk columns:
 // thread t owns the block-local columns [t*W, (t+1)*W), and each query row
 // is a serial pass, a block scan for the in-row chain (U, fit's J, overlap's
 // and edit's left chains), a second serial pass and a barrier. The block's
 // row state (the previous row's values, the block's target chars, the jump
 // bias, the pointer codes and the byte-row being packed) lives in dynamic
 // shared memory, strip-transposed (block-local column t*W + k at slot
-// k*T + t), so a cell's loads and stores never leave the SM. Between blocks
-// the only state is each row's values at the block's last column: M, L, U, J
-// (the score fills keep max(L, M, U, J) in place of L, which is all the next
-// block's diagonal reads), for rows 1..m, in a wrapper-allocated device
-// buffer. There are two such buffers per pair, chosen by block parity: row i
-// reads the previous block's edges of rows i-1 (the diagonal shift-in) and i
-// (the chains' seeds) and writes its own edge of row i, which row i+1 still
-// reads from the previous block. Column-0 borders apply in block 0 only; the
-// row-0 edge is analytic in every block; every in-row chain continues across
-// blocks by its global column index (U's seed U(i, col0) - e*col0, overlap's
-// M(i, col0) - o*col0, edit's M(i, col0) - col0, fit's J carried flat).
+// k*T + t), so a cell's loads and stores never leave the SM.
 //
-// Start info merges across blocks as the Pallas kernel merges it: global
-// latches in the block that holds column n; local keeps the block's strict
-// running row-major maximum and takes a later block's only on a greater
-// score or an equal one at a smaller row; fit takes block 0's bottom row,
-// then a later block's on a greater score, or on an equal one from M where
-// the kept one is from L, or from the same matrix at a smaller j; overlap's
-// j = 0 zero candidate exists in block 0 only.
+// Between blocks the only state is each row's values at a block's last
+// column: M, L, U, J (the score fills keep max(L, M, U, J) in place of L,
+// which is all the next block's diagonal reads). Block c writes row i's edge
+// to its own (pair, block) slice of a wrapper-allocated device buffer, and
+// the thread that owns its last column then stores i to the block's progress
+// counter with release semantics (st.release.gpu). Row i of block c+1 reads
+// rows i-1 (the diagonal shift-in) and i (the chains' seeds) of that edge:
+// after its first pass over row i, its thread 0 waits with acquire loads
+// until block c's counter reaches i (it keeps the count it saw and polls
+// again only when i passes it), reads the edge through L2 (__ldcg: another
+// SM wrote it) and leaves it in shared memory, where the other threads read
+// it behind the block scan's barrier. So block c+1 runs about a row behind
+// block c, and all the blocks of a pair fill at once. Column-0 borders apply
+// in block 0 only; the row-0 edge is analytic in every block; every in-row
+// chain continues across blocks by its global column index (U's seed
+// U(i, col0) - e*col0, overlap's M(i, col0) - o*col0, edit's
+// M(i, col0) - col0, fit's J carried flat).
+//
+// No CTA waits on one that is not running, whatever order the hardware
+// starts CTAs in: each CTA takes a ticket from a per-launch counter on entry
+// and maps it block-major (block 0 of every pair, then block 1, ...), so the
+// block it waits on took a lower ticket and is running or done (the
+// decoupled look-back rule of single-pass scans). The wrapper zeroes the
+// ticket, progress and done counters for every launch. A score fill's
+// blocks past the pair's n exit at once: every later block of the pair is
+// past n too, so none waits on them. A pointer fill fills every block, since
+// every pointer byte is written.
+//
+// Start info merges across blocks as the Pallas kernel merges it, in block
+// order: global latches in the block that holds column n; local keeps the
+// block's strict running row-major maximum and takes a later block's only
+// on a greater score or an equal one at a smaller row; fit takes block 0's
+// bottom row, then a later block's on a greater score, or on an equal one
+// from M where the kept one is from L, or from the same matrix at a smaller
+// j; overlap's j = 0 zero candidate exists in block 0 only; the score fills
+// take the maximum (edit the minimum) of the blocks' values. Each CTA leaves
+// its block's candidate in a (pair, block) slot, and the CTA that finishes
+// the pair's last block (a per-pair done counter behind __threadfence, as in
+// CUDA's threadFenceReduction sample) merges them and writes the outputs.
 // Pointer bytes are staged in shared memory as one c_blk-wide byte-row
 // (row rpb*k in the low bits) and stored to ptrs[b, r, col0 : col0 + c_blk]
 // as 16-byte words; every offset into the pointer tensor is 64-bit (a
@@ -46,13 +69,15 @@
 //
 // What bounds it on this card: the per-row chain, as in the flat fills: two
 // barriers and a block scan per row and block, and W serial cells a thread
-// in each pass; with the row state in shared memory a cell costs shared-
-// memory latency, not L2's. The pointer bytes (m_pad*n_pad/rpb a pair) are
-// far below HBM's rate. One CTA per pair leaves SMs idle when a bucket holds
-// fewer than 132 pairs, which long-target buckets usually do: a wavefront
-// across column blocks (a CTA per (pair, block) passing row edges forward,
-// or a thread-block cluster passing them through distributed shared memory)
-// is the follow-up that would fill the card.
+// in each pass, with the row state in shared memory; across blocks, one
+// release store a row in the publishing block and an acquire poll a row in
+// the next, which sit on that chain. The pointer bytes (m_pad*n_pad/rpb a
+// pair) are far below HBM's rate. The grid is B x n_pad/c_blk CTAs (a
+// long-target bucket of ~10 pairs at c_blk 2,048: 240-640), in flight as
+// far as shared memory allows (fit+jump's pointer fill takes 26 bytes a
+// column: four CTAs an SM at 2,048) and, in a pair, by the wavefront's fill
+// and drain: its last block starts its first row n_pad/c_blk - 1 rows after
+// block 0.
 //
 // Exactness: values are integer-valued f32 below 2^24 with true -inf
 // borders (edit: int32), built with --fmad=false and no fast math; each
@@ -86,15 +111,72 @@ struct Strip {
   __device__ bool owns_last(int ncols) const { return cnt > 0 && k0 + cnt == ncols; }
 };
 
-// A pair's block-edge buffers: two (read / written, by block parity) of four
-// states for rows 0..m_pad.
-struct Edges {
-  float* base;
-  int rows;
-  __device__ Edges(float* edges, int m_pad)
-      : base(edges + (size_t)blockIdx.x * 8 * (m_pad + 1)), rows(m_pad + 1) {}
-  __device__ float* buf(int c) const { return base + (size_t)(c & 1) * 4 * rows; }
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// The CTA's ticket, taken on entry; the same in every thread.
+__device__ __forceinline__ int take_ticket(int* counter, int* shared_ticket) {
+  if (threadIdx.x == 0) *shared_ticket = atomicAdd(counter, 1);
+  __syncthreads();
+  return *shared_ticket;
+}
+
+// This CTA's place in the wavefront, from its ticket. `flags` is the ticket
+// counter, then per pair nblk progress counters (rows of the block's edge
+// published) and one done counter (blocks finished); `edges` holds per
+// (pair, block) four edge states of rows 0..m_pad; `cand` per (pair, block)
+// the block's start-info candidate.
+struct Wave {
+  int b, c, rows;
+  int* prog;
+  int* done;
+  int4* cand;
+  const float* ep;  // block c-1's edges (c > 0)
+  float* en;        // this block's edges
+  int seen;         // thread 0: rows of block c-1's edge seen published
+  __device__ Wave(int ticket, int nblk, int* flags, float* edges, int4* cand_, int m_pad) {
+    const int B = gridDim.x / nblk;
+    b = ticket % B;
+    c = ticket / B;
+    rows = m_pad + 1;
+    prog = flags + 1 + (size_t)b * (nblk + 1);
+    done = prog + nblk;
+    cand = cand_ + (size_t)b * nblk;
+    en = edges + ((size_t)b * nblk + c) * 4 * rows;
+    ep = en - (size_t)4 * rows;
+    seen = 0;
+  }
+  // thread 0, before it reads rows <= i of block c-1's edge
+  __device__ void wait(int i) {
+    while (seen < i) seen = ld_acquire(prog + c - 1);
+  }
+  __device__ float edge(int s, int i) const { return __ldcg(ep + (size_t)s * rows + i); }
+  __device__ int edge_i(int i) const { return __ldcg(reinterpret_cast<const int*>(ep) + i); }
+  __device__ void put(int s, int i, float v) const { en[(size_t)s * rows + i] = v; }
+  // the owner of the block's last column, after its edge stores of row i
+  __device__ void publish(int i) const { st_release(prog + c, i); }
+  // thread 0: leave this block's candidate; true in the CTA that finishes
+  // the pair's `parts`-th block, which may then read every candidate
+  __device__ bool finish(int4 v, int parts) const {
+    cand[c] = v;
+    __threadfence();
+    if (atomicAdd(done, 1) != parts - 1) return false;
+    __threadfence();
+    return true;
+  }
+  __device__ int4 candidate(int k) const { return __ldcg(cand + k); }
 };
+
+__device__ __forceinline__ int4 pack(float s, int a = 0, int b = 0) {
+  return make_int4(__float_as_int(s), a, b, 0);
+}
 
 // ---------------------------------------------------------------------------
 // Score fills
@@ -104,10 +186,10 @@ struct Edges {
 constexpr int SB = 0, SM = 1, SU = 2, SJ = 3;
 
 // State s of (row i, column col0) as block c reads it: column 0's border in
-// block 0, row 0's analytic value, else the previous block's edge.
+// block 0, row 0's analytic value, else block c-1's edge.
 template <int MODE>
 __device__ __forceinline__ float score_edge(int s, int c, int i, int col0, float o, float e,
-                                            const float* ep, int rows) {
+                                            const Wave& w) {
   if (c == 0) {
     if (s == SJ) return NEG;
     if (MODE == LOCAL) return 0.f;
@@ -120,7 +202,7 @@ __device__ __forceinline__ float score_edge(int s, int c, int i, int col0, float
     if (MODE == GLOBAL) return s == SM ? NEG : o + e * (float)col0;
     return 0.f;
   }
-  return ep[(size_t)s * rows + i];
+  return w.edge(s, i);
 }
 
 // Replaces the global / local / fit(+jump) branches of
@@ -131,10 +213,17 @@ __global__ void __launch_bounds__(MAX_THREADS)
 bscore_affine(const int* __restrict__ qs, const int* __restrict__ ts,
               const float* __restrict__ allow, const int* __restrict__ ns,
               const int* __restrict__ ms, const float* __restrict__ params,
-              float* __restrict__ out, float* edges, int m_pad, int n_pad, int c_blk, int W) {
+              float* __restrict__ out, float* edges, int* flags, int4* cand, int m_pad,
+              int n_pad, int c_blk, int W) {
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ float tot[2][32];
-  const int b = blockIdx.x, tid = threadIdx.x;
+  __shared__ float eg[4];  // row i's edge at col0, from thread 0
+  __shared__ int ticket;
+  Wave w(take_ticket(flags, &ticket), n_pad / c_blk, flags, edges, cand, m_pad);
+  const int b = w.b, c = w.c, tid = threadIdx.x;
+  const int n = min(max(ns[b], 0), n_pad), m = min(max(ms[b], 0), m_pad);
+  const int nb = max(1, (n + c_blk - 1) / c_blk);  // the blocks that hold columns <= n
+  if (c >= nb) return;
   const size_t S = (size_t)blockDim.x * W;
   float* Mr = reinterpret_cast<float*>(smem);
   float* Lr = Mr + S;
@@ -143,94 +232,94 @@ bscore_affine(const int* __restrict__ qs, const int* __restrict__ ts,
   int* Tc = reinterpret_cast<int*>(Jb + (JUMP ? S : 0));
   const float match = params[0], mis = params[1], o = params[2], e = params[3];
   const float jp = params[4];
-  const int n = min(max(ns[b], 0), n_pad), m = min(max(ms[b], 0), m_pad);
   const int* q = qs + (size_t)b * m_pad;
   const int* t = ts + (size_t)b * n_pad;
   const float* al = allow + (size_t)b * n_pad;
-  const Edges E(edges, m_pad);
+  const int col0 = c * c_blk, ncols = max(0, min(c_blk, n - col0));
+  const bool feeds = c + 1 < nb;  // block c+1 reads this block's edges
+  const Strip s(col0, ncols, W);
   float acc = NEG;
-  const int nblk = (n + c_blk - 1) / c_blk;  // the blocks that hold columns <= n
-  for (int c = 0; c < nblk; ++c) {
-    const int col0 = c * c_blk, ncols = min(c_blk, n - col0);
-    const Strip s(col0, ncols, W);
-    const float* ep = E.buf(c);
-    float* en = E.buf(c + 1);
-    // row 0: global M = L = -inf, U = o + e*j; local zeros; fit M = U = 0,
-    // L = J = -inf
+  // row 0: global M = L = -inf, U = o + e*j; local zeros; fit M = U = 0,
+  // L = J = -inf
+  for (int k = 0; k < s.cnt; ++k) {
+    const int j = s.j(k);
+    const size_t x = s.slot(k);
+    Tc[x] = t[j - 1];
+    Mr[x] = MODE == GLOBAL ? NEG : 0.f;
+    Lr[x] = MODE == LOCAL ? 0.f : NEG;
+    Br[x] = MODE == GLOBAL ? o + e * (float)j : 0.f;
+    if (JUMP) Jb[x] = (j < n_pad && al[j] > 0.f) ? jp : NEG;
+  }
+  const float jb0 = (JUMP && col0 < n_pad && al[col0] > 0.f) ? jp : NEG;
+  // thread 0's diagonal: max(L, M, U[, J]) at (i-1, col0)
+  float dB = score_edge<MODE>(SB, c, 0, col0, o, e, w);
+  __syncthreads();
+  for (int i = 1; i <= (ncols > 0 ? m : 0); ++i) {
+    const int qc = q[i - 1];
+    float diag = tid == 0 ? dB : (s.cnt > 0 ? Br[s.left] : NEG);
+    float agg[2] = {NEG, NEG};
     for (int k = 0; k < s.cnt; ++k) {
       const int j = s.j(k);
       const size_t x = s.slot(k);
-      Tc[x] = t[j - 1];
-      Mr[x] = MODE == GLOBAL ? NEG : 0.f;
-      Lr[x] = MODE == LOCAL ? 0.f : NEG;
-      Br[x] = MODE == GLOBAL ? o + e * (float)j : 0.f;
-      if (JUMP) Jb[x] = (j < n_pad && al[j] > 0.f) ? jp : NEG;
+      const float bold = Br[x];
+      const float sub = Tc[x] == qc ? match : mis;
+      float mv = diag + sub;
+      if (MODE == LOCAL) mv = fmaxf(mv, 0.f);
+      const float lv = fmaxf(Lr[x] + e, Mr[x] + o);
+      Mr[x] = mv;
+      Lr[x] = lv;
+      agg[0] = fmaxf(agg[0], mv + (o - e * (float)(j + 1)));
+      if (JUMP) agg[1] = fmaxf(agg[1], mv + Jb[x]);
+      diag = bold;
     }
-    const float jb0 = (JUMP && col0 < n_pad && al[col0] > 0.f) ? jp : NEG;
+    if (tid == 0) {
+      if (c > 0) w.wait(i);
+      for (int st = SB; st <= (JUMP ? SJ : SU); ++st)
+        eg[st] = score_edge<MODE>(st, c, i, col0, o, e, w);
+      dB = eg[SB];
+    }
+    const float none[2] = {NEG, NEG};
+    block_exclusive<MaxF>(agg, none, tot);
+    // the chains' column-col0 terms: U(i, col0) and M(i, col0) + o for U;
+    // J(i, col0) and the entry from M(i, col0) for J
+    const float em = eg[SM];
+    float run_u = fmaxf(fmaxf(eg[SU] - e * (float)col0, em + (o - e * (float)(col0 + 1))), agg[0]);
+    float run_j = JUMP ? fmaxf(fmaxf(eg[SJ], em + jb0), agg[1]) : NEG;
+    for (int k = 0; k < s.cnt; ++k) {
+      const int j = s.j(k);
+      const size_t x = s.slot(k);
+      const float mv = Mr[x], lv = Lr[x];
+      const float uv = run_u + e * (float)j;
+      const float bml = fmaxf(mv, lv);
+      float best = fmaxf(bml, uv);
+      const float jv = run_j;
+      if (JUMP) best = fmaxf(best, jv);
+      Br[x] = best;
+      run_u = fmaxf(run_u, mv + (o - e * (float)(j + 1)));
+      if (JUMP) run_j = fmaxf(run_j, mv + Jb[x]);
+      if (MODE == LOCAL)
+        acc = fmaxf(acc, mv);
+      else if (MODE == GLOBAL && i == m && j == n)
+        acc = best;
+      else if (MODE == FIT && i == m && j <= n - 1)  // U is excluded
+        acc = fmaxf(acc, bml);
+      if (feeds && k == s.cnt - 1 && s.owns_last(ncols)) {
+        w.put(SB, i, best);
+        w.put(SM, i, mv);
+        w.put(SU, i, uv);
+        if (JUMP) w.put(SJ, i, jv);
+        w.publish(i);
+      }
+    }
     __syncthreads();
-    for (int i = 1; i <= m; ++i) {
-      const int qc = q[i - 1];
-      float diag;  // max(L, M, U[, J]) at (i-1, j0-1)
-      if (tid == 0)
-        diag = score_edge<MODE>(SB, c, i - 1, col0, o, e, ep, E.rows);
-      else
-        diag = s.cnt > 0 ? Br[s.left] : NEG;
-      float agg[2] = {NEG, NEG};
-      for (int k = 0; k < s.cnt; ++k) {
-        const int j = s.j(k);
-        const size_t x = s.slot(k);
-        const float bold = Br[x];
-        const float sub = Tc[x] == qc ? match : mis;
-        float mv = diag + sub;
-        if (MODE == LOCAL) mv = fmaxf(mv, 0.f);
-        const float lv = fmaxf(Lr[x] + e, Mr[x] + o);
-        Mr[x] = mv;
-        Lr[x] = lv;
-        agg[0] = fmaxf(agg[0], mv + (o - e * (float)(j + 1)));
-        if (JUMP) agg[1] = fmaxf(agg[1], mv + Jb[x]);
-        diag = bold;
-      }
-      // the chains' column-col0 terms: U(i, col0) and M(i, col0) + o for U;
-      // J(i, col0) and the entry from M(i, col0) for J
-      const float em = score_edge<MODE>(SM, c, i, col0, o, e, ep, E.rows);
-      const float seed[2] = {
-          fmaxf(score_edge<MODE>(SU, c, i, col0, o, e, ep, E.rows) - e * (float)col0,
-                em + (o - e * (float)(col0 + 1))),
-          JUMP ? fmaxf(score_edge<MODE>(SJ, c, i, col0, o, e, ep, E.rows), em + jb0) : NEG};
-      float total[2];
-      block_exclusive<MaxF>(agg, seed, total, tot);
-      float run_u = agg[0], run_j = agg[1];
-      for (int k = 0; k < s.cnt; ++k) {
-        const int j = s.j(k);
-        const size_t x = s.slot(k);
-        const float mv = Mr[x], lv = Lr[x];
-        const float uv = run_u + e * (float)j;
-        const float bml = fmaxf(mv, lv);
-        float best = fmaxf(bml, uv);
-        const float jv = run_j;
-        if (JUMP) best = fmaxf(best, jv);
-        Br[x] = best;
-        run_u = fmaxf(run_u, mv + (o - e * (float)(j + 1)));
-        if (JUMP) run_j = fmaxf(run_j, mv + Jb[x]);
-        if (MODE == LOCAL)
-          acc = fmaxf(acc, mv);
-        else if (MODE == GLOBAL && i == m && j == n)
-          acc = best;
-        else if (MODE == FIT && i == m && j <= n - 1)  // U is excluded
-          acc = fmaxf(acc, bml);
-        if (k == s.cnt - 1 && s.owns_last(ncols)) {
-          en[(size_t)SB * E.rows + i] = best;
-          en[(size_t)SM * E.rows + i] = mv;
-          en[(size_t)SU * E.rows + i] = uv;
-          en[(size_t)SJ * E.rows + i] = jv;
-        }
-      }
-      __syncthreads();
-    }
   }
   const float r = block_reduce<MaxF>(acc, tot[0]);
-  // + 0.f turns a -0 into +0: the score is printed with %f
-  if (tid == 0) out[b] = MODE == LOCAL ? r + 0.f : r;
+  if (tid == 0 && w.finish(pack(r), nb)) {
+    float v = NEG;
+    for (int k = 0; k < nb; ++k) v = fmaxf(v, __int_as_float(w.candidate(k).x));
+    // + 0.f turns a -0 into +0: the score is printed with %f
+    out[b] = MODE == LOCAL ? v + 0.f : v;
+  }
 }
 
 // Replaces the overlap branch of _blocked_affine_kernel (one matrix, linear
@@ -239,68 +328,79 @@ __global__ void __launch_bounds__(MAX_THREADS)
 bscore_overlap(const int* __restrict__ qs, const int* __restrict__ ts,
                const int* __restrict__ ns, const int* __restrict__ ms,
                const float* __restrict__ params, float* __restrict__ out, float* edges,
-               int m_pad, int n_pad, int c_blk, int W) {
+               int* flags, int4* cand, int m_pad, int n_pad, int c_blk, int W) {
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ float tot[1][32];
-  const int b = blockIdx.x, tid = threadIdx.x;
+  __shared__ float eg;  // M(i, col0), from thread 0
+  __shared__ int ticket;
+  Wave w(take_ticket(flags, &ticket), n_pad / c_blk, flags, edges, cand, m_pad);
+  const int b = w.b, c = w.c, tid = threadIdx.x;
+  const int n = min(max(ns[b], 0), n_pad), m = min(max(ms[b], 0), m_pad);
+  const int nb = max(1, (n + c_blk - 1) / c_blk);
+  if (c >= nb) return;
   const size_t S = (size_t)blockDim.x * W;
   float* Mr = reinterpret_cast<float*>(smem);
   float* Cr = Mr + S;
   int* Tc = reinterpret_cast<int*>(Cr + S);
   const float match = params[0], mis = params[1], o = params[2];
-  const int n = min(max(ns[b], 0), n_pad), m = min(max(ms[b], 0), m_pad);
   const int* q = qs + (size_t)b * m_pad;
   const int* t = ts + (size_t)b * n_pad;
-  const Edges E(edges, m_pad);
+  const int col0 = c * c_blk, ncols = max(0, min(c_blk, n - col0));
+  const bool feeds = c + 1 < nb;
+  const Strip s(col0, ncols, W);
   float acc = NEG;
-  const int nblk = (n + c_blk - 1) / c_blk;
-  for (int c = 0; c < nblk; ++c) {
-    const int col0 = c * c_blk, ncols = min(c_blk, n - col0);
-    const Strip s(col0, ncols, W);
-    const float* ep = E.buf(c);
-    float* en = E.buf(c + 1);
-    // M(i, col0): the column-0 border is 0; row 0 is -inf past column 0
-    auto edge = [&](int i) { return c == 0 ? 0.f : (i == 0 ? NEG : ep[i]); };
+  // M(i, col0): the column-0 border is 0; row 0 is -inf past column 0
+  auto edge = [&](int i) { return c == 0 ? 0.f : (i == 0 ? NEG : w.edge(0, i)); };
+  for (int k = 0; k < s.cnt; ++k) {
+    const size_t x = s.slot(k);
+    Tc[x] = t[s.j(k) - 1];
+    Mr[x] = NEG;
+  }
+  float dM = edge(0);  // thread 0: M(i-1, col0)
+  __syncthreads();
+  for (int i = 1; i <= (ncols > 0 ? m : 0); ++i) {
+    const int qc = q[i - 1];
+    float diag = tid == 0 ? dM : (s.cnt > 0 ? Mr[s.left] : NEG);
+    float agg[1] = {NEG};
     for (int k = 0; k < s.cnt; ++k) {
+      const int j = s.j(k);
       const size_t x = s.slot(k);
-      Tc[x] = t[s.j(k) - 1];
-      Mr[x] = NEG;
+      const float mp = Mr[x];
+      const float sub = Tc[x] == qc ? match : mis;
+      const float dr = fmaxf(diag + sub, mp + o);
+      const float cv = dr - o * (float)j;
+      Cr[x] = cv;
+      agg[0] = fmaxf(agg[0], cv);
+      diag = mp;
+    }
+    if (tid == 0) {
+      if (c > 0) w.wait(i);
+      dM = eg = edge(i);
+    }
+    const float none[1] = {NEG};
+    block_exclusive<MaxF>(agg, none, tot);
+    float run = fmaxf(eg - o * (float)col0, agg[0]);
+    for (int k = 0; k < s.cnt; ++k) {
+      const int j = s.j(k);
+      const size_t x = s.slot(k);
+      run = fmaxf(run, Cr[x]);
+      const float mv = run + o * (float)j;
+      Mr[x] = mv;
+      if (i == m && j <= n - 1) acc = fmaxf(acc, mv);
+      if (feeds && k == s.cnt - 1 && s.owns_last(ncols)) {
+        w.put(0, i, mv);
+        w.publish(i);
+      }
     }
     __syncthreads();
-    for (int i = 1; i <= m; ++i) {
-      const int qc = q[i - 1];
-      float diag = tid == 0 ? edge(i - 1) : (s.cnt > 0 ? Mr[s.left] : NEG);
-      float agg[1] = {NEG};
-      for (int k = 0; k < s.cnt; ++k) {
-        const int j = s.j(k);
-        const size_t x = s.slot(k);
-        const float mp = Mr[x];
-        const float sub = Tc[x] == qc ? match : mis;
-        const float dr = fmaxf(diag + sub, mp + o);
-        const float cv = dr - o * (float)j;
-        Cr[x] = cv;
-        agg[0] = fmaxf(agg[0], cv);
-        diag = mp;
-      }
-      const float seed[1] = {edge(i) - o * (float)col0};
-      float total[1];
-      block_exclusive<MaxF>(agg, seed, total, tot);
-      float run = agg[0];
-      for (int k = 0; k < s.cnt; ++k) {
-        const int j = s.j(k);
-        const size_t x = s.slot(k);
-        run = fmaxf(run, Cr[x]);
-        const float mv = run + o * (float)j;
-        Mr[x] = mv;
-        if (i == m && j <= n - 1) acc = fmaxf(acc, mv);
-        if (k == s.cnt - 1 && s.owns_last(ncols)) en[i] = mv;
-      }
-      __syncthreads();
-    }
   }
   const float r = block_reduce<MaxF>(acc, tot[0]);
-  // the j = 0 border contributes its 0; + 0.f turns a -0 into +0
-  if (tid == 0) out[b] = fmaxf(r, 0.f) + 0.f;
+  if (tid == 0 && w.finish(pack(r), nb)) {
+    float v = NEG;
+    for (int k = 0; k < nb; ++k) v = fmaxf(v, __int_as_float(w.candidate(k).x));
+    // the j = 0 border contributes its 0; + 0.f turns a -0 into +0
+    out[b] = fmaxf(v, 0.f) + 0.f;
+  }
 }
 
 // Replaces the edit branch of _blocked_affine_kernel (min-plus, indel 1,
@@ -309,69 +409,80 @@ bscore_overlap(const int* __restrict__ qs, const int* __restrict__ ts,
 __global__ void __launch_bounds__(MAX_THREADS)
 bscore_edit(const int* __restrict__ qs, const int* __restrict__ ts,
             const int* __restrict__ ns, const int* __restrict__ ms,
-            const float* __restrict__ params, int* __restrict__ out, float* edges,
-            int m_pad, int n_pad, int c_blk, int W) {
+            const float* __restrict__ params, int* __restrict__ out, float* edges, int* flags,
+            int4* cand, int m_pad, int n_pad, int c_blk, int W) {
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ int tot[1][32];
-  const int b = blockIdx.x, tid = threadIdx.x;
+  __shared__ int eg;  // M(i, col0), from thread 0
+  __shared__ int ticket;
+  Wave w(take_ticket(flags, &ticket), n_pad / c_blk, flags, edges, cand, m_pad);
+  const int b = w.b, c = w.c, tid = threadIdx.x;
+  const int n = min(max(ns[b], 0), n_pad), m = min(max(ms[b], 0), m_pad);
+  const int nb = max(1, (n + c_blk - 1) / c_blk);
+  if (c >= nb) return;
   const size_t S = (size_t)blockDim.x * W;
   int* Pr = reinterpret_cast<int*>(smem);
   int* Cr = Pr + S;
   int* Tc = Cr + S;
   const int u = (int)params[1];
-  const int n = min(max(ns[b], 0), n_pad), m = min(max(ms[b], 0), m_pad);
   const int* q = qs + (size_t)b * m_pad;
   const int* t = ts + (size_t)b * n_pad;
-  const Edges E(edges, m_pad);
+  const int col0 = c * c_blk, ncols = max(0, min(c_blk, n - col0));
+  const bool feeds = c + 1 < nb;
+  const Strip s(col0, ncols, W);
   int acc = INT_MAX;
-  const int nblk = (n + c_blk - 1) / c_blk;
-  for (int c = 0; c < nblk; ++c) {
-    const int col0 = c * c_blk, ncols = min(c_blk, n - col0);
-    const Strip s(col0, ncols, W);
-    const int* ep = reinterpret_cast<const int*>(E.buf(c));
-    int* en = reinterpret_cast<int*>(E.buf(c + 1));
-    // M(i, col0): M(i, 0) = i, M(0, j) = j
-    auto edge = [&](int i) { return c == 0 ? i : (i == 0 ? col0 : ep[i]); };
+  // M(i, col0): M(i, 0) = i, M(0, j) = j
+  auto edge = [&](int i) { return c == 0 ? i : (i == 0 ? col0 : w.edge_i(i)); };
+  for (int k = 0; k < s.cnt; ++k) {
+    const size_t x = s.slot(k);
+    Tc[x] = t[s.j(k) - 1];
+    Pr[x] = s.j(k);
+  }
+  int dM = edge(0);  // thread 0: M(i-1, col0)
+  __syncthreads();
+  for (int i = 1; i <= (ncols > 0 ? m : 0); ++i) {
+    const int qc = q[i - 1];
+    int diag = tid == 0 ? dM : (s.cnt > 0 ? Pr[s.left] : 0);
+    int agg[1] = {INT_MAX};
     for (int k = 0; k < s.cnt; ++k) {
+      const int j = s.j(k);
       const size_t x = s.slot(k);
-      Tc[x] = t[s.j(k) - 1];
-      Pr[x] = s.j(k);
+      const int pp = Pr[x];
+      const int sub = Tc[x] == qc ? 0 : u;
+      const int cv = min(diag + sub, pp + 1) - j;
+      Cr[x] = cv;
+      agg[0] = min(agg[0], cv);
+      diag = pp;
+    }
+    if (tid == 0) {
+      if (c > 0) w.wait(i);
+      dM = eg = edge(i);
+    }
+    const int none[1] = {INT_MAX};
+    block_exclusive<MinI>(agg, none, tot);
+    int run = min(eg - col0, agg[0]);
+    for (int k = 0; k < s.cnt; ++k) {
+      const int j = s.j(k);
+      const size_t x = s.slot(k);
+      run = min(run, Cr[x]);
+      const int v = run + j;
+      Pr[x] = v;
+      if (i == m && j == n) acc = v;
+      if (feeds && k == s.cnt - 1 && s.owns_last(ncols)) {
+        w.put(0, i, __int_as_float(v));
+        w.publish(i);
+      }
     }
     __syncthreads();
-    for (int i = 1; i <= m; ++i) {
-      const int qc = q[i - 1];
-      int diag = tid == 0 ? edge(i - 1) : (s.cnt > 0 ? Pr[s.left] : 0);
-      int agg[1] = {INT_MAX};
-      for (int k = 0; k < s.cnt; ++k) {
-        const int j = s.j(k);
-        const size_t x = s.slot(k);
-        const int pp = Pr[x];
-        const int sub = Tc[x] == qc ? 0 : u;
-        const int cv = min(diag + sub, pp + 1) - j;
-        Cr[x] = cv;
-        agg[0] = min(agg[0], cv);
-        diag = pp;
-      }
-      const int seed[1] = {edge(i) - col0};
-      int total[1];
-      block_exclusive<MinI>(agg, seed, total, tot);
-      int run = agg[0];
-      for (int k = 0; k < s.cnt; ++k) {
-        const int j = s.j(k);
-        const size_t x = s.slot(k);
-        run = min(run, Cr[x]);
-        const int v = run + j;
-        Pr[x] = v;
-        if (i == m && j == n) acc = v;
-        if (k == s.cnt - 1 && s.owns_last(ncols)) en[i] = v;
-      }
-      __syncthreads();
-    }
   }
   const int r = block_reduce<MinI>(acc, tot[0]);
-  // before any row, the result is M(0, n)'s latch value 0, as in the flat
-  // fills; INT_MAX when n == 0
-  if (tid == 0) out[b] = (m == 0 && n > 0) ? 0 : r;
+  if (tid == 0 && w.finish(make_int4(r, 0, 0, 0), nb)) {
+    int v = INT_MAX;
+    for (int k = 0; k < nb; ++k) v = min(v, w.candidate(k).x);
+    // before any row, the result is M(0, n)'s latch value 0, as in the flat
+    // fills; INT_MAX when n == 0
+    out[b] = (m == 0 && n > 0) ? 0 : v;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -383,7 +494,7 @@ constexpr int PM = 0, PL = 1, PU = 2, PJ = 3;
 
 template <int MODE>
 __device__ __forceinline__ float ptr_edge(int s, int c, int i, int col0, float o, float e,
-                                          const float* ep, int rows) {
+                                          const Wave& w) {
   if (c == 0) {  // column 0
     if (s == PJ) return NEG;
     if (MODE == LOCAL) return 0.f;
@@ -397,32 +508,37 @@ __device__ __forceinline__ float ptr_edge(int s, int c, int i, int col0, float o
     if (MODE == GLOBAL) return s == PU ? o + e * (float)col0 : NEG;
     return s == PL ? NEG : 0.f;  // fit: M = U = 0
   }
-  return ep[(size_t)s * rows + i];
+  return w.edge(s, i);
 }
 
 // Replaces the global / local / fit(+jump) branches of _blocked_ptr_kernel
 // (JUMP: fit's junction-gated J state, entry allowed where allow > 0 — the
 // reference's inverted enum-bool quirk). Per slot: M, L, U[, J, the jump
-// bias] of the row, the target char and pass 1's part of the pointer code.
+// bias] of the row, the target char and pass 1's part of the pointer code;
+// per thread its last column's M and L of the previous row.
 template <int MODE, bool JUMP>
 __global__ void __launch_bounds__(MAX_THREADS)
 bptr_affine(const int* __restrict__ qs, const int* __restrict__ ts,
             const float* __restrict__ allow, const int* __restrict__ ns,
             const int* __restrict__ ms, const float* __restrict__ params,
             float* __restrict__ score_out, int* __restrict__ a_out, int* __restrict__ b_out,
-            uint8_t* __restrict__ ptrs, float* edges, int m_pad, int n_pad, int c_blk, int W,
-            int rpb) {
+            uint8_t* __restrict__ ptrs, float* edges, int* flags, int4* cand, int m_pad, int n_pad,
+            int c_blk, int W, int rpb) {
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ float tot[3][32];
   __shared__ float red_f[2][32];
   __shared__ int red_i[32];
-  __shared__ float eM[MAX_THREADS], eL[MAX_THREADS];  // row i-1, last column
+  __shared__ float eg[4];  // row i's edge at col0, from thread 0
   __shared__ float g_s;
-  __shared__ int g_a;
-  const int b = blockIdx.x, tid = threadIdx.x;
+  __shared__ int g_a, ticket;
+  const int nblk = n_pad / c_blk;
+  Wave w(take_ticket(flags, &ticket), nblk, flags, edges, cand, m_pad);
+  const int b = w.b, c = w.c, tid = threadIdx.x;
   const size_t S = (size_t)blockDim.x * W;
   uint8_t* stage = smem;  // the byte-row being packed, c_blk bytes
-  float* Mr = reinterpret_cast<float*>(smem + c_blk);
+  float* eM = reinterpret_cast<float*>(smem + c_blk);  // row i-1, last column
+  float* eL = eM + blockDim.x;
+  float* Mr = eL + blockDim.x;
   float* Lr = Mr + S;
   float* Ur = Lr + S;
   float* Jr = Ur + S;
@@ -439,203 +555,220 @@ bptr_affine(const int* __restrict__ qs, const int* __restrict__ ts,
   const int* t = ts + (size_t)b * n_pad;
   const float* al = allow + (size_t)b * n_pad;
   uint8_t* out = ptrs + (size_t)b * R * n_pad;
-  const Edges E(edges, m_pad);
+  const int col0 = c * c_blk;
+  const bool feeds = c + 1 < nblk;
+  const Strip s(col0, c_blk, W);
   if (tid == 0) {
     g_s = NEG;
     g_a = 0;
   }
-  // start info merged over blocks (every thread holds the same values)
-  float acc_s = NEG;
-  int acc_a = 0, acc_b = 0;
-  for (int c = 0; c < n_pad / c_blk; ++c) {
-    const int col0 = c * c_blk;
-    const Strip s(col0, c_blk, W);
-    const float* ep = E.buf(c);
-    float* en = E.buf(c + 1);
-    // row 0: global M = L = -inf, U = o + e*j; local zeros; fit M = U = 0,
-    // L = -inf; J = -inf
+  // row 0: global M = L = -inf, U = o + e*j; local zeros; fit M = U = 0,
+  // L = -inf; J = -inf
+  for (int k = 0; k < s.cnt; ++k) {
+    const int j = s.j(k);
+    const size_t x = s.slot(k);
+    Tc[x] = t[j - 1];
+    Mr[x] = MODE == GLOBAL ? NEG : 0.f;
+    Lr[x] = MODE == LOCAL ? 0.f : NEG;
+    Ur[x] = MODE == GLOBAL ? o + e * (float)j : 0.f;
+    if (JUMP) {
+      Jr[x] = NEG;
+      Jb[x] = (j < n_pad && al[j] > 0.f) ? jp : NEG;
+    }
+  }
+  if (s.cnt > 0) {
+    eM[tid] = MODE == GLOBAL ? NEG : 0.f;
+    eL[tid] = MODE == LOCAL ? 0.f : NEG;
+  }
+  const float jb0 = (JUMP && al[col0] > 0.f) ? jp : NEG;
+  // thread 0's diagonal: row i-1's M, L, U, J at col0
+  float eM0 = ptr_edge<MODE>(PM, c, 0, col0, o, e, w);
+  float eL0 = ptr_edge<MODE>(PL, c, 0, col0, o, e, w);
+  float eU0 = ptr_edge<MODE>(PU, c, 0, col0, o, e, w);
+  float eJ0 = NEG;
+  // this block's start info: local's running maximum, fit's bottom row
+  float blk_s = NEG;
+  int blk_a = 0, blk_b = 0;
+  __syncthreads();
+  for (int i = 1; i <= m_pad; ++i) {
+    const int idx = i - 1, sub_row = idx % rpb, shift = sub_row * bits;
+    if (sub_row == 0 && i > 1) store_row(stage, out + (size_t)(idx / rpb - 1) * n_pad + col0, c_blk);
+    const int qc = q[idx];
+    // row i-1 at column j0-1
+    float dM, dL, dU, dJ = NEG;
+    if (tid == 0) {
+      dM = eM0;
+      dL = eL0;
+      dU = eU0;
+      dJ = eJ0;
+    } else if (s.cnt > 0) {
+      dM = eM[tid - 1];
+      dL = eL[tid - 1];
+      dU = Ur[s.left];
+      if (JUMP) dJ = Jr[s.left];
+    } else {
+      dM = dL = dU = NEG;
+    }
+    float v[3] = {NEG, NEG, NEG};  // U chain, J chain, local row max (j <= n)
     for (int k = 0; k < s.cnt; ++k) {
       const int j = s.j(k);
       const size_t x = s.slot(k);
-      Tc[x] = t[j - 1];
-      Mr[x] = MODE == GLOBAL ? NEG : 0.f;
-      Lr[x] = MODE == LOCAL ? 0.f : NEG;
-      Ur[x] = MODE == GLOBAL ? o + e * (float)j : 0.f;
+      const float mo = Mr[x], lo = Lr[x], uo = Ur[x];
+      const float jo = JUMP ? Jr[x] : NEG;
+      const float sub = Tc[x] == qc ? match : mis;
+      // earliest-argument strict argmax: L, M, U, J, HOME
+      float best = dL + sub;
+      int pm = 0;
+      float cv = dM + sub;
+      if (cv > best) pm = 1;
+      best = fmaxf(best, cv);
+      cv = dU + sub;
+      if (cv > best) pm = 2;
+      best = fmaxf(best, cv);
       if (JUMP) {
-        Jr[x] = NEG;
-        Jb[x] = (j < n_pad && al[j] > 0.f) ? jp : NEG;
+        cv = dJ + sub;
+        if (cv > best) pm = 3;
+        best = fmaxf(best, cv);
       }
+      if (MODE == LOCAL) {
+        if (0.f > best) pm = k_home;  // the HOME candidate has no +sub
+        best = fmaxf(best, 0.f);
+      }
+      if (!(best > NEG)) pm = k_unset;
+      const float la = lo + e, lb2 = mo + o;
+      Mr[x] = best;
+      Lr[x] = fmaxf(la, lb2);
+      Cd[x] = (uint8_t)(pm | (la >= lb2 ? 0 : lbit));
+      v[0] = fmaxf(v[0], best + (o - e * (float)(j + 1)));
+      if (JUMP) v[1] = fmaxf(v[1], best + Jb[x]);
+      if (MODE == LOCAL && j <= n) v[2] = fmaxf(v[2], best);
+      dM = mo;
+      dL = lo;
+      dU = uo;
+      dJ = jo;
+    }
+    if (tid == 0) {
+      if (c > 0) w.wait(i);
+      eg[PM] = eM0 = ptr_edge<MODE>(PM, c, i, col0, o, e, w);
+      eg[PL] = eL0 = ptr_edge<MODE>(PL, c, i, col0, o, e, w);
+      eg[PU] = eU0 = ptr_edge<MODE>(PU, c, i, col0, o, e, w);
+      if (JUMP) eg[PJ] = eJ0 = ptr_edge<MODE>(PJ, c, i, col0, o, e, w);
+    }
+    const float none[3] = {NEG, NEG, NEG};
+    float total[3];
+    block_exclusive<MaxF>(v, none, total, tot);
+    // the chains' column-col0 terms (as in bscore_affine)
+    const float em = eg[PM];
+    float run_u = fmaxf(fmaxf(eg[PU] - e * (float)col0, em + (o - e * (float)(col0 + 1))), v[0]);
+    float run_j = JUMP ? fmaxf(fmaxf(eg[PJ], em + jb0), v[1]) : NEG;
+    // M(i, j-1) and J's entry into column j, at the strip's first column
+    float mprev = em, jcv = JUMP ? em + jb0 : NEG;
+    if (tid > 0 && s.cnt > 0) {
+      mprev = Mr[s.left];
+      if (JUMP) jcv = mprev + Jb[s.left];
+    }
+    const bool last_row = i == m;
+    for (int k = 0; k < s.cnt; ++k) {
+      const int j = s.j(k);
+      const size_t x = s.slot(k);
+      const float mv = Mr[x];
+      const float uv = run_u + e * (float)j;
+      const float ua = mprev + o;
+      // U(i,j) = max(ua, U(i,j-1) + e), so ua >= U(i,j-1) + e iff ua >= U(i,j)
+      int code = Cd[x] | (ua >= uv ? 0 : ubit);
+      Ur[x] = uv;
+      if (JUMP) {
+        // J(i,j) = max(J(i,j-1), jcv): jcv >= J(i,j-1) iff jcv >= J(i,j)
+        code |= (jcv > NEG && jcv >= run_j) ? 0 : 1 << 5;
+        Jr[x] = run_j;
+        jcv = mv + Jb[x];
+        run_j = fmaxf(run_j, jcv);
+      }
+      const int col = s.k0 + k;
+      stage[col] = (uint8_t)(sub_row == 0 ? code : stage[col] | (code << shift));
+      if (MODE == GLOBAL && last_row && j == n) {
+        const float ln = Lr[x];
+        g_s = fmaxf(fmaxf(ln, mv), uv);
+        g_a = (ln >= mv && ln >= uv) ? 0 : (mv >= uv ? 1 : 2);
+      }
+      run_u = fmaxf(run_u, mv + (o - e * (float)(j + 1)));
+      mprev = mv;
     }
     if (s.cnt > 0) {
-      eM[tid] = MODE == GLOBAL ? NEG : 0.f;
-      eL[tid] = MODE == LOCAL ? 0.f : NEG;
+      const size_t x = s.slot(s.cnt - 1);
+      eM[tid] = Mr[x];
+      eL[tid] = Lr[x];
+      if (feeds && s.owns_last(c_blk)) {
+        w.put(PM, i, Mr[x]);
+        w.put(PL, i, Lr[x]);
+        w.put(PU, i, Ur[x]);
+        if (JUMP) w.put(PJ, i, Jr[x]);
+        w.publish(i);
+      }
     }
-    const float jb0 = (JUMP && al[col0] > 0.f) ? jp : NEG;
-    // this block's start info: local's running maximum
-    float blk_s = NEG;
-    int blk_a = 0, blk_b = 0;
+    if (MODE == LOCAL && i <= m && total[2] > blk_s) {
+      // a strictly greater row maximum: its first column over j <= n
+      int fj = BIG;
+      for (int k = 0; k < s.cnt && fj == BIG; ++k)
+        if (s.j(k) <= n && Mr[s.slot(k)] == total[2]) fj = s.j(k);
+      blk_b = block_reduce<MinI>(fj, red_i);
+      blk_s = total[2];
+      blk_a = i;
+    }
+    if (MODE == FIT && last_row) {
+      // this block's bottom row over columns <= n-1; L wins only when
+      // strictly greater
+      float mx[2] = {NEG, NEG};
+      for (int k = 0; k < s.cnt && s.j(k) <= n - 1; ++k) {
+        mx[0] = fmaxf(mx[0], Mr[s.slot(k)]);
+        mx[1] = fmaxf(mx[1], Lr[s.slot(k)]);
+      }
+      mx[0] = block_reduce<MaxF>(mx[0], red_f[0]);
+      mx[1] = block_reduce<MaxF>(mx[1], red_f[1]);
+      const bool use_l = mx[1] > mx[0];
+      const float want = use_l ? mx[1] : mx[0];
+      const float* row = use_l ? Lr : Mr;
+      int fj = BIG;
+      for (int k = 0; k < s.cnt && fj == BIG; ++k)
+        if (s.j(k) <= n - 1 && row[s.slot(k)] == want) fj = s.j(k);
+      blk_b = block_reduce<MinI>(fj, red_i);
+      blk_s = fmaxf(mx[0], mx[1]);
+      blk_a = use_l ? 1 : 0;
+    }
     __syncthreads();
-    for (int i = 1; i <= m_pad; ++i) {
-      const int idx = i - 1, sub_row = idx % rpb, shift = sub_row * bits;
-      if (sub_row == 0 && i > 1) store_row(stage, out + (size_t)(idx / rpb - 1) * n_pad + col0, c_blk);
-      const int qc = q[idx];
-      // row i-1 at column j0-1
-      float dM, dL, dU, dJ = NEG;
-      if (tid == 0) {
-        dM = ptr_edge<MODE>(PM, c, i - 1, col0, o, e, ep, E.rows);
-        dL = ptr_edge<MODE>(PL, c, i - 1, col0, o, e, ep, E.rows);
-        dU = ptr_edge<MODE>(PU, c, i - 1, col0, o, e, ep, E.rows);
-        if (JUMP) dJ = ptr_edge<MODE>(PJ, c, i - 1, col0, o, e, ep, E.rows);
-      } else if (s.cnt > 0) {
-        dM = eM[tid - 1];
-        dL = eL[tid - 1];
-        dU = Ur[s.left];
-        if (JUMP) dJ = Jr[s.left];
-      } else {
-        dM = dL = dU = NEG;
-      }
-      float v[3] = {NEG, NEG, NEG};  // U chain, J chain, local row max (j <= n)
-      for (int k = 0; k < s.cnt; ++k) {
-        const int j = s.j(k);
-        const size_t x = s.slot(k);
-        const float mo = Mr[x], lo = Lr[x], uo = Ur[x];
-        const float jo = JUMP ? Jr[x] : NEG;
-        const float sub = Tc[x] == qc ? match : mis;
-        // earliest-argument strict argmax: L, M, U, J, HOME
-        float best = dL + sub;
-        int pm = 0;
-        float cv = dM + sub;
-        if (cv > best) pm = 1;
-        best = fmaxf(best, cv);
-        cv = dU + sub;
-        if (cv > best) pm = 2;
-        best = fmaxf(best, cv);
-        if (JUMP) {
-          cv = dJ + sub;
-          if (cv > best) pm = 3;
-          best = fmaxf(best, cv);
-        }
-        if (MODE == LOCAL) {
-          if (0.f > best) pm = k_home;  // the HOME candidate has no +sub
-          best = fmaxf(best, 0.f);
-        }
-        if (!(best > NEG)) pm = k_unset;
-        const float la = lo + e, lb2 = mo + o;
-        Mr[x] = best;
-        Lr[x] = fmaxf(la, lb2);
-        Cd[x] = (uint8_t)(pm | (la >= lb2 ? 0 : lbit));
-        v[0] = fmaxf(v[0], best + (o - e * (float)(j + 1)));
-        if (JUMP) v[1] = fmaxf(v[1], best + Jb[x]);
-        if (MODE == LOCAL && j <= n) v[2] = fmaxf(v[2], best);
-        dM = mo;
-        dL = lo;
-        dU = uo;
-        dJ = jo;
-      }
-      // the chains' column-col0 terms (as in bscore_affine)
-      const float em = ptr_edge<MODE>(PM, c, i, col0, o, e, ep, E.rows);
-      const float seed[3] = {
-          fmaxf(ptr_edge<MODE>(PU, c, i, col0, o, e, ep, E.rows) - e * (float)col0,
-                em + (o - e * (float)(col0 + 1))),
-          JUMP ? fmaxf(ptr_edge<MODE>(PJ, c, i, col0, o, e, ep, E.rows), em + jb0) : NEG, NEG};
-      float total[3];
-      block_exclusive<MaxF>(v, seed, total, tot);
-      float run_u = v[0], run_j = v[1];
-      // M(i, j-1) and J's entry into column j, at the strip's first column
-      float mprev = em, jcv = JUMP ? em + jb0 : NEG;
-      if (tid > 0 && s.cnt > 0) {
-        mprev = Mr[s.left];
-        if (JUMP) jcv = mprev + Jb[s.left];
-      }
-      const bool last_row = i == m;
-      for (int k = 0; k < s.cnt; ++k) {
-        const int j = s.j(k);
-        const size_t x = s.slot(k);
-        const float mv = Mr[x];
-        const float uv = run_u + e * (float)j;
-        const float ua = mprev + o;
-        // U(i,j) = max(ua, U(i,j-1) + e), so ua >= U(i,j-1) + e iff ua >= U(i,j)
-        int code = Cd[x] | (ua >= uv ? 0 : ubit);
-        Ur[x] = uv;
-        if (JUMP) {
-          // J(i,j) = max(J(i,j-1), jcv): jcv >= J(i,j-1) iff jcv >= J(i,j)
-          code |= (jcv > NEG && jcv >= run_j) ? 0 : 1 << 5;
-          Jr[x] = run_j;
-          jcv = mv + Jb[x];
-          run_j = fmaxf(run_j, jcv);
-        }
-        const int col = s.k0 + k;
-        stage[col] = (uint8_t)(sub_row == 0 ? code : stage[col] | (code << shift));
-        if (MODE == GLOBAL && last_row && j == n) {
-          const float ln = Lr[x];
-          g_s = fmaxf(fmaxf(ln, mv), uv);
-          g_a = (ln >= mv && ln >= uv) ? 0 : (mv >= uv ? 1 : 2);
-        }
-        run_u = fmaxf(run_u, mv + (o - e * (float)(j + 1)));
-        mprev = mv;
-      }
-      if (s.cnt > 0) {
-        const size_t x = s.slot(s.cnt - 1);
-        eM[tid] = Mr[x];
-        eL[tid] = Lr[x];
-        if (s.owns_last(c_blk)) {
-          en[(size_t)PM * E.rows + i] = Mr[x];
-          en[(size_t)PL * E.rows + i] = Lr[x];
-          en[(size_t)PU * E.rows + i] = Ur[x];
-          en[(size_t)PJ * E.rows + i] = JUMP ? Jr[x] : NEG;
-        }
-      }
-      if (MODE == LOCAL && i <= m && total[2] > blk_s) {
-        // a strictly greater row maximum: its first column over j <= n
-        int fj = BIG;
-        for (int k = 0; k < s.cnt && fj == BIG; ++k)
-          if (s.j(k) <= n && Mr[s.slot(k)] == total[2]) fj = s.j(k);
-        blk_b = block_reduce<MinI>(fj, red_i);
-        blk_s = total[2];
-        blk_a = i;
-      }
-      if (MODE == FIT && last_row) {
-        // this block's bottom row over columns <= n-1; L wins only when
-        // strictly greater
-        float mx[2] = {NEG, NEG};
-        for (int k = 0; k < s.cnt && s.j(k) <= n - 1; ++k) {
-          mx[0] = fmaxf(mx[0], Mr[s.slot(k)]);
-          mx[1] = fmaxf(mx[1], Lr[s.slot(k)]);
-        }
-        mx[0] = block_reduce<MaxF>(mx[0], red_f[0]);
-        mx[1] = block_reduce<MaxF>(mx[1], red_f[1]);
-        const bool use_l = mx[1] > mx[0];
-        const float want = use_l ? mx[1] : mx[0];
-        const float* row = use_l ? Lr : Mr;
-        int fj = BIG;
-        for (int k = 0; k < s.cnt && fj == BIG; ++k)
-          if (s.j(k) <= n - 1 && row[s.slot(k)] == want) fj = s.j(k);
-        fj = block_reduce<MinI>(fj, red_i);
-        const float fs = fmaxf(mx[0], mx[1]);
-        const int fa = use_l ? 1 : 0;
-        // block 0 is taken as it is; a later block on a greater score, or
-        // an equal one from M where the kept one is from L, or from the
-        // same matrix at a smaller j (the Pallas kernel's merge)
-        if (c == 0 || fs > acc_s ||
-            (fs == acc_s && (fa < acc_a || (fa == acc_a && fj < acc_b)))) {
-          acc_s = fs;
-          acc_a = fa;
-          acc_b = fj;
-        }
-      }
-      __syncthreads();
-    }
-    store_row(stage, out + (size_t)(R - 1) * n_pad + col0, c_blk);
-    if (MODE == LOCAL && (blk_s > acc_s || (blk_s == acc_s && blk_a < acc_a))) {
-      // ties keep the earlier block unless the later one's row is smaller
-      acc_s = blk_s;
-      acc_a = blk_a;
-      acc_b = blk_b;
-    }
   }
-  if (tid == 0) {
-    score_out[b] = MODE == GLOBAL ? g_s : acc_s;
-    a_out[b] = MODE == GLOBAL ? g_a : acc_a;
+  store_row(stage, out + (size_t)(R - 1) * n_pad + col0, c_blk);
+  if (tid == 0 && w.finish(MODE == GLOBAL ? pack(g_s, g_a) : pack(blk_s, blk_a, blk_b), nblk)) {
+    float acc_s = NEG;
+    int acc_a = 0, acc_b = 0;
+    if (MODE == GLOBAL) {
+      if (n > 0) {  // the block that holds column n latched (m, n)
+        const int4 x = w.candidate((n - 1) / c_blk);
+        acc_s = __int_as_float(x.x);
+        acc_a = x.y;
+      }
+    } else if (MODE == LOCAL || m > 0) {  // fit's candidates come from row m
+      for (int k = 0; k < nblk; ++k) {
+        const int4 x = w.candidate(k);
+        const float fs = __int_as_float(x.x);
+        // local: ties keep the earlier block unless the later one's row is
+        // smaller; fit: block 0 is taken as it is, a later block on a
+        // greater score, or an equal one from M where the kept one is from
+        // L, or from the same matrix at a smaller j
+        const bool take =
+            MODE == LOCAL
+                ? fs > acc_s || (fs == acc_s && x.y < acc_a)
+                : k == 0 || fs > acc_s ||
+                      (fs == acc_s && (x.y < acc_a || (x.y == acc_a && x.z < acc_b)));
+        if (take) {
+          acc_s = fs;
+          acc_a = x.y;
+          acc_b = x.z;
+        }
+      }
+    }
+    score_out[b] = acc_s;
+    a_out[b] = acc_a;
     b_out[b] = acc_b;
   }
 }
@@ -648,12 +781,17 @@ bptr_overlap(const int* __restrict__ qs, const int* __restrict__ ts,
              const int* __restrict__ ns, const int* __restrict__ ms,
              const float* __restrict__ params, float* __restrict__ score_out,
              int* __restrict__ a_out, int* __restrict__ b_out, uint8_t* __restrict__ ptrs,
-             float* edges, int m_pad, int n_pad, int c_blk, int W, int rpb) {
+             float* edges, int* flags, int4* cand, int m_pad, int n_pad, int c_blk, int W,
+             int rpb) {
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ float tot[1][32];
   __shared__ float red_f[32];
   __shared__ int red_i[32];
-  const int b = blockIdx.x;
+  __shared__ float eg;  // M(i, col0), from thread 0
+  __shared__ int ticket;
+  const int nblk = n_pad / c_blk;
+  Wave w(take_ticket(flags, &ticket), nblk, flags, edges, cand, m_pad);
+  const int b = w.b, c = w.c, tid = threadIdx.x;
   const size_t S = (size_t)blockDim.x * W;
   uint8_t* stage = smem;
   float* Mr = reinterpret_cast<float*>(smem + c_blk);
@@ -666,147 +804,166 @@ bptr_overlap(const int* __restrict__ qs, const int* __restrict__ ts,
   const int* q = qs + (size_t)b * m_pad;
   const int* t = ts + (size_t)b * n_pad;
   uint8_t* out = ptrs + (size_t)b * R * n_pad;
-  const Edges E(edges, m_pad);
-  float acc_s = NEG;
-  int acc_a = 0;
-  for (int c = 0; c < n_pad / c_blk; ++c) {
-    const int col0 = c * c_blk;
-    const Strip s(col0, c_blk, W);
-    const float* ep = E.buf(c);
-    float* en = E.buf(c + 1);
-    // M(i, col0): the column-0 border is 0; row 0 is -inf past column 0
-    auto edge = [&](int i) { return c == 0 ? 0.f : (i == 0 ? NEG : ep[i]); };
+  const int col0 = c * c_blk;
+  const bool feeds = c + 1 < nblk;
+  const Strip s(col0, c_blk, W);
+  // M(i, col0): the column-0 border is 0; row 0 is -inf past column 0
+  auto edge = [&](int i) { return c == 0 ? 0.f : (i == 0 ? NEG : w.edge(0, i)); };
+  for (int k = 0; k < s.cnt; ++k) {
+    const size_t x = s.slot(k);
+    Tc[x] = t[s.j(k) - 1];
+    Mr[x] = NEG;
+  }
+  float dM0 = edge(0);  // thread 0: M(i-1, col0)
+  // this block's bottom row: its maximum over columns <= n-1, first column
+  float blk_s = NEG;
+  int blk_a = 0;
+  __syncthreads();
+  for (int i = 1; i <= m_pad; ++i) {
+    const int idx = i - 1, sub_row = idx % rpb, shift = sub_row * bits;
+    if (sub_row == 0 && i > 1) store_row(stage, out + (size_t)(idx / rpb - 1) * n_pad + col0, c_blk);
+    const int qc = q[idx];
+    // M(i-1, j0-1); Mr is rewritten only in pass 2
+    float dM = tid == 0 ? dM0 : (s.cnt > 0 ? Mr[s.left] : NEG);
+    float v[1] = {NEG};
     for (int k = 0; k < s.cnt; ++k) {
+      const int j = s.j(k);
       const size_t x = s.slot(k);
-      Tc[x] = t[s.j(k) - 1];
-      Mr[x] = NEG;
+      const float mp = Mr[x];
+      const float sub = Tc[x] == qc ? match : mis;
+      const float diag = dM + sub, right = mp + o;
+      const float dr = fmaxf(diag, right);
+      Dr[x] = dr;
+      Cd[x] = diag >= right ? 1 : 2;
+      v[0] = fmaxf(v[0], dr - o * (float)j);
+      dM = mp;
+    }
+    if (tid == 0) {
+      if (c > 0) w.wait(i);
+      dM0 = eg = edge(i);
+    }
+    const float none[1] = {NEG};
+    block_exclusive<MaxF>(v, none, tot);
+    float run = fmaxf(eg - o * (float)col0, v[0]);  // M(i, col0) seeds the chain
+    // M(i, j0-1), as the left neighbour (or the previous block) has it
+    float mprev = run + o * (float)(s.j(0) - 1);
+    for (int k = 0; k < s.cnt; ++k) {
+      const int j = s.j(k);
+      const size_t x = s.slot(k);
+      const float dr = Dr[x];
+      const float left = mprev + o;
+      const float val = fmaxf(left, dr);
+      int code = left >= val ? 0 : Cd[x];
+      if (!(val > NEG)) code = 3;
+      const int col = s.k0 + k;
+      stage[col] = (uint8_t)(sub_row == 0 ? code : stage[col] | (code << shift));
+      run = fmaxf(run, dr - o * (float)j);
+      const float mv = run + o * (float)j;
+      Mr[x] = mv;
+      mprev = mv;
+      if (feeds && k == s.cnt - 1 && s.owns_last(c_blk)) {
+        w.put(0, i, mv);
+        w.publish(i);
+      }
+    }
+    if (i == m) {
+      float mx = NEG;
+      for (int k = 0; k < s.cnt && s.j(k) <= n - 1; ++k) mx = fmaxf(mx, Mr[s.slot(k)]);
+      mx = block_reduce<MaxF>(mx, red_f);
+      int fj = BIG;
+      for (int k = 0; k < s.cnt && fj == BIG; ++k)
+        if (s.j(k) <= n - 1 && Mr[s.slot(k)] == mx) fj = s.j(k);
+      blk_a = block_reduce<MinI>(fj, red_i);
+      blk_s = mx;
     }
     __syncthreads();
-    for (int i = 1; i <= m_pad; ++i) {
-      const int idx = i - 1, sub_row = idx % rpb, shift = sub_row * bits;
-      if (sub_row == 0 && i > 1) store_row(stage, out + (size_t)(idx / rpb - 1) * n_pad + col0, c_blk);
-      const int qc = q[idx];
-      // M(i-1, j0-1); Mr is rewritten only in pass 2
-      float dM = threadIdx.x == 0 ? edge(i - 1) : (s.cnt > 0 ? Mr[s.left] : NEG);
-      float v[1] = {NEG};
-      for (int k = 0; k < s.cnt; ++k) {
-        const int j = s.j(k);
-        const size_t x = s.slot(k);
-        const float mp = Mr[x];
-        const float sub = Tc[x] == qc ? match : mis;
-        const float diag = dM + sub, right = mp + o;
-        const float dr = fmaxf(diag, right);
-        Dr[x] = dr;
-        Cd[x] = diag >= right ? 1 : 2;
-        v[0] = fmaxf(v[0], dr - o * (float)j);
-        dM = mp;
-      }
-      const float seed[1] = {edge(i) - o * (float)col0};  // M(i, col0)
-      float total[1];
-      block_exclusive<MaxF>(v, seed, total, tot);
-      float run = v[0];
-      // M(i, j0-1), as the left neighbour (or the previous block) has it
-      float mprev = run + o * (float)(s.j(0) - 1);
-      for (int k = 0; k < s.cnt; ++k) {
-        const int j = s.j(k);
-        const size_t x = s.slot(k);
-        const float dr = Dr[x];
-        const float left = mprev + o;
-        const float val = fmaxf(left, dr);
-        int code = left >= val ? 0 : Cd[x];
-        if (!(val > NEG)) code = 3;
-        const int col = s.k0 + k;
-        stage[col] = (uint8_t)(sub_row == 0 ? code : stage[col] | (code << shift));
-        run = fmaxf(run, dr - o * (float)j);
-        const float mv = run + o * (float)j;
-        Mr[x] = mv;
-        mprev = mv;
-        if (k == s.cnt - 1 && s.owns_last(c_blk)) en[i] = mv;
-      }
-      if (i == m) {
-        // this block's bottom row over columns <= n-1; block 0 also holds
-        // the j = 0 zero candidate, which wins ties
-        float mx = NEG;
-        for (int k = 0; k < s.cnt && s.j(k) <= n - 1; ++k) mx = fmaxf(mx, Mr[s.slot(k)]);
-        mx = block_reduce<MaxF>(mx, red_f);
-        int fj = BIG;
-        for (int k = 0; k < s.cnt && fj == BIG; ++k)
-          if (s.j(k) <= n - 1 && Mr[s.slot(k)] == mx) fj = s.j(k);
-        fj = block_reduce<MinI>(fj, red_i);
-        if (c == 0) {
-          acc_s = fmaxf(mx, 0.f);
-          acc_a = mx > 0.f ? fj : 0;
-        } else if (mx > acc_s) {
-          acc_s = mx;
-          acc_a = fj;
-        }
-      }
-      __syncthreads();
-    }
-    store_row(stage, out + (size_t)(R - 1) * n_pad + col0, c_blk);
   }
-  if (threadIdx.x == 0) {
+  store_row(stage, out + (size_t)(R - 1) * n_pad + col0, c_blk);
+  if (tid == 0 && w.finish(pack(blk_s, blk_a), nblk)) {
+    float acc_s = NEG;
+    int acc_a = 0;
+    for (int k = 0; k < (m > 0 ? nblk : 0); ++k) {
+      const int4 x = w.candidate(k);
+      const float mx = __int_as_float(x.x);
+      if (k == 0) {  // block 0 also holds the j = 0 zero candidate, which wins ties
+        acc_s = fmaxf(mx, 0.f);
+        acc_a = mx > 0.f ? x.y : 0;
+      } else if (mx > acc_s) {
+        acc_s = mx;
+        acc_a = x.y;
+      }
+    }
     score_out[b] = acc_s;
     a_out[b] = acc_a;
     b_out[b] = 0;
   }
 }
 
-// Launch with `smem` bytes of dynamic shared memory (above 48 KiB only after
-// the opt-in attribute); returns the launch's error code.
+// Launch one CTA per (pair, column block) with `smem` bytes of dynamic
+// shared memory (above 48 KiB only after the opt-in attribute; the carveout
+// leaves the SM's L1 to shared memory, so CTAs fit by shared memory); returns
+// the launch's error code.
 template <class... P, class... A>
-cudaError_t launch(void (*kernel)(P...), int B, int threads, size_t smem, cudaStream_t stream,
+cudaError_t launch(void (*kernel)(P...), int ctas, int threads, size_t smem, cudaStream_t stream,
                    A... args) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  kernel<<<B, threads, smem, stream>>>(args...);
+  kernel<<<ctas, threads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
 bool bad_blocks(int B, int threads, int wmax, int m_pad, int n_pad, int c_blk) {
   return B < 0 || threads < 32 || threads > MAX_THREADS || threads % 32 != 0 || m_pad <= 0 ||
          c_blk <= 0 || c_blk % 16 != 0 || n_pad % c_blk != 0 ||
-         (long long)threads * wmax < c_blk;
+         (long long)threads * wmax < c_blk || (long long)B * (n_pad / c_blk) > INT_MAX;
 }
 
 }  // namespace
 
 // C entry points, bound with ctypes. Each launches one fill on `stream`
-// without synchronising and returns the launch's error code. `edges` is the
-// (B, 2, 4, m_pad + 1) float32 block-edge buffer.
+// without synchronising and returns the launch's error code. With nblk =
+// n_pad / c_blk: `edges` is the (B, nblk, 4, m_pad + 1) float32 block-edge
+// buffer, `flags` the (1 + B * (nblk + 1)) int32 ticket, progress and done
+// counters, zeroed, and `cand` the (B, nblk, 4) int32 start-info candidates.
 extern "C" {
 
 // mode: 0 global, 1 local, 2 fit, 3 overlap, 4 edit; `out` is (B,) float32,
 // int32 for edit.
 cudaError_t at_blocked_scores(int mode, int use_jump, const int* qs, const int* ts,
                               const float* allow, const int* ns, const int* ms,
-                              const float* params, void* out, float* edges, int B, int m_pad,
-                              int n_pad, int c_blk, int threads, int wmax, cudaStream_t stream) {
+                              const float* params, void* out, float* edges, int* flags,
+                              void* cand, int B, int m_pad, int n_pad, int c_blk, int threads,
+                              int wmax, cudaStream_t stream) {
   if (bad_blocks(B, threads, wmax, m_pad, n_pad, c_blk) || mode < GLOBAL || mode > EDIT ||
       (use_jump && mode != FIT))
     return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
+  const int ctas = B * (n_pad / c_blk);
   const size_t S = (size_t)threads * wmax;
   float* f_out = static_cast<float*>(out);
+  int4* cd = static_cast<int4*>(cand);
   if (mode == OVERLAP)
-    return launch(bscore_overlap, B, threads, S * 12, stream, qs, ts, ns, ms, params, f_out,
-                  edges, m_pad, n_pad, c_blk, wmax);
+    return launch(bscore_overlap, ctas, threads, S * 12, stream, qs, ts, ns, ms, params, f_out,
+                  edges, flags, cd, m_pad, n_pad, c_blk, wmax);
   if (mode == EDIT)
-    return launch(bscore_edit, B, threads, S * 12, stream, qs, ts, ns, ms, params,
-                  static_cast<int*>(out), edges, m_pad, n_pad, c_blk, wmax);
+    return launch(bscore_edit, ctas, threads, S * 12, stream, qs, ts, ns, ms, params,
+                  static_cast<int*>(out), edges, flags, cd, m_pad, n_pad, c_blk, wmax);
   const size_t smem = S * (use_jump ? 20 : 16);
   if (mode == GLOBAL)
-    return launch(bscore_affine<GLOBAL, false>, B, threads, smem, stream, qs, ts, allow, ns, ms,
-                  params, f_out, edges, m_pad, n_pad, c_blk, wmax);
+    return launch(bscore_affine<GLOBAL, false>, ctas, threads, smem, stream, qs, ts, allow, ns,
+                  ms, params, f_out, edges, flags, cd, m_pad, n_pad, c_blk, wmax);
   if (mode == LOCAL)
-    return launch(bscore_affine<LOCAL, false>, B, threads, smem, stream, qs, ts, allow, ns, ms,
-                  params, f_out, edges, m_pad, n_pad, c_blk, wmax);
+    return launch(bscore_affine<LOCAL, false>, ctas, threads, smem, stream, qs, ts, allow, ns,
+                  ms, params, f_out, edges, flags, cd, m_pad, n_pad, c_blk, wmax);
   if (use_jump)
-    return launch(bscore_affine<FIT, true>, B, threads, smem, stream, qs, ts, allow, ns, ms,
-                  params, f_out, edges, m_pad, n_pad, c_blk, wmax);
-  return launch(bscore_affine<FIT, false>, B, threads, smem, stream, qs, ts, allow, ns, ms,
-                params, f_out, edges, m_pad, n_pad, c_blk, wmax);
+    return launch(bscore_affine<FIT, true>, ctas, threads, smem, stream, qs, ts, allow, ns, ms,
+                  params, f_out, edges, flags, cd, m_pad, n_pad, c_blk, wmax);
+  return launch(bscore_affine<FIT, false>, ctas, threads, smem, stream, qs, ts, allow, ns, ms,
+                params, f_out, edges, flags, cd, m_pad, n_pad, c_blk, wmax);
 }
 
 // mode: 0 global, 1 local, 2 fit, 3 overlap; rpb rows per byte (1, 2, or 4
@@ -814,8 +971,9 @@ cudaError_t at_blocked_scores(int mode, int use_jump, const int* qs, const int* 
 cudaError_t at_blocked_ptr_fill(int mode, int use_jump, int rpb, const int* qs, const int* ts,
                                 const float* allow, const int* ns, const int* ms,
                                 const float* params, float* score, int* a, int* b,
-                                uint8_t* ptrs, float* edges, int B, int m_pad, int n_pad,
-                                int c_blk, int threads, int wmax, cudaStream_t stream) {
+                                uint8_t* ptrs, float* edges, int* flags, void* cand, int B,
+                                int m_pad, int n_pad, int c_blk, int threads, int wmax,
+                                cudaStream_t stream) {
   const bool bad_layout = (rpb != 1 && rpb != 2 && rpb != 4) || m_pad % (8 * rpb) != 0 ||
                           (rpb > 1 && use_jump) || (rpb == 4 && mode != OVERLAP) ||
                           (use_jump && mode != FIT);
@@ -823,23 +981,25 @@ cudaError_t at_blocked_ptr_fill(int mode, int use_jump, int rpb, const int* qs, 
       bad_layout)
     return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
+  const int ctas = B * (n_pad / c_blk);
   const size_t S = (size_t)threads * wmax;
+  int4* cd = static_cast<int4*>(cand);
   if (mode == OVERLAP)  // stage, M, max(DIAG, RIGHT), char, code
-    return launch(bptr_overlap, B, threads, c_blk + S * 13, stream, qs, ts, ns, ms, params,
-                  score, a, b, ptrs, edges, m_pad, n_pad, c_blk, wmax, rpb);
-  // stage, M, L, U[, J, jump bias], char, code
-  const size_t smem = c_blk + S * (use_jump ? 25 : 17);
+    return launch(bptr_overlap, ctas, threads, c_blk + S * 13, stream, qs, ts, ns, ms, params,
+                  score, a, b, ptrs, edges, flags, cd, m_pad, n_pad, c_blk, wmax, rpb);
+  // stage, the threads' last M and L, M, L, U[, J, jump bias], char, code
+  const size_t smem = c_blk + (size_t)threads * 8 + S * (use_jump ? 25 : 17);
   if (mode == GLOBAL)
-    return launch(bptr_affine<GLOBAL, false>, B, threads, smem, stream, qs, ts, allow, ns, ms,
-                  params, score, a, b, ptrs, edges, m_pad, n_pad, c_blk, wmax, rpb);
+    return launch(bptr_affine<GLOBAL, false>, ctas, threads, smem, stream, qs, ts, allow, ns, ms,
+                  params, score, a, b, ptrs, edges, flags, cd, m_pad, n_pad, c_blk, wmax, rpb);
   if (mode == LOCAL)
-    return launch(bptr_affine<LOCAL, false>, B, threads, smem, stream, qs, ts, allow, ns, ms,
-                  params, score, a, b, ptrs, edges, m_pad, n_pad, c_blk, wmax, rpb);
+    return launch(bptr_affine<LOCAL, false>, ctas, threads, smem, stream, qs, ts, allow, ns, ms,
+                  params, score, a, b, ptrs, edges, flags, cd, m_pad, n_pad, c_blk, wmax, rpb);
   if (use_jump)
-    return launch(bptr_affine<FIT, true>, B, threads, smem, stream, qs, ts, allow, ns, ms,
-                  params, score, a, b, ptrs, edges, m_pad, n_pad, c_blk, wmax, rpb);
-  return launch(bptr_affine<FIT, false>, B, threads, smem, stream, qs, ts, allow, ns, ms, params,
-                score, a, b, ptrs, edges, m_pad, n_pad, c_blk, wmax, rpb);
+    return launch(bptr_affine<FIT, true>, ctas, threads, smem, stream, qs, ts, allow, ns, ms,
+                  params, score, a, b, ptrs, edges, flags, cd, m_pad, n_pad, c_blk, wmax, rpb);
+  return launch(bptr_affine<FIT, false>, ctas, threads, smem, stream, qs, ts, allow, ns, ms, params,
+                score, a, b, ptrs, edges, flags, cd, m_pad, n_pad, c_blk, wmax, rpb);
 }
 
 }  // extern "C"

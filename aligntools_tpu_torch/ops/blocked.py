@@ -18,10 +18,11 @@ pad columns included. So the plain versions are the flat fills' own
 (``scan.scores_plain``, ``scan.fit_scores_plain``, ``ptr.ptr_fill_plain``),
 and the results do not depend on ``c_blk``.
 
-On a CUDA tensor the wrappers launch ``csrc/blocked_fill.cu`` (one CTA per
-pair walking the column blocks in order, the row state of a block in
-shared memory; see its header) or raise; on a CPU tensor they run the
-plain versions.
+On a CUDA tensor the wrappers launch ``csrc/blocked_fill.cu`` (a wavefront
+across column blocks: one CTA per (pair, column block), the row state of
+a block in shared memory, each row's edge passed to the next block behind
+a release/acquire progress counter; see its header) or raise; on a CPU
+tensor they run the plain versions.
 """
 
 from __future__ import annotations
@@ -32,10 +33,14 @@ import torch
 
 from aligntools_tpu_torch.ops import ptr, scan
 
-# the kernels' column block on the H100: the widest divisor of 16384 whose
-# row state and pointer staging fit one CTA's shared memory (fit+jump's
-# pointer fill: 26 bytes a column, 208 KiB at 8192)
-C_BLK = 8192
+# the kernels' column block on the H100 (a divisor of batch.BLOCKED_C_BLK):
+# the fastest of 8,192, 4,096 and 2,048 on the reference fixture's shape
+# and on long-target read sets (chip_smoke.py's blocked and long phases;
+# PERF.md): narrower blocks put more CTAs, and more of them an SM, in flight
+C_BLK = 2048
+# the widest column block whose row state and pointer staging fit one CTA's
+# shared memory (fit+jump's pointer fill: 26 bytes a column, 216 KiB at 8192)
+C_BLK_MAX = 8192
 SCORE_MODES = ("global", "local", "fit", "overlap", "edit")
 
 # launches of each kernel through its wrapper, and wrapper calls that ran
@@ -55,6 +60,10 @@ def _check_blocks(n_pad, c_blk):
     if c_blk <= 0 or c_blk % 16 or n_pad % c_blk:
         raise ValueError(f"c_blk {c_blk} must be a positive multiple of 16 "
                          f"that divides n_pad {n_pad}")
+    if c_blk > C_BLK_MAX:
+        raise ValueError(f"c_blk {c_blk} is past C_BLK_MAX {C_BLK_MAX}: a "
+                         f"block's row state would not fit a CTA's shared "
+                         f"memory")
 
 
 _fns = None
@@ -68,25 +77,55 @@ def _kernels():
 
         lib = _build.load()
         P, I = ctypes.c_void_p, ctypes.c_int
-        # mode, use_jump, qs, ts, allow, ns, ms, params, out, edges, B,
-        # m_pad, n_pad, c_blk, threads, wmax, stream
-        lib.at_blocked_scores.argtypes = [I, I, P, P, P, P, P, P, P, P, I, I,
-                                          I, I, I, I, P]
+        # mode, use_jump, qs, ts, allow, ns, ms, params, out, edges, flags,
+        # cand, B, m_pad, n_pad, c_blk, threads, wmax, stream
+        lib.at_blocked_scores.argtypes = [I, I, P, P, P, P, P, P, P, P, P, P,
+                                          I, I, I, I, I, I, P]
         # mode, use_jump, rpb, qs, ts, allow, ns, ms, params, score, a, b,
-        # ptrs, edges, B, m_pad, n_pad, c_blk, threads, wmax, stream
+        # ptrs, edges, flags, cand, B, m_pad, n_pad, c_blk, threads, wmax,
+        # stream
         lib.at_blocked_ptr_fill.argtypes = [I, I, I, P, P, P, P, P, P, P, P,
-                                            P, P, P, I, I, I, I, I, I, P]
+                                            P, P, P, P, P, I, I, I, I, I, I,
+                                            P]
         for fn in (lib.at_blocked_scores, lib.at_blocked_ptr_fill):
             fn.restype = ctypes.c_int
         _fns = (lib.at_blocked_scores, lib.at_blocked_ptr_fill)
     return _fns
 
 
-def _edges(B, m_pad, device):
-    """Block-edge state: per pair, two buffers (read / written, by block
-    parity) of four states for rows 0..m_pad."""
-    return torch.empty((B, 2, 4, m_pad + 1), dtype=torch.float32,
-                       device=device)
+def _scratch(B, nblk, m_pad, device):
+    """The wavefront's device buffers, made anew for every launch (with
+    nblk = n_pad / c_blk column blocks):
+
+      edges  (B, nblk, 4, m_pad + 1) float32: each block's four edge states
+             (its last column) of rows 0..m_pad, read by the next block
+      flags  (1 + B * (nblk + 1),) int32, zeroed: the ticket counter, then
+             per pair nblk progress counters (rows of the edge published)
+             and one done counter (blocks finished)
+      cand   (B, nblk, 4) int32: each block's start-info candidate (score
+             bits, a, b), merged by the pair's last block to finish
+    """
+    edges = torch.empty((B, nblk, 4, m_pad + 1), dtype=torch.float32,
+                        device=device)
+    flags = torch.zeros(1 + B * (nblk + 1), dtype=torch.int32, device=device)
+    cand = torch.empty((B, nblk, 4), dtype=torch.int32, device=device)
+    return edges, flags, cand
+
+
+def _check_scratch(edges, flags, cand, B, nblk, m_pad):
+    """Raise unless the buffers have ``_scratch``'s shapes and types: the
+    kernels index them from B, nblk and m_pad alone."""
+    if B * nblk > scan.INT32_MAX:
+        raise ValueError(f"{B} pairs x {nblk} column blocks is past the "
+                         f"int32 ticket counter")
+    want = ((edges, (B, nblk, 4, m_pad + 1), torch.float32),
+            (flags, (1 + B * (nblk + 1),), torch.int32),
+            (cand, (B, nblk, 4), torch.int32))
+    for name, (x, shape, dtype) in zip(("edges", "flags", "cand"), want):
+        if tuple(x.shape) != shape or x.dtype != dtype or (
+                not x.is_contiguous()):
+            raise ValueError(f"{name} buffer is {tuple(x.shape)} {x.dtype}; "
+                             f"the kernels need a contiguous {shape} {dtype}")
 
 
 def _launch(name, fn, args, device):
@@ -122,12 +161,15 @@ def blocked_scores(mode, use_jump, m_pad, n_pad, c_blk, qs, ts, allow, ns,
     out = torch.empty(B, dtype=torch.int32 if mode == "edit"
                       else torch.float32, device=dev)
     threads, wmax = scan.launch_shape(c_blk)
-    edges = _edges(B, m_pad, dev)
+    nblk = n_pad // c_blk
+    scratch = _scratch(B, nblk, m_pad, dev)
+    _check_scratch(*scratch, B, nblk, m_pad)
     _launch("blocked_scores", _kernels()[0], (
         SCORE_MODES.index(mode), int(bool(use_jump)), qs.data_ptr(),
         ts.data_ptr(), 0 if allow is None else allow.data_ptr(),
         ns.data_ptr(), ms.data_ptr(), params.data_ptr(), out.data_ptr(),
-        edges.data_ptr(), B, m_pad, n_pad, c_blk, threads, wmax), dev)
+        *(x.data_ptr() for x in scratch), B, m_pad, n_pad, c_blk, threads,
+        wmax), dev)
     return out
 
 
@@ -139,9 +181,9 @@ def blocked_ptr_fill(mode, use_jump, m_pad, n_pad, c_blk, qs, ts, allow, ns,
     as the Pallas kernel does."""
     global plain_calls
     rpb = rows_per_byte
+    _check_blocks(n_pad, c_blk)
     ptr._check(mode, use_jump, m_pad, n_pad, rpb, qs, ts, allow, ns, ms,
                params)
-    _check_blocks(n_pad, c_blk)
     if m_pad % (8 * rpb):
         raise ValueError(f"m_pad {m_pad} is not a multiple of 8 * "
                          f"rows_per_byte {rpb}")
@@ -156,11 +198,14 @@ def blocked_ptr_fill(mode, use_jump, m_pad, n_pad, c_blk, qs, ts, allow, ns,
     ptrs = torch.empty((B, m_pad // rpb, n_pad), dtype=torch.uint8,
                        device=dev)
     threads, wmax = scan.launch_shape(c_blk)
-    edges = _edges(B, m_pad, dev)
+    nblk = n_pad // c_blk
+    scratch = _scratch(B, nblk, m_pad, dev)
+    _check_scratch(*scratch, B, nblk, m_pad)
     _launch("blocked_ptr", _kernels()[1], (
         ptr.MODES.index(mode), int(bool(use_jump)), rpb, qs.data_ptr(),
         ts.data_ptr(), 0 if allow is None else allow.data_ptr(),
         ns.data_ptr(), ms.data_ptr(), params.data_ptr(), score.data_ptr(),
-        a.data_ptr(), b.data_ptr(), ptrs.data_ptr(), edges.data_ptr(), B,
-        m_pad, n_pad, c_blk, threads, wmax), dev)
+        a.data_ptr(), b.data_ptr(), ptrs.data_ptr(),
+        *(x.data_ptr() for x in scratch), B, m_pad, n_pad, c_blk, threads,
+        wmax), dev)
     return score, a, b, ptrs

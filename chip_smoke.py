@@ -25,22 +25,27 @@ Phases, one JSON line each:
            card, bit for bit, for global, local, overlap, edit, fit and
            fit+jump at B=64 ragged pairs of (512, 2048), plus local at the
            bench.py shape 256 x 2048^2 and fit+jump at 64 x (512 x 32768);
-           warm median times of both (CUDA events);
+           warm median times of both (CUDA events); and, as a record, the
+           same fill through the blocked kernel at min(n_pad, 8,192)
+           columns a block, held against plain and timed (`blocked_ms`);
   ptr      the pointer kernel against its plain version, bit for bit
            (score, start info and every pointer byte): global, local, fit
            and overlap at rows-per-byte 1 and 2, fit+jump at 1, overlap at
            4, all at 64 ragged pairs of (512, 2048); local at 256 x 2048^2
            (rpb 2, 512 MB of pointers) and fit+jump at 64 x (512 x 32768)
-           (rpb 1, 1 GB); then the walk kernel against its plain version
-           on each of those pointer tensors (every column and scalar);
-  blocked  the column-blocked kernels (targets past 32,768 columns)
-           against their plain versions, bit for bit: L1, the six score
-           variants and the pointer fill at ten (mode, rows-per-byte)
-           layouts on 8 ragged pairs in a (1,024, 65,536) bucket, at the
-           kernels' own column block and a smaller one; L2, fit+jump score
-           and pointer fills at the reference fixture's shape, 64 pairs of
-           1,327 x 114,491 (9.75 GB of pointers); warm median times of
-           both;
+           (rpb 1, 1 GB), each also through the blocked kernel as in
+           `kernels`; then the walk kernel against its plain version on
+           each of those pointer tensors (every column and scalar);
+  blocked  the column-blocked kernels (targets past 32,768 columns; a
+           wavefront of one CTA per (pair, column block)) against their
+           plain versions, bit for bit, at column blocks 8,192, 4,096 and
+           2,048: L1, the six score variants and the pointer fill at ten
+           (mode, rows-per-byte) layouts on 8 ragged pairs in a (1,024,
+           65,536) bucket, timed at the kernels' own column block; L2,
+           fit+jump score and pointer fills at the reference fixture's
+           shape, 64 pairs of 1,327 x 114,491 (9.75 GB of pointers), and
+           B1, one such pair, each timed at every column block; warm
+           median times of both;
   slice    the port's main path through cli.main in-process, on a
            20,000-pair clustered set (m ~ 300, n ~ 3,000) and on its first
            2,000 pairs with junction sites in the target headers:
@@ -67,6 +72,8 @@ Phases, one JSON line each:
            on its first 64 pairs; `batch local` on the first 2,000
            clustered pairs plus 32 long ones (flat and blocked buckets in
            one run). The blocked kernels launched, no plain version ran;
+           then L3 rows and scores warm again at each column block of the
+           blocked phase, their TSVs equal to the first;
            each rows TSV's score column equals its scores TSV, and 4 lines
            sampled from the 16 cheapest long pairs with n <= 60,000 (and,
            for L3, the cheapest pair with n > 100,000) equal the port's
@@ -104,6 +111,8 @@ pairs, one more warm L3 `batch fit -s` rows run and one more warm BS
 `batch local --band 128` rows run under torch.profiler,
 with the device's busy time per op and its split between fill, walk,
 copies and allocation (the zero fills of new tensors), against the wall,
+the SMs in use of the fill and of the walk (min(SMs, a launch's CTAs),
+weighted by device time),
 and their Chrome traces written to TRACE.json, TRACE.long.json and
 TRACE.banded.json.
 
@@ -177,12 +186,16 @@ PTR_SHAPES = [
     (256, 2048, 2048, False, (("local", False, 2),)),
     (64, 512, 32768, True, (("fit", True, 1),)),
 ]
-# the blocked phase: L1 (B, m_pad, n_pad), ragged, at the kernels' column
-# block and this smaller one; L2 (B, m_pad, n_pad, m, n), the reference's
-# fit fixture (test/tmp.fa, 1,327 x 114,491)
+# the blocked phase: L1 (B, m_pad, n_pad), ragged; L2 (B, m_pad, n_pad, m,
+# n), the reference's fit fixture (test/tmp.fa, 1,327 x 114,491); B1, one
+# pair of the fixture's shape; each held against plain at every column
+# block of the sweep, L2 and B1 timed at each; the flat shapes' blocked
+# fills at min(n_pad, FLAT_AS_BLOCKED_C_BLK) columns a block
 BLOCKED_L1 = (8, 1024, 65536)
-SMALL_C_BLK = 2048
 BLOCKED_L2 = (64, 1328, 114688, 1327, 114491)
+BLOCKED_B1 = (1, 1328, 114688, 1327, 114491)
+C_BLK_SWEEP = (8192, 4096, 2048)
+FLAT_AS_BLOCKED_C_BLK = 8192
 # the long-target slice (L3): pairs; the CPU-checked samples are drawn
 # from the LONG_POOL cheapest long pairs (m * n) with a target of at most
 # LONG_SAMPLE_MAX_N (the plain versions on the CPU: ~15 s a pair), plus,
@@ -636,6 +649,16 @@ def phase_kernels(torch, scan):
                 torch,
                 lambda: run_variant(scan, variant, m_pad, n_pad, args, False),
                 lambda: run_variant(scan, variant, m_pad, n_pad, args, True))
+            # the same fill through the blocked kernel (a record only: the
+            # flat shapes keep the flat kernels)
+            c_blk = min(n_pad, FLAT_AS_BLOCKED_C_BLK)
+            b_equal, b_err = compare(torch, scan, variant, m_pad, n_pad, args,
+                                     c_blk)
+            check(b_equal and b_err == 0.0, f"blocked {variant} at {B}x("
+                  f"{m_pad}x{n_pad}), c_blk {c_blk}: kernel != plain")
+            ms_b = statistics.median(timed_ms(torch, lambda: run_variant(
+                scan, variant, m_pad, n_pad, args, False, c_blk))
+                for _ in range(2))
             b_ms, b_by = bound(
                 SCORE_OPS[variant] * cells,
                 input_bytes(args, variant == "fit+jump") + 4 * B)
@@ -649,6 +672,7 @@ def phase_kernels(torch, scan):
                                      variant == "edit"),
                 "true_cells": cells,
                 "gcups": cells / ms_k / 1e6, "plain_gcups": cells / ms_p / 1e6,
+                "blocked_ms": ms_b, "blocked_c_blk": c_blk,
             }
             emit(row)
             check(equal and err == 0.0,
@@ -715,6 +739,18 @@ def phase_ptr(torch, ptr, tb):
             fill_plain = (lambda: ptr.ptr_fill_plain(
                 mode, jump, m_pad, n_pad, qs, ts, allow, ns, ms, pm, rpb))
             ms_k, ms_p = turns(torch, fill, fill_plain, rounds=1)
+            # the same fill through the blocked kernel, held against the
+            # flat kernel's output (equal to plain above); a record only
+            c_blk = min(n_pad, FLAT_AS_BLOCKED_C_BLK)
+            b_out = ptr_fill(ptr, mode, jump, m_pad, n_pad, args, rpb, c_blk)
+            torch.cuda.synchronize()
+            check(all(torch.equal(x, y) for x, y in zip(b_out, k_out)),
+                  f"blocked pointer fill {variant} rpb {rpb} at {shape}, "
+                  f"c_blk {c_blk}: kernel != plain")
+            del b_out
+            ms_b = statistics.median(timed_ms(torch, lambda: ptr_fill(
+                ptr, mode, jump, m_pad, n_pad, args, rpb, c_blk))
+                for _ in range(2))
             ptr_bytes = k_out[3].numel()
             ops = (SCORE_OPS[variant] + PTR_EXTRA_OPS[variant]) * cells
             b_ms, b_by = bound(ops, input_bytes(args, jump) + ptr_bytes
@@ -724,7 +760,8 @@ def phase_ptr(torch, ptr, tb):
                    "tolerance": TOL, "ms": ms_k, "plain_ms": ms_p,
                    "bound_ms": b_ms, "bound_by": b_by,
                    "probe_ms": probe_ms(ops), "true_cells": cells,
-                   "ptr_bytes": ptr_bytes, "gcups": cells / ms_k / 1e6}
+                   "ptr_bytes": ptr_bytes, "gcups": cells / ms_k / 1e6,
+                   "blocked_ms": ms_b, "blocked_c_blk": c_blk}
             emit(row)
             check(f_eq and f_err == 0.0,
                   f"pointer fill {variant} rpb {rpb} at {shape}: kernel != "
@@ -790,9 +827,11 @@ def blocked_check(torch, label, kernel_at, plain, c_blks):
 
 
 def phase_blocked(torch, scan, ptr):
-    """The column-blocked kernels against their plain versions: L1 at two
-    column blocks, L2 at the reference fixture's shape. (The walk on
-    blocked pointers is held against its plain version on an L3 bucket.)"""
+    """The column-blocked kernels against their plain versions at every
+    column block of C_BLK_SWEEP: L1, timed at the kernels' own column
+    block; L2 and B1 at the reference fixture's shape, each timed at every
+    column block. (The walk on blocked pointers is held against its plain
+    version on an L3 bucket.)"""
     from aligntools_tpu_torch.ops import blocked
 
     rows = []
@@ -801,7 +840,6 @@ def phase_blocked(torch, scan, ptr):
                                 sites=3)
     qs, ts, allow, ns, ms, pm = args
     shape = f"{B}x{m_pad}x{n_pad}"
-    both = (blocked.C_BLK, SMALL_C_BLK)
     for variant in ("global", "local", "overlap", "edit", "fit", "fit+jump"):
         def kernel(c_blk=blocked.C_BLK):
             return run_variant(scan, variant, m_pad, n_pad, args, False,
@@ -811,7 +849,7 @@ def phase_blocked(torch, scan, ptr):
             return run_variant(scan, variant, m_pad, n_pad, args, True)
 
         err = blocked_check(torch, f"blocked scores {variant} at {shape}",
-                            kernel, plain, both)
+                            kernel, plain, C_BLK_SWEEP)
         ms_k, ms_p = turns(torch, kernel, plain)
         rows.append(blocked_row("blocked_scores", "L1", variant, shape,
                                 cells, ms_k, ms_p, args, 4 * B, err))
@@ -826,59 +864,80 @@ def phase_blocked(torch, scan, ptr):
                                       ns, ms, pm, rpb)
 
         err = blocked_check(torch, f"blocked pointer fill {variant} rpb "
-                            f"{rpb} at {shape}", kernel, plain, both)
+                            f"{rpb} at {shape}", kernel, plain, C_BLK_SWEEP)
         ms_k, ms_p = turns(torch, kernel, plain, rounds=1)
         rows.append(blocked_row("blocked_ptr", "L1", f"{variant}/rpb{rpb}",
                                 shape, cells, ms_k, ms_p, args,
                                 12 * B + B * m_pad * n_pad // rpb, err))
     del args, qs, ts, allow, ns, ms, pm
-    # L2: fit+jump at the fixture's shape, the score and the pointer fill
-    B, m_pad, n_pad, m, n = BLOCKED_L2
-    args, cells = kernel_inputs(B, m_pad, n_pad, False, SEED + 2, "cuda",
-                                lengths=(m, n), sites=3)
-    qs, ts, allow, ns, ms, pm = args
-    shape = f"{B}x{m_pad}x{n_pad}"
+    # L2 and B1: fit+jump at the fixture's shape, the score and the pointer
+    # fill at every column block of the sweep
+    for level, (B, m_pad, n_pad, m, n) in (("L2", BLOCKED_L2),
+                                           ("B1", BLOCKED_B1)):
+        args, cells = kernel_inputs(B, m_pad, n_pad, False, SEED + 2, "cuda",
+                                    lengths=(m, n), sites=3)
+        qs, ts, allow, ns, ms, pm = args
+        shape = f"{B}x{m_pad}x{n_pad}"
 
-    def kernel(c_blk=blocked.C_BLK):
-        return run_variant(scan, "fit+jump", m_pad, n_pad, args, False, c_blk)
+        def kernel(c_blk=blocked.C_BLK):
+            return run_variant(scan, "fit+jump", m_pad, n_pad, args, False,
+                               c_blk)
 
-    def plain():
-        return run_variant(scan, "fit+jump", m_pad, n_pad, args, True)
+        def plain():
+            return run_variant(scan, "fit+jump", m_pad, n_pad, args, True)
 
-    err = blocked_check(torch, f"blocked scores fit+jump at {shape}", kernel,
-                        plain, both[:1])
-    ms_k, ms_p = turns(torch, kernel, plain, rounds=1)
-    rows.append(blocked_row("blocked_scores", "L2", "fit+jump", shape, cells,
-                            ms_k, ms_p, args, 4 * B, err))
+        rows += blocked_sweep(torch, "blocked_scores", level, "fit+jump",
+                              shape, cells, args, 4 * B, kernel, plain)
 
-    def kernel(c_blk=blocked.C_BLK):
-        return ptr_fill(ptr, "fit", True, m_pad, n_pad, args, 1, c_blk)
+        def kernel(c_blk=blocked.C_BLK):
+            return ptr_fill(ptr, "fit", True, m_pad, n_pad, args, 1, c_blk)
 
-    def plain():
-        return ptr.ptr_fill_plain("fit", True, m_pad, n_pad, qs, ts, allow,
-                                  ns, ms, pm, 1)
+        def plain():
+            return ptr.ptr_fill_plain("fit", True, m_pad, n_pad, qs, ts, allow,
+                                      ns, ms, pm, 1)
 
-    err = blocked_check(torch, f"blocked pointer fill fit+jump at {shape}",
-                        kernel, plain, both[:1])
-    torch.cuda.empty_cache()
-    ms_k, ms_p = turns(torch, kernel, plain, rounds=1)
-    rows.append(blocked_row("blocked_ptr", "L2", "fit+jump/rpb1", shape,
-                            cells, ms_k, ms_p, args,
-                            12 * B + B * m_pad * n_pad, err))
-    del args, qs, ts, allow, ns, ms, pm
-    torch.cuda.empty_cache()
+        rows += blocked_sweep(torch, "blocked_ptr", level, "fit+jump/rpb1",
+                              shape, cells, args, 12 * B + B * m_pad * n_pad,
+                              kernel, plain)
+        del args, qs, ts, allow, ns, ms, pm
+        torch.cuda.empty_cache()
     return rows
 
 
+def blocked_sweep(torch, kernel_name, level, variant, shape, cells, args,
+                  out_bytes, kernel, plain):
+    """The blocked kernel at every column block of C_BLK_SWEEP held against
+    one plain call, then timed at each (warm median of three); the plain
+    version timed in turns beside the kernels' own column block."""
+    from aligntools_tpu_torch.ops import blocked
+
+    err = blocked_check(torch, f"{kernel_name} {variant} at {shape}", kernel,
+                        plain, C_BLK_SWEEP)
+    torch.cuda.empty_cache()
+    _, ms_p = turns(torch, kernel, plain, rounds=1)
+    out = []
+    for c_blk in C_BLK_SWEEP:
+        kernel(c_blk)
+        ms_k = statistics.median(timed_ms(torch, lambda: kernel(c_blk))
+                                 for _ in range(3))
+        out.append(blocked_row(kernel_name, level, variant, shape, cells,
+                               ms_k, ms_p, args, out_bytes, err, c_blk))
+    return out
+
+
 def blocked_row(kernel, level, variant, shape, cells, ms_k, ms_p, args,
-                out_bytes, err=0.0):
-    """One blocked-kernel timing line, with its bound."""
+                out_bytes, err=0.0, c_blk=None):
+    """One blocked-kernel timing line (at column block ``c_blk``, by
+    default the kernels' own), with its bound."""
+    from aligntools_tpu_torch.ops import blocked
+
     ops = (SCORE_OPS[variant.split("/")[0]]
            + (PTR_EXTRA_OPS[variant.split("/")[0]]
               if kernel == "blocked_ptr" else 0)) * cells
     b_ms, b_by = bound(ops, input_bytes(args, "jump" in variant) + out_bytes)
     row = {"phase": "blocked", "kernel": kernel, "level": level,
-           "variant": variant, "shape": shape, "bit_equal": err == 0.0,
+           "variant": variant, "shape": shape,
+           "c_blk": c_blk or blocked.C_BLK, "bit_equal": err == 0.0,
            "max_abs_err": err, "tolerance": TOL, "ms": ms_k, "plain_ms": ms_p,
            "bound_ms": b_ms, "bound_by": b_by,
            "probe_ms": probe_ms(ops, variant == "edit"), "true_cells": cells,
@@ -1202,6 +1261,7 @@ def phase_long(torch, scan, ptr, tb, work, trace_path):
     just before and read just after, then every bucket against plain while
     the CPU runs of the sampled pairs go on."""
     from aligntools_tpu_torch import batch, cli
+    from aligntools_tpu_torch.ops import blocked
     from aligntools_tpu_torch.params import AlignParams
     from aligntools_tpu_torch.utils.synth import clustered_pairs
 
@@ -1241,7 +1301,7 @@ def phase_long(torch, scan, ptr, tb, work, trace_path):
     def run(label, run_label, rows):
         mode, ps, s = runs_in[label]
         tsv = os.path.join(work, f"long-{label}-{'rows' if rows else 'scores'}"
-                                 f"-{run_label}.tsv")
+                                 f"-{run_label.replace(' ', '-')}.tsv")
         argv = ["batch", mode, fastas[label], *(["-s"] if s else []),
                 *([] if rows else ["--scores-only"]), "--out", tsv]
         waves[0] = 0
@@ -1268,6 +1328,18 @@ def phase_long(torch, scan, ptr, tb, work, trace_path):
             scores_tsv[label] = run(label, "cold", False)
         torch.cuda.synchronize()
         launches, plain = counts(scan, ptr, tb)
+        # L3 warm at every column block of the sweep: the same TSVs
+        own = blocked.C_BLK
+        try:
+            for c_blk in C_BLK_SWEEP:
+                blocked.C_BLK = c_blk
+                for rows, want in ((True, rows_tsv), (False, scores_tsv)):
+                    tsv = run("fit", f"warm c_blk {c_blk}", rows)
+                    with open(tsv, "rb") as a, open(want["fit"], "rb") as b:
+                        check(a.read() == b.read(), f"L3 at c_blk {c_blk}: "
+                              f"{'rows' if rows else 'scores'} TSV differs")
+        finally:
+            blocked.C_BLK = own
     finally:
         batch._collect_rows_wave = collect
     emit({"phase": "long", "launches": launches, "plain_calls": plain})
@@ -1598,6 +1670,27 @@ PROFILE_GROUPS = (("fill", ("ptr_affine", "ptr_overlap", "bptr_",
                   ("allocation", ("Memset", "memset", "FillFunctor")))
 
 
+def sms_in_use(trace_path, n_sm):
+    """Per group of PROFILE_GROUPS, the SMs that hold a CTA of its kernels,
+    min(n_sm, the grid's CTAs), weighted by each launch's device time in
+    the Chrome trace; None where the trace gives no grid."""
+    with open(trace_path) as f:
+        events = json.load(f).get("traceEvents", [])
+    acc = {name: [0.0, 0.0] for name, _ in PROFILE_GROUPS}
+    for ev in events:
+        grid = (ev.get("args") or {}).get("grid")
+        if ev.get("cat") != "kernel" or not grid:
+            continue
+        group = next((name for name, keys in PROFILE_GROUPS
+                      if any(k in ev.get("name", "") for k in keys)), None)
+        if group is not None:
+            ctas = grid[0] * grid[1] * grid[2]
+            acc[group][0] += ev.get("dur", 0) * min(n_sm, ctas)
+            acc[group][1] += ev.get("dur", 0)
+    return {name: (sm_us / us if us else None)
+            for name, (sm_us, us) in acc.items()}
+
+
 def phase_profile(torch, cli, argv, work, trace_path):
     """One more warm rows run (``argv``, the CLI's) under torch.profiler:
     device time per op (CUDA kernels and copies) against the run's wall
@@ -1630,6 +1723,9 @@ def phase_profile(torch, cli, argv, work, trace_path):
           "path": "rows",
           "wall_s": wall, "device_busy_ms": busy,
           "busy_share": busy / 1000 / wall, "split_ms": split,
+          "sms_in_use": sms_in_use(
+              trace_path, torch.cuda.get_device_properties(0)
+              .multi_processor_count),
           "counters": report, "device_ops": ops[:12], "trace": trace_path})
     check(busy > 0, "torch.profiler recorded no device time")
 
@@ -1638,6 +1734,8 @@ def summary(rows, ptr_rows, walk_rows, bucket_rows, launches, blocked_rows,
             long_buckets, banded_rows, banded_buckets, probe_reps):
     """The kernels line: each kernel's representative timing, its launches
     on its path's main-path run, and its largest error over every check."""
+    from aligntools_tpu_torch.ops.blocked import C_BLK as c_blk_own
+
     out = []
     for name, (replaces, src, variants) in KERNELS.items():
         if name in probe_reps:
@@ -1651,7 +1749,8 @@ def summary(rows, ptr_rows, walk_rows, bucket_rows, launches, blocked_rows,
             timed = [r for r in blocked_rows if r["kernel"] == name]
             path = "scores" if name == "blocked_scores" else "rows"
             mine = timed + [r for r in long_buckets if r["path"] == path]
-            timed = [r for r in timed if r["level"] == "L2"]
+            timed = [r for r in timed if r["level"] == "L2"
+                     and r["c_blk"] == c_blk_own]
         elif name == "ptr":
             timed, mine = ptr_rows, ptr_rows + [
                 r for r in bucket_rows if r["path"] == "rows"]

@@ -5,6 +5,7 @@ CUDA device (a CUDA kernel has no interpret mode). On a Hopper card:
 ``ALIGNTOOLS_TEST_TPU=1 python -m pytest tests/test_torch_cuda.py -o
 addopts="" -q`` (the variable keeps tests/conftest.py from importing jax)."""
 
+import blocked_ties as ties
 import numpy as np
 import pytest
 import torch
@@ -141,7 +142,7 @@ def _blocked_inputs(seed, c_blk, fit, B=8, m_pad=64, n_pad=16384):
     ms = rng.integers(1, m_pad + 1, (B, 1)).astype(np.int32)
     ns = rng.integers(1, n_pad + 1, (B, 1)).astype(np.int32)
     ms[0], ns[0] = m_pad, n_pad
-    ns[1], ns[2] = c_blk, c_blk // 2 + 1
+    ns[1:3, 0] = [c_blk, c_blk // 2 + 1][: B - 1]
     if fit:
         ns = np.maximum(ns, ms)
     qs = rng.choice(alpha, (B, m_pad))
@@ -153,7 +154,7 @@ def _blocked_inputs(seed, c_blk, fit, B=8, m_pad=64, n_pad=16384):
     return m_pad, n_pad, (qs, ts, allow, ns, ms, pm)
 
 
-@pytest.mark.parametrize("c_blk", [128, 2048, blocked.C_BLK])
+@pytest.mark.parametrize("c_blk", sorted({128, 2048, 8192, blocked.C_BLK}))
 @pytest.mark.parametrize("mode,use_jump", BLOCKED_SCORE_CASES)
 def test_blocked_scores_kernel_equals_plain(cuda, mode, use_jump, c_blk):
     m_pad, n_pad, arrs = _blocked_inputs(13, c_blk, mode == "fit")
@@ -171,7 +172,7 @@ def test_blocked_scores_kernel_equals_plain(cuda, mode, use_jump, c_blk):
     assert torch.equal(got, want), (got, want)
 
 
-@pytest.mark.parametrize("c_blk", [128, 2048, blocked.C_BLK])
+@pytest.mark.parametrize("c_blk", sorted({128, 2048, 8192, blocked.C_BLK}))
 @pytest.mark.parametrize("mode,use_jump,rpb", BLOCKED_PTR_CASES)
 def test_blocked_ptr_kernel_equals_plain(cuda, mode, use_jump, rpb, c_blk):
     """Score, a, b and every pointer byte, pad rows and columns included."""
@@ -187,6 +188,122 @@ def test_blocked_ptr_kernel_equals_plain(cuda, mode, use_jump, rpb, c_blk):
     for name, g, w in zip(("score", "a", "b", "ptrs"), got, want):
         bad = (g != w).nonzero()
         assert torch.equal(g, w), (name, bad[:8].tolist(), len(bad))
+
+
+# every blocked variant: ("scores", mode, jump, None) or ("ptr", mode, jump,
+# rows per byte)
+BLOCKED_CASES = ([("scores", m, j, None) for m, j in BLOCKED_SCORE_CASES]
+                 + [("ptr", *c) for c in BLOCKED_PTR_CASES])
+
+
+def _blocked_run(kind, mode, use_jump, rpb, m_pad, n_pad, c_blk, args,
+                 plain=False):
+    """The blocked kernel at ``c_blk`` (or, ``plain``, its plain version) as
+    a tuple of outputs."""
+    qs, ts, allow, ns, ms, pm = args
+    if kind == "ptr":
+        if plain:
+            return ptr.ptr_fill_plain(mode, use_jump, m_pad, n_pad, qs, ts,
+                                      allow, ns, ms, pm, rpb)
+        return blocked.blocked_ptr_fill(mode, use_jump, m_pad, n_pad, c_blk,
+                                        qs, ts, allow, ns, ms, pm, rpb)
+    if not plain:
+        return (blocked.blocked_scores(mode, use_jump, m_pad, n_pad, c_blk,
+                                       qs, ts, allow, ns, ms, pm),)
+    if mode == "fit":
+        return (scan.fit_scores_plain(use_jump, m_pad, n_pad, qs, ts, allow,
+                                      ns, ms, pm),)
+    return (scan.scores_plain(mode, m_pad, n_pad, qs, ts, ns, ms, pm),)
+
+
+def _blocked_equals_plain(kind, mode, use_jump, rpb, m_pad, n_pad, c_blk,
+                          args):
+    key = "blocked_ptr" if kind == "ptr" else "blocked_scores"
+    before = blocked.launches[key]
+    got = _blocked_run(kind, mode, use_jump, rpb, m_pad, n_pad, c_blk, args)
+    torch.cuda.synchronize()
+    assert blocked.launches[key] == before + 1
+    want = _blocked_run(kind, mode, use_jump, rpb, m_pad, n_pad, c_blk, args,
+                        plain=True)
+    for name, g, w in zip(("score", "a", "b", "ptrs"), got, want):
+        bad = (g != w).nonzero()
+        assert torch.equal(g, w), (name, bad[:8].tolist(), len(bad))
+    return got
+
+
+@pytest.mark.parametrize("c_blk,n_pad", [(128, 4096), (1024, 16384)])
+@pytest.mark.parametrize("kind,mode,use_jump,rpb", BLOCKED_CASES)
+def test_blocked_wavefront_one_pair_many_blocks(cuda, kind, mode, use_jump,
+                                                rpb, c_blk, n_pad):
+    """B = 1 over 32 and 16 column blocks: the longest chain of waits,
+    each block on the one before."""
+    m_pad, _, arrs = _blocked_inputs(43, c_blk, mode == "fit", B=1,
+                                     m_pad=256, n_pad=n_pad)
+    _blocked_equals_plain(kind, mode, use_jump, rpb, m_pad, n_pad, c_blk,
+                          convert.kernel_inputs_from_numpy(*arrs, cuda))
+
+
+@pytest.mark.parametrize("kind,mode,use_jump,rpb", [
+    ("scores", "fit", True, None), ("scores", "edit", False, None),
+    ("ptr", "local", False, 2), ("ptr", "fit", True, 1),
+    ("ptr", "overlap", False, 4)])
+def test_blocked_wavefront_more_ctas_than_resident(cuda, kind, mode,
+                                                   use_jump, rpb):
+    """64 pairs over 128 blocks of 128 columns: 8,192 CTAs, more than the
+    card holds at once (32 a SM, 132 SMs), so later tickets start only as
+    earlier CTAs finish; no CTA may wait on one that has not started."""
+    m_pad, n_pad, arrs = _blocked_inputs(47, 128, mode == "fit", B=64,
+                                         m_pad=64, n_pad=16384)
+    _blocked_equals_plain(kind, mode, use_jump, rpb, m_pad, n_pad, 128,
+                          convert.kernel_inputs_from_numpy(*arrs, cuda))
+
+
+@pytest.mark.parametrize("kind,mode,use_jump,rpb", BLOCKED_CASES)
+def test_blocked_wavefront_relaunch_equal(cuda, kind, mode, use_jump, rpb):
+    """Two launches on the same inputs give the same outputs: every launch
+    starts from zeroed tickets, progress and done counters."""
+    m_pad, n_pad, arrs = _blocked_inputs(53, 128, mode == "fit", B=8,
+                                         m_pad=64, n_pad=2048)
+    args = convert.kernel_inputs_from_numpy(*arrs, cuda)
+    first = _blocked_equals_plain(kind, mode, use_jump, rpb, m_pad, n_pad,
+                                  128, args)
+    again = _blocked_run(kind, mode, use_jump, rpb, m_pad, n_pad, 128, args)
+    torch.cuda.synchronize()
+    for g, w in zip(again, first):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("mode,use_jump", BLOCKED_SCORE_CASES)
+def test_blocked_scores_ragged_trailing_blocks(cuda, mode, use_jump):
+    """Targets ending inside, on and one past block edges: the score
+    fills' CTAs for blocks past n exit at once, and none waits on them."""
+    c_blk, n_pad = 128, 2048
+    m_pad, _, arrs = _blocked_inputs(59, c_blk, mode == "fit", B=8,
+                                     m_pad=64, n_pad=n_pad)
+    qs, ts, allow, ns, ms, pm = arrs
+    ns[:, 0] = [1, 17, c_blk - 1, c_blk, c_blk + 1, 2 * c_blk + 5,
+                n_pad - 1, n_pad]
+    if mode == "fit":
+        ms[:, 0] = np.minimum(ms[:, 0], ns[:, 0])
+    qs[np.arange(m_pad)[None, :] >= ms] = -1
+    ts[:] = np.where(np.arange(n_pad)[None, :] >= ns, -2,
+                     np.where(ts < 0, ALPHA_I32[0], ts))
+    _blocked_equals_plain("scores", mode, use_jump, None, m_pad, n_pad,
+                          c_blk, convert.kernel_inputs_from_numpy(
+                              qs, ts, allow, ns, ms, pm, cuda))
+
+
+@pytest.mark.parametrize("c_blk", sorted({128, blocked.C_BLK}))
+@pytest.mark.parametrize("kind,mode,use_jump,rpb", BLOCKED_CASES)
+def test_blocked_kernels_on_ties_equal_plain(cuda, kind, mode, use_jump, rpb,
+                                             c_blk):
+    """Start-info candidates that tie across blocks (tests/blocked_ties.py;
+    held against the JAX package's kernels on the CPU): the merge in block
+    order keeps the plain version's."""
+    arrs = ties.tie_inputs(c_blk, 61)
+    _blocked_equals_plain(kind, mode, use_jump, rpb, ties.M_PAD,
+                          ties.BLOCKS * c_blk, c_blk,
+                          convert.kernel_inputs_from_numpy(*arrs, cuda))
 
 
 def _long_pairs(seed, count=6, fit=False):

@@ -289,6 +289,14 @@ def _tick(counters, field: str, t0: float) -> float:
 # are left out of the budget: they are at most 16 * rpb / c_blk of the
 # pointer bytes (0.8% at rpb 1 and c_blk 2,048, 3.1% at overlap's rpb 4),
 # freed with the fill, and fit in the device memory the budget leaves.
+#
+# Two streams: each bucket's fill (and its H2D copies and walk starts) goes
+# on the current stream, its walk on the device's walk stream
+# (device_tb.walk_behind) behind an event after the fill, so the walk of
+# bucket k runs under the fill of bucket k+1. A bucket's pointer tensor
+# then lives until its walk ends, beside later fills: the wave's pointer
+# bytes, all counted against the budget, bound that. The collection waits
+# for the walk stream before its copies (device_tb.join_walks).
 # ---------------------------------------------------------------------------
 
 PTR_BUDGET_FRAC = 0.45  # share of device memory the pointer tensors may use
@@ -339,11 +347,13 @@ def _dispatch_rows(mode, b, pmat, jump, device, counters):
         score, a, bb, ptrs = ptr_fill(mode, jump, b.m_pad, b.n_pad, qs, ts,
                                       allow, ns, ms, pmat, rpb)
     starts = device_tb.walk_starts(mode, score, a, bb, ms, ns)
-    cols1, cols2, scal = device_tb.walk(mode, rpb, ptrs, qs, ts, starts)
-    # the f32 scores ride the int32 scalars as their bit pattern (exact);
-    # ptrs is released here: the caching allocator reuses its memory only
-    # for work queued after this walk on the stream
-    scal = torch.cat([scal, score.view(torch.int32)[None]])
+    # the walk goes on the walk stream, behind this fill and under the next
+    # bucket's; the f32 scores ride the int32 scalars as their bit pattern
+    # (exact). ptrs, qs, ts and starts are released here: record_stream
+    # keeps the caching allocator from handing their memory to the next
+    # fill before the walk has read them
+    cols1, cols2, scal = device_tb.walk_behind(
+        mode, rpb, ptrs, qs, ts, starts, ride=(score.view(torch.int32),))
     return _PendingRows(b, cols1, cols2, scal)
 
 
@@ -354,6 +364,7 @@ def _collect_rows_wave(mode, pends, pairs, results, counters):
     if not pends:
         return
     t0 = time.perf_counter()
+    device_tb.join_walks(pends[0].scal.device)
     scals = device_tb.walk_scalars_many([p.scal for p in pends])
     t0 = _tick(counters, "fill_seconds", t0)
     scores = [sc[4].view(np.float32) for sc in scals]

@@ -302,9 +302,10 @@ def _dispatch_rows(mode, s, band, pmat, device):
     best, edge, a, b, ptrs = kern.banded_full(mode, band, qs, te, ns, ms,
                                               pmat)
     starts = device_tb.walk_starts(mode, best, a, b, ms, ns)
-    cols1, cols2, scal = device_tb.walk(mode, 1, ptrs, qs, te, starts, band)
-    scal = torch.cat([scal, best.view(torch.int32)[None],
-                      edge.view(torch.int32)[None]])
+    # on the walk stream, under the next slab's fill (batch.py's rows note)
+    cols1, cols2, scal = device_tb.walk_behind(
+        mode, 1, ptrs, qs, te, starts,
+        ride=(best.view(torch.int32), edge.view(torch.int32)), band=band)
     return _PendingRows(s.idx, cols1, cols2, scal)
 
 
@@ -313,6 +314,7 @@ def _collect(mode, pends, pairs, out):
     columns; fills ``out`` (position -> (score, edge, err, rows))."""
     if not pends:
         return
+    device_tb.join_walks(pends[0].scal.device)
     scals = device_tb.walk_scalars_many([p.scal for p in pends])
     clean = []
     for sc in scals:

@@ -13,9 +13,13 @@ Counterpart of ``aligntools_tpu/engine/device_tb.py``: ``_walk_affine``
                 walk order; 0 past a pair's walk
   scal          (4, B) int32: emitted length, final i, final j, error flag
 
-On a CUDA tensor it launches ``csrc/walk.cu`` (one thread per pair, each
-walking to its own end) or raises; on a CPU tensor it runs ``walk_plain``,
-which steps all pairs together until none is active. The semantics are the
+On a CUDA tensor it launches ``csrc/walk.cu`` (a warp per pair, each
+walking to its own end over pointer tiles staged in shared memory) or
+raises; on a CPU tensor it runs ``walk_plain``, which steps all pairs
+together until none is active. The rows paths call it through
+``walk_behind``, which queues each bucket's walk on the device's walk
+stream behind the bucket's fill, so that it runs under the next bucket's
+fill; ``join_walks`` makes the collection wait for it. The semantics are the
 JAX walks', step for step: local's HOME step emits its column and then
 stops, an unset pointer flags ``err`` (global and fit; overlap also flags
 a walk that reaches row 0 before column 0, and leaves that step out of the
@@ -184,7 +188,7 @@ def walk_plain(mode, rpb, ptrs, qs, ts, starts, band=None):
 # ---------------------------------------------------------------------------
 
 _fn = None
-THREADS = 128  # pairs per CTA
+TILE_COLS = 128  # a pointer tile's columns where the row is wider (8 KB)
 
 
 def _kernel():
@@ -195,7 +199,7 @@ def _kernel():
         fn = _build.load().at_walk
         P, I = ctypes.c_void_p, ctypes.c_int
         # mode, rpb, ptrs, qs, ts, starts, cols1, cols2, scal, B, m_pad,
-        # n_pad, rows, row width, band (-1 flat), threads, stream
+        # n_pad, rows, row width, band (-1 flat), tile columns, stream
         fn.argtypes = [I, I, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P]
         fn.restype = ctypes.c_int
         _fn = fn
@@ -231,6 +235,10 @@ def walk(mode, rpb, ptrs, qs, ts, starts, band=None):
     _check(mode, rpb, ptrs, qs, ts, starts, band)
     if qs.device.type == "cpu":
         return walk_plain(mode, rpb, ptrs, qs, ts, starts, band)
+    if ptrs.shape[2] % 16 or ptrs.data_ptr() % 16:
+        raise ValueError(f"the walk kernel copies pointer rows in 16-byte "
+                         f"chunks: rows of {ptrs.shape[2]} bytes at "
+                         f"{ptrs.data_ptr():#x}")
     global launches
     B, m_pad = qs.shape
     n_pad = ts.shape[1]
@@ -244,11 +252,63 @@ def walk(mode, rpb, ptrs, qs, ts, starts, band=None):
                         qs.data_ptr(), ts.data_ptr(), starts.data_ptr(),
                         cols1.data_ptr(), cols2.data_ptr(), scal.data_ptr(),
                         B, m_pad, n_pad, ptrs.shape[1], ptrs.shape[2],
-                        -1 if band is None else band, THREADS, stream)
+                        -1 if band is None else band, TILE_COLS, stream)
     if err != 0:
         raise RuntimeError(f"walk kernel launch failed: CUDA error {err}")
     launches += 1
     return cols1, cols2, scal
+
+
+# ---------------------------------------------------------------------------
+# The walk stream: each bucket's walk under the next bucket's fill
+# ---------------------------------------------------------------------------
+
+_streams = {}
+
+
+def walk_stream(device):
+    """The device's walk stream (high priority, so that its few CTAs take
+    the first SM that frees room beside a fill), made at first use."""
+    device = torch.device(device)
+    key = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if key not in _streams:
+        _streams[key] = torch.cuda.Stream(key, priority=-1)
+    return _streams[key]
+
+
+def walk_behind(mode, rpb, ptrs, qs, ts, starts, ride=(), band=None):
+    """``walk`` queued on the device's walk stream behind the current
+    stream's work so far (the fill that made ``ptrs`` and ``starts``), so
+    that it runs under the next bucket's fill; returns (cols1, cols2,
+    scal) with ``ride``, (B,) int32 rows, stacked under the scalars. On
+    the CPU: ``walk`` and the stack, in order.
+
+    The inputs are marked for the walk stream (``record_stream``): the
+    caching allocator then hands their memory to later work only after the
+    walk has read them. The outputs are marked for the current stream,
+    which reads them once ``join_walks`` has made it wait."""
+    if qs.device.type != "cuda":
+        cols1, cols2, scal = walk(mode, rpb, ptrs, qs, ts, starts, band)
+        return cols1, cols2, torch.cat([scal, *(r[None] for r in ride)])
+    main = torch.cuda.current_stream(qs.device)
+    side = walk_stream(qs.device)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        cols1, cols2, scal = walk(mode, rpb, ptrs, qs, ts, starts, band)
+        scal = torch.cat([scal, *(r[None] for r in ride)])
+    for x in (ptrs, qs, ts, starts, *ride):
+        x.record_stream(side)
+    for x in (cols1, cols2, scal):
+        x.record_stream(main)
+    return cols1, cols2, scal
+
+
+def join_walks(device):
+    """Make the current stream wait for every walk queued so far on the
+    device's walk stream (before a collection's device-to-host copies)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.current_stream(device).wait_stream(walk_stream(device))
 
 
 # ---------------------------------------------------------------------------

@@ -35,7 +35,13 @@ Phases, one JSON line each:
            (rpb 2, 512 MB of pointers) and fit+jump at 64 x (512 x 32768)
            (rpb 1, 1 GB), each also through the blocked kernel as in
            `kernels`; then the walk kernel against its plain version on
-           each of those pointer tensors (every column and scalar);
+           each of those pointer tensors (every column and scalar), timed
+           through its wrapper (`ms`) and alone (`kernel_ms`), with
+           `chain_ms` beside the bound: the longest walk at
+           WALK_CHAIN_CYCLES a step; then (`walk`, `drawn_cases`) on every
+           walk of tests/walk_cases.py, drawn to cross the kernel's
+           pointer tiles (flat at rpb 1, 2 and 4; window at W 64, 128 and
+           300);
   blocked  the column-blocked kernels (targets past 32,768 columns; a
            wavefront of one CTA per (pair, column block)) against their
            plain versions, bit for bit, at column blocks 8,192, 4,096 and
@@ -77,9 +83,13 @@ Phases, one JSON line each:
            each rows TSV's score column equals its scores TSV, and 4 lines
            sampled from the 16 cheapest long pairs with n <= 60,000 (and,
            for L3, the cheapest pair with n > 100,000) equal the port's
-           `--device cpu` run. Meanwhile (`buckets` lines) every bucket's
-           fill against plain on the card, the walk on every flat bucket
-           and on L3's blocked bucket of the narrowest target.
+           `--device cpu` run. Then one more warm L3 rows run under
+           torch.profiler (as `--profile` below; its trace in the work
+           directory without it): the walk's time, its share of the busy
+           time, its SMs in use and how much of it ran under a fill.
+           Meanwhile (`buckets` lines) every bucket's fill against plain on
+           the card, the walk on every flat bucket and on L3's blocked
+           bucket of the narrowest target.
 
   banded   the banded path (`--band`). BK1: the banded kernel's nine
            variants (scores for all five modes, pointers for global, local,
@@ -109,10 +119,12 @@ each, beside the bucket checks, which are the longest phases.
 adds a `profile` phase: one more warm rows `batch local` run on the 20,000
 pairs, one more warm L3 `batch fit -s` rows run and one more warm BS
 `batch local --band 128` rows run under torch.profiler,
-with the device's busy time per op and its split between fill, walk,
-copies and allocation (the zero fills of new tensors), against the wall,
-the SMs in use of the fill and of the walk (min(SMs, a launch's CTAs),
-weighted by device time),
+with the device's time per op and its split between fill, walk,
+copies and allocation (the zero fills of new tensors), the busy time (the
+union of the device's spans: each walk runs on its own stream, under the
+next fill) against the wall, the walk's time under a fill, the SMs in use
+of the fill and of the walk (min(SMs, a launch's CTAs), weighted by
+device time),
 and their Chrome traces written to TRACE.json, TRACE.long.json and
 TRACE.banded.json.
 
@@ -243,6 +255,13 @@ PTR_EXTRA_OPS = {"global": 5, "local": 7, "overlap": 3, "fit": 5,
                  "fit+jump": 8}
 WALK_OPS_PER_STEP = 20
 WALK_BYTES_PER_STEP = 11  # 1 pointer byte, 2 int32 chars, 2 column bytes
+# The walk's chain bound, beside the bytes and operations (which a chain of
+# dependent steps comes nowhere near): a bucket's longest walk, each step
+# one dependent load from shared memory, assumed WALK_CHAIN_CYCLES SM
+# clocks (the load's latency, the decode left out), at the SM clock the
+# probe read under load. It bounds a walk that takes its steps one after
+# another; the kernel takes a run of up to 32 steps in one state at once.
+WALK_CHAIN_CYCLES = 30
 
 
 def bound(ops, nbytes):
@@ -253,6 +272,7 @@ def bound(ops, nbytes):
 # the card's chained max+add rates in op/s, measured by the probe phase
 # (roofline_ops_per_sec at its defaults) before any fill is timed
 PROBE_RATES = {}
+SM_MHZ = {}  # the SM clock nvidia-smi read under the int32 roofline probe
 
 
 def probe_ms(ops, integer=False):
@@ -490,6 +510,10 @@ def phase_probe(torch, vp, build):
             "chain": chain, "seconds": ops / PROBE_RATES[dtype],
             "ops_per_s": PROBE_RATES[dtype],
             "measures": "issue rate, 8 independent chains a thread"}])
+    SM_MHZ["int32"] = next(
+        r["clocks_sm_mhz"] for r in rows
+        if r["probe"] == "roofline_ops_per_sec" and r["variant"].startswith(
+            "int32/"))
     torch.cuda.synchronize()
     launches, plain = dict(vp.launches), vp.plain_calls
     emit({"phase": "probe", "launches": launches, "plain_calls": plain,
@@ -786,7 +810,9 @@ def walk_row(torch, tb, mode, rpb, variant, shape, ptrs, qs, ts, starts,
         timed_ms(torch, lambda: tb.walk(mode, rpb, ptrs, qs, ts, starts,
                                         band))
         for _ in range(2))
+    ms_launch = launch_ms(torch, tb, mode, rpb, ptrs, qs, ts, starts, band)
     steps = int(w_k[2][0].sum())
+    longest = int(w_k[2][0].max())
     B = qs.shape[0]
     b_ms, b_by = bound(WALK_OPS_PER_STEP * steps,
                        WALK_BYTES_PER_STEP * steps + 28 * B)
@@ -795,12 +821,66 @@ def walk_row(torch, tb, mode, rpb, variant, shape, ptrs, qs, ts, starts,
            "tolerance": TOL, "ms": ms_k, "plain_ms": plain_ms,
            "bound_ms": b_ms, "bound_by": b_by,
            "probe_ms": probe_ms(WALK_OPS_PER_STEP * steps, True),
+           "kernel_ms": ms_launch, "chain_ms": chain_ms(longest),
            "steps": steps,
-           "longest_walk": int(w_k[2][0].max())}
+           "longest_walk": longest}
     emit(row)
     check(w_eq and w_err == 0.0,
           f"walk {variant} rpb {rpb} at {shape}: kernel != plain")
     return row
+
+
+def launch_ms(torch, tb, mode, rpb, ptrs, qs, ts, starts, band,
+              launches=5):
+    """The walk kernel alone: ``launches`` launches on outputs made once
+    (the wrapper's checks and zero fills left out), back to back between
+    two events, a launch's share of the median of three."""
+    B, m_pad = qs.shape
+    n_pad = ts.shape[1]
+    c1 = torch.zeros((m_pad + n_pad + 1, B), dtype=torch.uint8,
+                     device="cuda")
+    c2 = torch.zeros_like(c1)
+    sc = torch.empty((4, B), dtype=torch.int32, device="cuda")
+    fn, stream = tb._kernel(), torch.cuda.current_stream().cuda_stream
+    args = (tb.MODES.index(mode), rpb, ptrs.data_ptr(), qs.data_ptr(),
+            ts.data_ptr(), starts.data_ptr(), c1.data_ptr(), c2.data_ptr(),
+            sc.data_ptr(), B, m_pad, n_pad, ptrs.shape[1], ptrs.shape[2],
+            -1 if band is None else band, tb.TILE_COLS, stream)
+
+    def run():
+        for _ in range(launches):
+            check(fn(*args) == 0, "walk kernel launch failed")
+
+    run()
+    return statistics.median(timed_ms(torch, run) for _ in range(3)) / launches
+
+
+def chain_ms(longest_walk):
+    """The walk's chain bound (WALK_CHAIN_CYCLES) in ms."""
+    return longest_walk * WALK_CHAIN_CYCLES / (SM_MHZ["int32"] * 1e3)
+
+
+def phase_walk_cases(torch, tb):
+    """The walk kernel against plain on the walks of tests/walk_cases.py,
+    drawn to cross its tiles: columns and all four scalars."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import walk_cases
+
+    names, steps = [], 0
+    for c in walk_cases.flat_cases() + walk_cases.window_cases():
+        args = [torch.from_numpy(x).cuda() for x in (c.ptrs, c.qs, c.ts,
+                                                     c.starts)]
+        got = tb.walk(c.mode, c.rpb, *args, c.band)
+        torch.cuda.synchronize()
+        want = tb.walk_plain(c.mode, c.rpb, *args, c.band)
+        label = f"{c.name}/{c.mode}/rpb{c.rpb}"
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"walk on drawn case {label}: kernel != plain")
+        names.append(label)
+        steps += int(want[2][0].sum())
+    emit({"phase": "walk", "drawn_cases": len(names), "cases": names,
+          "steps": steps, "bit_equal": True, "max_abs_err": 0.0,
+          "tolerance": TOL})
 
 
 def blocked_check(torch, label, kernel_at, plain, c_blks):
@@ -1350,10 +1430,12 @@ def phase_long(torch, scan, ptr, tb, work, trace_path):
           f"path: {plain}")
     with open(cold, "rb") as a, open(rows_tsv["fit"], "rb") as b:
         check(a.read() == b.read(), "L3: cold and warm rows TSVs differ")
-    if trace_path:
-        root, ext = os.path.splitext(trace_path)
-        phase_profile(torch, cli, ["batch", "fit", fastas["fit"], "-s"], work,
-                      f"{root}.long{ext}")
+    # the L3 rows warm profile, on every run: the walk's time, its share of
+    # the busy time, its SMs in use and how much of it ran under a fill
+    root, ext = os.path.splitext(trace_path or os.path.join(work,
+                                                            "trace.json"))
+    phase_profile(torch, cli, ["batch", "fit", fastas["fit"], "-s"], work,
+                  f"{root}.long{ext}")
 
     runs = []
     for label, tsv in rows_tsv.items():
@@ -1691,10 +1773,50 @@ def sms_in_use(trace_path, n_sm):
             for name, (sm_us, us) in acc.items()}
 
 
+def merged(spans):
+    """Sorted, disjoint cover of the (start, end) ``spans``."""
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def trace_overlap(trace_path):
+    """From the Chrome trace: the device's busy time, the union of its
+    kernels', copies' and sets' spans (the fill and the walk run at once on
+    two streams), the walk's time, and how much of it ran while a fill
+    kernel ran; in ms."""
+    with open(trace_path) as f:
+        events = json.load(f).get("traceEvents", [])
+    spans = {"fill": [], "walk": [], "device": []}
+    for ev in events:
+        if ev.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        span = (ev["ts"], ev["ts"] + ev.get("dur", 0))
+        spans["device"].append(span)
+        for name, keys in PROFILE_GROUPS[:2]:
+            if ev["cat"] == "kernel" and any(k in ev.get("name", "")
+                                             for k in keys):
+                spans[name].append(span)
+    fills = merged(spans["fill"])
+    under = sum(max(0.0, min(b, d) - max(a, c))
+                for a, b in spans["walk"] for c, d in fills)
+    walk = sum(b - a for a, b in spans["walk"])
+    busy = sum(b - a for a, b in merged(spans["device"]))
+    return {"busy_ms": busy / 1e3, "walk_ms": walk / 1e3,
+            "walk_share_of_busy": walk / busy if busy else None,
+            "walk_under_fill_ms": under / 1e3,
+            "walk_under_fill_share": under / walk if walk else None}
+
+
 def phase_profile(torch, cli, argv, work, trace_path):
     """One more warm rows run (``argv``, the CLI's) under torch.profiler:
     device time per op (CUDA kernels and copies) against the run's wall
-    clock."""
+    clock, and from the trace the busy time and the walk's overlap with
+    the fills (``trace_overlap``)."""
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(os.path.dirname(trace_path), exist_ok=True)
@@ -1719,10 +1841,13 @@ def phase_profile(torch, cli, argv, work, trace_path):
                       if any(k in o["op"] for k in keys)), "other")
         split[group] += o["ms"]
     prof.export_chrome_trace(trace_path)
+    spans = trace_overlap(trace_path)
     emit({"phase": "profile", "run": " ".join(argv[1:2] + argv[3:]),
           "path": "rows",
-          "wall_s": wall, "device_busy_ms": busy,
-          "busy_share": busy / 1000 / wall, "split_ms": split,
+          "wall_s": wall, "device_busy_ms": spans["busy_ms"],
+          "busy_share": spans["busy_ms"] / 1000 / wall,
+          "device_time_ms": busy, "split_ms": split,
+          "walk": {k: v for k, v in spans.items() if k != "busy_ms"},
           "sms_in_use": sms_in_use(
               trace_path, torch.cuda.get_device_properties(0)
               .multi_processor_count),
@@ -1775,6 +1900,7 @@ def summary(rows, ptr_rows, walk_rows, bucket_rows, launches, blocked_rows,
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
             "probe_ms": rep["probe_ms"], "library_ms": None,
             "variant": rep["variant"], "shape": rep["shape"],
+            **({"chain_ms": rep["chain_ms"]} if "chain_ms" in rep else {}),
         })
     return out
 
@@ -1821,6 +1947,7 @@ def main(argv=None):
     probe_launches, probe_reps = phase_probe(torch, vpu_probe, _build)
     rows = phase_kernels(torch, scan)
     ptr_rows, walk_rows = phase_ptr(torch, ptr, tb)
+    phase_walk_cases(torch, tb)
     blocked_rows = phase_blocked(torch, scan, ptr)
     from aligntools_tpu_torch.ops import banded
 

@@ -7,7 +7,8 @@ through the port's ``ops/banded.py`` on CPU tensors (its plain version):
 best, edge, the start info a/b and every pointer byte at lanes < V must be
 equal. Then the engines (scores, rows, single-pair entries, the
 certificate, the input checks and the empty-sequence results), the window
-walk against ``_walk_banded``, and ``aligntools-torch batch MODE --band W
+walk against ``_walk_banded`` (on the fills' pointers and on the drawn
+walks of tests/walk_cases.py), and ``aligntools-torch batch MODE --band W
 --device cpu`` byte for byte against ``aligntools batch MODE --band W``."""
 
 import os
@@ -17,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import walk_cases
 
 from aligntools_tpu.engine import banded as jbanded
 from aligntools_tpu.ops import pallas_banded as jpb
@@ -407,6 +409,37 @@ def test_window_walk_that_leaves_the_band(mode, byte):
                              band, mode, state, 10, 10)
     assert str(tbanded._walk_error(mode, int(scal[3, 0]))) == str(
         want.value)
+
+
+@pytest.mark.parametrize("case", walk_cases.window_cases(),
+                         ids=lambda c: f"{c.name}-{c.mode}")
+def test_window_walk_cases_match_jax(case):
+    """Window walks drawn across the kernel's tiles (tests/walk_cases.py):
+    diagonals over row tiles, L and U runs in the band, and runs that leave
+    it. Each pair's rows equal ``_walk_banded``'s, or both walks fail with
+    the same error."""
+    ptrs, qs, te, starts = (torch.from_numpy(x) for x in (
+        case.ptrs, case.qs, case.ts, case.starts))
+    cols1, cols2, scal = (x.numpy() for x in device_tb.walk(
+        case.mode, 1, ptrs, qs, te, starts, case.band))
+    V = 2 * case.band + 1
+    failed = 0
+    for k, (q, t) in enumerate(case.pairs):
+        try:
+            want = jbanded._walk_banded(q, t, case.ptrs[k, :, :V],
+                                        case.band, case.mode,
+                                        *map(int, case.starts[:, k]))
+        except RuntimeError as e:
+            failed += 1
+            assert scal[3, k] and str(tbanded._walk_error(
+                case.mode, int(scal[3, k]))) == str(e), k
+            continue
+        assert not scal[3, k], k
+        got = device_tb.assemble(case.mode, cols1[:, k : k + 1],
+                                 cols2[:, k : k + 1], scal[:, k : k + 1],
+                                 [(q, t)])
+        assert got[0] == want, k
+    assert 0 < failed < len(case.pairs)
 
 
 def test_window_walk_rejects_bad_layouts():

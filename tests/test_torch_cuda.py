@@ -9,6 +9,7 @@ import blocked_ties as ties
 import numpy as np
 import pytest
 import torch
+import walk_cases
 
 from aligntools_tpu_torch import batch as tbatch
 from aligntools_tpu_torch import convert
@@ -96,6 +97,68 @@ def test_ptr_and_walk_kernels_equal_plain(cuda, mode, use_jump, rpb, n_pad):
     wp = device_tb.walk_plain(mode, rpb, got[3], qs, ts, starts)
     for name, g, w in zip(("cols1", "cols2", "scal"), wk, wp):
         assert torch.equal(g, w), name
+
+
+WALK_CASES = walk_cases.flat_cases() + walk_cases.window_cases()
+
+
+@pytest.mark.parametrize("tile_cols", [128, 256])
+@pytest.mark.parametrize("case", WALK_CASES,
+                         ids=lambda c: f"{c.name}-{c.mode}-rpb{c.rpb}")
+def test_walk_kernel_on_drawn_cases(cuda, case, tile_cols, monkeypatch):
+    """The walk kernel == plain (columns and all four scalars) on walks
+    drawn across its tiles (tests/walk_cases.py), at its own 128-column
+    tiles and at 256-column ones."""
+    monkeypatch.setattr(device_tb, "TILE_COLS", tile_cols)
+    ptrs, qs, ts, starts = (torch.from_numpy(x).to(cuda) for x in (
+        case.ptrs, case.qs, case.ts, case.starts))
+    before = device_tb.launches
+    got = device_tb.walk(case.mode, case.rpb, ptrs, qs, ts, starts,
+                         case.band)
+    torch.cuda.synchronize()
+    assert device_tb.launches == before + 1
+    want = device_tb.walk_plain(case.mode, case.rpb, ptrs, qs, ts, starts,
+                                case.band)
+    for name, g, w in zip(("cols1", "cols2", "scal"), got, want):
+        assert torch.equal(g, w), (name, (g != w).nonzero()[:4].tolist())
+
+
+def test_walk_kernel_refusals_raise(cuda, monkeypatch):
+    """No fallback on the card: pointer rows the kernel cannot copy in
+    16-byte chunks, and a launch the kernel refuses, raise."""
+    case = walk_cases.flat_cases()[0]
+    ptrs, qs, ts, starts = (torch.from_numpy(x).to(cuda) for x in (
+        case.ptrs, case.qs, case.ts, case.starts))
+    before = (device_tb.launches, device_tb.plain_calls)
+    with pytest.raises(ValueError, match="16-byte"):
+        device_tb.walk(case.mode, case.rpb, ptrs[:, :, :1000].contiguous(),
+                       qs, ts[:, :1000].contiguous(), starts)
+    monkeypatch.setattr(device_tb, "TILE_COLS", 8)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        device_tb.walk(case.mode, case.rpb, ptrs, qs, ts, starts)
+    assert (device_tb.launches, device_tb.plain_calls) == before
+
+
+def test_walk_behind_runs_on_the_walk_stream(cuda):
+    """walk_behind queues the walk on the walk stream behind the current
+    stream's work, and join_walks makes the current stream wait: the
+    result equals plain while the current stream goes on with other
+    work."""
+    case = walk_cases.flat_cases()[1]
+    ptrs, qs, ts, starts = (torch.from_numpy(x).to(cuda) for x in (
+        case.ptrs, case.qs, case.ts, case.starts))
+    extra = torch.arange(qs.shape[0], dtype=torch.int32, device=cuda)
+    main = torch.cuda.current_stream()
+    cols1, cols2, scal = device_tb.walk_behind(case.mode, case.rpb, ptrs, qs,
+                                               ts, starts, ride=(extra,))
+    assert torch.cuda.current_stream() == main
+    busy = torch.randn(2048, 2048, device=cuda)
+    for _ in range(8):
+        busy = busy @ busy / 64
+    device_tb.join_walks(cuda)
+    want = device_tb.walk_plain(case.mode, case.rpb, ptrs, qs, ts, starts)
+    assert torch.equal(cols1, want[0]) and torch.equal(cols2, want[1])
+    assert torch.equal(scal, torch.cat([want[2], extra[None]]))
 
 
 @pytest.mark.parametrize("mode", ["local", "edit"])

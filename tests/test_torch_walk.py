@@ -1,8 +1,9 @@
 """The port's traceback walk against the JAX package's device walks.
 
 The pointer tensors come from the port's plain pointer fill (held equal
-to the Pallas kernel's in test_torch_ptr_ops.py) at rpb 1, 2 and 4. The
-same tensors and starts go through ``device_tb._walk_affine`` /
+to the Pallas kernel's in test_torch_ptr_ops.py) at rpb 1, 2 and 4, and
+from tests/walk_cases.py (paths drawn to cross the walk kernel's tiles).
+The same tensors and starts go through ``device_tb._walk_affine`` /
 ``_walk_overlap`` (jax on the CPU) and the port's ``walk`` on CPU tensors
 (its plain version); the whole (n_steps, B) column buffers and every
 scalar must be equal."""
@@ -11,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import walk_cases
 
 from aligntools_tpu.engine import device_tb as jtb
 from aligntools_tpu_torch import convert
@@ -30,7 +32,7 @@ def _fill(mode, use_jump, rpb, seed=71, params=None):
 
 
 def _jax_walk(mode, rpb, ptrs, qs, ts, starts):
-    n_steps = M_PAD + N_PAD + 1
+    n_steps = qs.shape[1] + ts.shape[1] + 1
     j = [jnp.asarray(x.numpy()) for x in (ptrs, qs, ts)]
     s = [jnp.asarray(x) for x in starts.numpy()]
     if mode == "overlap":
@@ -98,6 +100,20 @@ def test_cpu_tensors_take_the_plain_version():
     ttb.reset_counts()
 
 
+def test_walk_behind_on_the_cpu_is_walk_and_stack():
+    """On CPU tensors walk_behind is the plain walk with the ride-along
+    rows stacked under its scalars, and join_walks does nothing."""
+    qs, ts, ptrs, starts = _fill("fit", True, 1)
+    score = torch.arange(qs.shape[0], dtype=torch.float32)
+    want = ttb.walk("fit", 1, ptrs, qs, ts, starts)
+    got = ttb.walk_behind("fit", 1, ptrs, qs, ts, starts,
+                          ride=(score.view(torch.int32),))
+    ttb.join_walks(qs.device)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[2][:4], want[2])
+    assert torch.equal(got[2][4].view(torch.float32), score)
+
+
 def test_walk_rejects_bad_inputs():
     qs, ts, ptrs, starts = _fill("local", False, 2)
     with pytest.raises(ValueError, match="ptrs"):
@@ -108,3 +124,60 @@ def test_walk_rejects_bad_inputs():
         ttb.walk("edit", 2, ptrs, qs, ts, starts)
     with pytest.raises(ValueError, match="not a local layout"):
         ttb.walk("local", 4, ptrs, qs, ts, starts)
+
+
+FLAT_CASES = walk_cases.flat_cases()
+
+
+@pytest.mark.parametrize("case", FLAT_CASES,
+                         ids=lambda c: f"{c.name}-{c.mode}-rpb{c.rpb}")
+def test_walk_cases_match_jax(case):
+    """Walks drawn across the kernel's tiles (long J, L, U and diagonal
+    runs, fit past column 0, HOME on tile edges, unset codes, overlap's two
+    ends, starts on tile edges): the plain walk gives the JAX walk's
+    columns and scalars, and each case reaches what it was drawn for."""
+    args = [torch.from_numpy(x) for x in (case.ptrs, case.qs, case.ts,
+                                          case.starts)]
+    _, _, scal = _compare(case.mode, case.rpb, *args)
+    count, err = scal[0], scal[3]
+    want_err = {"unset": 1, "diag": 1 if case.mode == "overlap" else 0}
+    if case.name in want_err:
+        assert err.any() == bool(want_err[case.name])
+    else:
+        assert not err.any()
+    assert count.max() > 128  # more than a tile's width, at least once
+
+
+def _chip_smoke():
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_trace_overlap_reads_the_walk_under_the_fills(tmp_path):
+    """chip_smoke.trace_overlap on a synthetic Chrome trace: busy time is
+    the union of device spans, and a walk's time under the fill kernels is
+    its overlap with their union."""
+    import json
+
+    ev = [("kernel", "bptr_affine", 0, 100), ("kernel", "bptr_affine", 50,
+                                                100),
+          ("kernel", "walk_kernel<false>", 120, 60),
+          ("kernel", "walk_kernel<false>", 300, 50),
+          ("gpu_memcpy", "Memcpy DtoH", 340, 20),
+          ("cpu_op", "aten::cat", 0, 1000)]
+    trace = tmp_path / "t.json"
+    trace.write_text(json.dumps({"traceEvents": [
+        {"cat": c, "name": n, "ts": t, "dur": d} for c, n, t, d in ev]}))
+    got = _chip_smoke().trace_overlap(str(trace))
+    # busy: [0, 180) and [300, 360); the walk 110 us, 30 of it in [0, 150)
+    assert got == pytest.approx({"busy_ms": 0.24, "walk_ms": 0.11,
+                                 "walk_share_of_busy": 110 / 240,
+                                 "walk_under_fill_ms": 0.03,
+                                 "walk_under_fill_share": 30 / 110})

@@ -11,8 +11,9 @@ sync.
            past PALLAS_FLAT_MAX_N_PAD columns the column-blocked fill of
            ``ops/blocked.py``); every bucket is dispatched before one
            device->host pull collects every score;
-  rows     one pointer fill (``ops/ptr.py``, or ``ops/blocked.py`` past the
-           flat ceiling) and one traceback walk (``engine/device_tb.py``)
+  rows     one pointer fill (``ops/ptr.py``, which hands targets past
+           ``ops/ptr.FLAT_REG_MAX_N_PAD`` columns to ``ops/blocked.py``)
+           and one traceback walk (``engine/device_tb.py``)
            per bucket, the walk's starts derived from the fill's outputs on
            the device; buckets are collected in flush waves of two pulls
            each (scalars, then the walked columns), bounded by a
@@ -339,13 +340,8 @@ def _dispatch_rows(mode, b, pmat, jump, device, counters):
     if jump and allow is None:
         allow = torch.ones((len(b.idx), b.n_pad), device=device)
     rpb = layout.rows_per_byte(mode, jump, b.m_pad)
-    if b.n_pad > PALLAS_FLAT_MAX_N_PAD:
-        score, a, bb, ptrs = blocked.blocked_ptr_fill(
-            mode, jump, b.m_pad, b.n_pad, blocked.C_BLK, qs, ts, allow, ns,
-            ms, pmat, rpb)
-    else:
-        score, a, bb, ptrs = ptr_fill(mode, jump, b.m_pad, b.n_pad, qs, ts,
-                                      allow, ns, ms, pmat, rpb)
+    score, a, bb, ptrs = ptr_fill(mode, jump, b.m_pad, b.n_pad, qs, ts, allow,
+                                  ns, ms, pmat, rpb)
     starts = device_tb.walk_starts(mode, score, a, bb, ms, ns)
     # the walk goes on the walk stream, behind this fill and under the next
     # bucket's; the f32 scores ride the int32 scalars as their bit pattern

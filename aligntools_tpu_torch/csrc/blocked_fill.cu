@@ -65,14 +65,18 @@
 // Pointer bytes are staged in shared memory as one c_blk-wide byte-row
 // (row rpb*k in the low bits) and stored to ptrs[b, r, col0 : col0 + c_blk]
 // as 16-byte words; every offset into the pointer tensor is 64-bit (a
-// long-target bucket's tensor passes 2^31 bytes).
+// long-target bucket's tensor passes 2^31 bytes). The pointer fills take an
+// n_pad that c_blk does not divide (flat buckets past
+// ops/ptr.FLAT_REG_MAX_N_PAD): the last block is n_pad - col0 columns wide
+// (a multiple of 16), which bounds its strips, its staged byte-row and its
+// stores. The score fills need c_blk to divide n_pad.
 //
 // What bounds it on this card: the per-row chain, as in the flat fills: two
 // barriers and a block scan per row and block, and W serial cells a thread
 // in each pass, with the row state in shared memory; across blocks, one
 // release store a row in the publishing block and an acquire poll a row in
 // the next, which sit on that chain. The pointer bytes (m_pad*n_pad/rpb a
-// pair) are far below HBM's rate. The grid is B x n_pad/c_blk CTAs (a
+// pair) are far below HBM's rate. The grid is B x ceil(n_pad/c_blk) CTAs (a
 // long-target bucket of ~10 pairs at c_blk 2,048: 240-640), in flight as
 // far as shared memory allows (fit+jump's pointer fill takes 26 bytes a
 // column: four CTAs an SM at 2,048) and, in a pair, by the wavefront's fill
@@ -531,7 +535,7 @@ bptr_affine(const int* __restrict__ qs, const int* __restrict__ ts,
   __shared__ float eg[4];  // row i's edge at col0, from thread 0
   __shared__ float g_s;
   __shared__ int g_a, ticket;
-  const int nblk = n_pad / c_blk;
+  const int nblk = (n_pad + c_blk - 1) / c_blk;
   Wave w(take_ticket(flags, &ticket), nblk, flags, edges, cand, m_pad);
   const int b = w.b, c = w.c, tid = threadIdx.x;
   const size_t S = (size_t)blockDim.x * W;
@@ -555,9 +559,10 @@ bptr_affine(const int* __restrict__ qs, const int* __restrict__ ts,
   const int* t = ts + (size_t)b * n_pad;
   const float* al = allow + (size_t)b * n_pad;
   uint8_t* out = ptrs + (size_t)b * R * n_pad;
-  const int col0 = c * c_blk;
+  // the block's columns: c_blk, or fewer in a ragged last block
+  const int col0 = c * c_blk, bw = min(c_blk, n_pad - col0);
   const bool feeds = c + 1 < nblk;
-  const Strip s(col0, c_blk, W);
+  const Strip s(col0, bw, W);
   if (tid == 0) {
     g_s = NEG;
     g_a = 0;
@@ -592,7 +597,7 @@ bptr_affine(const int* __restrict__ qs, const int* __restrict__ ts,
   __syncthreads();
   for (int i = 1; i <= m_pad; ++i) {
     const int idx = i - 1, sub_row = idx % rpb, shift = sub_row * bits;
-    if (sub_row == 0 && i > 1) store_row(stage, out + (size_t)(idx / rpb - 1) * n_pad + col0, c_blk);
+    if (sub_row == 0 && i > 1) store_row(stage, out + (size_t)(idx / rpb - 1) * n_pad + col0, bw);
     const int qc = q[idx];
     // row i-1 at column j0-1
     float dM, dL, dU, dJ = NEG;
@@ -698,7 +703,7 @@ bptr_affine(const int* __restrict__ qs, const int* __restrict__ ts,
       const size_t x = s.slot(s.cnt - 1);
       eM[tid] = Mr[x];
       eL[tid] = Lr[x];
-      if (feeds && s.owns_last(c_blk)) {
+      if (feeds && s.owns_last(bw)) {
         w.put(PM, i, Mr[x]);
         w.put(PL, i, Lr[x]);
         w.put(PU, i, Ur[x]);
@@ -737,7 +742,7 @@ bptr_affine(const int* __restrict__ qs, const int* __restrict__ ts,
     }
     __syncthreads();
   }
-  store_row(stage, out + (size_t)(R - 1) * n_pad + col0, c_blk);
+  store_row(stage, out + (size_t)(R - 1) * n_pad + col0, bw);
   if (tid == 0 && w.finish(MODE == GLOBAL ? pack(g_s, g_a) : pack(blk_s, blk_a, blk_b), nblk)) {
     float acc_s = NEG;
     int acc_a = 0, acc_b = 0;
@@ -789,7 +794,7 @@ bptr_overlap(const int* __restrict__ qs, const int* __restrict__ ts,
   __shared__ int red_i[32];
   __shared__ float eg;  // M(i, col0), from thread 0
   __shared__ int ticket;
-  const int nblk = n_pad / c_blk;
+  const int nblk = (n_pad + c_blk - 1) / c_blk;
   Wave w(take_ticket(flags, &ticket), nblk, flags, edges, cand, m_pad);
   const int b = w.b, c = w.c, tid = threadIdx.x;
   const size_t S = (size_t)blockDim.x * W;
@@ -804,9 +809,9 @@ bptr_overlap(const int* __restrict__ qs, const int* __restrict__ ts,
   const int* q = qs + (size_t)b * m_pad;
   const int* t = ts + (size_t)b * n_pad;
   uint8_t* out = ptrs + (size_t)b * R * n_pad;
-  const int col0 = c * c_blk;
+  const int col0 = c * c_blk, bw = min(c_blk, n_pad - col0);  // a ragged last block
   const bool feeds = c + 1 < nblk;
-  const Strip s(col0, c_blk, W);
+  const Strip s(col0, bw, W);
   // M(i, col0): the column-0 border is 0; row 0 is -inf past column 0
   auto edge = [&](int i) { return c == 0 ? 0.f : (i == 0 ? NEG : w.edge(0, i)); };
   for (int k = 0; k < s.cnt; ++k) {
@@ -821,7 +826,7 @@ bptr_overlap(const int* __restrict__ qs, const int* __restrict__ ts,
   __syncthreads();
   for (int i = 1; i <= m_pad; ++i) {
     const int idx = i - 1, sub_row = idx % rpb, shift = sub_row * bits;
-    if (sub_row == 0 && i > 1) store_row(stage, out + (size_t)(idx / rpb - 1) * n_pad + col0, c_blk);
+    if (sub_row == 0 && i > 1) store_row(stage, out + (size_t)(idx / rpb - 1) * n_pad + col0, bw);
     const int qc = q[idx];
     // M(i-1, j0-1); Mr is rewritten only in pass 2
     float dM = tid == 0 ? dM0 : (s.cnt > 0 ? Mr[s.left] : NEG);
@@ -861,7 +866,7 @@ bptr_overlap(const int* __restrict__ qs, const int* __restrict__ ts,
       const float mv = run + o * (float)j;
       Mr[x] = mv;
       mprev = mv;
-      if (feeds && k == s.cnt - 1 && s.owns_last(c_blk)) {
+      if (feeds && k == s.cnt - 1 && s.owns_last(bw)) {
         w.put(0, i, mv);
         w.publish(i);
       }
@@ -878,7 +883,7 @@ bptr_overlap(const int* __restrict__ qs, const int* __restrict__ ts,
     }
     __syncthreads();
   }
-  store_row(stage, out + (size_t)(R - 1) * n_pad + col0, c_blk);
+  store_row(stage, out + (size_t)(R - 1) * n_pad + col0, bw);
   if (tid == 0 && w.finish(pack(blk_s, blk_a), nblk)) {
     float acc_s = NEG;
     int acc_a = 0;
@@ -916,17 +921,20 @@ cudaError_t launch(void (*kernel)(P...), int ctas, int threads, size_t smem, cud
   return cudaGetLastError();
 }
 
-bool bad_blocks(int B, int threads, int wmax, int m_pad, int n_pad, int c_blk) {
+// The score fills need c_blk to divide n_pad; the pointer fills take a
+// ragged last block (`ragged`), a multiple of 16 columns.
+bool bad_blocks(int B, int threads, int wmax, int m_pad, int n_pad, int c_blk, bool ragged) {
   return B < 0 || threads < 32 || threads > MAX_THREADS || threads % 32 != 0 || m_pad <= 0 ||
-         c_blk <= 0 || c_blk % 16 != 0 || n_pad % c_blk != 0 ||
-         (long long)threads * wmax < c_blk || (long long)B * (n_pad / c_blk) > INT_MAX;
+         c_blk <= 0 || c_blk % 16 != 0 || n_pad <= 0 || n_pad % (ragged ? 16 : c_blk) != 0 ||
+         (long long)threads * wmax < c_blk ||
+         (long long)B * ((n_pad + c_blk - 1) / c_blk) > INT_MAX;
 }
 
 }  // namespace
 
 // C entry points, bound with ctypes. Each launches one fill on `stream`
 // without synchronising and returns the launch's error code. With nblk =
-// n_pad / c_blk: `edges` is the (B, nblk, 4, m_pad + 1) float32 block-edge
+// ceil(n_pad / c_blk): `edges` is the (B, nblk, 4, m_pad + 1) float32 block-edge
 // buffer, `flags` the (1 + B * (nblk + 1)) int32 ticket, progress and done
 // counters, zeroed, and `cand` the (B, nblk, 4) int32 start-info candidates.
 extern "C" {
@@ -938,7 +946,7 @@ cudaError_t at_blocked_scores(int mode, int use_jump, const int* qs, const int* 
                               const float* params, void* out, float* edges, int* flags,
                               void* cand, int B, int m_pad, int n_pad, int c_blk, int threads,
                               int wmax, cudaStream_t stream) {
-  if (bad_blocks(B, threads, wmax, m_pad, n_pad, c_blk) || mode < GLOBAL || mode > EDIT ||
+  if (bad_blocks(B, threads, wmax, m_pad, n_pad, c_blk, false) || mode < GLOBAL || mode > EDIT ||
       (use_jump && mode != FIT))
     return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
@@ -967,7 +975,8 @@ cudaError_t at_blocked_scores(int mode, int use_jump, const int* qs, const int* 
 }
 
 // mode: 0 global, 1 local, 2 fit, 3 overlap; rpb rows per byte (1, 2, or 4
-// for overlap; 1 for fit+jump), m_pad % (8 * rpb) == 0.
+// for overlap; 1 for fit+jump), m_pad % (8 * rpb) == 0; the last column
+// block may be narrower than c_blk (n_pad % 16 == 0).
 cudaError_t at_blocked_ptr_fill(int mode, int use_jump, int rpb, const int* qs, const int* ts,
                                 const float* allow, const int* ns, const int* ms,
                                 const float* params, float* score, int* a, int* b,
@@ -977,11 +986,11 @@ cudaError_t at_blocked_ptr_fill(int mode, int use_jump, int rpb, const int* qs, 
   const bool bad_layout = (rpb != 1 && rpb != 2 && rpb != 4) || m_pad % (8 * rpb) != 0 ||
                           (rpb > 1 && use_jump) || (rpb == 4 && mode != OVERLAP) ||
                           (use_jump && mode != FIT);
-  if (bad_blocks(B, threads, wmax, m_pad, n_pad, c_blk) || mode < GLOBAL || mode > OVERLAP ||
+  if (bad_blocks(B, threads, wmax, m_pad, n_pad, c_blk, true) || mode < GLOBAL || mode > OVERLAP ||
       bad_layout)
     return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
-  const int ctas = B * (n_pad / c_blk);
+  const int ctas = B * ((n_pad + c_blk - 1) / c_blk);
   const size_t S = (size_t)threads * wmax;
   int4* cd = static_cast<int4*>(cand);
   if (mode == OVERLAP)  // stage, M, max(DIAG, RIGHT), char, code

@@ -8,408 +8,567 @@
 // and pad columns included: they read the sentinel chars (query pad -1,
 // target pad -2) exactly as the Pallas kernel does.
 //
-// What bounds it here: the same per-row chain as csrc/scan_fill.cu — a
-// serial walk of each thread's strip, one block scan, a second serial walk
-// and two block barriers per row — plus one pointer byte per cell to device
-// memory (m*n/rpb bytes per pair, the only output that scales with the
-// grid; at rpb 2 it is 0.5 B/cell, so HBM at 3.35 TB/s is not the limit
-// below ~6.7 Tcells/s). The design keeps every cell's work in one thread,
-// folds local's running row maximum into the row's block scan (no extra
-// barrier), and stages each byte-row of pointers in shared memory: a
-// thread packs its own columns there across rpb rows, and after the next
-// barrier the CTA stores the byte-row to device memory as contiguous 16-byte
-// words. The TPU kernel's 8-row super-rows and double-buffered DMA are not
-// copied: a row's bytes leave shared memory one row later, behind the
-// barrier that is there anyway.
+// Design. Thread t owns the W consecutive columns [1 + t*W, 1 + (t+1)*W)
+// of the whole n_pad (W a template parameter, instantiated at 16; threads *
+// W >= n_pad, and threads past n_pad / W compute on pad and store nothing). A
+// thread keeps its strip's row state in registers for the whole fill: the
+// chars, M and L of the previous row, and D = max(L, M, U[, J]) with its
+// earliest-argument argmax (two bits a column), which is all the next row's
+// diagonal needs: every candidate of M(i, j) is a state of (i-1, j-1) plus
+// the same substitution score, and on exact integer-valued f32 the argmax
+// of the sums is the argmax of the states. U and J are made in pass 2 and
+// folded into D at once. Per row i:
+//   pass 1  M and L of row i, the M/L bits of each pointer, the strip's
+//           terms of the U chain (and fit's J chain);
+//   scan    a warp scan with shuffles; lane 31 leaves the warp's aggregate,
+//           its aggregate without the warp's last column, and that column's
+//           M and L in shared memory; the row's one __syncthreads(); every
+//           warp scans the warps' aggregates with shuffles;
+//   pass 2  U and J of the row, the U/J bits, D and its argmax.
+// The diagonal across a strip edge, row i-1 at column j0-1, comes from
+// lane l-1's registers by __shfl_up_sync. Lane 0 of warp w > 0 builds it
+// itself after row i-1's barrier: M and L from warp w-1's slot; U(i-1,
+// j0-1) and J(i-1, j0-1) from the aggregates of warps < w-1 and warp w-1's
+// aggregate without its last column, which is the chain up to column
+// j0-1. Every shared slot is double-buffered by row parity, so a warp
+// already writing row i+1's slots never overwrites one that a slower warp
+// reads for row i. Overlap needs no slot: M(i, j0-1) is the thread's own
+// scan result plus o*(j0-1). A row's pointer bytes are packed in registers
+// across rpb rows and stored by each thread as one 16-byte word,
+// so a warp writes a contiguous run of the row. Start info is latched per
+// thread in registers (local: the strict row-major first occurrence of the
+// strip's maximum over i <= m, j <= n; fit and overlap: the strip's first
+// maximum of row m over j <= n-1; global: the thread that holds column n at
+// row m) and reduced across the CTA once, after the last row, by (largest
+// value, smallest i, smallest j): the plain version's running strict row
+// maximum and first column give the same.
 //
-// Layout: thread t owns the column strip [1 + t*W, 1 + (t+1)*W) of the
-// whole n_pad (W = wmax, so threads * W >= n_pad). Row state lives in
-// wrapper-allocated scratch, strip-transposed (column j0+k of thread t at
-// slot k*T + t). Per row i (pass 1 / scan / pass 2):
-//   pass 1  M by the earliest-argument strict argmax over (L, M, U[, J]
-//           [, HOME]) of row i-1 at column j-1, and L from row i-1 at j;
-//           the strip's reductions for the U chain, fit's J chain and
-//           local's row maximum; the M/L part of each pointer;
-//   scan    exclusive prefix over threads (first barrier);
-//   pass 2  U and J of the row, the pU/pJ bits, the packed byte;
-//   then the start info where the mode latches it, and the second barrier.
-// The diagonal across a strip edge needs the left neighbour's row i-1
-// values at its last column: U and J are read from scratch (written only
-// in pass 2), M and L from a shared-memory copy made in pass 2 of row i-1
-// (pass 1 overwrites M and L in scratch).
+// What bounds it here: the per-row chain. Each row pays one barrier, two
+// warp scans a chain (the strip terms, then the warps' aggregates: five and
+// log2(warps) dependent shuffles) and W serial cells a pass; the pointer
+// bytes (m*n/rpb a pair, 0.5 B a cell at rpb 2) are far below HBM's rate.
+// Row state never leaves the SM, and the registers it takes (M, L, D, the
+// U chain's offset and the char: five words a column) bound W: ptxas gives
+// W 16 104-128 registers a thread (fit+jump all 128, with an 8-byte stack
+// frame), so its CTA runs at most 512 threads, 8,192 columns. A row costs
+// each warp its scans, so W 16, the fewest warps, is the one instance: W 4
+// and 8 were no faster on the H100 (PERF.md). With one CTA a pair the
+// schedulers wait on that chain unless the batch keeps several CTAs on
+// every SM.
 //
 // Exactness: values are integer-valued f32 below 2^24 with true -inf
 // borders, built with --fmad=false and no fast math; each pointer is a
-// comparison of such values in the Pallas code's own argument order.
+// comparison of such values in the Pallas code's own argument order, and
+// the chains' terms are the plain version's own sums.
 
 #include <cmath>
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "block_scan.cuh"
-
 namespace {
 
+constexpr float NEG = -INFINITY;
 constexpr int BIG = 1 << 30;
 constexpr int GLOBAL = 0, LOCAL = 1, FIT = 2, OVERLAP = 3;
-constexpr int MAX_THREADS = 1024;
+constexpr unsigned FULL = 0xffffffffu;
 
-// Per-thread strip of the pair's whole padded row: columns j0 .. j0+cnt-1.
-struct Strip {
-  int n, m, j0, cnt;
-  size_t S, left;
-  __device__ Strip(const int* ns, const int* ms, int m_pad, int n_pad, int W) {
-    const int b = blockIdx.x, tid = threadIdx.x, T = blockDim.x;
-    n = min(max(ns[b], 0), n_pad);
-    m = min(max(ms[b], 0), m_pad);
-    j0 = 1 + tid * W;
-    cnt = max(0, min(W, n_pad - j0 + 1));
-    S = (size_t)T * W;
-    left = (size_t)(W - 1) * T + (tid - 1);
-  }
-  __device__ size_t slot(int k) const { return (size_t)k * blockDim.x + threadIdx.x; }
+// The strip width the kernels are instantiated at, and the most threads a
+// CTA runs, which sets the registers ptxas may give a thread (65,536 / 512).
+constexpr int kWidth = 16;
+constexpr int kMaxThreads = 512;
+
+// A start-info candidate: the value, its row and its column.
+struct Cand {
+  float v;
+  int i, j;
 };
+
+// x before y: the larger value, then the smaller row, then the smaller column
+__device__ __forceinline__ bool before(const Cand& x, const Cand& y) {
+  return x.v > y.v || (x.v == y.v && (x.i < y.i || (x.i == y.i && x.j < y.j)));
+}
+
+// The CTA's first candidate by `before`, in every thread; two barriers.
+__device__ Cand block_best(Cand c, Cand (&red)[32]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    const Cand y = {__shfl_xor_sync(FULL, c.v, d), __shfl_xor_sync(FULL, c.i, d),
+                    __shfl_xor_sync(FULL, c.j, d)};
+    if (before(y, c)) c = y;
+  }
+  if (lane == 0) red[warp] = c;
+  __syncthreads();
+  Cand r = red[0];
+  for (int w = 1; w < (int)(blockDim.x >> 5); ++w)
+    if (before(red[w], r)) r = red[w];
+  __syncthreads();
+  return r;
+}
+
+// Keep the strip's first maximum of one row over its first `kn` columns
+// (columns <= n-1 of row m for fit and overlap): the first column holds the
+// candidate even at -inf, as the plain version's first-equal search does.
+template <int W>
+__device__ __forceinline__ void first_max(const float (&x)[W], int kn, int j0, Cand& c) {
+#pragma unroll
+  for (int k = 0; k < W; ++k)
+    if (k < kn && (x[k] > c.v || c.j == BIG)) c = {x[k], 0, j0 + k};
+}
+
+// Inclusive max over the warp's lanes (lanes below d read their own value).
+__device__ __forceinline__ float warp_incl_max(float x) {
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) x = fmaxf(x, __shfl_up_sync(FULL, x, d));
+  return x;
+}
+
+// Inclusive max over the aggregates of warps 0..lane, in every warp.
+__device__ __forceinline__ float warps_incl_max(const float* agg, int lane, int nw) {
+  float y = lane < nw ? agg[lane] : NEG;
+  for (int d = 1; d < nw; d <<= 1) y = fmaxf(y, __shfl_up_sync(FULL, y, d));
+  return y;
+}
+
+// D = max(L, M, U[, J]) and its earliest-argument strict argmax: the first
+// of the states that holds the maximum (LOW, MID, UPP, JUMP = 0..3).
+template <bool JUMP>
+__device__ __forceinline__ float lmuj_max(float l, float m, float u, float j, int& a) {
+  float d = l;
+  a = 0;
+  if (m > d) a = 1;
+  d = fmaxf(d, m);
+  if (u > d) a = 2;
+  d = fmaxf(d, u);
+  if (JUMP) {
+    if (j > d) a = 3;
+    d = fmaxf(d, j);
+  }
+  return d;
+}
+
+// Row 0 at column j >= 1: global M = L = -inf, U = o + e*j; local zeros;
+// fit M = U = 0, L = -inf; J = -inf. Returns D, its argmax in `a`.
+template <int MODE, bool JUMP>
+__device__ __forceinline__ float row0(int j, float o, float e, float& m, float& l, int& a) {
+  m = MODE == GLOBAL ? NEG : 0.f;
+  l = MODE == LOCAL ? 0.f : NEG;
+  return lmuj_max<JUMP>(l, m, MODE == GLOBAL ? o + e * (float)j : 0.f, NEG, a);
+}
+
+// Store a strip's packed byte-row of W bytes as 16-byte words.
+template <int W>
+__device__ __forceinline__ void store_strip(uint8_t* dst, const uint32_t (&acc)[W / 4]) {
+  static_assert(W % 16 == 0, "a strip is stored as whole 16-byte words");
+#pragma unroll
+  for (int w = 0; w < W / 4; w += 4)
+    reinterpret_cast<uint4*>(dst)[w / 4] = make_uint4(acc[w], acc[w + 1], acc[w + 2], acc[w + 3]);
+}
+
+// The strip's W target chars (0 for a thread past n_pad, whose columns are
+// never stored or latched).
+template <int W>
+__device__ __forceinline__ void load_chars(const int* t, bool active, int (&tc)[W]) {
+#pragma unroll
+  for (int k = 0; k < W; k += 4) {
+    const int4 x = active ? *reinterpret_cast<const int4*>(t + k) : make_int4(0, 0, 0, 0);
+    tc[k] = x.x;
+    tc[k + 1] = x.y;
+    tc[k + 2] = x.z;
+    tc[k + 3] = x.w;
+  }
+}
 
 // global / local / fit (JUMP: fit's junction-gated J state, entry allowed
 // where allow > 0 — the reference's inverted enum-bool quirk).
-template <int MODE, bool JUMP>
-__global__ void __launch_bounds__(MAX_THREADS)
+template <int MODE, bool JUMP, int W>
+__global__ void __launch_bounds__(kMaxThreads)
 ptr_affine_kernel(const int* __restrict__ qs, const int* __restrict__ ts,
                   const float* __restrict__ allow, const int* __restrict__ ns,
                   const int* __restrict__ ms, const float* __restrict__ params,
                   float* __restrict__ score_out, int* __restrict__ a_out,
-                  int* __restrict__ b_out, uint8_t* __restrict__ ptrs,
-                  float* __restrict__ scratch, int m_pad, int n_pad, int W, int rpb) {
-  extern __shared__ __align__(16) uint8_t stage[];  // the byte-row being packed
-  __shared__ float tot[3][32];
-  __shared__ float red_f[2][32];
-  __shared__ int red_i[32];
-  __shared__ float eM[MAX_THREADS], eL[MAX_THREADS];  // row i-1, last column
-  const Strip s(ns, ms, m_pad, n_pad, W);
-  const int b = blockIdx.x, tid = threadIdx.x;
+                  int* __restrict__ b_out, uint8_t* __restrict__ ptrs, int m_pad, int n_pad,
+                  int rpb) {
+  constexpr int NC = JUMP ? 2 : 1;  // in-row chains: U, fit's J
+  // by row parity: each warp's aggregate, its aggregate without the warp's
+  // last column, and that column's M and L
+  __shared__ float s_agg[2][NC][32], s_wo[2][NC][32], s_m[2][32], s_l[2][32];
+  __shared__ Cand s_red[2][32];
+  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nw = blockDim.x >> 5;
+  const int n = min(max(ns[b], 0), n_pad), m = min(max(ms[b], 0), m_pad);
+  const int j0 = 1 + tid * W;
+  const bool active = tid * W < n_pad;
   const float match = params[0], mis = params[1], o = params[2], e = params[3];
   const float jp = params[4];
   const int k_home = rpb > 1 ? 3 : 4, k_unset = rpb > 1 ? 3 : 7;
   const int lbit = rpb > 1 ? 1 << 2 : 1 << 3, ubit = rpb > 1 ? 1 << 3 : 1 << 4;
-  const int bits = 8 / rpb, R = m_pad / rpb;
-  float* Mr = scratch + (size_t)b * (JUMP ? 7 : 5) * s.S;
-  float* Lr = Mr + s.S;
-  float* Ur = Lr + s.S;
-  int* Tc = reinterpret_cast<int*>(Ur + s.S);
-  int* Cd = Tc + s.S;  // pass 1's part of the pointer code
-  float* Jr = reinterpret_cast<float*>(Cd + s.S);
-  float* Jb = Jr + s.S;  // jp where entry into column j+1 is allowed
+  const int bits = 8 / rpb;
   const int* q = qs + (size_t)b * m_pad;
-  const int* t = ts + (size_t)b * n_pad;
-  const float* al = allow + (size_t)b * n_pad;
-  uint8_t* out = ptrs + (size_t)b * R * n_pad;
-  // row 0: global M = L = -inf, U = o + e*j; local zeros; fit M = U = 0,
-  // L = -inf; J = -inf
-  for (int k = 0; k < s.cnt; ++k) {
-    const int j = s.j0 + k;
-    const size_t x = s.slot(k);
-    Tc[x] = t[j - 1];
-    Mr[x] = MODE == GLOBAL ? NEG : 0.f;
-    Lr[x] = MODE == LOCAL ? 0.f : NEG;
-    Ur[x] = MODE == GLOBAL ? o + e * (float)j : 0.f;
-    if (JUMP) {
-      Jr[x] = NEG;
-      Jb[x] = (j < n_pad && al[j] > 0.f) ? jp : NEG;
-    }
+  uint8_t* out = ptrs + (size_t)b * (m_pad / rpb) * n_pad + (size_t)tid * W;
+
+  int tc[W];
+  load_chars<W>(ts + (size_t)b * n_pad + (size_t)tid * W, active, tc);
+  float c[W];  // o - e*(j+1): the U chain's term offset of column j
+#pragma unroll
+  for (int k = 0; k < W; ++k) c[k] = o - e * (float)(j0 + k + 1);
+  const float ej0 = e * (float)j0;
+  // JUMP: bit k where J may be entered into column j0+k+1; into column j0
+  uint32_t gate = 0;
+  bool gate0 = false;
+  if (JUMP && active) {
+    const float* al = allow + (size_t)b * n_pad;
+#pragma unroll
+    for (int k = 0; k < W; ++k)
+      if (j0 + k < n_pad && al[j0 + k] > 0.f) gate |= 1u << k;
+    gate0 = tid > 0 && al[j0 - 1] > 0.f;
   }
-  if (s.cnt > 0) {
-    eM[tid] = MODE == GLOBAL ? NEG : 0.f;
-    eL[tid] = MODE == LOCAL ? 0.f : NEG;
+  // row 0; lane 0 of a later warp also needs its left column's D
+  float M[W], L[W], D[W];
+  uint32_t A = 0;  // argmax of D, two bits a column
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    int a;
+    D[k] = row0<MODE, JUMP>(j0 + k, o, e, M[k], L[k], a);
+    A |= (uint32_t)a << (2 * k);
   }
-  // the U chain's column-0 term, U(i,0) folded in: local max(0 + o - e, 0)
+  float eD, m_left, l_left;
+  int eA;
+  eD = row0<MODE, JUMP>(max(j0 - 1, 1), o, e, m_left, l_left, eA);
+  // the U chain's seed: U(i, 0) folded in, local max(0 + o - e, 0)
   const float useed = MODE == LOCAL ? fmaxf(0.f + (o - e * 1.f), 0.f) : NEG;
-  const float mborder = MODE == LOCAL ? 0.f : NEG;  // M(i, 0) of the row
-  float acc_s = NEG;
-  int acc_a = 0, acc_b = 0;
-  __shared__ float g_s;
-  __shared__ int g_a;
-  if (tid == 0) {
-    g_s = NEG;
-    g_a = 0;
-  }
-  __syncthreads();
+  const float mborder = MODE == LOCAL ? 0.f : NEG;  // M(i, 0)
+  const int kn = n - j0 + 1;                        // the strip's columns j <= n
+  // start info: local's latch; fit's row-m M and L; global's (m, n)
+  Cand lat = {NEG, 0, 0}, cm = {NEG, 0, BIG}, cl = {NEG, 0, BIG};
+  float g_s = NEG;
+  int g_a = 0;
+  bool g_set = false;
+  uint32_t acc[W / 4];
+  int qn = q[0];
   for (int i = 1; i <= m_pad; ++i) {
-    const int idx = i - 1, sub_row = idx % rpb, shift = sub_row * bits;
-    if (sub_row == 0 && i > 1) store_row(stage, out + (size_t)(idx / rpb - 1) * n_pad, n_pad);
-    const int qc = q[idx];
-    // row i-1 at column j0-1
-    float dM, dL, dU, dJ = NEG;
-    if (s.j0 == 1) {
-      dM = (MODE == LOCAL || i == 1) ? 0.f : NEG;
-      if (MODE == GLOBAL) {
-        dL = o + e * ((float)i - 1.f);
-        dU = i == 1 ? o : NEG;
-      } else if (MODE == LOCAL) {
-        dL = dU = 0.f;
-      } else {
-        dL = NEG;
-        dU = i == 1 ? 0.f : NEG;
-      }
-    } else if (s.cnt > 0) {
-      dM = eM[tid - 1];
-      dL = eL[tid - 1];
-      dU = Ur[s.left];
-      if (JUMP) dJ = Jr[s.left];
-    } else {
-      dM = dL = dU = NEG;
+    const int p = i & 1, sub_row = (i - 1) % rpb, shift = sub_row * bits;
+    const int qc = qn;
+    if (i < m_pad) qn = q[i];
+    if (sub_row == 0) {
+#pragma unroll
+      for (int w = 0; w < W / 4; ++w) acc[w] = 0;
     }
-    float v[3] = {NEG, NEG, NEG};  // U chain, J chain, local row max (j <= n)
-    for (int k = 0; k < s.cnt; ++k) {
-      const int j = s.j0 + k;
-      const size_t x = s.slot(k);
-      const float mo = Mr[x], lo = Lr[x], uo = Ur[x];
-      const float jo = JUMP ? Jr[x] : NEG;
-      const float sub = Tc[x] == qc ? match : mis;
-      // earliest-argument strict argmax: L, M, U, J, HOME
-      float best = dL + sub;
-      int pm = 0;
-      float c = dM + sub;
-      if (c > best) pm = 1;
-      best = fmaxf(best, c);
-      c = dU + sub;
-      if (c > best) pm = 2;
-      best = fmaxf(best, c);
-      if (JUMP) {
-        c = dJ + sub;
-        if (c > best) pm = 3;
-        best = fmaxf(best, c);
+    // row i-1 at column j0-1: lane l-1's last column, the border, or the
+    // left column lane 0 built after row i-1's barrier
+    float dD = __shfl_up_sync(FULL, D[W - 1], 1);
+    int dA = (int)(__shfl_up_sync(FULL, A, 1) >> (2 * (W - 1))) & 3;
+    if (lane == 0) {
+      if (tid == 0) {
+        float l, mm, u;
+        if (MODE == GLOBAL) {
+          l = o + e * ((float)i - 1.f);
+          mm = i == 1 ? 0.f : NEG;
+          u = i == 1 ? o : NEG;
+        } else if (MODE == LOCAL) {
+          l = mm = u = 0.f;
+        } else {
+          l = NEG;
+          mm = u = i == 1 ? 0.f : NEG;
+        }
+        dD = lmuj_max<JUMP>(l, mm, u, NEG, dA);
+      } else {
+        dD = eD;
+        dA = eA;
       }
+    }
+    // pass 1: M, L and their bits; the strip's chain terms
+    float vu = NEG, vu_wo = NEG, vj = NEG, vj_wo = NEG, rmax = NEG;
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      const float sub = tc[k] == qc ? match : mis;
+      // earliest-argument strict argmax: L, M, U, J (D's), then HOME
+      float best = dD + sub;
+      int pm = dA;
       if (MODE == LOCAL) {
         if (0.f > best) pm = k_home;  // the HOME candidate has no +sub
-        best = fmaxf(best, 0.f);
+        best = fmaxf(best, 0.f);      // and so is never unset
+      } else if (!(best > NEG)) {
+        pm = k_unset;
       }
-      if (!(best > NEG)) pm = k_unset;
-      const float la = lo + e, lb2 = mo + o;
-      Mr[x] = best;
-      Lr[x] = fmaxf(la, lb2);
-      Cd[x] = pm | (la >= lb2 ? 0 : lbit);
-      v[0] = fmaxf(v[0], best + (o - e * (float)(j + 1)));
-      if (JUMP) v[1] = fmaxf(v[1], best + Jb[x]);
-      if (MODE == LOCAL && j <= s.n) v[2] = fmaxf(v[2], best);
-      dM = mo;
-      dL = lo;
-      dU = uo;
-      dJ = jo;
+      dD = D[k];
+      dA = (int)(A >> (2 * k)) & 3;
+      const float la = L[k] + e, lb = M[k] + o;
+      L[k] = fmaxf(la, lb);
+      M[k] = best;
+      acc[k >> 2] |= (uint32_t)(pm | (la >= lb ? 0 : lbit)) << (8 * (k & 3) + shift);
+      if (k == W - 1) {
+        vu_wo = vu;
+        vj_wo = vj;
+      }
+      vu = fmaxf(vu, best + c[k]);
+      if (JUMP) vj = fmaxf(vj, (gate >> k & 1) ? best + jp : NEG);
+      if (MODE == LOCAL) rmax = fmaxf(rmax, best);
     }
-    const float seed[3] = {useed, NEG, NEG};
-    float total[3];
-    block_exclusive<MaxF>(v, seed, total, tot);
-    float run_u = v[0], run_j = v[1];
-    float mprev = mborder, jcv = NEG;  // M(i, j-1); J entry into column j
-    if (s.j0 > 1 && s.cnt > 0) {
-      mprev = Mr[s.left];
-      if (JUMP) jcv = mprev + Jb[s.left];
+    if (MODE == LOCAL && i <= m) {
+      // the strict row-major first occurrence of the strip's maximum
+      if (kn < W) {  // the strip holds column n, or lies past it
+        rmax = NEG;
+#pragma unroll
+        for (int k = 0; k < W; ++k)
+          if (k < kn) rmax = fmaxf(rmax, M[k]);
+      }
+      if (rmax > lat.v) {
+        int fj = BIG;
+#pragma unroll
+        for (int k = W - 1; k >= 0; --k)
+          if (k < kn && M[k] == rmax) fj = j0 + k;
+        lat = {rmax, i, fj};
+      }
     }
-    const bool last_row = i == s.m;
-    for (int k = 0; k < s.cnt; ++k) {
-      const int j = s.j0 + k;
-      const size_t x = s.slot(k);
-      const float mv = Mr[x];
-      const float uv = run_u + e * (float)j;
+    if (MODE == FIT && i == m) {  // the bottom row over columns <= n-1
+      first_max<W>(M, kn - 1, j0, cm);
+      first_max<W>(L, kn - 1, j0, cl);
+    }
+    // the warps' scans; lane 31 leaves the warp's part in shared memory
+    const float in_u = warp_incl_max(vu), below_u = __shfl_up_sync(FULL, in_u, 1);
+    float in_j = NEG, below_j = NEG;
+    if (JUMP) {
+      in_j = warp_incl_max(vj);
+      below_j = __shfl_up_sync(FULL, in_j, 1);
+    }
+    if (lane == 31) {
+      s_agg[p][0][warp] = in_u;
+      s_wo[p][0][warp] = fmaxf(below_u, vu_wo);
+      if (JUMP) {
+        s_agg[p][NC - 1][warp] = in_j;
+        s_wo[p][NC - 1][warp] = fmaxf(below_j, vj_wo);
+      }
+      s_m[p][warp] = M[W - 1];
+      s_l[p][warp] = L[W - 1];
+    }
+    __syncthreads();  // the row's one barrier
+    // the exclusive prefixes: U's over columns < j0 (terms up to j0), J's
+    // likewise (J(i, j0)); lane 0's left column's, without warp w-1's last
+    const float yu = warps_incl_max(s_agg[p][0], lane, nw);
+    const float pu = __shfl_sync(FULL, yu, max(warp - 1, 0));
+    const float pu2 = __shfl_sync(FULL, yu, max(warp - 2, 0));
+    float run_u = fmaxf(useed, warp > 0 ? pu : NEG);
+    if (lane > 0) run_u = fmaxf(run_u, below_u);
+    float run_j = NEG, pj2 = NEG;
+    if (JUMP) {
+      const float yj = warps_incl_max(s_agg[p][NC - 1], lane, nw);
+      const float pj = __shfl_sync(FULL, yj, max(warp - 1, 0));
+      pj2 = __shfl_sync(FULL, yj, max(warp - 2, 0));
+      run_j = warp > 0 ? pj : NEG;
+      if (lane > 0) run_j = fmaxf(run_j, below_j);
+    }
+    float mprev = __shfl_up_sync(FULL, M[W - 1], 1);  // M(i, j0-1)
+    if (lane == 0) {
+      if (tid == 0) {
+        mprev = mborder;
+      } else {
+        // row i at column j0-1, the next row's diagonal
+        mprev = s_m[p][warp - 1];
+        const float uq = fmaxf(fmaxf(useed, warp > 1 ? pu2 : NEG), s_wo[p][0][warp - 1]);
+        const float jl = JUMP ? fmaxf(warp > 1 ? pj2 : NEG, s_wo[p][NC - 1][warp - 1]) : NEG;
+        eD = lmuj_max<JUMP>(s_l[p][warp - 1], mprev, uq + e * (float)(j0 - 1), jl, eA);
+      }
+    }
+    // pass 2: U and J, their bits, D and its argmax
+    float jcv = JUMP && gate0 ? mprev + jp : NEG;  // J's entry into column j
+    uint32_t an = 0;
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      const float uv = run_u + (k == 0 ? ej0 : o - c[k > 0 ? k - 1 : 0]);  // + e*j
       const float ua = mprev + o;
       // U(i,j) = max(ua, U(i,j-1) + e), so ua >= U(i,j-1) + e iff ua >= U(i,j)
-      int code = Cd[x] | (ua >= uv ? 0 : ubit);
-      Ur[x] = uv;
+      int code = ua >= uv ? 0 : ubit;
+      float jv = NEG;
       if (JUMP) {
-        // J(i,j) = run_j = max(J(i,j-1), jcv): jcv >= J(i,j-1) iff jcv >= J(i,j)
+        // J(i,j) = max(J(i,j-1), jcv): jcv >= J(i,j-1) iff jcv >= J(i,j)
         code |= (jcv > NEG && jcv >= run_j) ? 0 : 1 << 5;
-        Jr[x] = run_j;
-        jcv = mv + Jb[x];
+        jv = run_j;
+        jcv = (gate >> k & 1) ? M[k] + jp : NEG;
         run_j = fmaxf(run_j, jcv);
       }
-      stage[j - 1] = (uint8_t)(sub_row == 0 ? code : stage[j - 1] | (code << shift));
-      if (MODE == GLOBAL && last_row && j == s.n) {
-        const float ln = Lr[x];
-        g_s = fmaxf(fmaxf(ln, mv), uv);
-        g_a = (ln >= mv && ln >= uv) ? 0 : (mv >= uv ? 1 : 2);
-      }
-      run_u = fmaxf(run_u, mv + (o - e * (float)(j + 1)));
-      mprev = mv;
+      acc[k >> 2] |= (uint32_t)code << (8 * (k & 3) + shift);
+      int a;
+      D[k] = lmuj_max<JUMP>(L[k], M[k], uv, jv, a);
+      an |= (uint32_t)a << (2 * k);
+      run_u = fmaxf(run_u, M[k] + c[k]);
+      mprev = M[k];
     }
-    if (s.cnt > 0) {
-      const size_t x = s.slot(s.cnt - 1);
-      eM[tid] = Mr[x];
-      eL[tid] = Lr[x];
+    A = an;
+    if (MODE == GLOBAL && i == m && kn >= 1 && kn <= W) {
+      // (m, n): the start state is D's argmax at column n
+#pragma unroll
+      for (int k = 0; k < W; ++k)
+        if (k == kn - 1) {
+          g_s = D[k];
+          g_a = (int)(A >> (2 * k)) & 3;
+        }
+      g_set = true;
     }
-    if (MODE == LOCAL && i <= s.m && total[2] > acc_s) {
-      // a strictly greater row maximum: its first column over j <= n
-      int fj = BIG;
-      for (int k = 0; k < s.cnt && fj == BIG; ++k)
-        if (s.j0 + k <= s.n && Mr[s.slot(k)] == total[2]) fj = s.j0 + k;
-      acc_b = block_reduce<MinI>(fj, red_i);
-      acc_s = total[2];
-      acc_a = i;
-    }
-    if (MODE == FIT && last_row) {
-      // the bottom row over columns 1..n-1; L wins only when strictly greater
-      float mx[2] = {NEG, NEG};
-      for (int k = 0; k < s.cnt; ++k) {
-        if (s.j0 + k > s.n - 1) break;
-        mx[0] = fmaxf(mx[0], Mr[s.slot(k)]);
-        mx[1] = fmaxf(mx[1], Lr[s.slot(k)]);
-      }
-      block_reduce<MaxF>(mx, red_f);
-      const bool use_l = mx[1] > mx[0];
-      const float want = use_l ? mx[1] : mx[0];
-      const float* row = use_l ? Lr : Mr;
-      int fj = BIG;
-      for (int k = 0; k < s.cnt && fj == BIG; ++k)
-        if (s.j0 + k <= s.n - 1 && row[s.slot(k)] == want) fj = s.j0 + k;
-      acc_b = block_reduce<MinI>(fj, red_i);
-      acc_s = fmaxf(mx[0], mx[1]);
-      acc_a = use_l ? 1 : 0;
-    }
-    __syncthreads();
+    if (sub_row == rpb - 1 && active)
+      store_strip<W>(out + (size_t)((i - 1) / rpb) * n_pad, acc);
   }
-  store_row(stage, out + (size_t)(R - 1) * n_pad, n_pad);
-  if (tid == 0) {
-    score_out[b] = MODE == GLOBAL ? g_s : acc_s;
-    a_out[b] = MODE == GLOBAL ? g_a : acc_a;
-    b_out[b] = acc_b;
+  // start info, reduced once
+  if (MODE == GLOBAL) {
+    if (g_set) {
+      score_out[b] = g_s;
+      a_out[b] = g_a;
+      b_out[b] = 0;
+    } else if (tid == 0 && (m == 0 || n == 0)) {
+      score_out[b] = NEG;
+      a_out[b] = 0;
+      b_out[b] = 0;
+    }
+  } else if (MODE == LOCAL) {
+    const Cand r = block_best(lat, s_red[0]);
+    if (tid == 0) {
+      score_out[b] = r.v;
+      a_out[b] = r.i;
+      b_out[b] = r.j;
+    }
+  } else {
+    // fit: L wins only when strictly greater
+    const Cand rm = block_best(cm, s_red[0]), rl = block_best(cl, s_red[1]);
+    if (tid == 0) {
+      const bool use_l = rl.v > rm.v;
+      score_out[b] = m > 0 ? fmaxf(rm.v, rl.v) : NEG;
+      a_out[b] = m > 0 && use_l ? 1 : 0;
+      b_out[b] = m > 0 ? (use_l ? rl.j : rm.j) : 0;
+    }
   }
 }
 
 // overlap: one matrix, linear gap o; codes LEFT/DIAG/RIGHT = 0/1/2, 3 where
 // the cell is -inf (alignment.h:944's argument order).
-__global__ void __launch_bounds__(MAX_THREADS)
+template <int W>
+__global__ void __launch_bounds__(kMaxThreads)
 ptr_overlap_kernel(const int* __restrict__ qs, const int* __restrict__ ts,
                    const int* __restrict__ ns, const int* __restrict__ ms,
                    const float* __restrict__ params, float* __restrict__ score_out,
-                   int* __restrict__ a_out, int* __restrict__ b_out,
-                   uint8_t* __restrict__ ptrs, float* __restrict__ scratch, int m_pad,
-                   int n_pad, int W, int rpb) {
-  extern __shared__ __align__(16) uint8_t stage[];
-  __shared__ float tot[1][32];
-  __shared__ float red_f[1][32];
-  __shared__ int red_i[32];
-  const Strip s(ns, ms, m_pad, n_pad, W);
-  const int b = blockIdx.x, tid = threadIdx.x;
+                   int* __restrict__ a_out, int* __restrict__ b_out, uint8_t* __restrict__ ptrs,
+                   int m_pad, int n_pad, int rpb) {
+  __shared__ float s_agg[2][32];
+  __shared__ Cand s_red[32];
+  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nw = blockDim.x >> 5;
+  const int n = min(max(ns[b], 0), n_pad), m = min(max(ms[b], 0), m_pad);
+  const int j0 = 1 + tid * W;
+  const bool active = tid * W < n_pad;
   const float match = params[0], mis = params[1], o = params[2];
-  const int bits = 8 / rpb, R = m_pad / rpb;
-  float* Mr = scratch + (size_t)b * 4 * s.S;
-  float* Dr = Mr + s.S;  // max(DIAG, RIGHT) of the row
-  int* Tc = reinterpret_cast<int*>(Dr + s.S);
-  int* Cd = Tc + s.S;  // DIAG (1) or RIGHT (2)
+  const int bits = 8 / rpb;
   const int* q = qs + (size_t)b * m_pad;
-  const int* t = ts + (size_t)b * n_pad;
-  uint8_t* out = ptrs + (size_t)b * R * n_pad;
-  for (int k = 0; k < s.cnt; ++k) {
-    const size_t x = s.slot(k);
-    Tc[x] = t[s.j0 + k - 1];
-    Mr[x] = NEG;  // row 0 is -inf past column 0
+  uint8_t* out = ptrs + (size_t)b * (m_pad / rpb) * n_pad + (size_t)tid * W;
+  int tc[W];
+  load_chars<W>(ts + (size_t)b * n_pad + (size_t)tid * W, active, tc);
+  float M[W], oj[W];  // M of the previous row; o*j
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    M[k] = NEG;  // row 0 is -inf past column 0
+    oj[k] = o * (float)(j0 + k);
   }
-  float acc_s = NEG;
-  int acc_a = 0;
-  __syncthreads();
+  const float oj_left = o * (float)(j0 - 1);
+  float mleft = j0 == 1 ? 0.f : NEG;  // M(i-1, j0-1); the column-0 border is 0
+  Cand best = {NEG, 0, BIG};          // row m's first maximum over j <= n-1
+  uint32_t acc[W / 4];
+  int qn = q[0];
   for (int i = 1; i <= m_pad; ++i) {
-    const int idx = i - 1, sub_row = idx % rpb, shift = sub_row * bits;
-    if (sub_row == 0 && i > 1) store_row(stage, out + (size_t)(idx / rpb - 1) * n_pad, n_pad);
-    const int qc = q[idx];
-    // M(i-1, j0-1): the column-0 border is 0; Mr is rewritten only in pass 2
-    float dM = s.j0 == 1 ? 0.f : (s.cnt > 0 ? Mr[s.left] : NEG);
-    float v[1] = {NEG};
-    for (int k = 0; k < s.cnt; ++k) {
-      const int j = s.j0 + k;
-      const size_t x = s.slot(k);
-      const float mp = Mr[x];
-      const float sub = Tc[x] == qc ? match : mis;
-      const float diag = dM + sub, right = mp + o;
-      const float dr = fmaxf(diag, right);
-      Dr[x] = dr;
-      Cd[x] = diag >= right ? 1 : 2;
-      v[0] = fmaxf(v[0], dr - o * (float)j);
-      dM = mp;
+    const int p = i & 1, sub_row = (i - 1) % rpb, shift = sub_row * bits;
+    const int qc = qn;
+    if (i < m_pad) qn = q[i];
+    if (sub_row == 0) {
+#pragma unroll
+      for (int w = 0; w < W / 4; ++w) acc[w] = 0;
     }
-    const float seed[1] = {0.f};  // M(i, 0) = 0
-    float total[1];
-    block_exclusive<MaxF>(v, seed, total, tot);
-    float run = v[0];
-    // M(i, j0-1), as the left neighbour computes it
-    float mprev = run + o * (float)(s.j0 - 1);
-    for (int k = 0; k < s.cnt; ++k) {
-      const int j = s.j0 + k;
-      const size_t x = s.slot(k);
-      const float dr = Dr[x];
+    // pass 1: max(DIAG, RIGHT) and which of the two; the left chain's terms
+    float dM = mleft, dr[W], v = NEG;
+    uint32_t diag_wins = 0;
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      const float sub = tc[k] == qc ? match : mis;
+      const float diag = dM + sub, right = M[k] + o;
+      dr[k] = fmaxf(diag, right);
+      if (diag >= right) diag_wins |= 1u << k;
+      v = fmaxf(v, dr[k] - oj[k]);
+      dM = M[k];
+    }
+    const float in = warp_incl_max(v), below = __shfl_up_sync(FULL, in, 1);
+    if (lane == 31) s_agg[p][warp] = in;
+    __syncthreads();  // the row's one barrier
+    const float y = warps_incl_max(s_agg[p], lane, nw);
+    const float pw = __shfl_sync(FULL, y, max(warp - 1, 0));
+    float run = fmaxf(0.f, warp > 0 ? pw : NEG);  // M(i, 0) = 0 seeds the chain
+    if (lane > 0) run = fmaxf(run, below);
+    // pass 2: M(i, j) and the codes; M(i, j0-1) is run + o*(j0-1)
+    float mprev = run + oj_left;
+    mleft = mprev;
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
       const float left = mprev + o;
-      const float val = fmaxf(left, dr);
-      int code = left >= val ? 0 : Cd[x];
+      const float val = fmaxf(left, dr[k]);
+      int code = left >= val ? 0 : ((diag_wins >> k & 1) ? 1 : 2);
       if (!(val > NEG)) code = 3;
-      stage[j - 1] = (uint8_t)(sub_row == 0 ? code : stage[j - 1] | (code << shift));
-      run = fmaxf(run, dr - o * (float)j);
-      const float mv = run + o * (float)j;
-      Mr[x] = mv;
-      mprev = mv;
+      acc[k >> 2] |= (uint32_t)code << (8 * (k & 3) + shift);
+      run = fmaxf(run, dr[k] - oj[k]);
+      M[k] = run + oj[k];
+      mprev = M[k];
     }
-    if (i == s.m) {
-      // the bottom row over columns 1..n-1, with the j = 0 zero candidate
-      float mx[1] = {NEG};
-      for (int k = 0; k < s.cnt && s.j0 + k <= s.n - 1; ++k) mx[0] = fmaxf(mx[0], Mr[s.slot(k)]);
-      block_reduce<MaxF>(mx, red_f);
-      int fj = BIG;
-      for (int k = 0; k < s.cnt && fj == BIG; ++k)
-        if (s.j0 + k <= s.n - 1 && Mr[s.slot(k)] == mx[0]) fj = s.j0 + k;
-      fj = block_reduce<MinI>(fj, red_i);
-      acc_s = fmaxf(mx[0], 0.f);
-      acc_a = mx[0] > 0.f ? fj : 0;
-    }
-    __syncthreads();
+    if (i == m) first_max<W>(M, n - j0, j0, best);  // the bottom row over j <= n-1
+    if (sub_row == rpb - 1 && active)
+      store_strip<W>(out + (size_t)((i - 1) / rpb) * n_pad, acc);
   }
-  store_row(stage, out + (size_t)(R - 1) * n_pad, n_pad);
+  // the j = 0 zero candidate wins ties
+  const Cand r = block_best(best, s_red);
   if (tid == 0) {
-    score_out[b] = acc_s;
-    a_out[b] = acc_a;
+    score_out[b] = m > 0 ? fmaxf(r.v, 0.f) : NEG;
+    a_out[b] = m > 0 && r.v > 0.f ? r.j : 0;
     b_out[b] = 0;
   }
 }
 
-template <int MODE, bool JUMP>
-void launch_affine(int B, int threads, size_t smem, cudaStream_t stream, const int* qs,
-                   const int* ts, const float* allow, const int* ns, const int* ms,
-                   const float* params, float* score, int* a, int* b, uint8_t* ptrs,
-                   float* scratch, int m_pad, int n_pad, int wmax, int rpb) {
-  ptr_affine_kernel<MODE, JUMP><<<B, threads, smem, stream>>>(
-      qs, ts, allow, ns, ms, params, score, a, b, ptrs, scratch, m_pad, n_pad, wmax, rpb);
+template <int W>
+void launch_width(int mode, bool jump, int B, int threads, cudaStream_t stream, const int* qs,
+                  const int* ts, const float* allow, const int* ns, const int* ms,
+                  const float* params, float* score, int* a, int* b, uint8_t* ptrs, int m_pad,
+                  int n_pad, int rpb) {
+  if (mode == OVERLAP)
+    ptr_overlap_kernel<W><<<B, threads, 0, stream>>>(qs, ts, ns, ms, params, score, a, b, ptrs,
+                                                     m_pad, n_pad, rpb);
+  else if (mode == GLOBAL)
+    ptr_affine_kernel<GLOBAL, false, W><<<B, threads, 0, stream>>>(
+        qs, ts, allow, ns, ms, params, score, a, b, ptrs, m_pad, n_pad, rpb);
+  else if (mode == LOCAL)
+    ptr_affine_kernel<LOCAL, false, W><<<B, threads, 0, stream>>>(
+        qs, ts, allow, ns, ms, params, score, a, b, ptrs, m_pad, n_pad, rpb);
+  else if (jump)
+    ptr_affine_kernel<FIT, true, W><<<B, threads, 0, stream>>>(
+        qs, ts, allow, ns, ms, params, score, a, b, ptrs, m_pad, n_pad, rpb);
+  else
+    ptr_affine_kernel<FIT, false, W><<<B, threads, 0, stream>>>(
+        qs, ts, allow, ns, ms, params, score, a, b, ptrs, m_pad, n_pad, rpb);
 }
 
 }  // namespace
 
 // C entry point, bound with ctypes: launches one fill on `stream` without
 // synchronising and returns the launch's error code. mode: 0 global,
-// 1 local, 2 fit, 3 overlap.
+// 1 local, 2 fit, 3 overlap; `width` the strip width W (16) and `threads` a
+// multiple of 32 up to 512, threads * W >= n_pad; ts and ptrs 16-byte
+// aligned.
 extern "C" cudaError_t at_ptr_fill(int mode, int use_jump, int rpb, const int* qs,
                                    const int* ts, const float* allow, const int* ns,
-                                   const int* ms, const float* params, float* score,
-                                   int* a, int* b, uint8_t* ptrs, float* scratch, int B,
-                                   int m_pad, int n_pad, int threads, int wmax,
-                                   cudaStream_t stream) {
+                                   const int* ms, const float* params, float* score, int* a,
+                                   int* b, uint8_t* ptrs, int B, int m_pad, int n_pad,
+                                   int threads, int width, cudaStream_t stream) {
   const bool bad_layout = (rpb != 1 && rpb != 2 && rpb != 4) || m_pad <= 0 ||
                           m_pad % rpb != 0 || (rpb > 1 && use_jump) ||
                           (rpb == 4 && mode != OVERLAP) || (use_jump && mode != FIT);
-  if (B < 0 || threads < 32 || threads > MAX_THREADS || threads % 32 != 0 ||
-      (long long)threads * wmax < n_pad || n_pad % 16 != 0 || n_pad > 32768 ||
+  if (width != kWidth || B < 0 || threads < 32 || threads > kMaxThreads ||
+      threads % 32 != 0 || (long long)threads * width < n_pad || n_pad <= 0 || n_pad % 16 != 0 ||
       mode < GLOBAL || mode > OVERLAP || bad_layout)
     return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
-  const size_t smem = (size_t)n_pad;  // the staged byte-row
-  if (mode == OVERLAP)
-    ptr_overlap_kernel<<<B, threads, smem, stream>>>(qs, ts, ns, ms, params, score, a, b,
-                                                     ptrs, scratch, m_pad, n_pad, wmax, rpb);
-  else if (mode == GLOBAL)
-    launch_affine<GLOBAL, false>(B, threads, smem, stream, qs, ts, allow, ns, ms, params,
-                                 score, a, b, ptrs, scratch, m_pad, n_pad, wmax, rpb);
-  else if (mode == LOCAL)
-    launch_affine<LOCAL, false>(B, threads, smem, stream, qs, ts, allow, ns, ms, params,
-                                score, a, b, ptrs, scratch, m_pad, n_pad, wmax, rpb);
-  else if (use_jump)
-    launch_affine<FIT, true>(B, threads, smem, stream, qs, ts, allow, ns, ms, params,
-                             score, a, b, ptrs, scratch, m_pad, n_pad, wmax, rpb);
-  else
-    launch_affine<FIT, false>(B, threads, smem, stream, qs, ts, allow, ns, ms, params,
-                              score, a, b, ptrs, scratch, m_pad, n_pad, wmax, rpb);
+  const bool jump = use_jump != 0;
+  launch_width<kWidth>(mode, jump, B, threads, stream, qs, ts, allow, ns, ms, params, score, a,
+                       b, ptrs, m_pad, n_pad, rpb);
   return cudaGetLastError();
 }

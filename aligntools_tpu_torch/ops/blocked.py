@@ -4,12 +4,17 @@ Counterpart of ``aligntools_tpu/ops/pallas_blocked.py``: ``blocked_scores``
 (the Pallas ``_blocked_affine_kernel``, all five modes) and
 ``blocked_ptr_fill`` (``_blocked_ptr_kernel``: global, local, fit(+jump),
 overlap), with the JAX entries' argument layout (``ops/scan.py``'s, plus
-the column block ``c_blk``; ``n_pad % c_blk == 0``) and outputs:
+the column block ``c_blk``) and outputs:
 
   blocked_scores    (B,) float32, int32 for edit
   blocked_ptr_fill  (score, a, b, ptrs) in ``ops/ptr.py``'s layout: ptrs
                     (B, m_pad / rpb, n_pad) uint8, columns 1..n_pad, every
                     byte written
+
+``blocked_scores`` needs ``n_pad % c_blk == 0``, as the JAX entry does.
+``blocked_ptr_fill`` also takes flat buckets too wide for the flat pointer
+kernel (``ptr.ptr_fill`` hands them over), whose n_pad, a multiple of 128,
+a c_blk need not divide: the last column block is then narrower (ragged).
 
 Streaming the target in column blocks changes where the DP state lives,
 not what is computed: the blocked Pallas kernels give the flat ones'
@@ -34,9 +39,11 @@ import torch
 from aligntools_tpu_torch.ops import ptr, scan
 
 # the kernels' column block on the H100 (a divisor of batch.BLOCKED_C_BLK):
-# the fastest of 8,192, 4,096 and 2,048 on the reference fixture's shape
-# and on long-target read sets (chip_smoke.py's blocked and long phases;
-# PERF.md): narrower blocks put more CTAs, and more of them an SM, in flight
+# the fastest of 8,192, 4,096 and 2,048 on the reference fixture's shape,
+# on long-target read sets and on P3 (64 x 512 x 32,768 fit+jump, a flat
+# bucket too wide for the flat pointer kernel; chip_smoke.py's blocked,
+# long and ptr phases; PERF.md): narrower blocks put more CTAs, and more
+# of them an SM, in flight
 C_BLK = 2048
 # the widest column block whose row state and pointer staging fit one CTA's
 # shared memory (fit+jump's pointer fill: 26 bytes a column, 216 KiB at 8192)
@@ -56,10 +63,13 @@ def reset_counts() -> None:
     plain_calls = 0
 
 
-def _check_blocks(n_pad, c_blk):
-    if c_blk <= 0 or c_blk % 16 or n_pad % c_blk:
+def _check_blocks(n_pad, c_blk, ragged=False):
+    """Raise unless c_blk is a positive multiple of 16 that divides n_pad
+    (or, ``ragged``, n_pad is a multiple of 16) and fits a CTA."""
+    if c_blk <= 0 or c_blk % 16 or n_pad % (16 if ragged else c_blk):
         raise ValueError(f"c_blk {c_blk} must be a positive multiple of 16 "
-                         f"that divides n_pad {n_pad}")
+                         + (f"and n_pad {n_pad} a multiple of 16" if ragged
+                            else f"that divides n_pad {n_pad}"))
     if c_blk > C_BLK_MAX:
         raise ValueError(f"c_blk {c_blk} is past C_BLK_MAX {C_BLK_MAX}: a "
                          f"block's row state would not fit a CTA's shared "
@@ -95,7 +105,7 @@ def _kernels():
 
 def _scratch(B, nblk, m_pad, device):
     """The wavefront's device buffers, made anew for every launch (with
-    nblk = n_pad / c_blk column blocks):
+    nblk = ceil(n_pad / c_blk) column blocks):
 
       edges  (B, nblk, 4, m_pad + 1) float32: each block's four edge states
              (its last column) of rows 0..m_pad, read by the next block
@@ -178,10 +188,10 @@ def blocked_ptr_fill(mode, use_jump, m_pad, n_pad, c_blk, qs, ts, allow, ns,
     """Blocked fill with packed pointer emission (the counterpart of the
     JAX ``blocked_ptr_fill``); returns (score, a, b, ptrs) as
     ``ops/ptr.py`` lays them out. Needs m_pad % (8 * rows_per_byte) == 0,
-    as the Pallas kernel does."""
+    as the Pallas kernel does; the last column block may be ragged."""
     global plain_calls
     rpb = rows_per_byte
-    _check_blocks(n_pad, c_blk)
+    _check_blocks(n_pad, c_blk, ragged=True)
     ptr._check(mode, use_jump, m_pad, n_pad, rpb, qs, ts, allow, ns, ms,
                params)
     if m_pad % (8 * rpb):
@@ -198,7 +208,7 @@ def blocked_ptr_fill(mode, use_jump, m_pad, n_pad, c_blk, qs, ts, allow, ns,
     ptrs = torch.empty((B, m_pad // rpb, n_pad), dtype=torch.uint8,
                        device=dev)
     threads, wmax = scan.launch_shape(c_blk)
-    nblk = n_pad // c_blk
+    nblk = -(-n_pad // c_blk)
     scratch = _scratch(B, nblk, m_pad, dev)
     _check_scratch(*scratch, B, nblk, m_pad)
     _launch("blocked_ptr", _kernels()[1], (

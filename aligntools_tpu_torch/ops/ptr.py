@@ -15,8 +15,13 @@ Pallas ``_ptr_kernel``), with its argument layout (``ops/scan.py``'s, plus
          columns included (they read the sentinel chars: query pad -1,
          target pad -2), so two fills can be compared byte for byte.
 
-On a CUDA tensor ``ptr_fill`` launches ``csrc/ptr_fill.cu`` (one CTA per
-pair; see its header) or raises; on a CPU tensor it runs ``ptr_fill_plain``,
+Targets up to FLAT_REG_MAX_N_PAD columns take ``csrc/ptr_fill.cu`` (one
+CTA per pair, each thread's strip of WIDTH columns and its row state in
+registers; see its header); wider ones, which that CTA cannot hold, take
+the blocked pointer fill (``ops/blocked.py``) at its column block, with a
+ragged last block where it does not divide n_pad: same bytes, on either
+device. On a CUDA tensor a wrapper launches its kernel or raises; on a CPU
+tensor ``ptr_fill`` runs ``ptr_fill_plain``,
 which fills one query row per step over whole (B, n_pad) rows as the
 Pallas kernel does. Values are integer-valued float32 with true -inf
 borders, and every pointer is a comparison of such values in the
@@ -39,13 +44,44 @@ MODES = ("global", "local", "fit", "overlap")
 launches = 0
 plain_calls = 0
 
-# scratch row buffers per pair (csrc/ptr_fill.cu)
-_NBUF = {"affine": 5, "jump": 7, "overlap": 4}
+# the kernel's strip width (its one template instance) and the most
+# threads its CTA runs (so the 128 registers a thread may take). W 16, the
+# fewest warps, beat W 4 and W 8 on every row of chip_smoke.py's ptr phase
+# on the H100 but fit+jump at 2,048 columns, where W 8's lead was inside
+# the spread of two timings of one instance (PERF.md).
+WIDTH = 16
+MAX_THREADS = 512
+# the widest target the kernel takes: wider ones go to the blocked pointer
+# fill (blocked_c_blk). From 4,224 to 8,192 columns this kernel is 1.2-2.6x
+# faster than the blocked one on the H100 (chip_smoke.py's ptr phase, `cap`
+# lines; PERF.md).
+FLAT_REG_MAX_N_PAD = MAX_THREADS * WIDTH
 
 
 def reset_counts() -> None:
     global launches, plain_calls
     launches = plain_calls = 0
+
+
+def launch_shape(n_pad: int) -> tuple[int, int]:
+    """(threads per CTA, strip width W) for targets up to n_pad: the fewest
+    whole warps of WIDTH-column strips that cover n_pad."""
+    if not 0 < n_pad <= FLAT_REG_MAX_N_PAD:
+        raise ValueError(f"n_pad {n_pad} is past the pointer kernel's "
+                         f"{FLAT_REG_MAX_N_PAD} columns: the blocked fill "
+                         f"takes it")
+    return max(32, -(-n_pad // (32 * WIDTH)) * 32), WIDTH
+
+
+def blocked_c_blk(n_pad: int) -> int | None:
+    """The column block at which ``ptr_fill`` hands a target of n_pad
+    columns to the blocked pointer fill, or None where the kernel takes
+    it."""
+    if n_pad <= FLAT_REG_MAX_N_PAD:
+        return None
+    from aligntools_tpu_torch.ops import blocked
+
+    return blocked.C_BLK
 
 
 def _shift_in(x, col):
@@ -226,9 +262,9 @@ def _kernel():
         fn = _build.load().at_ptr_fill
         P, I = ctypes.c_void_p, ctypes.c_int
         # mode, use_jump, rpb, qs, ts, allow, ns, ms, params, score, a, b,
-        # ptrs, scratch, B, m_pad, n_pad, threads, wmax, stream
-        fn.argtypes = [I, I, I, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I,
-                       I, P]
+        # ptrs, B, m_pad, n_pad, threads, width, stream
+        fn.argtypes = [I, I, I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I,
+                       P]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -255,24 +291,43 @@ def ptr_fill(mode, use_jump, m_pad, n_pad, qs, ts, allow, ns, ms, params,
     """Fill with packed pointer emission; returns (score, a, b, ptrs) as
     the module docstring lays them out. ``allow`` (B, n_pad) float32 gates
     fit's jump entry (1.0 allowed); it is read only with ``use_jump`` and
-    may be None otherwise."""
+    may be None otherwise. Targets past FLAT_REG_MAX_N_PAD columns run the
+    blocked pointer fill at ``blocked_c_blk(n_pad)``, which also needs
+    m_pad % (8 * rows_per_byte) == 0."""
     rpb = rows_per_byte
+    c_blk = blocked_c_blk(n_pad)
+    if c_blk:
+        from aligntools_tpu_torch.ops import blocked
+
+        return blocked.blocked_ptr_fill(mode, use_jump, m_pad, n_pad, c_blk,
+                                        qs, ts, allow, ns, ms, params, rpb)
     _check(mode, use_jump, m_pad, n_pad, rpb, qs, ts, allow, ns, ms, params)
     if qs.device.type == "cpu":
         return ptr_fill_plain(mode, use_jump, m_pad, n_pad, qs, ts, allow,
                               ns, ms, params, rpb)
+    return _launch(mode, use_jump, m_pad, n_pad, rpb,
+                   (qs, ts, allow, ns, ms, params), launch_shape(n_pad))
+
+
+def _launch(mode, use_jump, m_pad, n_pad, rpb, args, shape):
+    """Launch the kernel on CUDA tensors at ``shape`` = (threads, W) on the
+    current stream; returns (score, a, b, ptrs)."""
     global launches
+    qs, ts, allow, ns, ms, params = args
+    threads, width = shape
+    if width != WIDTH or not 32 <= threads <= MAX_THREADS or (
+            threads % 32 or threads * width < n_pad or n_pad % 16):
+        raise ValueError(f"no kernel instance covers n_pad {n_pad} with "
+                         f"{threads} threads of {width} columns")
+    if ts.data_ptr() % 16:
+        raise ValueError("ts must be 16-byte aligned (the kernel reads it "
+                         "as 16-byte words)")
     B, dev = qs.shape[0], qs.device
     score = torch.empty(B, dtype=torch.float32, device=dev)
     a = torch.empty(B, dtype=torch.int32, device=dev)
     b = torch.empty(B, dtype=torch.int32, device=dev)
     ptrs = torch.empty((B, m_pad // rpb, n_pad), dtype=torch.uint8,
                        device=dev)
-    threads, wmax = scan.launch_shape(n_pad)
-    nbuf = _NBUF["overlap" if mode == "overlap" else
-                 "jump" if use_jump else "affine"]
-    scratch = torch.empty((B, nbuf, threads * wmax), dtype=torch.float32,
-                          device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _kernel()(
@@ -280,8 +335,7 @@ def ptr_fill(mode, use_jump, m_pad, n_pad, qs, ts, allow, ns, ms, params,
             ts.data_ptr(), 0 if allow is None else allow.data_ptr(),
             ns.data_ptr(), ms.data_ptr(),
             params.data_ptr(), score.data_ptr(), a.data_ptr(), b.data_ptr(),
-            ptrs.data_ptr(), scratch.data_ptr(), B, m_pad, n_pad, threads,
-            wmax, stream)
+            ptrs.data_ptr(), B, m_pad, n_pad, threads, width, stream)
     if err != 0:
         raise RuntimeError(f"pointer fill kernel launch failed: CUDA error "
                            f"{err}")

@@ -28,13 +28,25 @@ Phases, one JSON line each:
            warm median times of both (CUDA events); and, as a record, the
            same fill through the blocked kernel at min(n_pad, 8,192)
            columns a block, held against plain and timed (`blocked_ms`);
-  ptr      the pointer kernel against its plain version, bit for bit
-           (score, start info and every pointer byte): global, local, fit
-           and overlap at rows-per-byte 1 and 2, fit+jump at 1, overlap at
-           4, all at 64 ragged pairs of (512, 2048); local at 256 x 2048^2
-           (rpb 2, 512 MB of pointers) and fit+jump at 64 x (512 x 32768)
-           (rpb 1, 1 GB), each also through the blocked kernel as in
-           `kernels`; then the walk kernel against its plain version on
+  ptr      the registers and local (spill) bytes of each instance of
+           csrc/ptr_fill.cu (cuobjdump --dump-resource-usage); then the
+           pointer fill through the rows path's route (ops/ptr.ptr_fill:
+           the flat kernel up to ops/ptr.FLAT_REG_MAX_N_PAD columns, else
+           the blocked one with a ragged last block) against its plain
+           version, bit for bit (score, start info and every pointer
+           byte): global, local, fit and overlap at rows-per-byte 1 and 2,
+           fit+jump at 1, overlap at 4, all at 64 ragged pairs of (512,
+           2048); local at 256 x 2048^2 (rpb 2, 512 MB of pointers);
+           fit+jump at 64 x (512 x 32768) (rpb 1, 1 GB); local at the
+           largest bucket of the slice phase's 20,000-pair rows run; local
+           rpb 2 at 64 x (512 x (FLAT_REG_MAX_N_PAD + 384)), ragged at
+           every column block; each also through the blocked kernel at
+           every column block of the sweep up to n_pad (`c_blk_ms`), held
+           to the same bytes and timed; the cap sweep (`cap`: the flat
+           kernel against the blocked one at 4,224, 6,144 and 8,192
+           columns) and the tie inputs of tests/ptr_ties.py (`ties`); then
+           the walk kernel against its
+           plain version on
            each of those pointer tensors (every column and scalar), timed
            through its wrapper (`ms`) and alone (`kernel_ms`), with
            `chain_ms` beside the bound: the longest walk at
@@ -198,6 +210,14 @@ PTR_SHAPES = [
     (256, 2048, 2048, False, (("local", False, 2),)),
     (64, 512, 32768, True, (("fit", True, 1),)),
 ]
+# the ptr phase's ragged wide row: (B, m_pad), at n_pad FLAT_REG_MAX_N_PAD +
+# PTR_WIDE_EXTRA, which no column block of the sweep divides; the cap
+# sweep: (B, m_pad, mode, jump, rpb) at each n_pad of PTR_CAP_N_PADS, the
+# flat kernel against the blocked one
+PTR_WIDE = (64, 512)
+PTR_WIDE_EXTRA = 384
+PTR_CAP_CASES = [(128, 512, "local", False, 2), (64, 512, "fit", True, 1)]
+PTR_CAP_N_PADS = (4224, 6144, 8192)
 # the blocked phase: L1 (B, m_pad, n_pad), ragged; L2 (B, m_pad, n_pad, m,
 # n), the reference's fit fixture (test/tmp.fa, 1,327 x 114,491); B1, one
 # pair of the fixture's shape; each held against plain at every column
@@ -747,49 +767,118 @@ def ptr_compare(torch, ptr, tb, mode, jump, rpb, m_pad, n_pad, args,
     return f_equal, f_err, w_equal, w_err, k_out, w_k, starts, w_plain_ms
 
 
+def ptr_variants_ms(torch, ptr, mode, jump, rpb, m_pad, n_pad, args, want,
+                    label):
+    """The fill through the blocked kernel at each column block of
+    C_BLK_SWEEP up to n_pad (``c_blk_ms``; ragged where it does not divide
+    n_pad), each held bit-equal to ``want`` (the routed fill's outputs,
+    equal to plain) and timed (warm median of three)."""
+    out = {"c_blk_ms": {}}
+    for c_blk in C_BLK_SWEEP:
+        if c_blk > n_pad:
+            continue
+
+        def fn(c_blk=c_blk):
+            return ptr_fill(ptr, mode, jump, m_pad, n_pad, args, rpb, c_blk)
+
+        got = fn()
+        torch.cuda.synchronize()
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"pointer fill {label}, c_blk {c_blk}: kernel != plain")
+        del got
+        out["c_blk_ms"][c_blk] = statistics.median(timed_ms(torch, fn)
+                                                   for _ in range(3))
+    return out
+
+
+def ptr_route(ptr, n_pad):
+    """The routed pointer fill of a rows bucket (ptr.ptr_fill): its column
+    block (None: the flat kernel) and a label."""
+    c_blk = ptr.blocked_c_blk(n_pad)
+    if c_blk:
+        return c_blk, f"blocked c_blk {c_blk}"
+    threads, w = ptr.launch_shape(n_pad)
+    return None, f"flat W {w} x {threads} threads"
+
+
+def r1_bucket(torch):
+    """The largest bucket (B * m_pad * n_pad) of the 20,000-pair local rows
+    run (the slice phase's R1): its kernel inputs and true cells."""
+    from aligntools_tpu_torch import batch
+    from aligntools_tpu_torch.convert import params_matrix
+    from aligntools_tpu_torch.params import AlignParams
+    from aligntools_tpu_torch.utils.synth import clustered_pairs
+
+    b = max(main_path_buckets(clustered_pairs(20000, seed=SEED), None),
+            key=lambda b: len(b.idx) * b.m_pad * b.n_pad)
+    qs, ts, allow, ns, ms = batch._bucket_tensors(b, torch.device("cuda"))
+    args = (qs, ts, allow, ns, ms, params_matrix(AlignParams(), "cuda"))
+    return len(b.idx), b.m_pad, b.n_pad, args, int((b.m * b.n).sum())
+
+
 def phase_ptr(torch, ptr, tb):
+    """Each pointer-fill row through the rows path's route (flat kernel,
+    or the blocked one past ptr.FLAT_REG_MAX_N_PAD) against plain, then
+    the walk on its pointers; every column block of the sweep held to the
+    same bytes and timed; then the cap sweep and the tie inputs of
+    tests/ptr_ties.py."""
+    from aligntools_tpu_torch import layout
+    from aligntools_tpu_torch.ops import _build
+
+    emit({"phase": "ptr", "resource_usage": ptr_resource_usage(
+        _build.library_path())})
     fills, walks = [], []
-    for B, m_pad, n_pad, ragged, cases in PTR_SHAPES:
-        args, cells = kernel_inputs(B, m_pad, n_pad, ragged, SEED, "cuda")
+    shapes = [(B, m_pad, n_pad, cases,
+               kernel_inputs(B, m_pad, n_pad, ragged, SEED, "cuda"))
+              for B, m_pad, n_pad, ragged, cases in PTR_SHAPES]
+    B, m_pad, n_pad, args, cells = r1_bucket(torch)
+    rpb = layout.rows_per_byte("local", False, m_pad)
+    shapes.append((B, m_pad, n_pad, (("local", False, rpb),), (args, cells)))
+    n_wide = ptr.FLAT_REG_MAX_N_PAD + PTR_WIDE_EXTRA
+    check(all(n_wide % c for c in C_BLK_SWEEP), f"n_pad {n_wide} is not "
+          f"ragged at every column block")
+    shapes.append((PTR_WIDE[0], PTR_WIDE[1], n_wide, (("local", False, 2),),
+                   kernel_inputs(PTR_WIDE[0], PTR_WIDE[1], n_wide, True, SEED,
+                                 "cuda")))
+    del args
+    for B, m_pad, n_pad, cases, (args, cells) in shapes:
         qs, ts, allow, ns, ms, pm = args
         for mode, jump, rpb in cases:
+            c_route, route = ptr_route(ptr, n_pad)
             variant = mode + ("+jump" if jump else "")
             shape = f"{B}x{m_pad}x{n_pad}"
             f_eq, f_err, w_eq, w_err, k_out, w_k, starts, w_plain = (
                 ptr_compare(torch, ptr, tb, mode, jump, rpb, m_pad, n_pad,
-                            args))
-            fill = (lambda: ptr.ptr_fill(mode, jump, m_pad, n_pad, qs, ts,
-                                         allow, ns, ms, pm, rpb))
+                            args, c_route))
+            check(f_eq and f_err == 0.0,
+                  f"pointer fill {variant} rpb {rpb} at {shape} ({route}): "
+                  f"kernel != plain")
+
+            def fill():
+                return ptr_fill(ptr, mode, jump, m_pad, n_pad, args, rpb,
+                                c_route)
+
             fill_plain = (lambda: ptr.ptr_fill_plain(
                 mode, jump, m_pad, n_pad, qs, ts, allow, ns, ms, pm, rpb))
             ms_k, ms_p = turns(torch, fill, fill_plain, rounds=1)
-            # the same fill through the blocked kernel, held against the
-            # flat kernel's output (equal to plain above); a record only
-            c_blk = min(n_pad, FLAT_AS_BLOCKED_C_BLK)
-            b_out = ptr_fill(ptr, mode, jump, m_pad, n_pad, args, rpb, c_blk)
-            torch.cuda.synchronize()
-            check(all(torch.equal(x, y) for x, y in zip(b_out, k_out)),
-                  f"blocked pointer fill {variant} rpb {rpb} at {shape}, "
-                  f"c_blk {c_blk}: kernel != plain")
-            del b_out
-            ms_b = statistics.median(timed_ms(torch, lambda: ptr_fill(
-                ptr, mode, jump, m_pad, n_pad, args, rpb, c_blk))
-                for _ in range(2))
+            sweep = ptr_variants_ms(torch, ptr, mode, jump, rpb, m_pad,
+                                    n_pad, args, k_out,
+                                    f"{variant} rpb {rpb} at {shape}")
             ptr_bytes = k_out[3].numel()
             ops = (SCORE_OPS[variant] + PTR_EXTRA_OPS[variant]) * cells
             b_ms, b_by = bound(ops, input_bytes(args, jump) + ptr_bytes
                                + 12 * B)
             row = {"phase": "ptr", "variant": f"{variant}/rpb{rpb}",
-                   "shape": shape, "bit_equal": f_eq, "max_abs_err": f_err,
-                   "tolerance": TOL, "ms": ms_k, "plain_ms": ms_p,
-                   "bound_ms": b_ms, "bound_by": b_by,
+                   "shape": shape, "route": route, "bit_equal": f_eq,
+                   "max_abs_err": f_err, "tolerance": TOL, "ms": ms_k,
+                   "plain_ms": ms_p, "bound_ms": b_ms, "bound_by": b_by,
                    "probe_ms": probe_ms(ops), "true_cells": cells,
                    "ptr_bytes": ptr_bytes, "gcups": cells / ms_k / 1e6,
-                   "blocked_ms": ms_b, "blocked_c_blk": c_blk}
+                   # the same fill at c_blk min(n_pad, 8,192), as before
+                   "blocked_ms": sweep["c_blk_ms"].get(
+                       min(n_pad, FLAT_AS_BLOCKED_C_BLK)),
+                   **sweep}
             emit(row)
-            check(f_eq and f_err == 0.0,
-                  f"pointer fill {variant} rpb {rpb} at {shape}: kernel != "
-                  f"plain")
             fills.append(row)
             walks.append(walk_row(torch, tb, mode, rpb, variant, shape,
                                   k_out[3], qs, ts, starts, w_k, w_eq, w_err,
@@ -797,7 +886,89 @@ def phase_ptr(torch, ptr, tb):
             del k_out, w_k
         del args, qs, ts, allow, ns, ms, pm
         torch.cuda.empty_cache()
+    phase_ptr_cap(torch, ptr)
+    phase_ptr_ties(torch, ptr)
     return fills, walks
+
+
+def phase_ptr_cap(torch, ptr):
+    """The flat kernel against the blocked one past 4,096 columns, where
+    FLAT_REG_MAX_N_PAD is chosen: each n_pad of PTR_CAP_N_PADS at the flat
+    kernel's own shape and at every column block of the sweep, all held to
+    the same bytes, warm medians of three."""
+    for B, m_pad, mode, jump, rpb in PTR_CAP_CASES:
+        for n_pad in PTR_CAP_N_PADS:
+            args, cells = kernel_inputs(B, m_pad, n_pad, True, SEED + 5,
+                                        "cuda")
+            label = f"{mode}{'+jump' if jump else ''} rpb {rpb} at {B}x{m_pad}x{n_pad}"
+            want = ptr_fill(ptr, mode, jump, m_pad, n_pad, args, rpb)
+            flat = statistics.median(timed_ms(torch, lambda: ptr_fill(
+                ptr, mode, jump, m_pad, n_pad, args, rpb)) for _ in range(3))
+            sweep = ptr_variants_ms(torch, ptr, mode, jump, rpb, m_pad,
+                                    n_pad, args, want, label)
+            emit({"phase": "ptr", "cap": label, "flat_ms": flat,
+                  "flat_shape": list(ptr.launch_shape(n_pad)),
+                  "cap_now": ptr.FLAT_REG_MAX_N_PAD, "true_cells": cells,
+                  **sweep})
+            del args, want
+    torch.cuda.empty_cache()
+
+
+def phase_ptr_ties(torch, ptr):
+    """The start-info ties of tests/ptr_ties.py: every (mode, rpb) layout
+    of P1, against plain."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import ptr_ties
+
+    from aligntools_tpu_torch.convert import kernel_inputs_from_numpy
+
+    arrs = ptr_ties.tie_inputs(SEED)
+    m_pad, n_pad = ptr_ties.M_PAD, ptr_ties.N_PAD
+    checked = []
+    for mode, jump, rpb in PTR_SHAPES[0][4]:
+        args = kernel_inputs_from_numpy(*arrs, ptr_ties.pmat(mode), "cuda")
+        want = ptr.ptr_fill_plain(mode, jump, m_pad, n_pad, *args, rpb)
+        got = ptr.ptr_fill(mode, jump, m_pad, n_pad, *args, rpb)
+        torch.cuda.synchronize()
+        label = f"{mode}{'+jump' if jump else ''}/rpb{rpb}"
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"pointer fill on the tie inputs, {label}: kernel != plain")
+        checked.append(label)
+    emit({"phase": "ptr", "ties": len(checked), "cases": checked,
+          "bit_equal": True, "max_abs_err": 0.0, "tolerance": TOL})
+
+
+def ptr_resource_usage(lib_path):
+    """Registers and local-memory (spill) bytes a thread of each
+    csrc/ptr_fill.cu instance, from cuobjdump --dump-resource-usage."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    check(os.access(tool, os.X_OK), "cuobjdump is missing")
+    text = subprocess.run([tool, "--dump-resource-usage", lib_path],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    filt = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
+    out, name = [], None
+    for line in text.splitlines():
+        hit = re.search(r"Function (\S+):", line)
+        if hit:
+            name = hit.group(1)
+            continue
+        if name is None or "REG:" not in line:
+            continue
+        if "ptr_affine_kernel" in name or "ptr_overlap_kernel" in name:
+            use = dict(re.findall(r"(\w+):(\d+)", line))
+            if os.access(filt, os.X_OK):
+                name = subprocess.run([filt, name], capture_output=True,
+                                      text=True, timeout=60).stdout.strip()
+            out.append({"kernel": name, "registers": int(use["REG"]),
+                        "local_bytes": int(use.get("LOCAL", -1)),
+                        "stack_bytes": int(use.get("STACK", -1))})
+        name = None
+    check(out, "cuobjdump listed no csrc/ptr_fill.cu kernel")
+    return out
 
 
 def walk_row(torch, tb, mode, rpb, variant, shape, ptrs, qs, ts, starts,
@@ -1165,6 +1336,7 @@ def phase_buckets(torch, scan, ptr, tb, variant, pairs, sites, params,
         long = b.n_pad > batch.PALLAS_FLAT_MAX_N_PAD
         c_blk = blocked.C_BLK if long else None
         if rows:
+            c_blk = ptr.blocked_c_blk(b.n_pad)  # the rows path's route
             rpb = layout.rows_per_byte(mode, jump, b.m_pad)
             walk = b is walk_long if long else k % walk_every == 0
             walks += walk
@@ -1185,7 +1357,7 @@ def phase_buckets(torch, scan, ptr, tb, variant, pairs, sites, params,
         check(equal and err == 0.0,
               f"{variant} on main-path bucket {shape}: kernel != plain"
               + (" (pointer fill or walk)" if rows else ""))
-        shapes.append(shape + ("/blocked" if long else ""))
+        shapes.append(shape + (f"/blocked{c_blk}" if c_blk else ""))
         worst = max(worst, err)
         del qs, ts, allow, ns, ms
     torch.cuda.empty_cache()

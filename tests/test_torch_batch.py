@@ -331,3 +331,46 @@ def test_empty_pairs_match_jax(mode, traceback):
         with pytest.raises(RuntimeError, match="no finite traceback start"):
             tbatch.align_batch("fit", [(b"", b"")], traceback=True,
                                device="cpu")
+
+
+def test_rows_c_blk_routes_by_the_cap():
+    """The rows path's pointer fill (ptr.ptr_fill) keeps buckets up to
+    ptr.FLAT_REG_MAX_N_PAD columns on the flat pointer kernel and hands
+    wider flat ones and long targets to the blocked fill at C_BLK, which
+    need not divide a flat n_pad."""
+    from aligntools_tpu_torch.ops import blocked, ptr
+
+    cap = ptr.FLAT_REG_MAX_N_PAD
+    assert ptr.blocked_c_blk(128) is None and ptr.blocked_c_blk(cap) is None
+    for n_pad in (cap + 128, tbatch.PALLAS_FLAT_MAX_N_PAD,
+                  tbatch.PALLAS_FLAT_MAX_N_PAD + tbatch.BLOCKED_C_BLK):
+        assert ptr.blocked_c_blk(n_pad) == blocked.C_BLK, n_pad
+    assert (cap + 128) % blocked.C_BLK
+
+
+def test_dispatch_rows_picks_the_fill_by_the_cap(monkeypatch):
+    """A rows run with one bucket at the cap and one just past it: the
+    first runs the flat pointer fill, the second the blocked one (each
+    wrapper's count of plain calls on CPU tensors); the rows equal those
+    of a run with every bucket on the flat fill."""
+    from aligntools_tpu_torch.ops import blocked, ptr
+
+    cap = ptr.FLAT_REG_MAX_N_PAD
+    rng = np.random.default_rng(29)
+    pairs = [(bytes(rng.choice(list(b"ACGT"), 40).tolist()),
+              bytes(rng.choice(list(b"ACGT"), n).tolist()))
+             for n in (cap - 5, cap + 100)]
+    assert sorted(n for _, n in tbatch._bucket_keys(pairs, 64, 128)) == [
+        cap, cap + 128]
+    ptr.reset_counts()
+    blocked.reset_counts()
+    got = _port_rows("local", pairs, AlignParams(), None)
+    # the blocked wrapper's plain version is the flat one, counted there too
+    assert (ptr.plain_calls, blocked.plain_calls) == (2, 1)
+    monkeypatch.setattr(ptr, "FLAT_REG_MAX_N_PAD", cap + 128)
+    ptr.reset_counts()
+    blocked.reset_counts()
+    assert _port_rows("local", pairs, AlignParams(), None) == got
+    assert (ptr.plain_calls, blocked.plain_calls) == (2, 0)
+    ptr.reset_counts()
+    blocked.reset_counts()

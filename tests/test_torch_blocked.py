@@ -37,20 +37,20 @@ PTR_CASES = [
 ]
 
 
-def blocked_inputs(seed, fit):
-    """Ragged pairs over four column blocks in the kernels' int32 sentinel
-    layout (query pad -1, target pad -2), three junction sites per target
-    (allow = 0 there), and the params row."""
+def blocked_inputs(seed, fit, n_pad=N_PAD):
+    """Ragged pairs over four column blocks (at n_pad 512) in the kernels'
+    int32 sentinel layout (query pad -1, target pad -2), three junction
+    sites per target (allow = 0 there), and the params row."""
     rng = np.random.default_rng(seed)
     ms = rng.integers(1, M_PAD + 1, B)
-    ns = rng.integers(1, N_PAD + 1, B)
-    ms[0], ns[0] = M_PAD, N_PAD
+    ns = rng.integers(1, n_pad + 1, B)
+    ms[0], ns[0] = M_PAD, n_pad
     ns[1] = C_BLK  # ends on a block edge
     if fit:
         ns = np.maximum(ns, ms)
     qs = np.full((B, M_PAD), -1, np.int32)
-    ts = np.full((B, N_PAD), -2, np.int32)
-    allow = np.ones((B, N_PAD), np.float32)
+    ts = np.full((B, n_pad), -2, np.int32)
+    allow = np.ones((B, n_pad), np.float32)
     for k in range(B):
         qs[k, : ms[k]] = rng.choice(ALPHA, ms[k])
         ts[k, : ns[k]] = rng.choice(ALPHA, ns[k])
@@ -114,8 +114,14 @@ def test_blocked_entries_check_their_blocks():
     with pytest.raises(ValueError, match="divides n_pad"):
         blocked.blocked_scores("local", False, M_PAD, N_PAD, 96, qs, ts,
                                None, ns, ms, pm)
-    with pytest.raises(ValueError, match="divides n_pad"):
-        blocked.blocked_ptr_fill("local", False, M_PAD, N_PAD, 1024, qs, ts,
+    # the pointer fill takes a ragged last block, not a c_blk or an n_pad
+    # off the 16-column grid
+    with pytest.raises(ValueError, match="multiple of 16"):
+        blocked.blocked_ptr_fill("local", False, M_PAD, N_PAD, 120, qs, ts,
+                                 None, ns, ms, pm, 1)
+    t520 = torch.cat([ts, ts[:, :8]], dim=1)
+    with pytest.raises(ValueError, match="n_pad 520 a multiple of 16"):
+        blocked.blocked_ptr_fill("local", False, M_PAD, 520, C_BLK, qs, t520,
                                  None, ns, ms, pm, 1)
     q48, m48 = qs[:, :48].contiguous(), torch.clamp(ms, max=48)
     with pytest.raises(ValueError, match="multiple of 8"):
@@ -124,6 +130,32 @@ def test_blocked_entries_check_their_blocks():
     with pytest.raises(ValueError, match="jump state"):
         blocked.blocked_scores("local", True, M_PAD, N_PAD, C_BLK, qs, ts,
                                allow, ns, ms, pm)
+
+
+@pytest.mark.parametrize("mode,use_jump,rpb", [
+    ("local", False, 2), ("fit", True, 1), ("overlap", False, 4)])
+def test_blocked_ptr_fill_takes_a_ragged_last_block(mode, use_jump, rpb):
+    """n_pad 1,152 at c_blk 512 (two full blocks and one of 128 columns):
+    the pointer fill takes it (on CPU tensors, its plain version, counted)
+    and gives the flat plain version's outputs; the score fill still needs
+    c_blk to divide n_pad."""
+    from aligntools_tpu_torch.ops import ptr
+
+    n_pad, c_blk = 1152, 512
+    arrs = blocked_inputs(97, mode == "fit", n_pad)
+    qs, ts, allow, ns, ms, pm = port_args(arrs)
+    blocked.reset_counts()
+    got = blocked.blocked_ptr_fill(mode, use_jump, M_PAD, n_pad, c_blk, qs,
+                                   ts, allow, ns, ms, pm, rpb)
+    assert (blocked.plain_calls, blocked.launches["blocked_ptr"]) == (1, 0)
+    want = ptr.ptr_fill_plain(mode, use_jump, M_PAD, n_pad, qs, ts, allow,
+                              ns, ms, pm, rpb)
+    for name, g, w in zip(("score", "a", "b", "ptrs"), got, want):
+        assert torch.equal(g, w), name
+    with pytest.raises(ValueError, match="divides n_pad"):
+        blocked.blocked_scores(mode, use_jump, M_PAD, n_pad, c_blk, qs, ts,
+                               allow, ns, ms, pm)
+    blocked.reset_counts()
 
 
 def test_tie_inputs_really_tie():

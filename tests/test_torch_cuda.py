@@ -7,6 +7,7 @@ addopts="" -q`` (the variable keeps tests/conftest.py from importing jax)."""
 
 import blocked_ties as ties
 import numpy as np
+import ptr_ties
 import pytest
 import torch
 import walk_cases
@@ -97,6 +98,81 @@ def test_ptr_and_walk_kernels_equal_plain(cuda, mode, use_jump, rpb, n_pad):
     wp = device_tb.walk_plain(mode, rpb, got[3], qs, ts, starts)
     for name, g, w in zip(("cols1", "cols2", "scal"), wk, wp):
         assert torch.equal(g, w), name
+
+
+# (n_pad, threads, W): the kernel's launch shape at every n_pad of the
+# list, from 32 threads (n_pad 128) to 512 (the rows path's cap); and
+# launches with whole warps past n_pad
+PTR_KERNEL_SHAPES = sorted(
+    {(n, *ptr.launch_shape(n)) for n in (128, 384, 2048, 3072, 4096,
+                                         ptr.FLAT_REG_MAX_N_PAD)}
+    | {(384, ptr.MAX_THREADS, ptr.WIDTH), (2048, 256, ptr.WIDTH)})
+
+
+def _flat_inputs(seed, B=12, m_pad=64, n_pad=1024):
+    """Ragged pairs: m = n = 1, m = m_pad with n = 1, a full pair, the rest
+    drawn."""
+    rng = np.random.default_rng(seed)
+    alpha = np.frombuffer(b"ACGT", dtype=np.uint8).astype(np.int32)
+    ms = rng.integers(1, m_pad + 1, (B, 1)).astype(np.int32)
+    ns = rng.integers(1, n_pad + 1, (B, 1)).astype(np.int32)
+    ms[:3, 0], ns[:3, 0] = [1, m_pad, m_pad], [1, 1, n_pad]
+    qs = rng.choice(alpha, (B, m_pad))
+    ts = rng.choice(alpha, (B, n_pad))
+    qs[np.arange(m_pad)[None, :] >= ms] = -1
+    ts[np.arange(n_pad)[None, :] >= ns] = -2
+    allow = (rng.random((B, n_pad)) > 0.1).astype(np.float32)
+    pm = np.array([[2, 3, -4, -1, -7, 0, 0, 0]], np.float32)
+    return qs, ts, allow, ns, ms, pm
+
+
+def _ptr_equals_plain(mode, use_jump, rpb, m_pad, n_pad, args, shape):
+    before = ptr.launches
+    got = ptr._launch(mode, use_jump, m_pad, n_pad, rpb, args, shape)
+    torch.cuda.synchronize()
+    assert ptr.launches == before + 1
+    want = ptr.ptr_fill_plain(mode, use_jump, m_pad, n_pad, *args, rpb)
+    for name, g, w in zip(("score", "a", "b", "ptrs"), got, want):
+        bad = (g != w).nonzero()
+        assert torch.equal(g, w), (name, bad[:8].tolist(), len(bad))
+
+
+@pytest.mark.parametrize("n_pad,threads,width", PTR_KERNEL_SHAPES)
+@pytest.mark.parametrize("mode,use_jump,rpb", PTR_CASES)
+def test_ptr_kernel_every_instance_equals_plain(cuda, mode, use_jump, rpb,
+                                                n_pad, threads, width):
+    """The kernel at thread counts from 32 to 512, n_pad up to the rows
+    path's cap, every layout: score, a, b and every pointer byte."""
+    arrs = _flat_inputs(71 + n_pad, n_pad=n_pad)
+    _ptr_equals_plain(mode, use_jump, rpb, 64, n_pad,
+                      convert.kernel_inputs_from_numpy(*arrs, cuda),
+                      (threads, width))
+
+
+@pytest.mark.parametrize("threads", [ptr.launch_shape(ptr_ties.N_PAD)[0],
+                                     ptr.MAX_THREADS])
+@pytest.mark.parametrize("mode,use_jump,rpb", PTR_CASES)
+def test_ptr_kernel_on_ties_equals_plain(cuda, mode, use_jump, rpb, threads):
+    """Start info that ties within a strip, across strips and across a
+    warp boundary (tests/ptr_ties.py; held against the JAX package's kernel
+    on the CPU), at the launch shape and with whole warps past n_pad: the
+    once-reduced latches give the plain version's."""
+    args = convert.kernel_inputs_from_numpy(
+        *ptr_ties.tie_inputs(3), ptr_ties.pmat(mode), cuda)
+    _ptr_equals_plain(mode, use_jump, rpb, ptr_ties.M_PAD, ptr_ties.N_PAD,
+                      args, (threads, ptr.WIDTH))
+
+
+@pytest.mark.parametrize("mode,use_jump,rpb", [
+    ("global", False, 1), ("local", False, 2), ("fit", True, 1),
+    ("overlap", False, 4)])
+def test_ptr_kernel_more_ctas_than_resident(cuda, mode, use_jump, rpb):
+    """5,000 pairs of one warp each: more CTAs than the card holds at once
+    (32 an SM, 132 SMs)."""
+    arrs = _flat_inputs(83, B=5000, n_pad=128)
+    args = convert.kernel_inputs_from_numpy(*arrs, cuda)
+    _ptr_equals_plain(mode, use_jump, rpb, 64, 128, args,
+                      ptr.launch_shape(128))
 
 
 WALK_CASES = walk_cases.flat_cases() + walk_cases.window_cases()
@@ -367,6 +443,39 @@ def test_blocked_kernels_on_ties_equal_plain(cuda, kind, mode, use_jump, rpb,
     _blocked_equals_plain(kind, mode, use_jump, rpb, ties.M_PAD,
                           ties.BLOCKS * c_blk, c_blk,
                           convert.kernel_inputs_from_numpy(*arrs, cuda))
+
+
+@pytest.mark.parametrize("n_pad,c_blk", [
+    (8576, 2048), (8576, 4096),
+    (ptr.FLAT_REG_MAX_N_PAD + 128, blocked.C_BLK)])
+@pytest.mark.parametrize("mode,use_jump,rpb", BLOCKED_PTR_CASES)
+def test_blocked_ptr_ragged_last_block_equals_plain(cuda, mode, use_jump,
+                                                    rpb, n_pad, c_blk):
+    """Flat n_pads that the column block does not divide: the last block
+    is narrower, and every byte is the flat plain version's."""
+    arrs = _flat_inputs(89, B=4, n_pad=n_pad)
+    _blocked_equals_plain("ptr", mode, use_jump, rpb, 64, n_pad, c_blk,
+                          convert.kernel_inputs_from_numpy(*arrs, cuda))
+
+
+def test_rows_route_on_card_equals_cpu(cuda):
+    """Rows of one bucket at the cap and one past it: the flat kernel and
+    the blocked one each launched, the rows the CPU run's."""
+    cap = ptr.FLAT_REG_MAX_N_PAD
+    rng = np.random.default_rng(31)
+    pairs = [(bytes(rng.choice(list(b"ACGT"), 300).tolist()),
+              bytes(rng.choice(list(b"ACGT"), n).tolist()))
+             for n in (cap - 5, cap + 100, cap - 300, cap + 60)]
+    n_pads = {key[1] for key in tbatch._bucket_keys(pairs, 64, 128)}
+    wide = sum(n > cap for n in n_pads)
+    assert 0 < wide < len(n_pads)
+    before = (ptr.launches, blocked.launches["blocked_ptr"])
+    got = tbatch.align_batch("global", pairs, AlignParams(), traceback=True,
+                             device="cuda")
+    assert (ptr.launches, blocked.launches["blocked_ptr"]) == (
+        before[0] + len(n_pads) - wide, before[1] + wide)
+    assert got == tbatch.align_batch("global", pairs, AlignParams(),
+                                     traceback=True, device="cpu")
 
 
 def _long_pairs(seed, count=6, fit=False):

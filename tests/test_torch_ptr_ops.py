@@ -5,10 +5,14 @@ mode on the CPU) and through the port's ``ptr_fill`` on CPU tensors, which
 runs its plain PyTorch version. Scores are integer-valued float32 and
 pointers are bytes, so everything is compared exactly: score, the start
 info a/b, and every byte of the (B, m_pad/rpb, n_pad) pointer tensor, pad
-rows and pad columns included."""
+rows and pad columns included. The tie inputs of tests/ptr_ties.py (start
+info the kernel's per-thread latches must resolve as the plain version's
+running row maximum does) are checked to tie and held to the Pallas kernel
+too; the kernel's launch shapes are checked for every flat bucket."""
 
 import jax.numpy as jnp
 import numpy as np
+import ptr_ties as ties
 import pytest
 import torch
 
@@ -122,3 +126,99 @@ def test_layout_constants_match_the_jax_package():
 ])
 def test_rows_per_byte_rule(mode, use_jump, m_pad, want):
     assert layout.rows_per_byte(mode, use_jump, m_pad) == want
+
+
+def _tie_fill(mode, arrs, rpb=1, use_jump=False):
+    args = convert.kernel_inputs_from_numpy(*arrs, ties.pmat(mode), "cpu")
+    return ptr.ptr_fill(mode, use_jump, ties.M_PAD, ties.N_PAD, *args,
+                        rows_per_byte=rpb)
+
+
+def test_ptr_tie_inputs_really_tie():
+    """Each tie pair of tests/ptr_ties.py gives the (a, b) it names, and
+    each of its two candidates, read alone (the other blanked), the same
+    score at its own (a, b); overlap's bottom rows hold exactly 0 at column
+    5 (which the j = 0 candidate wins) and their maximum at columns 7 and
+    13."""
+    arrs = ties.tie_inputs(0)
+    for mode in ("local", "fit", "overlap"):
+        full = _tie_fill(mode, arrs)
+        for k, (tie_mode, ab, halves) in ties.TIES.items():
+            if tie_mode != mode:
+                continue
+            assert (int(full[1][k]), int(full[2][k])) == ab, k
+            for which, (_, ab_alone) in enumerate(halves):
+                alone = _tie_fill(mode, ties.half(arrs, k, which))
+                assert float(alone[0][k]) == float(full[0][k]), (k, which)
+                assert (int(alone[1][k]), int(alone[2][k])) == ab_alone, (
+                    k, which)
+    qs, ts, _, ns, _ = arrs
+    pm = ties.pmat("overlap")
+    zero = ties.ZERO_PAIR
+    row = ties.overlap_bottom_row(qs[zero], ts[zero], int(ns[zero, 0]), pm)
+    assert row.max() == 0.0 and list(np.flatnonzero(row == 0.0) + 1) == [5]
+    assert (float(full[0][zero]), int(full[1][zero])) == (0.0, 0)
+    row = ties.overlap_bottom_row(qs[11], ts[11], int(ns[11, 0]), pm)
+    assert row.max() > 0.0
+    assert tuple(np.flatnonzero(row == row.max()) + 1) == (
+        ties.OV_TIE_COLUMNS)
+
+
+@pytest.mark.parametrize("mode,use_jump,rpb", CASES)
+def test_ptr_fill_on_ties_matches_pallas(mode, use_jump, rpb):
+    """The plain version equals the Pallas kernel (interpret mode) on the
+    tie inputs: score, a, b and every pointer byte."""
+    arrs = ties.tie_inputs(5)
+    pm = ties.pmat(mode)
+    want = [np.asarray(x) for x in pp.pallas_ptr_fill(
+        mode, use_jump, ties.M_PAD, ties.N_PAD, True,
+        *(jnp.asarray(x) for x in (*arrs, pm)), rows_per_byte=rpb)]
+    got = [x.numpy() for x in _tie_fill(mode, arrs, rpb, use_jump)]
+    for name, g, w in zip(("score", "a", "b", "ptrs"), got, want):
+        assert np.array_equal(g, w), name
+
+
+def test_launch_shape_covers_every_flat_bucket():
+    """Every multiple of 128 up to the rows path's cap gets the kernel's
+    instance: W = WIDTH, threads a multiple of 32 up to MAX_THREADS (1,024
+    at most), threads * W >= n_pad, the fewest warps; wider targets are
+    refused, and ptr_fill hands them to the blocked fill."""
+    for n_pad in range(128, ptr.FLAT_REG_MAX_N_PAD + 1, 128):
+        threads, w = ptr.launch_shape(n_pad)
+        assert w == ptr.WIDTH and threads % 32 == 0, n_pad
+        assert 32 <= threads <= ptr.MAX_THREADS <= 1024, n_pad
+        assert threads * w >= n_pad, n_pad
+        assert threads // 32 == -(-n_pad // (32 * w)), n_pad
+        assert ptr.blocked_c_blk(n_pad) is None, n_pad
+    assert ptr.launch_shape(128) == (32, 16)
+    assert ptr.launch_shape(2048) == (128, 16)
+    assert ptr.launch_shape(4224) == (288, 16)
+    with pytest.raises(ValueError, match="blocked fill"):
+        ptr.launch_shape(ptr.FLAT_REG_MAX_N_PAD + 128)
+
+
+@pytest.mark.parametrize("mode,use_jump,rpb", [("local", False, 2),
+                                               ("fit", True, 1)])
+def test_ptr_fill_hands_wide_targets_to_the_blocked_fill(mode, use_jump,
+                                                         rpb):
+    """Past FLAT_REG_MAX_N_PAD columns ptr_fill runs the blocked pointer
+    fill at blocked_c_blk (its plain version on CPU tensors, counted
+    there), as it does on the card: the same outputs as the flat plain
+    version; at the cap it keeps the flat route."""
+    from aligntools_tpu_torch.ops import blocked
+
+    cap = ptr.FLAT_REG_MAX_N_PAD
+    assert ptr.blocked_c_blk(cap) is None
+    assert (cap + 128) % ptr.blocked_c_blk(cap + 128)  # a ragged last block
+    for n_pad, blocked_calls in ((cap + 128, 1), (cap, 0)):
+        args = convert.kernel_inputs_from_numpy(
+            *ptr_inputs(43, mode == "fit", B=3, m_pad=16, n_pad=n_pad),
+            pmat(), "cpu")
+        blocked.reset_counts()
+        got = ptr.ptr_fill(mode, use_jump, 16, n_pad, *args,
+                           rows_per_byte=rpb)
+        assert blocked.plain_calls == blocked_calls, n_pad
+        want = ptr.ptr_fill_plain(mode, use_jump, 16, n_pad, *args, rpb)
+        for name, g, w in zip(("score", "a", "b", "ptrs"), got, want):
+            assert torch.equal(g, w), (n_pad, name)
+    blocked.reset_counts()

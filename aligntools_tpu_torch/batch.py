@@ -7,9 +7,9 @@ from pinned host memory, are widened to the kernels' int32 sentinel layout
 there (query pad -1, target pad -2), and its work is launched without a
 sync.
 
-  scores   one score fill per bucket (``ops/scan.py``, or for targets
-           past PALLAS_FLAT_MAX_N_PAD columns the column-blocked fill of
-           ``ops/blocked.py``); every bucket is dispatched before one
+  scores   one score fill per bucket (``ops/scan.py``, which hands
+           targets past its flat kernels' widest to the column-blocked
+           fill of ``ops/blocked.py``); every bucket is dispatched before one
            device->host pull collects every score;
   rows     one pointer fill (``ops/ptr.py``, which hands targets past
            ``ops/ptr.FLAT_REG_MAX_N_PAD`` columns to ``ops/blocked.py``)
@@ -45,19 +45,19 @@ from aligntools_tpu_torch.backend import resolve_device
 from aligntools_tpu_torch.convert import params_matrix
 from aligntools_tpu_torch.engine import device_tb
 from aligntools_tpu_torch.exact import check_f32_exact
-from aligntools_tpu_torch.ops import blocked
 from aligntools_tpu_torch.ops.ptr import ptr_fill
-from aligntools_tpu_torch.ops.scan import fit_scores, scores
+from aligntools_tpu_torch.ops.scan import FLAT_MAX_N_PAD, fit_scores, scores
 from aligntools_tpu_torch.params import AlignParams, AlignResult
 
 NEG = float("-inf")
 
 # copied from aligntools_tpu/engine/select.py (that package imports jax):
 # targets past PALLAS_FLAT_MAX_N_PAD columns go to the column-blocked fills
-# (select.use_blocked), and their n_pad snaps to BLOCKED_C_BLK multiples,
-# so the bucket keys are the JAX package's. The snap is part of that key
-# parity; the CUDA kernels' own column block (blocked.C_BLK) divides it.
-PALLAS_FLAT_MAX_N_PAD = 32768
+# (select.use_blocked; here ops/scan.blocked_c_blk), and their n_pad snaps
+# to BLOCKED_C_BLK multiples, so the bucket keys are the JAX package's. The
+# snap is part of that key parity; the CUDA kernels' own column block
+# (blocked.C_BLK) divides it.
+PALLAS_FLAT_MAX_N_PAD = FLAT_MAX_N_PAD
 BLOCKED_C_BLK = 16384
 
 
@@ -254,14 +254,7 @@ def _dispatch_scores(mode, b, pmat, use_jump, device, counters):
     if counters is not None:
         counters.padded_cells += len(b.idx) * b.m_pad * b.n_pad
     qs, ts, allow, ns, ms = _bucket_tensors(b, device)
-    jump = use_jump and mode == "fit"
-    if b.n_pad > PALLAS_FLAT_MAX_N_PAD:
-        return blocked.blocked_scores(mode, jump, b.m_pad, b.n_pad,
-                                      blocked.C_BLK, qs, ts, allow, ns, ms,
-                                      pmat)
     if mode == "fit":
-        if allow is None:
-            allow = torch.ones((len(b.idx), b.n_pad), device=device)
         return fit_scores(use_jump, b.m_pad, b.n_pad, qs, ts, allow, ns, ms,
                           pmat)
     return scores(mode, b.m_pad, b.n_pad, qs, ts, ns, ms, pmat)

@@ -69,7 +69,9 @@
 // n_pad that c_blk does not divide (flat buckets past
 // ops/ptr.FLAT_REG_MAX_N_PAD): the last block is n_pad - col0 columns wide
 // (a multiple of 16), which bounds its strips, its staged byte-row and its
-// stores. The score fills need c_blk to divide n_pad.
+// stores. So do the score fills (flat global / local buckets past
+// ops/ptr.FLAT_REG_MAX_N_PAD): a block covers at most the pair's n columns,
+// so the ragged last block only changes the grid.
 //
 // What bounds it on this card: the per-row chain, as in the flat fills: two
 // barriers and a block scan per row and block, and W serial cells a thread
@@ -223,7 +225,7 @@ bscore_affine(const int* __restrict__ qs, const int* __restrict__ ts,
   __shared__ float tot[2][32];
   __shared__ float eg[4];  // row i's edge at col0, from thread 0
   __shared__ int ticket;
-  Wave w(take_ticket(flags, &ticket), n_pad / c_blk, flags, edges, cand, m_pad);
+  Wave w(take_ticket(flags, &ticket), (n_pad + c_blk - 1) / c_blk, flags, edges, cand, m_pad);
   const int b = w.b, c = w.c, tid = threadIdx.x;
   const int n = min(max(ns[b], 0), n_pad), m = min(max(ms[b], 0), m_pad);
   const int nb = max(1, (n + c_blk - 1) / c_blk);  // the blocks that hold columns <= n
@@ -337,7 +339,7 @@ bscore_overlap(const int* __restrict__ qs, const int* __restrict__ ts,
   __shared__ float tot[1][32];
   __shared__ float eg;  // M(i, col0), from thread 0
   __shared__ int ticket;
-  Wave w(take_ticket(flags, &ticket), n_pad / c_blk, flags, edges, cand, m_pad);
+  Wave w(take_ticket(flags, &ticket), (n_pad + c_blk - 1) / c_blk, flags, edges, cand, m_pad);
   const int b = w.b, c = w.c, tid = threadIdx.x;
   const int n = min(max(ns[b], 0), n_pad), m = min(max(ms[b], 0), m_pad);
   const int nb = max(1, (n + c_blk - 1) / c_blk);
@@ -419,7 +421,7 @@ bscore_edit(const int* __restrict__ qs, const int* __restrict__ ts,
   __shared__ int tot[1][32];
   __shared__ int eg;  // M(i, col0), from thread 0
   __shared__ int ticket;
-  Wave w(take_ticket(flags, &ticket), n_pad / c_blk, flags, edges, cand, m_pad);
+  Wave w(take_ticket(flags, &ticket), (n_pad + c_blk - 1) / c_blk, flags, edges, cand, m_pad);
   const int b = w.b, c = w.c, tid = threadIdx.x;
   const int n = min(max(ns[b], 0), n_pad), m = min(max(ms[b], 0), m_pad);
   const int nb = max(1, (n + c_blk - 1) / c_blk);
@@ -921,11 +923,10 @@ cudaError_t launch(void (*kernel)(P...), int ctas, int threads, size_t smem, cud
   return cudaGetLastError();
 }
 
-// The score fills need c_blk to divide n_pad; the pointer fills take a
-// ragged last block (`ragged`), a multiple of 16 columns.
-bool bad_blocks(int B, int threads, int wmax, int m_pad, int n_pad, int c_blk, bool ragged) {
+// Every fill takes a ragged last block, a multiple of 16 columns.
+bool bad_blocks(int B, int threads, int wmax, int m_pad, int n_pad, int c_blk) {
   return B < 0 || threads < 32 || threads > MAX_THREADS || threads % 32 != 0 || m_pad <= 0 ||
-         c_blk <= 0 || c_blk % 16 != 0 || n_pad <= 0 || n_pad % (ragged ? 16 : c_blk) != 0 ||
+         c_blk <= 0 || c_blk % 16 != 0 || n_pad <= 0 || n_pad % 16 != 0 ||
          (long long)threads * wmax < c_blk ||
          (long long)B * ((n_pad + c_blk - 1) / c_blk) > INT_MAX;
 }
@@ -940,17 +941,18 @@ bool bad_blocks(int B, int threads, int wmax, int m_pad, int n_pad, int c_blk, b
 extern "C" {
 
 // mode: 0 global, 1 local, 2 fit, 3 overlap, 4 edit; `out` is (B,) float32,
-// int32 for edit.
+// int32 for edit; the last column block may be narrower than c_blk (n_pad %
+// 16 == 0).
 cudaError_t at_blocked_scores(int mode, int use_jump, const int* qs, const int* ts,
                               const float* allow, const int* ns, const int* ms,
                               const float* params, void* out, float* edges, int* flags,
                               void* cand, int B, int m_pad, int n_pad, int c_blk, int threads,
                               int wmax, cudaStream_t stream) {
-  if (bad_blocks(B, threads, wmax, m_pad, n_pad, c_blk, false) || mode < GLOBAL || mode > EDIT ||
+  if (bad_blocks(B, threads, wmax, m_pad, n_pad, c_blk) || mode < GLOBAL || mode > EDIT ||
       (use_jump && mode != FIT))
     return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
-  const int ctas = B * (n_pad / c_blk);
+  const int ctas = B * ((n_pad + c_blk - 1) / c_blk);
   const size_t S = (size_t)threads * wmax;
   float* f_out = static_cast<float*>(out);
   int4* cd = static_cast<int4*>(cand);
@@ -986,7 +988,7 @@ cudaError_t at_blocked_ptr_fill(int mode, int use_jump, int rpb, const int* qs, 
   const bool bad_layout = (rpb != 1 && rpb != 2 && rpb != 4) || m_pad % (8 * rpb) != 0 ||
                           (rpb > 1 && use_jump) || (rpb == 4 && mode != OVERLAP) ||
                           (use_jump && mode != FIT);
-  if (bad_blocks(B, threads, wmax, m_pad, n_pad, c_blk, true) || mode < GLOBAL || mode > OVERLAP ||
+  if (bad_blocks(B, threads, wmax, m_pad, n_pad, c_blk) || mode < GLOBAL || mode > OVERLAP ||
       bad_layout)
     return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;

@@ -56,6 +56,13 @@
 // schedulers wait on that chain unless the batch keeps several CTAs on
 // every SM.
 //
+// Scores. The same kernel with PTRS false is the global / local score fill
+// (replaces ops/pallas_scan.py:328 _affine_kernel; entry at_affine_scores,
+// ops/scan.scores): no pointer bits, no argmax of D and no stores, rows up
+// to m, local's score the latched maximum reduced once, global's D(m, n)
+// (its (0, 0) diagonal border 0, as the score fill has it). Its row state
+// and chain are the pointer fill's, one barrier a row.
+//
 // Exactness: values are integer-valued f32 below 2^24 with true -inf
 // borders, built with --fmad=false and no fast math; each pointer is a
 // comparison of such values in the Pallas code's own argument order, and
@@ -180,8 +187,11 @@ __device__ __forceinline__ void load_chars(const int* t, bool active, int (&tc)[
 }
 
 // global / local / fit (JUMP: fit's junction-gated J state, entry allowed
-// where allow > 0 — the reference's inverted enum-bool quirk).
-template <int MODE, bool JUMP, int W>
+// where allow > 0 — the reference's inverted enum-bool quirk). PTRS false:
+// the score-only instance of global and local (ops/pallas_scan.py:328
+// _affine_kernel), with no pointer bits, no argmax of D and no stores; its
+// rows stop at m, local's score is the latched maximum, global's D(m, n).
+template <int MODE, bool JUMP, int W, bool PTRS = true>
 __global__ void __launch_bounds__(kMaxThreads)
 ptr_affine_kernel(const int* __restrict__ qs, const int* __restrict__ ts,
                   const float* __restrict__ allow, const int* __restrict__ ns,
@@ -204,8 +214,9 @@ ptr_affine_kernel(const int* __restrict__ qs, const int* __restrict__ ts,
   const int k_home = rpb > 1 ? 3 : 4, k_unset = rpb > 1 ? 3 : 7;
   const int lbit = rpb > 1 ? 1 << 2 : 1 << 3, ubit = rpb > 1 ? 1 << 3 : 1 << 4;
   const int bits = 8 / rpb;
+  static_assert(PTRS || (MODE != FIT && !JUMP), "the score instance is global / local");
   const int* q = qs + (size_t)b * m_pad;
-  uint8_t* out = ptrs + (size_t)b * (m_pad / rpb) * n_pad + (size_t)tid * W;
+  uint8_t* out = PTRS ? ptrs + (size_t)b * (m_pad / rpb) * n_pad + (size_t)tid * W : nullptr;
 
   int tc[W];
   load_chars<W>(ts + (size_t)b * n_pad + (size_t)tid * W, active, tc);
@@ -230,7 +241,7 @@ ptr_affine_kernel(const int* __restrict__ qs, const int* __restrict__ ts,
   for (int k = 0; k < W; ++k) {
     int a;
     D[k] = row0<MODE, JUMP>(j0 + k, o, e, M[k], L[k], a);
-    A |= (uint32_t)a << (2 * k);
+    if (PTRS) A |= (uint32_t)a << (2 * k);
   }
   float eD, m_left, l_left;
   int eA;
@@ -245,12 +256,14 @@ ptr_affine_kernel(const int* __restrict__ qs, const int* __restrict__ ts,
   int g_a = 0;
   bool g_set = false;
   uint32_t acc[W / 4];
-  int qn = q[0];
-  for (int i = 1; i <= m_pad; ++i) {
+  // every pointer row; the scores stop at m
+  const int rows = PTRS ? m_pad : m;
+  int qn = rows > 0 ? q[0] : 0;
+  for (int i = 1; i <= rows; ++i) {
     const int p = i & 1, sub_row = (i - 1) % rpb, shift = sub_row * bits;
     const int qc = qn;
-    if (i < m_pad) qn = q[i];
-    if (sub_row == 0) {
+    if (i < rows) qn = q[i];
+    if (PTRS && sub_row == 0) {
 #pragma unroll
       for (int w = 0; w < W / 4; ++w) acc[w] = 0;
     }
@@ -272,6 +285,8 @@ ptr_affine_kernel(const int* __restrict__ qs, const int* __restrict__ ts,
           mm = u = i == 1 ? 0.f : NEG;
         }
         dD = lmuj_max<JUMP>(l, mm, u, NEG, dA);
+        // the score fill's border at (0, 0) is 0 whatever the sign of o
+        if (!PTRS && MODE == GLOBAL && i == 1) dD = 0.f;
       } else {
         dD = eD;
         dA = eA;
@@ -296,7 +311,7 @@ ptr_affine_kernel(const int* __restrict__ qs, const int* __restrict__ ts,
       const float la = L[k] + e, lb = M[k] + o;
       L[k] = fmaxf(la, lb);
       M[k] = best;
-      acc[k >> 2] |= (uint32_t)(pm | (la >= lb ? 0 : lbit)) << (8 * (k & 3) + shift);
+      if (PTRS) acc[k >> 2] |= (uint32_t)(pm | (la >= lb ? 0 : lbit)) << (8 * (k & 3) + shift);
       if (k == W - 1) {
         vu_wo = vu;
         vj_wo = vj;
@@ -313,7 +328,9 @@ ptr_affine_kernel(const int* __restrict__ qs, const int* __restrict__ ts,
         for (int k = 0; k < W; ++k)
           if (k < kn) rmax = fmaxf(rmax, M[k]);
       }
-      if (rmax > lat.v) {
+      if (!PTRS) {
+        lat.v = fmaxf(lat.v, rmax);  // the score alone
+      } else if (rmax > lat.v) {
         int fj = BIG;
 #pragma unroll
         for (int k = W - 1; k >= 0; --k)
@@ -387,10 +404,10 @@ ptr_affine_kernel(const int* __restrict__ qs, const int* __restrict__ ts,
         jcv = (gate >> k & 1) ? M[k] + jp : NEG;
         run_j = fmaxf(run_j, jcv);
       }
-      acc[k >> 2] |= (uint32_t)code << (8 * (k & 3) + shift);
+      if (PTRS) acc[k >> 2] |= (uint32_t)code << (8 * (k & 3) + shift);
       int a;
       D[k] = lmuj_max<JUMP>(L[k], M[k], uv, jv, a);
-      an |= (uint32_t)a << (2 * k);
+      if (PTRS) an |= (uint32_t)a << (2 * k);
       run_u = fmaxf(run_u, M[k] + c[k]);
       mprev = M[k];
     }
@@ -405,11 +422,22 @@ ptr_affine_kernel(const int* __restrict__ qs, const int* __restrict__ ts,
         }
       g_set = true;
     }
-    if (sub_row == rpb - 1 && active)
+    if (PTRS && sub_row == rpb - 1 && active)
       store_strip<W>(out + (size_t)((i - 1) / rpb) * n_pad, acc);
   }
   // start info, reduced once
-  if (MODE == GLOBAL) {
+  if (!PTRS) {
+    if (MODE == GLOBAL) {
+      if (g_set)
+        score_out[b] = g_s;
+      else if (tid == 0 && (m == 0 || n == 0))
+        score_out[b] = NEG;
+    } else {
+      const Cand r = block_best(lat, s_red[0]);
+      // + 0.f turns a -0 into +0: the score is printed with %f
+      if (tid == 0) score_out[b] = r.v + 0.f;
+    }
+  } else if (MODE == GLOBAL) {
     if (g_set) {
       score_out[b] = g_s;
       a_out[b] = g_a;
@@ -548,6 +576,28 @@ void launch_width(int mode, bool jump, int B, int threads, cudaStream_t stream, 
 }
 
 }  // namespace
+
+// C entry point of the global / local score fill, bound with ctypes:
+// launches the score-only instance on `stream` without synchronising and
+// returns the launch's error code. `local` 0 global, 1 local; `width` the
+// strip width W (16) and `threads` a multiple of 32 up to 512, threads * W
+// >= n_pad, n_pad a multiple of 16; ts 16-byte aligned.
+extern "C" cudaError_t at_affine_scores(int local, const int* qs, const int* ts, const int* ns,
+                                        const int* ms, const float* params, float* score, int B,
+                                        int m_pad, int n_pad, int threads, int width,
+                                        cudaStream_t stream) {
+  if (width != kWidth || B < 0 || m_pad < 0 || threads < 32 || threads > kMaxThreads ||
+      threads % 32 != 0 || (long long)threads * width < n_pad || n_pad <= 0 || n_pad % 16 != 0)
+    return cudaErrorInvalidValue;
+  if (B == 0) return cudaSuccess;
+  if (local)
+    ptr_affine_kernel<LOCAL, false, kWidth, false><<<B, threads, 0, stream>>>(
+        qs, ts, nullptr, ns, ms, params, score, nullptr, nullptr, nullptr, m_pad, n_pad, 1);
+  else
+    ptr_affine_kernel<GLOBAL, false, kWidth, false><<<B, threads, 0, stream>>>(
+        qs, ts, nullptr, ns, ms, params, score, nullptr, nullptr, nullptr, m_pad, n_pad, 1);
+  return cudaGetLastError();
+}
 
 // C entry point, bound with ctypes: launches one fill on `stream` without
 // synchronising and returns the launch's error code. mode: 0 global,

@@ -1,7 +1,8 @@
-// Score-only DP fills for Hopper (sm_90a): global/local, overlap, edit and
-// fit(+jump), one CTA per pair.
+// Score-only DP fills for Hopper (sm_90a): overlap, edit and fit(+jump), one
+// CTA per pair. (The global / local score fill is the score-only instance of
+// csrc/ptr_fill.cu's register-strip kernel.)
 //
-// Layout shared by the four kernels. Thread t of a CTA owns the contiguous
+// Layout shared by the three kernels. Thread t of a CTA owns the contiguous
 // column strip j in [1 + t*W, 1 + (t+1)*W) of its pair, W = ceil(n / T).
 // Each query row i = 1..m is one step:
 //   pass 1  each thread walks its strip left to right: the cells that
@@ -49,88 +50,10 @@ struct Strip {
   __device__ size_t slot(int k) const { return (size_t)k * blockDim.x + threadIdx.x; }
 };
 
-// Replaces ops/pallas_scan.py:_affine_kernel (global / local score fill over
-// M, L, U). Bound by the per-row serial strip walk plus two block barriers;
-// row state is ~16 B/cell of L1/L2 traffic (4 scratch rows of the pair,
-// L2-resident at the slice's shapes), so neither HBM nor FLOPs bound it. The
-// design keeps every cell's work in one thread and pays only one block scan
-// per row for the U chain.
-template <bool LOCAL>
-__global__ void __launch_bounds__(1024)
-affine_kernel(const int* __restrict__ qs, const int* __restrict__ ts,
-              const int* __restrict__ ns, const int* __restrict__ ms,
-              const float* __restrict__ params, float* __restrict__ out,
-              float* __restrict__ scratch, int m_pad, int n_pad, int wmax) {
-  __shared__ float tot[1][32];
-  const Strip s(ns, ms, m_pad, n_pad, wmax);
-  const int b = blockIdx.x;
-  const float match = params[0], mis = params[1], o = params[2], e = params[3];
-  float* Mr = scratch + (size_t)b * 4 * s.S;
-  float* Lr = Mr + s.S;
-  float* Br = Lr + s.S;  // max(L, M, U) of the row: the next row's diagonal
-  int* Tc = reinterpret_cast<int*>(Br + s.S);
-  const int* q = qs + (size_t)b * m_pad;
-  const int* t = ts + (size_t)b * n_pad;
-  // row 0: global M = L = -inf, U = o + e*j; local calloc-zero borders
-  for (int k = 0; k < s.cnt; ++k) {
-    const int j = s.j0 + k;
-    const size_t x = s.slot(k);
-    Tc[x] = t[j - 1];
-    Mr[x] = LOCAL ? 0.f : NEG;
-    Lr[x] = LOCAL ? 0.f : NEG;
-    Br[x] = LOCAL ? 0.f : o + e * (float)j;
-  }
-  // column-0 term of the U chain: local's zero border M(i,0) = 0 and its
-  // zero seed; global's border is -inf
-  const float useed[1] = {LOCAL ? fmaxf(0.f + (o - e * 1.f), 0.f) : NEG};
-  float acc = NEG;
-  __syncthreads();
-  for (int i = 1; i <= s.m; ++i) {
-    const int qc = q[i - 1];
-    float diag;  // max(L, M, U) at (i-1, j-1)
-    if (s.j0 == 1)
-      diag = LOCAL ? 0.f : (i == 1 ? 0.f : o + e * ((float)i - 1.f));
-    else
-      diag = s.cnt > 0 ? Br[s.left] : NEG;
-    float agg[1] = {NEG};
-    for (int k = 0; k < s.cnt; ++k) {
-      const int j = s.j0 + k;
-      const size_t x = s.slot(k);
-      const float bold = Br[x];
-      const float sub = Tc[x] == qc ? match : mis;
-      float mv = diag + sub;
-      if (LOCAL) mv = fmaxf(mv, 0.f);
-      const float lv = fmaxf(Lr[x] + e, Mr[x] + o);
-      Mr[x] = mv;
-      Lr[x] = lv;
-      agg[0] = fmaxf(agg[0], mv + (o - e * (float)(j + 1)));
-      diag = bold;
-    }
-    block_exclusive<MaxF>(agg, useed, tot);
-    float run = agg[0];  // normalized U chain: max over columns < j
-    for (int k = 0; k < s.cnt; ++k) {
-      const int j = s.j0 + k;
-      const size_t x = s.slot(k);
-      const float mv = Mr[x], lv = Lr[x];
-      const float uv = run + e * (float)j;
-      const float best = fmaxf(fmaxf(lv, mv), uv);
-      Br[x] = best;
-      run = fmaxf(run, mv + (o - e * (float)(j + 1)));
-      if (LOCAL)
-        acc = fmaxf(acc, mv);
-      else if (i == s.m && j == s.n)
-        acc = best;
-    }
-    __syncthreads();
-  }
-  const float r = block_reduce<MaxF>(acc, tot[0]);
-  // + 0.f turns a -0 into +0: the score is printed with %f
-  if (threadIdx.x == 0) out[b] = LOCAL ? r + 0.f : r;
-}
-
 // Replaces ops/pallas_scan.py:_overlap_kernel (one matrix, linear gap o).
-// Bound like the affine kernel: serial strip walk and two barriers per row,
-// ~12 B/cell of L1/L2 traffic (3 scratch rows).
+// Bound by the per-row serial strip walk plus two block barriers; row state
+// is ~12 B/cell of L1/L2 traffic (3 scratch rows of the pair, L2-resident at
+// the slice's shapes), so neither HBM nor FLOPs bound it.
 __global__ void __launch_bounds__(1024)
 overlap_kernel(const int* __restrict__ qs, const int* __restrict__ ts,
                const int* __restrict__ ns, const int* __restrict__ ms,
@@ -245,9 +168,9 @@ edit_kernel(const int* __restrict__ qs, const int* __restrict__ ts,
 
 // Replaces ops/pallas_scan.py:_fit_kernel (M, L, U and, with JUMP, the
 // junction-gated J state whose entry is allowed where allow > 0: the
-// reference's inverted enum-bool quirk). Bound like the affine kernel, with
-// one more scratch row (the per-column jump bias) and a second value in the
-// same block scan.
+// reference's inverted enum-bool quirk). Bound like the overlap kernel, with
+// five scratch rows (M, L, max(L, M, U, J), the per-column jump bias, the
+// chars) and a second value in the same block scan.
 template <bool JUMP>
 __global__ void __launch_bounds__(1024)
 fit_kernel(const int* __restrict__ qs, const int* __restrict__ ts,
@@ -334,21 +257,6 @@ bool bad_shape(int B, int threads, int wmax, int n_pad) {
 // C entry points, bound with ctypes. Each launches one kernel on `stream`
 // without synchronising and returns the launch's error code.
 extern "C" {
-
-cudaError_t at_affine_scores(int local, const int* qs, const int* ts, const int* ns,
-                             const int* ms, const float* params, float* out,
-                             float* scratch, int B, int m_pad, int n_pad,
-                             int threads, int wmax, cudaStream_t stream) {
-  if (bad_shape(B, threads, wmax, n_pad)) return cudaErrorInvalidValue;
-  if (B == 0) return cudaSuccess;
-  if (local)
-    affine_kernel<true><<<B, threads, 0, stream>>>(qs, ts, ns, ms, params, out,
-                                                   scratch, m_pad, n_pad, wmax);
-  else
-    affine_kernel<false><<<B, threads, 0, stream>>>(qs, ts, ns, ms, params, out,
-                                                    scratch, m_pad, n_pad, wmax);
-  return cudaGetLastError();
-}
 
 cudaError_t at_overlap_scores(const int* qs, const int* ts, const int* ns,
                               const int* ms, const float* params, float* out,

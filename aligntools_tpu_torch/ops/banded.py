@@ -36,9 +36,10 @@ windows (``build_t_win``) and takes each row's query char with a one-hot
 matrix product, because Mosaic can neither slice lanes nor index them
 dynamically; the CUDA kernel reads both straight from ``qs`` and ``te``.
 
-On a CUDA tensor the wrappers launch ``csrc/banded_fill.cu`` (one CTA per
-pair, a strip of lanes per thread; see its header) or raise; on a CPU
-tensor they run the plain version, which repeats the Pallas kernel's
+On a CUDA tensor the wrappers launch ``csrc/banded_fill.cu`` (a warp per
+pair for windows up to 32 * WARP_STRIPS[-1] lanes, a CTA per pair beyond:
+``launch_shape``; a strip of lanes per thread; see its header) or raise;
+on a CPU tensor they run the plain version, which repeats the Pallas kernel's
 arithmetic row by row over whole (B, V) windows. Values are integer-valued
 float32 with true infinite borders and every pointer is a comparison of
 such values in the Pallas code's argument order, so the two agree bit for
@@ -60,6 +61,12 @@ BIG = 1 << 30  # the start column when no column qualifies
 SCORE_MODES = ("global", "local", "fit", "overlap", "edit")
 PTR_MODES = ("global", "local", "fit", "overlap")
 MAX_LANES = 16384  # the widest window the kernel takes: W <= 8191
+# the warp path's strips (lanes a thread: a warp holds V <= 32 * S lanes),
+# and the pairs (warps) of its CTA. The path depends on the band alone: at
+# 16 lanes a thread and tens of pairs the CTA path fills pointers faster
+# (PERF.md), but the main path's slabs hold thousands of pairs.
+WARP_STRIPS = (5, 9, 16)
+WARP_PAIRS = 4
 
 launches = 0
 plain_calls = 0
@@ -75,14 +82,21 @@ def lanes_padded(band: int) -> int:
     return -(-(2 * band + 1) // 16) * 16
 
 
-def launch_shape(band: int) -> tuple[int, int]:
-    """(threads per CTA, lanes per thread) for a window of 2W+1 lanes."""
+def launch_shape(band: int) -> tuple[str, int, int]:
+    """(path, threads per CTA, lanes per thread) for a window of V = 2W+1
+    lanes: "warp", a warp per pair and WARP_PAIRS pairs a CTA, with the
+    narrowest strip of WARP_STRIPS that holds V in one warp; past 32 *
+    WARP_STRIPS[-1] lanes "cta", a CTA per pair with 4 lanes a thread (16
+    past 4,096 lanes)."""
     V = 2 * band + 1
     if V > MAX_LANES:
         raise ValueError(f"band {band} is wider than the banded kernel's "
                          f"{MAX_LANES} lanes (W <= {(MAX_LANES - 1) // 2})")
+    strip = next((s for s in WARP_STRIPS if 32 * s >= V), None)
+    if strip:
+        return "warp", 32 * WARP_PAIRS, strip
     strip = 4 if V <= 4096 else 16
-    return -(-V // (32 * strip)) * 32, strip
+    return "cta", -(-V // (32 * strip)) * 32, strip
 
 
 # ---------------------------------------------------------------------------
@@ -306,9 +320,9 @@ def _kernel():
         fn = _build.load().at_banded_fill
         P, I = ctypes.c_void_p, ctypes.c_int
         # mode, emit, qs, te, ns, ms, params, best, edge, a, b, ptrs, B,
-        # m_pad, n_ext, band, v_pad, threads, strip, stream
+        # m_pad, n_ext, band, v_pad, threads, strip, warp, stream
         fn.argtypes = [I, I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
-                       I, P]
+                       I, I, P]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -330,11 +344,14 @@ def _check(mode, modes, band, qs, te, ns, ms, params):
                    ("params", params, torch.float32, (1, 8))], qs.device)
 
 
-def _launch(mode, emit, band, qs, te, ns, ms, params):
+def _launch(mode, emit, band, qs, te, ns, ms, params, shape=None):
+    """Launch the kernel on CUDA tensors at ``shape`` = (path, threads,
+    strip), by default ``launch_shape(band)``; the C entry refuses a
+    shape it has no instance for."""
     global launches
     B, m_pad = qs.shape
     dev = qs.device
-    threads, strip = launch_shape(band)
+    path, threads, strip = shape or launch_shape(band)
     best = torch.empty(B, dtype=torch.float32, device=dev)
     edge = torch.empty(B, dtype=torch.float32, device=dev)
     a = torch.empty(B, dtype=torch.int32, device=dev)
@@ -349,7 +366,7 @@ def _launch(mode, emit, band, qs, te, ns, ms, params):
             ns.data_ptr(), ms.data_ptr(), params.data_ptr(), best.data_ptr(),
             edge.data_ptr(), a.data_ptr(), b.data_ptr(),
             ptrs.data_ptr() if emit else 0, B, m_pad, te.shape[1], band,
-            v_pad, threads, strip, stream)
+            v_pad, threads, strip, int(path == "warp"), stream)
     if err != 0:
         raise RuntimeError(f"banded fill kernel launch failed: CUDA error "
                            f"{err}")

@@ -11,10 +11,11 @@ the column block ``c_blk``) and outputs:
                     (B, m_pad / rpb, n_pad) uint8, columns 1..n_pad, every
                     byte written
 
-``blocked_scores`` needs ``n_pad % c_blk == 0``, as the JAX entry does.
-``blocked_ptr_fill`` also takes flat buckets too wide for the flat pointer
-kernel (``ptr.ptr_fill`` hands them over), whose n_pad, a multiple of 128,
-a c_blk need not divide: the last column block is then narrower (ragged).
+Both also take flat buckets too wide for the register-strip kernels
+(``ptr.ptr_fill`` and, for global and local, ``scan.scores`` hand them
+over), whose n_pad, a multiple of 128, a c_blk need not divide: the last
+column block is then narrower (ragged). The JAX entries need ``n_pad %
+c_blk == 0``; the results do not depend on c_blk either way.
 
 Streaming the target in column blocks changes where the DP state lives,
 not what is computed: the blocked Pallas kernels give the flat ones'
@@ -63,13 +64,12 @@ def reset_counts() -> None:
     plain_calls = 0
 
 
-def _check_blocks(n_pad, c_blk, ragged=False):
-    """Raise unless c_blk is a positive multiple of 16 that divides n_pad
-    (or, ``ragged``, n_pad is a multiple of 16) and fits a CTA."""
-    if c_blk <= 0 or c_blk % 16 or n_pad % (16 if ragged else c_blk):
+def _check_blocks(n_pad, c_blk):
+    """Raise unless c_blk is a positive multiple of 16 that fits a CTA and
+    n_pad a multiple of 16 (the last block may be ragged)."""
+    if c_blk <= 0 or c_blk % 16 or n_pad % 16:
         raise ValueError(f"c_blk {c_blk} must be a positive multiple of 16 "
-                         + (f"and n_pad {n_pad} a multiple of 16" if ragged
-                            else f"that divides n_pad {n_pad}"))
+                         f"and n_pad {n_pad} a multiple of 16")
     if c_blk > C_BLK_MAX:
         raise ValueError(f"c_blk {c_blk} is past C_BLK_MAX {C_BLK_MAX}: a "
                          f"block's row state would not fit a CTA's shared "
@@ -151,8 +151,8 @@ def blocked_scores(mode, use_jump, m_pad, n_pad, c_blk, qs, ts, allow, ns,
                    ms, params):
     """Score-only blocked fill (the counterpart of the JAX
     ``blocked_scores``). ``allow`` (B, n_pad) float32 gates fit's jump
-    entry and may be None without ``use_jump``. Returns (B,) float32,
-    int32 for edit."""
+    entry and may be None without ``use_jump``. The last column block may
+    be ragged. Returns (B,) float32, int32 for edit."""
     global plain_calls
     if mode not in SCORE_MODES:
         raise ValueError(f"unknown score mode {mode!r}")
@@ -171,7 +171,7 @@ def blocked_scores(mode, use_jump, m_pad, n_pad, c_blk, qs, ts, allow, ns,
     out = torch.empty(B, dtype=torch.int32 if mode == "edit"
                       else torch.float32, device=dev)
     threads, wmax = scan.launch_shape(c_blk)
-    nblk = n_pad // c_blk
+    nblk = -(-n_pad // c_blk)
     scratch = _scratch(B, nblk, m_pad, dev)
     _check_scratch(*scratch, B, nblk, m_pad)
     _launch("blocked_scores", _kernels()[0], (
@@ -191,7 +191,7 @@ def blocked_ptr_fill(mode, use_jump, m_pad, n_pad, c_blk, qs, ts, allow, ns,
     as the Pallas kernel does; the last column block may be ragged."""
     global plain_calls
     rpb = rows_per_byte
-    _check_blocks(n_pad, c_blk, ragged=True)
+    _check_blocks(n_pad, c_blk)
     ptr._check(mode, use_jump, m_pad, n_pad, rpb, qs, ts, allow, ns, ms,
                params)
     if m_pad % (8 * rpb):

@@ -10,9 +10,16 @@ points' argument layout:
   params  (1, 8) float32 [match, mismatch, gap_open, gap_extend, jump, 0, 0, 0]
 
 ``scores`` / ``fit_scores`` return (B,) float32 scores (int32 for edit).
-On a CUDA tensor they launch the hand-written kernels of
-``csrc/scan_fill.cu`` (one CTA per pair; see its header) or raise; on a
-CPU tensor they run the plain versions below. Scores are integer-valued
+On a CUDA tensor they launch the hand-written kernels or raise: global and
+local the score-only instance of ``csrc/ptr_fill.cu``'s register-strip
+kernel (one CTA per pair, ``ptr.launch_shape``) up to
+``ptr.FLAT_REG_MAX_N_PAD`` columns, overlap, edit and fit those of
+``csrc/scan_fill.cu`` (one CTA per pair; see its header) up to
+``FLAT_MAX_N_PAD``. Wider targets, past ``ptr.FLAT_REG_MAX_N_PAD`` columns
+for global and local, go to the blocked score fill (``ops/blocked.py``) at
+``blocked.C_BLK``, with a ragged last block where it does not divide n_pad,
+on either device: ``blocked_c_blk`` is the one place that picks. On a CPU
+tensor the wrappers run the plain versions below. Scores are integer-valued
 float32 with true -inf borders, so the kernel and the plain version agree
 bit for bit (the batch path guards the exact range with
 ``exact.check_f32_exact``).
@@ -38,8 +45,11 @@ launches = {"affine": 0, "overlap": 0, "edit": 0, "fit": 0}
 plain_calls = 0
 
 # scratch row buffers per pair (csrc/scan_fill.cu): state rows + chars
-_NBUF = {"affine": 4, "overlap": 3, "edit": 3, "fit": 5}
+_NBUF = {"overlap": 3, "edit": 3, "fit": 5}
 STRIP = 8  # target columns per thread the launch shape aims for
+# the widest target the overlap, edit and fit kernels take (the JAX
+# package's flat ceiling, engine/select.py's PALLAS_FLAT_MAX_N_PAD)
+FLAT_MAX_N_PAD = 32768
 
 
 def reset_counts() -> None:
@@ -50,9 +60,24 @@ def reset_counts() -> None:
 
 
 def launch_shape(n_pad: int) -> tuple[int, int]:
-    """(threads per CTA, strip slots per thread) for targets up to n_pad."""
+    """(threads per CTA, strip slots per thread) of the overlap, edit and
+    fit kernels (and the blocked fills' column blocks) for targets up to
+    n_pad."""
     threads = min(1024, max(32, -(-n_pad // (32 * STRIP)) * 32))
     return threads, -(-n_pad // threads)
+
+
+def blocked_c_blk(mode: str, n_pad: int) -> int | None:
+    """The column block at which ``scores`` / ``fit_scores`` hand a target
+    of n_pad columns to the blocked score fill, or None where a flat kernel
+    takes it: global and local past ``ptr.FLAT_REG_MAX_N_PAD`` (the
+    register-strip kernel's widest), the other modes past
+    ``FLAT_MAX_N_PAD``."""
+    from aligntools_tpu_torch.ops import blocked, ptr
+
+    cap = (ptr.FLAT_REG_MAX_N_PAD if mode in ("global", "local")
+           else FLAT_MAX_N_PAD)
+    return None if n_pad <= cap else blocked.C_BLK
 
 
 # ---------------------------------------------------------------------------
@@ -212,7 +237,10 @@ def _kernels():
         P, I = ctypes.c_void_p, ctypes.c_int
         tail = [P, P, I, I, I, I, I, P]  # out, scratch, B, m_pad, n_pad,
         #                                  threads, wmax, stream
-        lib.at_affine_scores.argtypes = [I, P, P, P, P, P, *tail]
+        # local, qs, ts, ns, ms, params, out, B, m_pad, n_pad, threads,
+        # width, stream
+        lib.at_affine_scores.argtypes = [I, P, P, P, P, P, P, I, I, I, I, I,
+                                         P]
         lib.at_overlap_scores.argtypes = [P, P, P, P, P, *tail]
         lib.at_edit_scores.argtypes = [P, P, P, P, P, *tail]
         lib.at_fit_scores.argtypes = [I, P, P, P, P, P, P, *tail]
@@ -252,6 +280,30 @@ def _check(m_pad, n_pad, qs, ts, ns, ms, params, allow=None):
     check_tensors(want, qs.device)
 
 
+def _launch_affine(local, m_pad, n_pad, args):
+    """Launch the register-strip score instance on CUDA tensors at
+    ``ptr.launch_shape(n_pad)`` on the current stream (the C entry refuses
+    an n_pad off the 16-column grid); returns (B,) float32."""
+    from aligntools_tpu_torch.ops import ptr
+
+    qs, ts, ns, ms, params = args
+    threads, width = ptr.launch_shape(n_pad)
+    if ts.data_ptr() % 16:
+        raise ValueError("ts must be 16-byte aligned (the kernel reads it "
+                         "as 16-byte words)")
+    out = torch.empty(qs.shape[0], dtype=torch.float32, device=qs.device)
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        err = _kernels().at_affine_scores(
+            int(local), *(x.data_ptr() for x in args), out.data_ptr(),
+            qs.shape[0], m_pad, n_pad, threads, width, stream)
+    if err != 0:
+        raise RuntimeError(f"affine fill kernel launch failed: CUDA error "
+                           f"{err}")
+    launches["affine"] += 1
+    return out
+
+
 def _launch(kernel, lead, m_pad, n_pad, tensors, out):
     """Launch one kernel on the current stream; raise on a launch error."""
     B = out.shape[0]
@@ -273,16 +325,21 @@ def _launch(kernel, lead, m_pad, n_pad, tensors, out):
 def scores(mode, m_pad, n_pad, qs, ts, ns, ms, params):
     """Score-only fill for global / local / overlap / edit (the
     counterpart of ``pallas_scores``). Returns (B,) float32, int32 for
-    edit."""
+    edit. Targets past the flat kernels' widest run the blocked score fill
+    at ``blocked_c_blk(mode, n_pad)``."""
+    c_blk = blocked_c_blk(mode, n_pad)
+    if c_blk:
+        from aligntools_tpu_torch.ops import blocked
+
+        return blocked.blocked_scores(mode, False, m_pad, n_pad, c_blk, qs,
+                                      ts, None, ns, ms, params)
     _check(m_pad, n_pad, qs, ts, ns, ms, params)
     if qs.device.type == "cpu":
         return scores_plain(mode, m_pad, n_pad, qs, ts, ns, ms, params)
     B = qs.shape[0]
     args = (qs, ts, ns, ms, params)
     if mode in ("global", "local"):
-        out = torch.empty(B, dtype=torch.float32, device=qs.device)
-        return _launch("affine", (int(mode == "local"),), m_pad, n_pad, args,
-                       out)
+        return _launch_affine(mode == "local", m_pad, n_pad, args)
     if mode == "overlap":
         out = torch.empty(B, dtype=torch.float32, device=qs.device)
         return _launch("overlap", (), m_pad, n_pad, args, out)
@@ -294,7 +351,17 @@ def scores(mode, m_pad, n_pad, qs, ts, ns, ms, params):
 
 def fit_scores(use_jump, m_pad, n_pad, qs, ts, allow, ns, ms, params):
     """Fit-mode score fill (the counterpart of ``pallas_fit_scores``).
-    Returns (B,) float32."""
+    Returns (B,) float32. ``allow`` may be None without ``use_jump`` (every
+    column allowed). Targets past ``FLAT_MAX_N_PAD`` columns run the
+    blocked score fill at ``blocked_c_blk("fit", n_pad)``."""
+    c_blk = blocked_c_blk("fit", n_pad)
+    if c_blk:
+        from aligntools_tpu_torch.ops import blocked
+
+        return blocked.blocked_scores("fit", use_jump, m_pad, n_pad, c_blk,
+                                      qs, ts, allow, ns, ms, params)
+    if allow is None:
+        allow = torch.ones(qs.shape[:1] + (n_pad,), device=qs.device)
     _check(m_pad, n_pad, qs, ts, ns, ms, params, allow)
     if qs.device.type == "cpu":
         return fit_scores_plain(use_jump, m_pad, n_pad, qs, ts, allow, ns, ms,

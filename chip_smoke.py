@@ -28,8 +28,13 @@ Phases, one JSON line each:
            warm median times of both (CUDA events); and, as a record, the
            same fill through the blocked kernel at min(n_pad, 8,192)
            columns a block, held against plain and timed (`blocked_ms`);
+           then the global / local route across the register-strip
+           instance's cap (`cap`: 4,224 to 8,192 columns flat, 16,384 and
+           32,768 blocked, each against plain and timed beside the
+           blocked fill at every column block, `c_blk_ms`);
   ptr      the registers and local (spill) bytes of each instance of
-           csrc/ptr_fill.cu (cuobjdump --dump-resource-usage); then the
+           csrc/ptr_fill.cu, the score instances included (cuobjdump
+           --dump-resource-usage); then the
            pointer fill through the rows path's route (ops/ptr.ptr_fill:
            the flat kernel up to ops/ptr.FLAT_REG_MAX_N_PAD columns, else
            the blocked one with a ragged last block) against its plain
@@ -121,7 +126,14 @@ Phases, one JSON line each:
            Meanwhile (`buckets` lines) every slab of those runs, kernel
            against plain on the card (one plain call a slab holds both the
            rows run's pointer fill and the scores run's score fill), and the
-           walk against plain on each rows run's first slab.
+           walk against plain on each rows run's first slab; the kernel
+           timed on each mode's first rows slab and first scores slab
+           (`BS-slab` lines: ms, bound, band-GCUPS). Before BK1, the
+           registers and local bytes of each csrc/banded_fill.cu instance;
+           each BK1 row names its launch's path and strip and holds the
+           CTA path too against plain (`cta_ms`); after it (`paths` lines)
+           both paths against plain at W 200, where the warp path takes
+           16 lanes a thread, at 64 and 2,112 pairs.
 
 The `--device cpu` runs of the sampled pairs go in processes of one thread
 each, beside the bucket checks, which are the longest phases.
@@ -141,7 +153,8 @@ and their Chrome traces written to TRACE.json, TRACE.long.json and
 TRACE.banded.json.
 
 Then the kernels' summary line (each kernel's time, launches on the main
-path, bound, probe_ms and plain time), the card's name and power limit as
+path, bound, probe_ms and plain time; the banded kernel's first BS
+slab beside BK1), the card's name and power limit as
 nvidia-smi prints them, and, last, {"ok": true, "device": {...}}. Any
 failure exits nonzero before that line; so does a host without CUDA.
 """
@@ -167,7 +180,7 @@ TOL = "bit-equal (exact integer f32 / int32; pointers and rows are bytes)"
 # kernel -> (its TPU counterpart, source, the variants that run it)
 KERNELS = {
     "affine": ("aligntools_tpu/ops/pallas_scan.py:328 _affine_kernel",
-               "scan_fill.cu", ("global", "local")),
+               "ptr_fill.cu", ("global", "local")),
     "overlap": ("aligntools_tpu/ops/pallas_scan.py:421 _overlap_kernel",
                 "scan_fill.cu", ("overlap",)),
     "edit": ("aligntools_tpu/ops/pallas_scan.py:469 _edit_kernel",
@@ -210,6 +223,10 @@ PTR_SHAPES = [
     (256, 2048, 2048, False, (("local", False, 2),)),
     (64, 512, 32768, True, (("fit", True, 1),)),
 ]
+# the kernels phase's score-fill crossover: the global / local route at
+# each n_pad, at (B, m_pad) of SCORE_CAP_SHAPE[n_pad <= the flat cap]
+SCORE_CAP_N_PADS = (4224, 6144, 8192, 16384, 32768)
+SCORE_CAP_SHAPE = {True: (128, 512), False: (64, 512)}
 # the ptr phase's ragged wide row: (B, m_pad), at n_pad FLAT_REG_MAX_N_PAD +
 # PTR_WIDE_EXTRA, which no column block of the sweep divides; the cap
 # sweep: (B, m_pad, mode, jump, rpb) at each n_pad of PTR_CAP_N_PADS, the
@@ -240,6 +257,11 @@ LONG_FAR_N = 100000
 # the banded phase: BK1 (B, m = n, W), benchmarks/probe_banded.py's shapes;
 # BS pairs, the run's band, and the share of the pairs the slower modes run
 BANDED_BK1 = [(64, 4096, 128), (2048, 512, 64)]
+# the warp path's widest strip (16 lanes a thread) against the CTA path, a
+# few pairs and many: the nine variants at BANDED_PATHS_L rows, each
+# (band, pairs); BK1 holds the CTA path at its own shapes
+BANDED_PATHS = [(200, 64), (200, 2112)]
+BANDED_PATHS_L = 1024
 BANDED_VARIANTS = [("global", True), ("local", True), ("fit", True),
                    ("overlap", True), ("global", False), ("local", False),
                    ("fit", False), ("overlap", False), ("edit", False)]
@@ -722,7 +744,53 @@ def phase_kernels(torch, scan):
             check(equal and err == 0.0,
                   f"{variant} at {B}x({m_pad}x{n_pad}): kernel != plain")
             results.append(row)
+    phase_kernels_cap(torch, scan)
     return results
+
+
+def phase_kernels_cap(torch, scan):
+    """The global / local score fill's route across the register-strip
+    kernel's cap: at each n_pad of SCORE_CAP_N_PADS, the route
+    (scan.scores: the flat instance up to ptr.FLAT_REG_MAX_N_PAD columns,
+    past it the blocked fill at blocked.C_BLK, ragged) against plain, bit
+    for bit, then timed beside the blocked fill at every column block of
+    the sweep up to n_pad (ragged where it does not divide n_pad), each
+    held to the same scores; warm medians of three."""
+    from aligntools_tpu_torch.ops import blocked, ptr
+
+    for n_pad in SCORE_CAP_N_PADS:
+        B, m_pad = SCORE_CAP_SHAPE[n_pad <= ptr.FLAT_REG_MAX_N_PAD]
+        args, cells = kernel_inputs(B, m_pad, n_pad, True, SEED + 5, "cuda")
+        for variant in ("local", "global"):
+            label = f"{variant} at {B}x{m_pad}x{n_pad}"
+            equal, err = compare(torch, scan, variant, m_pad, n_pad, args)
+            check(equal and err == 0.0, f"score fill {label}: kernel != plain")
+            want = run_variant(scan, variant, m_pad, n_pad, args, False)
+            route_ms = statistics.median(timed_ms(torch, lambda: run_variant(
+                scan, variant, m_pad, n_pad, args, False)) for _ in range(3))
+            c_blk_ms = {}
+            for c_blk in C_BLK_SWEEP:
+                if c_blk > n_pad:
+                    continue
+                got = run_variant(scan, variant, m_pad, n_pad, args, False,
+                                  c_blk)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want),
+                      f"score fill {label}, c_blk {c_blk}: kernel != plain")
+                c_blk_ms[c_blk] = statistics.median(timed_ms(
+                    torch, lambda: run_variant(scan, variant, m_pad, n_pad,
+                                               args, False, c_blk))
+                    for _ in range(3))
+            c_route = scan.blocked_c_blk(variant, n_pad)
+            emit({"phase": "kernels", "cap": label,
+                  "route": (f"blocked c_blk {c_route}" if c_route else
+                            "flat W {1} x {0} threads".format(
+                                *ptr.launch_shape(n_pad))),
+                  "route_ms": route_ms, "c_blk_ms": c_blk_ms,
+                  "cap_now": ptr.FLAT_REG_MAX_N_PAD, "true_cells": cells,
+                  "bit_equal": equal, "max_abs_err": err, "tolerance": TOL})
+        del args, want
+        torch.cuda.empty_cache()
 
 
 def ptr_fill(ptr, mode, jump, m_pad, n_pad, args, rpb, c_blk=None):
@@ -825,8 +893,9 @@ def phase_ptr(torch, ptr, tb):
     from aligntools_tpu_torch import layout
     from aligntools_tpu_torch.ops import _build
 
-    emit({"phase": "ptr", "resource_usage": ptr_resource_usage(
-        _build.library_path())})
+    # the pointer fill's instances and the global / local score instances
+    emit({"phase": "ptr", "resource_usage": resource_usage(
+        _build.library_path(), ("ptr_affine_kernel", "ptr_overlap_kernel"))})
     fills, walks = [], []
     shapes = [(B, m_pad, n_pad, cases,
                kernel_inputs(B, m_pad, n_pad, ragged, SEED, "cuda"))
@@ -938,9 +1007,10 @@ def phase_ptr_ties(torch, ptr):
           "bit_equal": True, "max_abs_err": 0.0, "tolerance": TOL})
 
 
-def ptr_resource_usage(lib_path):
-    """Registers and local-memory (spill) bytes a thread of each
-    csrc/ptr_fill.cu instance, from cuobjdump --dump-resource-usage."""
+def resource_usage(lib_path, kernels):
+    """Registers and local-memory (spill) bytes a thread of each kernel
+    instance whose name holds one of ``kernels``, from cuobjdump
+    --dump-resource-usage."""
     import re
     import shutil
 
@@ -958,7 +1028,7 @@ def ptr_resource_usage(lib_path):
             continue
         if name is None or "REG:" not in line:
             continue
-        if "ptr_affine_kernel" in name or "ptr_overlap_kernel" in name:
+        if any(k in name for k in kernels):
             use = dict(re.findall(r"(\w+):(\d+)", line))
             if os.access(filt, os.X_OK):
                 name = subprocess.run([filt, name], capture_output=True,
@@ -967,7 +1037,7 @@ def ptr_resource_usage(lib_path):
                         "local_bytes": int(use.get("LOCAL", -1)),
                         "stack_bytes": int(use.get("STACK", -1))})
         name = None
-    check(out, "cuobjdump listed no csrc/ptr_fill.cu kernel")
+    check(out, f"cuobjdump listed no kernel of {kernels}")
     return out
 
 
@@ -1318,7 +1388,6 @@ def phase_buckets(torch, scan, ptr, tb, variant, pairs, sites, params,
     flat buckets, on every ``walk_every``-th bucket."""
     from aligntools_tpu_torch import batch, layout
     from aligntools_tpu_torch.convert import params_matrix
-    from aligntools_tpu_torch.ops import blocked
 
     pm = params_matrix(params, "cuda")
     mode, jump = variant.split("+")[0], variant.endswith("+jump")
@@ -1334,7 +1403,6 @@ def phase_buckets(torch, scan, ptr, tb, variant, pairs, sites, params,
         qs, ts, allow, ns, ms = batch._bucket_tensors(b, torch.device("cuda"))
         shape = f"{len(b.idx)}x{b.m_pad}x{b.n_pad}"
         long = b.n_pad > batch.PALLAS_FLAT_MAX_N_PAD
-        c_blk = blocked.C_BLK if long else None
         if rows:
             c_blk = ptr.blocked_c_blk(b.n_pad)  # the rows path's route
             rpb = layout.rows_per_byte(mode, jump, b.m_pad)
@@ -1352,8 +1420,10 @@ def phase_buckets(torch, scan, ptr, tb, variant, pairs, sites, params,
             equal, err = f_eq and w_eq, max(f_err, w_err)
             shape += f"/rpb{rpb}"
         else:
+            # through the scores path's route (scan.scores / fit_scores)
+            c_blk = scan.blocked_c_blk(mode, b.n_pad)
             equal, err = compare(torch, scan, variant, b.m_pad, b.n_pad,
-                                 (qs, ts, allow, ns, ms, pm), c_blk)
+                                 (qs, ts, allow, ns, ms, pm))
         check(equal and err == 0.0,
               f"{variant} on main-path bucket {shape}: kernel != plain"
               + (" (pointer fill or walk)" if rows else ""))
@@ -1674,8 +1744,39 @@ def band_cells(ms, ns, band):
     return total
 
 
+def cta_shape(band):
+    """The CTA path's launch shape at ``band`` (what launch_shape gives
+    past the warp path's widest window): 4 lanes a thread."""
+    return "cta", -(-(2 * band + 1) // 128) * 32, 4
+
+
+def banded_variant_check(torch, banded, mode, with_ptrs, band, args, want,
+                         shape):
+    """One banded launch at ``shape`` against plain's outputs ``want``:
+    (bit_equal, max_abs_err, warm median ms of three)."""
+    def fn():
+        return banded._launch(mode, with_ptrs, band, *args, shape=shape)
+
+    got = fn()[:5 if with_ptrs else 2]
+    torch.cuda.synchronize()
+    equal = all(torch.equal(g, w) for g, w in zip(got, want))
+    err = max([max_err(torch, g, w) for g, w in zip(got[:4], want)]
+              + [0.0 if not with_ptrs or torch.equal(got[4], want[4])
+                 else float("inf")])
+    del got
+    return equal, err, statistics.median(timed_ms(torch, fn)
+                                         for _ in range(3))
+
+
 def phase_banded_kernels(torch, banded):
-    """BK1: the nine variants against plain, bit for bit, and timed."""
+    """The registers and local (spill) bytes of each instance of
+    csrc/banded_fill.cu; BK1: the nine variants against plain, bit for bit,
+    and timed, on the path launch_shape gives (the warp path) and on the
+    CTA path, with each launch's path and strip."""
+    from aligntools_tpu_torch.ops import _build
+
+    emit({"phase": "banded", "resource_usage": resource_usage(
+        _build.library_path(), ("banded_affine", "banded_linear"))})
     rows = []
     for B, L, band in BANDED_BK1:
         args = banded_kernel_inputs(torch, B, L, band, SEED + 3)
@@ -1695,19 +1796,27 @@ def phase_banded_kernels(torch, banded):
             err = max([max_err(torch, g, w) for g, w in zip(got[:4], want)]
                       + [0.0 if not with_ptrs or torch.equal(got[4], want[4])
                          else float("inf")])
-            del got, want
+            del got
             ms_k = statistics.median(
                 timed_ms(torch, lambda: fn(mode, band, *args))
                 for _ in range(3))
+            cta = cta_shape(band)
+            cta_eq, cta_err, cta_ms = banded_variant_check(
+                torch, banded, mode, with_ptrs, band, args, want, cta)
+            del want
             out_bytes = 8 * B + (8 * B + B * L * banded.lanes_padded(band)
                                  if with_ptrs else 0)
             ops = (SCORE_OPS[mode]
                    + (PTR_EXTRA_OPS[mode] if with_ptrs else 0)) * need
             b_ms, b_by = bound(ops, in_bytes + out_bytes)
+            path, threads, strip = banded.launch_shape(band)
             row = {"phase": "banded", "level": "BK1",
                    "variant": f"{mode}/ptrs" if with_ptrs else mode,
-                   "shape": shape, "bit_equal": equal, "max_abs_err": err,
-                   "tolerance": TOL, "ms": ms_k, "plain_ms": ms_p,
+                   "shape": shape, "route": f"{path} {threads} threads",
+                   "strip": strip, "bit_equal": equal and cta_eq,
+                   "max_abs_err": max(err, cta_err), "tolerance": TOL,
+                   "ms": ms_k, "cta_ms": cta_ms, "cta_shape": list(cta),
+                   "plain_ms": ms_p,
                    "bound_ms": b_ms, "bound_by": b_by,
                    "probe_ms": probe_ms(ops, mode == "edit"),
                    "band_cells": B * L * V, "band_cells_in_matrix": need,
@@ -1717,10 +1826,50 @@ def phase_banded_kernels(torch, banded):
             emit(row)
             check(equal and err == 0.0,
                   f"banded {row['variant']} at {shape}: kernel != plain")
+            check(cta_eq and cta_err == 0.0,
+                  f"banded {row['variant']} at {shape}, CTA path: kernel != "
+                  f"plain")
             rows.append(row)
         del args
         torch.cuda.empty_cache()
+    phase_banded_paths(torch, banded)
     return rows
+
+
+def phase_banded_paths(torch, banded):
+    """The two paths of the banded kernel at BANDED_PATHS' band and
+    batches, where the warp path takes its widest strip (16 lanes a
+    thread): the nine variants on each path against plain, bit for bit,
+    and timed, warm medians of three, beside the path launch_shape picks."""
+    for band, B in BANDED_PATHS:
+        args = banded_kernel_inputs(torch, B, BANDED_PATHS_L, band, SEED + 7)
+        shapes = {"warp": banded.launch_shape(band),
+                  "cta": cta_shape(band)}
+        check(shapes["warp"][0] == "warp",
+              f"launch_shape({band}) does not take the warp path")
+        shape = f"{B}x{BANDED_PATHS_L}/W{band}"
+        for mode, with_ptrs in BANDED_VARIANTS:
+            plain = (banded.banded_full_plain if with_ptrs
+                     else banded.banded_scores_plain)
+            want, ms_p = timed_call(torch, lambda: plain(mode, band, *args))
+            res = {path: banded_variant_check(torch, banded, mode, with_ptrs,
+                                              band, args, want, sh)
+                   for path, sh in shapes.items()}
+            del want
+            variant = f"{mode}/ptrs" if with_ptrs else mode
+            emit({"phase": "banded", "level": "paths", "variant": variant,
+                  "shape": shape, "warp_ms": res["warp"][2],
+                  "cta_ms": res["cta"][2], "plain_ms": ms_p,
+                  "warp_shape": list(shapes["warp"]),
+                  "cta_shape": list(shapes["cta"]),
+                  "bit_equal": res["warp"][0] and res["cta"][0],
+                  "max_abs_err": max(res["warp"][1], res["cta"][1]),
+                  "tolerance": TOL, "path_now": shapes["warp"][0]})
+            for path, (equal, err, _) in res.items():
+                check(equal and err == 0.0, f"banded {variant} at {shape}, "
+                      f"{path} path: kernel != plain")
+        del args
+    torch.cuda.empty_cache()
 
 
 def similar_pairs(P, seed):
@@ -1751,13 +1900,14 @@ def similar_pairs(P, seed):
 
 
 def banded_slab_checks(torch, tb, ebanded, banded, mode, pairs, params,
-                       walk_rows=None):
+                       walk_rows=None, slab_rows=None):
     """Kernel vs plain on every slab the BS runs of ``mode`` fill: one plain
     call a slab holds the pointer-emitting fill of the rows run (every byte)
     and the score fill of the scores run (best and edge) where both fill it
     (the pointer budget cuts no slab at BS's size), and the walk is held
     against plain on the rows run's first slab, timed into ``walk_rows``
-    when given."""
+    when given. The kernel is timed on the first rows slab and the first
+    scores slab (`slab_ms`, warm median of three) into ``slab_rows``."""
     from aligntools_tpu_torch import batch
     from aligntools_tpu_torch.convert import params_matrix
 
@@ -1770,7 +1920,7 @@ def banded_slab_checks(torch, tb, ebanded, banded, mode, pairs, params,
     slabs = ([(sl, True, sl in score_plan) for sl in rows_plan]
              + [(sl, False, True) for sl in score_plan
                 if sl not in rows_plan])
-    shapes, worst, walks = [], 0.0, 0
+    shapes, worst, walks, timed = [], 0.0, 0, set()
     for (idx, m_pad), rows, scores in slabs:
         s = ebanded._slab(idx, pairs, m_pad)
         qs, te, ns, ms = ebanded._slab_tensors(s, BS_BAND, dev)
@@ -1779,13 +1929,23 @@ def banded_slab_checks(torch, tb, ebanded, banded, mode, pairs, params,
         got = banded.banded_full(*args) if rows else ()
         got_s = banded.banded_scores(*args) if scores else ()
         torch.cuda.synchronize()
-        want = (banded.banded_full_plain(*args) if rows
-                else banded.banded_scores_plain(*args))
-        torch.cuda.synchronize()
+        want, ms_p = timed_call(torch, lambda: (
+            banded.banded_full_plain(*args) if rows
+            else banded.banded_scores_plain(*args)))
         equal = all(torch.equal(g, w) for g, w in zip(got, want))
         equal &= all(torch.equal(g, w) for g, w in zip(got_s, want))
         err = max([max_err(torch, g, w) for g, w in zip(got[:4], want)]
                   + [max_err(torch, g, w) for g, w in zip(got_s, want)])
+        check(equal and err == 0.0, f"banded {mode} on BS slab {shape}: "
+              f"kernel != plain")
+        for kind, fn in (("rows", banded.banded_full),
+                         ("scores", banded.banded_scores)):
+            if slab_rows is None or kind in timed or not (
+                    rows if kind == "rows" else scores):
+                continue
+            timed.add(kind)
+            slab_rows.append(slab_row(torch, banded, fn, kind, args, shape,
+                                      s, ms_p, err))
         del want, got_s
         if rows and not walks:
             starts = tb.walk_starts(mode, got[0], got[2], got[3], ms, ns)
@@ -1815,6 +1975,35 @@ def banded_slab_checks(torch, tb, ebanded, banded, mode, pairs, params,
     row = {"phase": "buckets", "path": "banded", "variant": mode,
            "buckets": len(shapes), "shapes": shapes, "walks_checked": walks,
            "bit_equal": True, "max_abs_err": worst, "tolerance": TOL}
+    emit(row)
+    return row
+
+
+def slab_row(torch, banded, fn, kind, args, shape, slab, plain_ms, err):
+    """A BS slab's kernel timing (warm median of three) beside its bound:
+    the counted ops over the band's cells inside the matrices, and the
+    bytes of the inputs and outputs."""
+    mode, band, qs, te, ns, ms, pm = args
+    ms_k = statistics.median(timed_ms(torch, lambda: fn(*args))
+                             for _ in range(3))
+    B, m_pad = qs.shape
+    ptrs = kind == "rows"
+    need = band_cells(slab.m.tolist(), slab.n.tolist(), band)
+    ops = (SCORE_OPS[mode] + (PTR_EXTRA_OPS[mode] if ptrs else 0)) * need
+    in_bytes = sum(x.numel() * x.element_size() for x in (qs, te, ns, ms, pm))
+    out_bytes = 8 * B + (8 * B + B * m_pad * banded.lanes_padded(band)
+                         if ptrs else 0)
+    b_ms, b_by = bound(ops, in_bytes + out_bytes)
+    path, threads, strip = banded.launch_shape(band)
+    V = 2 * band + 1
+    row = {"phase": "banded", "level": "BS-slab",
+           "variant": f"{mode}/ptrs" if ptrs else mode, "shape": shape,
+           "route": f"{path} {threads} threads", "strip": strip,
+           "max_abs_err": err, "tolerance": TOL, "ms": ms_k,
+           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "probe_ms": probe_ms(ops, mode == "edit"),
+           "band_cells": B * m_pad * V, "band_cells_in_matrix": need,
+           "gcups_band": B * m_pad * V / ms_k / 1e6}
     emit(row)
     return row
 
@@ -1903,18 +2092,18 @@ def phase_banded(torch, scan, ptr, tb, work, trace_path):
          ["--band", str(BS_BAND)]) for mode in rows_tsv])
     try:
         params = AlignParams()
-        checked_buckets, walks = [], []
+        checked_buckets, walks, slabs = [], [], []
         for mode in runs_in:
             checked_buckets.append(banded_slab_checks(
                 torch, tb, ebanded, banded, mode, runs_in[mode][1], params,
-                walks if mode == "local" else None))
+                walks if mode == "local" else None, slabs))
         checked = finish_cpu_checks(jobs)
     finally:
         stop_cpu_checks(jobs)
     emit({"phase": "banded", "level": "BS",
           "rows_equal_scores": sorted(m for m in rows_tsv if m != "edit"),
           "cpu_checked": checked})
-    return launches, checked_buckets, walks
+    return launches, checked_buckets + slabs, walks
 
 
 PROFILE_GROUPS = (("fill", ("ptr_affine", "ptr_overlap", "bptr_",
@@ -2038,9 +2227,13 @@ def summary(rows, ptr_rows, walk_rows, bucket_rows, launches, blocked_rows,
         if name in probe_reps:
             timed = mine = [probe_reps[name]]
         elif name == "banded":
-            # the representative timing: BK1's local pointers at W = 128
+            # the representative timing: BK1's local pointers at W = 128;
+            # the main path's own shape, the first rows slab of BS local
+            # (--band 128), stands beside it
             timed, mine = banded_rows, banded_rows + banded_buckets
             timed = [r for r in timed if r["variant"] == "local/ptrs"]
+            slab = next(r for r in banded_buckets if r.get("level")
+                        == "BS-slab" and r["variant"] == "local/ptrs")
         elif name.startswith("blocked"):
             # the representative timing: L2, the fixture's shape
             timed = [r for r in blocked_rows if r["kernel"] == name]
@@ -2073,6 +2266,9 @@ def summary(rows, ptr_rows, walk_rows, bucket_rows, launches, blocked_rows,
             "probe_ms": rep["probe_ms"], "library_ms": None,
             "variant": rep["variant"], "shape": rep["shape"],
             **({"chain_ms": rep["chain_ms"]} if "chain_ms" in rep else {}),
+            **({"bs_slab": {k: slab[k] for k in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by")}}
+               if name == "banded" else {}),
         })
     return out
 

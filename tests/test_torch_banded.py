@@ -11,8 +11,10 @@ walk against ``_walk_banded`` (on the fills' pointers and on the drawn
 walks of tests/walk_cases.py), and ``aligntools-torch batch MODE --band W
 --device cpu`` byte for byte against ``aligntools batch MODE --band W``."""
 
+import inspect
 import os
 
+import banded_ties
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -194,7 +196,7 @@ def test_kernel_entries_check_their_inputs():
     with pytest.raises(ValueError, match="ns"):
         tops.banded_scores("local", 8, args[0], args[1], args[2].long(),
                            *args[3:])
-    assert tops.launch_shape(1000) == (512, 4)  # V = 2,001: a strip of 4
+    assert tops.launch_shape(1000) == ("cta", 512, 4)  # V = 2,001
     with pytest.raises(ValueError, match="wider"):
         tops.launch_shape(8192)
 
@@ -562,3 +564,69 @@ def test_band_too_narrow_for_the_end_cell_exits_255(tmp_path, capsys):
     assert main(["batch", "global", fasta, "--band", "8", "--device",
                  "cpu"]) == 255
     assert "band cannot contain the end cell" in capsys.readouterr().err
+
+
+# ---------------------------------------------------------------------------
+# Launch shapes and tie inputs at the kernel's strip and warp edges
+# ---------------------------------------------------------------------------
+
+
+def test_launch_shape_takes_the_warp_path_up_to_its_widest_strip():
+    """Every band up to W = 255 (V = 511 <= 32 x 16) takes the warp path
+    with the narrowest strip that holds V in one warp; wider bands the CTA
+    path, 4 lanes a thread up to 4,096 lanes and 16 beyond."""
+    for band in range(256):
+        V = 2 * band + 1
+        path, threads, strip = tops.launch_shape(band)
+        assert (path, threads) == ("warp", 32 * tops.WARP_PAIRS), band
+        assert strip == min(s for s in tops.WARP_STRIPS if 32 * s >= V), band
+    assert tops.launch_shape(64) == ("warp", 128, 5)  # BK1's second shape
+    assert tops.launch_shape(128) == ("warp", 128, 9)  # BK1's first, BS
+    assert tops.launch_shape(255) == ("warp", 128, 16)
+    assert tops.launch_shape(256) == ("cta", 160, 4)  # one past the warp
+    assert tops.launch_shape(2047) == ("cta", 1024, 4)  # V = 4,095
+    assert tops.launch_shape(2048) == ("cta", 288, 16)  # V = 4,097
+
+
+def test_launch_shape_of_a_small_batch():
+    """The path depends on the band alone: a batch of any size takes the
+    shape of its band (launch_shape has no batch argument), 5 lanes a
+    thread up to W 79, 9 up to W 143 and 16 up to W 255."""
+    assert list(inspect.signature(tops.launch_shape).parameters) == ["band"]
+    assert tops.launch_shape(0) == ("warp", 128, 5)
+    assert tops.launch_shape(63) == ("warp", 128, 5)  # V = 127
+    assert tops.launch_shape(79) == ("warp", 128, 5)  # V = 159
+    assert tops.launch_shape(80) == ("warp", 128, 9)  # V = 161
+    assert tops.launch_shape(143) == ("warp", 128, 9)  # V = 287
+    assert tops.launch_shape(144) == ("warp", 128, 16)  # V = 289
+    assert tops.launch_shape(255) == ("warp", 128, 16)
+    assert tops.launch_shape(256) == ("cta", 160, 4)
+    assert tops.WARP_STRIPS == (5, 9, 16)
+
+
+@pytest.mark.parametrize("band", [128, 256], ids=["warp-W128", "cta-W256"])
+@pytest.mark.parametrize("mode", ["global", "local", "fit", "overlap"])
+def test_plain_full_on_tie_inputs_matches_jax(mode, band):
+    """tests/banded_ties.py's pairs at the launch's strip and warp edges
+    (W 128: the warp path at 9 lanes a thread; W 256: one past its widest
+    strip, the CTA path): best, edge, a, b and every pointer byte equal the
+    JAX routes', and each designed pair of ``mode`` gives its stated start
+    (the tie's winner)."""
+    path, _, strip = tops.launch_shape(band)
+    assert path == ("warp" if band == 128 else "cta")
+    (qs, te, ns, ms), ties = banded_ties.tie_inputs(band, strip, 32 * strip,
+                                                    5)
+    pm = banded_ties.pmat(mode)
+    ps = np.repeat(pm, qs.shape[0], axis=0)
+    ps[:, 5] = ms[:, 0]
+    enc = (qs, te, ns, ms, pm, ps)
+    V = 2 * band + 1
+    best, edge, a, b, ptrs = got = _port(mode, band, enc, True)
+    for want in (_jax_pallas(mode, band, enc, True),
+                 _jax_xla(mode, band, enc, True)):
+        for name, g, w in zip(("best", "edge", "a", "b"), got, want):
+            _same(g, w, name)
+        assert np.array_equal(ptrs[:, :, :V], want[4][:, :, :V]), "ptrs"
+    for pair, (tmode, ab) in ties.items():
+        if tmode == mode:
+            assert (a[pair], b[pair]) == ab, (pair, a[pair], b[pair])

@@ -111,15 +111,18 @@ def test_blocked_results_do_not_depend_on_c_blk(kind):
 
 def test_blocked_entries_check_their_blocks():
     qs, ts, allow, ns, ms, pm = port_args(blocked_inputs(73, False))
-    with pytest.raises(ValueError, match="divides n_pad"):
-        blocked.blocked_scores("local", False, M_PAD, N_PAD, 96, qs, ts,
+    # both fills take a ragged last block, not a c_blk or an n_pad off the
+    # 16-column grid
+    with pytest.raises(ValueError, match="multiple of 16"):
+        blocked.blocked_scores("local", False, M_PAD, N_PAD, 120, qs, ts,
                                None, ns, ms, pm)
-    # the pointer fill takes a ragged last block, not a c_blk or an n_pad
-    # off the 16-column grid
     with pytest.raises(ValueError, match="multiple of 16"):
         blocked.blocked_ptr_fill("local", False, M_PAD, N_PAD, 120, qs, ts,
                                  None, ns, ms, pm, 1)
     t520 = torch.cat([ts, ts[:, :8]], dim=1)
+    with pytest.raises(ValueError, match="n_pad 520 a multiple of 16"):
+        blocked.blocked_scores("local", False, M_PAD, 520, C_BLK, qs, t520,
+                               None, ns, ms, pm)
     with pytest.raises(ValueError, match="n_pad 520 a multiple of 16"):
         blocked.blocked_ptr_fill("local", False, M_PAD, 520, C_BLK, qs, t520,
                                  None, ns, ms, pm, 1)
@@ -137,8 +140,7 @@ def test_blocked_entries_check_their_blocks():
 def test_blocked_ptr_fill_takes_a_ragged_last_block(mode, use_jump, rpb):
     """n_pad 1,152 at c_blk 512 (two full blocks and one of 128 columns):
     the pointer fill takes it (on CPU tensors, its plain version, counted)
-    and gives the flat plain version's outputs; the score fill still needs
-    c_blk to divide n_pad."""
+    and gives the flat plain version's outputs; so does the score fill."""
     from aligntools_tpu_torch.ops import ptr
 
     n_pad, c_blk = 1152, 512
@@ -152,9 +154,17 @@ def test_blocked_ptr_fill_takes_a_ragged_last_block(mode, use_jump, rpb):
                               ns, ms, pm, rpb)
     for name, g, w in zip(("score", "a", "b", "ptrs"), got, want):
         assert torch.equal(g, w), name
-    with pytest.raises(ValueError, match="divides n_pad"):
-        blocked.blocked_scores(mode, use_jump, M_PAD, n_pad, c_blk, qs, ts,
-                               allow, ns, ms, pm)
+    from aligntools_tpu_torch.ops import scan
+
+    got = blocked.blocked_scores(mode, use_jump, M_PAD, n_pad, c_blk, qs, ts,
+                                 allow, ns, ms, pm)
+    assert (blocked.plain_calls, blocked.launches["blocked_scores"]) == (2, 0)
+    if mode == "fit":
+        want = scan.fit_scores_plain(use_jump, M_PAD, n_pad, qs, ts, allow,
+                                     ns, ms, pm)
+    else:
+        want = scan.scores_plain(mode, M_PAD, n_pad, qs, ts, ns, ms, pm)
+    assert torch.equal(got, want)
     blocked.reset_counts()
 
 

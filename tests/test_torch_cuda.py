@@ -5,6 +5,7 @@ CUDA device (a CUDA kernel has no interpret mode). On a Hopper card:
 ``ALIGNTOOLS_TEST_TPU=1 python -m pytest tests/test_torch_cuda.py -o
 addopts="" -q`` (the variable keeps tests/conftest.py from importing jax)."""
 
+import banded_ties
 import blocked_ties as ties
 import numpy as np
 import ptr_ties
@@ -66,6 +67,72 @@ def test_fit_kernel_equals_plain(cuda, use_jump):
     torch.cuda.synchronize()
     assert torch.equal(got, scan.fit_scores_plain(use_jump, m_pad, n_pad,
                                                   *args))
+
+
+def _affine_equals_plain(mode, m_pad, n_pad, qs, ts, ns, ms, pm):
+    before = dict(scan.launches)
+    got = scan.scores(mode, m_pad, n_pad, qs, ts, ns, ms, pm)
+    torch.cuda.synchronize()
+    assert scan.launches["affine"] == before["affine"] + 1
+    want = scan.scores_plain(mode, m_pad, n_pad, qs, ts, ns, ms, pm)
+    bad = (got != want).nonzero()
+    assert torch.equal(got, want), (bad[:8].tolist(), len(bad))
+
+
+@pytest.mark.parametrize("n_pad", [128, 384, 2048, 4224,
+                                   ptr.FLAT_REG_MAX_N_PAD])
+@pytest.mark.parametrize("mode", ["global", "local"])
+def test_affine_score_instance_equals_plain(cuda, mode, n_pad):
+    """The register-strip score instance (csrc/ptr_fill.cu) from one warp
+    (128 columns) to the cap, ragged pairs with m = n = 1 and n = 1."""
+    arrs = _flat_inputs(97 + n_pad, n_pad=n_pad)
+    qs, ts, _, ns, ms, pm = convert.kernel_inputs_from_numpy(*arrs, cuda)
+    _affine_equals_plain(mode, 64, n_pad, qs, ts, ns, ms, pm)
+
+
+@pytest.mark.parametrize("mode", ["global", "local"])
+def test_affine_score_instance_on_ties_equals_plain(cuda, mode):
+    """tests/ptr_ties.py's pairs (maxima on both sides of strip and warp
+    edges, end cells past them): the once-reduced latch gives the plain
+    version's score."""
+    qs, ts, _, ns, ms, pm = convert.kernel_inputs_from_numpy(
+        *ptr_ties.tie_inputs(3), ptr_ties.pmat(mode), cuda)
+    _affine_equals_plain(mode, ptr_ties.M_PAD, ptr_ties.N_PAD, qs, ts, ns,
+                         ms, pm)
+
+
+def test_affine_score_entry_refuses_a_shape_it_lacks(cuda):
+    """No instance, no launch: an n_pad off the 16-column grid through the
+    wrapper, and a strip width or CTA the entry has no instance for."""
+    arrs = _flat_inputs(103, B=3, m_pad=8, n_pad=136)
+    qs, ts, _, ns, ms, pm = convert.kernel_inputs_from_numpy(*arrs, cuda)
+    with pytest.raises(RuntimeError, match="affine fill kernel launch"):
+        scan.scores("local", 8, 136, qs, ts, ns, ms, pm)
+    out = torch.empty(3, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    for threads, width in ((32, 8), (1024, 16), (48, 16)):
+        err = scan._kernels().at_affine_scores(
+            1, qs.data_ptr(), ts.data_ptr(), ns.data_ptr(), ms.data_ptr(),
+            pm.data_ptr(), out.data_ptr(), 3, 8, 128, threads, width, stream)
+        assert err != 0, (threads, width)
+
+
+@pytest.mark.parametrize("n_pad", [ptr.FLAT_REG_MAX_N_PAD + 128, 32768])
+@pytest.mark.parametrize("mode", ["global", "local"])
+def test_wide_scores_route_to_the_blocked_fill(cuda, mode, n_pad):
+    """Past the cap scan.scores runs the blocked score fill at
+    blocked.C_BLK with a ragged last block (8,320) or whole blocks
+    (32,768): the flat plain version's scores."""
+    arrs = _flat_inputs(101, B=6, m_pad=64, n_pad=n_pad)
+    qs, ts, _, ns, ms, pm = convert.kernel_inputs_from_numpy(*arrs, cuda)
+    before = dict(blocked.launches), dict(scan.launches)
+    got = scan.scores(mode, 64, n_pad, qs, ts, ns, ms, pm)
+    torch.cuda.synchronize()
+    assert blocked.launches["blocked_scores"] == (
+        before[0]["blocked_scores"] + 1)
+    assert scan.launches == before[1]
+    assert torch.equal(got, scan.scores_plain(mode, 64, n_pad, qs, ts, ns,
+                                              ms, pm))
 
 
 PTR_CASES = [
@@ -582,6 +649,90 @@ def test_banded_kernel_equals_plain(cuda, mode, emit, band):
     for name, g, w in zip(("best", "edge", "a", "b", "ptrs"), got, want):
         bad = (g != w).nonzero()
         assert torch.equal(g, w), (name, bad[:8].tolist(), len(bad))
+
+
+def _banded_equals_plain(mode, emit, band, args, shape=None):
+    before = banded.launches
+    got = banded._launch(mode, emit, band, *args, shape=shape)
+    torch.cuda.synchronize()
+    assert banded.launches == before + 1
+    plain = banded.banded_full_plain if emit else banded.banded_scores_plain
+    want = plain(mode, band, *args)
+    for name, g, w in zip(("best", "edge", "a", "b", "ptrs"), got, want):
+        if w is None:
+            continue
+        bad = (g != w).nonzero()
+        assert torch.equal(g, w), (name, bad[:8].tolist(), len(bad))
+
+
+# bands at each warp-path strip's widest window and one past it: W 79
+# (S 5) and 80 (S 9), 143 and 144 (S 16), 255 (the widest warp) and 256
+# (the CTA path); W 63 and 64 (S 5) put V one lane each side of 128
+WARP_EDGE_BANDS = [63, 64, 79, 80, 143, 144, 255, 256]
+
+
+@pytest.mark.parametrize("band", WARP_EDGE_BANDS)
+@pytest.mark.parametrize("mode,emit", BANDED_VARIANTS)
+def test_banded_kernel_at_strip_edges_equals_plain(cuda, mode, emit, band):
+    """The band's own path (the warp path at any batch up to W 255): 13
+    pairs (not a multiple of the 4 a CTA holds, so a CTA has spare warps)
+    of ragged m, one CTA's warps running different row counts, at each
+    strip's widest window and one lane past it."""
+    _banded_equals_plain(mode, emit, band,
+                         _banded_inputs(41 + band, band, mode == "fit"),
+                         banded.launch_shape(band))
+
+
+@pytest.mark.parametrize("band", [32, 128, 255])
+@pytest.mark.parametrize("mode,emit", BANDED_VARIANTS)
+def test_banded_kernel_fast_rows_equal_plain(cuda, mode, emit, band):
+    """Pairs of up to 640 rows, so that most rows run the warp path's FAST
+    instance (every lane at a column in [2, n]) between border rows."""
+    _banded_equals_plain(mode, emit, band,
+                         _banded_inputs(53 + band, band, mode == "fit", B=6,
+                                        m_pad=640),
+                         banded.launch_shape(band))
+
+
+@pytest.mark.parametrize("band", [128, 256])
+@pytest.mark.parametrize("mode,emit", BANDED_VARIANTS)
+def test_banded_kernel_on_ties_equals_plain(cuda, mode, emit, band):
+    """tests/banded_ties.py's pairs (held against the JAX routes on the
+    CPU): ties on both sides of a strip edge, a warp edge and the band's
+    last lane, end cells on them; W 128 the warp path, W 256 the CTA
+    path."""
+    _, _, strip = banded.launch_shape(band)
+    (qs, te, ns, ms), _ = banded_ties.tie_inputs(band, strip, 32 * strip, 7)
+    pm = banded_ties.pmat("local" if mode == "edit" else mode)
+    if mode == "edit":
+        pm[0, 1] = 1.0  # the substitution cost
+    args = [torch.from_numpy(x).cuda() for x in (qs, te, ns, ms, pm)]
+    _banded_equals_plain(mode, emit, band, args, banded.launch_shape(band))
+
+
+@pytest.mark.parametrize("mode,emit", [("local", True), ("overlap", True),
+                                       ("global", False), ("edit", False)])
+def test_banded_kernel_more_ctas_than_resident(cuda, mode, emit):
+    """20,000 pairs, 5,000 CTAs of four warps: more than the card holds
+    at once (16 such CTAs an SM, 132 SMs)."""
+    _banded_equals_plain(mode, emit, 8,
+                         _banded_inputs(43, 8, mode == "fit", B=20000,
+                                        m_pad=16))
+
+
+@pytest.mark.parametrize("mode,emit", [("local", True), ("edit", False)])
+def test_banded_entry_refuses_a_shape_it_lacks(cuda, mode, emit):
+    """No instance, no launch: a strip the warp path lacks, a warp too
+    narrow for the window, a CTA too large, and the CTA path's strips."""
+    args = _banded_inputs(47, 128, False, B=4, m_pad=8)
+    for shape in (("warp", 128, 8), ("warp", 128, 5), ("warp", 256, 9),
+                  ("cta", 96, 9), ("cta", 32, 4)):
+        with pytest.raises(RuntimeError, match="banded fill kernel launch"):
+            banded._launch(mode, emit, 128, *args, shape=shape)
+    # a strip of 4 would hold W 8's 17 lanes, but the warp path has none
+    args = _banded_inputs(47, 8, False, B=4, m_pad=8)
+    with pytest.raises(RuntimeError, match="banded fill kernel launch"):
+        banded._launch(mode, emit, 8, *args, shape=("warp", 128, 4))
 
 
 @pytest.mark.parametrize("m_pad", [0, 1])

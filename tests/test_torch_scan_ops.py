@@ -14,7 +14,7 @@ import torch
 from aligntools_tpu.ops import pallas_scan as ps
 from aligntools_tpu.params import AlignParams
 from aligntools_tpu_torch import convert
-from aligntools_tpu_torch.ops import scan
+from aligntools_tpu_torch.ops import blocked, ptr, scan
 
 B, M_PAD, N_PAD = 8, 64, 256
 PARAMS = {
@@ -124,3 +124,105 @@ def test_launch_shape_covers_the_row(n_pad):
     assert threads % 32 == 0 and 32 <= threads <= 1024
     assert threads * wmax >= n_pad
     assert threads * (wmax - 1) < n_pad
+
+
+def _wide_inputs(seed, n_pad, B=8, m_pad=16):
+    """Ragged pairs over n_pad columns (pair 0 the full width, pair 1 one
+    column past FLAT_REG_MAX_N_PAD where n_pad allows), in the sentinel
+    layout."""
+    rng = np.random.default_rng(seed)
+    alpha = np.frombuffer(b"ACGT", dtype=np.uint8).astype(np.int32)
+    ms = rng.integers(1, m_pad + 1, B).astype(np.int32)
+    ns = rng.integers(1, n_pad + 1, B).astype(np.int32)
+    ns[0] = n_pad
+    ns[1] = min(n_pad, ptr.FLAT_REG_MAX_N_PAD + 1)
+    qs = rng.choice(alpha, (B, m_pad))
+    ts = rng.choice(alpha, (B, n_pad))
+    qs[np.arange(m_pad)[None, :] >= ms[:, None]] = -1
+    ts[np.arange(n_pad)[None, :] >= ns[:, None]] = -2
+    return qs, ts, ns[:, None], ms[:, None]
+
+
+@pytest.mark.parametrize("n_pad", [8192, 8320, 16384])
+@pytest.mark.parametrize("mode", ["global", "local"])
+def test_wide_scores_through_the_route_match_pallas(mode, n_pad):
+    """Global / local scores at the register-strip kernel's cap and past it
+    (8,320: a ragged last column block; 16,384) through ``scan.scores``'s
+    route equal the JAX Pallas kernel's (interpret mode): the flat plain
+    version up to the cap, the blocked fill's past it."""
+    qs, ts, ns, ms = _wide_inputs(23, n_pad)
+    pm = _pmat(AlignParams())
+    m_pad = qs.shape[1]
+    want = np.asarray(ps.pallas_scores(
+        mode, m_pad, n_pad, True, *(jnp.asarray(a) for a in (qs, ts, ns, ms,
+                                                               pm))))
+    args = convert.kernel_inputs_from_numpy(qs, ts, None, ns, ms, pm, "cpu")
+    tq, tt, _, tn, tm, tp = args
+    scan.reset_counts()
+    blocked.reset_counts()
+    got = scan.scores(mode, m_pad, n_pad, tq, tt, tn, tm, tp).numpy()
+    wide = n_pad > ptr.FLAT_REG_MAX_N_PAD
+    assert (blocked.plain_calls, scan.plain_calls) == (
+        (1, 1) if wide else (0, 1))  # the blocked entry runs scores_plain
+    assert np.array_equal(got, want)
+    scan.reset_counts()
+    blocked.reset_counts()
+
+
+def test_scores_route_picks_flat_or_blocked_at_the_cap():
+    """Global and local go to the blocked fill one bucket past
+    FLAT_REG_MAX_N_PAD, at blocked.C_BLK (ragged there); overlap and edit
+    keep their flat kernels there."""
+    cap = ptr.FLAT_REG_MAX_N_PAD
+    for mode in ("global", "local"):
+        assert scan.blocked_c_blk(mode, cap) is None
+        assert scan.blocked_c_blk(mode, cap + 128) == blocked.C_BLK
+    assert (cap + 128) % blocked.C_BLK  # a ragged last block
+    qs, ts, ns, ms = _wide_inputs(29, cap + 128, B=2, m_pad=4)
+    args = convert.kernel_inputs_from_numpy(qs, ts, None, ns, ms,
+                                            _pmat(AlignParams()), "cpu")
+    tq, tt, _, tn, tm, tp = args
+    for mode, blocked_calls in (("global", 1), ("local", 1), ("overlap", 0),
+                                ("edit", 0)):
+        blocked.reset_counts()
+        got = scan.scores(mode, 4, cap + 128, tq, tt, tn, tm, tp)
+        assert blocked.plain_calls == blocked_calls, mode
+        assert torch.equal(got, scan.scores_plain(mode, 4, cap + 128, tq, tt,
+                                                  tn, tm, tp))
+    blocked.reset_counts()
+    scan.reset_counts()
+
+
+@pytest.mark.parametrize("mode", ["overlap", "edit", "fit", "fit+jump"])
+def test_scores_route_past_the_flat_ceiling(mode):
+    """Overlap, edit and fit keep their flat kernels up to FLAT_MAX_N_PAD
+    (32,768) columns and go to the blocked fill one bucket past it, through
+    ``scan.scores`` / ``scan.fit_scores`` (the batch path's one route): the
+    scores equal the flat plain version's. Fit without the jump takes no
+    allow mask on either side of the ceiling."""
+    cap = scan.FLAT_MAX_N_PAD
+    base, jump = mode.split("+")[0], mode.endswith("+jump")
+    assert scan.blocked_c_blk(base, cap) is None
+    assert scan.blocked_c_blk(base, cap + 128) == blocked.C_BLK
+    rng = np.random.default_rng(31)
+    for n_pad, blocked_calls in ((cap, 0), (cap + 128, 1)):
+        qs, ts, ns, ms = _wide_inputs(37, n_pad, B=2, m_pad=4)
+        ns[1] = n_pad - 3
+        allow = (rng.random((2, n_pad)) > 0.1).astype(np.float32)
+        args = convert.kernel_inputs_from_numpy(qs, ts, allow, ns, ms,
+                                                _pmat(AlignParams()), "cpu")
+        tq, tt, ta, tn, tm, tp = args
+        blocked.reset_counts()
+        if base == "fit":
+            got = scan.fit_scores(jump, 4, n_pad, tq, tt, ta if jump else None,
+                                  tn, tm, tp)
+            want = scan.fit_scores_plain(jump, 4, n_pad, tq, tt,
+                                         ta if jump else torch.ones_like(ta),
+                                         tn, tm, tp)
+        else:
+            got = scan.scores(base, 4, n_pad, tq, tt, tn, tm, tp)
+            want = scan.scores_plain(base, 4, n_pad, tq, tt, tn, tm, tp)
+        assert blocked.plain_calls == blocked_calls, n_pad
+        assert torch.equal(got, want), n_pad
+    blocked.reset_counts()
+    scan.reset_counts()

@@ -9,8 +9,8 @@
 //   :375 _blocked_ptr_kernel (entry blocked_ptr_fill): the fill with packed
 //     pointers and traceback-start info for global, local, fit(+jump) and
 //     overlap, rpb DP rows per byte (1, 2, or 4 for overlap).
-// Both compute exactly the flat fills' function (csrc/scan_fill.cu,
-// csrc/ptr_fill.cu; the plain versions ops/scan.py and ops/ptr.py): the same
+// Both compute exactly the flat fills' function (csrc/ptr_fill.cu,
+// csrc/scan_fill.cu; the plain versions ops/scan.py and ops/ptr.py): the same
 // scores, start info and pointer bytes, pad rows and pad columns included.
 //
 // Design. The grid holds one CTA for each (pair, column block). Inside its

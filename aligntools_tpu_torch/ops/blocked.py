@@ -12,8 +12,8 @@ the column block ``c_blk``) and outputs:
                     byte written
 
 Both also take flat buckets too wide for the register-strip kernels
-(``ptr.ptr_fill`` and, for global and local, ``scan.scores`` hand them
-over), whose n_pad, a multiple of 128, a c_blk need not divide: the last
+(``ptr.ptr_fill`` and, for every mode but edit, ``scan.scores`` /
+``scan.fit_scores`` hand them over), whose n_pad, a multiple of 128, a c_blk need not divide: the last
 column block is then narrower (ragged). The JAX entries need ``n_pad %
 c_blk == 0``; the results do not depend on c_blk either way.
 

@@ -10,19 +10,18 @@ points' argument layout:
   params  (1, 8) float32 [match, mismatch, gap_open, gap_extend, jump, 0, 0, 0]
 
 ``scores`` / ``fit_scores`` return (B,) float32 scores (int32 for edit).
-On a CUDA tensor they launch the hand-written kernels or raise: global and
-local the score-only instance of ``csrc/ptr_fill.cu``'s register-strip
-kernel (one CTA per pair, ``ptr.launch_shape``) up to
-``ptr.FLAT_REG_MAX_N_PAD`` columns, overlap, edit and fit those of
-``csrc/scan_fill.cu`` (one CTA per pair; see its header) up to
-``FLAT_MAX_N_PAD``. Wider targets, past ``ptr.FLAT_REG_MAX_N_PAD`` columns
-for global and local, go to the blocked score fill (``ops/blocked.py``) at
-``blocked.C_BLK``, with a ragged last block where it does not divide n_pad,
-on either device: ``blocked_c_blk`` is the one place that picks. On a CPU
-tensor the wrappers run the plain versions below. Scores are integer-valued
-float32 with true -inf borders, so the kernel and the plain version agree
-bit for bit (the batch path guards the exact range with
-``exact.check_f32_exact``).
+On a CUDA tensor they launch the hand-written kernels or raise: global,
+local, fit(+jump) and overlap the score-only instances of
+``csrc/ptr_fill.cu``'s register-strip kernels (one CTA per pair,
+``ptr.launch_shape``; entry ``at_score_fill``) up to
+``ptr.FLAT_REG_MAX_N_PAD`` columns, edit that of ``csrc/scan_fill.cu``
+(one CTA per pair; see its header) up to ``FLAT_MAX_N_PAD``. Wider targets
+go to the blocked score fill (``ops/blocked.py``) at ``blocked.C_BLK``,
+with a ragged last block where it does not divide n_pad, on either device:
+``blocked_c_blk`` is the one place that picks. On a CPU tensor the wrappers
+run the plain versions below. Scores are integer-valued float32 with true
+-inf borders, so the kernel and the plain version agree bit for bit (the
+batch path guards the exact range with ``exact.check_f32_exact``).
 
 The plain versions fill one query row per step over whole (B, n_pad)
 rows, as the Pallas kernels do, and resolve each in-row gap chain with
@@ -39,16 +38,18 @@ import torch
 NEG = float("-inf")
 INT32_MAX = 2**31 - 1
 
-# launches of each kernel through its wrapper, and calls of the plain
-# versions: a run can show which of the two carried it
+# launches of each kernel through its wrapper, keyed by the TPU kernel it
+# replaces, and calls of the plain versions: a run can show which of the
+# two carried it
 launches = {"affine": 0, "overlap": 0, "edit": 0, "fit": 0}
 plain_calls = 0
 
-# scratch row buffers per pair (csrc/scan_fill.cu): state rows + chars
-_NBUF = {"overlap": 3, "edit": 3, "fit": 5}
+# the edit kernel's scratch rows per pair (csrc/scan_fill.cu): state rows +
+# chars
+_EDIT_ROWS = 3
 STRIP = 8  # target columns per thread the launch shape aims for
-# the widest target the overlap, edit and fit kernels take (the JAX
-# package's flat ceiling, engine/select.py's PALLAS_FLAT_MAX_N_PAD)
+# the widest target the edit kernel takes (the JAX package's flat ceiling,
+# engine/select.py's PALLAS_FLAT_MAX_N_PAD)
 FLAT_MAX_N_PAD = 32768
 
 
@@ -60,9 +61,8 @@ def reset_counts() -> None:
 
 
 def launch_shape(n_pad: int) -> tuple[int, int]:
-    """(threads per CTA, strip slots per thread) of the overlap, edit and
-    fit kernels (and the blocked fills' column blocks) for targets up to
-    n_pad."""
+    """(threads per CTA, strip slots per thread) of the edit kernel (and
+    the blocked fills' column blocks) for targets up to n_pad."""
     threads = min(1024, max(32, -(-n_pad // (32 * STRIP)) * 32))
     return threads, -(-n_pad // threads)
 
@@ -70,13 +70,11 @@ def launch_shape(n_pad: int) -> tuple[int, int]:
 def blocked_c_blk(mode: str, n_pad: int) -> int | None:
     """The column block at which ``scores`` / ``fit_scores`` hand a target
     of n_pad columns to the blocked score fill, or None where a flat kernel
-    takes it: global and local past ``ptr.FLAT_REG_MAX_N_PAD`` (the
-    register-strip kernel's widest), the other modes past
-    ``FLAT_MAX_N_PAD``."""
+    takes it: global, local, fit and overlap past ``ptr.FLAT_REG_MAX_N_PAD``
+    (the register-strip kernel's widest), edit past ``FLAT_MAX_N_PAD``."""
     from aligntools_tpu_torch.ops import blocked, ptr
 
-    cap = (ptr.FLAT_REG_MAX_N_PAD if mode in ("global", "local")
-           else FLAT_MAX_N_PAD)
+    cap = FLAT_MAX_N_PAD if mode == "edit" else ptr.FLAT_REG_MAX_N_PAD
     return None if n_pad <= cap else blocked.C_BLK
 
 
@@ -235,17 +233,14 @@ def _kernels():
 
         lib = _build.load()
         P, I = ctypes.c_void_p, ctypes.c_int
-        tail = [P, P, I, I, I, I, I, P]  # out, scratch, B, m_pad, n_pad,
-        #                                  threads, wmax, stream
-        # local, qs, ts, ns, ms, params, out, B, m_pad, n_pad, threads,
-        # width, stream
-        lib.at_affine_scores.argtypes = [I, P, P, P, P, P, P, I, I, I, I, I,
-                                         P]
-        lib.at_overlap_scores.argtypes = [P, P, P, P, P, *tail]
-        lib.at_edit_scores.argtypes = [P, P, P, P, P, *tail]
-        lib.at_fit_scores.argtypes = [I, P, P, P, P, P, P, *tail]
-        for fn in (lib.at_affine_scores, lib.at_overlap_scores,
-                   lib.at_edit_scores, lib.at_fit_scores):
+        # mode, use_jump, qs, ts, allow, ns, ms, params, out, B, m_pad,
+        # n_pad, threads, width, stream
+        lib.at_score_fill.argtypes = [I, I, P, P, P, P, P, P, P, I, I, I, I,
+                                      I, P]
+        # qs, ts, ns, ms, params, out, scratch, B, m_pad, n_pad, threads,
+        # wmax, stream
+        lib.at_edit_scores.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, P]
+        for fn in (lib.at_score_fill, lib.at_edit_scores):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -280,13 +275,14 @@ def _check(m_pad, n_pad, qs, ts, ns, ms, params, allow=None):
     check_tensors(want, qs.device)
 
 
-def _launch_affine(local, m_pad, n_pad, args):
-    """Launch the register-strip score instance on CUDA tensors at
+def _launch_strip(mode, use_jump, m_pad, n_pad, qs, ts, allow, ns, ms,
+                  params):
+    """Launch the register-strip score instance of ``mode`` (global, local,
+    fit or overlap; ``allow`` read with the jump alone) on CUDA tensors at
     ``ptr.launch_shape(n_pad)`` on the current stream (the C entry refuses
     an n_pad off the 16-column grid); returns (B,) float32."""
     from aligntools_tpu_torch.ops import ptr
 
-    qs, ts, ns, ms, params = args
     threads, width = ptr.launch_shape(n_pad)
     if ts.data_ptr() % 16:
         raise ValueError("ts must be 16-byte aligned (the kernel reads it "
@@ -294,31 +290,35 @@ def _launch_affine(local, m_pad, n_pad, args):
     out = torch.empty(qs.shape[0], dtype=torch.float32, device=qs.device)
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
-        err = _kernels().at_affine_scores(
-            int(local), *(x.data_ptr() for x in args), out.data_ptr(),
+        err = _kernels().at_score_fill(
+            ptr.MODES.index(mode), int(bool(use_jump)), qs.data_ptr(),
+            ts.data_ptr(), allow.data_ptr() if use_jump else None,
+            ns.data_ptr(), ms.data_ptr(), params.data_ptr(), out.data_ptr(),
             qs.shape[0], m_pad, n_pad, threads, width, stream)
     if err != 0:
-        raise RuntimeError(f"affine fill kernel launch failed: CUDA error "
-                           f"{err}")
-    launches["affine"] += 1
+        raise RuntimeError(f"{mode} score fill kernel launch failed: CUDA "
+                           f"error {err}")
+    launches["affine" if mode in ("global", "local") else mode] += 1
     return out
 
 
-def _launch(kernel, lead, m_pad, n_pad, tensors, out):
-    """Launch one kernel on the current stream; raise on a launch error."""
-    B = out.shape[0]
+def _launch_edit(m_pad, n_pad, qs, ts, ns, ms, params):
+    """Launch the edit kernel on the current stream; raise on a launch
+    error."""
+    B = qs.shape[0]
+    out = torch.empty(B, dtype=torch.int32, device=qs.device)
     threads, wmax = launch_shape(n_pad)
-    scratch = torch.empty((B, _NBUF[kernel], threads * wmax),
+    scratch = torch.empty((B, _EDIT_ROWS, threads * wmax),
                           dtype=torch.float32, device=out.device)
-    fn = getattr(_kernels(), f"at_{kernel}_scores")
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
-        err = fn(*lead, *(x.data_ptr() for x in tensors), out.data_ptr(),
-                 scratch.data_ptr(), B, m_pad, n_pad, threads, wmax, stream)
+        err = _kernels().at_edit_scores(
+            *(x.data_ptr() for x in (qs, ts, ns, ms, params)), out.data_ptr(),
+            scratch.data_ptr(), B, m_pad, n_pad, threads, wmax, stream)
     if err != 0:
-        raise RuntimeError(f"{kernel} fill kernel launch failed: CUDA error "
+        raise RuntimeError(f"edit fill kernel launch failed: CUDA error "
                            f"{err}")
-    launches[kernel] += 1
+    launches["edit"] += 1
     return out
 
 
@@ -336,24 +336,19 @@ def scores(mode, m_pad, n_pad, qs, ts, ns, ms, params):
     _check(m_pad, n_pad, qs, ts, ns, ms, params)
     if qs.device.type == "cpu":
         return scores_plain(mode, m_pad, n_pad, qs, ts, ns, ms, params)
-    B = qs.shape[0]
-    args = (qs, ts, ns, ms, params)
-    if mode in ("global", "local"):
-        return _launch_affine(mode == "local", m_pad, n_pad, args)
-    if mode == "overlap":
-        out = torch.empty(B, dtype=torch.float32, device=qs.device)
-        return _launch("overlap", (), m_pad, n_pad, args, out)
+    if mode in ("global", "local", "overlap"):
+        return _launch_strip(mode, False, m_pad, n_pad, qs, ts, None, ns, ms,
+                             params)
     if mode == "edit":
-        out = torch.empty(B, dtype=torch.int32, device=qs.device)
-        return _launch("edit", (), m_pad, n_pad, args, out)
+        return _launch_edit(m_pad, n_pad, qs, ts, ns, ms, params)
     raise ValueError(f"unknown score mode {mode!r}")
 
 
 def fit_scores(use_jump, m_pad, n_pad, qs, ts, allow, ns, ms, params):
     """Fit-mode score fill (the counterpart of ``pallas_fit_scores``).
     Returns (B,) float32. ``allow`` may be None without ``use_jump`` (every
-    column allowed). Targets past ``FLAT_MAX_N_PAD`` columns run the
-    blocked score fill at ``blocked_c_blk("fit", n_pad)``."""
+    column allowed). Targets past ``ptr.FLAT_REG_MAX_N_PAD`` columns run
+    the blocked score fill at ``blocked_c_blk("fit", n_pad)``."""
     c_blk = blocked_c_blk("fit", n_pad)
     if c_blk:
         from aligntools_tpu_torch.ops import blocked
@@ -366,6 +361,5 @@ def fit_scores(use_jump, m_pad, n_pad, qs, ts, allow, ns, ms, params):
     if qs.device.type == "cpu":
         return fit_scores_plain(use_jump, m_pad, n_pad, qs, ts, allow, ns, ms,
                                 params)
-    out = torch.empty(qs.shape[0], dtype=torch.float32, device=qs.device)
-    return _launch("fit", (int(bool(use_jump)),), m_pad, n_pad,
-                   (qs, ts, allow, ns, ms, params), out)
+    return _launch_strip("fit", use_jump, m_pad, n_pad, qs, ts, allow, ns, ms,
+                         params)

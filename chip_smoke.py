@@ -28,10 +28,14 @@ Phases, one JSON line each:
            warm median times of both (CUDA events); and, as a record, the
            same fill through the blocked kernel at min(n_pad, 8,192)
            columns a block, held against plain and timed (`blocked_ms`);
-           then the global / local route across the register-strip
-           instance's cap (`cap`: 4,224 to 8,192 columns flat, 16,384 and
-           32,768 blocked, each against plain and timed beside the
-           blocked fill at every column block, `c_blk_ms`);
+           each row names its route (`route`: the register-strip score
+           instance, the edit kernel or, past their cap, the blocked one);
+           then the global, local, overlap, fit and fit+jump route across
+           the register-strip instances' cap (`cap`: 4,224 to 8,192 columns
+           flat, 16,384 and 32,768 blocked, each against plain and timed
+           beside the blocked fill at every column block, `c_blk_ms`) and
+           every score instance on the tie inputs of tests/ptr_ties.py
+           (`ties`);
   ptr      the registers and local (spill) bytes of each instance of
            csrc/ptr_fill.cu, the score instances included (cuobjdump
            --dump-resource-usage); then the
@@ -92,7 +96,7 @@ Phases, one JSON line each:
            131,072, three junction sites each; enough that the pointer
            budget splits the rows run into two or more waves), rows cold
            and warm and `--scores-only`; `batch global` and `batch local`
-           on its first 64 pairs; `batch local` on the first 2,000
+           on its first 16 pairs; `batch local` on the first 2,000
            clustered pairs plus 32 long ones (flat and blocked buckets in
            one run). The blocked kernels launched, no plain version ran;
            then L3 rows and scores warm again at each column block of the
@@ -182,11 +186,11 @@ KERNELS = {
     "affine": ("aligntools_tpu/ops/pallas_scan.py:328 _affine_kernel",
                "ptr_fill.cu", ("global", "local")),
     "overlap": ("aligntools_tpu/ops/pallas_scan.py:421 _overlap_kernel",
-                "scan_fill.cu", ("overlap",)),
+                "ptr_fill.cu", ("overlap",)),
     "edit": ("aligntools_tpu/ops/pallas_scan.py:469 _edit_kernel",
              "scan_fill.cu", ("edit",)),
     "fit": ("aligntools_tpu/ops/pallas_scan.py:513 _fit_kernel",
-            "scan_fill.cu", ("fit", "fit+jump")),
+            "ptr_fill.cu", ("fit", "fit+jump")),
     "ptr": ("aligntools_tpu/ops/pallas_ptr.py:85 _ptr_kernel",
             "ptr_fill.cu", ()),
     "walk": ("aligntools_tpu/engine/device_tb.py:56 _walk_affine, "
@@ -223,10 +227,12 @@ PTR_SHAPES = [
     (256, 2048, 2048, False, (("local", False, 2),)),
     (64, 512, 32768, True, (("fit", True, 1),)),
 ]
-# the kernels phase's score-fill crossover: the global / local route at
-# each n_pad, at (B, m_pad) of SCORE_CAP_SHAPE[n_pad <= the flat cap]
+# the kernels phase's score-fill crossover: the route of each variant of
+# SCORE_CAP_VARIANTS at each n_pad, at (B, m_pad) of SCORE_CAP_SHAPE[n_pad
+# <= the flat cap]
 SCORE_CAP_N_PADS = (4224, 6144, 8192, 16384, 32768)
 SCORE_CAP_SHAPE = {True: (128, 512), False: (64, 512)}
+SCORE_CAP_VARIANTS = ("local", "global", "overlap", "fit", "fit+jump")
 # the ptr phase's ragged wide row: (B, m_pad), at n_pad FLAT_REG_MAX_N_PAD +
 # PTR_WIDE_EXTRA, which no column block of the sweep divides; the cap
 # sweep: (B, m_pad, mode, jump, rpb) at each n_pad of PTR_CAP_N_PADS, the
@@ -250,6 +256,7 @@ FLAT_AS_BLOCKED_C_BLK = 8192
 # LONG_SAMPLE_MAX_N (the plain versions on the CPU: ~15 s a pair), plus,
 # for L3 itself, the cheapest pair with a target past LONG_FAR_N
 LONG_PAIRS = 256
+LONG_AFFINE_PAIRS = 16  # L3g / L3l: global and local on the first of them
 LONG_SAMPLES = 4
 LONG_POOL = 16
 LONG_SAMPLE_MAX_N = 60000
@@ -705,6 +712,20 @@ def compare(torch, scan, variant, m_pad, n_pad, args, c_blk=None):
     return bool(torch.equal(k_out, p_out)), max_err(torch, k_out, p_out)
 
 
+def score_route(scan, variant, n_pad):
+    """The route scan.scores / fit_scores take for ``variant`` at n_pad:
+    its label."""
+    from aligntools_tpu_torch.ops import ptr
+
+    mode = variant.split("+")[0]
+    c_blk = scan.blocked_c_blk(mode, n_pad)
+    if c_blk:
+        return f"blocked c_blk {c_blk}"
+    if mode == "edit":
+        return "flat {0} threads x {1} slots".format(*scan.launch_shape(n_pad))
+    return "flat W {1} x {0} threads".format(*ptr.launch_shape(n_pad))
+
+
 def phase_kernels(torch, scan):
     results = []
     for B, m_pad, n_pad, ragged, variants in SHAPES:
@@ -731,6 +752,7 @@ def phase_kernels(torch, scan):
             row = {
                 "phase": "kernels", "variant": variant,
                 "shape": f"{B}x{m_pad}x{n_pad}", "ragged": ragged,
+                "route": score_route(scan, variant, n_pad),
                 "bit_equal": equal, "max_abs_err": err, "tolerance": TOL,
                 "ms": ms_k, "plain_ms": ms_p, "bound_ms": b_ms,
                 "bound_by": b_by,
@@ -745,23 +767,25 @@ def phase_kernels(torch, scan):
                   f"{variant} at {B}x({m_pad}x{n_pad}): kernel != plain")
             results.append(row)
     phase_kernels_cap(torch, scan)
+    phase_kernels_ties(torch, scan)
     return results
 
 
 def phase_kernels_cap(torch, scan):
-    """The global / local score fill's route across the register-strip
-    kernel's cap: at each n_pad of SCORE_CAP_N_PADS, the route
-    (scan.scores: the flat instance up to ptr.FLAT_REG_MAX_N_PAD columns,
-    past it the blocked fill at blocked.C_BLK, ragged) against plain, bit
-    for bit, then timed beside the blocked fill at every column block of
-    the sweep up to n_pad (ragged where it does not divide n_pad), each
-    held to the same scores; warm medians of three."""
-    from aligntools_tpu_torch.ops import blocked, ptr
+    """The score fills' route across the register-strip kernels' cap: at
+    each n_pad of SCORE_CAP_N_PADS, each variant of SCORE_CAP_VARIANTS
+    through the route (scan.scores / fit_scores: the flat instance up to
+    ptr.FLAT_REG_MAX_N_PAD columns, past it the blocked fill at
+    blocked.C_BLK, ragged) against plain, bit for bit, then timed beside
+    the blocked fill at every column block of the sweep up to n_pad (ragged
+    where it does not divide n_pad), each held to the same scores; warm
+    medians of three."""
+    from aligntools_tpu_torch.ops import ptr
 
     for n_pad in SCORE_CAP_N_PADS:
         B, m_pad = SCORE_CAP_SHAPE[n_pad <= ptr.FLAT_REG_MAX_N_PAD]
         args, cells = kernel_inputs(B, m_pad, n_pad, True, SEED + 5, "cuda")
-        for variant in ("local", "global"):
+        for variant in SCORE_CAP_VARIANTS:
             label = f"{variant} at {B}x{m_pad}x{n_pad}"
             equal, err = compare(torch, scan, variant, m_pad, n_pad, args)
             check(equal and err == 0.0, f"score fill {label}: kernel != plain")
@@ -781,16 +805,35 @@ def phase_kernels_cap(torch, scan):
                     torch, lambda: run_variant(scan, variant, m_pad, n_pad,
                                                args, False, c_blk))
                     for _ in range(3))
-            c_route = scan.blocked_c_blk(variant, n_pad)
             emit({"phase": "kernels", "cap": label,
-                  "route": (f"blocked c_blk {c_route}" if c_route else
-                            "flat W {1} x {0} threads".format(
-                                *ptr.launch_shape(n_pad))),
+                  "route": score_route(scan, variant, n_pad),
                   "route_ms": route_ms, "c_blk_ms": c_blk_ms,
                   "cap_now": ptr.FLAT_REG_MAX_N_PAD, "true_cells": cells,
                   "bit_equal": equal, "max_abs_err": err, "tolerance": TOL})
         del args, want
         torch.cuda.empty_cache()
+
+
+def phase_kernels_ties(torch, scan):
+    """The start-info ties of tests/ptr_ties.py through each score fill of
+    the register-strip kernels (global, local, overlap, fit, fit+jump),
+    against plain."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import ptr_ties
+
+    from aligntools_tpu_torch.convert import kernel_inputs_from_numpy
+
+    arrs = ptr_ties.tie_inputs(SEED)
+    m_pad, n_pad = ptr_ties.M_PAD, ptr_ties.N_PAD
+    variants = ("global", "local", "overlap", "fit", "fit+jump")
+    for variant in variants:
+        args = kernel_inputs_from_numpy(
+            *arrs, ptr_ties.pmat(variant.split("+")[0]), "cuda")
+        equal, err = compare(torch, scan, variant, m_pad, n_pad, args)
+        check(equal and err == 0.0,
+              f"score fill on the tie inputs, {variant}: kernel != plain")
+    emit({"phase": "kernels", "ties": len(variants), "cases": variants,
+          "bit_equal": True, "max_abs_err": 0.0, "tolerance": TOL})
 
 
 def ptr_fill(ptr, mode, jump, m_pad, n_pad, args, rpb, c_blk=None):
@@ -893,7 +936,7 @@ def phase_ptr(torch, ptr, tb):
     from aligntools_tpu_torch import layout
     from aligntools_tpu_torch.ops import _build
 
-    # the pointer fill's instances and the global / local score instances
+    # the pointer fill's instances and the score instances (PTRS false)
     emit({"phase": "ptr", "resource_usage": resource_usage(
         _build.library_path(), ("ptr_affine_kernel", "ptr_overlap_kernel"))})
     fills, walks = [], []
@@ -1578,7 +1621,7 @@ def long_pairs(P, seed):
 
 
 def phase_long(torch, scan, ptr, tb, work, trace_path):
-    """The main path on long targets (L3, global/local on its first 64, and
+    """The main path on long targets (L3, global/local on its first 16, and
     a mixed flat + blocked local run): the runs, with the counts set to 0
     just before and read just after, then every bucket against plain while
     the CPU runs of the sampled pairs go on."""
@@ -1604,8 +1647,8 @@ def phase_long(torch, scan, ptr, tb, work, trace_path):
     mixed = clustered_pairs(2000, seed=SEED) + pairs[:32]
     runs_in = {  # label -> (mode, pairs, sites)
         "fit": ("fit", pairs, sites),
-        "global": ("global", pairs[:64], None),
-        "local": ("local", pairs[:64], None),
+        "global": ("global", pairs[:LONG_AFFINE_PAIRS], None),
+        "local": ("local", pairs[:LONG_AFFINE_PAIRS], None),
         "mixed": ("local", mixed, None),
     }
     fastas = {}

@@ -69,70 +69,101 @@ def test_fit_kernel_equals_plain(cuda, use_jump):
                                                   *args))
 
 
-def _affine_equals_plain(mode, m_pad, n_pad, qs, ts, ns, ms, pm):
+def _score_instance_equals_plain(variant, m_pad, n_pad, qs, ts, allow, ns,
+                                 ms, pm):
+    """The register-strip score instance of ``variant`` (global, local,
+    overlap, fit, fit+jump) against plain, and the counter it moves."""
+    mode, jump = variant.split("+")[0], variant.endswith("+jump")
+    kernel = "affine" if mode in ("global", "local") else mode
     before = dict(scan.launches)
-    got = scan.scores(mode, m_pad, n_pad, qs, ts, ns, ms, pm)
-    torch.cuda.synchronize()
-    assert scan.launches["affine"] == before["affine"] + 1
-    want = scan.scores_plain(mode, m_pad, n_pad, qs, ts, ns, ms, pm)
+    if mode == "fit":
+        got = scan.fit_scores(jump, m_pad, n_pad, qs, ts, allow, ns, ms, pm)
+        torch.cuda.synchronize()
+        want = scan.fit_scores_plain(jump, m_pad, n_pad, qs, ts, allow, ns,
+                                     ms, pm)
+    else:
+        got = scan.scores(mode, m_pad, n_pad, qs, ts, ns, ms, pm)
+        torch.cuda.synchronize()
+        want = scan.scores_plain(mode, m_pad, n_pad, qs, ts, ns, ms, pm)
+    assert scan.launches == {**before, kernel: before[kernel] + 1}
     bad = (got != want).nonzero()
     assert torch.equal(got, want), (bad[:8].tolist(), len(bad))
 
 
+SCORE_INSTANCES = ["global", "local", "overlap", "fit", "fit+jump"]
+
+
 @pytest.mark.parametrize("n_pad", [128, 384, 2048, 4224,
                                    ptr.FLAT_REG_MAX_N_PAD])
-@pytest.mark.parametrize("mode", ["global", "local"])
+@pytest.mark.parametrize("mode", SCORE_INSTANCES)
 def test_affine_score_instance_equals_plain(cuda, mode, n_pad):
-    """The register-strip score instance (csrc/ptr_fill.cu) from one warp
-    (128 columns) to the cap, ragged pairs with m = n = 1 and n = 1."""
-    arrs = _flat_inputs(97 + n_pad, n_pad=n_pad)
-    qs, ts, _, ns, ms, pm = convert.kernel_inputs_from_numpy(*arrs, cuda)
-    _affine_equals_plain(mode, 64, n_pad, qs, ts, ns, ms, pm)
+    """The register-strip score instances (csrc/ptr_fill.cu) from one warp
+    (128 columns) to the cap, ragged pairs with m = n = 1 and n = 1, and
+    one pair with m = 0 and one with n = 0."""
+    qs, ts, allow, ns, ms, pm = _flat_inputs(97 + n_pad, n_pad=n_pad)
+    ms[3, 0], ns[4, 0] = 0, 0
+    qs[3, :], ts[4, :] = -1, -2
+    args = convert.kernel_inputs_from_numpy(qs, ts, allow, ns, ms, pm, cuda)
+    _score_instance_equals_plain(mode, 64, n_pad, *args)
 
 
-@pytest.mark.parametrize("mode", ["global", "local"])
+@pytest.mark.parametrize("mode", SCORE_INSTANCES)
 def test_affine_score_instance_on_ties_equals_plain(cuda, mode):
     """tests/ptr_ties.py's pairs (maxima on both sides of strip and warp
-    edges, end cells past them): the once-reduced latch gives the plain
-    version's score."""
-    qs, ts, _, ns, ms, pm = convert.kernel_inputs_from_numpy(
-        *ptr_ties.tie_inputs(3), ptr_ties.pmat(mode), cuda)
-    _affine_equals_plain(mode, ptr_ties.M_PAD, ptr_ties.N_PAD, qs, ts, ns,
-                         ms, pm)
+    edges, end cells past them, overlap's zero pair): the once-reduced
+    value gives the plain version's score."""
+    args = convert.kernel_inputs_from_numpy(
+        *ptr_ties.tie_inputs(3), ptr_ties.pmat(mode.split("+")[0]), cuda)
+    _score_instance_equals_plain(mode, ptr_ties.M_PAD, ptr_ties.N_PAD, *args)
 
 
 def test_affine_score_entry_refuses_a_shape_it_lacks(cuda):
     """No instance, no launch: an n_pad off the 16-column grid through the
-    wrapper, and a strip width or CTA the entry has no instance for."""
+    wrappers, and a strip width, CTA, mode or jump the entry has no
+    instance for."""
     arrs = _flat_inputs(103, B=3, m_pad=8, n_pad=136)
-    qs, ts, _, ns, ms, pm = convert.kernel_inputs_from_numpy(*arrs, cuda)
-    with pytest.raises(RuntimeError, match="affine fill kernel launch"):
-        scan.scores("local", 8, 136, qs, ts, ns, ms, pm)
+    qs, ts, allow, ns, ms, pm = convert.kernel_inputs_from_numpy(*arrs, cuda)
+    for mode in ("global", "local", "overlap"):
+        with pytest.raises(RuntimeError, match="score fill kernel launch"):
+            scan.scores(mode, 8, 136, qs, ts, ns, ms, pm)
+    for jump in (False, True):
+        with pytest.raises(RuntimeError, match="score fill kernel launch"):
+            scan.fit_scores(jump, 8, 136, qs, ts, allow, ns, ms, pm)
     out = torch.empty(3, device=cuda)
     stream = torch.cuda.current_stream().cuda_stream
-    for threads, width in ((32, 8), (1024, 16), (48, 16)):
-        err = scan._kernels().at_affine_scores(
-            1, qs.data_ptr(), ts.data_ptr(), ns.data_ptr(), ms.data_ptr(),
-            pm.data_ptr(), out.data_ptr(), 3, 8, 128, threads, width, stream)
-        assert err != 0, (threads, width)
+    for mode, jump, threads, width in (
+            (1, 0, 32, 8), (1, 0, 1024, 16), (1, 0, 48, 16), (2, 1, 32, 8),
+            (3, 0, 1024, 16), (0, 1, 32, 16), (3, 1, 32, 16), (4, 0, 32, 16),
+            (-1, 0, 32, 16)):
+        err = scan._kernels().at_score_fill(
+            mode, jump, qs.data_ptr(), ts.data_ptr(), allow.data_ptr(),
+            ns.data_ptr(), ms.data_ptr(), pm.data_ptr(), out.data_ptr(), 3, 8,
+            128, threads, width, stream)
+        assert err != 0, (mode, jump, threads, width)
 
 
 @pytest.mark.parametrize("n_pad", [ptr.FLAT_REG_MAX_N_PAD + 128, 32768])
-@pytest.mark.parametrize("mode", ["global", "local"])
+@pytest.mark.parametrize("mode", SCORE_INSTANCES)
 def test_wide_scores_route_to_the_blocked_fill(cuda, mode, n_pad):
-    """Past the cap scan.scores runs the blocked score fill at
+    """Past the cap scan.scores / fit_scores run the blocked score fill at
     blocked.C_BLK with a ragged last block (8,320) or whole blocks
     (32,768): the flat plain version's scores."""
     arrs = _flat_inputs(101, B=6, m_pad=64, n_pad=n_pad)
-    qs, ts, _, ns, ms, pm = convert.kernel_inputs_from_numpy(*arrs, cuda)
+    qs, ts, allow, ns, ms, pm = convert.kernel_inputs_from_numpy(*arrs, cuda)
+    base, jump = mode.split("+")[0], mode.endswith("+jump")
     before = dict(blocked.launches), dict(scan.launches)
-    got = scan.scores(mode, 64, n_pad, qs, ts, ns, ms, pm)
+    if base == "fit":
+        got = scan.fit_scores(jump, 64, n_pad, qs, ts, allow, ns, ms, pm)
+        plain = scan.fit_scores_plain(jump, 64, n_pad, qs, ts, allow, ns, ms,
+                                      pm)
+    else:
+        got = scan.scores(base, 64, n_pad, qs, ts, ns, ms, pm)
+        plain = scan.scores_plain(base, 64, n_pad, qs, ts, ns, ms, pm)
     torch.cuda.synchronize()
     assert blocked.launches["blocked_scores"] == (
         before[0]["blocked_scores"] + 1)
     assert scan.launches == before[1]
-    assert torch.equal(got, scan.scores_plain(mode, 64, n_pad, qs, ts, ns,
-                                              ms, pm))
+    assert torch.equal(got, plain)
 
 
 PTR_CASES = [

@@ -129,7 +129,7 @@ def test_launch_shape_covers_the_row(n_pad):
 def _wide_inputs(seed, n_pad, B=8, m_pad=16):
     """Ragged pairs over n_pad columns (pair 0 the full width, pair 1 one
     column past FLAT_REG_MAX_N_PAD where n_pad allows), in the sentinel
-    layout."""
+    layout, with fit's allow mask."""
     rng = np.random.default_rng(seed)
     alpha = np.frombuffer(b"ACGT", dtype=np.uint8).astype(np.int32)
     ms = rng.integers(1, m_pad + 1, B).astype(np.int32)
@@ -140,73 +140,124 @@ def _wide_inputs(seed, n_pad, B=8, m_pad=16):
     ts = rng.choice(alpha, (B, n_pad))
     qs[np.arange(m_pad)[None, :] >= ms[:, None]] = -1
     ts[np.arange(n_pad)[None, :] >= ns[:, None]] = -2
-    return qs, ts, ns[:, None], ms[:, None]
+    allow = (rng.random((B, n_pad)) > 0.1).astype(np.float32)
+    return qs, ts, ns[:, None], ms[:, None], allow
+
+
+def _port_scores(variant, m_pad, n_pad, tq, tt, ta, tn, tm, tp):
+    """``variant``'s scores through the port's route (scan.scores, or
+    scan.fit_scores for fit and fit+jump)."""
+    mode, jump = variant.split("+")[0], variant.endswith("+jump")
+    if mode == "fit":
+        return scan.fit_scores(jump, m_pad, n_pad, tq, tt, ta, tn, tm, tp)
+    return scan.scores(mode, m_pad, n_pad, tq, tt, tn, tm, tp)
+
+
+def _pallas_scores(variant, m_pad, n_pad, qs, ts, allow, ns, ms, pm):
+    """``variant``'s scores from the JAX Pallas kernels (interpret mode)."""
+    mode, jump = variant.split("+")[0], variant.endswith("+jump")
+    if mode == "fit":
+        return np.asarray(ps.pallas_fit_scores(
+            jump, m_pad, n_pad, True,
+            *(jnp.asarray(a) for a in (qs, ts, allow, ns, ms, pm))))
+    return np.asarray(ps.pallas_scores(
+        mode, m_pad, n_pad, True,
+        *(jnp.asarray(a) for a in (qs, ts, ns, ms, pm))))
 
 
 @pytest.mark.parametrize("n_pad", [8192, 8320, 16384])
-@pytest.mark.parametrize("mode", ["global", "local"])
+@pytest.mark.parametrize("mode", ["global", "local", "overlap", "fit",
+                                  "fit+jump"])
 def test_wide_scores_through_the_route_match_pallas(mode, n_pad):
-    """Global / local scores at the register-strip kernel's cap and past it
-    (8,320: a ragged last column block; 16,384) through ``scan.scores``'s
-    route equal the JAX Pallas kernel's (interpret mode): the flat plain
-    version up to the cap, the blocked fill's past it."""
-    qs, ts, ns, ms = _wide_inputs(23, n_pad)
+    """Global, local, overlap, fit and fit+jump scores at the register-strip
+    kernel's cap and past it (8,320: a ragged last column block; 16,384)
+    through the port's route equal the JAX Pallas kernel's (interpret
+    mode): the flat plain version up to the cap, the blocked fill's past
+    it."""
+    qs, ts, ns, ms, allow = _wide_inputs(23, n_pad)
     pm = _pmat(AlignParams())
     m_pad = qs.shape[1]
-    want = np.asarray(ps.pallas_scores(
-        mode, m_pad, n_pad, True, *(jnp.asarray(a) for a in (qs, ts, ns, ms,
-                                                               pm))))
-    args = convert.kernel_inputs_from_numpy(qs, ts, None, ns, ms, pm, "cpu")
-    tq, tt, _, tn, tm, tp = args
+    want = _pallas_scores(mode, m_pad, n_pad, qs, ts, allow, ns, ms, pm)
+    args = convert.kernel_inputs_from_numpy(qs, ts, allow, ns, ms, pm, "cpu")
     scan.reset_counts()
     blocked.reset_counts()
-    got = scan.scores(mode, m_pad, n_pad, tq, tt, tn, tm, tp).numpy()
+    got = _port_scores(mode, m_pad, n_pad, *args).numpy()
     wide = n_pad > ptr.FLAT_REG_MAX_N_PAD
     assert (blocked.plain_calls, scan.plain_calls) == (
-        (1, 1) if wide else (0, 1))  # the blocked entry runs scores_plain
+        (1, 1) if wide else (0, 1))  # the blocked entry runs the plain fill
     assert np.array_equal(got, want)
     scan.reset_counts()
     blocked.reset_counts()
 
 
+@pytest.mark.parametrize("mode", ["overlap", "fit", "fit+jump"])
+@pytest.mark.parametrize("edge", ["m0", "n1"])
+def test_scores_of_an_empty_query_or_a_one_column_target_match_pallas(
+        mode, edge):
+    """m = 0 (overlap's score is 0, fit's -inf) and n = 1 (no column <=
+    n-1: overlap 0, fit -inf) beside ordinary pairs, through scan.scores /
+    fit_scores on the CPU, equal the JAX Pallas kernel's."""
+    qs, ts, allow, ns, ms = _inputs(41, fit=True)
+    for k in (1, 2):
+        if edge == "m0":
+            ms[k, 0] = 0
+            qs[k, :] = -1
+        else:
+            ns[k, 0] = 1
+            ts[k, 1:] = -2
+    pm = _pmat(PARAMS["posmis"])
+    want = _pallas_scores(mode, M_PAD, N_PAD, qs, ts, allow, ns, ms, pm)
+    args = convert.kernel_inputs_from_numpy(qs, ts, allow, ns, ms, pm, "cpu")
+    got = _port_scores(mode, M_PAD, N_PAD, *args).numpy()
+    assert np.array_equal(got, want)
+    assert np.array_equal(got[1:3], [0.0, 0.0] if mode == "overlap"
+                          else [-np.inf, -np.inf])
+
+
 def test_scores_route_picks_flat_or_blocked_at_the_cap():
-    """Global and local go to the blocked fill one bucket past
-    FLAT_REG_MAX_N_PAD, at blocked.C_BLK (ragged there); overlap and edit
-    keep their flat kernels there."""
+    """Global, local, overlap and fit go to the blocked fill one bucket past
+    FLAT_REG_MAX_N_PAD, at blocked.C_BLK (ragged there); edit keeps its
+    flat kernel there."""
     cap = ptr.FLAT_REG_MAX_N_PAD
-    for mode in ("global", "local"):
+    for mode in ("global", "local", "overlap", "fit"):
         assert scan.blocked_c_blk(mode, cap) is None
         assert scan.blocked_c_blk(mode, cap + 128) == blocked.C_BLK
+    assert scan.blocked_c_blk("edit", cap + 128) is None
     assert (cap + 128) % blocked.C_BLK  # a ragged last block
-    qs, ts, ns, ms = _wide_inputs(29, cap + 128, B=2, m_pad=4)
-    args = convert.kernel_inputs_from_numpy(qs, ts, None, ns, ms,
+    qs, ts, ns, ms, allow = _wide_inputs(29, cap + 128, B=2, m_pad=4)
+    args = convert.kernel_inputs_from_numpy(qs, ts, allow, ns, ms,
                                             _pmat(AlignParams()), "cpu")
-    tq, tt, _, tn, tm, tp = args
-    for mode, blocked_calls in (("global", 1), ("local", 1), ("overlap", 0),
-                                ("edit", 0)):
+    tq, tt, ta, tn, tm, tp = args
+    for mode, blocked_calls in (("global", 1), ("local", 1), ("overlap", 1),
+                                ("fit", 1), ("fit+jump", 1), ("edit", 0)):
         blocked.reset_counts()
-        got = scan.scores(mode, 4, cap + 128, tq, tt, tn, tm, tp)
+        got = _port_scores(mode, 4, cap + 128, *args)
         assert blocked.plain_calls == blocked_calls, mode
-        assert torch.equal(got, scan.scores_plain(mode, 4, cap + 128, tq, tt,
-                                                  tn, tm, tp))
+        if mode.startswith("fit"):
+            want = scan.fit_scores_plain(mode == "fit+jump", 4, cap + 128, tq,
+                                         tt, ta, tn, tm, tp)
+        else:
+            want = scan.scores_plain(mode, 4, cap + 128, tq, tt, tn, tm, tp)
+        assert torch.equal(got, want), mode
     blocked.reset_counts()
     scan.reset_counts()
 
 
 @pytest.mark.parametrize("mode", ["overlap", "edit", "fit", "fit+jump"])
 def test_scores_route_past_the_flat_ceiling(mode):
-    """Overlap, edit and fit keep their flat kernels up to FLAT_MAX_N_PAD
-    (32,768) columns and go to the blocked fill one bucket past it, through
-    ``scan.scores`` / ``scan.fit_scores`` (the batch path's one route): the
-    scores equal the flat plain version's. Fit without the jump takes no
-    allow mask on either side of the ceiling."""
+    """Edit keeps its flat kernel up to FLAT_MAX_N_PAD (32,768) columns and
+    goes to the blocked fill one bucket past it; overlap and fit go there
+    at either width (past FLAT_REG_MAX_N_PAD), through ``scan.scores`` /
+    ``scan.fit_scores`` (the batch path's one route): the scores equal the
+    flat plain version's. Fit without the jump takes no allow mask on
+    either side of the ceiling."""
     cap = scan.FLAT_MAX_N_PAD
     base, jump = mode.split("+")[0], mode.endswith("+jump")
-    assert scan.blocked_c_blk(base, cap) is None
     assert scan.blocked_c_blk(base, cap + 128) == blocked.C_BLK
+    assert (scan.blocked_c_blk(base, cap) is None) == (base == "edit")
     rng = np.random.default_rng(31)
-    for n_pad, blocked_calls in ((cap, 0), (cap + 128, 1)):
-        qs, ts, ns, ms = _wide_inputs(37, n_pad, B=2, m_pad=4)
+    for n_pad in (cap, cap + 128):
+        qs, ts, ns, ms, _ = _wide_inputs(37, n_pad, B=2, m_pad=4)
         ns[1] = n_pad - 3
         allow = (rng.random((2, n_pad)) > 0.1).astype(np.float32)
         args = convert.kernel_inputs_from_numpy(qs, ts, allow, ns, ms,
@@ -222,7 +273,8 @@ def test_scores_route_past_the_flat_ceiling(mode):
         else:
             got = scan.scores(base, 4, n_pad, tq, tt, tn, tm, tp)
             want = scan.scores_plain(base, 4, n_pad, tq, tt, tn, tm, tp)
-        assert blocked.plain_calls == blocked_calls, n_pad
+        wide = base != "edit" or n_pad > cap
+        assert blocked.plain_calls == int(wide), n_pad
         assert torch.equal(got, want), n_pad
     blocked.reset_counts()
     scan.reset_counts()

@@ -46,18 +46,20 @@ from aligntools_tpu_torch.convert import params_matrix
 from aligntools_tpu_torch.engine import device_tb
 from aligntools_tpu_torch.exact import check_f32_exact
 from aligntools_tpu_torch.ops.ptr import ptr_fill
-from aligntools_tpu_torch.ops.scan import FLAT_MAX_N_PAD, fit_scores, scores
+from aligntools_tpu_torch.ops.scan import fit_scores, scores
 from aligntools_tpu_torch.params import AlignParams, AlignResult
 
 NEG = float("-inf")
 
 # copied from aligntools_tpu/engine/select.py (that package imports jax):
-# targets past PALLAS_FLAT_MAX_N_PAD columns go to the column-blocked fills
-# (select.use_blocked; here ops/scan.blocked_c_blk), and their n_pad snaps
-# to BLOCKED_C_BLK multiples, so the bucket keys are the JAX package's. The
-# snap is part of that key parity; the CUDA kernels' own column block
-# (blocked.C_BLK) divides it.
-PALLAS_FLAT_MAX_N_PAD = FLAT_MAX_N_PAD
+# there, targets past PALLAS_FLAT_MAX_N_PAD columns go to the column-blocked
+# fills (select.use_blocked), and their n_pad snaps to BLOCKED_C_BLK
+# multiples. Here the snap alone is kept, so that the bucket keys, on
+# which the TSV's byte parity with `aligntools batch` rests, are the JAX
+# package's. It is no kernel's cap: the port's fills route by their own
+# (ops/scan.blocked_c_blk, ops/ptr.blocked_c_blk), and the CUDA kernels'
+# column block (blocked.C_BLK) divides BLOCKED_C_BLK.
+PALLAS_FLAT_MAX_N_PAD = 32768
 BLOCKED_C_BLK = 16384
 
 

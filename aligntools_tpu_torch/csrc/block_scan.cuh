@@ -1,5 +1,5 @@
 // Block-wide scans, reductions and the byte-row store shared by the DP fills
-// (scan_fill.cu, blocked_fill.cu, banded_fill.cu). Each fill
+// (blocked_fill.cu, banded_fill.cu). Each fill
 // runs one CTA per pair (the blocked fills one per pair and column block)
 // and needs, once per row, the exclusive prefix of its threads' strip
 // reductions (the in-row chain) and block-wide maxima / minima (start info).

@@ -1,6 +1,7 @@
-// Column-blocked DP fills for Hopper (sm_90a): targets past the flat fills'
-// 32,768 columns, cut into c_blk-wide column blocks that run as a wavefront,
-// one CTA per (pair, column block).
+// Column-blocked DP fills for Hopper (sm_90a): targets past the flat
+// register-strip fills' widest (ops/scan.blocked_c_blk, ops/ptr.blocked_c_blk:
+// 8,192 columns; 16,384 for edit's score fill), cut into c_blk-wide column
+// blocks that run as a wavefront, one CTA per (pair, column block).
 //
 // Replaces ops/pallas_blocked.py:
 //   :48 _blocked_affine_kernel (entry blocked_scores): the score fill of
@@ -9,8 +10,8 @@
 //   :375 _blocked_ptr_kernel (entry blocked_ptr_fill): the fill with packed
 //     pointers and traceback-start info for global, local, fit(+jump) and
 //     overlap, rpb DP rows per byte (1, 2, or 4 for overlap).
-// Both compute exactly the flat fills' function (csrc/ptr_fill.cu,
-// csrc/scan_fill.cu; the plain versions ops/scan.py and ops/ptr.py): the same
+// Both compute exactly the flat fills' function (csrc/ptr_fill.cu; the
+// plain versions ops/scan.py and ops/ptr.py): the same
 // scores, start info and pointer bytes, pad rows and pad columns included.
 //
 // Design. The grid holds one CTA for each (pair, column block). Inside its

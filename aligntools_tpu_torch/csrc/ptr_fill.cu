@@ -1,7 +1,8 @@
 // Register-strip DP fills for Hopper (sm_90a): global, local, fit(+jump)
 // and overlap, one CTA per pair. The pointer fill writes every pointer of
 // the (m_pad, n_pad) grid; its score-only instances are the score fills of
-// those modes (Scores, below).
+// those modes, and an int32 min-plus kernel of the same design is edit's
+// (Scores, below).
 //
 // Replaces ops/pallas_ptr.py:_ptr_kernel (entry pallas_ptr_fill). Outputs,
 // per pair: the score, the traceback-start info a/b and the packed pointer
@@ -72,15 +73,22 @@
 // (0, 0) diagonal border 0, as the score fill has it). Fit keeps the U and
 // J chains and the entry gate from allow; its (0, 0) border is D = 0 at
 // i = 1 and -inf after, which the pointer fill already has. Overlap takes
-// row m's maximum after the last row, from the strip's registers. ptxas
-// gives the affine score instances 120-128 registers and overlap's 64,
-// none spilling.
+// row m's maximum after the last row, from the strip's registers. The edit
+// score fill (:469 _edit_kernel, the entry's fifth mode) is overlap's
+// one-chain shape in int32 min-plus, edit_score_kernel: two words a column
+// (the char and M), one running minimum a row in pass 1 and a pass 2 of
+// independent cells, so it may run 1,024 threads (16,384 columns) at the
+// 64 registers that leaves a thread: up to there it beats the blocked
+// fill on the H100 (PERF.md). ptxas gives the affine score instances
+// 120-128 registers, overlap's 64 and edit's 61, none spilling.
 //
 // Exactness: values are integer-valued f32 below 2^24 with true -inf
 // borders, built with --fmad=false and no fast math; each pointer is a
 // comparison of such values in the Pallas code's own argument order, and
-// the chains' terms are the plain version's own sums.
+// the chains' terms are the plain version's own sums. Edit distances are
+// int32, whose adds and minima are exact in any order.
 
+#include <climits>
 #include <cmath>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -90,12 +98,15 @@ namespace {
 constexpr float NEG = -INFINITY;
 constexpr int BIG = 1 << 30;
 constexpr int GLOBAL = 0, LOCAL = 1, FIT = 2, OVERLAP = 3;
+constexpr int EDIT = 4;  // a score fill alone: the pointer fill has no edit
 constexpr unsigned FULL = 0xffffffffu;
 
 // The strip width the kernels are instantiated at, and the most threads a
 // CTA runs, which sets the registers ptxas may give a thread (65,536 / 512).
 constexpr int kWidth = 16;
 constexpr int kMaxThreads = 512;
+// the edit score fill's most threads (65,536 / 1,024 = 64 registers)
+constexpr int kEditMaxThreads = 1024;
 
 // A start-info candidate: the value, its row and its column.
 struct Cand {
@@ -160,6 +171,20 @@ __device__ __forceinline__ float warp_incl_max(float x) {
 __device__ __forceinline__ float warps_incl_max(const float* agg, int lane, int nw) {
   float y = lane < nw ? agg[lane] : NEG;
   for (int d = 1; d < nw; d <<= 1) y = fmaxf(y, __shfl_up_sync(FULL, y, d));
+  return y;
+}
+
+// Inclusive min over the warp's lanes (lanes below d read their own value).
+__device__ __forceinline__ int warp_incl_min(int x) {
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) x = min(x, __shfl_up_sync(FULL, x, d));
+  return x;
+}
+
+// Inclusive min over the aggregates of warps 0..lane, in every warp.
+__device__ __forceinline__ int warps_incl_min(const int* agg, int lane, int nw) {
+  int y = lane < nw ? agg[lane] : INT_MAX;
+  for (int d = 1; d < nw; d <<= 1) y = min(y, __shfl_up_sync(FULL, y, d));
   return y;
 }
 
@@ -611,6 +636,75 @@ ptr_overlap_kernel(const int* __restrict__ qs, const int* __restrict__ ts,
   }
 }
 
+// edit distance (alignment.h:291-315), score only (ops/pallas_scan.py:469
+// _edit_kernel): min-plus in int32, indel cost 1, substitution cost 0 or
+// u = (int)params[1]. M(i, j) = min(c(j), M(i, j-1) + 1) with c(j) =
+// min(M(i-1, j-1) + sub, M(i-1, j) + 1), so M(i, j) - j is the running
+// minimum of c - j over the row, seeded by M(i, 0) - 0 = i. Pass 1 leaves
+// the strip's running minimum of c - j in place of M (one dependent min a
+// column); the warp scan, the row's one barrier and the warps' scan give
+// the exclusive prefix from the left; pass 2 is one min and one add a
+// column, independent of each other. The diagonal across the strip's left
+// edge, M(i-1, j0-1), is the prefix plus j0-1 (i-1 for thread 0). The rows
+// stop at m; the thread that owns column n writes M(m, n), 0 at m = 0 (the
+// Pallas kernel's latch), and thread 0 writes INT_MAX at n = 0.
+template <int W>
+__global__ void __launch_bounds__(kEditMaxThreads)
+edit_score_kernel(const int* __restrict__ qs, const int* __restrict__ ts,
+                  const int* __restrict__ ns, const int* __restrict__ ms,
+                  const float* __restrict__ params, int* __restrict__ score_out, int m_pad,
+                  int n_pad) {
+  __shared__ int s_agg[2][32];
+  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nw = blockDim.x >> 5;
+  const int m = min(max(ms[b], 0), m_pad);
+  const int j0 = 1 + tid * W;
+  const int u = (int)params[1];
+  const int* q = qs + (size_t)b * m_pad;
+  int tc[W];
+  load_chars<W>(ts + (size_t)b * n_pad + (size_t)tid * W, tid * W < n_pad, tc);
+  int M[W];  // the previous row's M; between the passes, the running minimum
+#pragma unroll
+  for (int k = 0; k < W; ++k) M[k] = j0 + k;  // M(0, j) = j
+  int mleft = j0 - 1;                           // M(i-1, j0-1)
+  int qn = m > 0 ? q[0] : 0;
+  for (int i = 1; i <= m; ++i) {
+    const int p = i & 1, qc = qn;
+    if (i < m) qn = q[i];
+    // pass 1: c - j and the strip's running minimum of it
+    int dM = mleft, run = INT_MAX;
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      const int sub = tc[k] == qc ? 0 : u;
+      run = min(run, min(dM + sub, M[k] + 1) - (j0 + k));
+      dM = M[k];
+      M[k] = run;
+    }
+    const int in = warp_incl_min(run), below = __shfl_up_sync(FULL, in, 1);
+    if (lane == 31) s_agg[p][warp] = in;
+    __syncthreads();  // the row's one barrier
+    const int y = warps_incl_min(s_agg[p], lane, nw);
+    const int pw = __shfl_sync(FULL, y, max(warp - 1, 0));
+    int pre = min(i, warp > 0 ? pw : INT_MAX);  // M(i, 0) - 0 = i seeds the chain
+    if (lane > 0) pre = min(pre, below);
+    // pass 2: M(i, j) = min(the prefix, the strip's running minimum) + j
+    mleft = pre + (j0 - 1);
+#pragma unroll
+    for (int k = 0; k < W; ++k) M[k] = min(pre, M[k]) + (j0 + k);
+  }
+  // n is read only here, so that no value of the result stays live across
+  // the rows
+  const int n = min(max(ns[b], 0), n_pad), kn = n - j0 + 1;
+  if (n == 0 && tid == 0) score_out[b] = INT_MAX;
+  if (kn >= 1 && kn <= W) {
+    int r = 0;  // M(0, n)'s latch value, the result at m = 0
+#pragma unroll
+    for (int k = 0; k < W; ++k)
+      if (m > 0 && k == kn - 1) r = M[k];
+    score_out[b] = r;
+  }
+}
+
 template <int W, bool PTRS>
 void launch_width(int mode, bool jump, int B, int threads, cudaStream_t stream, const int* qs,
                   const int* ts, const float* allow, const int* ns, const int* ms,
@@ -634,30 +728,37 @@ void launch_width(int mode, bool jump, int B, int threads, cudaStream_t stream, 
 }
 
 // The launch shapes the entries take: `width` the strip width W (16),
-// `threads` a multiple of 32 up to 512, threads * W >= n_pad, n_pad a
-// multiple of 16; and the mode 0 global, 1 local, 2 fit, 3 overlap, with
-// the jump only for fit.
+// `threads` a multiple of 32 up to 512 (1,024 for edit), threads * W >=
+// n_pad, n_pad a multiple of 16; and the mode 0 global, 1 local, 2 fit, 3
+// overlap, 4 edit, with the jump only for fit.
 bool bad_launch(int mode, int use_jump, int B, int n_pad, int threads, int width) {
-  return width != kWidth || B < 0 || threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
+  const int most = mode == EDIT ? kEditMaxThreads : kMaxThreads;
+  return width != kWidth || B < 0 || threads < 32 || threads > most || threads % 32 != 0 ||
          (long long)threads * width < n_pad || n_pad <= 0 || n_pad % 16 != 0 || mode < GLOBAL ||
-         mode > OVERLAP || (use_jump && mode != FIT);
+         mode > EDIT || (use_jump && mode != FIT);
 }
 
 }  // namespace
 
-// C entry point of the score fills (global, local, fit(+jump), overlap),
-// bound with ctypes: launches the mode's score-only instance on `stream`
-// without synchronising and returns the launch's error code. `allow` is
-// read with the jump alone; ts 16-byte aligned.
+// C entry point of the score fills (global, local, fit(+jump), overlap,
+// edit), bound with ctypes: launches the mode's score-only instance on
+// `stream` without synchronising and returns the launch's error code.
+// `score` is (B,) float32, int32 for edit; `allow` is read with the jump
+// alone; ts 16-byte aligned.
 extern "C" cudaError_t at_score_fill(int mode, int use_jump, const int* qs, const int* ts,
                                      const float* allow, const int* ns, const int* ms,
-                                     const float* params, float* score, int B, int m_pad,
+                                     const float* params, void* score, int B, int m_pad,
                                      int n_pad, int threads, int width, cudaStream_t stream) {
   if (bad_launch(mode, use_jump, B, n_pad, threads, width) || m_pad < 0)
     return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
-  launch_width<kWidth, false>(mode, use_jump != 0, B, threads, stream, qs, ts, allow, ns, ms,
-                              params, score, nullptr, nullptr, nullptr, m_pad, n_pad, 1);
+  if (mode == EDIT)
+    edit_score_kernel<kWidth><<<B, threads, 0, stream>>>(qs, ts, ns, ms, params,
+                                                         static_cast<int*>(score), m_pad, n_pad);
+  else
+    launch_width<kWidth, false>(mode, use_jump != 0, B, threads, stream, qs, ts, allow, ns, ms,
+                                params, static_cast<float*>(score), nullptr, nullptr, nullptr,
+                                m_pad, n_pad, 1);
   return cudaGetLastError();
 }
 
@@ -670,7 +771,7 @@ extern "C" cudaError_t at_ptr_fill(int mode, int use_jump, int rpb, const int* q
                                    const int* ms, const float* params, float* score, int* a,
                                    int* b, uint8_t* ptrs, int B, int m_pad, int n_pad,
                                    int threads, int width, cudaStream_t stream) {
-  const bool bad_layout = (rpb != 1 && rpb != 2 && rpb != 4) || m_pad <= 0 ||
+  const bool bad_layout = mode == EDIT || (rpb != 1 && rpb != 2 && rpb != 4) || m_pad <= 0 ||
                           m_pad % rpb != 0 || (rpb > 1 && use_jump) ||
                           (rpb == 4 && mode != OVERLAP);
   if (bad_launch(mode, use_jump, B, n_pad, threads, width) || bad_layout)

@@ -54,11 +54,11 @@ import torch
 
 from aligntools_tpu_torch import layout as L
 from aligntools_tpu_torch.ops.scan import check_tensors
+from aligntools_tpu_torch.params import MODES
 
 NEG = float("-inf")
 POS = float("inf")
 BIG = 1 << 30  # the start column when no column qualifies
-SCORE_MODES = ("global", "local", "fit", "overlap", "edit")
 PTR_MODES = ("global", "local", "fit", "overlap")
 MAX_LANES = 16384  # the widest window the kernel takes: W <= 8191
 # the warp path's strips (lanes a thread: a warp holds V <= 32 * S lanes),
@@ -362,7 +362,7 @@ def _launch(mode, emit, band, qs, te, ns, ms, params, shape=None):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _kernel()(
-            SCORE_MODES.index(mode), int(emit), qs.data_ptr(), te.data_ptr(),
+            MODES.index(mode), int(emit), qs.data_ptr(), te.data_ptr(),
             ns.data_ptr(), ms.data_ptr(), params.data_ptr(), best.data_ptr(),
             edge.data_ptr(), a.data_ptr(), b.data_ptr(),
             ptrs.data_ptr() if emit else 0, B, m_pad, te.shape[1], band,
@@ -377,7 +377,7 @@ def _launch(mode, emit, band, qs, te, ns, ms, params, shape=None):
 def banded_scores(mode, band, qs, te, ns, ms, params):
     """Score-only banded fill for all five modes; returns (best, edge), (B,)
     float32 each (the counterpart of ``banded_pallas_scores``)."""
-    _check(mode, SCORE_MODES, band, qs, te, ns, ms, params)
+    _check(mode, MODES, band, qs, te, ns, ms, params)
     if qs.device.type == "cpu":
         return banded_scores_plain(mode, band, qs, te, ns, ms, params)
     return _launch(mode, False, band, qs, te, ns, ms, params)[:2]

@@ -12,8 +12,8 @@ the column block ``c_blk``) and outputs:
                     byte written
 
 Both also take flat buckets too wide for the register-strip kernels
-(``ptr.ptr_fill`` and, for every mode but edit, ``scan.scores`` /
-``scan.fit_scores`` hand them over), whose n_pad, a multiple of 128, a c_blk need not divide: the last
+(``ptr.ptr_fill``, ``scan.scores`` and ``scan.fit_scores`` hand them
+over), whose n_pad, a multiple of 128, a c_blk need not divide: the last
 column block is then narrower (ragged). The JAX entries need ``n_pad %
 c_blk == 0``; the results do not depend on c_blk either way.
 
@@ -38,6 +38,7 @@ import ctypes
 import torch
 
 from aligntools_tpu_torch.ops import ptr, scan
+from aligntools_tpu_torch.params import MODES
 
 # the kernels' column block on the H100 (a divisor of batch.BLOCKED_C_BLK):
 # the fastest of 8,192, 4,096 and 2,048 on the reference fixture's shape,
@@ -49,7 +50,7 @@ C_BLK = 2048
 # the widest column block whose row state and pointer staging fit one CTA's
 # shared memory (fit+jump's pointer fill: 26 bytes a column, 216 KiB at 8192)
 C_BLK_MAX = 8192
-SCORE_MODES = ("global", "local", "fit", "overlap", "edit")
+STRIP = 8  # block columns per thread the launch shape aims for
 
 # launches of each kernel through its wrapper, and wrapper calls that ran
 # the plain versions (on a CPU tensor)
@@ -62,6 +63,13 @@ def reset_counts() -> None:
     for k in launches:
         launches[k] = 0
     plain_calls = 0
+
+
+def launch_shape(c_blk: int) -> tuple[int, int]:
+    """(threads per CTA, strip slots per thread) of a column block of
+    c_blk columns."""
+    threads = min(1024, max(32, -(-c_blk // (32 * STRIP)) * 32))
+    return threads, -(-c_blk // threads)
 
 
 def _check_blocks(n_pad, c_blk):
@@ -154,7 +162,7 @@ def blocked_scores(mode, use_jump, m_pad, n_pad, c_blk, qs, ts, allow, ns,
     entry and may be None without ``use_jump``. The last column block may
     be ragged. Returns (B,) float32, int32 for edit."""
     global plain_calls
-    if mode not in SCORE_MODES:
+    if mode not in MODES:
         raise ValueError(f"unknown score mode {mode!r}")
     if use_jump and (mode != "fit" or allow is None):
         raise ValueError("the jump state exists in fit mode only, and needs "
@@ -170,12 +178,12 @@ def blocked_scores(mode, use_jump, m_pad, n_pad, c_blk, qs, ts, allow, ns,
     B, dev = qs.shape[0], qs.device
     out = torch.empty(B, dtype=torch.int32 if mode == "edit"
                       else torch.float32, device=dev)
-    threads, wmax = scan.launch_shape(c_blk)
+    threads, wmax = launch_shape(c_blk)
     nblk = -(-n_pad // c_blk)
     scratch = _scratch(B, nblk, m_pad, dev)
     _check_scratch(*scratch, B, nblk, m_pad)
     _launch("blocked_scores", _kernels()[0], (
-        SCORE_MODES.index(mode), int(bool(use_jump)), qs.data_ptr(),
+        MODES.index(mode), int(bool(use_jump)), qs.data_ptr(),
         ts.data_ptr(), 0 if allow is None else allow.data_ptr(),
         ns.data_ptr(), ms.data_ptr(), params.data_ptr(), out.data_ptr(),
         *(x.data_ptr() for x in scratch), B, m_pad, n_pad, c_blk, threads,
@@ -207,7 +215,7 @@ def blocked_ptr_fill(mode, use_jump, m_pad, n_pad, c_blk, qs, ts, allow, ns,
     b = torch.empty(B, dtype=torch.int32, device=dev)
     ptrs = torch.empty((B, m_pad // rpb, n_pad), dtype=torch.uint8,
                        device=dev)
-    threads, wmax = scan.launch_shape(c_blk)
+    threads, wmax = launch_shape(c_blk)
     nblk = -(-n_pad // c_blk)
     scratch = _scratch(B, nblk, m_pad, dev)
     _check_scratch(*scratch, B, nblk, m_pad)

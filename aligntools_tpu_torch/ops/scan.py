@@ -10,12 +10,12 @@ points' argument layout:
   params  (1, 8) float32 [match, mismatch, gap_open, gap_extend, jump, 0, 0, 0]
 
 ``scores`` / ``fit_scores`` return (B,) float32 scores (int32 for edit).
-On a CUDA tensor they launch the hand-written kernels or raise: global,
-local, fit(+jump) and overlap the score-only instances of
-``csrc/ptr_fill.cu``'s register-strip kernels (one CTA per pair,
-``ptr.launch_shape``; entry ``at_score_fill``) up to
-``ptr.FLAT_REG_MAX_N_PAD`` columns, edit that of ``csrc/scan_fill.cu``
-(one CTA per pair; see its header) up to ``FLAT_MAX_N_PAD``. Wider targets
+On a CUDA tensor they launch the hand-written kernels or raise: the
+register-strip score fills of ``csrc/ptr_fill.cu`` (one CTA per pair, each
+thread's strip of 16 columns and its row state in registers; entry
+``at_score_fill``): global, local, fit(+jump) and overlap the score-only
+instances of its pointer kernels, edit its int32 min-plus kernel, each up
+to ``flat_cap(mode)`` columns at ``flat_shape(mode, n_pad)``. Wider targets
 go to the blocked score fill (``ops/blocked.py``) at ``blocked.C_BLK``,
 with a ragged last block where it does not divide n_pad, on either device:
 ``blocked_c_blk`` is the one place that picks. On a CPU tensor the wrappers
@@ -35,6 +35,8 @@ import ctypes
 
 import torch
 
+from aligntools_tpu_torch.params import MODES
+
 NEG = float("-inf")
 INT32_MAX = 2**31 - 1
 
@@ -44,13 +46,9 @@ INT32_MAX = 2**31 - 1
 launches = {"affine": 0, "overlap": 0, "edit": 0, "fit": 0}
 plain_calls = 0
 
-# the edit kernel's scratch rows per pair (csrc/scan_fill.cu): state rows +
-# chars
-_EDIT_ROWS = 3
-STRIP = 8  # target columns per thread the launch shape aims for
-# the widest target the edit kernel takes (the JAX package's flat ceiling,
-# engine/select.py's PALLAS_FLAT_MAX_N_PAD)
-FLAT_MAX_N_PAD = 32768
+# the most threads the edit kernel's CTA runs (csrc/ptr_fill.cu
+# kEditMaxThreads): two words a column leave it 64 registers a thread
+EDIT_MAX_THREADS = 1024
 
 
 def reset_counts() -> None:
@@ -60,22 +58,36 @@ def reset_counts() -> None:
     plain_calls = 0
 
 
-def launch_shape(n_pad: int) -> tuple[int, int]:
-    """(threads per CTA, strip slots per thread) of the edit kernel (and
-    the blocked fills' column blocks) for targets up to n_pad."""
-    threads = min(1024, max(32, -(-n_pad // (32 * STRIP)) * 32))
-    return threads, -(-n_pad // threads)
+def flat_cap(mode: str) -> int:
+    """The widest target (n_pad) the register-strip score fill of ``mode``
+    takes: ``ptr.FLAT_REG_MAX_N_PAD``, and for edit, whose CTA may run more
+    threads, EDIT_MAX_THREADS strips."""
+    from aligntools_tpu_torch.ops import ptr
+
+    if mode == "edit":
+        return EDIT_MAX_THREADS * ptr.WIDTH
+    return ptr.FLAT_REG_MAX_N_PAD
+
+
+def flat_shape(mode: str, n_pad: int) -> tuple[int, int]:
+    """(threads per CTA, strip width) of the register-strip score fill of
+    ``mode`` at n_pad: the fewest whole warps of strips that cover it."""
+    from aligntools_tpu_torch.ops import ptr
+
+    cap = flat_cap(mode)
+    if not 0 < n_pad <= cap:
+        raise ValueError(f"n_pad {n_pad} is past the {mode} score fill's "
+                         f"{cap} columns: the blocked fill takes it")
+    return max(32, -(-n_pad // (32 * ptr.WIDTH)) * 32), ptr.WIDTH
 
 
 def blocked_c_blk(mode: str, n_pad: int) -> int | None:
     """The column block at which ``scores`` / ``fit_scores`` hand a target
-    of n_pad columns to the blocked score fill, or None where a flat kernel
-    takes it: global, local, fit and overlap past ``ptr.FLAT_REG_MAX_N_PAD``
-    (the register-strip kernel's widest), edit past ``FLAT_MAX_N_PAD``."""
-    from aligntools_tpu_torch.ops import blocked, ptr
+    of n_pad columns to the blocked score fill, or None where the
+    register-strip fill takes it (up to ``flat_cap(mode)``)."""
+    from aligntools_tpu_torch.ops import blocked
 
-    cap = FLAT_MAX_N_PAD if mode == "edit" else ptr.FLAT_REG_MAX_N_PAD
-    return None if n_pad <= cap else blocked.C_BLK
+    return None if n_pad <= flat_cap(mode) else blocked.C_BLK
 
 
 # ---------------------------------------------------------------------------
@@ -237,11 +249,7 @@ def _kernels():
         # n_pad, threads, width, stream
         lib.at_score_fill.argtypes = [I, I, P, P, P, P, P, P, P, I, I, I, I,
                                       I, P]
-        # qs, ts, ns, ms, params, out, scratch, B, m_pad, n_pad, threads,
-        # wmax, stream
-        lib.at_edit_scores.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, P]
-        for fn in (lib.at_score_fill, lib.at_edit_scores):
-            fn.restype = ctypes.c_int
+        lib.at_score_fill.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -277,21 +285,20 @@ def _check(m_pad, n_pad, qs, ts, ns, ms, params, allow=None):
 
 def _launch_strip(mode, use_jump, m_pad, n_pad, qs, ts, allow, ns, ms,
                   params):
-    """Launch the register-strip score instance of ``mode`` (global, local,
-    fit or overlap; ``allow`` read with the jump alone) on CUDA tensors at
-    ``ptr.launch_shape(n_pad)`` on the current stream (the C entry refuses
-    an n_pad off the 16-column grid); returns (B,) float32."""
-    from aligntools_tpu_torch.ops import ptr
-
-    threads, width = ptr.launch_shape(n_pad)
+    """Launch the register-strip score fill of ``mode`` (``allow`` read
+    with fit's jump alone) on CUDA tensors at ``flat_shape(mode, n_pad)``
+    on the current stream (the C entry refuses an n_pad off the 16-column
+    grid); returns (B,) float32, int32 for edit."""
+    threads, width = flat_shape(mode, n_pad)
     if ts.data_ptr() % 16:
         raise ValueError("ts must be 16-byte aligned (the kernel reads it "
                          "as 16-byte words)")
-    out = torch.empty(qs.shape[0], dtype=torch.float32, device=qs.device)
+    out = torch.empty(qs.shape[0], device=qs.device,
+                      dtype=torch.int32 if mode == "edit" else torch.float32)
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
         err = _kernels().at_score_fill(
-            ptr.MODES.index(mode), int(bool(use_jump)), qs.data_ptr(),
+            MODES.index(mode), int(bool(use_jump)), qs.data_ptr(),
             ts.data_ptr(), allow.data_ptr() if use_jump else None,
             ns.data_ptr(), ms.data_ptr(), params.data_ptr(), out.data_ptr(),
             qs.shape[0], m_pad, n_pad, threads, width, stream)
@@ -302,31 +309,11 @@ def _launch_strip(mode, use_jump, m_pad, n_pad, qs, ts, allow, ns, ms,
     return out
 
 
-def _launch_edit(m_pad, n_pad, qs, ts, ns, ms, params):
-    """Launch the edit kernel on the current stream; raise on a launch
-    error."""
-    B = qs.shape[0]
-    out = torch.empty(B, dtype=torch.int32, device=qs.device)
-    threads, wmax = launch_shape(n_pad)
-    scratch = torch.empty((B, _EDIT_ROWS, threads * wmax),
-                          dtype=torch.float32, device=out.device)
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device).cuda_stream
-        err = _kernels().at_edit_scores(
-            *(x.data_ptr() for x in (qs, ts, ns, ms, params)), out.data_ptr(),
-            scratch.data_ptr(), B, m_pad, n_pad, threads, wmax, stream)
-    if err != 0:
-        raise RuntimeError(f"edit fill kernel launch failed: CUDA error "
-                           f"{err}")
-    launches["edit"] += 1
-    return out
-
-
 def scores(mode, m_pad, n_pad, qs, ts, ns, ms, params):
     """Score-only fill for global / local / overlap / edit (the
     counterpart of ``pallas_scores``). Returns (B,) float32, int32 for
-    edit. Targets past the flat kernels' widest run the blocked score fill
-    at ``blocked_c_blk(mode, n_pad)``."""
+    edit. Targets past ``flat_cap(mode)`` run the blocked score fill at
+    ``blocked_c_blk(mode, n_pad)``."""
     c_blk = blocked_c_blk(mode, n_pad)
     if c_blk:
         from aligntools_tpu_torch.ops import blocked
@@ -336,19 +323,17 @@ def scores(mode, m_pad, n_pad, qs, ts, ns, ms, params):
     _check(m_pad, n_pad, qs, ts, ns, ms, params)
     if qs.device.type == "cpu":
         return scores_plain(mode, m_pad, n_pad, qs, ts, ns, ms, params)
-    if mode in ("global", "local", "overlap"):
+    if mode in ("global", "local", "overlap", "edit"):
         return _launch_strip(mode, False, m_pad, n_pad, qs, ts, None, ns, ms,
                              params)
-    if mode == "edit":
-        return _launch_edit(m_pad, n_pad, qs, ts, ns, ms, params)
     raise ValueError(f"unknown score mode {mode!r}")
 
 
 def fit_scores(use_jump, m_pad, n_pad, qs, ts, allow, ns, ms, params):
     """Fit-mode score fill (the counterpart of ``pallas_fit_scores``).
     Returns (B,) float32. ``allow`` may be None without ``use_jump`` (every
-    column allowed). Targets past ``ptr.FLAT_REG_MAX_N_PAD`` columns run
-    the blocked score fill at ``blocked_c_blk("fit", n_pad)``."""
+    column allowed). Targets past ``flat_cap("fit")`` columns run the
+    blocked score fill at ``blocked_c_blk("fit", n_pad)``."""
     c_blk = blocked_c_blk("fit", n_pad)
     if c_blk:
         from aligntools_tpu_torch.ops import blocked

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import dataclasses
 
+# also the order of the CUDA entries' mode argument (the score fills take
+# all five, the pointer fills the first four)
 MODES = ("global", "local", "fit", "overlap", "edit")
 
 

@@ -29,15 +29,15 @@ Phases, one JSON line each:
            same fill through the blocked kernel at min(n_pad, 8,192)
            columns a block, held against plain and timed (`blocked_ms`);
            each row names its route (`route`: the register-strip score
-           instance, the edit kernel or, past their cap, the blocked one);
-           then the global, local, overlap, fit and fit+jump route across
-           the register-strip instances' cap (`cap`: 4,224 to 8,192 columns
-           flat, 16,384 and 32,768 blocked, each against plain and timed
+           fill or, past its cap, the blocked one); then the global,
+           local, overlap, fit, fit+jump and edit route across the
+           register-strip fills' caps (`cap`: 4,224 to 32,768 columns,
+           flat up to scan.flat_cap(mode), each against plain and timed
            beside the blocked fill at every column block, `c_blk_ms`) and
-           every score instance on the tie inputs of tests/ptr_ties.py
+           every score fill on the tie inputs of tests/ptr_ties.py
            (`ties`);
   ptr      the registers and local (spill) bytes of each instance of
-           csrc/ptr_fill.cu, the score instances included (cuobjdump
+           csrc/ptr_fill.cu, the score fills included (cuobjdump
            --dump-resource-usage); then the
            pointer fill through the rows path's route (ops/ptr.ptr_fill:
            the flat kernel up to ops/ptr.FLAT_REG_MAX_N_PAD columns, else
@@ -96,7 +96,7 @@ Phases, one JSON line each:
            131,072, three junction sites each; enough that the pointer
            budget splits the rows run into two or more waves), rows cold
            and warm and `--scores-only`; `batch global` and `batch local`
-           on its first 16 pairs; `batch local` on the first 2,000
+           on its first 8 pairs; `batch local` on the first 2,000
            clustered pairs plus 32 long ones (flat and blocked buckets in
            one run). The blocked kernels launched, no plain version ran;
            then L3 rows and scores warm again at each column block of the
@@ -188,7 +188,7 @@ KERNELS = {
     "overlap": ("aligntools_tpu/ops/pallas_scan.py:421 _overlap_kernel",
                 "ptr_fill.cu", ("overlap",)),
     "edit": ("aligntools_tpu/ops/pallas_scan.py:469 _edit_kernel",
-             "scan_fill.cu", ("edit",)),
+             "ptr_fill.cu", ("edit",)),
     "fit": ("aligntools_tpu/ops/pallas_scan.py:513 _fit_kernel",
             "ptr_fill.cu", ("fit", "fit+jump")),
     "ptr": ("aligntools_tpu/ops/pallas_ptr.py:85 _ptr_kernel",
@@ -232,7 +232,7 @@ PTR_SHAPES = [
 # <= the flat cap]
 SCORE_CAP_N_PADS = (4224, 6144, 8192, 16384, 32768)
 SCORE_CAP_SHAPE = {True: (128, 512), False: (64, 512)}
-SCORE_CAP_VARIANTS = ("local", "global", "overlap", "fit", "fit+jump")
+SCORE_CAP_VARIANTS = ("local", "global", "overlap", "fit", "fit+jump", "edit")
 # the ptr phase's ragged wide row: (B, m_pad), at n_pad FLAT_REG_MAX_N_PAD +
 # PTR_WIDE_EXTRA, which no column block of the sweep divides; the cap
 # sweep: (B, m_pad, mode, jump, rpb) at each n_pad of PTR_CAP_N_PADS, the
@@ -256,7 +256,7 @@ FLAT_AS_BLOCKED_C_BLK = 8192
 # LONG_SAMPLE_MAX_N (the plain versions on the CPU: ~15 s a pair), plus,
 # for L3 itself, the cheapest pair with a target past LONG_FAR_N
 LONG_PAIRS = 256
-LONG_AFFINE_PAIRS = 16  # L3g / L3l: global and local on the first of them
+LONG_AFFINE_PAIRS = 8  # L3g / L3l: global and local on the first of them
 LONG_SAMPLES = 4
 LONG_POOL = 16
 LONG_SAMPLE_MAX_N = 60000
@@ -715,15 +715,11 @@ def compare(torch, scan, variant, m_pad, n_pad, args, c_blk=None):
 def score_route(scan, variant, n_pad):
     """The route scan.scores / fit_scores take for ``variant`` at n_pad:
     its label."""
-    from aligntools_tpu_torch.ops import ptr
-
     mode = variant.split("+")[0]
     c_blk = scan.blocked_c_blk(mode, n_pad)
     if c_blk:
         return f"blocked c_blk {c_blk}"
-    if mode == "edit":
-        return "flat {0} threads x {1} slots".format(*scan.launch_shape(n_pad))
-    return "flat W {1} x {0} threads".format(*ptr.launch_shape(n_pad))
+    return "flat W {1} x {0} threads".format(*scan.flat_shape(mode, n_pad))
 
 
 def phase_kernels(torch, scan):
@@ -772,14 +768,14 @@ def phase_kernels(torch, scan):
 
 
 def phase_kernels_cap(torch, scan):
-    """The score fills' route across the register-strip kernels' cap: at
+    """The score fills' route across the register-strip kernels' caps: at
     each n_pad of SCORE_CAP_N_PADS, each variant of SCORE_CAP_VARIANTS
-    through the route (scan.scores / fit_scores: the flat instance up to
-    ptr.FLAT_REG_MAX_N_PAD columns, past it the blocked fill at
-    blocked.C_BLK, ragged) against plain, bit for bit, then timed beside
-    the blocked fill at every column block of the sweep up to n_pad (ragged
-    where it does not divide n_pad), each held to the same scores; warm
-    medians of three."""
+    through the route (scan.scores / fit_scores: the flat kernel up to
+    scan.flat_cap(mode) columns, past it the blocked fill at blocked.C_BLK,
+    ragged) against plain, bit for bit, then timed beside the blocked fill
+    at every column block of the sweep up to n_pad (ragged where it does
+    not divide n_pad), each held to the same scores; warm medians of
+    three."""
     from aligntools_tpu_torch.ops import ptr
 
     for n_pad in SCORE_CAP_N_PADS:
@@ -808,7 +804,8 @@ def phase_kernels_cap(torch, scan):
             emit({"phase": "kernels", "cap": label,
                   "route": score_route(scan, variant, n_pad),
                   "route_ms": route_ms, "c_blk_ms": c_blk_ms,
-                  "cap_now": ptr.FLAT_REG_MAX_N_PAD, "true_cells": cells,
+                  "cap_now": scan.flat_cap(variant.split("+")[0]),
+                  "true_cells": cells,
                   "bit_equal": equal, "max_abs_err": err, "tolerance": TOL})
         del args, want
         torch.cuda.empty_cache()
@@ -816,8 +813,10 @@ def phase_kernels_cap(torch, scan):
 
 def phase_kernels_ties(torch, scan):
     """The start-info ties of tests/ptr_ties.py through each score fill of
-    the register-strip kernels (global, local, overlap, fit, fit+jump),
-    against plain."""
+    the register-strip kernels (global, local, overlap, fit, fit+jump,
+    edit), against plain."""
+    import numpy as np
+
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import ptr_ties
 
@@ -825,10 +824,14 @@ def phase_kernels_ties(torch, scan):
 
     arrs = ptr_ties.tie_inputs(SEED)
     m_pad, n_pad = ptr_ties.M_PAD, ptr_ties.N_PAD
-    variants = ("global", "local", "overlap", "fit", "fit+jump")
+    variants = ("global", "local", "overlap", "fit", "fit+jump", "edit")
     for variant in variants:
-        args = kernel_inputs_from_numpy(
-            *arrs, ptr_ties.pmat(variant.split("+")[0]), "cuda")
+        mode = variant.split("+")[0]
+        # edit reads the mismatch alone: a substitution cost of 1 gives the
+        # pairs' edit distances
+        pm = (np.array([[0, 1, 0, 0, 0, 0, 0, 0]], np.float32)
+              if mode == "edit" else ptr_ties.pmat(mode))
+        args = kernel_inputs_from_numpy(*arrs, pm, "cuda")
         equal, err = compare(torch, scan, variant, m_pad, n_pad, args)
         check(equal and err == 0.0,
               f"score fill on the tie inputs, {variant}: kernel != plain")
@@ -936,9 +939,11 @@ def phase_ptr(torch, ptr, tb):
     from aligntools_tpu_torch import layout
     from aligntools_tpu_torch.ops import _build
 
-    # the pointer fill's instances and the score instances (PTRS false)
+    # the pointer fill's instances, the score instances (PTRS false) and
+    # the edit score fill
     emit({"phase": "ptr", "resource_usage": resource_usage(
-        _build.library_path(), ("ptr_affine_kernel", "ptr_overlap_kernel"))})
+        _build.library_path(), ("ptr_affine_kernel", "ptr_overlap_kernel",
+                                "edit_score_kernel"))})
     fills, walks = [], []
     shapes = [(B, m_pad, n_pad, cases,
                kernel_inputs(B, m_pad, n_pad, ragged, SEED, "cuda"))
@@ -1621,7 +1626,7 @@ def long_pairs(P, seed):
 
 
 def phase_long(torch, scan, ptr, tb, work, trace_path):
-    """The main path on long targets (L3, global/local on its first 16, and
+    """The main path on long targets (L3, global/local on its first 8, and
     a mixed flat + blocked local run): the runs, with the counts set to 0
     just before and read just after, then every bucket against plain while
     the CPU runs of the sampled pairs go on."""

@@ -20,7 +20,7 @@ def csrc_copy(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("name", ["block_scan.cuh", "blocked_fill.cu",
-                                  "scan_fill.cu"])
+                                  "ptr_fill.cu"])
 def test_library_path_changes_with_each_file(csrc_copy, name):
     before = _build.library_path()
     with open(csrc_copy / name, "a") as f:

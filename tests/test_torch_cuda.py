@@ -120,10 +120,10 @@ def test_affine_score_instance_on_ties_equals_plain(cuda, mode):
 def test_affine_score_entry_refuses_a_shape_it_lacks(cuda):
     """No instance, no launch: an n_pad off the 16-column grid through the
     wrappers, and a strip width, CTA, mode or jump the entry has no
-    instance for."""
+    instance for (edit's CTA may run 1,024 threads, the others' 512)."""
     arrs = _flat_inputs(103, B=3, m_pad=8, n_pad=136)
     qs, ts, allow, ns, ms, pm = convert.kernel_inputs_from_numpy(*arrs, cuda)
-    for mode in ("global", "local", "overlap"):
+    for mode in ("global", "local", "overlap", "edit"):
         with pytest.raises(RuntimeError, match="score fill kernel launch"):
             scan.scores(mode, 8, 136, qs, ts, ns, ms, pm)
     for jump in (False, True):
@@ -133,13 +133,81 @@ def test_affine_score_entry_refuses_a_shape_it_lacks(cuda):
     stream = torch.cuda.current_stream().cuda_stream
     for mode, jump, threads, width in (
             (1, 0, 32, 8), (1, 0, 1024, 16), (1, 0, 48, 16), (2, 1, 32, 8),
-            (3, 0, 1024, 16), (0, 1, 32, 16), (3, 1, 32, 16), (4, 0, 32, 16),
+            (3, 0, 1024, 16), (0, 1, 32, 16), (3, 1, 32, 16), (4, 0, 32, 8),
+            (4, 0, 1056, 16), (4, 0, 48, 16), (4, 1, 32, 16), (5, 0, 32, 16),
             (-1, 0, 32, 16)):
         err = scan._kernels().at_score_fill(
             mode, jump, qs.data_ptr(), ts.data_ptr(), allow.data_ptr(),
             ns.data_ptr(), ms.data_ptr(), pm.data_ptr(), out.data_ptr(), 3, 8,
             128, threads, width, stream)
         assert err != 0, (mode, jump, threads, width)
+
+
+def _edit_equals_plain(m_pad, n_pad, qs, ts, ns, ms, pm):
+    """The edit score fill against plain: its launch moves
+    scan.launches["edit"] alone and runs no plain version."""
+    before, plain = dict(scan.launches), scan.plain_calls
+    got = scan.scores("edit", m_pad, n_pad, qs, ts, ns, ms, pm)
+    torch.cuda.synchronize()
+    assert scan.launches == {**before, "edit": before["edit"] + 1}
+    assert scan.plain_calls == plain
+    want = scan.scores_plain("edit", m_pad, n_pad, qs, ts, ns, ms, pm)
+    bad = (got != want).nonzero()
+    assert got.dtype == torch.int32
+    assert torch.equal(got, want), (bad[:8].tolist(), len(bad))
+
+
+# every launch shape of the edit score fill: 32 to EDIT_MAX_THREADS
+# threads, one n_pad each (the widest it covers), and 128 and 384 columns
+EDIT_N_PADS = sorted({128, 384} | {512 * k for k in range(
+    1, scan.EDIT_MAX_THREADS // 32 + 1)})
+
+
+@pytest.mark.parametrize("u", [1, -2])
+@pytest.mark.parametrize("n_pad", EDIT_N_PADS)
+def test_edit_score_fill_equals_plain(cuda, n_pad, u):
+    """The int32 min-plus register-strip fill at every launch shape from
+    one warp to its cap, ragged pairs with m = n = 1 and n = 1, one pair
+    with m = 0 (0, the latch) and one with n = 0 (INT32_MAX); a
+    substitution cost of 1 and the default -2 (distances below 0)."""
+    qs, ts, allow, ns, ms, pm = _flat_inputs(107 + n_pad, n_pad=n_pad)
+    ms[3, 0], ns[4, 0] = 0, 0
+    qs[3, :], ts[4, :] = -1, -2
+    pm[0, 1] = u
+    assert scan.flat_shape("edit", n_pad)[0] == max(32, -(-n_pad // 512) * 32)
+    args = convert.kernel_inputs_from_numpy(qs, ts, None, ns, ms, pm, cuda)
+    tq, tt, _, tn, tm, tp = args
+    _edit_equals_plain(64, n_pad, tq, tt, tn, tm, tp)
+
+
+@pytest.mark.parametrize("u", [1, -2])
+def test_edit_score_fill_on_ties_equals_plain(cuda, u):
+    """tests/ptr_ties.py's pairs (equal values on both sides of strip and
+    warp edges, m = n = 1, n = 1) through the edit score fill."""
+    qs, ts, _, ns, ms = ptr_ties.tie_inputs(5)
+    pm = np.zeros((1, 8), np.float32)
+    pm[0, 1] = u
+    tq, tt, _, tn, tm, tp = convert.kernel_inputs_from_numpy(
+        qs, ts, None, ns, ms, pm, cuda)
+    _edit_equals_plain(ptr_ties.M_PAD, ptr_ties.N_PAD, tq, tt, tn, tm, tp)
+
+
+@pytest.mark.parametrize("n_pad", [scan.flat_cap("edit") + 128, 32768])
+def test_wide_edit_routes_to_the_blocked_fill(cuda, n_pad):
+    """Past its cap scan.scores("edit") runs the blocked score fill at
+    blocked.C_BLK, with a ragged last block one bucket past the cap: the
+    flat plain version's distances, and no launch of the flat fill."""
+    assert scan.blocked_c_blk("edit", n_pad) == blocked.C_BLK
+    qs, ts, _, ns, ms, pm = convert.kernel_inputs_from_numpy(
+        *_flat_inputs(109, B=6, m_pad=64, n_pad=n_pad), cuda)
+    before = dict(blocked.launches), dict(scan.launches)
+    got = scan.scores("edit", 64, n_pad, qs, ts, ns, ms, pm)
+    torch.cuda.synchronize()
+    assert blocked.launches["blocked_scores"] == (
+        before[0]["blocked_scores"] + 1)
+    assert scan.launches == before[1]
+    assert torch.equal(got, scan.scores_plain("edit", 64, n_pad, qs, ts, ns,
+                                              ms, pm))
 
 
 @pytest.mark.parametrize("n_pad", [ptr.FLAT_REG_MAX_N_PAD + 128, 32768])

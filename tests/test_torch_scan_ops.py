@@ -11,8 +11,10 @@ import numpy as np
 import pytest
 import torch
 
+from aligntools_tpu import batch as jbatch
 from aligntools_tpu.ops import pallas_scan as ps
 from aligntools_tpu.params import AlignParams
+from aligntools_tpu_torch import batch as tbatch
 from aligntools_tpu_torch import convert
 from aligntools_tpu_torch.ops import blocked, ptr, scan
 
@@ -120,7 +122,7 @@ def test_wrapper_rejects_bad_inputs():
 
 @pytest.mark.parametrize("n_pad", [128, 2048, 4096, 32768, 65536])
 def test_launch_shape_covers_the_row(n_pad):
-    threads, wmax = scan.launch_shape(n_pad)
+    threads, wmax = blocked.launch_shape(n_pad)
     assert threads % 32 == 0 and 32 <= threads <= 1024
     assert threads * wmax >= n_pad
     assert threads * (wmax - 1) < n_pad
@@ -214,15 +216,71 @@ def test_scores_of_an_empty_query_or_a_one_column_target_match_pallas(
                           else [-np.inf, -np.inf])
 
 
+@pytest.mark.parametrize("n_pad", [128, 8192, 8320, 16384])
+@pytest.mark.parametrize("pname", sorted(PARAMS))
+def test_edit_scores_match_pallas(pname, n_pad):
+    """Edit distances through scan.scores (the plain version on the CPU)
+    equal the JAX Pallas kernel's (interpret mode), exactly as integers,
+    on ragged pairs with m = 0, n = 1 and n = n_pad among them, at one
+    warp's width (128), at the other modes' cap (8,192), one bucket past
+    it (8,320) and at 16,384; the default params' mismatch of -2 makes
+    substitutions lower the distance, so values go below 0."""
+    qs, ts, ns, ms, _ = _wide_inputs(43, n_pad)
+    ms[2, 0], ns[3, 0] = 0, 1
+    qs[2, :] = -1
+    ts[3, 1:] = -2
+    pm = _pmat(PARAMS[pname])
+    m_pad = qs.shape[1]
+    want = _pallas_scores("edit", m_pad, n_pad, qs, ts, None, ns, ms, pm)
+    tq, tt, _, tn, tm, tp = convert.kernel_inputs_from_numpy(
+        qs, ts, None, ns, ms, pm, "cpu")
+    got = scan.scores("edit", m_pad, n_pad, tq, tt, tn, tm, tp).numpy()
+    assert got.dtype == np.int32 and ns[0, 0] == n_pad
+    assert np.array_equal(got.astype(np.int64), want.astype(np.int64))
+    assert got[2] == 0  # m = 0: the Pallas kernel's latch, not n
+    if pname == "default":
+        assert got.min() < 0
+
+
+def test_bucket_snap_stays_the_jax_packages():
+    """The bucket snap is the JAX package's, not a kernel's cap: targets
+    past 8,192 columns (the register-strip fills' cap) and past 16,384
+    (edit's) get the JAX package's bucket keys, and only those past
+    32,768 snap to BLOCKED_C_BLK multiples."""
+    assert tbatch.PALLAS_FLAT_MAX_N_PAD == 32768
+    assert tbatch.BLOCKED_C_BLK == 16384
+    rng = np.random.default_rng(47)
+    pairs = [(bytes(rng.choice(list(b"ACGT"), m).tolist()),
+              bytes(rng.choice(list(b"ACGT"), n).tolist()))
+             for m, n in ((40, 8193), (64, 9000), (33, 16385), (80, 20000),
+                          (17, 32768), (50, 32769), (90, 40000))]
+    for floors in ((64, 128), (16, 128)):
+        want = jbatch._bucket_keys(pairs, *floors)
+        got = tbatch._bucket_keys(pairs, *floors)
+        assert got == want, floors
+    assert sorted(n for _, n in got) == [8320, 9088, 16512, 20096, 32768,
+                                         49152, 49152]
+
+
 def test_scores_route_picks_flat_or_blocked_at_the_cap():
     """Global, local, overlap and fit go to the blocked fill one bucket past
     FLAT_REG_MAX_N_PAD, at blocked.C_BLK (ragged there); edit keeps its
-    flat kernel there."""
+    register-strip fill there, up to its own cap, and goes past that."""
     cap = ptr.FLAT_REG_MAX_N_PAD
     for mode in ("global", "local", "overlap", "fit"):
+        assert scan.flat_cap(mode) == cap
         assert scan.blocked_c_blk(mode, cap) is None
         assert scan.blocked_c_blk(mode, cap + 128) == blocked.C_BLK
+    edit_cap = scan.flat_cap("edit")
+    assert edit_cap == scan.EDIT_MAX_THREADS * ptr.WIDTH > cap
     assert scan.blocked_c_blk("edit", cap + 128) is None
+    assert scan.blocked_c_blk("edit", edit_cap) is None
+    assert scan.blocked_c_blk("edit", edit_cap + 128) == blocked.C_BLK
+    assert scan.flat_shape("edit", edit_cap) == (scan.EDIT_MAX_THREADS,
+                                                 ptr.WIDTH)
+    assert scan.flat_shape("edit", cap + 128) == (544, ptr.WIDTH)
+    with pytest.raises(ValueError, match="blocked fill"):
+        scan.flat_shape("edit", edit_cap + 128)
     assert (cap + 128) % blocked.C_BLK  # a ragged last block
     qs, ts, ns, ms, allow = _wide_inputs(29, cap + 128, B=2, m_pad=4)
     args = convert.kernel_inputs_from_numpy(qs, ts, allow, ns, ms,
@@ -245,13 +303,14 @@ def test_scores_route_picks_flat_or_blocked_at_the_cap():
 
 @pytest.mark.parametrize("mode", ["overlap", "edit", "fit", "fit+jump"])
 def test_scores_route_past_the_flat_ceiling(mode):
-    """Edit keeps its flat kernel up to FLAT_MAX_N_PAD (32,768) columns and
-    goes to the blocked fill one bucket past it; overlap and fit go there
-    at either width (past FLAT_REG_MAX_N_PAD), through ``scan.scores`` /
-    ``scan.fit_scores`` (the batch path's one route): the scores equal the
-    flat plain version's. Fit without the jump takes no allow mask on
-    either side of the ceiling."""
-    cap = scan.FLAT_MAX_N_PAD
+    """Edit keeps its register-strip fill up to its cap, flat_cap("edit")
+    (16,384 columns), and goes to the blocked fill one bucket past it
+    (ragged there); overlap and fit go there at either width (past
+    FLAT_REG_MAX_N_PAD), through ``scan.scores`` / ``scan.fit_scores`` (the
+    batch path's one route): the scores equal the flat plain version's.
+    Fit without the jump takes no allow mask on either side of the
+    ceiling."""
+    cap = scan.flat_cap("edit")
     base, jump = mode.split("+")[0], mode.endswith("+jump")
     assert scan.blocked_c_blk(base, cap + 128) == blocked.C_BLK
     assert (scan.blocked_c_blk(base, cap) is None) == (base == "edit")

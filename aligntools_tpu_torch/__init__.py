@@ -1,17 +1,21 @@
 """aligntools_tpu_torch — the PyTorch / CUDA port of aligntools_tpu.
 
-The batch path (``aligntools-torch batch MODE FASTA``: alignment rows,
-CIGAR or scores, long targets, ``--band``) on one NVIDIA Hopper GPU, with
-hand-written CUDA fills and walk, held bit for bit against the JAX
-package. Importing this package loads neither
-torch nor jax; ``align_batch`` / ``batch_scores`` load torch on first use.
+Every entry point of the JAX package but its calibration and sharding, on
+one NVIDIA Hopper GPU with hand-written CUDA fills and walk, held bit for
+bit against the JAX package: the per-mode commands
+(``aligntools-torch global|local|fit|overlap|edit FILE``, on
+``align_pair`` / ``align_file``), the batch path (``aligntools-torch batch
+MODE FASTA``: alignment rows, CIGAR or scores, long targets, ``--band``,
+on ``align_batch`` / ``batch_scores``) and the request loop
+(``aligntools-torch serve``). Importing this package loads neither torch
+nor jax; the entry points load torch on first use.
 """
 
 from aligntools_tpu_torch.params import AlignParams, MODES
 from aligntools_tpu_torch.version import __version__
 
 __all__ = ["AlignParams", "MODES", "__version__", "align_batch",
-           "batch_scores"]
+           "align_file", "align_pair", "batch_scores"]
 
 
 def __getattr__(name):  # lazy: keep `import aligntools_tpu_torch` light
@@ -19,4 +23,8 @@ def __getattr__(name):  # lazy: keep `import aligntools_tpu_torch` light
         from aligntools_tpu_torch import batch
 
         return getattr(batch, name)
+    if name in ("align_pair", "align_file"):
+        from aligntools_tpu_torch import api
+
+        return getattr(api, name)
     raise AttributeError(name)

@@ -1,4 +1,5 @@
-"""``python3 -m aligntools_tpu_torch batch ...``: the port's CLI, for hosts
+"""``python3 -m aligntools_tpu_torch ...``: the port's CLI (``global``,
+``local``, ``fit``, ``overlap``, ``edit``, ``batch``, ``serve``), for hosts
 where the console script is not installed."""
 
 import sys

@@ -12,7 +12,9 @@ from __future__ import annotations
 import torch
 
 
-def resolve_device(name) -> torch.device:
+def resolve_device(name, cpu_hint: str = "pass --device cpu") -> torch.device:
+    """``name`` as a torch.device the port can run on, or raise.
+    ``cpu_hint`` tells the caller's user how to ask for the CPU."""
     dev = torch.device(name)
     if dev.type == "cpu":
         return dev
@@ -21,8 +23,8 @@ def resolve_device(name) -> torch.device:
     if not torch.cuda.is_available():
         raise RuntimeError(
             f"device {name!r} requested but torch.cuda.is_available() is "
-            f"false (no CUDA build of torch, or no visible GPU); pass "
-            f"--device cpu to run the plain PyTorch versions on the CPU"
+            f"false (no CUDA build of torch, or no visible GPU); "
+            f"{cpu_hint} to run the plain PyTorch versions on the CPU"
         )
     idx = torch.cuda.current_device() if dev.index is None else dev.index
     cap = torch.cuda.get_device_capability(idx)

@@ -457,8 +457,8 @@ def align_batch(
                     "first sequence must be shorter than the second"
                 )
     if pairs:
-        worst = max(len(q) + len(t) for q, t in pairs)
-        check_f32_exact(params, worst, 0, mode)
+        q, t = max(pairs, key=lambda pr: len(pr[0]) + len(pr[1]))
+        check_f32_exact(params, len(q), len(t), mode)
     device = resolve_device(device)
     use_jump = sites_list is not None
     t0 = time.perf_counter()

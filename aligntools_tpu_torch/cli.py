@@ -1,26 +1,180 @@
-"""``aligntools-torch`` CLI: the port's batch surface.
+"""``aligntools-torch`` CLI: the port's command line.
 
+    aligntools-torch global|local|fit|overlap|edit [options] FILE
     aligntools-torch batch MODE FASTA [options]
-    python3 -m aligntools_tpu_torch batch MODE FASTA [options]
+    aligntools-torch serve
+    python3 -m aligntools_tpu_torch ...    (without the console script)
 
-Records pair up consecutively (q1, t1, q2, t2, ...); the TSV (alignment
-rows by default, CIGAR with ``--cigar``, scores with ``--scores-only``)
-goes to stdout or ``--out``, byte for byte ``aligntools batch``'s.
-``--device`` picks the device explicitly (default ``cuda``): there is no
-silent fallback to the CPU. Errors print ``FATAL ERROR: ...`` and exit
-255, as ``aligntools batch`` does.
+The per-mode commands are the reference's surface (src/main.c:6-57, the
+five main_* of src/alignment.h), copied from ``aligntools_tpu/cli.py``: a
+two-record FASTA/Q, getopt options before the file with C ``atoi`` values,
+and on stdout ``score=%f`` plus the two gapped rows (global, local, fit;
+``fit -s`` first echoes the second record's raw comment), overlap's bare
+``%f`` plus the rows, or ``edit_distance=%d``; on success ``[main]
+Version:`` / ``[main] CMD:`` go to stderr. ``serve`` answers requests on
+stdin (``serve.py``). These run on the device that ``ALIGNTOOLS_DEVICE``
+names, the variable the JAX CLI reads: ``cuda`` by default, ``cpu`` (the
+kernels' plain versions) only when asked by name; without a usable card
+they end in ``FATAL ERROR``.
+
+``batch`` aligns many pairs: records pair up consecutively (q1, t1, q2,
+t2, ...); the TSV (alignment rows by default, CIGAR with ``--cigar``,
+scores with ``--scores-only``) goes to stdout or ``--out``, byte for byte
+``aligntools batch``'s. ``--device`` picks its device (default ``cuda``).
+
+Errors print ``FATAL ERROR: ...`` and exit 255, with the JAX CLI's wording;
+a file that cannot be opened reads ``cannot open FILE`` from the C++ parser
+(the C reference prints ``Can't open FILE``). Departures from the JAX CLI,
+whose per-mode commands run its double-precision spec engine on the CPU:
+
+  * a pair with an empty side gets the JAX device route's result
+    (``engine/scan.scan_align``): local and overlap with an empty target
+    and overlap with both empty print ``-inf`` and empty rows, fit with an
+    empty query ``score=0.000000`` and empty rows, where the JAX CLI ends
+    in ``FATAL ERROR`` or an uncaught ``IndexError``; fit with both empty
+    ends in ``FATAL ERROR`` worded ``fit: no finite traceback start``;
+  * a pair whose (params x lengths) leave float32's exact integers ends in
+    ``FATAL ERROR`` (exit 255); the JAX CLI answers it in double.
+
+Not ported: the JAX CLI's hand-over to the native C++ binary (here the
+port's own kernels answer), its XLA compile cache, and ``calibrate``,
+which is refused.
 """
 
 from __future__ import annotations
 
 import argparse
+import getopt
+import os
 import sys
 
-_USAGE = (
-    "\nUsage:   aligntools-torch batch <mode> [options] <pairs.fa>\n\n"
-    "Batched alignment (PyTorch / CUDA); see "
-    "`aligntools-torch batch --help`.\n\n"
-)
+from aligntools_tpu_torch.io.fasta import c_atoi
+from aligntools_tpu_torch.params import AlignParams
+from aligntools_tpu_torch.version import __version__
+
+_OPTSTRINGS = {
+    # the reference's optstrings: global/local/overlap "m:u:o:e:j:s" with
+    # -j/-s falling through to `default: return 1` (alignment.h:481-488),
+    # rejected here with a message; fit takes them; edit's broken "m:u:o:e"
+    # takes a (dead) -e value (aligntools_tpu/cli.py:31-42)
+    "global": "m:u:o:e:",
+    "local": "m:u:o:e:",
+    "fit": "m:u:o:e:j:s",
+    "overlap": "m:u:o:e:",
+    "edit": "m:u:o:e:",
+}
+DEVICE_ENV = "ALIGNTOOLS_DEVICE"
+
+
+def _usage() -> int:
+    sys.stderr.write(
+        "\n"
+        "Program: aligntools-torch (PyTorch / CUDA pairwise sequence "
+        "alignment)\n"
+        f"Version: {__version__}\n\n"
+        "Usage:   aligntools-torch <command> [options] <target.fa>\n\n"
+        "Command: global     global (Needleman-Wunsch) alignment, affine gap\n"
+        "         local      local (Smith-Waterman) alignment, affine gap\n"
+        "         fit        fit alignment, affine gap plus junction jump state\n"
+        "         overlap    overlap alignment\n"
+        "         edit       edit distance\n"
+        "         batch      many-pair batched pipeline (TSV output; "
+        "aligntools-torch batch --help)\n"
+        "         serve      long-lived request loop (stdin/stdout)\n"
+        "\n"
+        f"Device:  {DEVICE_ENV}=cuda (default) or cpu (the kernels' plain "
+        "versions); batch takes --device\n"
+        "\n"
+    )
+    return 1
+
+
+def _sub_usage(mode: str, p: AlignParams) -> int:
+    lines = [
+        "",
+        f"Usage:   aligntools-torch {mode} [options] <target.fa>",
+        "",
+        f"Options: -m INT   score for a match [{p.match}]",
+        f"         -u INT   mismatch penalty [{p.mismatch}]",
+        f"         -o INT   gap open penalty [{p.gap_open}]",
+        f"         -e INT   gap extension penalty [{p.gap_extend}]",
+    ]
+    if mode == "fit":
+        lines += [
+            f"         -j INT   jump penalty [{p.jump}]",
+            "         -s       junction sites from 2nd record's comment",
+        ]
+    sys.stderr.write("\n".join(lines) + "\n\n")
+    return 1
+
+
+def _env_device():
+    """The device ``ALIGNTOOLS_DEVICE`` names (default cuda), resolved with
+    no fallback."""
+    from aligntools_tpu_torch.backend import resolve_device
+
+    return resolve_device(os.environ.get(DEVICE_ENV) or "cuda",
+                          cpu_hint=f"set {DEVICE_ENV}=cpu")
+
+
+def run_subcommand(mode: str, args: list[str]) -> int:
+    p = AlignParams()
+    try:
+        opts, rest = getopt.getopt(args, _OPTSTRINGS[mode])
+    except getopt.GetoptError as err:
+        sys.stderr.write(f"aligntools-torch {mode}: {err}\n")
+        return 1
+    use_sites = False
+    for flag, val in opts:
+        if flag == "-m":
+            p = p.replace(match=c_atoi(val.encode()))
+        elif flag == "-u":
+            p = p.replace(mismatch=c_atoi(val.encode()))
+        elif flag == "-o":
+            p = p.replace(gap_open=c_atoi(val.encode()))
+        elif flag == "-e":
+            p = p.replace(gap_extend=c_atoi(val.encode()))
+        elif flag == "-j":
+            p = p.replace(jump=c_atoi(val.encode()))
+        elif flag == "-s":
+            use_sites = True
+    if not rest:
+        return _sub_usage(mode, p)
+    path = rest[-1]
+    from aligntools_tpu_torch.api import align_file
+
+    try:
+        result, pair = align_file(mode, path, p, use_sites,
+                                  device=_env_device())
+    except (OSError, ValueError, RuntimeError) as err:
+        sys.stderr.write(f"FATAL ERROR: {err}\n")
+        return 255  # the reference's die() -> exit(-1) (alignment.h:69-79)
+    out = sys.stdout
+    if mode == "edit":
+        out.write(f"edit_distance={result}\n")
+    elif mode == "overlap":
+        out.write(f"{result.score:.6f}\n")
+        out.write(result.row1.decode("latin-1") + "\n")
+        out.write(result.row2.decode("latin-1") + "\n")
+    else:
+        if mode == "fit" and use_sites and pair.comment2 is not None:
+            # junction echo line (alignment.h:249)
+            out.write(pair.comment2.decode("latin-1") + "\n")
+        out.write(f"score={result.score:.6f}\n")
+        out.write(result.row1.decode("latin-1") + "\n")
+        out.write(result.row2.decode("latin-1") + "\n")
+    return 0
+
+
+def run_serve() -> int:
+    from aligntools_tpu_torch.serve import serve
+
+    try:
+        device = _env_device()
+    except (ValueError, RuntimeError) as err:
+        sys.stderr.write(f"FATAL ERROR: {err}\n")
+        return 255
+    return serve(device=device)
 
 
 def run_batch(args: list[str]) -> int:
@@ -61,7 +215,6 @@ def run_batch(args: list[str]) -> int:
                     help="where the fills run (default cuda; cpu runs the "
                          "kernels' plain PyTorch versions)")
     ns = ap.parse_args(args)
-    from aligntools_tpu_torch.params import AlignParams
     from aligntools_tpu_torch.backend import resolve_device
     from aligntools_tpu_torch.pipeline import run_pipeline
 
@@ -89,10 +242,27 @@ def run_batch(args: list[str]) -> int:
 def main(argv: list[str] | None = None) -> int:
     """``argv`` without the program name (default ``sys.argv[1:]``)."""
     argv = list(sys.argv[1:] if argv is None else argv)
-    if not argv or argv[0] != "batch":
-        sys.stderr.write(_USAGE)
+    if not argv:
+        return _usage()
+    cmd = argv[0]
+    if cmd == "batch":
+        return run_batch(argv[1:])
+    if cmd == "serve":
+        return run_serve()
+    if cmd == "calibrate":
+        sys.stderr.write("FATAL ERROR: calibrate is not ported to "
+                         "aligntools_tpu_torch yet (ROADMAP.md, queue 1, "
+                         "item 5)\n")
+        return 255
+    if cmd not in _OPTSTRINGS:
+        sys.stderr.write(f"[main] unrecognized command '{cmd}'\n")
         return 1
-    return run_batch(argv[1:])
+    ret = run_subcommand(cmd, argv[1:])
+    if ret == 0:
+        sys.stderr.write(f"[main] Version: {__version__}\n")
+        sys.stderr.write("[main] CMD: aligntools-torch " + " ".join(argv)
+                         + "\n")
+    return ret
 
 
 if __name__ == "__main__":

@@ -23,13 +23,13 @@ def f32_exact(p, m: int, n: int, mode: str = "global") -> bool:
 
 
 def check_f32_exact(p, m: int, n: int, mode: str = "global") -> None:
-    """Raise when the f32 fills would lose integer exactness — the
-    reference computes in double (alignment.h:37-48), so silently
-    diverging here is unacceptable; callers route to the spec engine."""
+    """Raise when the f32 fills would lose integer exactness: the
+    reference computes in double (alignment.h:37-48), and the port has no
+    double-precision engine, so it refuses the pair rather than diverge."""
     if not f32_exact(p, m, n, mode):
         raise ValueError(
             f"scoring params x sequence lengths exceed the float32 "
             f"exact-integer range (max|param| * (m+n+1) >= 2^24 for "
-            f"m={m}, n={n}); use engine='spec' for double-precision "
-            f"reference semantics"
+            f"m={m}, n={n}); aligntools_tpu_torch refuses such a pair (the "
+            f"JAX package's spec engine answers it in double precision)"
         )

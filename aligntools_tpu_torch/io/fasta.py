@@ -1,8 +1,8 @@
 """FASTA/FASTQ ingest: a kseq-equivalent streaming parser.
 
 Copied from ``aligntools_tpu/io/fasta.py`` (records, the junction-site
-parse and the pure-Python parser), less its single-pair reader. It mirrors
-the klib parser the reference uses (src/kseq.h over gzread):
+parse, the pure-Python parser and the single-pair reader ``read_pair``). It
+mirrors the klib parser the reference uses (src/kseq.h over gzread):
 
   * records start at '>' (FASTA) or '@' (FASTQ); multi-line sequences are
     concatenated; empty lines inside a record are skipped;
@@ -10,7 +10,13 @@ the klib parser the reference uses (src/kseq.h over gzread):
     a trailing '\\r' stripped;
   * a FASTQ '+' line is skipped and quality is read up to the sequence's
     length;
-  * gzip is transparent.
+  * gzip is transparent;
+  * ``read_pair`` keeps the reference's pair contract (alignment.h:217-262):
+    exactly two records, junction sites from the second one's comment.
+
+A file that cannot be opened raises ``OSError``: ``cannot open PATH`` from
+the C++ parser, Python's own message from the pure-Python one, as in the
+JAX package (the C reference prints ``Can't open PATH``).
 
 ``read_records`` takes the C++ parser of ``native/aligntools_native.cpp``
 (``aligntools_tpu_torch.native``) when it builds, and this module's parser
@@ -22,7 +28,7 @@ from __future__ import annotations
 import dataclasses
 import gzip
 import io as _io
-from typing import Iterator
+from typing import Iterator, Sequence
 
 _WS = b" \t\n\v\f\r"  # C isspace set
 
@@ -124,3 +130,36 @@ def parse_junctions(comment: bytes) -> list[int]:
     """ksplit(tmp, '|') + atoi per field (alignment.h:250-253). ksplit skips
     empty fields (consecutive delimiters produce no field: kstring.c:120-125)."""
     return [c_atoi(tok) for tok in comment.split(b"|") if tok != b""]
+
+
+@dataclasses.dataclass
+class Pair:
+    seq1: bytes
+    seq2: bytes
+    sites: list[int] | None  # parsed junctions (only when requested)
+    comment2: bytes | None  # raw second-record comment (echoed by fit -s)
+
+
+def read_pair(path: str, want_sites: bool = False) -> Pair:
+    """kstring_read equivalent (alignment.h:217-262): exactly 2 records."""
+    records: list[FastaRecord] = []
+    for rec in read_records(path):
+        if len(records) >= 2:
+            raise ValueError("input fasta file has more than 2 sequences")  # :233
+        records.append(rec)
+    if len(records) < 2 or records[0].seq == b"" or records[1].seq == b"":
+        # the reference dies on NULL seq pointers (:239); empty sequences
+        # pass, as in the JAX package, and take the engines' borders
+        if len(records) < 2:
+            raise ValueError("read_kstring: fail to read sequence")
+    sites = None
+    comment2 = records[1].comment
+    if want_sites:
+        if comment2 is None:
+            raise ValueError("fail to read junction sites")  # :244
+        sites = parse_junctions(comment2)
+    return Pair(records[0].seq, records[1].seq, sites, comment2)
+
+
+def read_pairs_many(paths: Sequence[str]) -> list[Pair]:
+    return [read_pair(p) for p in paths]

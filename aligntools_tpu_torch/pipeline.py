@@ -58,16 +58,20 @@ def run_pipeline(
     sharded: bool = False,
     chunk_size: int = 16384,
     manifest_path: str | None = None,
+    out=None,
     out_path: str | None = None,
     band: int | None = None,
     cigar: bool = False,
 ) -> Counters:
     """Align every pair in ``path`` on ``device``; returns run counters.
 
-    TSV goes to stdout, or to ``out_path``, which the pipeline then owns:
-    with a manifest, each chunk's end byte offset is checkpointed and a
-    resumed run truncates any torn chunk back to the last completed
-    watermark before appending. Targets past the flat fills' 32,768
+    TSV goes to the text stream ``out`` (default stdout; the server passes
+    its own), or to ``out_path``, which the pipeline then owns: with a
+    manifest, each chunk's end byte offset is checkpointed and a resumed run
+    truncates any torn chunk back to the last completed watermark before
+    appending. With a caller's ``out``, chunk skipping still works, but a
+    kill between the chunk's write and the manifest's update re-emits that
+    chunk. Targets past the flat fills' 32,768
     columns run on the column-blocked fills; ``band`` runs the banded
     engine; ``sharded`` is not ported yet and raises ValueError. A +inf
     banded edit distance (an empty sequence) raises ValueError: it has no
@@ -77,6 +81,8 @@ def run_pipeline(
 
     if sharded:
         raise ValueError("--sharded is not ported to aligntools_tpu_torch yet")
+    if out is not None and out_path is not None:
+        raise ValueError("pass out or out_path, not both")
     if mode != "fit" and use_sites:
         raise ValueError("junction sites are only meaningful in fit mode")
     if band is not None and use_sites:
@@ -106,7 +112,7 @@ def run_pipeline(
         out.seek(wm)
         out.truncate(wm)  # drop any torn chunk from a killed run
     else:
-        out = sys.stdout
+        out = out if out is not None else sys.stdout
 
     chunks = [
         rec_pairs[i : i + chunk_size]

@@ -91,16 +91,42 @@ Phases, one JSON line each:
            against plain for the rows runs, with the walk against plain on
            every bucket of the 20,000-pair local run and on every fourth
            of the 2,000-pair runs, whose walks cross the whole target;
+  single   the per-mode commands (`global|local|fit|overlap|edit [opts]
+           FILE`) through cli.main in-process on the card
+           (ALIGNTOOLS_DEVICE unset), the counts set to 0 just before and
+           read just after (the pointer fill, the walk, edit's score fill
+           and both blocked fills launched, no plain version ran): the CPU
+           tests' test/*.fa invocations, one seeded 2,048 x 2,048 DNA pair
+           a mode, one fit -s pair of the fit fixture's 1,327 x 114,491
+           (three junction sites, the blocked pointer fill) and one edit
+           pair of 2,048 x 20,480 (the blocked score fill); every stdout
+           byte for byte the same command's with ALIGNTOOLS_DEVICE=cpu
+           (in-process; the two long ones in one-thread processes beside
+           the timings). Then warm api.align_pair medians per pair, one
+           warm call of the 2,048^2 global pair and of the long fit pair
+           under torch.profiler (device time against wall), the cold wall
+           of `python3 -m aligntools_tpu_torch global test/test_global.fa`
+           in a fresh process with the kernels built (median of 3), its
+           split (import torch, the library load, the first CUDA call, the
+           command), and the native C++ CLI (native/Makefile's
+           aligntools_cli, built here) on the same command;
+  serve    serve() fed one stream on the slice phase's 2,000-pair FASTA:
+           overlap scores_only, global (rows), fit sites (rows), edit, the
+           first again, a malformed line, a sharded request, quit and a
+           line after it: each request's TSV byte for byte the batch TSV
+           the slice phase wrote for the same mode and output, #done
+           pairs=2000 on each, two #error lines, nothing read after quit;
+           each request's seconds and pairs/s, and its launches;
   long     the port's main path on long targets through cli.main (L3):
            `batch fit -s` on 256+ seeded pairs (m ~ 1,300, n 40,000 to
            131,072, three junction sites each; enough that the pointer
            budget splits the rows run into two or more waves), rows cold
            and warm and `--scores-only`; `batch global` and `batch local`
-           on its first 8 pairs; `batch local` on the first 2,000
+           on its first 4 pairs; `batch local` on the first 2,000
            clustered pairs plus 32 long ones (flat and blocked buckets in
            one run). The blocked kernels launched, no plain version ran;
-           then L3 rows and scores warm again at each column block of the
-           blocked phase, their TSVs equal to the first;
+           L3 runs at the kernels' own column block only (the blocked phase
+           holds the kernels at the others);
            each rows TSV's score column equals its scores TSV, and 4 lines
            sampled from the 16 cheapest long pairs with n <= 60,000 (and,
            for L3, the cheapest pair with n > 100,000) equal the port's
@@ -256,7 +282,7 @@ FLAT_AS_BLOCKED_C_BLK = 8192
 # LONG_SAMPLE_MAX_N (the plain versions on the CPU: ~15 s a pair), plus,
 # for L3 itself, the cheapest pair with a target past LONG_FAR_N
 LONG_PAIRS = 256
-LONG_AFFINE_PAIRS = 8  # L3g / L3l: global and local on the first of them
+LONG_AFFINE_PAIRS = 4  # L3g / L3l: global and local on the first of them
 LONG_SAMPLES = 4
 LONG_POOL = 16
 LONG_SAMPLE_MAX_N = 60000
@@ -1607,7 +1633,376 @@ def phase_slice(torch, scan, ptr, tb, work, trace_path):
           "cpu_checked": checked})
     launches = {**{k: score_launches[k] for k in scan.launches},
                 "ptr": rows_launches["ptr"], "walk": rows_launches["walk"]}
-    return launches, checked_buckets
+    return launches, checked_buckets, {"fasta": small_fa,
+                                       "scores": scores_tsv,
+                                       "rows": rows_tsv}
+
+
+# the single phase: the per-mode CLI and api.align_pair on the card, each
+# stdout held against ALIGNTOOLS_DEVICE=cpu; the CPU tests' test/*.fa
+# invocations, one SINGLE_N x SINGLE_N pair a mode, the B1 shape (fit -s,
+# the blocked pointer fill) and an edit pair past its score fill's cap (the
+# blocked score fill)
+SINGLE_FIXTURES = [
+    ("global", "test_global.fa"),
+    ("global", "-m", "1", "-u", "-1", "-o", "-4", "-e", "-1",
+     "test_global.fa"),
+    ("local", "test_local.fa"),
+    ("local", "-m", "2", "-u", "-2", "-o", "-5", "-e", "-2", "test_local.fa"),
+    ("edit", "test_edit.fa"),
+    ("edit", "-u", "1", "test_edit.fa"),
+    ("overlap", "test_global.fa"),
+    ("overlap", "test_overlap.fa"),
+    ("overlap", "-m", "3", "test_overlap.fa"),
+    ("fit", "test_fit.fa"),
+    ("fit", "-s", "test_fit.fa"),
+    ("fit", "-m", "2", "-u", "-2", "-s", "test_fit.fa"),
+]
+SINGLE_MODES = ("global", "local", "fit", "overlap", "edit")
+SINGLE_N = 2048
+SINGLE_LONG = {"fit-B1": ("fit", 1327, 114491, True),
+               "edit-long": ("edit", 2048, 20480, False)}
+SINGLE_REPS = 5
+SINGLE_LONG_REPS = 3
+COLD_REPS = 3
+COLD_ARGV = ("global", "test/test_global.fa")
+# a fresh interpreter's cold start, split: import torch, the kernels'
+# library load (already built), the first CUDA call (the context), then
+# the command itself in-process
+COLD_SPLIT = """
+import contextlib, io, json, sys, time
+t0 = time.perf_counter()
+import torch
+t1 = time.perf_counter()
+from aligntools_tpu_torch.ops import _build
+_build.load()
+t2 = time.perf_counter()
+torch.zeros(1, device="cuda")
+torch.cuda.synchronize()
+t3 = time.perf_counter()
+from aligntools_tpu_torch import cli
+with contextlib.redirect_stdout(io.StringIO()), \\
+        contextlib.redirect_stderr(io.StringIO()):
+    rc = cli.main(sys.argv[1:])
+t4 = time.perf_counter()
+print(json.dumps({"rc": rc, "import_torch_s": t1 - t0,
+                  "library_load_s": t2 - t1, "first_cuda_call_s": t3 - t2,
+                  "command_s": t4 - t3}))
+"""
+
+
+def drawn_pair(m, n, seed, sites=False):
+    """A seeded random ACGT pair drawn as long_pairs draws its pairs, with
+    three junction sites in [0, n) when ``sites``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    alpha = np.frombuffer(b"ACGT", dtype=np.uint8)
+    q = alpha[rng.integers(0, 4, m)].tobytes()
+    t = alpha[rng.integers(0, 4, n)].tobytes()
+    return q, t, (sorted(int(x) for x in rng.integers(0, n, 3))
+                  if sites else None)
+
+
+def run_single(cli, argv, device):
+    """The per-mode command through cli.main in-process, on the card
+    (ALIGNTOOLS_DEVICE unset) or ``device``; returns (stdout, wall s)."""
+    out, err = io.StringIO(), io.StringIO()
+    old = os.environ.pop("ALIGNTOOLS_DEVICE", None)
+    if device:
+        os.environ["ALIGNTOOLS_DEVICE"] = device
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main(list(argv))
+    finally:
+        os.environ.pop("ALIGNTOOLS_DEVICE", None)
+        if old is not None:
+            os.environ["ALIGNTOOLS_DEVICE"] = old
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"{' '.join(argv)} ({device or 'card'}) exited {rc}: "
+          f"{err.getvalue()}")
+    return out.getvalue(), wall
+
+
+def timed_runs(cmd, reps, env=None):
+    """``cmd`` in a fresh process ``reps`` times; (stdout of the last, the
+    walls)."""
+    walls, out = [], None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                           text=True, timeout=300)
+        walls.append(time.perf_counter() - t0)
+        check(r.returncode == 0, f"{' '.join(cmd)} exited {r.returncode}: "
+              f"{r.stderr}")
+        out = r.stdout
+    return out, walls
+
+
+def native_anchor(card_out):
+    """The native C++ CLI (native/Makefile's aligntools_cli, the repo's
+    same-run baseline) on COLD_ARGV: built here, timed in COLD_REPS fresh
+    processes; or why it could not be."""
+    ndir = os.path.join(ROOT, "native")
+    try:
+        b = subprocess.run(["make", "-C", ndir, "aligntools_cli"],
+                           capture_output=True, text=True, timeout=300)
+    except (OSError, subprocess.SubprocessError) as err:
+        return {"native": None, "why": f"make failed to run: {err}"}
+    binary = os.path.join(ndir, "aligntools_cli")
+    if b.returncode != 0 or not os.access(binary, os.X_OK):
+        return {"native": None,
+                "why": f"make exited {b.returncode}: {b.stderr[-400:]}"}
+    try:
+        out, walls = timed_runs([binary, *COLD_ARGV], COLD_REPS)
+    except (RuntimeError, OSError, subprocess.SubprocessError) as err:
+        return {"native": None, "why": f"the binary failed: {err}"}
+    return {"native_s": statistics.median(walls), "native_walls_s": walls,
+            "native_stdout_equal": out == card_out}
+
+
+def start_single_cpu_checks(work, runs):
+    """Each (label, argv) as `python3 -m aligntools_tpu_torch` with
+    ALIGNTOOLS_DEVICE=cpu, one process of one thread each, its stdout to a
+    file; returns the jobs for finish_single_cpu_checks."""
+    env = dict(os.environ, OMP_NUM_THREADS="1", ALIGNTOOLS_DEVICE="cpu")
+    jobs = []
+    try:
+        for label, argv in runs:
+            path = os.path.join(work, f"single-{label}.cpu.out")
+            with open(path, "w") as f:
+                cmd = [sys.executable, "-m", "aligntools_tpu_torch", *argv]
+                jobs.append((label, path, cmd, subprocess.Popen(
+                    cmd, cwd=ROOT, env=env, stdout=f,
+                    stderr=subprocess.PIPE, text=True)))
+    except BaseException:
+        stop_cpu_checks(jobs)
+        raise
+    return jobs
+
+
+def finish_single_cpu_checks(jobs, card_outs):
+    try:
+        for label, path, cmd, p in jobs:
+            err = p.communicate(timeout=900)[1]
+            check(p.returncode == 0,
+                  f"{' '.join(cmd)} exited {p.returncode}: {err}")
+            with open(path) as f:
+                check(f.read() == card_outs[label],
+                      f"single {label}: card and CPU stdout differ")
+    finally:
+        stop_cpu_checks(jobs)
+    return sorted(label for label, *_ in jobs)
+
+
+def profile_single(torch, fn):
+    """One warm call of ``fn`` under torch.profiler: its wall, the device
+    time of its ops and their count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ops = device_ops(prof)
+    device_ms = sum(o["ms"] for o in ops)
+    return {"wall_ms": wall * 1e3, "device_time_ms": device_ms,
+            "device_share": device_ms / 1e3 / wall, "device_ops": ops[:6]}
+
+
+def phase_single(torch, scan, ptr, tb, work):
+    """The per-mode CLI (``aligntools-torch MODE [opts] FILE``) through
+    cli.main in-process on the card, with the counts set to 0 just before
+    and read just after; every stdout held against ALIGNTOOLS_DEVICE=cpu
+    (the small ones in-process, the long ones in one-thread processes
+    beside the timings); warm api.align_pair times; the cold wall of a
+    fresh process and its split; the native C++ CLI beside it."""
+    from aligntools_tpu_torch import api, cli
+    from aligntools_tpu_torch.params import AlignParams
+
+    runs = [(" ".join(a), [*a[:-1], os.path.join(ROOT, "test", a[-1])])
+            for a in SINGLE_FIXTURES]
+    pairs = {}
+    for k, mode in enumerate(SINGLE_MODES):
+        q, t, _ = drawn_pair(SINGLE_N, SINGLE_N, SEED + k)
+        pairs[f"{mode}-{SINGLE_N}"] = (mode, q, t, None)
+    for k, (label, (mode, m, n, with_sites)) in enumerate(
+            SINGLE_LONG.items()):
+        pairs[label] = (mode, *drawn_pair(m, n, SEED + 10 + k, with_sites))
+    for label, (mode, q, t, sites) in pairs.items():
+        path = os.path.join(work, f"single-{label}.fa")
+        write_fasta(path, [(q, t)], [sites] if sites else None)
+        runs.append((label, [mode, *(["-s"] if sites else []), path]))
+    long_runs = [(label, argv) for label, argv in runs
+                 if label in SINGLE_LONG]
+    jobs = start_single_cpu_checks(work, long_runs)
+    try:
+        reset_counts(scan, ptr, tb)
+        card = {label: run_single(cli, argv, None) for label, argv in runs}
+        torch.cuda.synchronize()
+        launches, plain = counts(scan, ptr, tb)
+        emit({"phase": "single", "runs": len(runs),
+              "launches": launches, "plain_calls": plain})
+        for name in ("ptr", "walk", "edit", "blocked_ptr",
+                     "blocked_scores"):
+            check(launches[name] > 0,
+                  f"kernel {name} never launched on the single-pair path")
+        check(not any(plain.values()), f"plain versions ran on the card "
+              f"on the single-pair path: {plain}")
+        for label, argv in runs:
+            if label in SINGLE_LONG:
+                continue
+            out, _ = run_single(cli, argv, "cpu")
+            check(card[label][0] == out,
+                  f"single {label}: card and CPU stdout differ")
+        emit({"phase": "single", "cpu_checked_in_process":
+              len(runs) - len(long_runs)})
+
+        # warm api.align_pair on the card, as the commands above call it
+        timing = {}
+        for label, (mode, q, t, sites) in pairs.items():
+            reps = SINGLE_LONG_REPS if label in SINGLE_LONG else SINGLE_REPS
+            walls = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                api.align_pair(mode, q, t, AlignParams(), sites,
+                               device="cuda")
+                walls.append((time.perf_counter() - t0) * 1e3)
+            timing[label] = {"ms": statistics.median(walls),
+                             "walls_ms": walls, "m": len(q), "n": len(t),
+                             "cli_wall_s": card[label][1]}
+            emit({"phase": "single", "pair": label, "mode": mode,
+                  "shape": f"{len(q)}x{len(t)}",
+                  "sites": sites is not None, **timing[label]})
+        for label in (f"global-{SINGLE_N}", "fit-B1"):
+            mode, q, t, sites = pairs[label]
+            emit({"phase": "single", "profile": label, **profile_single(
+                torch, lambda: api.align_pair(mode, q, t, AlignParams(),
+                                              sites, device="cuda"))})
+
+        # the cold wall of a fresh process, the kernels already built
+        env = {k: v for k, v in os.environ.items()
+               if k != "ALIGNTOOLS_DEVICE"}
+        fixture = " ".join(COLD_ARGV[:-1] + ("test_global.fa",))
+        out, walls = timed_runs([sys.executable, "-m",
+                                 "aligntools_tpu_torch", *COLD_ARGV],
+                                COLD_REPS, env)
+        check(out == card[fixture][0], "cold process: stdout differs from "
+              "the in-process run")
+        splits = []
+        for _ in range(COLD_REPS):
+            r = subprocess.run([sys.executable, "-c", COLD_SPLIT, *COLD_ARGV],
+                               cwd=ROOT, env=env, capture_output=True,
+                               text=True, timeout=300)
+            check(r.returncode == 0, f"cold split exited {r.returncode}: "
+                  f"{r.stderr}")
+            splits.append(json.loads(r.stdout.strip().splitlines()[-1]))
+            check(splits[-1]["rc"] == 0, f"cold split: {splits[-1]}")
+        split = {k: statistics.median(s[k] for s in splits)
+                 for k in splits[0] if k != "rc"}
+        cold = {"phase": "single", "cold": " ".join(COLD_ARGV),
+                "wall_s": statistics.median(walls), "walls_s": walls,
+                "split_s": split, **native_anchor(out)}
+        emit(cold)
+        checked = finish_single_cpu_checks(jobs, {
+            label: card[label][0] for label, _ in long_runs})
+    finally:
+        stop_cpu_checks(jobs)
+    emit({"phase": "single", "cpu_checked_long": checked})
+    return {"launches": launches, "timing": timing, "cold": cold}
+
+
+class StampedOut(io.StringIO):
+    """A text stream that notes the clock at each terminator line."""
+
+    def __init__(self):
+        super().__init__()
+        self.stamps = []
+
+    def write(self, s):
+        if s.startswith("#"):
+            self.stamps.append(time.perf_counter())
+        return super().write(s)
+
+
+def phase_serve(torch, scan, ptr, tb, slice_out):
+    """serve() fed one stream on the 2,000-pair FASTA of the slice phase:
+    each request's TSV byte for byte the batch TSV the slice phase wrote
+    for the same mode and output; a malformed and a sharded request
+    answered with #error; nothing after quit processed."""
+    from aligntools_tpu_torch.serve import serve
+
+    fasta = slice_out["fasta"]
+    # (label, request line, the slice phase's TSV it must equal)
+    requests = [
+        ("overlap scores_only", f"overlap {fasta} scores_only",
+         slice_out["scores"]["overlap"]),
+        ("global rows", f"global {fasta}", slice_out["rows"]["global"]),
+        ("fit sites rows", f"fit {fasta} sites", slice_out["rows"]["fit"]),
+        ("edit", f"edit {fasta}", slice_out["scores"]["edit"]),
+        ("overlap scores_only warm", f"overlap {fasta} scores_only",
+         slice_out["scores"]["overlap"]),
+        ("malformed", "global", None),
+        ("sharded", f"local {fasta} sharded scores_only", None),
+    ]
+    lines = [line for _, line, _ in requests] + ["quit", f"global {fasta}"]
+    handed = []
+
+    def stream():
+        for line in lines:
+            handed.append(time.perf_counter())
+            yield line + "\n"
+
+    out = StampedOut()
+    reset_counts(scan, ptr, tb)
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = serve(stream(), out, device="cuda")
+    torch.cuda.synchronize()
+    launches, plain = counts(scan, ptr, tb)
+    check(rc == 0, f"serve returned {rc}: {err.getvalue()}")
+    check(len(handed) == len(requests) + 1,
+          f"serve read {len(handed)} lines; it must stop at quit")
+    blocks, cur = [], []
+    for ln in out.getvalue().splitlines(keepends=True):
+        if ln.startswith("#"):
+            blocks.append(("".join(cur), ln.rstrip("\n")))
+            cur = []
+        else:
+            cur.append(ln)
+    check(not cur and len(blocks) == len(requests) == len(out.stamps),
+          f"serve wrote {len(blocks)} terminators for {len(requests)} "
+          f"requests")
+    errors = 0
+    for k, ((label, _, want), (tsv, term)) in enumerate(zip(requests,
+                                                            blocks)):
+        seconds = out.stamps[k] - handed[k]
+        if want is None:
+            check(term.startswith("#error") and not tsv,
+                  f"serve {label}: {term!r}, expected #error")
+            errors += 1
+            emit({"phase": "serve", "request": label, "terminator": term,
+                  "seconds": seconds})
+            continue
+        with open(want) as f:
+            want = f.read()
+        n = want.count("\n")
+        check(term.startswith(f"#done pairs={n} "),
+              f"serve {label}: {term!r} for {n} pairs")
+        check(tsv == want, f"serve {label}: TSV differs from the slice "
+              f"phase's batch TSV")
+        emit({"phase": "serve", "request": label, "pairs": n,
+              "seconds": seconds, "pairs_per_s": n / seconds,
+              "terminator": term})
+    check(errors == 2, f"serve: {errors} #error lines, expected 2")
+    emit({"phase": "serve", "launches": launches, "plain_calls": plain})
+    for name in ("overlap", "edit", "ptr", "walk"):
+        check(launches[name] > 0, f"kernel {name} never launched in serve")
+    check(not any(plain.values()), f"plain versions ran in serve: {plain}")
+    return launches
 
 
 def long_pairs(P, seed):
@@ -1626,12 +2021,11 @@ def long_pairs(P, seed):
 
 
 def phase_long(torch, scan, ptr, tb, work, trace_path):
-    """The main path on long targets (L3, global/local on its first 8, and
+    """The main path on long targets (L3, global/local on its first 4, and
     a mixed flat + blocked local run): the runs, with the counts set to 0
     just before and read just after, then every bucket against plain while
     the CPU runs of the sampled pairs go on."""
     from aligntools_tpu_torch import batch, cli
-    from aligntools_tpu_torch.ops import blocked
     from aligntools_tpu_torch.params import AlignParams
     from aligntools_tpu_torch.utils.synth import clustered_pairs
 
@@ -1698,18 +2092,6 @@ def phase_long(torch, scan, ptr, tb, work, trace_path):
             scores_tsv[label] = run(label, "cold", False)
         torch.cuda.synchronize()
         launches, plain = counts(scan, ptr, tb)
-        # L3 warm at every column block of the sweep: the same TSVs
-        own = blocked.C_BLK
-        try:
-            for c_blk in C_BLK_SWEEP:
-                blocked.C_BLK = c_blk
-                for rows, want in ((True, rows_tsv), (False, scores_tsv)):
-                    tsv = run("fit", f"warm c_blk {c_blk}", rows)
-                    with open(tsv, "rb") as a, open(want["fit"], "rb") as b:
-                        check(a.read() == b.read(), f"L3 at c_blk {c_blk}: "
-                              f"{'rows' if rows else 'scores'} TSV differs")
-        finally:
-            blocked.C_BLK = own
     finally:
         batch._collect_rows_wave = collect
     emit({"phase": "long", "launches": launches, "plain_calls": plain})
@@ -2221,6 +2603,19 @@ def trace_overlap(trace_path):
             "walk_under_fill_share": under / walk if walk else None}
 
 
+def device_ops(prof):
+    """The device's time per op of a torch.profiler run, longest first."""
+    ops = []
+    for ev in prof.key_averages():
+        if "CUDA" not in str(ev.device_type):
+            continue
+        ms = ev.device_time_total / 1000
+        if ms > 0:
+            ops.append({"op": ev.key[:80], "calls": ev.count, "ms": ms})
+    ops.sort(key=lambda o: -o["ms"])
+    return ops
+
+
 def phase_profile(torch, cli, argv, work, trace_path):
     """One more warm rows run (``argv``, the CLI's) under torch.profiler:
     device time per op (CUDA kernels and copies) against the run's wall
@@ -2234,14 +2629,7 @@ def phase_profile(torch, cli, argv, work, trace_path):
                              ProfilerActivity.CUDA]) as prof:
         wall, report = run_cli(cli, [*argv, "--out", tsv])
         torch.cuda.synchronize()
-    ops = []
-    for ev in prof.key_averages():
-        if "CUDA" not in str(ev.device_type):
-            continue
-        ms = ev.device_time_total / 1000
-        if ms > 0:
-            ops.append({"op": ev.key[:80], "calls": ev.count, "ms": ms})
-    ops.sort(key=lambda o: -o["ms"])
+    ops = device_ops(prof)
     busy = sum(o["ms"] for o in ops)
     split = {name: 0.0 for name, _ in PROFILE_GROUPS}
     split["other"] = 0.0
@@ -2371,7 +2759,10 @@ def main(argv=None):
     trace = opts.profile and os.path.abspath(opts.profile)
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as work:
-        launches, bucket_rows = phase_slice(torch, scan, ptr, tb, work, trace)
+        launches, bucket_rows, slice_out = phase_slice(torch, scan, ptr, tb,
+                                                       work, trace)
+        phase_single(torch, scan, ptr, tb, work)
+        phase_serve(torch, scan, ptr, tb, slice_out)
         long_launches, long_buckets, long_walks = phase_long(
             torch, scan, ptr, tb, work, trace)
         banded_launches, banded_buckets, banded_walks = phase_banded(

@@ -5,6 +5,8 @@ CUDA device (a CUDA kernel has no interpret mode). On a Hopper card:
 ``ALIGNTOOLS_TEST_TPU=1 python -m pytest tests/test_torch_cuda.py -o
 addopts="" -q`` (the variable keeps tests/conftest.py from importing jax)."""
 
+import os
+
 import banded_ties
 import blocked_ties as ties
 import numpy as np
@@ -948,3 +950,63 @@ def test_probe_main_quick_on_card(cuda, capsys):
     out = capsys.readouterr().out
     assert out.count("Tops/s") == 4 + 6  # elementwise dtypes, roofline forms
     assert "exact=True" in out
+
+
+def _single_pair(seed, m, n, alphabet=b"ACGT"):
+    rng = np.random.default_rng(seed)
+    alpha = np.frombuffer(alphabet, dtype=np.uint8)
+    return (alpha[rng.integers(0, len(alpha), m)].tobytes(),
+            alpha[rng.integers(0, len(alpha), n)].tobytes())
+
+
+@pytest.mark.parametrize("mode", ["global", "local", "fit", "overlap",
+                                  "edit"])
+def test_align_pair_on_card_equals_cpu(cuda, mode):
+    """api.align_pair on the card against its CPU route: a short pair, a
+    tie-heavy binary one, one past ops/ptr.FLAT_REG_MAX_N_PAD columns (the
+    blocked pointer fill) and, for edit, one past its score fill's cap
+    (the blocked score fill); fit with and without sites."""
+    from aligntools_tpu_torch import api
+
+    wide = ptr.FLAT_REG_MAX_N_PAD + 700
+    cases = [_single_pair(1, 300, 2000), _single_pair(2, 150, 400, b"AC"),
+             _single_pair(3, 200, wide)]
+    if mode == "edit":
+        cases.append(_single_pair(4, 100, scan.flat_cap("edit") + 300))
+    before = ({**scan.launches, **blocked.launches}, ptr.launches,
+              device_tb.launches)
+    for q, t in cases:
+        for sites in ((None, [5, 17, 17, len(t) + 3]) if mode == "fit"
+                      else (None,)):
+            got = api.align_pair(mode, q, t, AlignParams(), sites,
+                                 device="cuda")
+            want = api.align_pair(mode, q, t, AlignParams(), sites,
+                                  device="cpu")
+            assert got == want and type(got) is type(want)
+    if mode == "edit":
+        assert scan.launches["edit"] > before[0]["edit"]
+        assert blocked.launches["blocked_scores"] > before[0][
+            "blocked_scores"]
+    else:
+        assert ptr.launches > before[1] and device_tb.launches > before[2]
+        assert blocked.launches["blocked_ptr"] > before[0]["blocked_ptr"]
+
+
+@pytest.mark.parametrize("args", [
+    ("global", "test_global.fa"), ("local", "test_local.fa"),
+    ("overlap", "test_overlap.fa"), ("edit", "-u", "1", "test_edit.fa"),
+    ("fit", "-m", "2", "-u", "-2", "-s", "test_fit.fa")], ids=" ".join)
+def test_per_mode_cli_on_card_equals_cpu(cuda, capsys, monkeypatch, args):
+    from aligntools_tpu_torch.cli import main
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "test", args[-1])
+    outs = []
+    for device in (None, "cpu"):  # unset: the card
+        if device is None:
+            monkeypatch.delenv("ALIGNTOOLS_DEVICE", raising=False)
+        else:
+            monkeypatch.setenv("ALIGNTOOLS_DEVICE", device)
+        assert main([*args[:-1], path]) == 0
+        outs.append(capsys.readouterr().out)
+    assert outs[0] and outs[0] == outs[1]

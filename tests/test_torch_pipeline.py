@@ -299,5 +299,5 @@ def test_empty_records_tsv_matches_jax(tmp_path, mode, output):
 
 def test_usage_without_batch(capsys):
     assert main([]) == 1
-    assert main(["local", "x.fa"]) == 1
+    assert main(["semiglobal", "x.fa"]) == 1
     assert "aligntools-torch batch" in capsys.readouterr().err

@@ -17,7 +17,9 @@ sync.
            per bucket, the walk's starts derived from the fill's outputs on
            the device; buckets are collected in flush waves of two pulls
            each (scalars, then the walked columns), bounded by a
-           device-memory budget for the pointer tensors.
+           device-memory budget for the pointer tensors; a pair whose
+           pointers pass the budget alone goes through the checkpoint-rescan
+           engine (``engine/rescan.py``).
 
 A pair with an empty side has no DP cell: it gets its result on the host
 (``_empty_result``) and joins no bucket's fill.
@@ -277,14 +279,18 @@ def _tick(counters, field: str, t0: float) -> float:
 # The pointer tensor is the only O(B*m*n) allocation: B * m_pad * n_pad /
 # rpb bytes. A bucket is sliced so one fill's tensor fits the budget, and
 # the dispatch window flushes (collects) when the outstanding buckets'
-# pointer bytes would pass it. A pair that cannot fit alone would need the
-# checkpoint-rescan engine (aligntools_tpu/engine/rescan.py), which is not
-# ported: such a run is refused before anything is dispatched. The blocked
-# fills' wavefront buffers (ops/blocked._scratch: block edges, counters,
-# start-info candidates, ~16 * (m_pad + 1) bytes a pair and column block)
-# are left out of the budget: they are at most 16 * rpb / c_blk of the
-# pointer bytes (0.8% at rpb 1 and c_blk 2,048, 3.1% at overlap's rpb 4),
-# freed with the fill, and fit in the device memory the budget leaves.
+# pointer bytes would pass it. A bucket whose pairs cannot fit one at a
+# time (cap 0) first collects the wave dispatched before it, then goes pair
+# by pair through the checkpoint-rescan engine (engine/rescan.py:
+# checkpoints of every S-th row, about states * 4 * m * n_pad / S bytes,
+# and one S-row pointer block; S from _auto_stride), as the JAX package
+# routes it. The blocked fills' wavefront buffers (ops/blocked._scratch:
+# block edges, counters, start-info candidates, ~16 * (m_pad + 1) bytes a
+# pair and column block) are left out of the budget: they are at most 16 *
+# rpb / c_blk of the pointer bytes (0.8% at rpb 1 and c_blk 2,048, 3.1% at
+# overlap's rpb 4), freed with the fill, and fit in the device memory the
+# budget leaves (the rescan's forward: 16 * (m_pad + 1) bytes a column
+# block of its one pair, ~0.6 GB at 240,000 x 330,000).
 #
 # Two streams: each bucket's fill (and its H2D copies and walk starts) goes
 # on the current stream, its walk on the device's walk stream
@@ -307,6 +313,41 @@ def _hbm_budget(device: torch.device) -> int:
     if device.type == "cuda":
         return int(torch.cuda.mem_get_info(device)[1])
     return 16 << 30  # the JAX package's default off the accelerator
+
+
+def pad_len(n: int, quantum: int = 128) -> int:
+    """The JAX package's n_pad of one pair (``aligntools_tpu/engine/scan.py``
+    ``pad_len``), which _auto_stride is given there."""
+    return max(quantum, -(-n // quantum) * quantum)
+
+
+def _auto_stride(m: int, n_pad: int, budget: int) -> int:
+    """The rescan's row-block stride (``aligntools_tpu/batch.py``'s, with
+    the same arithmetic): balance the checkpoints' memory ((m/S) * states *
+    4 * n) against the live pointer block (S * n), then grow S until the
+    checkpoints fit the budget."""
+    import math
+
+    s = max(256, int(math.sqrt(16.0 * max(m, 1))))
+    s = -(-s // 8) * 8
+    while m > s and (m / s) * 16 * (n_pad + 1) > budget * 0.4:
+        s *= 2
+    return s
+
+
+def _rescan_bucket(mode, b, params, jump, pairs, sites_list, results,
+                   budget, device):
+    """The route of a bucket whose pairs pass the budget alone: each pair
+    through the checkpoint-rescan engine (engine/rescan.py), O(m*n/S)
+    memory, any shape."""
+    from aligntools_tpu_torch.engine.rescan import rescan_align
+
+    for k in b.idx:
+        q, t = pairs[k]
+        sites = sites_list[k] if jump and sites_list is not None else None
+        stride = _auto_stride(len(q), pad_len(max(1, len(t))), budget)
+        results[k] = rescan_align(mode, q, t, params, sites=sites,
+                                  stride=stride, device=device)
 
 
 def _slice_bucket(b: _Bucket, lo: int, hi: int) -> _Bucket:
@@ -370,19 +411,17 @@ def _collect_rows_wave(mode, pends, pairs, results, counters):
     _tick(counters, "walk_seconds", t0)
 
 
-def _align_rows(mode, buckets, pairs, pmat, jump, device, counters, results):
+def _align_rows(mode, buckets, pairs, params, pmat, jump, sites_list,
+                device, counters, results):
     budget = int(_hbm_budget(device) * PTR_BUDGET_FRAC)
-    plan = []
+    plan = []  # (bucket or slice, its pointer bytes; None: the rescan)
     for b in buckets:
         bytes_pp = b.m_pad * b.n_pad // layout.rows_per_byte(mode, jump,
                                                               b.m_pad)
         cap = budget // bytes_pp
         if cap == 0:
-            raise ValueError(
-                f"a ({b.m_pad} x {b.n_pad}) pair's {bytes_pp} pointer bytes "
-                f"exceed the device budget of {budget}: it needs the "
-                f"checkpoint-rescan engine (aligntools_tpu/engine/rescan.py)"
-                f", which is not ported to aligntools_tpu_torch yet")
+            plan.append((b, None))
+            continue
         B = len(b.idx)
         step = -(-B // -(-B // cap))  # equal slices of at most cap pairs
         for lo in range(0, B, step):
@@ -390,9 +429,15 @@ def _align_rows(mode, buckets, pairs, pmat, jump, device, counters, results):
                          bytes_pp * min(step, B - lo)))
     pending, outstanding = [], 0
     for sb, est in plan:
-        if pending and outstanding + est > budget:
+        if pending and (est is None or outstanding + est > budget):
             _collect_rows_wave(mode, pending, pairs, results, counters)
             pending, outstanding = [], 0
+        if est is None:
+            t0 = time.perf_counter()
+            _rescan_bucket(mode, sb, params, jump, pairs, sites_list,
+                           results, budget, device)
+            _tick(counters, "fill_seconds", t0)
+            continue
         t0 = time.perf_counter()
         pending.append(_dispatch_rows(mode, sb, pmat, jump, device, counters))
         outstanding += est
@@ -475,8 +520,9 @@ def align_batch(
         return results
     pmat = params_matrix(params, device)
     if traceback and mode != "edit":
-        _align_rows(mode, list(buckets.values()), pairs, pmat,
-                    use_jump and mode == "fit", device, counters, results)
+        _align_rows(mode, list(buckets.values()), pairs, params, pmat,
+                    use_jump and mode == "fit", sites_list, device, counters,
+                    results)
         return results
     outs = [(b, _dispatch_scores(mode, b, pmat, use_jump, device, counters))
             for b in buckets.values()]

@@ -90,6 +90,23 @@
 // borders (edit: int32), built with --fmad=false and no fast math; each
 // pointer is a comparison of such values in the Pallas code's argument
 // order, so the results do not depend on c_blk.
+//
+// The checkpoint-rescan engine (engine/rescan.py, the counterpart of
+// aligntools_tpu/engine/rescan.py's _forward_ckpt and _refill_block, which
+// run engine/scan.py's row machines under lax.scan) takes two more
+// instances of the pointer fills, a template phase each:
+//   CKPT  the forward fill of the whole matrix with no pointer stores: start
+//         info as in FILL, and every row that is a multiple of the stride S
+//         (row 0, the border, included) written as the (M, L, U[, J]; overlap
+//         M) state rows of its columns 0..n_pad into a (B, m_pad/S, states,
+//         n_pad+1) float32 checkpoint tensor (entries at_blocked_ckpt_fill);
+//   SEED  the refill of one row block: rows i0+1 .. i0+S, the block's row 0
+//         read from its checkpoint in place of the analytic row 0 (block c
+//         reads column col0 of it as its edge), column 0's borders at the
+//         global row i0+i; pointers as in FILL, no start info
+//         (at_blocked_refill).
+// The recurrences, tie-breaks and the wavefront are FILL's, so a refilled
+// block's bytes are the whole-matrix fill's rows i0+1 .. i0+S, bit for bit.
 
 #include <climits>
 #include <cmath>
@@ -496,17 +513,25 @@ bscore_edit(const int* __restrict__ qs, const int* __restrict__ ts,
 // Pointer fills
 // ---------------------------------------------------------------------------
 
-// Edge states of the affine pointer fill: M, L, U, J.
+// Edge states of the affine pointer fill: M, L, U, J (also the state rows
+// of a checkpoint, in this order: engine/scan.py's carry layout).
 constexpr int PM = 0, PL = 1, PU = 2, PJ = 3;
 
+// The phases of the pointer fills: the whole matrix with pointers; the
+// checkpoint forward; the seeded refill of one row block.
+constexpr int FILL = 0, CKPT = 1, SEED = 2;
+
+// State s of (row i, column col0) as block c reads it; column 0's border is
+// taken at the global row i0 + i (i0 > 0 in a refill only).
 template <int MODE>
-__device__ __forceinline__ float ptr_edge(int s, int c, int i, int col0, float o, float e,
-                                          const Wave& w) {
+__device__ __forceinline__ float ptr_edge(int s, int c, int i, int i0, int col0, float o,
+                                          float e, const Wave& w) {
   if (c == 0) {  // column 0
+    const int gi = i0 + i;
     if (s == PJ) return NEG;
     if (MODE == LOCAL) return 0.f;
-    if (s == PL) return MODE == GLOBAL ? o + e * (float)i : NEG;
-    if (i > 0) return NEG;
+    if (s == PL) return MODE == GLOBAL ? o + e * (float)gi : NEG;
+    if (gi > 0) return NEG;
     return (MODE == GLOBAL && s == PU) ? o : 0.f;
   }
   if (i == 0) {  // row 0 past column 0
@@ -522,15 +547,21 @@ __device__ __forceinline__ float ptr_edge(int s, int c, int i, int col0, float o
 // (JUMP: fit's junction-gated J state, entry allowed where allow > 0 — the
 // reference's inverted enum-bool quirk). Per slot: M, L, U[, J, the jump
 // bias] of the row, the target char and pass 1's part of the pointer code;
-// per thread its last column's M and L of the previous row.
-template <int MODE, bool JUMP>
+// per thread its last column's M and L of the previous row. PHASE: FILL;
+// CKPT (no pointers; the state rows of every stride-th row into `ck`, (B,
+// m_pad/S, states, n_pad+1)); SEED (rows i0+1 .. i0+m_pad from `ck`, (B,
+// states, n_pad+1); no start info).
+template <int MODE, bool JUMP, int PHASE>
 __global__ void __launch_bounds__(MAX_THREADS)
 bptr_affine(const int* __restrict__ qs, const int* __restrict__ ts,
             const float* __restrict__ allow, const int* __restrict__ ns,
             const int* __restrict__ ms, const float* __restrict__ params,
             float* __restrict__ score_out, int* __restrict__ a_out, int* __restrict__ b_out,
-            uint8_t* __restrict__ ptrs, float* edges, int* flags, int4* cand, int m_pad, int n_pad,
-            int c_blk, int W, int rpb) {
+            uint8_t* __restrict__ ptrs, float* edges, int* flags, int4* cand, float* ck,
+            int m_pad, int n_pad, int c_blk, int W, int rpb, int stride, int i0) {
+  constexpr bool PTRS = PHASE != CKPT, LATCH = PHASE != SEED;
+  // a checkpoint's state rows: M, L, U, and fit's J (-inf without the jump)
+  constexpr int ST = MODE == FIT ? 4 : 3;
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ float tot[3][32];
   __shared__ float red_f[2][32];
@@ -561,46 +592,77 @@ bptr_affine(const int* __restrict__ qs, const int* __restrict__ ts,
   const int* q = qs + (size_t)b * m_pad;
   const int* t = ts + (size_t)b * n_pad;
   const float* al = allow + (size_t)b * n_pad;
-  uint8_t* out = ptrs + (size_t)b * R * n_pad;
+  uint8_t* out = PTRS ? ptrs + (size_t)b * R * n_pad : nullptr;
   // the block's columns: c_blk, or fewer in a ragged last block
   const int col0 = c * c_blk, bw = min(c_blk, n_pad - col0);
   const bool feeds = c + 1 < nblk;
   const Strip s(col0, bw, W);
+  // the checkpoint's state rows: CKPT, of each pair and S-th row; SEED, the
+  // one row this block starts from (64-bit offsets: the tensor passes 2^31)
+  const size_t ck_row = (size_t)n_pad + 1;
+  const int nck = PHASE == CKPT ? m_pad / stride : 1;
+  const float* seed = PHASE == SEED ? ck + (size_t)b * ST * ck_row : nullptr;
+  const int r0 = PHASE == SEED ? i0 : 0;  // the global row of row 0
+  // CKPT: this thread's columns (and column 0's border, block 0's thread 0)
+  // of row i as checkpoint i / stride
+  auto put_ck = [&](int i) {
+    float* dst = ck + ((size_t)b * nck + i / stride) * ST * ck_row;
+    for (int k = 0; k < s.cnt; ++k) {
+      const int j = s.j(k);
+      const size_t x = s.slot(k);
+      dst[PM * ck_row + j] = Mr[x];
+      dst[PL * ck_row + j] = Lr[x];
+      dst[PU * ck_row + j] = Ur[x];
+      if (ST > 3) dst[PJ * ck_row + j] = JUMP ? Jr[x] : NEG;
+    }
+    if (c == 0 && tid == 0)
+      for (int st = 0; st < ST; ++st) dst[st * ck_row] = ptr_edge<MODE>(st, 0, i, 0, 0, o, e, w);
+  };
   if (tid == 0) {
     g_s = NEG;
     g_a = 0;
   }
   // row 0: global M = L = -inf, U = o + e*j; local zeros; fit M = U = 0,
-  // L = -inf; J = -inf
+  // L = -inf; J = -inf. SEED: the checkpoint's row.
   for (int k = 0; k < s.cnt; ++k) {
     const int j = s.j(k);
     const size_t x = s.slot(k);
     Tc[x] = t[j - 1];
-    Mr[x] = MODE == GLOBAL ? NEG : 0.f;
-    Lr[x] = MODE == LOCAL ? 0.f : NEG;
-    Ur[x] = MODE == GLOBAL ? o + e * (float)j : 0.f;
+    if (PHASE == SEED) {
+      Mr[x] = seed[PM * ck_row + j];
+      Lr[x] = seed[PL * ck_row + j];
+      Ur[x] = seed[PU * ck_row + j];
+    } else {
+      Mr[x] = MODE == GLOBAL ? NEG : 0.f;
+      Lr[x] = MODE == LOCAL ? 0.f : NEG;
+      Ur[x] = MODE == GLOBAL ? o + e * (float)j : 0.f;
+    }
     if (JUMP) {
-      Jr[x] = NEG;
+      Jr[x] = PHASE == SEED ? seed[PJ * ck_row + j] : NEG;
       Jb[x] = (j < n_pad && al[j] > 0.f) ? jp : NEG;
     }
   }
   if (s.cnt > 0) {
-    eM[tid] = MODE == GLOBAL ? NEG : 0.f;
-    eL[tid] = MODE == LOCAL ? 0.f : NEG;
+    eM[tid] = Mr[s.slot(s.cnt - 1)];
+    eL[tid] = Lr[s.slot(s.cnt - 1)];
   }
   const float jb0 = (JUMP && al[col0] > 0.f) ? jp : NEG;
-  // thread 0's diagonal: row i-1's M, L, U, J at col0
-  float eM0 = ptr_edge<MODE>(PM, c, 0, col0, o, e, w);
-  float eL0 = ptr_edge<MODE>(PL, c, 0, col0, o, e, w);
-  float eU0 = ptr_edge<MODE>(PU, c, 0, col0, o, e, w);
-  float eJ0 = NEG;
+  // thread 0's diagonal: row i-1's M, L, U, J at col0 (SEED past block 0:
+  // the checkpoint's column col0)
+  const bool from_ck = PHASE == SEED && c > 0;
+  float eM0 = from_ck ? seed[PM * ck_row + col0] : ptr_edge<MODE>(PM, c, 0, r0, col0, o, e, w);
+  float eL0 = from_ck ? seed[PL * ck_row + col0] : ptr_edge<MODE>(PL, c, 0, r0, col0, o, e, w);
+  float eU0 = from_ck ? seed[PU * ck_row + col0] : ptr_edge<MODE>(PU, c, 0, r0, col0, o, e, w);
+  float eJ0 = (JUMP && from_ck) ? seed[PJ * ck_row + col0] : NEG;
+  if (PHASE == CKPT) put_ck(0);
   // this block's start info: local's running maximum, fit's bottom row
   float blk_s = NEG;
   int blk_a = 0, blk_b = 0;
   __syncthreads();
   for (int i = 1; i <= m_pad; ++i) {
     const int idx = i - 1, sub_row = idx % rpb, shift = sub_row * bits;
-    if (sub_row == 0 && i > 1) store_row(stage, out + (size_t)(idx / rpb - 1) * n_pad + col0, bw);
+    if (PTRS && sub_row == 0 && i > 1)
+      store_row(stage, out + (size_t)(idx / rpb - 1) * n_pad + col0, bw);
     const int qc = q[idx];
     // row i-1 at column j0-1
     float dM, dL, dU, dJ = NEG;
@@ -646,7 +708,7 @@ bptr_affine(const int* __restrict__ qs, const int* __restrict__ ts,
       const float la = lo + e, lb2 = mo + o;
       Mr[x] = best;
       Lr[x] = fmaxf(la, lb2);
-      Cd[x] = (uint8_t)(pm | (la >= lb2 ? 0 : lbit));
+      if (PTRS) Cd[x] = (uint8_t)(pm | (la >= lb2 ? 0 : lbit));
       v[0] = fmaxf(v[0], best + (o - e * (float)(j + 1)));
       if (JUMP) v[1] = fmaxf(v[1], best + Jb[x]);
       if (MODE == LOCAL && j <= n) v[2] = fmaxf(v[2], best);
@@ -657,10 +719,10 @@ bptr_affine(const int* __restrict__ qs, const int* __restrict__ ts,
     }
     if (tid == 0) {
       if (c > 0) w.wait(i);
-      eg[PM] = eM0 = ptr_edge<MODE>(PM, c, i, col0, o, e, w);
-      eg[PL] = eL0 = ptr_edge<MODE>(PL, c, i, col0, o, e, w);
-      eg[PU] = eU0 = ptr_edge<MODE>(PU, c, i, col0, o, e, w);
-      if (JUMP) eg[PJ] = eJ0 = ptr_edge<MODE>(PJ, c, i, col0, o, e, w);
+      eg[PM] = eM0 = ptr_edge<MODE>(PM, c, i, r0, col0, o, e, w);
+      eg[PL] = eL0 = ptr_edge<MODE>(PL, c, i, r0, col0, o, e, w);
+      eg[PU] = eU0 = ptr_edge<MODE>(PU, c, i, r0, col0, o, e, w);
+      if (JUMP) eg[PJ] = eJ0 = ptr_edge<MODE>(PJ, c, i, r0, col0, o, e, w);
     }
     const float none[3] = {NEG, NEG, NEG};
     float total[3];
@@ -683,7 +745,7 @@ bptr_affine(const int* __restrict__ qs, const int* __restrict__ ts,
       const float uv = run_u + e * (float)j;
       const float ua = mprev + o;
       // U(i,j) = max(ua, U(i,j-1) + e), so ua >= U(i,j-1) + e iff ua >= U(i,j)
-      int code = Cd[x] | (ua >= uv ? 0 : ubit);
+      int code = PTRS ? Cd[x] | (ua >= uv ? 0 : ubit) : 0;
       Ur[x] = uv;
       if (JUMP) {
         // J(i,j) = max(J(i,j-1), jcv): jcv >= J(i,j-1) iff jcv >= J(i,j)
@@ -692,9 +754,11 @@ bptr_affine(const int* __restrict__ qs, const int* __restrict__ ts,
         jcv = mv + Jb[x];
         run_j = fmaxf(run_j, jcv);
       }
-      const int col = s.k0 + k;
-      stage[col] = (uint8_t)(sub_row == 0 ? code : stage[col] | (code << shift));
-      if (MODE == GLOBAL && last_row && j == n) {
+      if (PTRS) {
+        const int col = s.k0 + k;
+        stage[col] = (uint8_t)(sub_row == 0 ? code : stage[col] | (code << shift));
+      }
+      if (LATCH && MODE == GLOBAL && last_row && j == n) {
         const float ln = Lr[x];
         g_s = fmaxf(fmaxf(ln, mv), uv);
         g_a = (ln >= mv && ln >= uv) ? 0 : (mv >= uv ? 1 : 2);
@@ -714,7 +778,8 @@ bptr_affine(const int* __restrict__ qs, const int* __restrict__ ts,
         w.publish(i);
       }
     }
-    if (MODE == LOCAL && i <= m && total[2] > blk_s) {
+    if (PHASE == CKPT && i % stride == 0 && i < m_pad) put_ck(i);
+    if (LATCH && MODE == LOCAL && i <= m && total[2] > blk_s) {
       // a strictly greater row maximum: its first column over j <= n
       int fj = BIG;
       for (int k = 0; k < s.cnt && fj == BIG; ++k)
@@ -723,7 +788,7 @@ bptr_affine(const int* __restrict__ qs, const int* __restrict__ ts,
       blk_s = total[2];
       blk_a = i;
     }
-    if (MODE == FIT && last_row) {
+    if (LATCH && MODE == FIT && last_row) {
       // this block's bottom row over columns <= n-1; L wins only when
       // strictly greater
       float mx[2] = {NEG, NEG};
@@ -745,7 +810,8 @@ bptr_affine(const int* __restrict__ qs, const int* __restrict__ ts,
     }
     __syncthreads();
   }
-  store_row(stage, out + (size_t)(R - 1) * n_pad + col0, bw);
+  if (PTRS) store_row(stage, out + (size_t)(R - 1) * n_pad + col0, bw);
+  if (!LATCH) return;
   if (tid == 0 && w.finish(MODE == GLOBAL ? pack(g_s, g_a) : pack(blk_s, blk_a, blk_b), nblk)) {
     float acc_s = NEG;
     int acc_a = 0, acc_b = 0;
@@ -784,13 +850,16 @@ bptr_affine(const int* __restrict__ qs, const int* __restrict__ ts,
 // Replaces the overlap branch of _blocked_ptr_kernel: one matrix, linear gap
 // o; codes LEFT/DIAG/RIGHT = 0/1/2, 3 where the cell is -inf (alignment.h:944's
 // argument order). Per slot: M, max(DIAG, RIGHT), the char, DIAG or RIGHT.
+// PHASE as in bptr_affine, with M the one state row.
+template <int PHASE>
 __global__ void __launch_bounds__(MAX_THREADS)
 bptr_overlap(const int* __restrict__ qs, const int* __restrict__ ts,
              const int* __restrict__ ns, const int* __restrict__ ms,
              const float* __restrict__ params, float* __restrict__ score_out,
              int* __restrict__ a_out, int* __restrict__ b_out, uint8_t* __restrict__ ptrs,
-             float* edges, int* flags, int4* cand, int m_pad, int n_pad, int c_blk, int W,
-             int rpb) {
+             float* edges, int* flags, int4* cand, float* ck, int m_pad, int n_pad, int c_blk,
+             int W, int rpb, int stride) {
+  constexpr bool PTRS = PHASE != CKPT, LATCH = PHASE != SEED;
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ float tot[1][32];
   __shared__ float red_f[32];
@@ -811,25 +880,37 @@ bptr_overlap(const int* __restrict__ qs, const int* __restrict__ ts,
   const int n = min(max(ns[b], 0), n_pad), m = min(max(ms[b], 0), m_pad);
   const int* q = qs + (size_t)b * m_pad;
   const int* t = ts + (size_t)b * n_pad;
-  uint8_t* out = ptrs + (size_t)b * R * n_pad;
+  uint8_t* out = PTRS ? ptrs + (size_t)b * R * n_pad : nullptr;
   const int col0 = c * c_blk, bw = min(c_blk, n_pad - col0);  // a ragged last block
   const bool feeds = c + 1 < nblk;
   const Strip s(col0, bw, W);
+  const size_t ck_row = (size_t)n_pad + 1;
+  const int nck = PHASE == CKPT ? m_pad / stride : 1;
+  const float* seed = PHASE == SEED ? ck + (size_t)b * ck_row : nullptr;
+  // CKPT: this thread's columns of row i as checkpoint i / stride; M(i, 0) = 0
+  auto put_ck = [&](int i) {
+    float* dst = ck + ((size_t)b * nck + i / stride) * ck_row;
+    for (int k = 0; k < s.cnt; ++k) dst[s.j(k)] = Mr[s.slot(k)];
+    if (c == 0 && tid == 0) dst[0] = 0.f;
+  };
   // M(i, col0): the column-0 border is 0; row 0 is -inf past column 0
   auto edge = [&](int i) { return c == 0 ? 0.f : (i == 0 ? NEG : w.edge(0, i)); };
   for (int k = 0; k < s.cnt; ++k) {
     const size_t x = s.slot(k);
     Tc[x] = t[s.j(k) - 1];
-    Mr[x] = NEG;
+    Mr[x] = PHASE == SEED ? seed[s.j(k)] : NEG;
   }
-  float dM0 = edge(0);  // thread 0: M(i-1, col0)
+  // thread 0: M(i-1, col0) (SEED past block 0: the checkpoint's column col0)
+  float dM0 = (PHASE == SEED && c > 0) ? seed[col0] : edge(0);
+  if (PHASE == CKPT) put_ck(0);
   // this block's bottom row: its maximum over columns <= n-1, first column
   float blk_s = NEG;
   int blk_a = 0;
   __syncthreads();
   for (int i = 1; i <= m_pad; ++i) {
     const int idx = i - 1, sub_row = idx % rpb, shift = sub_row * bits;
-    if (sub_row == 0 && i > 1) store_row(stage, out + (size_t)(idx / rpb - 1) * n_pad + col0, bw);
+    if (PTRS && sub_row == 0 && i > 1)
+      store_row(stage, out + (size_t)(idx / rpb - 1) * n_pad + col0, bw);
     const int qc = q[idx];
     // M(i-1, j0-1); Mr is rewritten only in pass 2
     float dM = tid == 0 ? dM0 : (s.cnt > 0 ? Mr[s.left] : NEG);
@@ -842,7 +923,7 @@ bptr_overlap(const int* __restrict__ qs, const int* __restrict__ ts,
       const float diag = dM + sub, right = mp + o;
       const float dr = fmaxf(diag, right);
       Dr[x] = dr;
-      Cd[x] = diag >= right ? 1 : 2;
+      if (PTRS) Cd[x] = diag >= right ? 1 : 2;
       v[0] = fmaxf(v[0], dr - o * (float)j);
       dM = mp;
     }
@@ -859,12 +940,14 @@ bptr_overlap(const int* __restrict__ qs, const int* __restrict__ ts,
       const int j = s.j(k);
       const size_t x = s.slot(k);
       const float dr = Dr[x];
-      const float left = mprev + o;
-      const float val = fmaxf(left, dr);
-      int code = left >= val ? 0 : Cd[x];
-      if (!(val > NEG)) code = 3;
-      const int col = s.k0 + k;
-      stage[col] = (uint8_t)(sub_row == 0 ? code : stage[col] | (code << shift));
+      if (PTRS) {
+        const float left = mprev + o;
+        const float val = fmaxf(left, dr);
+        int code = left >= val ? 0 : Cd[x];
+        if (!(val > NEG)) code = 3;
+        const int col = s.k0 + k;
+        stage[col] = (uint8_t)(sub_row == 0 ? code : stage[col] | (code << shift));
+      }
       run = fmaxf(run, dr - o * (float)j);
       const float mv = run + o * (float)j;
       Mr[x] = mv;
@@ -874,7 +957,8 @@ bptr_overlap(const int* __restrict__ qs, const int* __restrict__ ts,
         w.publish(i);
       }
     }
-    if (i == m) {
+    if (PHASE == CKPT && i % stride == 0 && i < m_pad) put_ck(i);
+    if (LATCH && i == m) {
       float mx = NEG;
       for (int k = 0; k < s.cnt && s.j(k) <= n - 1; ++k) mx = fmaxf(mx, Mr[s.slot(k)]);
       mx = block_reduce<MaxF>(mx, red_f);
@@ -886,7 +970,8 @@ bptr_overlap(const int* __restrict__ qs, const int* __restrict__ ts,
     }
     __syncthreads();
   }
-  store_row(stage, out + (size_t)(R - 1) * n_pad + col0, bw);
+  if (PTRS) store_row(stage, out + (size_t)(R - 1) * n_pad + col0, bw);
+  if (!LATCH) return;
   if (tid == 0 && w.finish(pack(blk_s, blk_a), nblk)) {
     float acc_s = NEG;
     int acc_a = 0;
@@ -930,6 +1015,47 @@ bool bad_blocks(int B, int threads, int wmax, int m_pad, int n_pad, int c_blk) {
          c_blk <= 0 || c_blk % 16 != 0 || n_pad <= 0 || n_pad % 16 != 0 ||
          (long long)threads * wmax < c_blk ||
          (long long)B * ((n_pad + c_blk - 1) / c_blk) > INT_MAX;
+}
+
+// One pointer fill of `PHASE` (FILL, CKPT or SEED): the checks of the
+// layout, then the mode's instance; returns the launch's error code.
+template <int PHASE>
+cudaError_t launch_ptr(int mode, int use_jump, int rpb, const int* qs, const int* ts,
+                       const float* allow, const int* ns, const int* ms, const float* params,
+                       float* score, int* a, int* b, uint8_t* ptrs, float* edges, int* flags,
+                       void* cand, float* ck, int B, int m_pad, int n_pad, int c_blk,
+                       int threads, int wmax, int stride, int i0, cudaStream_t stream) {
+  const bool bad_layout = (rpb != 1 && rpb != 2 && rpb != 4) || m_pad % (8 * rpb) != 0 ||
+                          (rpb > 1 && use_jump) || (rpb == 4 && mode != OVERLAP) ||
+                          (use_jump && mode != FIT);
+  if (bad_blocks(B, threads, wmax, m_pad, n_pad, c_blk) || mode < GLOBAL || mode > OVERLAP ||
+      bad_layout)
+    return cudaErrorInvalidValue;
+  if (B == 0) return cudaSuccess;
+  const int ctas = B * ((n_pad + c_blk - 1) / c_blk);
+  const size_t S = (size_t)threads * wmax;
+  int4* cd = static_cast<int4*>(cand);
+  if (mode == OVERLAP)  // stage, M, max(DIAG, RIGHT), char, code
+    return launch(bptr_overlap<PHASE>, ctas, threads, c_blk + S * 13, stream, qs, ts, ns, ms,
+                  params, score, a, b, ptrs, edges, flags, cd, ck, m_pad, n_pad, c_blk, wmax,
+                  rpb, stride);
+  // stage, the threads' last M and L, M, L, U[, J, jump bias], char, code
+  const size_t smem = c_blk + (size_t)threads * 8 + S * (use_jump ? 25 : 17);
+  if (mode == GLOBAL)
+    return launch(bptr_affine<GLOBAL, false, PHASE>, ctas, threads, smem, stream, qs, ts, allow,
+                  ns, ms, params, score, a, b, ptrs, edges, flags, cd, ck, m_pad, n_pad, c_blk,
+                  wmax, rpb, stride, i0);
+  if (mode == LOCAL)
+    return launch(bptr_affine<LOCAL, false, PHASE>, ctas, threads, smem, stream, qs, ts, allow,
+                  ns, ms, params, score, a, b, ptrs, edges, flags, cd, ck, m_pad, n_pad, c_blk,
+                  wmax, rpb, stride, i0);
+  if (use_jump)
+    return launch(bptr_affine<FIT, true, PHASE>, ctas, threads, smem, stream, qs, ts, allow, ns,
+                  ms, params, score, a, b, ptrs, edges, flags, cd, ck, m_pad, n_pad, c_blk, wmax,
+                  rpb, stride, i0);
+  return launch(bptr_affine<FIT, false, PHASE>, ctas, threads, smem, stream, qs, ts, allow, ns,
+                ms, params, score, a, b, ptrs, edges, flags, cd, ck, m_pad, n_pad, c_blk, wmax,
+                rpb, stride, i0);
 }
 
 }  // namespace
@@ -986,32 +1112,42 @@ cudaError_t at_blocked_ptr_fill(int mode, int use_jump, int rpb, const int* qs, 
                                 uint8_t* ptrs, float* edges, int* flags, void* cand, int B,
                                 int m_pad, int n_pad, int c_blk, int threads, int wmax,
                                 cudaStream_t stream) {
-  const bool bad_layout = (rpb != 1 && rpb != 2 && rpb != 4) || m_pad % (8 * rpb) != 0 ||
-                          (rpb > 1 && use_jump) || (rpb == 4 && mode != OVERLAP) ||
-                          (use_jump && mode != FIT);
-  if (bad_blocks(B, threads, wmax, m_pad, n_pad, c_blk) || mode < GLOBAL || mode > OVERLAP ||
-      bad_layout)
+  return launch_ptr<FILL>(mode, use_jump, rpb, qs, ts, allow, ns, ms, params, score, a, b, ptrs,
+                          edges, flags, cand, nullptr, B, m_pad, n_pad, c_blk, threads, wmax, 1,
+                          0, stream);
+}
+
+// The checkpoint forward (CKPT) of the pointer fill: score, a and b as
+// at_blocked_ptr_fill's, no pointers, and `ck` the (B, m_pad / S, states,
+// n_pad + 1) float32 checkpoints (states: 3 global and local, 4 fit, 1
+// overlap); S a positive multiple of 8 that divides m_pad.
+cudaError_t at_blocked_ckpt_fill(int mode, int use_jump, const int* qs, const int* ts,
+                                 const float* allow, const int* ns, const int* ms,
+                                 const float* params, float* score, int* a, int* b, float* ck,
+                                 float* edges, int* flags, void* cand, int B, int m_pad,
+                                 int n_pad, int c_blk, int threads, int wmax, int stride,
+                                 cudaStream_t stream) {
+  if (stride <= 0 || stride % 8 != 0 || m_pad % stride != 0 || ck == nullptr)
     return cudaErrorInvalidValue;
-  if (B == 0) return cudaSuccess;
-  const int ctas = B * ((n_pad + c_blk - 1) / c_blk);
-  const size_t S = (size_t)threads * wmax;
-  int4* cd = static_cast<int4*>(cand);
-  if (mode == OVERLAP)  // stage, M, max(DIAG, RIGHT), char, code
-    return launch(bptr_overlap, ctas, threads, c_blk + S * 13, stream, qs, ts, ns, ms, params,
-                  score, a, b, ptrs, edges, flags, cd, m_pad, n_pad, c_blk, wmax, rpb);
-  // stage, the threads' last M and L, M, L, U[, J, jump bias], char, code
-  const size_t smem = c_blk + (size_t)threads * 8 + S * (use_jump ? 25 : 17);
-  if (mode == GLOBAL)
-    return launch(bptr_affine<GLOBAL, false>, ctas, threads, smem, stream, qs, ts, allow, ns, ms,
-                  params, score, a, b, ptrs, edges, flags, cd, m_pad, n_pad, c_blk, wmax, rpb);
-  if (mode == LOCAL)
-    return launch(bptr_affine<LOCAL, false>, ctas, threads, smem, stream, qs, ts, allow, ns, ms,
-                  params, score, a, b, ptrs, edges, flags, cd, m_pad, n_pad, c_blk, wmax, rpb);
-  if (use_jump)
-    return launch(bptr_affine<FIT, true>, ctas, threads, smem, stream, qs, ts, allow, ns, ms,
-                  params, score, a, b, ptrs, edges, flags, cd, m_pad, n_pad, c_blk, wmax, rpb);
-  return launch(bptr_affine<FIT, false>, ctas, threads, smem, stream, qs, ts, allow, ns, ms, params,
-                score, a, b, ptrs, edges, flags, cd, m_pad, n_pad, c_blk, wmax, rpb);
+  return launch_ptr<CKPT>(mode, use_jump, 1, qs, ts, allow, ns, ms, params, score, a, b, nullptr,
+                          edges, flags, cand, ck, B, m_pad, n_pad, c_blk, threads, wmax, stride,
+                          0, stream);
+}
+
+// The seeded refill (SEED) of rows i0+1 .. i0+S of the pointer fill: qs the
+// (B, S) query chars of those rows, `ck` the (B, states, n_pad + 1) state
+// rows of row i0 (a checkpoint of at_blocked_ckpt_fill), `ptrs` the (B, S /
+// rpb, n_pad) pointer bytes as at_blocked_ptr_fill lays them out; no start
+// info. ms is read by no phase here but must point at (B,) int32.
+cudaError_t at_blocked_refill(int mode, int use_jump, int rpb, const int* qs, const int* ts,
+                              const float* allow, const int* ns, const int* ms,
+                              const float* params, const float* ck, int i0, uint8_t* ptrs,
+                              float* edges, int* flags, void* cand, int B, int S, int n_pad,
+                              int c_blk, int threads, int wmax, cudaStream_t stream) {
+  if (i0 < 0 || ck == nullptr) return cudaErrorInvalidValue;
+  return launch_ptr<SEED>(mode, use_jump, rpb, qs, ts, allow, ns, ms, params, nullptr, nullptr,
+                          nullptr, ptrs, edges, flags, cand, const_cast<float*>(ck), B, S, n_pad,
+                          c_blk, threads, wmax, S, i0, stream);
 }
 
 }  // extern "C"

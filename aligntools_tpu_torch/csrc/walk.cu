@@ -56,6 +56,16 @@
 // walk's that do not (only a clamped one can miss) are read from device
 // memory.
 //
+// PAUSE (flat walks; the checkpoint-rescan engine's walk of one refilled
+// row block, engine/rescan.py; the counterpart of _walk_overlap's
+// pause_at_i0): the walk stops, with no error, where it reaches the
+// block's row 0, and writes its final state as a fifth scalar, so that it
+// resumes in the block above. Affine walks already stop at row 0 with their
+// state kept (a pause is a state below DONE, where local's HOME stop is
+// DONE); overlap's walk, which flags reaching row 0 before column 0 as an
+// error, stops there instead, and its final state is DONE once it has
+// ended (column 0 or an unset code), else LOW.
+//
 // Window mode (WINDOW, band >= 0) walks the banded fill's pointers: cell
 // (i, j) at row i-1, lane k = j - i + band of a (B, m_pad, cols) byte
 // tensor (rows per byte 1), target chars from the fill's te plane at
@@ -177,7 +187,7 @@ __device__ void load(uint8_t* buf, const Tile& T, const uint8_t* P, const int* q
   cp_async_commit();
 }
 
-template <bool WINDOW, int MODE, int RPB>
+template <bool WINDOW, int MODE, int RPB, bool PAUSE>
 __global__ void walk_kernel(const Args a) {
   constexpr bool OVL = MODE == OVERLAP;
   constexpr int LG = RPB == 4 ? 2 : RPB == 2 ? 1 : 0, BITS = 8 / RPB;
@@ -292,7 +302,7 @@ __global__ void walk_kernel(const Args a) {
   };
   if (OVL) {
     // overlap's codes move directly: the next cell waits for this byte
-    for (; k < n_steps && !done && j > 0; ++k) {
+    for (; k < n_steps && !done && j > 0 && (!PAUSE || i > 0); ++k) {
       int row, jc, br, raw, qch, tch;
       cell(i, j, row, jc, br, out);
       ensure(row, br, jc);
@@ -385,24 +395,33 @@ __global__ void walk_kernel(const Args a) {
     a.scal[a.B + b] = i;
     a.scal[2 * a.B + b] = j;
     a.scal[3 * a.B + b] = err;
+    if (PAUSE) a.scal[4 * a.B + b] = OVL ? (done ? DONE : LOW) : state;
   }
 }
 
-template <bool WINDOW, int MODE, int RPB>
+template <bool WINDOW, int MODE, int RPB, bool PAUSE>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  walk_kernel<WINDOW, MODE, RPB><<<a.B, 32, 2 * a.buf_bytes, stream>>>(a);
+  walk_kernel<WINDOW, MODE, RPB, PAUSE><<<a.B, 32, 2 * a.buf_bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
 // The instantiation for the launch's mode (window: rows per byte 1).
-template <bool WINDOW, int RPB>
+template <bool WINDOW, int RPB, bool PAUSE>
 cudaError_t launch_mode(const Args& a, cudaStream_t stream) {
   switch (a.mode) {
-    case GLOBAL: return launch<WINDOW, GLOBAL, RPB>(a, stream);
-    case LOCAL: return launch<WINDOW, LOCAL, RPB>(a, stream);
-    case FIT: return launch<WINDOW, FIT, RPB>(a, stream);
-    default: return launch<WINDOW, OVERLAP, RPB>(a, stream);
+    case GLOBAL: return launch<WINDOW, GLOBAL, RPB, PAUSE>(a, stream);
+    case LOCAL: return launch<WINDOW, LOCAL, RPB, PAUSE>(a, stream);
+    case FIT: return launch<WINDOW, FIT, RPB, PAUSE>(a, stream);
+    default: return launch<WINDOW, OVERLAP, RPB, PAUSE>(a, stream);
   }
+}
+
+// The flat instantiation for the launch's rows per byte.
+template <bool PAUSE>
+cudaError_t launch_flat(const Args& a, int rpb, cudaStream_t stream) {
+  if (rpb == 4) return launch<false, OVERLAP, 4, PAUSE>(a, stream);
+  return rpb == 2 ? launch_mode<false, 2, PAUSE>(a, stream)
+                  : launch_mode<false, 1, PAUSE>(a, stream);
 }
 
 }  // namespace
@@ -417,11 +436,12 @@ cudaError_t launch_mode(const Args& a, cudaStream_t stream) {
 // tiles are copied in 16-byte chunks). One pair a CTA of one warp, two
 // tile buffers of shared memory (~20 KB). `tile_cols` (a multiple of 16,
 // >= 32) is a tile's width where the row is wider, its rows TILE_BYTES /
-// width (at most MAX_TILE_ROWS).
+// width (at most MAX_TILE_ROWS). `pause` (flat walks only): stop at row 0
+// and write the final state; scal is then (5, B), else (4, B).
 extern "C" cudaError_t at_walk(int mode, int rpb, const uint8_t* ptrs, const int* qs,
                                const int* ts, const int* starts, uint8_t* cols1,
                                uint8_t* cols2, int* scal, int B, int m_pad, int n_pad,
-                               int R, int cols, int band, int tile_cols,
+                               int R, int cols, int band, int tile_cols, int pause,
                                cudaStream_t stream) {
   const bool window = band >= 0, overlap = mode == OVERLAP;
   const bool bad_shape = window ? (rpb != 1 || (long long)cols < 2LL * band + 1)
@@ -429,7 +449,8 @@ extern "C" cudaError_t at_walk(int mode, int rpb, const uint8_t* ptrs, const int
   if (B < 0 || m_pad <= 0 || n_pad <= 0 || R <= 0 || bad_shape || mode < GLOBAL ||
       mode > OVERLAP || (rpb != 1 && rpb != 2 && !(rpb == 4 && overlap)) ||
       (long long)R * rpb != m_pad || cols % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(ptrs) % 16 != 0 || tile_cols < 32 || tile_cols % 16 != 0)
+      reinterpret_cast<uintptr_t>(ptrs) % 16 != 0 || tile_cols < 32 || tile_cols % 16 != 0 ||
+      (pause && window))
     return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   Args a = {ptrs, qs, ts, starts, cols1, cols2, scal, mode, B, m_pad, n_pad, R, cols, band};
@@ -437,7 +458,6 @@ extern "C" cudaError_t at_walk(int mode, int rpb, const uint8_t* ptrs, const int
   a.tr = TILE_BYTES / a.tc < MAX_TILE_ROWS ? TILE_BYTES / a.tc : MAX_TILE_ROWS;
   a.q_max = a.tr * rpb;
   a.buf_bytes = (a.tr * a.tc + 4 * (a.q_max + a.tc + a.tr) + 15) & ~15;
-  if (window) return launch_mode<true, 1>(a, stream);
-  if (rpb == 4) return launch<false, OVERLAP, 4>(a, stream);
-  return rpb == 2 ? launch_mode<false, 2>(a, stream) : launch_mode<false, 1>(a, stream);
+  if (window) return launch_mode<true, 1, false>(a, stream);
+  return pause ? launch_flat<true>(a, rpb, stream) : launch_flat<false>(a, rpb, stream);
 }

@@ -11,7 +11,8 @@ Counterpart of ``aligntools_tpu/engine/device_tb.py``: ``_walk_affine``
   cols1, cols2  (n_steps, B) uint8, n_steps = m_pad + n_pad + 1: the
                 (query, target) column each pair emits at each step, in
                 walk order; 0 past a pair's walk
-  scal          (4, B) int32: emitted length, final i, final j, error flag
+  scal          (4, B) int32: emitted length, final i, final j, error flag;
+                with ``pause``, (5, B): the final state beside them
 
 On a CUDA tensor it launches ``csrc/walk.cu`` (a warp per pair, each
 walking to its own end over pointer tiles staged in shared memory) or
@@ -25,6 +26,14 @@ stops, an unset pointer flags ``err`` (global and fit; overlap also flags
 a walk that reaches row 0 before column 0, and leaves that step out of the
 count), an inactive pair keeps its state, and out-of-range indices clamp
 as a JAX gather does.
+
+With ``pause`` (the checkpoint-rescan engine's walk of one refilled row
+block, ``engine/rescan.py``; the JAX ``_walk_overlap``'s ``pause_at_i0``)
+a flat walk stops, with no error, where it reaches the block's row 0, and
+returns its final state: the affine walks stop there anyway and keep their
+state (below DONE; local's HOME stop is DONE); overlap, whose walk would
+flag row 0 before column 0, stops there instead, with the state DONE once
+its walk has ended (column 0 or an error), else LOW.
 
 With ``band`` the walk reads the banded fill's pointers in window
 coordinates (``ops/banded.py``; the counterpart of
@@ -58,12 +67,13 @@ GAP = ord("-")
 MODES = ("global", "local", "fit", "overlap")
 
 launches = 0
+pause_launches = 0  # the launches of the resumable walk among them
 plain_calls = 0
 
 
 def reset_counts() -> None:
-    global launches, plain_calls
-    launches = plain_calls = 0
+    global launches, pause_launches, plain_calls
+    launches = pause_launches = plain_calls = 0
 
 
 def walk_starts(mode, score, a, b, ms, ns):
@@ -92,7 +102,7 @@ def _chars(plane, bidx, idx):
     return plane[bidx, idx.clamp(0, plane.shape[1] - 1)].to(torch.uint8)
 
 
-def walk_plain(mode, rpb, ptrs, qs, ts, starts, band=None):
+def walk_plain(mode, rpb, ptrs, qs, ts, starts, band=None, pause=False):
     """Plain version of ``walk`` (any device)."""
     global plain_calls
     plain_calls += 1
@@ -113,6 +123,8 @@ def walk_plain(mode, rpb, ptrs, qs, ts, starts, band=None):
     for k in range(n_steps):
         if overlap:
             active = ~done & (j > 0)
+            if pause:
+                active &= i > 0
         else:
             active = (state < DONE) & (i > 0)
             if mode != "fit":
@@ -179,8 +191,11 @@ def walk_plain(mode, rpb, ptrs, qs, ts, starts, band=None):
             state = torch.where(active, nxt, state)
             count += active.to(torch.int32)
         i, j = ni, nj
-    scal = torch.stack([count, i.to(torch.int32), j.to(torch.int32), err])
-    return cols1, cols2, scal
+    rows = [count, i.to(torch.int32), j.to(torch.int32), err]
+    if pause:
+        rows.append(torch.where(done, DONE, LOW).to(torch.int32) if overlap
+                    else state.to(torch.int32))
+    return cols1, cols2, torch.stack(rows)
 
 
 # ---------------------------------------------------------------------------
@@ -199,16 +214,18 @@ def _kernel():
         fn = _build.load().at_walk
         P, I = ctypes.c_void_p, ctypes.c_int
         # mode, rpb, ptrs, qs, ts, starts, cols1, cols2, scal, B, m_pad,
-        # n_pad, rows, row width, band (-1 flat), tile columns, stream
-        fn.argtypes = [I, I, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P]
+        # n_pad, rows, row width, band (-1 flat), tile columns, pause, stream
+        fn.argtypes = [I, I, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
-def _check(mode, rpb, ptrs, qs, ts, starts, band):
+def _check(mode, rpb, ptrs, qs, ts, starts, band, pause=False):
     if mode not in MODES:
         raise ValueError(f"unknown walk mode {mode!r}")
+    if pause and band is not None:
+        raise ValueError("a window walk has no pause at row 0")
     B, m_pad = qs.shape if qs.dim() == 2 else (-1, -1)
     n_pad = ts.shape[1] if ts.dim() == 2 else -1
     if rpb not in (1, 2, 4) or m_pad % rpb or (rpb == 4 and mode != "overlap"):
@@ -226,36 +243,40 @@ def _check(mode, rpb, ptrs, qs, ts, starts, band):
                    ("starts", starts, torch.int32, (3, B))], qs.device)
 
 
-def walk(mode, rpb, ptrs, qs, ts, starts, band=None):
+def walk(mode, rpb, ptrs, qs, ts, starts, band=None, pause=False):
     """Walk every pair of a bucket from ``starts`` ((3, B) int32 state, i,
     j); returns (cols1, cols2, scal) as the module docstring lays them out.
     ``qs``/``ts`` are the fill's int32 sentinel char planes; with ``band``
-    the pointers are the banded fill's window and ``ts`` its ``te``."""
+    the pointers are the banded fill's window and ``ts`` its ``te``; with
+    ``pause`` a flat walk stops at row 0 and returns its final state."""
     starts = starts.contiguous()
-    _check(mode, rpb, ptrs, qs, ts, starts, band)
+    _check(mode, rpb, ptrs, qs, ts, starts, band, pause)
     if qs.device.type == "cpu":
-        return walk_plain(mode, rpb, ptrs, qs, ts, starts, band)
+        return walk_plain(mode, rpb, ptrs, qs, ts, starts, band, pause)
     if ptrs.shape[2] % 16 or ptrs.data_ptr() % 16:
         raise ValueError(f"the walk kernel copies pointer rows in 16-byte "
                          f"chunks: rows of {ptrs.shape[2]} bytes at "
                          f"{ptrs.data_ptr():#x}")
-    global launches
+    global launches, pause_launches
     B, m_pad = qs.shape
     n_pad = ts.shape[1]
     n_steps = m_pad + n_pad + 1
     cols1 = torch.zeros((n_steps, B), dtype=torch.uint8, device=qs.device)
     cols2 = torch.zeros_like(cols1)
-    scal = torch.empty((4, B), dtype=torch.int32, device=qs.device)
+    scal = torch.empty((5 if pause else 4, B), dtype=torch.int32,
+                       device=qs.device)
     with torch.cuda.device(qs.device):
         stream = torch.cuda.current_stream(qs.device).cuda_stream
         err = _kernel()(MODES.index(mode), rpb, ptrs.data_ptr(),
                         qs.data_ptr(), ts.data_ptr(), starts.data_ptr(),
                         cols1.data_ptr(), cols2.data_ptr(), scal.data_ptr(),
                         B, m_pad, n_pad, ptrs.shape[1], ptrs.shape[2],
-                        -1 if band is None else band, TILE_COLS, stream)
+                        -1 if band is None else band, TILE_COLS,
+                        int(bool(pause)), stream)
     if err != 0:
         raise RuntimeError(f"walk kernel launch failed: CUDA error {err}")
     launches += 1
+    pause_launches += bool(pause)
     return cols1, cols2, scal
 
 

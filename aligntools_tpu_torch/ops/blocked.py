@@ -24,6 +24,21 @@ pad columns included. So the plain versions are the flat fills' own
 (``scan.scores_plain``, ``scan.fit_scores_plain``, ``ptr.ptr_fill_plain``),
 and the results do not depend on ``c_blk``.
 
+The checkpoint-rescan engine (``engine/rescan.py``) takes two more
+entries, instances of the pointer fill (the CKPT and SEED phases of
+``csrc/blocked_fill.cu``), whose plain versions are ``ptr.ptr_fill_plain``
+with a checkpoint stride and with a seed row:
+
+  blocked_ckpt_fill  the forward fill with no pointers: (score, a, b) as
+                     ``blocked_ptr_fill``'s and the checkpoints (B, m_pad /
+                     S, states, n_pad + 1) float32, the (M, L, U[, J];
+                     overlap M) state rows of columns 0..n_pad at rows 0, S,
+                     2S, ... (the JAX ``_forward_ckpt``'s ``cks``, a pair's
+                     (m_pad / S, states, n_pad + 1))
+  blocked_refill     rows i0+1 .. i0+S from one checkpoint: (B, S / rpb,
+                     n_pad) pointer bytes, the whole-matrix fill's rows
+                     bit for bit (the JAX ``_refill_block``)
+
 On a CUDA tensor the wrappers launch ``csrc/blocked_fill.cu`` (a wavefront
 across column blocks: one CTA per (pair, column block), the row state of
 a block in shared memory, each row's edge passed to the next block behind
@@ -54,7 +69,8 @@ STRIP = 8  # block columns per thread the launch shape aims for
 
 # launches of each kernel through its wrapper, and wrapper calls that ran
 # the plain versions (on a CPU tensor)
-launches = {"blocked_scores": 0, "blocked_ptr": 0}
+launches = {"blocked_scores": 0, "blocked_ptr": 0, "blocked_ckpt": 0,
+            "blocked_refill": 0}
 plain_calls = 0
 
 
@@ -105,9 +121,21 @@ def _kernels():
         lib.at_blocked_ptr_fill.argtypes = [I, I, I, P, P, P, P, P, P, P, P,
                                             P, P, P, P, P, I, I, I, I, I, I,
                                             P]
-        for fn in (lib.at_blocked_scores, lib.at_blocked_ptr_fill):
+        # mode, use_jump, qs, ts, allow, ns, ms, params, score, a, b, ck,
+        # edges, flags, cand, B, m_pad, n_pad, c_blk, threads, wmax, S,
+        # stream
+        lib.at_blocked_ckpt_fill.argtypes = [I, I, P, P, P, P, P, P, P, P, P,
+                                             P, P, P, P, I, I, I, I, I, I, I,
+                                             P]
+        # mode, use_jump, rpb, qs, ts, allow, ns, ms, params, ck, i0, ptrs,
+        # edges, flags, cand, B, S, n_pad, c_blk, threads, wmax, stream
+        lib.at_blocked_refill.argtypes = [I, I, I, P, P, P, P, P, P, P, I, P,
+                                          P, P, P, I, I, I, I, I, I, P]
+        fns = (lib.at_blocked_scores, lib.at_blocked_ptr_fill,
+               lib.at_blocked_ckpt_fill, lib.at_blocked_refill)
+        for fn in fns:
             fn.restype = ctypes.c_int
-        _fns = (lib.at_blocked_scores, lib.at_blocked_ptr_fill)
+        _fns = fns
     return _fns
 
 
@@ -227,3 +255,83 @@ def blocked_ptr_fill(mode, use_jump, m_pad, n_pad, c_blk, qs, ts, allow, ns,
         *(x.data_ptr() for x in scratch), B, m_pad, n_pad, c_blk, threads,
         wmax), dev)
     return score, a, b, ptrs
+
+
+# a checkpoint's state rows: M, L, U (global, local), fit's J too (-inf
+# without the jump), overlap's M
+CK_STATES = {"global": 3, "local": 3, "fit": 4, "overlap": 1}
+
+
+def blocked_ckpt_fill(mode, use_jump, S, m_pad, n_pad, c_blk, qs, ts, allow,
+                      ns, ms, params):
+    """The checkpoint forward of the pointer fill: returns (score, a, b,
+    cks) as the module docstring lays them out. Needs a stride S, a
+    positive multiple of 8, that divides m_pad; the last column block may
+    be ragged."""
+    global plain_calls
+    _check_blocks(n_pad, c_blk)
+    ptr._check(mode, use_jump, m_pad, n_pad, 1, qs, ts, allow, ns, ms,
+               params)
+    if S <= 0 or S % 8 or m_pad % S:
+        raise ValueError(f"stride {S} must be a positive multiple of 8 "
+                         f"that divides m_pad {m_pad}")
+    if qs.device.type == "cpu":
+        plain_calls += 1
+        return ptr.ptr_fill_plain(mode, use_jump, m_pad, n_pad, qs, ts, allow,
+                                  ns, ms, params, stride=S)
+    B, dev = qs.shape[0], qs.device
+    score = torch.empty(B, dtype=torch.float32, device=dev)
+    a = torch.empty(B, dtype=torch.int32, device=dev)
+    b = torch.empty(B, dtype=torch.int32, device=dev)
+    cks = torch.empty((B, m_pad // S, CK_STATES[mode], n_pad + 1),
+                      dtype=torch.float32, device=dev)
+    threads, wmax = launch_shape(c_blk)
+    nblk = -(-n_pad // c_blk)
+    scratch = _scratch(B, nblk, m_pad, dev)
+    _check_scratch(*scratch, B, nblk, m_pad)
+    _launch("blocked_ckpt", _kernels()[2], (
+        ptr.MODES.index(mode), int(bool(use_jump)), qs.data_ptr(),
+        ts.data_ptr(), 0 if allow is None else allow.data_ptr(),
+        ns.data_ptr(), ms.data_ptr(), params.data_ptr(), score.data_ptr(),
+        a.data_ptr(), b.data_ptr(), cks.data_ptr(),
+        *(x.data_ptr() for x in scratch), B, m_pad, n_pad, c_blk, threads,
+        wmax, S), dev)
+    return score, a, b, cks
+
+
+def blocked_refill(mode, use_jump, S, n_pad, c_blk, ck, i0, qs, ts, allow,
+                   ns, ms, params, rows_per_byte=1):
+    """Rows i0+1 .. i0+S of the pointer fill from ``ck`` (B, states, n_pad
+    + 1), the state rows of row i0 (a checkpoint of
+    ``blocked_ckpt_fill``); ``qs`` (B, S) holds those rows' query chars.
+    Returns the (B, S / rows_per_byte, n_pad) pointer bytes; needs S %
+    (8 * rows_per_byte) == 0."""
+    global plain_calls
+    rpb = rows_per_byte
+    _check_blocks(n_pad, c_blk)
+    ptr._check(mode, use_jump, S, n_pad, rpb, qs, ts, allow, ns, ms, params)
+    if S % (8 * rpb):
+        raise ValueError(f"stride {S} is not a multiple of 8 * "
+                         f"rows_per_byte {rpb}")
+    B = qs.shape[0]
+    scan.check_tensors([("ck", ck, torch.float32,
+                         (B, CK_STATES[mode], n_pad + 1))], qs.device)
+    if not 0 <= i0 <= scan.INT32_MAX:
+        raise ValueError(f"row {i0} is not a row of an int32 fill")
+    if qs.device.type == "cpu":
+        plain_calls += 1
+        return ptr.ptr_fill_plain(mode, use_jump, S, n_pad, qs, ts, allow,
+                                  ns, ms, params, rpb, seed=ck, i0=i0)
+    dev = qs.device
+    ptrs = torch.empty((B, S // rpb, n_pad), dtype=torch.uint8, device=dev)
+    threads, wmax = launch_shape(c_blk)
+    nblk = -(-n_pad // c_blk)
+    scratch = _scratch(B, nblk, S, dev)
+    _check_scratch(*scratch, B, nblk, S)
+    _launch("blocked_refill", _kernels()[3], (
+        ptr.MODES.index(mode), int(bool(use_jump)), rpb, qs.data_ptr(),
+        ts.data_ptr(), 0 if allow is None else allow.data_ptr(),
+        ns.data_ptr(), ms.data_ptr(), params.data_ptr(), ck.data_ptr(),
+        i0, ptrs.data_ptr(), *(x.data_ptr() for x in scratch), B, S, n_pad,
+        c_blk, threads, wmax), dev)
+    return ptrs

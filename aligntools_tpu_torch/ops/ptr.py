@@ -98,12 +98,35 @@ def _masked_max(vec, mask):
     return torch.where(mask, vec, NEG).amax(dim=1)
 
 
+def _border(mode, r, o, e):
+    """Column 0's state values (M, L, U[, J]; overlap M) at row r, as the
+    per-pair machines of ``aligntools_tpu/engine/scan.py`` carry them."""
+    if mode == "overlap":
+        return [0.0]
+    if mode == "local":
+        return [0.0, 0.0, 0.0]
+    first = r == 0
+    if mode == "global":  # M(0, 0) = 0, L(r, 0) = o + e*r, U(0, 0) = o
+        return [0.0 if first else NEG, o + e * float(r), o if first else NEG]
+    return [0.0 if first else NEG, NEG, 0.0 if first else NEG, NEG]  # fit
+
+
 def ptr_fill_plain(mode, use_jump, m_pad, n_pad, qs, ts, allow, ns, ms,
-                   params, rows_per_byte=1):
-    """Plain version of ``ptr_fill`` (any device)."""
+                   params, rows_per_byte=1, *, stride=None, seed=None, i0=0):
+    """Plain version of ``ptr_fill`` (any device), and of the
+    checkpoint-rescan engine's two fills (``ops/blocked.py``):
+
+      stride S  the checkpoint forward: no pointers; returns (score, a, b,
+                cks), cks (B, m_pad / S, states, n_pad + 1) float32, the
+                state rows (M, L, U, fit's J; overlap M) of columns 0..n_pad
+                at rows 0, S, 2S, ..., checkpoint k entering row k*S + 1;
+      seed      (B, states, n_pad + 1), the state rows of row i0: the
+                refill of rows i0+1 .. i0+m_pad (qs holds their chars);
+                returns the pointers alone."""
     global plain_calls
     plain_calls += 1
     rpb = rows_per_byte
+    latch = seed is None
     match, mis, o, e, jp = (params[0, k] for k in range(5))
     B, dev = qs.shape[0], qs.device
     f32 = dict(device=dev, dtype=torch.float32)
@@ -131,19 +154,36 @@ def ptr_fill_plain(mode, use_jump, m_pad, n_pad, qs, ts, allow, ns, ms,
     else:  # overlap: one matrix, row 0 is -inf past column 0
         mp = negrow
     jpr = negrow
+    if seed is not None:
+        mp = seed[:, 0, 1:]
+        if mode != "overlap":
+            lp, up = seed[:, 1, 1:], seed[:, 2, 1:]
+        if mode == "fit":
+            jpr = seed[:, 3, 1:]
+    cks = None
+    if stride:
+        states = 1 if mode == "overlap" else 4 if mode == "fit" else 3
+        cks = torch.empty((B, m_pad // stride, states, n_pad + 1), **f32)
     score = torch.full((B,), NEG, **f32)
     a = torch.zeros(B, dtype=torch.int32, device=dev)
     b = torch.zeros(B, dtype=torch.int32, device=dev)
-    ptrs = torch.empty((B, m_pad // rpb, n_pad), dtype=torch.uint8,
-                       device=dev)
+    ptrs = None if cks is not None else torch.empty(
+        (B, m_pad // rpb, n_pad), dtype=torch.uint8, device=dev)
     bits = 8 // rpb
     if use_jump:
         jgate = allow > 0.0
     byte = None
     for idx in range(m_pad):
-        i = idx + 1
+        if cks is not None and idx % stride == 0:
+            rows = [mp] if mode == "overlap" else [mp, lp, up] + (
+                [jpr] if mode == "fit" else [])
+            col0 = _border(mode, idx, o, e)
+            for st, row in enumerate(rows):
+                cks[:, idx // stride, st, 0] = col0[st]
+                cks[:, idx // stride, st, 1:] = row
+        i = i0 + idx + 1  # the global row
         sub = torch.where(ts == qs[:, idx : idx + 1], match, mis)
-        latch = m_vec == i
+        here = m_vec == i
         if mode == "overlap":
             # argument order LEFT, DIAG, RIGHT (alignment.h:944)
             diag = _shift_in(mp, zcol) + sub
@@ -157,22 +197,24 @@ def ptr_fill_plain(mode, use_jump, m_pad, n_pad, qs, ts, allow, ns, ms,
                                torch.where(diag >= right, L.OV_DIAG,
                                            L.OV_RIGHT))
             code = torch.where(val > NEG, code, L.OV_UNSET)
-            rowmax = _masked_max(m_row, mask_lt_n)
-            jarg = _first_eq_j(m_row, rowmax, mask_lt_n, jc)
-            jarg = torch.where(rowmax > 0.0, jarg, 0)
-            score = torch.where(latch, torch.maximum(rowmax, zero), score)
-            a = torch.where(latch, jarg, a)
+            if latch:
+                rowmax = _masked_max(m_row, mask_lt_n)
+                jarg = _first_eq_j(m_row, rowmax, mask_lt_n, jc)
+                jarg = torch.where(rowmax > 0.0, jarg, 0)
+                score = torch.where(here, torch.maximum(rowmax, zero), score)
+                a = torch.where(here, jarg, a)
             mp = m_row
         else:
             i_f = float(i)
+            first = i == 1  # the row above is row 0
             if mode == "global":
-                mb = zcol if idx == 0 else negcol
+                mb = zcol if first else negcol
                 lb = zcol + (o + e * (i_f - 1.0))
-                ub = zcol + o if idx == 0 else negcol
+                ub = zcol + o if first else negcol
             elif mode == "local":
                 mb = lb = ub = zcol
             else:  # fit
-                mb = ub = zcol if idx == 0 else negcol
+                mb = ub = zcol if first else negcol
                 lb = negcol
             cands = [_shift_in(lp, lb) + sub, _shift_in(mp, mb) + sub,
                      _shift_in(up, ub) + sub]
@@ -213,37 +255,43 @@ def ptr_fill_plain(mode, use_jump, m_pad, n_pad, qs, ts, allow, ns, ms,
                 code = code | torch.where((jcand > NEG) & (jcand >= jb), 0,
                                           L.PK_J_IS_JUMP)
                 jpr = j_row
-            if mode == "global":
+            if latch and mode == "global":
                 ln = _masked_max(l_row, mask_eq_n)
                 mn = _masked_max(m_row, mask_eq_n)
                 un = _masked_max(u_row, mask_eq_n)
                 st = torch.where((ln >= mn) & (ln >= un), 0,
                                  torch.where(mn >= un, 1, 2))
                 score = torch.where(
-                    latch, torch.maximum(torch.maximum(ln, mn), un), score)
-                a = torch.where(latch, st.to(torch.int32), a)
-            elif mode == "local":
+                    here, torch.maximum(torch.maximum(ln, mn), un), score)
+                a = torch.where(here, st.to(torch.int32), a)
+            elif latch and mode == "local":
                 rowmax = _masked_max(m_row, mask_le_n)
                 upd = (rowmax > score) & (i <= m_vec)
                 jarg = _first_eq_j(m_row, rowmax, mask_le_n, jc)
                 score = torch.where(upd, rowmax, score)
                 a = torch.where(upd, i, a)
                 b = torch.where(upd, jarg, b)
-            else:  # fit: the bottom row over columns 1..n-1
+            elif latch:  # fit: the bottom row over columns 1..n-1
                 mbst = _masked_max(m_row, mask_lt_n)
                 lbst = _masked_max(l_row, mask_lt_n)
                 use_l = lbst > mbst
                 jarg = torch.where(use_l,
                                    _first_eq_j(l_row, lbst, mask_lt_n, jc),
                                    _first_eq_j(m_row, mbst, mask_lt_n, jc))
-                score = torch.where(latch, torch.maximum(mbst, lbst), score)
-                a = torch.where(latch, use_l.to(torch.int32), a)
-                b = torch.where(latch, jarg, b)
+                score = torch.where(here, torch.maximum(mbst, lbst), score)
+                a = torch.where(here, use_l.to(torch.int32), a)
+                b = torch.where(here, jarg, b)
             mp, lp, up = m_row, l_row, u_row
+        if cks is not None:
+            continue
         r, s = divmod(idx, rpb)
         byte = code if s == 0 else byte | (code << (bits * s))
         if s == rpb - 1:
             ptrs[:, r] = byte.to(torch.uint8)
+    if cks is not None:
+        return score, a, b, cks
+    if seed is not None:
+        return ptrs
     return score, a, b, ptrs
 
 

@@ -86,11 +86,12 @@ Phases, one JSON line each:
                      scores TSV, and 64 sampled lines of each equal the
                      port's own `--device cpu` run on those pairs (the CPU
                      tests hold that against the JAX package);
-  buckets  meanwhile, every bucket those runs built, on the card: the score
-           kernel against plain for the score runs, and the pointer kernel
-           against plain for the rows runs, with the walk against plain on
-           every bucket of the 20,000-pair local run and on every fourth
-           of the 2,000-pair runs, whose walks cross the whole target;
+  buckets  meanwhile, every second bucket those runs built, on the card:
+           the score kernel against plain for the score runs, and the
+           pointer kernel against plain for the rows runs, with the walk
+           against plain on every bucket checked of the 20,000-pair local
+           run and on every fourth bucket of the 2,000-pair runs, whose
+           walks cross the whole target;
   single   the per-mode commands (`global|local|fit|overlap|edit [opts]
            FILE`) through cli.main in-process on the card
            (ALIGNTOOLS_DEVICE unset), the counts set to 0 just before and
@@ -106,7 +107,7 @@ Phases, one JSON line each:
            warm call of the 2,048^2 global pair and of the long fit pair
            under torch.profiler (device time against wall), the cold wall
            of `python3 -m aligntools_tpu_torch global test/test_global.fa`
-           in a fresh process with the kernels built (median of 3), its
+           in a fresh process with the kernels built (one process), its
            split (import torch, the library load, the first CUDA call, the
            command), and the native C++ CLI (native/Makefile's
            aligntools_cli, built here) on the same command;
@@ -134,9 +135,34 @@ Phases, one JSON line each:
            torch.profiler (as `--profile` below; its trace in the work
            directory without it): the walk's time, its share of the busy
            time, its SMs in use and how much of it ran under a fill.
-           Meanwhile (`buckets` lines) every bucket's fill against plain on
-           the card, the walk on every flat bucket and on L3's blocked
-           bucket of the narrowest target.
+           Meanwhile (`buckets` lines) every fourth L3 bucket's fill (every
+           second of the mixed run's, every one of L3g / L3l) against plain
+           on the card, the walk on every flat bucket checked and on L3's
+           blocked bucket of the narrowest target.
+  rescan   the checkpoint-rescan route of the rows path (engine/rescan.py).
+           RSF: batch.align_batch with ALIGNTOOLS_HBM_BUDGET just below one
+           pair's pointer bytes (the counts set to 0 just before and read
+           just after: the checkpoint forward, the refill and the paused
+           walk launched, no whole-matrix pointer fill and no plain version
+           ran), on the B1 shape (fit -s, three junction sites) and on
+           seeded related 2,048 x 20,480 pairs (utils/synth.related_pair;
+           overlap's query drawn from the target's start) in global, local
+           and overlap (S 256, 9 row blocks); each pair's
+           rows byte-equal to the normal
+           route's at the true budget (the CPU holds those in single and
+           long). Then, at each of those pairs' shapes and strides, the
+           checkpoint forward, the refill of the row block the walk starts
+           in and the paused walk there against their plain versions, bit
+           for bit, timed beside their bounds. RSR: global on a seeded
+           related pair (utils/synth.related_pair, n = 1.375 m) sized from
+           torch.cuda.mem_get_info() so that its packed pointers pass
+           PTR_BUDGET_FRAC of the card's memory by 7.5%, at the true budget:
+           its score bit-equal to the score route's (align_batch without
+           traceback: the blocked score fill), its rows rescored on the host
+           to that score and, without gaps, the pair; S and the row blocks,
+           the forward, refill and walk ms (CUDA events around each call)
+           beside their bounds, the wall, true-cell GCUPS and the peak
+           device memory beside the budget and the card's.
 
   banded   the banded path (`--band`). BK1: the banded kernel's nine
            variants (scores for all five modes, pointers for global, local,
@@ -153,8 +179,8 @@ Phases, one JSON line each:
            and `batch edit`. The banded kernel and the walk launched, no
            plain version ran; each rows TSV's score column equals its scores
            TSV, and 64 sampled lines equal the port's `--device cpu` run.
-           Meanwhile (`buckets` lines) every slab of those runs, kernel
-           against plain on the card (one plain call a slab holds both the
+           Meanwhile (`buckets` lines) every slab of those runs (every
+           second of BS local and global), kernel against plain on the card (one plain call a slab holds both the
            rows run's pointer fill and the scores run's score fill), and the
            walk against plain on each rows run's first slab; the kernel
            timed on each mode's first rows slab and first scores slab
@@ -230,6 +256,15 @@ KERNELS = {
     "banded": ("aligntools_tpu/ops/pallas_banded.py:61 _banded_kernel "
                "(entries banded_pallas_scores:356, banded_pallas_full:369)",
                "banded_fill.cu", ()),
+    "blocked_ckpt": ("aligntools_tpu/engine/rescan.py:71 _forward_ckpt (a "
+                     "lax.scan over engine/scan.py's row machines; no "
+                     "pallas_call)", "blocked_fill.cu", ()),
+    "blocked_refill": ("aligntools_tpu/engine/rescan.py:96 _refill_block (a "
+                       "lax.scan over the same machines; no pallas_call)",
+                       "blocked_fill.cu", ()),
+    "walk_pause": ("aligntools_tpu/engine/device_tb.py:56 _walk_affine, :166 "
+                   "_walk_overlap(pause_at_i0=True), as engine/rescan.py:"
+                   "170-242 resumes them block by block", "walk.cu", ()),
     "probe_chain": ("tools/vpu_probe.py:77 vmem_ceiling (body :90-97, call "
                     ":101)", "vpu_probe.cu", ()),
     "probe_ilp": ("tools/vpu_probe.py:124 roofline_ops_per_sec (body "
@@ -301,10 +336,30 @@ BANDED_VARIANTS = [("global", True), ("local", True), ("fit", True),
 BS_PAIRS = 20000
 BS_SMALL = 2000
 BS_BAND = 128
+# the rescan phase: RSF, the rows path's checkpoint rescan forced by an
+# ALIGNTOOLS_HBM_BUDGET just below one pair's pointer bytes, on the B1 shape
+# (fit -s) and on seeded related RSF_SHAPE pairs in global, local and
+# overlap (the query drawn from the target's start for overlap), whose
+# alignments cross every row block; RSR, global
+# on a seeded related pair (utils/synth.related_pair, n = RSR_ASPECT * m: a
+# contig against its region) whose packed pointers pass the true budget by
+# a factor RSR_OVER
+RSF_SHAPE = (2048, 20480)
+RSR_OVER = 1.075
+RSR_ASPECT = 1.375
 # the slice phase holds the walk against plain on every bucket of the
 # 20,000-pair local rows run and on every SMALL_WALK_EVERY-th bucket of the
 # 2,000-pair global, overlap and fit -s rows runs
 SMALL_WALK_EVERY = 4
+# the bucket checks on the card hold every SLICE_CHECK_EVERY-th bucket of
+# the slice phase's runs, every LONG_CHECK_EVERY[run]-th of the long
+# phase's (the narrowest blocked bucket of L3 always) and every
+# BS_CHECK_EVERY-th slab of BS local and global (the first always): a
+# sample that keeps every kernel, mode and route covered and the script
+# inside its time
+SLICE_CHECK_EVERY = 2
+LONG_CHECK_EVERY = {"fit": 4, "mixed": 2}
+BS_CHECK_EVERY = 2
 
 # The least time the card could take for the same work: the
 # larger of the operations over 33.5 T op/s (67 TFLOP/s of f32 counts an
@@ -1160,7 +1215,7 @@ def launch_ms(torch, tb, mode, rpb, ptrs, qs, ts, starts, band,
     args = (tb.MODES.index(mode), rpb, ptrs.data_ptr(), qs.data_ptr(),
             ts.data_ptr(), starts.data_ptr(), c1.data_ptr(), c2.data_ptr(),
             sc.data_ptr(), B, m_pad, n_pad, ptrs.shape[1], ptrs.shape[2],
-            -1 if band is None else band, tb.TILE_COLS, stream)
+            -1 if band is None else band, tb.TILE_COLS, 0, stream)
 
     def run():
         for _ in range(launches):
@@ -1452,14 +1507,16 @@ def main_path_buckets(pairs, sites):
 
 
 def phase_buckets(torch, scan, ptr, tb, variant, pairs, sites, params,
-                  rows, long_walks=None, walk_every=1):
-    """Kernel vs plain on every bucket the main path builds for ``pairs``,
-    at the bucket's own B: the score kernel, or (``rows``) the pointer
-    kernel and the walk. Walks over long targets take the plain version
-    ~0.65 ms a step, up to the target's length: on blocked buckets the walk
-    is held against it only when ``long_walks`` is a list, on the blocked
-    bucket of the narrowest target, whose walk row is appended there; on
-    flat buckets, on every ``walk_every``-th bucket."""
+                  rows, long_walks=None, walk_every=1, check_every=1):
+    """Kernel vs plain on every ``check_every``-th bucket the main path
+    builds for ``pairs`` (and on the blocked bucket of the narrowest
+    target where ``long_walks`` is given), at the bucket's own B: the score
+    kernel, or (``rows``) the pointer kernel and the walk. Walks over long
+    targets take the plain version ~0.65 ms a step, up to the target's
+    length: on blocked buckets the walk is held against it only when
+    ``long_walks`` is a list, on that narrowest bucket, whose walk row is
+    appended there; on flat buckets, on every ``walk_every``-th bucket
+    checked."""
     from aligntools_tpu_torch import batch, layout
     from aligntools_tpu_torch.convert import params_matrix
 
@@ -1473,7 +1530,9 @@ def phase_buckets(torch, scan, ptr, tb, variant, pairs, sites, params,
                      key=lambda b: (b.n_pad, b.m_pad, len(b.idx)))
                  if rows and long_walks is not None and blocked_buckets
                  else None)
-    for k, b in enumerate(buckets):
+    picked = [b for k, b in enumerate(buckets)
+              if k % check_every == 0 or b is walk_long]
+    for k, b in enumerate(picked):
         qs, ts, allow, ns, ms = batch._bucket_tensors(b, torch.device("cuda"))
         shape = f"{len(b.idx)}x{b.m_pad}x{b.n_pad}"
         long = b.n_pad > batch.PALLAS_FLAT_MAX_N_PAD
@@ -1506,7 +1565,8 @@ def phase_buckets(torch, scan, ptr, tb, variant, pairs, sites, params,
         del qs, ts, allow, ns, ms
     torch.cuda.empty_cache()
     row = {"phase": "buckets", "path": "rows" if rows else "scores",
-           "variant": variant, "buckets": len(shapes), "shapes": shapes,
+           "variant": variant, "buckets": len(shapes),
+           "buckets_built": len(buckets), "shapes": shapes,
            **({"walks_checked": walks} if rows else {}),
            "bit_equal": True, "max_abs_err": worst, "tolerance": TOL}
     emit(row)
@@ -1517,7 +1577,8 @@ def counts(scan, ptr, tb):
     from aligntools_tpu_torch.ops import banded, blocked
 
     return ({**scan.launches, "ptr": ptr.launches, "walk": tb.launches,
-             **blocked.launches, "banded": banded.launches},
+             "walk_pause": tb.pause_launches, **blocked.launches,
+             "banded": banded.launches},
             {"scan": scan.plain_calls, "ptr": ptr.plain_calls,
              "walk": tb.plain_calls, "blocked": blocked.plain_calls,
              "banded": banded.plain_calls})
@@ -1610,14 +1671,18 @@ def phase_slice(torch, scan, ptr, tb, work, trace_path):
          runs_in[mode][3], [sample(range(len(runs_in[mode][1])), SAMPLES)])
         for mode, tsv in rows_tsv.items()])
     try:
+        every = SLICE_CHECK_EVERY
         checked_buckets = [phase_buckets(torch, scan, ptr, tb, "local",
-                                         pairs, None, params, False)]
+                                         pairs, None, params, False,
+                                         check_every=every)]
         for variant in ("global", "overlap", "edit", "fit+jump"):
             checked_buckets.append(phase_buckets(
                 torch, scan, ptr, tb, variant, small,
-                sites if variant == "fit+jump" else None, params, False))
+                sites if variant == "fit+jump" else None, params, False,
+                check_every=every))
         checked_buckets.append(phase_buckets(torch, scan, ptr, tb, "local",
-                                             pairs, None, params, True))
+                                             pairs, None, params, True,
+                                             check_every=every))
         # the walk on every SMALL_WALK_EVERY-th bucket of the 2,000-pair
         # runs, whose walks cross the whole target (the plain walk ~1 ms a
         # step on the card): the cut that pays for the banded phase
@@ -1625,7 +1690,7 @@ def phase_slice(torch, scan, ptr, tb, work, trace_path):
             checked_buckets.append(phase_buckets(
                 torch, scan, ptr, tb, variant, small,
                 sites if variant == "fit+jump" else None, params, True,
-                walk_every=SMALL_WALK_EVERY))
+                walk_every=SMALL_WALK_EVERY // every, check_every=every))
         checked = finish_cpu_checks(jobs)
     finally:
         stop_cpu_checks(jobs)
@@ -1664,7 +1729,7 @@ SINGLE_LONG = {"fit-B1": ("fit", 1327, 114491, True),
                "edit-long": ("edit", 2048, 20480, False)}
 SINGLE_REPS = 5
 SINGLE_LONG_REPS = 3
-COLD_REPS = 3
+COLD_REPS = 1
 COLD_ARGV = ("global", "test/test_global.fa")
 # a fresh interpreter's cold start, split: import torch, the kernels'
 # library load (already built), the first CUDA call (the context), then
@@ -2131,7 +2196,8 @@ def phase_long(torch, scan, ptr, tb, work, trace_path):
             for rows in (False, True):
                 checked_buckets.append(phase_buckets(
                     torch, scan, ptr, tb, variant, ps, s, params, rows,
-                    long_walks if label == "fit" else None))
+                    long_walks if label == "fit" else None,
+                    check_every=LONG_CHECK_EVERY.get(label, 1)))
         check(long_walks, "no L3 bucket's walk was held against plain")
         checked = finish_cpu_checks(jobs)
     finally:
@@ -2330,8 +2396,9 @@ def similar_pairs(P, seed):
 
 
 def banded_slab_checks(torch, tb, ebanded, banded, mode, pairs, params,
-                       walk_rows=None, slab_rows=None):
-    """Kernel vs plain on every slab the BS runs of ``mode`` fill: one plain
+                       walk_rows=None, slab_rows=None, check_every=1):
+    """Kernel vs plain on every ``check_every``-th slab (the first always)
+    the BS runs of ``mode`` fill: one plain
     call a slab holds the pointer-emitting fill of the rows run (every byte)
     and the score fill of the scores run (best and edge) where both fill it
     (the pointer budget cuts no slab at BS's size), and the walk is held
@@ -2349,7 +2416,7 @@ def banded_slab_checks(torch, tb, ebanded, banded, mode, pairs, params,
                  else [])
     slabs = ([(sl, True, sl in score_plan) for sl in rows_plan]
              + [(sl, False, True) for sl in score_plan
-                if sl not in rows_plan])
+                if sl not in rows_plan])[::check_every]
     shapes, worst, walks, timed = [], 0.0, 0, set()
     for (idx, m_pad), rows, scores in slabs:
         s = ebanded._slab(idx, pairs, m_pad)
@@ -2526,7 +2593,8 @@ def phase_banded(torch, scan, ptr, tb, work, trace_path):
         for mode in runs_in:
             checked_buckets.append(banded_slab_checks(
                 torch, tb, ebanded, banded, mode, runs_in[mode][1], params,
-                walks if mode == "local" else None, slabs))
+                walks if mode == "local" else None, slabs,
+                BS_CHECK_EVERY if mode in ("local", "global") else 1))
         checked = finish_cpu_checks(jobs)
     finally:
         stop_cpu_checks(jobs)
@@ -2534,6 +2602,296 @@ def phase_banded(torch, scan, ptr, tb, work, trace_path):
           "rows_equal_scores": sorted(m for m in rows_tsv if m != "edit"),
           "cpu_checked": checked})
     return launches, checked_buckets + slabs, walks
+
+
+@contextlib.contextmanager
+def clocked(torch, targets, spans):
+    """CUDA events around every call of each (module, function name) of
+    ``targets``, kept as spans[name]; the functions are restored on exit."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            spans.setdefault(name, []).append((start, end))
+            return out
+        return call
+
+    for mod, name, fn in saved:
+        setattr(mod, name, timed(name, fn))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def over_budget(batch, layout, mode, jump, q, t):
+    """(an ALIGNTOOLS_HBM_BUDGET just below one pair's packed pointer bytes,
+    so that its bucket's cap is 0; those bytes)."""
+    m_pad, n_pad = batch._bucket_keys([(q, t)], 64, 128)[0]
+    need = m_pad * n_pad // layout.rows_per_byte(mode, jump, m_pad)
+    return int(need / batch.PTR_BUDGET_FRAC) - 64, need
+
+
+def rescore_global(r1, r2, p):
+    """The global score of two alignment rows, on the host: a column with
+    no gap scores match or mismatch by byte equality; a run of k gap columns
+    in one row costs o + e*(k-1), and o + e*k where it starts the alignment
+    (the borders L(i, 0) = o + e*i and U(0, j) = o + e*j)."""
+    import numpy as np
+
+    a, b = np.frombuffer(r1, np.uint8), np.frombuffer(r2, np.uint8)
+    gap = ord("-")
+    kind = np.where(a == gap, 2, np.where(b == gap, 1, 0))  # 1 L, 2 U
+    diag = kind == 0
+    score = int(np.where(a[diag] == b[diag], p.match, p.mismatch).sum())
+    g = kind != 0
+    runs = int((g & np.concatenate([[True], kind[1:] != kind[:-1]])).sum())
+    score += p.gap_open * runs + p.gap_extend * (int(g.sum()) - runs)
+    if len(kind) and kind[0]:
+        score += p.gap_extend
+    return float(score)
+
+
+def rescan_kernel_rows(torch, tb, mode, q, t, sites, S, params):
+    """The rescan's three instances against their plain versions on the
+    card, at this pair's shapes and stride S as the main path gives them:
+    the checkpoint forward, the refill of the row block the walk starts in,
+    and the paused walk there, each timed (warm median of three) beside its
+    bound and the plain version's one call."""
+    from aligntools_tpu_torch import layout
+    from aligntools_tpu_torch.convert import params_matrix
+    from aligntools_tpu_torch.engine import rescan
+    from aligntools_tpu_torch.ops import blocked, ptr
+
+    dev = torch.device("cuda")
+    jump = mode == "fit" and sites is not None
+    variant = "fit+jump" if jump else mode
+    (qs, ts, allow, ns, ms), m_pad, n_pad = rescan.pair_tensors(
+        mode, q, t, sites, S, dev)
+    pm = params_matrix(params, dev)
+    c_blk, rpb = blocked.C_BLK, layout.rows_per_byte(mode, jump, S)
+    m, n = len(q), len(t)
+    rows = []
+
+    def row(kernel, fn, got, plain, ops, nbytes, **extra):
+        ms_k = statistics.median(timed_ms(torch, fn) for _ in range(3))
+        want, ms_p = timed_call(torch, plain)
+        eq = all(torch.equal(g, w) for g, w in zip(got, want))
+        err = max(max_err(torch, g, w) for g, w in zip(got, want))
+        b_ms, b_by = bound(ops, nbytes)
+        rows.append({"phase": "rescan", "kernel": kernel, "variant": variant,
+                     "shape": f"{m}x{n}/S{S}", "bit_equal": eq,
+                     "max_abs_err": err, "tolerance": TOL, "ms": ms_k,
+                     "plain_ms": ms_p, "bound_ms": b_ms, "bound_by": b_by,
+                     "probe_ms": probe_ms(ops, kernel == "walk_pause"),
+                     **extra})
+        emit(rows[-1])
+        check(eq and err == 0.0, f"{kernel} {variant} at {m}x{n}, S {S}: "
+              f"kernel != plain")
+
+    def ckpt():
+        return blocked.blocked_ckpt_fill(mode, jump, S, m_pad, n_pad, c_blk,
+                                         qs, ts, allow, ns, ms, pm)
+
+    fwd = ckpt()
+    row("blocked_ckpt", ckpt, fwd, lambda: ptr.ptr_fill_plain(
+        mode, jump, m_pad, n_pad, qs, ts, allow, ns, ms, pm, stride=S),
+        m * n * SCORE_OPS[variant],
+        4 * (m_pad + 2 * n_pad) + 4 * fwd[3].numel() + 12)
+    # the row block the walk starts in, from the start cell
+    state, i, j = tb.walk_starts(mode, *fwd[:3], ms, ns)[:, 0].tolist()
+    k = max(i - 1, 0) // S
+    ck = fwd[3][:, k].contiguous()
+    q_blk = qs[:, k * S : (k + 1) * S]
+    del fwd
+
+    def refill():
+        return blocked.blocked_refill(mode, jump, S, n_pad, c_blk, ck, k * S,
+                                      q_blk, ts, allow, ns, ms, pm, rpb)
+
+    ptrs = refill()
+    row("blocked_refill", lambda: (refill(),), (ptrs,),
+        lambda: (ptr.ptr_fill_plain(mode, jump, S, n_pad, q_blk, ts, allow,
+                                    ns, ms, pm, rpb, seed=ck, i0=k * S),),
+        S * n * (SCORE_OPS[variant] + PTR_EXTRA_OPS[variant]),
+        4 * ck.numel() + 4 * (S + 2 * n_pad) + ptrs.numel(), block=k)
+    starts = torch.tensor([[state], [i - k * S], [j]], dtype=torch.int32,
+                          device=dev)
+
+    def walk():
+        return tb.walk(mode, rpb, ptrs, q_blk, ts, starts, pause=True)
+
+    got = walk()
+    steps = int(got[2][0, 0])
+    row("walk_pause", walk, got, lambda: tb.walk_plain(
+        mode, rpb, ptrs, q_blk, ts, starts, pause=True),
+        WALK_OPS_PER_STEP * steps, WALK_BYTES_PER_STEP * steps + 32,
+        block=k, steps=steps, chain_ms=chain_ms(steps))
+    return rows
+
+
+def phase_rescan(torch, scan, ptr, tb):
+    """The checkpoint-rescan route of the rows path. RSF: the route forced
+    through batch.align_batch by an ALIGNTOOLS_HBM_BUDGET just below each
+    pair's pointer bytes, the counts set to 0 just before and read just
+    after, each pair's rows byte-equal to the normal route's at the true
+    budget; then the route's three kernels against their plain versions at
+    those pairs' shapes. RSR: a pair past the true budget."""
+    from aligntools_tpu_torch import batch, layout
+    from aligntools_tpu_torch.params import AlignParams
+    from aligntools_tpu_torch.utils.synth import related_pair
+
+    params = AlignParams()
+    dev = torch.device("cuda")
+    cases = [("fit", *drawn_pair(*BLOCKED_B1[3:], SEED + 20, True))]
+    q, t = related_pair(*RSF_SHAPE, SEED + 21)
+    cases += [(mode, q, t, None) for mode in ("global", "local")]
+    # overlap's alignment ends the query on the target's start (a dovetail):
+    # the query is drawn from there
+    cases.append(("overlap", *related_pair(*RSF_SHAPE, SEED + 21, offset=0),
+                  None))
+    normal = [batch.align_batch(mode, [(q, t)], params,
+                                [s] if s else None, traceback=True,
+                                device=dev)[0] for mode, q, t, s in cases]
+    forced, plan = [], []
+    reset_counts(scan, ptr, tb)
+    for mode, q, t, s in cases:
+        hbm, need = over_budget(batch, layout, mode, s is not None, q, t)
+        budget = int(hbm * batch.PTR_BUDGET_FRAC)
+        S = batch._auto_stride(len(q), batch.pad_len(len(t)), budget)
+        plan.append((S, need, budget))
+        os.environ["ALIGNTOOLS_HBM_BUDGET"] = str(hbm)
+        try:
+            forced.append(batch.align_batch(mode, [(q, t)], params,
+                                            [s] if s else None,
+                                            traceback=True, device=dev)[0])
+        finally:
+            del os.environ["ALIGNTOOLS_HBM_BUDGET"]
+    torch.cuda.synchronize()
+    launches, plain = counts(scan, ptr, tb)
+    emit({"phase": "rescan", "level": "RSF", "launches": launches,
+          "plain_calls": plain})
+    for name in ("blocked_ckpt", "blocked_refill", "walk", "walk_pause"):
+        check(launches[name] > 0,
+              f"kernel {name} never launched on the forced rescan")
+    check(launches["blocked_ckpt"] == len(cases) and launches["ptr"] == 0
+          and launches["blocked_ptr"] == 0, f"the forced rescan took "
+          f"another route: {launches}")
+    check(not any(plain.values()), f"plain versions ran on the forced "
+          f"rescan: {plain}")
+    for (mode, q, t, s), want, got, (S, need, budget) in zip(
+            cases, normal, forced, plan):
+        same = (got.score, got.row1, got.row2) == (want.score, want.row1,
+                                                   want.row2)
+        emit({"phase": "rescan", "level": "RSF",
+              "mode": mode + (" -s" if s else ""), "shape": f"{len(q)}x"
+              f"{len(t)}", "stride": S, "blocks": -(-len(q) // S),
+              "pointer_bytes": need, "budget": budget,
+              "rows_equal_normal_route": same, "score": got.score})
+        check(same, f"RSF {mode}: the rescan's rows differ from the normal "
+              f"route's")
+    rows = []
+    for (mode, q, t, s), (S, _, _) in zip(cases, plan):
+        rows += rescan_kernel_rows(torch, tb, mode, q, t, s, S, params)
+    phase_rsr(torch, scan, ptr, tb)
+    return launches, rows
+
+
+def phase_rsr(torch, scan, ptr, tb):
+    """RSR: global on a seeded related pair sized from the card's memory so
+    that its packed pointers pass the true budget by RSR_OVER, aligned
+    through batch.align_batch at that budget. No plain or CPU run is
+    possible at this size: its score must be bit-equal to the score route's
+    (the blocked score fill), its rows must rescore on the host to that
+    score, and the rows without gaps must be the pair."""
+    from aligntools_tpu_torch import batch, layout
+    from aligntools_tpu_torch.engine import device_tb, rescan
+    from aligntools_tpu_torch.ops import blocked
+    from aligntools_tpu_torch.params import AlignParams
+    from aligntools_tpu_torch.utils.synth import related_pair
+
+    params = AlignParams()
+    dev = torch.device("cuda")
+    total = torch.cuda.mem_get_info(dev)[1]
+    budget = int(batch._hbm_budget(dev) * batch.PTR_BUDGET_FRAC)
+    m = 100000
+    while (batch._align_m(m, 64) * batch._align_n(int(m * RSR_ASPECT), 128)
+           // 2 < RSR_OVER * budget):
+        m += 1000
+    q, t = related_pair(m, int(m * RSR_ASPECT), SEED + 22)
+    hbm, need = over_budget(batch, layout, "global", False, q, t)
+    check(need > budget, f"RSR: {need} pointer bytes do not pass the "
+          f"budget {budget}")
+    S = batch._auto_stride(len(q), batch.pad_len(len(t)), budget)
+    t0 = time.perf_counter()
+    want = batch.align_batch("global", [(q, t)], params, device=dev)[0]
+    score_wall = time.perf_counter() - t0
+    reset_counts(scan, ptr, tb)
+    torch.cuda.reset_peak_memory_stats(dev)
+    spans = {}
+    with clocked(torch, [(blocked, "blocked_ckpt_fill"),
+                         (blocked, "blocked_refill"),
+                         (device_tb, "walk")], spans):
+        t0 = time.perf_counter()
+        got = batch.align_batch("global", [(q, t)], params, traceback=True,
+                                device=dev)[0]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches, plain = counts(scan, ptr, tb)
+    ms = {name: [a.elapsed_time(b) for a, b in ev]
+          for name, ev in spans.items()}
+    blocks = len(ms["blocked_refill"])
+    check(launches["blocked_ckpt"] == 1 and blocks == launches[
+        "blocked_refill"] == launches["walk_pause"] > 0 and launches["ptr"]
+          == launches["blocked_ptr"] == 0, f"RSR took another route: "
+          f"{launches}")
+    check(not any(plain.values()), f"plain versions ran on RSR: {plain}")
+    rescored = rescore_global(got.row1, got.row2, params)
+    gapless = (got.row1.replace(b"-", b""), got.row2.replace(b"-", b""))
+    steps = len(got.row1)
+    m, n = len(q), len(t)
+    n_pad = rescan.pad_n(n)
+    f_ops, r_ops = SCORE_OPS["global"], (SCORE_OPS["global"]
+                                         + PTR_EXTRA_OPS["global"])
+    rpb = layout.rows_per_byte("global", False, S)
+    f_bound = bound(m * n * f_ops, 4 * (m + 2 * n) + 12 * (n_pad + 1)
+                    * -(-m // S))
+    r_bound = bound(blocks * S * n * r_ops, blocks * (12 * (n_pad + 1)
+                    + 4 * S + S * n_pad // rpb))
+    w_bound = bound(WALK_OPS_PER_STEP * steps, WALK_BYTES_PER_STEP * steps)
+    row = {"phase": "rescan", "level": "RSR", "card": nvidia_smi_line(),
+           "mode": "global", "shape": f"{m}x{n}", "pointer_bytes": need,
+           "budget": budget, "device_memory": total, "stride": S,
+           "blocks": blocks, "checkpoint_rows": -(-m // S),
+           "forward_ms": ms["blocked_ckpt_fill"][0],
+           "forward_bound_ms": f_bound[0], "forward_bound_by": f_bound[1],
+           "refill_ms": sum(ms["blocked_refill"]),
+           "refill_bound_ms": r_bound[0], "refill_bound_by": r_bound[1],
+           "walk_ms": sum(ms["walk"]), "walk_bound_ms": w_bound[0],
+           "walk_bound_by": w_bound[1], "walk_chain_ms": chain_ms(steps),
+           "steps": steps, "wall_s": wall,
+           "true_gcups": m * n / wall / 1e9,
+           "score_route_wall_s": score_wall,
+           "peak_memory_bytes": peak, "score": got.score,
+           "score_equal_score_route": got.score == want.score,
+           "rows_rescore_to_score": rescored == got.score,
+           "rows_are_the_pair": gapless == (q, t)}
+    emit(row)
+    check(row["score_equal_score_route"], f"RSR: score {got.score} != the "
+          f"score route's {want.score}")
+    check(row["rows_rescore_to_score"], f"RSR: the rows rescore to "
+          f"{rescored}, not {got.score}")
+    check(row["rows_are_the_pair"], "RSR: the rows without gaps are not the "
+          "pair")
+    check(peak < total, f"RSR: peak memory {peak} past the card's {total}")
+    return row
 
 
 PROFILE_GROUPS = (("fill", ("ptr_affine", "ptr_overlap", "bptr_",
@@ -2653,7 +3011,8 @@ def phase_profile(torch, cli, argv, work, trace_path):
 
 
 def summary(rows, ptr_rows, walk_rows, bucket_rows, launches, blocked_rows,
-            long_buckets, banded_rows, banded_buckets, probe_reps):
+            long_buckets, banded_rows, banded_buckets, probe_reps,
+            rescan_rows):
     """The kernels line: each kernel's representative timing, its launches
     on its path's main-path run, and its largest error over every check."""
     from aligntools_tpu_torch.ops.blocked import C_BLK as c_blk_own
@@ -2670,6 +3029,10 @@ def summary(rows, ptr_rows, walk_rows, bucket_rows, launches, blocked_rows,
             timed = [r for r in timed if r["variant"] == "local/ptrs"]
             slab = next(r for r in banded_buckets if r.get("level")
                         == "BS-slab" and r["variant"] == "local/ptrs")
+        elif name in ("blocked_ckpt", "blocked_refill", "walk_pause"):
+            # the representative timing: RSF's global pair at S 256
+            mine = [r for r in rescan_rows if r["kernel"] == name]
+            timed = [r for r in mine if r["variant"] == "global"]
         elif name.startswith("blocked"):
             # the representative timing: L2, the fixture's shape
             timed = [r for r in blocked_rows if r["kernel"] == name]
@@ -2765,16 +3128,19 @@ def main(argv=None):
         phase_serve(torch, scan, ptr, tb, slice_out)
         long_launches, long_buckets, long_walks = phase_long(
             torch, scan, ptr, tb, work, trace)
+        rescan_launches, rescan_rows = phase_rescan(torch, scan, ptr, tb)
         banded_launches, banded_buckets, banded_walks = phase_banded(
             torch, scan, ptr, tb, work, trace)
     launches.update(blocked_scores=long_launches["blocked_scores"],
                     blocked_ptr=long_launches["blocked_ptr"],
-                    banded=banded_launches["banded"], **probe_launches)
+                    banded=banded_launches["banded"], **probe_launches,
+                    **{k: rescan_launches[k] for k in (
+                        "blocked_ckpt", "blocked_refill", "walk_pause")})
     emit({"kernels": summary(rows, ptr_rows,
                              walk_rows + long_walks + banded_walks,
                              bucket_rows, launches, blocked_rows,
                              long_buckets, banded_rows, banded_buckets,
-                             probe_reps)})
+                             probe_reps, rescan_rows)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

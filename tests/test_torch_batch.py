@@ -239,13 +239,6 @@ def test_rows_budget_slices_buckets(monkeypatch, mode):
     assert want == _jax_rows(jmode, pairs, p, sites)
 
 
-def test_rows_budget_too_small_for_one_pair(monkeypatch):
-    monkeypatch.setenv("ALIGNTOOLS_HBM_BUDGET", "1000")
-    with pytest.raises(ValueError, match="rescan"):
-        tbatch.align_batch("local", [(b"ACGT", b"AGT")], traceback=True,
-                           device="cpu")
-
-
 def test_fit_rows_without_a_start_raise():
     """A one-column target leaves fit's bottom-row scan (columns 1..n-1)
     empty: the reference's UB, refused as the JAX package refuses it."""

@@ -1010,3 +1010,113 @@ def test_per_mode_cli_on_card_equals_cpu(cuda, capsys, monkeypatch, args):
         assert main([*args[:-1], path]) == 0
         outs.append(capsys.readouterr().out)
     assert outs[0] and outs[0] == outs[1]
+
+
+# the checkpoint-rescan instances (variant, S): rpb 1 at S 8 (and fit+jump),
+# 2 at S 16, overlap's 4 at S 32
+RESCAN_CASES = [("global", 8), ("global", 16), ("local", 16), ("fit", 16),
+                ("fit+jump", 8), ("fit+jump", 16), ("overlap", 16),
+                ("overlap", 32)]
+
+
+@pytest.mark.parametrize("c_blk", [128, 2048])
+@pytest.mark.parametrize("variant,S", RESCAN_CASES)
+def test_ckpt_and_refill_kernels_equal_plain(cuda, variant, S, c_blk):
+    """The checkpoint forward (score, a, b, every checkpoint float) and the
+    refill of every row block (every pointer byte) against their plain
+    versions, over several column blocks with a ragged last one (n_pad
+    2,096), and the refills against the whole-matrix pointer fill; then the
+    paused walk against plain on each refilled block."""
+    from aligntools_tpu_torch import layout
+
+    mode, jump = variant.split("+")[0], variant.endswith("+jump")
+    m_pad, n_pad, arrs = _blocked_inputs(41, c_blk, mode == "fit", B=3,
+                                         m_pad=4 * S, n_pad=2096)
+    qs, ts, allow, ns, ms, pm = convert.kernel_inputs_from_numpy(*arrs, cuda)
+    allow = allow if jump else None
+    rpb = layout.rows_per_byte(mode, jump, S)
+    before = dict(blocked.launches)
+    got = blocked.blocked_ckpt_fill(mode, jump, S, m_pad, n_pad, c_blk, qs,
+                                    ts, allow, ns, ms, pm)
+    torch.cuda.synchronize()
+    want = ptr.ptr_fill_plain(mode, jump, m_pad, n_pad, qs, ts, allow, ns,
+                              ms, pm, stride=S)
+    for name, g, w in zip(("score", "a", "b", "cks"), got, want):
+        assert torch.equal(g, w), name
+    whole = ptr.ptr_fill_plain(mode, jump, m_pad, n_pad, qs, ts, allow, ns,
+                               ms, pm, rpb)[3]
+    rng = np.random.default_rng(42)
+    for k in range(m_pad // S):
+        ck = got[3][:, k].contiguous()
+        q_blk = qs[:, k * S : (k + 1) * S].contiguous()
+        ptrs = blocked.blocked_refill(mode, jump, S, n_pad, c_blk, ck, k * S,
+                                      q_blk, ts, allow, ns, ms, pm, rpb)
+        torch.cuda.synchronize()
+        plain = ptr.ptr_fill_plain(mode, jump, S, n_pad, q_blk, ts, allow,
+                                   ns, ms, pm, rpb, seed=ck, i0=k * S)
+        assert torch.equal(ptrs, plain), k
+        r = S // rpb
+        assert torch.equal(ptrs, whole[:, k * r : (k + 1) * r]), k
+        states = ([0] if mode == "overlap" else [0, 1, 2] + [3] * jump)
+        starts = torch.tensor(np.stack([
+            rng.choice(states, 3), np.full(3, S),
+            rng.integers(1, n_pad + 1, 3)]).astype(np.int32), device=cuda)
+        wk = device_tb.walk(mode, rpb, ptrs, q_blk, ts, starts, pause=True)
+        torch.cuda.synchronize()
+        wp = device_tb.walk_plain(mode, rpb, ptrs, q_blk, ts, starts,
+                                  pause=True)
+        for name, g, w in zip(("cols1", "cols2", "scal"), wk, wp):
+            assert torch.equal(g, w), (k, name)
+    assert blocked.launches["blocked_ckpt"] == before["blocked_ckpt"] + 1
+    assert blocked.launches["blocked_refill"] == (
+        before["blocked_refill"] + m_pad // S)
+
+
+@pytest.mark.parametrize("case", walk_cases.flat_cases(),
+                         ids=lambda c: f"{c.name}-{c.mode}-rpb{c.rpb}")
+def test_paused_walk_kernel_on_drawn_cases(cuda, case):
+    """The walk kernel's pause (row 0 stops the walk; the fifth scalar is
+    the final state) against plain on tests/walk_cases.py's flat walks."""
+    ptrs, qs, ts, starts = (torch.from_numpy(x).to(cuda) for x in (
+        case.ptrs, case.qs, case.ts, case.starts))
+    got = device_tb.walk(case.mode, case.rpb, ptrs, qs, ts, starts,
+                         pause=True)
+    torch.cuda.synchronize()
+    want = device_tb.walk_plain(case.mode, case.rpb, ptrs, qs, ts, starts,
+                                pause=True)
+    assert got[2].shape[0] == 5
+    for name, g, w in zip(("cols1", "cols2", "scal"), got, want):
+        assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("mode", ["global", "local", "fit", "overlap"])
+def test_forced_rescan_through_align_batch(cuda, monkeypatch, mode):
+    """A budget below one pair's pointer bytes sends the pairs through the
+    rescan on the card: the rows equal the normal route's on the card and
+    the rescan's on the CPU; the rescan's kernels launched."""
+    from aligntools_tpu_torch.engine import rescan
+
+    rng = np.random.default_rng(43)
+    alpha = np.frombuffer(b"ACGT", np.uint8)
+    pairs, sites = [], []
+    for m, n in ((300, 2500), (77, 9000), (513, 4100)):
+        pairs.append((alpha[rng.integers(0, 4, m)].tobytes(),
+                      alpha[rng.integers(0, 4, n)].tobytes()))
+        sites.append([5, n // 2, n - 7])
+    s = sites if mode == "fit" else None
+    p = AlignParams()
+    want = tbatch.align_batch(mode, pairs, p, s, traceback=True, device=cuda)
+    monkeypatch.setenv("ALIGNTOOLS_HBM_BUDGET", "20000")
+    before = (dict(blocked.launches), device_tb.launches)
+    got = tbatch.align_batch(mode, pairs, p, s, traceback=True, device=cuda)
+    torch.cuda.synchronize()
+    assert blocked.launches["blocked_ckpt"] == before[0]["blocked_ckpt"] + 3
+    assert blocked.launches["blocked_refill"] > before[0]["blocked_refill"]
+    assert device_tb.launches > before[1]
+    for g, w in zip(got, want):
+        assert (g.score, g.row1, g.row2) == (w.score, w.row1, w.row2)
+    q, t = pairs[1]
+    cpu = rescan.rescan_align(mode, q, t, p, s[1] if s else None, stride=32,
+                              device="cpu")
+    assert (cpu.score, cpu.row1, cpu.row2) == (got[1].score, got[1].row1,
+                                               got[1].row2)

@@ -5,19 +5,25 @@ two-record FASTA first (alignment.h:503-510); the per-mode CLI
 (``aligntools-torch global|local|fit|overlap|edit FILE``) runs on them.
 ``batch.align_batch`` is the throughput path, and a single pair is a batch
 of one: on the card it takes the flat pointer fill and the walk up to
-``ops/ptr.FLAT_REG_MAX_N_PAD`` columns and the blocked pointer fill past
-them; edit takes its register-strip score fill up to 16,384 columns and
-the blocked score fill past that. The results equal the per-pair machines
-of ``aligntools_tpu/engine/scan.py`` (``scan_align``) field by field.
+``engine/select.ptr_flat_cap()`` columns and the blocked pointer fill past
+them; edit takes its register-strip score fill up to
+``select.score_flat_cap("edit")`` columns and the blocked score fill past
+that. The results equal the per-pair machines of
+``aligntools_tpu/engine/scan.py`` (``scan_align``) field by field.
+
+A pair whose (params x lengths) leave float32's exact integers
+(``exact.f32_exact``) runs, on the same route, the double instances of the
+same kernels (float64 params, scores and row state; its pointer bytes and
+walk as float32's), as the JAX ``align_pair`` sends it to its
+double-precision spec engine; the results equal that engine's. The range
+test alone picks it: in-range pairs keep the float32 route.
 
 ``device`` takes the place of the JAX package's ``engine``: ``"cuda"`` (the
 default) or ``"cpu"`` (the kernels' plain versions), through
-``backend.resolve_device``, with no fallback. Departures from the JAX
+``backend.resolve_device``, with no fallback. Departure from the JAX
 package's ``align_pair``, whose CPU default is its double-precision spec
 engine:
 
-  * a pair whose (params x lengths) leave float32's exact integers is
-    refused (``ValueError``); the JAX package answers it in double;
   * a pair with an empty side gets ``scan_align``'s result (the borders of
     its per-pair machines), where the spec engine refuses or crashes on
     four of the fifteen cases: local and overlap with an empty target,
@@ -51,11 +57,13 @@ def align_pair(
     if sites is not None and mode != "fit":
         raise ValueError("junction sites are only meaningful in fit mode")
     from aligntools_tpu_torch.batch import align_batch
+    from aligntools_tpu_torch.exact import f32_exact
 
     return align_batch(
         mode, [(seq1, seq2)], params,
         [list(sites)] if sites is not None else None,
-        traceback=mode != "edit", device=device)[0]
+        traceback=mode != "edit", device=device,
+        _f64=not f32_exact(params, len(seq1), len(seq2), mode))[0]
 
 
 def align_file(

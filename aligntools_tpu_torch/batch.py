@@ -336,10 +336,11 @@ def _auto_stride(m: int, n_pad: int, budget: int) -> int:
 
 
 def _rescan_bucket(mode, b, params, jump, pairs, sites_list, results,
-                   budget, device):
+                   budget, device, dtype):
     """The route of a bucket whose pairs pass the budget alone: each pair
     through the checkpoint-rescan engine (engine/rescan.py), O(m*n/S)
-    memory, any shape."""
+    memory, any shape; ``dtype`` the params row's (float64: the double
+    instances)."""
     from aligntools_tpu_torch.engine.rescan import rescan_align
 
     for k in b.idx:
@@ -347,7 +348,7 @@ def _rescan_bucket(mode, b, params, jump, pairs, sites_list, results,
         sites = sites_list[k] if jump and sites_list is not None else None
         stride = _auto_stride(len(q), pad_len(max(1, len(t))), budget)
         results[k] = rescan_align(mode, q, t, params, sites=sites,
-                                  stride=stride, device=device)
+                                  stride=stride, device=device, dtype=dtype)
 
 
 def _slice_bucket(b: _Bucket, lo: int, hi: int) -> _Bucket:
@@ -365,7 +366,7 @@ class _PendingRows:
     b: _Bucket
     cols1: torch.Tensor  # (n_steps, B) uint8
     cols2: torch.Tensor
-    scal: torch.Tensor  # (5, B) int32: count, fi, fj, err, score bits
+    scal: torch.Tensor  # (5+, B) int32: count, fi, fj, err, score bits
 
 
 def _dispatch_rows(mode, b, pmat, jump, device, counters):
@@ -380,13 +381,23 @@ def _dispatch_rows(mode, b, pmat, jump, device, counters):
                                   ns, ms, pmat, rpb)
     starts = device_tb.walk_starts(mode, score, a, bb, ms, ns)
     # the walk goes on the walk stream, behind this fill and under the next
-    # bucket's; the f32 scores ride the int32 scalars as their bit pattern
-    # (exact). ptrs, qs, ts and starts are released here: record_stream
+    # bucket's; the scores ride the int32 scalars as their bit pattern
+    # (exact: one row of words for float32, two for the double instances'
+    # float64). ptrs, qs, ts and starts are released here: record_stream
     # keeps the caching allocator from handing their memory to the next
     # fill before the walk has read them
+    words = score.view(torch.int32).view(len(b.idx), -1)
     cols1, cols2, scal = device_tb.walk_behind(
-        mode, rpb, ptrs, qs, ts, starts, ride=(score.view(torch.int32),))
+        mode, rpb, ptrs, qs, ts, starts, ride=tuple(words.T))
     return _PendingRows(b, cols1, cols2, scal)
+
+
+def _ridden_scores(sc: np.ndarray) -> np.ndarray:
+    """The scores that rode a bucket's pulled scalars (rows 4 on: a
+    float32's word, or a float64's two)."""
+    words = np.ascontiguousarray(sc[4:].T)
+    return words.view(np.float32 if words.shape[1] == 1
+                      else np.float64).reshape(-1)
 
 
 def _collect_rows_wave(mode, pends, pairs, results, counters):
@@ -399,7 +410,7 @@ def _collect_rows_wave(mode, pends, pairs, results, counters):
     device_tb.join_walks(pends[0].scal.device)
     scals = device_tb.walk_scalars_many([p.scal for p in pends])
     t0 = _tick(counters, "fill_seconds", t0)
-    scores = [sc[4].view(np.float32) for sc in scals]
+    scores = [_ridden_scores(sc) for sc in scals]
     if mode == "fit" and not all(np.isfinite(s).all() for s in scores):
         raise RuntimeError("fit: no finite traceback start (reference UB)")
     rows_list = device_tb.walk_rows_many(
@@ -435,7 +446,7 @@ def _align_rows(mode, buckets, pairs, params, pmat, jump, sites_list,
         if est is None:
             t0 = time.perf_counter()
             _rescan_bucket(mode, sb, params, jump, pairs, sites_list,
-                           results, budget, device)
+                           results, budget, device, pmat.dtype)
             _tick(counters, "fill_seconds", t0)
             continue
         t0 = time.perf_counter()
@@ -488,20 +499,25 @@ def align_batch(
     device,
     counters=None,
     keys=None,
+    _f64=False,
 ):
     """Align many pairs on ``device`` ("cuda" or "cpu"). Returns a list
     parallel to ``pairs``: an int per pair for mode='edit', else an
     AlignResult, with the alignment rows when ``traceback`` is set and
     empty rows otherwise. ``counters``: optional utils.profiling.Counters
     taking the encode/fill/walk split. ``keys``: optional precomputed
-    per-pair bucket shape keys (see _bucketize)."""
+    per-pair bucket shape keys (see _bucketize).
+
+    A pair past float32's exact integers is refused (``exact``), as the
+    JAX ``align_batch`` refuses it; ``_f64`` (``api.align_pair``'s, for
+    such a pair) runs the double instances of the fills instead."""
     if mode == "fit":
         for q, t in pairs:
             if len(q) > len(t):
                 raise ValueError(
                     "first sequence must be shorter than the second"
                 )
-    if pairs:
+    if pairs and not _f64:
         q, t = max(pairs, key=lambda pr: len(pr[0]) + len(pr[1]))
         check_f32_exact(params, len(q), len(t), mode)
     device = resolve_device(device)
@@ -518,7 +534,8 @@ def align_batch(
     tf = _tick(counters, "encode_seconds", t0)
     if not buckets:
         return results
-    pmat = params_matrix(params, device)
+    pmat = params_matrix(params, device,
+                         torch.float64 if _f64 else torch.float32)
     if traceback and mode != "edit":
         _align_rows(mode, list(buckets.values()), pairs, params, pmat,
                     use_jump and mode == "fit", sites_list, device, counters,

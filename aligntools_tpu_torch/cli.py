@@ -3,6 +3,7 @@
     aligntools-torch global|local|fit|overlap|edit [options] FILE
     aligntools-torch batch MODE FASTA [options]
     aligntools-torch serve
+    aligntools-torch calibrate [--force]
     python3 -m aligntools_tpu_torch ...    (without the console script)
 
 The per-mode commands are the reference's surface (src/main.c:6-57, the
@@ -22,23 +23,30 @@ t2, ...); the TSV (alignment rows by default, CIGAR with ``--cigar``,
 scores with ``--scores-only``) goes to stdout or ``--out``, byte for byte
 ``aligntools batch``'s. ``--device`` picks its device (default ``cuda``).
 
+``calibrate`` measures the card's crossover table once (``engine/
+autotune.py``; ``--force`` measures again) and caches it per card under
+``ALIGNTOOLS_TORCH_CACHE`` (default ``~/.cache/aligntools-torch``); the
+routes read it from then on. Without a usable Hopper card it ends in
+``FATAL ERROR``, as the JAX one does off the TPU.
+
+A pair whose (params x lengths) leave float32's exact integers runs the
+double instances of the kernels (``api.align_pair``), as the JAX CLI
+answers it in double; ``batch`` and ``serve`` refuse it, as ``aligntools
+batch`` does.
+
 Errors print ``FATAL ERROR: ...`` and exit 255, with the JAX CLI's wording;
 a file that cannot be opened reads ``cannot open FILE`` from the C++ parser
-(the C reference prints ``Can't open FILE``). Departures from the JAX CLI,
+(the C reference prints ``Can't open FILE``). Departure from the JAX CLI,
 whose per-mode commands run its double-precision spec engine on the CPU:
-
-  * a pair with an empty side gets the JAX device route's result
-    (``engine/scan.scan_align``): local and overlap with an empty target
-    and overlap with both empty print ``-inf`` and empty rows, fit with an
-    empty query ``score=0.000000`` and empty rows, where the JAX CLI ends
-    in ``FATAL ERROR`` or an uncaught ``IndexError``; fit with both empty
-    ends in ``FATAL ERROR`` worded ``fit: no finite traceback start``;
-  * a pair whose (params x lengths) leave float32's exact integers ends in
-    ``FATAL ERROR`` (exit 255); the JAX CLI answers it in double.
+a pair with an empty side gets the JAX device route's result
+(``engine/scan.scan_align``): local and overlap with an empty target and
+overlap with both empty print ``-inf`` and empty rows, fit with an empty
+query ``score=0.000000`` and empty rows, where the JAX CLI ends in ``FATAL
+ERROR`` or an uncaught ``IndexError``; fit with both empty ends in ``FATAL
+ERROR`` worded ``fit: no finite traceback start``.
 
 Not ported: the JAX CLI's hand-over to the native C++ binary (here the
-port's own kernels answer), its XLA compile cache, and ``calibrate``,
-which is refused.
+port's own kernels answer) and its XLA compile cache.
 """
 
 from __future__ import annotations
@@ -81,6 +89,8 @@ def _usage() -> int:
         "         batch      many-pair batched pipeline (TSV output; "
         "aligntools-torch batch --help)\n"
         "         serve      long-lived request loop (stdin/stdout)\n"
+        "         calibrate  measure this card's crossover table once "
+        "(--force: again)\n"
         "\n"
         f"Device:  {DEVICE_ENV}=cuda (default) or cpu (the kernels' plain "
         "versions); batch takes --device\n"
@@ -250,10 +260,15 @@ def main(argv: list[str] | None = None) -> int:
     if cmd == "serve":
         return run_serve()
     if cmd == "calibrate":
-        sys.stderr.write("FATAL ERROR: calibrate is not ported to "
-                         "aligntools_tpu_torch yet (ROADMAP.md, queue 1, "
-                         "item 5)\n")
-        return 255
+        # the card's crossover table, measured once and cached per card
+        from aligntools_tpu_torch.engine.autotune import calibrate
+
+        try:
+            calibrate(force="--force" in argv[1:])
+        except (ValueError, RuntimeError) as err:
+            sys.stderr.write(f"FATAL ERROR: {err}\n")
+            return 255
+        return 0
     if cmd not in _OPTSTRINGS:
         sys.stderr.write(f"[main] unrecognized command '{cmd}'\n")
         return 1

@@ -8,11 +8,14 @@ import torch
 from aligntools_tpu_torch.params import AlignParams
 
 
-def params_matrix(p: AlignParams, device) -> torch.Tensor:
+def params_matrix(p: AlignParams, device, dtype=torch.float32) -> torch.Tensor:
     """(1, 8) float32 [match, mismatch, gap_open, gap_extend, jump, 0, 0, 0]
     — the kernels' params row, as ``aligntools_tpu/batch.py``
-    (``_params_mat_np`` / ``_kernel_widen``) lays it out."""
-    row = np.zeros((1, 8), np.float32)
+    (``_params_mat_np`` / ``_kernel_widen``) lays it out; ``dtype``
+    float64 for the double instances, whose params need not be exact in
+    float32 (20,000,001 is not)."""
+    row = np.zeros((1, 8), np.float64 if dtype == torch.float64
+                   else np.float32)
     row[0, :5] = [p.match, p.mismatch, p.gap_open, p.gap_extend, p.jump]
     return torch.from_numpy(row).to(device)
 

@@ -21,6 +21,13 @@ struct MaxF {
 struct MinI {
   __device__ static int op(int a, int b) { return min(a, b); }
 };
+// the double instances' (blocked_fill.cu: a pair past float32's exact range)
+struct MaxD {
+  __device__ static double op(double a, double b) { return fmax(a, b); }
+};
+struct MinD {
+  __device__ static double op(double a, double b) { return fmin(a, b); }
+};
 
 // Exclusive prefix over the block's threads (in thread order) of NV values
 // each, combined with `seed`, and, where `total` is given, the block-wide

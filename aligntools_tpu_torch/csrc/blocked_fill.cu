@@ -87,9 +87,10 @@
 // block 0.
 //
 // Exactness: values are integer-valued f32 below 2^24 with true -inf
-// borders (edit: int32), built with --fmad=false and no fast math; each
-// pointer is a comparison of such values in the Pallas code's argument
-// order, so the results do not depend on c_blk.
+// borders (edit: int32; the double instances below 2^53), built with
+// --fmad=false and no fast math; each pointer is a comparison of such
+// values in the Pallas code's argument order, so the results do not depend
+// on c_blk.
 //
 // The checkpoint-rescan engine (engine/rescan.py, the counterpart of
 // aligntools_tpu/engine/rescan.py's _forward_ckpt and _refill_block, which
@@ -107,11 +108,24 @@
 //         (at_blocked_refill).
 // The recurrences, tie-breaks and the wavefront are FILL's, so a refilled
 // block's bytes are the whole-matrix fill's rows i0+1 .. i0+S, bit for bit.
+//
+// Double instances (the *64 entries). A single pair past float32's exact
+// integers runs the pointer fill's three phases and edit's score fill with
+// the value type T = double: params, row state in shared memory, block
+// edges and checkpoints in double, exact integers below 2^53 with true -inf
+// borders; a block candidate's double rides its int4 slot as two words (x
+// and w). Each edge is a plain 8-byte store before the owner's
+// st.release.gpu of the row count, and its reader's ld.acquire.gpu comes
+// before its __ldcg, so the 8-byte values are ordered as the 4-byte ones
+// are. Shared memory takes 45 bytes a column at fit+jump (184 KiB at 4,096
+// columns), so the double column block is at most 4,096
+// (ops/blocked.C_BLK_MAX64).
 
 #include <climits>
 #include <cmath>
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 #include "block_scan.cuh"
 
@@ -155,17 +169,19 @@ __device__ __forceinline__ int take_ticket(int* counter, int* shared_ticket) {
 // This CTA's place in the wavefront, from its ticket. `flags` is the ticket
 // counter, then per pair nblk progress counters (rows of the block's edge
 // published) and one done counter (blocks finished); `edges` holds per
-// (pair, block) four edge states of rows 0..m_pad; `cand` per (pair, block)
-// the block's start-info candidate.
+// (pair, block) four edge states of rows 0..m_pad, of the fill's value type
+// T (float, int32 for edit, double in the double instances); `cand` per
+// (pair, block) the block's start-info candidate.
+template <class T = float>
 struct Wave {
   int b, c, rows;
   int* prog;
   int* done;
   int4* cand;
-  const float* ep;  // block c-1's edges (c > 0)
-  float* en;        // this block's edges
-  int seen;         // thread 0: rows of block c-1's edge seen published
-  __device__ Wave(int ticket, int nblk, int* flags, float* edges, int4* cand_, int m_pad) {
+  const T* ep;  // block c-1's edges (c > 0)
+  T* en;        // this block's edges
+  int seen;     // thread 0: rows of block c-1's edge seen published
+  __device__ Wave(int ticket, int nblk, int* flags, T* edges, int4* cand_, int m_pad) {
     const int B = gridDim.x / nblk;
     b = ticket % B;
     c = ticket / B;
@@ -181,10 +197,10 @@ struct Wave {
   __device__ void wait(int i) {
     while (seen < i) seen = ld_acquire(prog + c - 1);
   }
-  __device__ float edge(int s, int i) const { return __ldcg(ep + (size_t)s * rows + i); }
-  __device__ int edge_i(int i) const { return __ldcg(reinterpret_cast<const int*>(ep) + i); }
-  __device__ void put(int s, int i, float v) const { en[(size_t)s * rows + i] = v; }
+  __device__ T edge(int s, int i) const { return __ldcg(ep + (size_t)s * rows + i); }
+  __device__ void put(int s, int i, T v) const { en[(size_t)s * rows + i] = v; }
   // the owner of the block's last column, after its edge stores of row i
+  // (the release orders them, 4- or 8-byte values alike, before the count)
   __device__ void publish(int i) const { st_release(prog + c, i); }
   // thread 0: leave this block's candidate; true in the CTA that finishes
   // the pair's `parts`-th block, which may then read every candidate
@@ -198,9 +214,43 @@ struct Wave {
   __device__ int4 candidate(int k) const { return __ldcg(cand + k); }
 };
 
+// A candidate's value in the int4 slot: a float or an int in x; a double's
+// low word in x and its high word in w
 __device__ __forceinline__ int4 pack(float s, int a = 0, int b = 0) {
   return make_int4(__float_as_int(s), a, b, 0);
 }
+__device__ __forceinline__ int4 pack(double s, int a = 0, int b = 0) {
+  return make_int4(__double2loint(s), a, b, __double2hiint(s));
+}
+__device__ __forceinline__ int4 pack(int s, int a = 0, int b = 0) { return make_int4(s, a, b, 0); }
+template <class T>
+__device__ __forceinline__ T unpack(int4 x);
+template <>
+__device__ __forceinline__ float unpack<float>(int4 x) { return __int_as_float(x.x); }
+template <>
+__device__ __forceinline__ double unpack<double>(int4 x) { return __hiloint2double(x.w, x.x); }
+template <>
+__device__ __forceinline__ int unpack<int>(int4 x) { return x.x; }
+
+// max / min of the value types (FMNMX for float32, as before) and their
+// block-scan operators
+__device__ __forceinline__ float vmax(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double vmax(double a, double b) { return fmax(a, b); }
+template <class T>
+struct Ops;
+template <>
+struct Ops<float> {
+  using Max = MaxF;
+};
+template <>
+struct Ops<double> {
+  using Max = MaxD;
+  using Min = MinD;
+};
+template <>
+struct Ops<int> {
+  using Min = MinI;
+};
 
 // ---------------------------------------------------------------------------
 // Score fills
@@ -213,7 +263,7 @@ constexpr int SB = 0, SM = 1, SU = 2, SJ = 3;
 // block 0, row 0's analytic value, else block c-1's edge.
 template <int MODE>
 __device__ __forceinline__ float score_edge(int s, int c, int i, int col0, float o, float e,
-                                            const Wave& w) {
+                                            const Wave<float>& w) {
   if (c == 0) {
     if (s == SJ) return NEG;
     if (MODE == LOCAL) return 0.f;
@@ -429,83 +479,90 @@ bscore_overlap(const int* __restrict__ qs, const int* __restrict__ ts,
 
 // Replaces the edit branch of _blocked_affine_kernel (min-plus, indel 1,
 // substitution cost params[1]), in int32. Per slot: M, the row's candidates
-// normalized by -j, the char; the edges are int32 in the float buffer.
+// normalized by -j, the char; the edges are int32. T double (P double: the
+// params row in double) is the instance for a pair past float32's exact
+// range: the same function in double, +inf in place of INT_MAX, double
+// edges.
+template <class T = int, class P = float>
 __global__ void __launch_bounds__(MAX_THREADS)
 bscore_edit(const int* __restrict__ qs, const int* __restrict__ ts,
             const int* __restrict__ ns, const int* __restrict__ ms,
-            const float* __restrict__ params, int* __restrict__ out, float* edges, int* flags,
+            const P* __restrict__ params, T* __restrict__ out, T* edges, int* flags,
             int4* cand, int m_pad, int n_pad, int c_blk, int W) {
+  using Min = typename Ops<T>::Min;
+  const T TOP = std::is_same<T, int>::value ? (T)INT_MAX : (T)INFINITY;
   extern __shared__ __align__(16) uint8_t smem[];
-  __shared__ int tot[1][32];
-  __shared__ int eg;  // M(i, col0), from thread 0
+  __shared__ T tot[1][32];
+  __shared__ T eg;  // M(i, col0), from thread 0
   __shared__ int ticket;
-  Wave w(take_ticket(flags, &ticket), (n_pad + c_blk - 1) / c_blk, flags, edges, cand, m_pad);
+  Wave<T> w(take_ticket(flags, &ticket), (n_pad + c_blk - 1) / c_blk, flags, edges, cand,
+            m_pad);
   const int b = w.b, c = w.c, tid = threadIdx.x;
   const int n = min(max(ns[b], 0), n_pad), m = min(max(ms[b], 0), m_pad);
   const int nb = max(1, (n + c_blk - 1) / c_blk);
   if (c >= nb) return;
   const size_t S = (size_t)blockDim.x * W;
-  int* Pr = reinterpret_cast<int*>(smem);
-  int* Cr = Pr + S;
-  int* Tc = Cr + S;
-  const int u = (int)params[1];
+  T* Pr = reinterpret_cast<T*>(smem);
+  T* Cr = Pr + S;
+  int* Tc = reinterpret_cast<int*>(Cr + S);
+  const T u = (T)params[1];
   const int* q = qs + (size_t)b * m_pad;
   const int* t = ts + (size_t)b * n_pad;
   const int col0 = c * c_blk, ncols = max(0, min(c_blk, n - col0));
   const bool feeds = c + 1 < nb;
   const Strip s(col0, ncols, W);
-  int acc = INT_MAX;
+  T acc = TOP;
   // M(i, col0): M(i, 0) = i, M(0, j) = j
-  auto edge = [&](int i) { return c == 0 ? i : (i == 0 ? col0 : w.edge_i(i)); };
+  auto edge = [&](int i) { return c == 0 ? (T)i : (i == 0 ? (T)col0 : w.edge(0, i)); };
   for (int k = 0; k < s.cnt; ++k) {
     const size_t x = s.slot(k);
     Tc[x] = t[s.j(k) - 1];
-    Pr[x] = s.j(k);
+    Pr[x] = (T)s.j(k);
   }
-  int dM = edge(0);  // thread 0: M(i-1, col0)
+  T dM = edge(0);  // thread 0: M(i-1, col0)
   __syncthreads();
   for (int i = 1; i <= (ncols > 0 ? m : 0); ++i) {
     const int qc = q[i - 1];
-    int diag = tid == 0 ? dM : (s.cnt > 0 ? Pr[s.left] : 0);
-    int agg[1] = {INT_MAX};
+    T diag = tid == 0 ? dM : (s.cnt > 0 ? Pr[s.left] : (T)0);
+    T agg[1] = {TOP};
     for (int k = 0; k < s.cnt; ++k) {
       const int j = s.j(k);
       const size_t x = s.slot(k);
-      const int pp = Pr[x];
-      const int sub = Tc[x] == qc ? 0 : u;
-      const int cv = min(diag + sub, pp + 1) - j;
+      const T pp = Pr[x];
+      const T sub = Tc[x] == qc ? (T)0 : u;
+      const T cv = Min::op(diag + sub, pp + (T)1) - (T)j;
       Cr[x] = cv;
-      agg[0] = min(agg[0], cv);
+      agg[0] = Min::op(agg[0], cv);
       diag = pp;
     }
     if (tid == 0) {
       if (c > 0) w.wait(i);
       dM = eg = edge(i);
     }
-    const int none[1] = {INT_MAX};
-    block_exclusive<MinI>(agg, none, tot);
-    int run = min(eg - col0, agg[0]);
+    const T none[1] = {TOP};
+    block_exclusive<Min>(agg, none, tot);
+    T run = Min::op(eg - (T)col0, agg[0]);
     for (int k = 0; k < s.cnt; ++k) {
       const int j = s.j(k);
       const size_t x = s.slot(k);
-      run = min(run, Cr[x]);
-      const int v = run + j;
+      run = Min::op(run, Cr[x]);
+      const T v = run + (T)j;
       Pr[x] = v;
       if (i == m && j == n) acc = v;
       if (feeds && k == s.cnt - 1 && s.owns_last(ncols)) {
-        w.put(0, i, __int_as_float(v));
+        w.put(0, i, v);
         w.publish(i);
       }
     }
     __syncthreads();
   }
-  const int r = block_reduce<MinI>(acc, tot[0]);
-  if (tid == 0 && w.finish(make_int4(r, 0, 0, 0), nb)) {
-    int v = INT_MAX;
-    for (int k = 0; k < nb; ++k) v = min(v, w.candidate(k).x);
+  const T r = block_reduce<Min>(acc, tot[0]);
+  if (tid == 0 && w.finish(pack(r), nb)) {
+    T v = TOP;
+    for (int k = 0; k < nb; ++k) v = Min::op(v, unpack<T>(w.candidate(k)));
     // before any row, the result is M(0, n)'s latch value 0, as in the flat
-    // fills; INT_MAX when n == 0
-    out[b] = (m == 0 && n > 0) ? 0 : v;
+    // fills; INT_MAX (+inf) when n == 0
+    out[b] = (m == 0 && n > 0) ? (T)0 : v;
   }
 }
 
@@ -523,22 +580,23 @@ constexpr int FILL = 0, CKPT = 1, SEED = 2;
 
 // State s of (row i, column col0) as block c reads it; column 0's border is
 // taken at the global row i0 + i (i0 > 0 in a refill only).
-template <int MODE>
-__device__ __forceinline__ float ptr_edge(int s, int c, int i, int i0, int col0, float o,
-                                          float e, const Wave& w) {
+template <int MODE, class T>
+__device__ __forceinline__ T ptr_edge(int s, int c, int i, int i0, int col0, T o,
+                                          T e, const Wave<T>& w) {
+  constexpr T NG = (T)NEG;
   if (c == 0) {  // column 0
     const int gi = i0 + i;
-    if (s == PJ) return NEG;
-    if (MODE == LOCAL) return 0.f;
-    if (s == PL) return MODE == GLOBAL ? o + e * (float)gi : NEG;
-    if (gi > 0) return NEG;
-    return (MODE == GLOBAL && s == PU) ? o : 0.f;
+    if (s == PJ) return NG;
+    if (MODE == LOCAL) return (T)0;
+    if (s == PL) return MODE == GLOBAL ? o + e * (T)gi : NG;
+    if (gi > 0) return NG;
+    return (MODE == GLOBAL && s == PU) ? o : (T)0;
   }
   if (i == 0) {  // row 0 past column 0
-    if (s == PJ) return NEG;
-    if (MODE == LOCAL) return 0.f;
-    if (MODE == GLOBAL) return s == PU ? o + e * (float)col0 : NEG;
-    return s == PL ? NEG : 0.f;  // fit: M = U = 0
+    if (s == PJ) return NG;
+    if (MODE == LOCAL) return (T)0;
+    if (MODE == GLOBAL) return s == PU ? o + e * (T)col0 : NG;
+    return s == PL ? NG : (T)0;  // fit: M = U = 0
   }
   return w.edge(s, i);
 }
@@ -551,40 +609,42 @@ __device__ __forceinline__ float ptr_edge(int s, int c, int i, int i0, int col0,
 // CKPT (no pointers; the state rows of every stride-th row into `ck`, (B,
 // m_pad/S, states, n_pad+1)); SEED (rows i0+1 .. i0+m_pad from `ck`, (B,
 // states, n_pad+1); no start info).
-template <int MODE, bool JUMP, int PHASE>
+template <int MODE, bool JUMP, int PHASE, class T = float>
 __global__ void __launch_bounds__(MAX_THREADS)
 bptr_affine(const int* __restrict__ qs, const int* __restrict__ ts,
             const float* __restrict__ allow, const int* __restrict__ ns,
-            const int* __restrict__ ms, const float* __restrict__ params,
-            float* __restrict__ score_out, int* __restrict__ a_out, int* __restrict__ b_out,
-            uint8_t* __restrict__ ptrs, float* edges, int* flags, int4* cand, float* ck,
+            const int* __restrict__ ms, const T* __restrict__ params,
+            T* __restrict__ score_out, int* __restrict__ a_out, int* __restrict__ b_out,
+            uint8_t* __restrict__ ptrs, T* edges, int* flags, int4* cand, T* ck,
             int m_pad, int n_pad, int c_blk, int W, int rpb, int stride, int i0) {
   constexpr bool PTRS = PHASE != CKPT, LATCH = PHASE != SEED;
+  constexpr T NG = (T)NEG;
+  using Max = typename Ops<T>::Max;
   // a checkpoint's state rows: M, L, U, and fit's J (-inf without the jump)
   constexpr int ST = MODE == FIT ? 4 : 3;
   extern __shared__ __align__(16) uint8_t smem[];
-  __shared__ float tot[3][32];
-  __shared__ float red_f[2][32];
+  __shared__ T tot[3][32];
+  __shared__ T red_f[2][32];
   __shared__ int red_i[32];
-  __shared__ float eg[4];  // row i's edge at col0, from thread 0
-  __shared__ float g_s;
+  __shared__ T eg[4];  // row i's edge at col0, from thread 0
+  __shared__ T g_s;
   __shared__ int g_a, ticket;
   const int nblk = (n_pad + c_blk - 1) / c_blk;
-  Wave w(take_ticket(flags, &ticket), nblk, flags, edges, cand, m_pad);
+  Wave<T> w(take_ticket(flags, &ticket), nblk, flags, edges, cand, m_pad);
   const int b = w.b, c = w.c, tid = threadIdx.x;
   const size_t S = (size_t)blockDim.x * W;
   uint8_t* stage = smem;  // the byte-row being packed, c_blk bytes
-  float* eM = reinterpret_cast<float*>(smem + c_blk);  // row i-1, last column
-  float* eL = eM + blockDim.x;
-  float* Mr = eL + blockDim.x;
-  float* Lr = Mr + S;
-  float* Ur = Lr + S;
-  float* Jr = Ur + S;
-  float* Jb = Jr + (JUMP ? S : 0);  // jp where entry into column j+1 is allowed
+  T* eM = reinterpret_cast<T*>(smem + c_blk);  // row i-1, last column
+  T* eL = eM + blockDim.x;
+  T* Mr = eL + blockDim.x;
+  T* Lr = Mr + S;
+  T* Ur = Lr + S;
+  T* Jr = Ur + S;
+  T* Jb = Jr + (JUMP ? S : 0);  // jp where entry into column j+1 is allowed
   int* Tc = reinterpret_cast<int*>(Jb + (JUMP ? S : 0));
   uint8_t* Cd = reinterpret_cast<uint8_t*>(Tc + S);
-  const float match = params[0], mis = params[1], o = params[2], e = params[3];
-  const float jp = params[4];
+  const T match = params[0], mis = params[1], o = params[2], e = params[3];
+  const T jp = params[4];
   const int k_home = rpb > 1 ? 3 : 4, k_unset = rpb > 1 ? 3 : 7;
   const int lbit = rpb > 1 ? 1 << 2 : 1 << 3, ubit = rpb > 1 ? 1 << 3 : 1 << 4;
   const int bits = 8 / rpb, R = m_pad / rpb;
@@ -601,25 +661,25 @@ bptr_affine(const int* __restrict__ qs, const int* __restrict__ ts,
   // one row this block starts from (64-bit offsets: the tensor passes 2^31)
   const size_t ck_row = (size_t)n_pad + 1;
   const int nck = PHASE == CKPT ? m_pad / stride : 1;
-  const float* seed = PHASE == SEED ? ck + (size_t)b * ST * ck_row : nullptr;
+  const T* seed = PHASE == SEED ? ck + (size_t)b * ST * ck_row : nullptr;
   const int r0 = PHASE == SEED ? i0 : 0;  // the global row of row 0
   // CKPT: this thread's columns (and column 0's border, block 0's thread 0)
   // of row i as checkpoint i / stride
   auto put_ck = [&](int i) {
-    float* dst = ck + ((size_t)b * nck + i / stride) * ST * ck_row;
+    T* dst = ck + ((size_t)b * nck + i / stride) * ST * ck_row;
     for (int k = 0; k < s.cnt; ++k) {
       const int j = s.j(k);
       const size_t x = s.slot(k);
       dst[PM * ck_row + j] = Mr[x];
       dst[PL * ck_row + j] = Lr[x];
       dst[PU * ck_row + j] = Ur[x];
-      if (ST > 3) dst[PJ * ck_row + j] = JUMP ? Jr[x] : NEG;
+      if (ST > 3) dst[PJ * ck_row + j] = JUMP ? Jr[x] : NG;
     }
     if (c == 0 && tid == 0)
-      for (int st = 0; st < ST; ++st) dst[st * ck_row] = ptr_edge<MODE>(st, 0, i, 0, 0, o, e, w);
+      for (int st = 0; st < ST; ++st) dst[st * ck_row] = ptr_edge<MODE, T>(st, 0, i, 0, 0, o, e, w);
   };
   if (tid == 0) {
-    g_s = NEG;
+    g_s = NG;
     g_a = 0;
   }
   // row 0: global M = L = -inf, U = o + e*j; local zeros; fit M = U = 0,
@@ -633,30 +693,30 @@ bptr_affine(const int* __restrict__ qs, const int* __restrict__ ts,
       Lr[x] = seed[PL * ck_row + j];
       Ur[x] = seed[PU * ck_row + j];
     } else {
-      Mr[x] = MODE == GLOBAL ? NEG : 0.f;
-      Lr[x] = MODE == LOCAL ? 0.f : NEG;
-      Ur[x] = MODE == GLOBAL ? o + e * (float)j : 0.f;
+      Mr[x] = MODE == GLOBAL ? NG : (T)0;
+      Lr[x] = MODE == LOCAL ? (T)0 : NG;
+      Ur[x] = MODE == GLOBAL ? o + e * (T)j : (T)0;
     }
     if (JUMP) {
-      Jr[x] = PHASE == SEED ? seed[PJ * ck_row + j] : NEG;
-      Jb[x] = (j < n_pad && al[j] > 0.f) ? jp : NEG;
+      Jr[x] = PHASE == SEED ? seed[PJ * ck_row + j] : NG;
+      Jb[x] = (j < n_pad && al[j] > 0.f) ? jp : NG;
     }
   }
   if (s.cnt > 0) {
     eM[tid] = Mr[s.slot(s.cnt - 1)];
     eL[tid] = Lr[s.slot(s.cnt - 1)];
   }
-  const float jb0 = (JUMP && al[col0] > 0.f) ? jp : NEG;
+  const T jb0 = (JUMP && al[col0] > 0.f) ? jp : NG;
   // thread 0's diagonal: row i-1's M, L, U, J at col0 (SEED past block 0:
   // the checkpoint's column col0)
   const bool from_ck = PHASE == SEED && c > 0;
-  float eM0 = from_ck ? seed[PM * ck_row + col0] : ptr_edge<MODE>(PM, c, 0, r0, col0, o, e, w);
-  float eL0 = from_ck ? seed[PL * ck_row + col0] : ptr_edge<MODE>(PL, c, 0, r0, col0, o, e, w);
-  float eU0 = from_ck ? seed[PU * ck_row + col0] : ptr_edge<MODE>(PU, c, 0, r0, col0, o, e, w);
-  float eJ0 = (JUMP && from_ck) ? seed[PJ * ck_row + col0] : NEG;
+  T eM0 = from_ck ? seed[PM * ck_row + col0] : ptr_edge<MODE, T>(PM, c, 0, r0, col0, o, e, w);
+  T eL0 = from_ck ? seed[PL * ck_row + col0] : ptr_edge<MODE, T>(PL, c, 0, r0, col0, o, e, w);
+  T eU0 = from_ck ? seed[PU * ck_row + col0] : ptr_edge<MODE, T>(PU, c, 0, r0, col0, o, e, w);
+  T eJ0 = (JUMP && from_ck) ? seed[PJ * ck_row + col0] : NG;
   if (PHASE == CKPT) put_ck(0);
   // this block's start info: local's running maximum, fit's bottom row
-  float blk_s = NEG;
+  T blk_s = NG;
   int blk_a = 0, blk_b = 0;
   __syncthreads();
   for (int i = 1; i <= m_pad; ++i) {
@@ -665,7 +725,7 @@ bptr_affine(const int* __restrict__ qs, const int* __restrict__ ts,
       store_row(stage, out + (size_t)(idx / rpb - 1) * n_pad + col0, bw);
     const int qc = q[idx];
     // row i-1 at column j0-1
-    float dM, dL, dU, dJ = NEG;
+    T dM, dL, dU, dJ = NG;
     if (tid == 0) {
       dM = eM0;
       dL = eL0;
@@ -677,41 +737,41 @@ bptr_affine(const int* __restrict__ qs, const int* __restrict__ ts,
       dU = Ur[s.left];
       if (JUMP) dJ = Jr[s.left];
     } else {
-      dM = dL = dU = NEG;
+      dM = dL = dU = NG;
     }
-    float v[3] = {NEG, NEG, NEG};  // U chain, J chain, local row max (j <= n)
+    T v[3] = {NG, NG, NG};  // U chain, J chain, local row max (j <= n)
     for (int k = 0; k < s.cnt; ++k) {
       const int j = s.j(k);
       const size_t x = s.slot(k);
-      const float mo = Mr[x], lo = Lr[x], uo = Ur[x];
-      const float jo = JUMP ? Jr[x] : NEG;
-      const float sub = Tc[x] == qc ? match : mis;
+      const T mo = Mr[x], lo = Lr[x], uo = Ur[x];
+      const T jo = JUMP ? Jr[x] : NG;
+      const T sub = Tc[x] == qc ? match : mis;
       // earliest-argument strict argmax: L, M, U, J, HOME
-      float best = dL + sub;
+      T best = dL + sub;
       int pm = 0;
-      float cv = dM + sub;
+      T cv = dM + sub;
       if (cv > best) pm = 1;
-      best = fmaxf(best, cv);
+      best = vmax(best, cv);
       cv = dU + sub;
       if (cv > best) pm = 2;
-      best = fmaxf(best, cv);
+      best = vmax(best, cv);
       if (JUMP) {
         cv = dJ + sub;
         if (cv > best) pm = 3;
-        best = fmaxf(best, cv);
+        best = vmax(best, cv);
       }
       if (MODE == LOCAL) {
-        if (0.f > best) pm = k_home;  // the HOME candidate has no +sub
-        best = fmaxf(best, 0.f);
+        if ((T)0 > best) pm = k_home;  // the HOME candidate has no +sub
+        best = vmax(best, (T)0);
       }
-      if (!(best > NEG)) pm = k_unset;
-      const float la = lo + e, lb2 = mo + o;
+      if (!(best > NG)) pm = k_unset;
+      const T la = lo + e, lb2 = mo + o;
       Mr[x] = best;
-      Lr[x] = fmaxf(la, lb2);
+      Lr[x] = vmax(la, lb2);
       if (PTRS) Cd[x] = (uint8_t)(pm | (la >= lb2 ? 0 : lbit));
-      v[0] = fmaxf(v[0], best + (o - e * (float)(j + 1)));
-      if (JUMP) v[1] = fmaxf(v[1], best + Jb[x]);
-      if (MODE == LOCAL && j <= n) v[2] = fmaxf(v[2], best);
+      v[0] = vmax(v[0], best + (o - e * (T)(j + 1)));
+      if (JUMP) v[1] = vmax(v[1], best + Jb[x]);
+      if (MODE == LOCAL && j <= n) v[2] = vmax(v[2], best);
       dM = mo;
       dL = lo;
       dU = uo;
@@ -719,20 +779,20 @@ bptr_affine(const int* __restrict__ qs, const int* __restrict__ ts,
     }
     if (tid == 0) {
       if (c > 0) w.wait(i);
-      eg[PM] = eM0 = ptr_edge<MODE>(PM, c, i, r0, col0, o, e, w);
-      eg[PL] = eL0 = ptr_edge<MODE>(PL, c, i, r0, col0, o, e, w);
-      eg[PU] = eU0 = ptr_edge<MODE>(PU, c, i, r0, col0, o, e, w);
-      if (JUMP) eg[PJ] = eJ0 = ptr_edge<MODE>(PJ, c, i, r0, col0, o, e, w);
+      eg[PM] = eM0 = ptr_edge<MODE, T>(PM, c, i, r0, col0, o, e, w);
+      eg[PL] = eL0 = ptr_edge<MODE, T>(PL, c, i, r0, col0, o, e, w);
+      eg[PU] = eU0 = ptr_edge<MODE, T>(PU, c, i, r0, col0, o, e, w);
+      if (JUMP) eg[PJ] = eJ0 = ptr_edge<MODE, T>(PJ, c, i, r0, col0, o, e, w);
     }
-    const float none[3] = {NEG, NEG, NEG};
-    float total[3];
-    block_exclusive<MaxF>(v, none, total, tot);
+    const T none[3] = {NG, NG, NG};
+    T total[3];
+    block_exclusive<Max>(v, none, total, tot);
     // the chains' column-col0 terms (as in bscore_affine)
-    const float em = eg[PM];
-    float run_u = fmaxf(fmaxf(eg[PU] - e * (float)col0, em + (o - e * (float)(col0 + 1))), v[0]);
-    float run_j = JUMP ? fmaxf(fmaxf(eg[PJ], em + jb0), v[1]) : NEG;
+    const T em = eg[PM];
+    T run_u = vmax(vmax(eg[PU] - e * (T)col0, em + (o - e * (T)(col0 + 1))), v[0]);
+    T run_j = JUMP ? vmax(vmax(eg[PJ], em + jb0), v[1]) : NG;
     // M(i, j-1) and J's entry into column j, at the strip's first column
-    float mprev = em, jcv = JUMP ? em + jb0 : NEG;
+    T mprev = em, jcv = JUMP ? em + jb0 : NG;
     if (tid > 0 && s.cnt > 0) {
       mprev = Mr[s.left];
       if (JUMP) jcv = mprev + Jb[s.left];
@@ -741,29 +801,29 @@ bptr_affine(const int* __restrict__ qs, const int* __restrict__ ts,
     for (int k = 0; k < s.cnt; ++k) {
       const int j = s.j(k);
       const size_t x = s.slot(k);
-      const float mv = Mr[x];
-      const float uv = run_u + e * (float)j;
-      const float ua = mprev + o;
+      const T mv = Mr[x];
+      const T uv = run_u + e * (T)j;
+      const T ua = mprev + o;
       // U(i,j) = max(ua, U(i,j-1) + e), so ua >= U(i,j-1) + e iff ua >= U(i,j)
       int code = PTRS ? Cd[x] | (ua >= uv ? 0 : ubit) : 0;
       Ur[x] = uv;
       if (JUMP) {
         // J(i,j) = max(J(i,j-1), jcv): jcv >= J(i,j-1) iff jcv >= J(i,j)
-        code |= (jcv > NEG && jcv >= run_j) ? 0 : 1 << 5;
+        code |= (jcv > NG && jcv >= run_j) ? 0 : 1 << 5;
         Jr[x] = run_j;
         jcv = mv + Jb[x];
-        run_j = fmaxf(run_j, jcv);
+        run_j = vmax(run_j, jcv);
       }
       if (PTRS) {
         const int col = s.k0 + k;
         stage[col] = (uint8_t)(sub_row == 0 ? code : stage[col] | (code << shift));
       }
       if (LATCH && MODE == GLOBAL && last_row && j == n) {
-        const float ln = Lr[x];
-        g_s = fmaxf(fmaxf(ln, mv), uv);
+        const T ln = Lr[x];
+        g_s = vmax(vmax(ln, mv), uv);
         g_a = (ln >= mv && ln >= uv) ? 0 : (mv >= uv ? 1 : 2);
       }
-      run_u = fmaxf(run_u, mv + (o - e * (float)(j + 1)));
+      run_u = vmax(run_u, mv + (o - e * (T)(j + 1)));
       mprev = mv;
     }
     if (s.cnt > 0) {
@@ -791,21 +851,21 @@ bptr_affine(const int* __restrict__ qs, const int* __restrict__ ts,
     if (LATCH && MODE == FIT && last_row) {
       // this block's bottom row over columns <= n-1; L wins only when
       // strictly greater
-      float mx[2] = {NEG, NEG};
+      T mx[2] = {NG, NG};
       for (int k = 0; k < s.cnt && s.j(k) <= n - 1; ++k) {
-        mx[0] = fmaxf(mx[0], Mr[s.slot(k)]);
-        mx[1] = fmaxf(mx[1], Lr[s.slot(k)]);
+        mx[0] = vmax(mx[0], Mr[s.slot(k)]);
+        mx[1] = vmax(mx[1], Lr[s.slot(k)]);
       }
-      mx[0] = block_reduce<MaxF>(mx[0], red_f[0]);
-      mx[1] = block_reduce<MaxF>(mx[1], red_f[1]);
+      mx[0] = block_reduce<Max>(mx[0], red_f[0]);
+      mx[1] = block_reduce<Max>(mx[1], red_f[1]);
       const bool use_l = mx[1] > mx[0];
-      const float want = use_l ? mx[1] : mx[0];
-      const float* row = use_l ? Lr : Mr;
+      const T want = use_l ? mx[1] : mx[0];
+      const T* row = use_l ? Lr : Mr;
       int fj = BIG;
       for (int k = 0; k < s.cnt && fj == BIG; ++k)
         if (s.j(k) <= n - 1 && row[s.slot(k)] == want) fj = s.j(k);
       blk_b = block_reduce<MinI>(fj, red_i);
-      blk_s = fmaxf(mx[0], mx[1]);
+      blk_s = vmax(mx[0], mx[1]);
       blk_a = use_l ? 1 : 0;
     }
     __syncthreads();
@@ -813,18 +873,18 @@ bptr_affine(const int* __restrict__ qs, const int* __restrict__ ts,
   if (PTRS) store_row(stage, out + (size_t)(R - 1) * n_pad + col0, bw);
   if (!LATCH) return;
   if (tid == 0 && w.finish(MODE == GLOBAL ? pack(g_s, g_a) : pack(blk_s, blk_a, blk_b), nblk)) {
-    float acc_s = NEG;
+    T acc_s = NG;
     int acc_a = 0, acc_b = 0;
     if (MODE == GLOBAL) {
       if (n > 0) {  // the block that holds column n latched (m, n)
         const int4 x = w.candidate((n - 1) / c_blk);
-        acc_s = __int_as_float(x.x);
+        acc_s = unpack<T>(x);
         acc_a = x.y;
       }
     } else if (MODE == LOCAL || m > 0) {  // fit's candidates come from row m
       for (int k = 0; k < nblk; ++k) {
         const int4 x = w.candidate(k);
-        const float fs = __int_as_float(x.x);
+        const T fs = unpack<T>(x);
         // local: ties keep the earlier block unless the later one's row is
         // smaller; fit: block 0 is taken as it is, a later block on a
         // greater score, or an equal one from M where the kept one is from
@@ -851,31 +911,33 @@ bptr_affine(const int* __restrict__ qs, const int* __restrict__ ts,
 // o; codes LEFT/DIAG/RIGHT = 0/1/2, 3 where the cell is -inf (alignment.h:944's
 // argument order). Per slot: M, max(DIAG, RIGHT), the char, DIAG or RIGHT.
 // PHASE as in bptr_affine, with M the one state row.
-template <int PHASE>
+template <int PHASE, class T = float>
 __global__ void __launch_bounds__(MAX_THREADS)
 bptr_overlap(const int* __restrict__ qs, const int* __restrict__ ts,
              const int* __restrict__ ns, const int* __restrict__ ms,
-             const float* __restrict__ params, float* __restrict__ score_out,
+             const T* __restrict__ params, T* __restrict__ score_out,
              int* __restrict__ a_out, int* __restrict__ b_out, uint8_t* __restrict__ ptrs,
-             float* edges, int* flags, int4* cand, float* ck, int m_pad, int n_pad, int c_blk,
+             T* edges, int* flags, int4* cand, T* ck, int m_pad, int n_pad, int c_blk,
              int W, int rpb, int stride) {
   constexpr bool PTRS = PHASE != CKPT, LATCH = PHASE != SEED;
+  constexpr T NG = (T)NEG;
+  using Max = typename Ops<T>::Max;
   extern __shared__ __align__(16) uint8_t smem[];
-  __shared__ float tot[1][32];
-  __shared__ float red_f[32];
+  __shared__ T tot[1][32];
+  __shared__ T red_f[32];
   __shared__ int red_i[32];
-  __shared__ float eg;  // M(i, col0), from thread 0
+  __shared__ T eg;  // M(i, col0), from thread 0
   __shared__ int ticket;
   const int nblk = (n_pad + c_blk - 1) / c_blk;
-  Wave w(take_ticket(flags, &ticket), nblk, flags, edges, cand, m_pad);
+  Wave<T> w(take_ticket(flags, &ticket), nblk, flags, edges, cand, m_pad);
   const int b = w.b, c = w.c, tid = threadIdx.x;
   const size_t S = (size_t)blockDim.x * W;
   uint8_t* stage = smem;
-  float* Mr = reinterpret_cast<float*>(smem + c_blk);
-  float* Dr = Mr + S;
+  T* Mr = reinterpret_cast<T*>(smem + c_blk);
+  T* Dr = Mr + S;
   int* Tc = reinterpret_cast<int*>(Dr + S);
   uint8_t* Cd = reinterpret_cast<uint8_t*>(Tc + S);
-  const float match = params[0], mis = params[1], o = params[2];
+  const T match = params[0], mis = params[1], o = params[2];
   const int bits = 8 / rpb, R = m_pad / rpb;
   const int n = min(max(ns[b], 0), n_pad), m = min(max(ms[b], 0), m_pad);
   const int* q = qs + (size_t)b * m_pad;
@@ -886,25 +948,25 @@ bptr_overlap(const int* __restrict__ qs, const int* __restrict__ ts,
   const Strip s(col0, bw, W);
   const size_t ck_row = (size_t)n_pad + 1;
   const int nck = PHASE == CKPT ? m_pad / stride : 1;
-  const float* seed = PHASE == SEED ? ck + (size_t)b * ck_row : nullptr;
+  const T* seed = PHASE == SEED ? ck + (size_t)b * ck_row : nullptr;
   // CKPT: this thread's columns of row i as checkpoint i / stride; M(i, 0) = 0
   auto put_ck = [&](int i) {
-    float* dst = ck + ((size_t)b * nck + i / stride) * ck_row;
+    T* dst = ck + ((size_t)b * nck + i / stride) * ck_row;
     for (int k = 0; k < s.cnt; ++k) dst[s.j(k)] = Mr[s.slot(k)];
-    if (c == 0 && tid == 0) dst[0] = 0.f;
+    if (c == 0 && tid == 0) dst[0] = (T)0;
   };
   // M(i, col0): the column-0 border is 0; row 0 is -inf past column 0
-  auto edge = [&](int i) { return c == 0 ? 0.f : (i == 0 ? NEG : w.edge(0, i)); };
+  auto edge = [&](int i) { return c == 0 ? (T)0 : (i == 0 ? NG : w.edge(0, i)); };
   for (int k = 0; k < s.cnt; ++k) {
     const size_t x = s.slot(k);
     Tc[x] = t[s.j(k) - 1];
-    Mr[x] = PHASE == SEED ? seed[s.j(k)] : NEG;
+    Mr[x] = PHASE == SEED ? seed[s.j(k)] : NG;
   }
   // thread 0: M(i-1, col0) (SEED past block 0: the checkpoint's column col0)
-  float dM0 = (PHASE == SEED && c > 0) ? seed[col0] : edge(0);
+  T dM0 = (PHASE == SEED && c > 0) ? seed[col0] : edge(0);
   if (PHASE == CKPT) put_ck(0);
   // this block's bottom row: its maximum over columns <= n-1, first column
-  float blk_s = NEG;
+  T blk_s = NG;
   int blk_a = 0;
   __syncthreads();
   for (int i = 1; i <= m_pad; ++i) {
@@ -913,43 +975,43 @@ bptr_overlap(const int* __restrict__ qs, const int* __restrict__ ts,
       store_row(stage, out + (size_t)(idx / rpb - 1) * n_pad + col0, bw);
     const int qc = q[idx];
     // M(i-1, j0-1); Mr is rewritten only in pass 2
-    float dM = tid == 0 ? dM0 : (s.cnt > 0 ? Mr[s.left] : NEG);
-    float v[1] = {NEG};
+    T dM = tid == 0 ? dM0 : (s.cnt > 0 ? Mr[s.left] : NG);
+    T v[1] = {NG};
     for (int k = 0; k < s.cnt; ++k) {
       const int j = s.j(k);
       const size_t x = s.slot(k);
-      const float mp = Mr[x];
-      const float sub = Tc[x] == qc ? match : mis;
-      const float diag = dM + sub, right = mp + o;
-      const float dr = fmaxf(diag, right);
+      const T mp = Mr[x];
+      const T sub = Tc[x] == qc ? match : mis;
+      const T diag = dM + sub, right = mp + o;
+      const T dr = vmax(diag, right);
       Dr[x] = dr;
       if (PTRS) Cd[x] = diag >= right ? 1 : 2;
-      v[0] = fmaxf(v[0], dr - o * (float)j);
+      v[0] = vmax(v[0], dr - o * (T)j);
       dM = mp;
     }
     if (tid == 0) {
       if (c > 0) w.wait(i);
       dM0 = eg = edge(i);
     }
-    const float none[1] = {NEG};
-    block_exclusive<MaxF>(v, none, tot);
-    float run = fmaxf(eg - o * (float)col0, v[0]);  // M(i, col0) seeds the chain
+    const T none[1] = {NG};
+    block_exclusive<Max>(v, none, tot);
+    T run = vmax(eg - o * (T)col0, v[0]);  // M(i, col0) seeds the chain
     // M(i, j0-1), as the left neighbour (or the previous block) has it
-    float mprev = run + o * (float)(s.j(0) - 1);
+    T mprev = run + o * (T)(s.j(0) - 1);
     for (int k = 0; k < s.cnt; ++k) {
       const int j = s.j(k);
       const size_t x = s.slot(k);
-      const float dr = Dr[x];
+      const T dr = Dr[x];
       if (PTRS) {
-        const float left = mprev + o;
-        const float val = fmaxf(left, dr);
+        const T left = mprev + o;
+        const T val = vmax(left, dr);
         int code = left >= val ? 0 : Cd[x];
-        if (!(val > NEG)) code = 3;
+        if (!(val > NG)) code = 3;
         const int col = s.k0 + k;
         stage[col] = (uint8_t)(sub_row == 0 ? code : stage[col] | (code << shift));
       }
-      run = fmaxf(run, dr - o * (float)j);
-      const float mv = run + o * (float)j;
+      run = vmax(run, dr - o * (T)j);
+      const T mv = run + o * (T)j;
       Mr[x] = mv;
       mprev = mv;
       if (feeds && k == s.cnt - 1 && s.owns_last(bw)) {
@@ -959,9 +1021,9 @@ bptr_overlap(const int* __restrict__ qs, const int* __restrict__ ts,
     }
     if (PHASE == CKPT && i % stride == 0 && i < m_pad) put_ck(i);
     if (LATCH && i == m) {
-      float mx = NEG;
-      for (int k = 0; k < s.cnt && s.j(k) <= n - 1; ++k) mx = fmaxf(mx, Mr[s.slot(k)]);
-      mx = block_reduce<MaxF>(mx, red_f);
+      T mx = NG;
+      for (int k = 0; k < s.cnt && s.j(k) <= n - 1; ++k) mx = vmax(mx, Mr[s.slot(k)]);
+      mx = block_reduce<Max>(mx, red_f);
       int fj = BIG;
       for (int k = 0; k < s.cnt && fj == BIG; ++k)
         if (s.j(k) <= n - 1 && Mr[s.slot(k)] == mx) fj = s.j(k);
@@ -973,14 +1035,14 @@ bptr_overlap(const int* __restrict__ qs, const int* __restrict__ ts,
   if (PTRS) store_row(stage, out + (size_t)(R - 1) * n_pad + col0, bw);
   if (!LATCH) return;
   if (tid == 0 && w.finish(pack(blk_s, blk_a), nblk)) {
-    float acc_s = NEG;
+    T acc_s = NG;
     int acc_a = 0;
     for (int k = 0; k < (m > 0 ? nblk : 0); ++k) {
       const int4 x = w.candidate(k);
-      const float mx = __int_as_float(x.x);
+      const T mx = unpack<T>(x);
       if (k == 0) {  // block 0 also holds the j = 0 zero candidate, which wins ties
-        acc_s = fmaxf(mx, 0.f);
-        acc_a = mx > 0.f ? x.y : 0;
+        acc_s = vmax(mx, (T)0);
+        acc_a = mx > (T)0 ? x.y : 0;
       } else if (mx > acc_s) {
         acc_s = mx;
         acc_a = x.y;
@@ -1017,14 +1079,15 @@ bool bad_blocks(int B, int threads, int wmax, int m_pad, int n_pad, int c_blk) {
          (long long)B * ((n_pad + c_blk - 1) / c_blk) > INT_MAX;
 }
 
-// One pointer fill of `PHASE` (FILL, CKPT or SEED): the checks of the
-// layout, then the mode's instance; returns the launch's error code.
-template <int PHASE>
+// One pointer fill of `PHASE` (FILL, CKPT or SEED) in value type T: the
+// checks of the layout, then the mode's instance; returns the launch's error
+// code.
+template <int PHASE, class T>
 cudaError_t launch_ptr(int mode, int use_jump, int rpb, const int* qs, const int* ts,
-                       const float* allow, const int* ns, const int* ms, const float* params,
-                       float* score, int* a, int* b, uint8_t* ptrs, float* edges, int* flags,
-                       void* cand, float* ck, int B, int m_pad, int n_pad, int c_blk,
-                       int threads, int wmax, int stride, int i0, cudaStream_t stream) {
+                       const float* allow, const int* ns, const int* ms, const T* params,
+                       T* score, int* a, int* b, uint8_t* ptrs, T* edges, int* flags, void* cand,
+                       T* ck, int B, int m_pad, int n_pad, int c_blk, int threads, int wmax,
+                       int stride, int i0, cudaStream_t stream) {
   const bool bad_layout = (rpb != 1 && rpb != 2 && rpb != 4) || m_pad % (8 * rpb) != 0 ||
                           (rpb > 1 && use_jump) || (rpb == 4 && mode != OVERLAP) ||
                           (use_jump && mode != FIT);
@@ -1033,38 +1096,40 @@ cudaError_t launch_ptr(int mode, int use_jump, int rpb, const int* qs, const int
     return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   const int ctas = B * ((n_pad + c_blk - 1) / c_blk);
-  const size_t S = (size_t)threads * wmax;
+  const size_t S = (size_t)threads * wmax, V = sizeof(T);
   int4* cd = static_cast<int4*>(cand);
   if (mode == OVERLAP)  // stage, M, max(DIAG, RIGHT), char, code
-    return launch(bptr_overlap<PHASE>, ctas, threads, c_blk + S * 13, stream, qs, ts, ns, ms,
-                  params, score, a, b, ptrs, edges, flags, cd, ck, m_pad, n_pad, c_blk, wmax,
-                  rpb, stride);
+    return launch(bptr_overlap<PHASE, T>, ctas, threads, c_blk + S * (2 * V + 5), stream, qs, ts,
+                  ns, ms, params, score, a, b, ptrs, edges, flags, cd, ck, m_pad, n_pad, c_blk,
+                  wmax, rpb, stride);
   // stage, the threads' last M and L, M, L, U[, J, jump bias], char, code
-  const size_t smem = c_blk + (size_t)threads * 8 + S * (use_jump ? 25 : 17);
+  const size_t smem = c_blk + (size_t)threads * 2 * V + S * ((use_jump ? 5 : 3) * V + 5);
   if (mode == GLOBAL)
-    return launch(bptr_affine<GLOBAL, false, PHASE>, ctas, threads, smem, stream, qs, ts, allow,
-                  ns, ms, params, score, a, b, ptrs, edges, flags, cd, ck, m_pad, n_pad, c_blk,
-                  wmax, rpb, stride, i0);
+    return launch(bptr_affine<GLOBAL, false, PHASE, T>, ctas, threads, smem, stream, qs, ts,
+                  allow, ns, ms, params, score, a, b, ptrs, edges, flags, cd, ck, m_pad, n_pad,
+                  c_blk, wmax, rpb, stride, i0);
   if (mode == LOCAL)
-    return launch(bptr_affine<LOCAL, false, PHASE>, ctas, threads, smem, stream, qs, ts, allow,
+    return launch(bptr_affine<LOCAL, false, PHASE, T>, ctas, threads, smem, stream, qs, ts,
+                  allow, ns, ms, params, score, a, b, ptrs, edges, flags, cd, ck, m_pad, n_pad,
+                  c_blk, wmax, rpb, stride, i0);
+  if (use_jump)
+    return launch(bptr_affine<FIT, true, PHASE, T>, ctas, threads, smem, stream, qs, ts, allow,
                   ns, ms, params, score, a, b, ptrs, edges, flags, cd, ck, m_pad, n_pad, c_blk,
                   wmax, rpb, stride, i0);
-  if (use_jump)
-    return launch(bptr_affine<FIT, true, PHASE>, ctas, threads, smem, stream, qs, ts, allow, ns,
-                  ms, params, score, a, b, ptrs, edges, flags, cd, ck, m_pad, n_pad, c_blk, wmax,
-                  rpb, stride, i0);
-  return launch(bptr_affine<FIT, false, PHASE>, ctas, threads, smem, stream, qs, ts, allow, ns,
-                ms, params, score, a, b, ptrs, edges, flags, cd, ck, m_pad, n_pad, c_blk, wmax,
-                rpb, stride, i0);
+  return launch(bptr_affine<FIT, false, PHASE, T>, ctas, threads, smem, stream, qs, ts, allow,
+                ns, ms, params, score, a, b, ptrs, edges, flags, cd, ck, m_pad, n_pad, c_blk,
+                wmax, rpb, stride, i0);
 }
 
 }  // namespace
 
 // C entry points, bound with ctypes. Each launches one fill on `stream`
 // without synchronising and returns the launch's error code. With nblk =
-// ceil(n_pad / c_blk): `edges` is the (B, nblk, 4, m_pad + 1) float32 block-edge
-// buffer, `flags` the (1 + B * (nblk + 1)) int32 ticket, progress and done
-// counters, zeroed, and `cand` the (B, nblk, 4) int32 start-info candidates.
+// ceil(n_pad / c_blk): `edges` is the (B, nblk, 4, m_pad + 1) block-edge
+// buffer of the fill's value type (float32; float64 in the double entries,
+// the *64 below), `flags` the (1 + B * (nblk + 1)) int32 ticket, progress
+// and done counters, zeroed, and `cand` the (B, nblk, 4) int32 start-info
+// candidates.
 extern "C" {
 
 // mode: 0 global, 1 local, 2 fit, 3 overlap, 4 edit; `out` is (B,) float32,
@@ -1087,8 +1152,9 @@ cudaError_t at_blocked_scores(int mode, int use_jump, const int* qs, const int* 
     return launch(bscore_overlap, ctas, threads, S * 12, stream, qs, ts, ns, ms, params, f_out,
                   edges, flags, cd, m_pad, n_pad, c_blk, wmax);
   if (mode == EDIT)
-    return launch(bscore_edit, ctas, threads, S * 12, stream, qs, ts, ns, ms, params,
-                  static_cast<int*>(out), edges, flags, cd, m_pad, n_pad, c_blk, wmax);
+    return launch(bscore_edit<int, float>, ctas, threads, S * 12, stream, qs, ts, ns, ms, params,
+                  static_cast<int*>(out), reinterpret_cast<int*>(edges), flags, cd, m_pad, n_pad,
+                  c_blk, wmax);
   const size_t smem = S * (use_jump ? 20 : 16);
   if (mode == GLOBAL)
     return launch(bscore_affine<GLOBAL, false>, ctas, threads, smem, stream, qs, ts, allow, ns,
@@ -1103,6 +1169,21 @@ cudaError_t at_blocked_scores(int mode, int use_jump, const int* qs, const int* 
                 params, f_out, edges, flags, cd, m_pad, n_pad, c_blk, wmax);
 }
 
+// The double instance of edit's blocked score fill (a pair past float32's
+// exact range): `params` the (1, 8) float64 row, `out` (B,) float64,
+// `edges` float64.
+cudaError_t at_blocked_edit64(const int* qs, const int* ts, const int* ns, const int* ms,
+                              const double* params, double* out, double* edges, int* flags,
+                              void* cand, int B, int m_pad, int n_pad, int c_blk, int threads,
+                              int wmax, cudaStream_t stream) {
+  if (bad_blocks(B, threads, wmax, m_pad, n_pad, c_blk)) return cudaErrorInvalidValue;
+  if (B == 0) return cudaSuccess;
+  const int ctas = B * ((n_pad + c_blk - 1) / c_blk);
+  const size_t S = (size_t)threads * wmax;
+  return launch(bscore_edit<double, double>, ctas, threads, S * 20, stream, qs, ts, ns, ms,
+                params, out, edges, flags, static_cast<int4*>(cand), m_pad, n_pad, c_blk, wmax);
+}
+
 // mode: 0 global, 1 local, 2 fit, 3 overlap; rpb rows per byte (1, 2, or 4
 // for overlap; 1 for fit+jump), m_pad % (8 * rpb) == 0; the last column
 // block may be narrower than c_blk (n_pad % 16 == 0).
@@ -1112,9 +1193,22 @@ cudaError_t at_blocked_ptr_fill(int mode, int use_jump, int rpb, const int* qs, 
                                 uint8_t* ptrs, float* edges, int* flags, void* cand, int B,
                                 int m_pad, int n_pad, int c_blk, int threads, int wmax,
                                 cudaStream_t stream) {
-  return launch_ptr<FILL>(mode, use_jump, rpb, qs, ts, allow, ns, ms, params, score, a, b, ptrs,
-                          edges, flags, cand, nullptr, B, m_pad, n_pad, c_blk, threads, wmax, 1,
-                          0, stream);
+  return launch_ptr<FILL, float>(mode, use_jump, rpb, qs, ts, allow, ns, ms, params, score, a, b,
+                                 ptrs, edges, flags, cand, nullptr, B, m_pad, n_pad, c_blk,
+                                 threads, wmax, 1, 0, stream);
+}
+
+// at_blocked_ptr_fill's double instance: `params` the (1, 8) float64 row,
+// `score` (B,) float64, `edges` float64; the pointer bytes as its.
+cudaError_t at_blocked_ptr_fill64(int mode, int use_jump, int rpb, const int* qs, const int* ts,
+                                  const float* allow, const int* ns, const int* ms,
+                                  const double* params, double* score, int* a, int* b,
+                                  uint8_t* ptrs, double* edges, int* flags, void* cand, int B,
+                                  int m_pad, int n_pad, int c_blk, int threads, int wmax,
+                                  cudaStream_t stream) {
+  return launch_ptr<FILL, double>(mode, use_jump, rpb, qs, ts, allow, ns, ms, params, score, a,
+                                  b, ptrs, edges, flags, cand, nullptr, B, m_pad, n_pad, c_blk,
+                                  threads, wmax, 1, 0, stream);
 }
 
 // The checkpoint forward (CKPT) of the pointer fill: score, a and b as
@@ -1129,9 +1223,24 @@ cudaError_t at_blocked_ckpt_fill(int mode, int use_jump, const int* qs, const in
                                  cudaStream_t stream) {
   if (stride <= 0 || stride % 8 != 0 || m_pad % stride != 0 || ck == nullptr)
     return cudaErrorInvalidValue;
-  return launch_ptr<CKPT>(mode, use_jump, 1, qs, ts, allow, ns, ms, params, score, a, b, nullptr,
-                          edges, flags, cand, ck, B, m_pad, n_pad, c_blk, threads, wmax, stride,
-                          0, stream);
+  return launch_ptr<CKPT, float>(mode, use_jump, 1, qs, ts, allow, ns, ms, params, score, a, b,
+                                 nullptr, edges, flags, cand, ck, B, m_pad, n_pad, c_blk,
+                                 threads, wmax, stride, 0, stream);
+}
+
+// at_blocked_ckpt_fill's double instance: params, score, ck and edges
+// float64.
+cudaError_t at_blocked_ckpt_fill64(int mode, int use_jump, const int* qs, const int* ts,
+                                   const float* allow, const int* ns, const int* ms,
+                                   const double* params, double* score, int* a, int* b,
+                                   double* ck, double* edges, int* flags, void* cand, int B,
+                                   int m_pad, int n_pad, int c_blk, int threads, int wmax,
+                                   int stride, cudaStream_t stream) {
+  if (stride <= 0 || stride % 8 != 0 || m_pad % stride != 0 || ck == nullptr)
+    return cudaErrorInvalidValue;
+  return launch_ptr<CKPT, double>(mode, use_jump, 1, qs, ts, allow, ns, ms, params, score, a, b,
+                                  nullptr, edges, flags, cand, ck, B, m_pad, n_pad, c_blk,
+                                  threads, wmax, stride, 0, stream);
 }
 
 // The seeded refill (SEED) of rows i0+1 .. i0+S of the pointer fill: qs the
@@ -1145,9 +1254,23 @@ cudaError_t at_blocked_refill(int mode, int use_jump, int rpb, const int* qs, co
                               float* edges, int* flags, void* cand, int B, int S, int n_pad,
                               int c_blk, int threads, int wmax, cudaStream_t stream) {
   if (i0 < 0 || ck == nullptr) return cudaErrorInvalidValue;
-  return launch_ptr<SEED>(mode, use_jump, rpb, qs, ts, allow, ns, ms, params, nullptr, nullptr,
-                          nullptr, ptrs, edges, flags, cand, const_cast<float*>(ck), B, S, n_pad,
-                          c_blk, threads, wmax, S, i0, stream);
+  return launch_ptr<SEED, float>(mode, use_jump, rpb, qs, ts, allow, ns, ms, params, nullptr,
+                                 nullptr, nullptr, ptrs, edges, flags, cand,
+                                 const_cast<float*>(ck), B, S, n_pad, c_blk, threads, wmax, S, i0,
+                                 stream);
+}
+
+// at_blocked_refill's double instance: params, ck and edges float64.
+cudaError_t at_blocked_refill64(int mode, int use_jump, int rpb, const int* qs, const int* ts,
+                                const float* allow, const int* ns, const int* ms,
+                                const double* params, const double* ck, int i0, uint8_t* ptrs,
+                                double* edges, int* flags, void* cand, int B, int S, int n_pad,
+                                int c_blk, int threads, int wmax, cudaStream_t stream) {
+  if (i0 < 0 || ck == nullptr) return cudaErrorInvalidValue;
+  return launch_ptr<SEED, double>(mode, use_jump, rpb, qs, ts, allow, ns, ms, params, nullptr,
+                                  nullptr, nullptr, ptrs, edges, flags, cand,
+                                  const_cast<double*>(ck), B, S, n_pad, c_blk, threads, wmax, S,
+                                  i0, stream);
 }
 
 }  // extern "C"

@@ -17,6 +17,8 @@
 //   i16            scalar short, each result wrapped to 16 bits
 //   i16 dpx (x2)   __viaddmax_s16x2 and __vsub2 on packed pairs
 //   bf16 (x2)      __hadd2, __hmax2, __hsub2 on __nv_bfloat162
+//   f64            DADD, a double max (DSETP.MAX with selects, or DMNMX),
+//                  DADD: the double instances' arithmetic
 // The packed forms take two elements a 32-bit word (4-byte aligned
 // pointers); an odd count's last element runs the scalar form of its dtype
 // in one thread.
@@ -54,9 +56,13 @@ constexpr int THREADS = 128;
 // compiler cannot prove equal to another load of it
 template <class V>
 __device__ __forceinline__ V reload(const V* p) {
-  static_assert(sizeof(V) == 4 || sizeof(V) == 2, "32- or 16-bit values");
+  static_assert(sizeof(V) == 8 || sizeof(V) == 4 || sizeof(V) == 2,
+                "64-, 32- or 16-bit values");
   V v;
-  if constexpr (sizeof(V) == 4) {
+  if constexpr (sizeof(V) == 8) {
+    const unsigned long long u = *reinterpret_cast<const volatile unsigned long long*>(p);
+    memcpy(&v, &u, 8);
+  } else if constexpr (sizeof(V) == 4) {
     const unsigned u = *reinterpret_cast<const volatile unsigned*>(p);
     memcpy(&v, &u, 4);
   } else {
@@ -84,6 +90,19 @@ struct F32 {
   __device__ static V add(V x, V y) { return x + y; }
   __device__ static V link(V y, V a, V b, V s) {
     return fmaxf(y + a, b) - s;
+  }
+};
+
+// the double instances' type (csrc/ptr_fill.cu, blocked_fill.cu): DADD
+// and a double max
+struct F64 {
+  using E = double;
+  using V = double;
+  static constexpr int PACK = 1;
+  __device__ static V splat(int w) { return (double)w; }
+  __device__ static V add(V x, V y) { return x + y; }
+  __device__ static V link(V y, V a, V b, V s) {
+    return fmax(y + a, b) - s;
   }
 };
 
@@ -213,10 +232,11 @@ cudaError_t launch(const void* a, const void* b, void* out, long long n,
 
 extern "C" {
 
-// dtype: 0 float32, 1 int32, 2 int16, 3 bfloat16; form: 0 plain, 1 dpx,
-// 2 x2 (packed pairs); width 1 or 8. The nine instantiated variants:
-// f32/1, f32/8, i32/1, i32/8, i32 dpx/8, i16/1, i16/8, i16 dpx/8,
-// bf16 x2/8. Anything else is refused with cudaErrorInvalidValue.
+// dtype: 0 float32, 1 int32, 2 int16, 3 bfloat16, 4 float64; form: 0
+// plain, 1 dpx, 2 x2 (packed pairs); width 1 or 8. The ten instantiated
+// variants: f32/1, f32/8, i32/1, i32/8, i32 dpx/8, i16/1, i16/8, i16
+// dpx/8, bf16 x2/8, f64/8. Anything else is refused with
+// cudaErrorInvalidValue.
 cudaError_t at_vpu_chain(int dtype, int form, int width, const void* a,
                          const void* b, void* out, long long n, int chain,
                          cudaStream_t stream) {
@@ -233,6 +253,7 @@ cudaError_t at_vpu_chain(int dtype, int form, int width, const void* a,
     case 208: return launch<I16, 8>(a, b, out, n, chain, stream);
     case 218: return launch<I16x2Dpx, 8>(a, b, out, n, chain, stream);
     case 328: return launch<BF16x2, 8>(a, b, out, n, chain, stream);
+    case 408: return launch<F64, 8>(a, b, out, n, chain, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -8,7 +8,8 @@ fills it twice instead:
 
   forward   one fill of the whole matrix that stores no pointers and keeps
             the (M, L, U[, J]; overlap M) state rows of every S-th row,
-            (m_pad/S) x states x (n_pad+1) float32 (``ops/blocked.py``
+            (m_pad/S) x states x (n_pad+1) float32, float64 in the double
+            instances (``ops/blocked.py``
             ``blocked_ckpt_fill``; the JAX ``_forward_ckpt``), and the start
             info of the pointer fill;
   backward  the traceback visits rows bottom-up, so the row blocks are
@@ -43,7 +44,7 @@ import torch
 from aligntools_tpu_torch import layout
 from aligntools_tpu_torch.backend import resolve_device
 from aligntools_tpu_torch.convert import params_matrix
-from aligntools_tpu_torch.engine import device_tb
+from aligntools_tpu_torch.engine import device_tb, select
 from aligntools_tpu_torch.exact import check_f32_exact
 from aligntools_tpu_torch.ops import blocked
 from aligntools_tpu_torch.params import AlignResult
@@ -84,18 +85,23 @@ def pair_tensors(mode, q: bytes, t: bytes, sites, S: int, device):
 
 
 def rescan_align(mode, q: bytes, t: bytes, params, sites=None,
-                 stride: int = 256, *, device="cuda") -> AlignResult:
+                 stride: int = 256, *, device="cuda",
+                 dtype=torch.float32) -> AlignResult:
     """One pair's full alignment by checkpoint-rescan traceback on
     ``device`` ("cuda" or "cpu", the kernels' plain versions). Rows are
     byte-equal to the rows path's; the pointers held at once are one S x
     n_pad block. ``stride`` is the row-block size S (checkpoint memory ~
-    states * 4 * m * n / S bytes), a multiple of 8."""
+    states * 4 * m * n / S bytes, twice that in double), a multiple of 8.
+    ``dtype`` float64 runs the double instances of both fills (the rows
+    path of ``api.align_pair`` for a pair past float32's exact integers);
+    float32 refuses such a pair, as the JAX rescan does."""
     if mode == "edit":
         raise ValueError("edit mode has no traceback (alignment.h:291-315)")
     if mode == "fit" and len(q) > len(t):
         raise ValueError("first sequence must be shorter than the second")
     m, n = len(q), len(t)
-    check_f32_exact(params, m, n, mode)
+    if dtype != torch.float64:
+        check_f32_exact(params, m, n, mode)
     S = int(stride)
     if S % 8:
         raise ValueError("stride must be a multiple of 8")
@@ -108,27 +114,31 @@ def rescan_align(mode, q: bytes, t: bytes, params, sites=None,
         return _empty_result(mode, q, t, params, True)
     use_jump = mode == "fit" and sites is not None
     rpb = layout.rows_per_byte(mode, use_jump, S)
-    c_blk = blocked.C_BLK
+    c_blk = select.blocked_c_blk(dtype == torch.float64)
     (qs, ts, allow, ns, ms), m_pad, n_pad = pair_tensors(mode, q, t, sites,
                                                          S, dev)
-    pmat = params_matrix(params, dev)
+    pmat = params_matrix(params, dev, dtype)
 
     score, a, b, cks = blocked.blocked_ckpt_fill(
         mode, use_jump, S, m_pad, n_pad, c_blk, qs, ts, allow, ns, ms, pmat)
+    # one copy: the score's words (one float32's, two of a double), a, b
+    words = score.element_size() // 4
     fin = torch.cat([score.view(torch.int32), a, b]).cpu().numpy()
-    score = float(fin[:1].view(np.float32)[0])
+    score = float(fin[:words].view(np.float32 if words == 1
+                                   else np.float64)[0])
+    fa, fb = int(fin[words]), int(fin[words + 1])
     # the start cell, as the rows path maps it (device_tb.walk_starts)
     if mode == "global":
-        state, i, j = int(fin[1]), m, n  # 0/1/2 = LOW/MID/UPP
+        state, i, j = fa, m, n  # 0/1/2 = LOW/MID/UPP
     elif mode == "local":
-        state, i, j = device_tb.MID, int(fin[1]), int(fin[2])
+        state, i, j = device_tb.MID, fa, fb
     elif mode == "fit":
         if not np.isfinite(score):
             raise RuntimeError("fit: no finite traceback start (reference UB)")
-        state = device_tb.LOW if fin[1] else device_tb.MID
-        i, j = m, int(fin[2])
+        state = device_tb.LOW if fa else device_tb.MID
+        i, j = m, fb
     else:  # overlap
-        state, i, j = 0, m, int(fin[1])
+        state, i, j = 0, m, fa
 
     stop_j0 = mode in ("global", "local")
     cols = torch.zeros((2, m + n + 1), dtype=torch.uint8, device=dev)

@@ -62,9 +62,10 @@ BIG = 1 << 30  # the start column when no column qualifies
 PTR_MODES = ("global", "local", "fit", "overlap")
 MAX_LANES = 16384  # the widest window the kernel takes: W <= 8191
 # the warp path's strips (lanes a thread: a warp holds V <= 32 * S lanes),
-# and the pairs (warps) of its CTA. The path depends on the band alone: at
-# 16 lanes a thread and tens of pairs the CTA path fills pointers faster
-# (PERF.md), but the main path's slabs hold thousands of pairs.
+# and the pairs (warps) of its CTA. By default the path depends on the band
+# alone: at 16 lanes a thread and tens of pairs the CTA path fills pointers
+# faster (PERF.md), but the main path's slabs hold thousands of pairs; a
+# calibrated table may set a batch threshold (engine/select.banded_path).
 WARP_STRIPS = (5, 9, 16)
 WARP_PAIRS = 4
 
@@ -86,8 +87,9 @@ def launch_shape(band: int) -> tuple[str, int, int]:
     """(path, threads per CTA, lanes per thread) for a window of V = 2W+1
     lanes: "warp", a warp per pair and WARP_PAIRS pairs a CTA, with the
     narrowest strip of WARP_STRIPS that holds V in one warp; past 32 *
-    WARP_STRIPS[-1] lanes "cta", a CTA per pair with 4 lanes a thread (16
-    past 4,096 lanes)."""
+    WARP_STRIPS[-1] lanes "cta" (``cta_shape``). ``_launch`` takes the CTA
+    path below the table's batch threshold too
+    (``engine/select.banded_path``; by default at no batch)."""
     V = 2 * band + 1
     if V > MAX_LANES:
         raise ValueError(f"band {band} is wider than the banded kernel's "
@@ -95,6 +97,13 @@ def launch_shape(band: int) -> tuple[str, int, int]:
     strip = next((s for s in WARP_STRIPS if 32 * s >= V), None)
     if strip:
         return "warp", 32 * WARP_PAIRS, strip
+    return cta_shape(band)
+
+
+def cta_shape(band: int) -> tuple[str, int, int]:
+    """The CTA path's shape at ``band``: a CTA per pair with 4 lanes a
+    thread (16 past 4,096 lanes)."""
+    V = 2 * band + 1
     strip = 4 if V <= 4096 else 16
     return "cta", -(-V // (32 * strip)) * 32, strip
 
@@ -346,12 +355,18 @@ def _check(mode, modes, band, qs, te, ns, ms, params):
 
 def _launch(mode, emit, band, qs, te, ns, ms, params, shape=None):
     """Launch the kernel on CUDA tensors at ``shape`` = (path, threads,
-    strip), by default ``launch_shape(band)``; the C entry refuses a
-    shape it has no instance for."""
+    strip), by default the path ``engine/select.banded_path(band, B)``
+    picks (``launch_shape(band)``, or ``cta_shape(band)``); the C entry
+    refuses a shape it has no instance for."""
     global launches
+    from aligntools_tpu_torch.engine import select
+
     B, m_pad = qs.shape
     dev = qs.device
-    path, threads, strip = shape or launch_shape(band)
+    if shape is None:
+        shape = (launch_shape(band) if select.banded_path(band, B) == "warp"
+                 else cta_shape(band))
+    path, threads, strip = shape
     best = torch.empty(B, dtype=torch.float32, device=dev)
     edge = torch.empty(B, dtype=torch.float32, device=dev)
     a = torch.empty(B, dtype=torch.int32, device=dev)

@@ -44,6 +44,12 @@ across column blocks: one CTA per (pair, column block), the row state of
 a block in shared memory, each row's edge passed to the next block behind
 a release/acquire progress counter; see its header) or raise; on a CPU
 tensor they run the plain versions.
+
+A float64 params row (a pair past float32's exact integers, sent by
+``api.align_pair`` alone) takes the double instances of the pointer fill's
+three phases and of edit's score fill: scores, checkpoints and block edges
+in float64, pointer bytes and start info as float32's, column blocks up to
+C_BLK_MAX64. Their launches count under the kernel's name with "64".
 """
 
 from __future__ import annotations
@@ -52,25 +58,31 @@ import ctypes
 
 import torch
 
+from aligntools_tpu_torch.engine import autotune
 from aligntools_tpu_torch.ops import ptr, scan
 from aligntools_tpu_torch.params import MODES
 
-# the kernels' column block on the H100 (a divisor of batch.BLOCKED_C_BLK):
-# the fastest of 8,192, 4,096 and 2,048 on the reference fixture's shape,
-# on long-target read sets and on P3 (64 x 512 x 32,768 fit+jump, a flat
-# bucket too wide for the flat pointer kernel; chip_smoke.py's blocked,
-# long and ptr phases; PERF.md): narrower blocks put more CTAs, and more
-# of them an SM, in flight
-C_BLK = 2048
+# the kernels' default column block on the H100, the one the routes read
+# from engine/select.py (blocked_c_blk) when no calibrated table says
+# otherwise: the fastest of 8,192, 4,096 and 2,048 on the reference
+# fixture's shape, on long-target read sets and on P3 (64 x 512 x 32,768
+# fit+jump, a flat bucket too wide for the flat pointer kernel;
+# chip_smoke.py's blocked, long and ptr phases; PERF.md): narrower blocks
+# put more CTAs, and more of them an SM, in flight
+C_BLK = autotune.DEFAULTS["blocked_c_blk"]
 # the widest column block whose row state and pointer staging fit one CTA's
-# shared memory (fit+jump's pointer fill: 26 bytes a column, 216 KiB at 8192)
+# shared memory (fit+jump's pointer fill: 26 bytes a column, 216 KiB at
+# 8192), and the same for the double instances (45 bytes a column: 184 KiB
+# at 4,096)
 C_BLK_MAX = 8192
+C_BLK_MAX64 = 4096
 STRIP = 8  # block columns per thread the launch shape aims for
 
 # launches of each kernel through its wrapper, and wrapper calls that ran
 # the plain versions (on a CPU tensor)
 launches = {"blocked_scores": 0, "blocked_ptr": 0, "blocked_ckpt": 0,
-            "blocked_refill": 0}
+            "blocked_refill": 0, "blocked_edit64": 0, "blocked_ptr64": 0,
+            "blocked_ckpt64": 0, "blocked_refill64": 0}
 plain_calls = 0
 
 
@@ -88,23 +100,28 @@ def launch_shape(c_blk: int) -> tuple[int, int]:
     return threads, -(-c_blk // threads)
 
 
-def _check_blocks(n_pad, c_blk):
-    """Raise unless c_blk is a positive multiple of 16 that fits a CTA and
-    n_pad a multiple of 16 (the last block may be ragged)."""
+def _check_blocks(n_pad, c_blk, dtype=torch.float32):
+    """Raise unless c_blk is a positive multiple of 16 that fits a CTA (in
+    the fill's value type) and n_pad a multiple of 16 (the last block may
+    be ragged)."""
     if c_blk <= 0 or c_blk % 16 or n_pad % 16:
         raise ValueError(f"c_blk {c_blk} must be a positive multiple of 16 "
                          f"and n_pad {n_pad} a multiple of 16")
-    if c_blk > C_BLK_MAX:
-        raise ValueError(f"c_blk {c_blk} is past C_BLK_MAX {C_BLK_MAX}: a "
-                         f"block's row state would not fit a CTA's shared "
-                         f"memory")
+    f64 = dtype == torch.float64
+    top = C_BLK_MAX64 if f64 else C_BLK_MAX
+    if c_blk > top:
+        raise ValueError(f"c_blk {c_blk} is past C_BLK_MAX{'64' if f64 else ''}"
+                         f" {top}: a block's row state would not fit a CTA's "
+                         f"shared memory")
 
 
 _fns = None
 
 
-def _kernels():
-    """(scores, pointer fill) C entry points with their signatures."""
+def _kernels(f64=False):
+    """(scores, pointer fill, checkpoint forward, refill) C entry points
+    with their signatures: the float32 ones, or with ``f64`` the double
+    instances (edit's score fill alone among the scores)."""
     global _fns
     if _fns is None:
         from aligntools_tpu_torch.ops import _build
@@ -115,63 +132,73 @@ def _kernels():
         # cand, B, m_pad, n_pad, c_blk, threads, wmax, stream
         lib.at_blocked_scores.argtypes = [I, I, P, P, P, P, P, P, P, P, P, P,
                                           I, I, I, I, I, I, P]
+        # qs, ts, ns, ms, params, out, edges, flags, cand, B, m_pad, n_pad,
+        # c_blk, threads, wmax, stream
+        lib.at_blocked_edit64.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I,
+                                          I, I, I, P]
         # mode, use_jump, rpb, qs, ts, allow, ns, ms, params, score, a, b,
         # ptrs, edges, flags, cand, B, m_pad, n_pad, c_blk, threads, wmax,
         # stream
-        lib.at_blocked_ptr_fill.argtypes = [I, I, I, P, P, P, P, P, P, P, P,
-                                            P, P, P, P, P, I, I, I, I, I, I,
-                                            P]
+        ptr_args = [I, I, I, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I,
+                    I, I, I, P]
         # mode, use_jump, qs, ts, allow, ns, ms, params, score, a, b, ck,
         # edges, flags, cand, B, m_pad, n_pad, c_blk, threads, wmax, S,
         # stream
-        lib.at_blocked_ckpt_fill.argtypes = [I, I, P, P, P, P, P, P, P, P, P,
-                                             P, P, P, P, I, I, I, I, I, I, I,
-                                             P]
+        ckpt_args = [I, I, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I,
+                     I, I, I, P]
         # mode, use_jump, rpb, qs, ts, allow, ns, ms, params, ck, i0, ptrs,
         # edges, flags, cand, B, S, n_pad, c_blk, threads, wmax, stream
-        lib.at_blocked_refill.argtypes = [I, I, I, P, P, P, P, P, P, P, I, P,
-                                          P, P, P, I, I, I, I, I, I, P]
-        fns = (lib.at_blocked_scores, lib.at_blocked_ptr_fill,
-               lib.at_blocked_ckpt_fill, lib.at_blocked_refill)
-        for fn in fns:
+        refill_args = [I, I, I, P, P, P, P, P, P, P, I, P, P, P, P, I, I, I,
+                       I, I, I, P]
+        for name, args in (("ptr_fill", ptr_args), ("ckpt_fill", ckpt_args),
+                           ("refill", refill_args)):
+            for suffix in ("", "64"):
+                getattr(lib, f"at_blocked_{name}{suffix}").argtypes = args
+        fns = ((lib.at_blocked_scores, lib.at_blocked_ptr_fill,
+                lib.at_blocked_ckpt_fill, lib.at_blocked_refill),
+               (lib.at_blocked_edit64, lib.at_blocked_ptr_fill64,
+                lib.at_blocked_ckpt_fill64, lib.at_blocked_refill64))
+        for fn in fns[0] + fns[1]:
             fn.restype = ctypes.c_int
         _fns = fns
-    return _fns
+    return _fns[int(f64)]
 
 
-def _scratch(B, nblk, m_pad, device):
+def _scratch(B, nblk, m_pad, device, dtype=torch.float32):
     """The wavefront's device buffers, made anew for every launch (with
     nblk = ceil(n_pad / c_blk) column blocks):
 
-      edges  (B, nblk, 4, m_pad + 1) float32: each block's four edge states
-             (its last column) of rows 0..m_pad, read by the next block
+      edges  (B, nblk, 4, m_pad + 1) in the fill's value type (float32;
+             edit's int32 in a float32 buffer; float64 in the double
+             instances): each block's four edge states (its last column) of
+             rows 0..m_pad, read by the next block
       flags  (1 + B * (nblk + 1),) int32, zeroed: the ticket counter, then
              per pair nblk progress counters (rows of the edge published)
              and one done counter (blocks finished)
       cand   (B, nblk, 4) int32: each block's start-info candidate (score
-             bits, a, b), merged by the pair's last block to finish
+             bits, a, b; a double's high word in the fourth), merged by the
+             pair's last block to finish
     """
-    edges = torch.empty((B, nblk, 4, m_pad + 1), dtype=torch.float32,
-                        device=device)
+    edges = torch.empty((B, nblk, 4, m_pad + 1), dtype=dtype, device=device)
     flags = torch.zeros(1 + B * (nblk + 1), dtype=torch.int32, device=device)
     cand = torch.empty((B, nblk, 4), dtype=torch.int32, device=device)
     return edges, flags, cand
 
 
-def _check_scratch(edges, flags, cand, B, nblk, m_pad):
+def _check_scratch(edges, flags, cand, B, nblk, m_pad, dtype=torch.float32):
     """Raise unless the buffers have ``_scratch``'s shapes and types: the
     kernels index them from B, nblk and m_pad alone."""
     if B * nblk > scan.INT32_MAX:
         raise ValueError(f"{B} pairs x {nblk} column blocks is past the "
                          f"int32 ticket counter")
-    want = ((edges, (B, nblk, 4, m_pad + 1), torch.float32),
+    want = ((edges, (B, nblk, 4, m_pad + 1), dtype),
             (flags, (1 + B * (nblk + 1),), torch.int32),
             (cand, (B, nblk, 4), torch.int32))
-    for name, (x, shape, dtype) in zip(("edges", "flags", "cand"), want):
-        if tuple(x.shape) != shape or x.dtype != dtype or (
+    for name, (x, shape, dt) in zip(("edges", "flags", "cand"), want):
+        if tuple(x.shape) != shape or x.dtype != dt or (
                 not x.is_contiguous()):
             raise ValueError(f"{name} buffer is {tuple(x.shape)} {x.dtype}; "
-                             f"the kernels need a contiguous {shape} {dtype}")
+                             f"the kernels need a contiguous {shape} {dt}")
 
 
 def _launch(name, fn, args, device):
@@ -188,14 +215,17 @@ def blocked_scores(mode, use_jump, m_pad, n_pad, c_blk, qs, ts, allow, ns,
     """Score-only blocked fill (the counterpart of the JAX
     ``blocked_scores``). ``allow`` (B, n_pad) float32 gates fit's jump
     entry and may be None without ``use_jump``. The last column block may
-    be ragged. Returns (B,) float32, int32 for edit."""
+    be ragged. Returns (B,) float32, int32 for edit; a float64 params row
+    takes edit's double instance (float64 out; the other modes have none on
+    the card)."""
     global plain_calls
     if mode not in MODES:
         raise ValueError(f"unknown score mode {mode!r}")
     if use_jump and (mode != "fit" or allow is None):
         raise ValueError("the jump state exists in fit mode only, and needs "
                          "allow")
-    _check_blocks(n_pad, c_blk)
+    f64 = params.dtype == torch.float64
+    _check_blocks(n_pad, c_blk, params.dtype)
     scan._check(m_pad, n_pad, qs, ts, ns, ms, params, allow)
     if qs.device.type == "cpu":
         plain_calls += 1
@@ -203,13 +233,23 @@ def blocked_scores(mode, use_jump, m_pad, n_pad, c_blk, qs, ts, allow, ns,
             return scan.fit_scores_plain(use_jump, m_pad, n_pad, qs, ts,
                                          allow, ns, ms, params)
         return scan.scores_plain(mode, m_pad, n_pad, qs, ts, ns, ms, params)
+    if f64 and mode != "edit":
+        raise ValueError(f"the blocked {mode} score fill has no "
+                         f"double-precision instance on the card")
     B, dev = qs.shape[0], qs.device
-    out = torch.empty(B, dtype=torch.int32 if mode == "edit"
-                      else torch.float32, device=dev)
+    out = torch.empty(B, dtype=params.dtype if f64 else torch.int32
+                      if mode == "edit" else torch.float32, device=dev)
     threads, wmax = launch_shape(c_blk)
     nblk = -(-n_pad // c_blk)
-    scratch = _scratch(B, nblk, m_pad, dev)
-    _check_scratch(*scratch, B, nblk, m_pad)
+    scratch = _scratch(B, nblk, m_pad, dev, params.dtype)
+    _check_scratch(*scratch, B, nblk, m_pad, params.dtype)
+    if f64:
+        _launch("blocked_edit64", _kernels(True)[0], (
+            qs.data_ptr(), ts.data_ptr(), ns.data_ptr(), ms.data_ptr(),
+            params.data_ptr(), out.data_ptr(),
+            *(x.data_ptr() for x in scratch), B, m_pad, n_pad, c_blk,
+            threads, wmax), dev)
+        return out
     _launch("blocked_scores", _kernels()[0], (
         MODES.index(mode), int(bool(use_jump)), qs.data_ptr(),
         ts.data_ptr(), 0 if allow is None else allow.data_ptr(),
@@ -219,15 +259,21 @@ def blocked_scores(mode, use_jump, m_pad, n_pad, c_blk, qs, ts, allow, ns,
     return out
 
 
+def _name(kernel, params):
+    """The launch count's key: the double instance's with a float64 row."""
+    return f"{kernel}64" if params.dtype == torch.float64 else kernel
+
+
 def blocked_ptr_fill(mode, use_jump, m_pad, n_pad, c_blk, qs, ts, allow, ns,
                      ms, params, rows_per_byte=1):
     """Blocked fill with packed pointer emission (the counterpart of the
     JAX ``blocked_ptr_fill``); returns (score, a, b, ptrs) as
-    ``ops/ptr.py`` lays them out. Needs m_pad % (8 * rows_per_byte) == 0,
-    as the Pallas kernel does; the last column block may be ragged."""
+    ``ops/ptr.py`` lays them out (the score in params' dtype: a float64
+    row takes the double instance). Needs m_pad % (8 * rows_per_byte) ==
+    0, as the Pallas kernel does; the last column block may be ragged."""
     global plain_calls
     rpb = rows_per_byte
-    _check_blocks(n_pad, c_blk)
+    _check_blocks(n_pad, c_blk, params.dtype)
     ptr._check(mode, use_jump, m_pad, n_pad, rpb, qs, ts, allow, ns, ms,
                params)
     if m_pad % (8 * rpb):
@@ -238,16 +284,17 @@ def blocked_ptr_fill(mode, use_jump, m_pad, n_pad, c_blk, qs, ts, allow, ns,
         return ptr.ptr_fill_plain(mode, use_jump, m_pad, n_pad, qs, ts, allow,
                                   ns, ms, params, rpb)
     B, dev = qs.shape[0], qs.device
-    score = torch.empty(B, dtype=torch.float32, device=dev)
+    score = torch.empty(B, dtype=params.dtype, device=dev)
     a = torch.empty(B, dtype=torch.int32, device=dev)
     b = torch.empty(B, dtype=torch.int32, device=dev)
     ptrs = torch.empty((B, m_pad // rpb, n_pad), dtype=torch.uint8,
                        device=dev)
     threads, wmax = launch_shape(c_blk)
     nblk = -(-n_pad // c_blk)
-    scratch = _scratch(B, nblk, m_pad, dev)
-    _check_scratch(*scratch, B, nblk, m_pad)
-    _launch("blocked_ptr", _kernels()[1], (
+    scratch = _scratch(B, nblk, m_pad, dev, params.dtype)
+    _check_scratch(*scratch, B, nblk, m_pad, params.dtype)
+    f64 = params.dtype == torch.float64
+    _launch(_name("blocked_ptr", params), _kernels(f64)[1], (
         ptr.MODES.index(mode), int(bool(use_jump)), rpb, qs.data_ptr(),
         ts.data_ptr(), 0 if allow is None else allow.data_ptr(),
         ns.data_ptr(), ms.data_ptr(), params.data_ptr(), score.data_ptr(),
@@ -265,11 +312,12 @@ CK_STATES = {"global": 3, "local": 3, "fit": 4, "overlap": 1}
 def blocked_ckpt_fill(mode, use_jump, S, m_pad, n_pad, c_blk, qs, ts, allow,
                       ns, ms, params):
     """The checkpoint forward of the pointer fill: returns (score, a, b,
-    cks) as the module docstring lays them out. Needs a stride S, a
+    cks) as the module docstring lays them out (score and cks in params'
+    dtype: a float64 row takes the double instance). Needs a stride S, a
     positive multiple of 8, that divides m_pad; the last column block may
     be ragged."""
     global plain_calls
-    _check_blocks(n_pad, c_blk)
+    _check_blocks(n_pad, c_blk, params.dtype)
     ptr._check(mode, use_jump, m_pad, n_pad, 1, qs, ts, allow, ns, ms,
                params)
     if S <= 0 or S % 8 or m_pad % S:
@@ -280,16 +328,17 @@ def blocked_ckpt_fill(mode, use_jump, S, m_pad, n_pad, c_blk, qs, ts, allow,
         return ptr.ptr_fill_plain(mode, use_jump, m_pad, n_pad, qs, ts, allow,
                                   ns, ms, params, stride=S)
     B, dev = qs.shape[0], qs.device
-    score = torch.empty(B, dtype=torch.float32, device=dev)
+    score = torch.empty(B, dtype=params.dtype, device=dev)
     a = torch.empty(B, dtype=torch.int32, device=dev)
     b = torch.empty(B, dtype=torch.int32, device=dev)
     cks = torch.empty((B, m_pad // S, CK_STATES[mode], n_pad + 1),
-                      dtype=torch.float32, device=dev)
+                      dtype=params.dtype, device=dev)
     threads, wmax = launch_shape(c_blk)
     nblk = -(-n_pad // c_blk)
-    scratch = _scratch(B, nblk, m_pad, dev)
-    _check_scratch(*scratch, B, nblk, m_pad)
-    _launch("blocked_ckpt", _kernels()[2], (
+    scratch = _scratch(B, nblk, m_pad, dev, params.dtype)
+    _check_scratch(*scratch, B, nblk, m_pad, params.dtype)
+    f64 = params.dtype == torch.float64
+    _launch(_name("blocked_ckpt", params), _kernels(f64)[2], (
         ptr.MODES.index(mode), int(bool(use_jump)), qs.data_ptr(),
         ts.data_ptr(), 0 if allow is None else allow.data_ptr(),
         ns.data_ptr(), ms.data_ptr(), params.data_ptr(), score.data_ptr(),
@@ -303,18 +352,18 @@ def blocked_refill(mode, use_jump, S, n_pad, c_blk, ck, i0, qs, ts, allow,
                    ns, ms, params, rows_per_byte=1):
     """Rows i0+1 .. i0+S of the pointer fill from ``ck`` (B, states, n_pad
     + 1), the state rows of row i0 (a checkpoint of
-    ``blocked_ckpt_fill``); ``qs`` (B, S) holds those rows' query chars.
-    Returns the (B, S / rows_per_byte, n_pad) pointer bytes; needs S %
-    (8 * rows_per_byte) == 0."""
+    ``blocked_ckpt_fill``, in params' dtype); ``qs`` (B, S) holds those
+    rows' query chars. Returns the (B, S / rows_per_byte, n_pad) pointer
+    bytes; needs S % (8 * rows_per_byte) == 0."""
     global plain_calls
     rpb = rows_per_byte
-    _check_blocks(n_pad, c_blk)
+    _check_blocks(n_pad, c_blk, params.dtype)
     ptr._check(mode, use_jump, S, n_pad, rpb, qs, ts, allow, ns, ms, params)
     if S % (8 * rpb):
         raise ValueError(f"stride {S} is not a multiple of 8 * "
                          f"rows_per_byte {rpb}")
     B = qs.shape[0]
-    scan.check_tensors([("ck", ck, torch.float32,
+    scan.check_tensors([("ck", ck, params.dtype,
                          (B, CK_STATES[mode], n_pad + 1))], qs.device)
     if not 0 <= i0 <= scan.INT32_MAX:
         raise ValueError(f"row {i0} is not a row of an int32 fill")
@@ -326,9 +375,10 @@ def blocked_refill(mode, use_jump, S, n_pad, c_blk, ck, i0, qs, ts, allow,
     ptrs = torch.empty((B, S // rpb, n_pad), dtype=torch.uint8, device=dev)
     threads, wmax = launch_shape(c_blk)
     nblk = -(-n_pad // c_blk)
-    scratch = _scratch(B, nblk, S, dev)
-    _check_scratch(*scratch, B, nblk, S)
-    _launch("blocked_refill", _kernels()[3], (
+    scratch = _scratch(B, nblk, S, dev, params.dtype)
+    _check_scratch(*scratch, B, nblk, S, params.dtype)
+    f64 = params.dtype == torch.float64
+    _launch(_name("blocked_refill", params), _kernels(f64)[3], (
         ptr.MODES.index(mode), int(bool(use_jump)), rpb, qs.data_ptr(),
         ts.data_ptr(), 0 if allow is None else allow.data_ptr(),
         ns.data_ptr(), ms.data_ptr(), params.data_ptr(), ck.data_ptr(),

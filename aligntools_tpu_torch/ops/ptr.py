@@ -4,7 +4,7 @@ Counterpart of ``aligntools_tpu/ops/pallas_ptr.py:pallas_ptr_fill`` (the
 Pallas ``_ptr_kernel``), with its argument layout (``ops/scan.py``'s, plus
 ``allow``) and outputs:
 
-  score  (B,) float32
+  score  (B,) in params' dtype (float32; float64 for the double instances)
   a, b   (B,) int32 traceback-start info
            global   a = start state (0 L, 1 M, 2 U at (m, n))
            local    a = i_max, b = j_max (strict running argmax of M)
@@ -15,17 +15,24 @@ Pallas ``_ptr_kernel``), with its argument layout (``ops/scan.py``'s, plus
          columns included (they read the sentinel chars: query pad -1,
          target pad -2), so two fills can be compared byte for byte.
 
-Targets up to FLAT_REG_MAX_N_PAD columns take ``csrc/ptr_fill.cu`` (one
-CTA per pair, each thread's strip of WIDTH columns and its row state in
-registers; see its header); wider ones, which that CTA cannot hold, take
-the blocked pointer fill (``ops/blocked.py``) at its column block, with a
-ragged last block where it does not divide n_pad: same bytes, on either
-device. On a CUDA tensor a wrapper launches its kernel or raises; on a CPU
-tensor ``ptr_fill`` runs ``ptr_fill_plain``,
-which fills one query row per step over whole (B, n_pad) rows as the
-Pallas kernel does. Values are integer-valued float32 with true -inf
-borders, and every pointer is a comparison of such values in the
-reference's argument order, so the two agree bit for bit.
+Targets up to ``select.ptr_flat_cap`` columns (at most FLAT_REG_MAX_N_PAD,
+the kernel's widest) take ``csrc/ptr_fill.cu`` (one CTA per pair, each
+thread's strip of WIDTH columns and its row state in registers; see its
+header); wider ones take the blocked pointer fill (``ops/blocked.py``) at
+its column block, with a ragged last block where it does not divide
+n_pad: same bytes, on either device. On a CUDA tensor a wrapper launches
+its kernel or raises; on a CPU tensor ``ptr_fill`` runs
+``ptr_fill_plain``, which fills one query row per step over whole (B,
+n_pad) rows as the Pallas kernel does. Values are integer-valued float32
+with true -inf borders, and every pointer is a comparison of such values
+in the reference's argument order, so the two agree bit for bit.
+
+The params row's dtype picks the instance: float32, or float64 for a pair
+past float32's exact integers (``exact.py``; ``api.align_pair`` alone
+sends it), whose values are exact integers below 2^53. The double
+instances run strips of WIDTH64 columns, up to FLAT64_MAX_N_PAD; their
+pointer bytes and start info are laid out as float32's, and the plain
+version runs the same arithmetic in float64.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ BIG = 1 << 30  # the start column when no column qualifies
 MODES = ("global", "local", "fit", "overlap")
 
 launches = 0
+launches64 = 0  # the double instances' launches (not in `launches`)
 plain_calls = 0
 
 # the kernel's strip width (its one template instance) and the most
@@ -51,37 +59,45 @@ plain_calls = 0
 # the spread of two timings of one instance (PERF.md).
 WIDTH = 16
 MAX_THREADS = 512
-# the widest target the kernel takes: wider ones go to the blocked pointer
-# fill (blocked_c_blk). From 4,224 to 8,192 columns this kernel is 1.2-2.6x
-# faster than the blocked one on the H100 (chip_smoke.py's ptr phase, `cap`
-# lines; PERF.md).
+# the widest target the kernel takes: the routes read their cap from
+# engine/select.py (ptr_flat_cap, at most this; by default this: from 4,224
+# to 8,192 columns this kernel is 1.2-2.6x faster than the blocked one on
+# the H100, chip_smoke.py's ptr phase, `cap` lines; PERF.md), and wider
+# targets go to the blocked pointer fill (blocked_c_blk)
 FLAT_REG_MAX_N_PAD = MAX_THREADS * WIDTH
+# the double instances' strip width and widest target (csrc/ptr_fill.cu
+# kWidth64: a double takes two registers)
+WIDTH64 = 8
+FLAT64_MAX_N_PAD = MAX_THREADS * WIDTH64
 
 
 def reset_counts() -> None:
-    global launches, plain_calls
-    launches = plain_calls = 0
+    global launches, launches64, plain_calls
+    launches = launches64 = plain_calls = 0
 
 
-def launch_shape(n_pad: int) -> tuple[int, int]:
+def launch_shape(n_pad: int, dtype=torch.float32) -> tuple[int, int]:
     """(threads per CTA, strip width W) for targets up to n_pad: the fewest
-    whole warps of WIDTH-column strips that cover n_pad."""
-    if not 0 < n_pad <= FLAT_REG_MAX_N_PAD:
+    whole warps of W-column strips that cover n_pad (WIDTH, or WIDTH64 for
+    the float64 instances)."""
+    width, top = ((WIDTH64, FLAT64_MAX_N_PAD) if dtype == torch.float64
+                  else (WIDTH, FLAT_REG_MAX_N_PAD))
+    if not 0 < n_pad <= top:
         raise ValueError(f"n_pad {n_pad} is past the pointer kernel's "
-                         f"{FLAT_REG_MAX_N_PAD} columns: the blocked fill "
-                         f"takes it")
-    return max(32, -(-n_pad // (32 * WIDTH)) * 32), WIDTH
+                         f"{top} columns: the blocked fill takes it")
+    return max(32, -(-n_pad // (32 * width)) * 32), width
 
 
-def blocked_c_blk(n_pad: int) -> int | None:
+def blocked_c_blk(n_pad: int, dtype=torch.float32) -> int | None:
     """The column block at which ``ptr_fill`` hands a target of n_pad
-    columns to the blocked pointer fill, or None where the kernel takes
-    it."""
-    if n_pad <= FLAT_REG_MAX_N_PAD:
-        return None
-    from aligntools_tpu_torch.ops import blocked
+    columns to the blocked pointer fill, or None where the kernel takes it
+    (up to ``select.ptr_flat_cap``)."""
+    from aligntools_tpu_torch.engine import select
 
-    return blocked.C_BLK
+    f64 = dtype == torch.float64
+    if n_pad <= select.ptr_flat_cap(f64):
+        return None
+    return select.blocked_c_blk(f64)
 
 
 def _shift_in(x, col):
@@ -117,7 +133,8 @@ def ptr_fill_plain(mode, use_jump, m_pad, n_pad, qs, ts, allow, ns, ms,
     checkpoint-rescan engine's two fills (``ops/blocked.py``):
 
       stride S  the checkpoint forward: no pointers; returns (score, a, b,
-                cks), cks (B, m_pad / S, states, n_pad + 1) float32, the
+                cks), cks (B, m_pad / S, states, n_pad + 1) in params'
+                dtype, the
                 state rows (M, L, U, fit's J; overlap M) of columns 0..n_pad
                 at rows 0, S, 2S, ..., checkpoint k entering row k*S + 1;
       seed      (B, states, n_pad + 1), the state rows of row i0: the
@@ -129,7 +146,7 @@ def ptr_fill_plain(mode, use_jump, m_pad, n_pad, qs, ts, allow, ns, ms,
     latch = seed is None
     match, mis, o, e, jp = (params[0, k] for k in range(5))
     B, dev = qs.shape[0], qs.device
-    f32 = dict(device=dev, dtype=torch.float32)
+    vals = dict(device=dev, dtype=params.dtype)
     if rpb > 1:
         k_home = k_unset = L.PK2_CODE3
         lbit, ubit = L.PK2_L_IS_MID, L.PK2_U_IS_UPP
@@ -137,14 +154,14 @@ def ptr_fill_plain(mode, use_jump, m_pad, n_pad, qs, ts, allow, ns, ms,
         k_home, k_unset = L.PK_HOME, L.PK_UNSET
         lbit, ubit = L.PK_L_IS_MID, L.PK_U_IS_UPP
     jc = torch.arange(1, n_pad + 1, device=dev, dtype=torch.int32)[None, :]
-    jf = jc.to(torch.float32)
+    jf = jc.to(params.dtype)
     n_col, m_vec = ns, ms[:, 0]
     mask_le_n, mask_eq_n, mask_lt_n = jc <= n_col, jc == n_col, jc <= n_col - 1
-    zrow = torch.zeros((B, n_pad), **f32)
-    zcol = torch.zeros((B, 1), **f32)
-    negcol = torch.full((B, 1), NEG, **f32)
-    negrow = torch.full((B, n_pad), NEG, **f32)
-    zero = torch.zeros((), **f32)
+    zrow = torch.zeros((B, n_pad), **vals)
+    zcol = torch.zeros((B, 1), **vals)
+    negcol = torch.full((B, 1), NEG, **vals)
+    negrow = torch.full((B, n_pad), NEG, **vals)
+    zero = torch.zeros((), **vals)
     if mode == "global":
         mp, lp, up = negrow, negrow, o + e * jf.expand(B, n_pad)
     elif mode == "local":
@@ -163,8 +180,8 @@ def ptr_fill_plain(mode, use_jump, m_pad, n_pad, qs, ts, allow, ns, ms,
     cks = None
     if stride:
         states = 1 if mode == "overlap" else 4 if mode == "fit" else 3
-        cks = torch.empty((B, m_pad // stride, states, n_pad + 1), **f32)
-    score = torch.full((B,), NEG, **f32)
+        cks = torch.empty((B, m_pad // stride, states, n_pad + 1), **vals)
+    score = torch.full((B,), NEG, **vals)
     a = torch.zeros(B, dtype=torch.int32, device=dev)
     b = torch.zeros(B, dtype=torch.int32, device=dev)
     ptrs = None if cks is not None else torch.empty(
@@ -299,23 +316,27 @@ def ptr_fill_plain(mode, use_jump, m_pad, n_pad, qs, ts, allow, ns, ms,
 # Kernel wrapper
 # ---------------------------------------------------------------------------
 
-_fn = None
+_fns = None
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def _kernel(f64=False):
+    """The C entry of the float32 pointer fill, or of its double instances
+    with ``f64``."""
+    global _fns
+    if _fns is None:
         from aligntools_tpu_torch.ops import _build
 
-        fn = _build.load().at_ptr_fill
+        lib = _build.load()
         P, I = ctypes.c_void_p, ctypes.c_int
         # mode, use_jump, rpb, qs, ts, allow, ns, ms, params, score, a, b,
         # ptrs, B, m_pad, n_pad, threads, width, stream
-        fn.argtypes = [I, I, I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I,
-                       P]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        fns = (lib.at_ptr_fill, lib.at_ptr_fill64)
+        for fn in fns:
+            fn.argtypes = [I, I, I, P, P, P, P, P, P, P, P, P, P, I, I, I, I,
+                           I, P]
+            fn.restype = ctypes.c_int
+        _fns = fns
+    return _fns[int(f64)]
 
 
 def _check(mode, use_jump, m_pad, n_pad, rpb, qs, ts, allow, ns, ms,
@@ -339,11 +360,12 @@ def ptr_fill(mode, use_jump, m_pad, n_pad, qs, ts, allow, ns, ms, params,
     """Fill with packed pointer emission; returns (score, a, b, ptrs) as
     the module docstring lays them out. ``allow`` (B, n_pad) float32 gates
     fit's jump entry (1.0 allowed); it is read only with ``use_jump`` and
-    may be None otherwise. Targets past FLAT_REG_MAX_N_PAD columns run the
-    blocked pointer fill at ``blocked_c_blk(n_pad)``, which also needs
-    m_pad % (8 * rows_per_byte) == 0."""
+    may be None otherwise. ``params`` float64 takes the double instances.
+    Targets past ``select.ptr_flat_cap`` columns run the blocked pointer
+    fill at ``blocked_c_blk(n_pad, params.dtype)``, which also needs m_pad
+    % (8 * rows_per_byte) == 0."""
     rpb = rows_per_byte
-    c_blk = blocked_c_blk(n_pad)
+    c_blk = blocked_c_blk(n_pad, params.dtype)
     if c_blk:
         from aligntools_tpu_torch.ops import blocked
 
@@ -354,16 +376,20 @@ def ptr_fill(mode, use_jump, m_pad, n_pad, qs, ts, allow, ns, ms, params,
         return ptr_fill_plain(mode, use_jump, m_pad, n_pad, qs, ts, allow,
                               ns, ms, params, rpb)
     return _launch(mode, use_jump, m_pad, n_pad, rpb,
-                   (qs, ts, allow, ns, ms, params), launch_shape(n_pad))
+                   (qs, ts, allow, ns, ms, params),
+                   launch_shape(n_pad, params.dtype))
 
 
 def _launch(mode, use_jump, m_pad, n_pad, rpb, args, shape):
     """Launch the kernel on CUDA tensors at ``shape`` = (threads, W) on the
-    current stream; returns (score, a, b, ptrs)."""
-    global launches
+    current stream, the instance of params' dtype; returns (score, a, b,
+    ptrs)."""
+    global launches, launches64
     qs, ts, allow, ns, ms, params = args
+    f64 = params.dtype == torch.float64
     threads, width = shape
-    if width != WIDTH or not 32 <= threads <= MAX_THREADS or (
+    if width != (WIDTH64 if f64 else WIDTH) or not (
+            32 <= threads <= MAX_THREADS) or (
             threads % 32 or threads * width < n_pad or n_pad % 16):
         raise ValueError(f"no kernel instance covers n_pad {n_pad} with "
                          f"{threads} threads of {width} columns")
@@ -371,14 +397,14 @@ def _launch(mode, use_jump, m_pad, n_pad, rpb, args, shape):
         raise ValueError("ts must be 16-byte aligned (the kernel reads it "
                          "as 16-byte words)")
     B, dev = qs.shape[0], qs.device
-    score = torch.empty(B, dtype=torch.float32, device=dev)
+    score = torch.empty(B, dtype=params.dtype, device=dev)
     a = torch.empty(B, dtype=torch.int32, device=dev)
     b = torch.empty(B, dtype=torch.int32, device=dev)
     ptrs = torch.empty((B, m_pad // rpb, n_pad), dtype=torch.uint8,
                        device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _kernel()(
+        err = _kernel(f64)(
             MODES.index(mode), int(bool(use_jump)), rpb, qs.data_ptr(),
             ts.data_ptr(), 0 if allow is None else allow.data_ptr(),
             ns.data_ptr(), ms.data_ptr(),
@@ -387,5 +413,8 @@ def _launch(mode, use_jump, m_pad, n_pad, rpb, args, shape):
     if err != 0:
         raise RuntimeError(f"pointer fill kernel launch failed: CUDA error "
                            f"{err}")
-    launches += 1
+    if f64:
+        launches64 += 1
+    else:
+        launches += 1
     return score, a, b, ptrs

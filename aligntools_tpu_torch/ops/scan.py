@@ -8,17 +8,21 @@ points' argument layout:
   allow   (B, n_pad) float32, 1.0 where fit's jump entry is allowed
   ns, ms  (B, 1) int32 true target / query lengths
   params  (1, 8) float32 [match, mismatch, gap_open, gap_extend, jump, 0, 0, 0]
+          (float64 for a pair past float32's exact integers: edit's double
+          instance on the card, and every plain version in float64)
 
-``scores`` / ``fit_scores`` return (B,) float32 scores (int32 for edit).
+``scores`` / ``fit_scores`` return (B,) float32 scores (int32 for edit;
+float64 for a float64 params row).
 On a CUDA tensor they launch the hand-written kernels or raise: the
 register-strip score fills of ``csrc/ptr_fill.cu`` (one CTA per pair, each
 thread's strip of 16 columns and its row state in registers; entry
 ``at_score_fill``): global, local, fit(+jump) and overlap the score-only
 instances of its pointer kernels, edit its int32 min-plus kernel, each up
-to ``flat_cap(mode)`` columns at ``flat_shape(mode, n_pad)``. Wider targets
-go to the blocked score fill (``ops/blocked.py``) at ``blocked.C_BLK``,
-with a ragged last block where it does not divide n_pad, on either device:
-``blocked_c_blk`` is the one place that picks. On a CPU tensor the wrappers
+to ``flat_cap(mode)`` columns (``engine/select.py``'s score_flat_cap) at
+``flat_shape(mode, n_pad)``. Wider targets go to the blocked score fill
+(``ops/blocked.py``) at ``select.blocked_c_blk()``, with a ragged last
+block where it does not divide n_pad, on either device: ``blocked_c_blk``
+is the one place that picks. On a CPU tensor the wrappers
 run the plain versions below. Scores are integer-valued float32 with true
 -inf borders, so the kernel and the plain version agree bit for bit (the
 batch path guards the exact range with ``exact.check_f32_exact``).
@@ -44,6 +48,7 @@ INT32_MAX = 2**31 - 1
 # replaces, and calls of the plain versions: a run can show which of the
 # two carried it
 launches = {"affine": 0, "overlap": 0, "edit": 0, "fit": 0}
+launches64 = 0  # edit's double instance (not in `launches`)
 plain_calls = 0
 
 # the most threads the edit kernel's CTA runs (csrc/ptr_fill.cu
@@ -52,42 +57,53 @@ EDIT_MAX_THREADS = 1024
 
 
 def reset_counts() -> None:
-    global plain_calls
+    global launches64, plain_calls
     for k in launches:
         launches[k] = 0
-    plain_calls = 0
+    launches64 = plain_calls = 0
 
 
-def flat_cap(mode: str) -> int:
-    """The widest target (n_pad) the register-strip score fill of ``mode``
-    takes: ``ptr.FLAT_REG_MAX_N_PAD``, and for edit, whose CTA may run more
-    threads, EDIT_MAX_THREADS strips."""
+def _widest(mode: str, dtype) -> tuple[int, int]:
+    """(strip width, widest n_pad) of the register-strip score fill of
+    ``mode``: MAX_THREADS strips of ptr.WIDTH, and for edit, whose CTA may
+    run more threads, EDIT_MAX_THREADS; the double instance (edit's)
+    ptr.WIDTH64 columns a strip."""
     from aligntools_tpu_torch.ops import ptr
 
-    if mode == "edit":
-        return EDIT_MAX_THREADS * ptr.WIDTH
-    return ptr.FLAT_REG_MAX_N_PAD
+    width = ptr.WIDTH64 if dtype == torch.float64 else ptr.WIDTH
+    return width, (EDIT_MAX_THREADS if mode == "edit"
+                   else ptr.MAX_THREADS) * width
 
 
-def flat_shape(mode: str, n_pad: int) -> tuple[int, int]:
+def flat_cap(mode: str, dtype=torch.float32) -> int:
+    """The widest target (n_pad) the routes give the register-strip score
+    fill of ``mode``: ``engine/select.score_flat_cap(mode)``, in float64
+    at most the double instance's widest (edit's; the other modes have
+    none on the card)."""
+    from aligntools_tpu_torch.engine import select
+
+    return min(select.score_flat_cap(mode), _widest(mode, dtype)[1])
+
+
+def flat_shape(mode: str, n_pad: int, dtype=torch.float32) -> tuple[int, int]:
     """(threads per CTA, strip width) of the register-strip score fill of
     ``mode`` at n_pad: the fewest whole warps of strips that cover it."""
-    from aligntools_tpu_torch.ops import ptr
-
-    cap = flat_cap(mode)
-    if not 0 < n_pad <= cap:
+    width, top = _widest(mode, dtype)
+    if not 0 < n_pad <= top:
         raise ValueError(f"n_pad {n_pad} is past the {mode} score fill's "
-                         f"{cap} columns: the blocked fill takes it")
-    return max(32, -(-n_pad // (32 * ptr.WIDTH)) * 32), ptr.WIDTH
+                         f"{top} columns: the blocked fill takes it")
+    return max(32, -(-n_pad // (32 * width)) * 32), width
 
 
-def blocked_c_blk(mode: str, n_pad: int) -> int | None:
+def blocked_c_blk(mode: str, n_pad: int, dtype=torch.float32) -> int | None:
     """The column block at which ``scores`` / ``fit_scores`` hand a target
     of n_pad columns to the blocked score fill, or None where the
-    register-strip fill takes it (up to ``flat_cap(mode)``)."""
-    from aligntools_tpu_torch.ops import blocked
+    register-strip fill takes it (up to ``flat_cap(mode, dtype)``)."""
+    from aligntools_tpu_torch.engine import select
 
-    return None if n_pad <= flat_cap(mode) else blocked.C_BLK
+    if n_pad <= flat_cap(mode, dtype):
+        return None
+    return select.blocked_c_blk(dtype == torch.float64)
 
 
 # ---------------------------------------------------------------------------
@@ -107,19 +123,20 @@ def _cummax(x):
 def _affine_plain(local, m_pad, n_pad, qs, ts, ns, ms, params):
     match, mis, o, e = (params[0, k] for k in range(4))
     B, dev = qs.shape[0], qs.device
-    jf = torch.arange(1, n_pad + 1, device=dev, dtype=torch.float32)[None, :]
+    jf = torch.arange(1, n_pad + 1, device=dev, dtype=params.dtype)[None, :]
     jc = torch.arange(1, n_pad + 1, device=dev, dtype=torch.int32)[None, :]
     ej = e * jf
     oj = o - ej
-    zcol = torch.zeros((B, 1), device=dev)
-    negcol = torch.full((B, 1), NEG, device=dev)
-    zero = torch.zeros((), device=dev)
+    zcol = torch.zeros((B, 1), device=dev, dtype=params.dtype)
+    negcol = torch.full((B, 1), NEG, device=dev, dtype=params.dtype)
+    zero = torch.zeros((), device=dev, dtype=params.dtype)
     if local:  # calloc-zero borders
-        mp = lp = best = torch.zeros((B, n_pad), device=dev)
+        mp = lp = best = torch.zeros((B, n_pad), device=dev,
+                                     dtype=params.dtype)
     else:  # row 0: M = L = -inf, U = o + e*j
-        mp = lp = torch.full((B, n_pad), NEG, device=dev)
+        mp = lp = torch.full((B, n_pad), NEG, device=dev, dtype=params.dtype)
         best = (o + ej).expand(B, n_pad)
-    acc = torch.full((B, n_pad), NEG, device=dev)
+    acc = torch.full((B, n_pad), NEG, device=dev, dtype=params.dtype)
     for i in range(1, m_pad + 1):
         sub = torch.where(ts == qs[:, i - 1 : i], match, mis)
         l_row = torch.maximum(lp + e, mp + o)
@@ -144,13 +161,14 @@ def _affine_plain(local, m_pad, n_pad, qs, ts, ns, ms, params):
 def _overlap_plain(m_pad, n_pad, qs, ts, ns, ms, params):
     match, mis, o = (params[0, k] for k in range(3))
     B, dev = qs.shape[0], qs.device
-    jf = torch.arange(1, n_pad + 1, device=dev, dtype=torch.float32)[None, :]
+    jf = torch.arange(1, n_pad + 1, device=dev, dtype=params.dtype)[None, :]
     jc = torch.arange(1, n_pad + 1, device=dev, dtype=torch.int32)[None, :]
     ojc = o * jf
-    zcol = torch.zeros((B, 1), device=dev)
-    zero = torch.zeros((), device=dev)
-    mp = torch.full((B, n_pad), NEG, device=dev)  # row 0 past column 0
-    acc = torch.full((B, n_pad), NEG, device=dev)
+    zcol = torch.zeros((B, 1), device=dev, dtype=params.dtype)
+    zero = torch.zeros((), device=dev, dtype=params.dtype)
+    # row 0 past column 0
+    mp = torch.full((B, n_pad), NEG, device=dev, dtype=params.dtype)
+    acc = torch.full((B, n_pad), NEG, device=dev, dtype=params.dtype)
     for i in range(1, m_pad + 1):
         sub = torch.where(ts == qs[:, i - 1 : i], match, mis)
         dr = torch.maximum(_shift_in(mp, zcol) + sub, mp + o)
@@ -161,35 +179,41 @@ def _overlap_plain(m_pad, n_pad, qs, ts, ns, ms, params):
 
 
 def _edit_plain(m_pad, n_pad, qs, ts, ns, ms, params):
+    """int32 from a float32 params row (u = (int)params[1]); float64, with
+    +inf in place of INT32_MAX, from a float64 one (the double instance)."""
     B, dev = qs.shape[0], qs.device
-    u = params[0, 1].to(torch.int32)
-    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    f64 = params.dtype == torch.float64
+    dt = torch.float64 if f64 else torch.int32
+    top = float("inf") if f64 else INT32_MAX
+    u = params[0, 1].to(dt)
+    zero = torch.zeros((), dtype=dt, device=dev)
     jc = torch.arange(1, n_pad + 1, device=dev, dtype=torch.int32)[None, :]
-    prev = jc.expand(B, n_pad)  # M(0, j) = j
-    acc = torch.zeros((B, n_pad), dtype=torch.int32, device=dev)
+    jv = jc.to(dt)
+    prev = jv.expand(B, n_pad)  # M(0, j) = j
+    acc = torch.zeros((B, n_pad), dtype=dt, device=dev)
     for i in range(1, m_pad + 1):
         sub = torch.where(ts == qs[:, i - 1 : i], zero, u)
-        pb = torch.full((B, 1), i - 1, dtype=torch.int32, device=dev)
+        pb = torch.full((B, 1), i - 1, dtype=dt, device=dev)
         cand = torch.minimum(_shift_in(prev, pb) + sub, prev + 1)
         # row[0] = i; row[j] = min(cand[j], row[j-1] + 1)
-        v = torch.clamp_max(torch.cummin(cand - jc, dim=1).values, i)
-        prev = v + jc
+        v = torch.clamp_max(torch.cummin(cand - jv, dim=1).values, i)
+        prev = v + jv
         acc = torch.where(ms == i, prev, acc)
-    return torch.where(jc == ns, acc, INT32_MAX).amin(dim=1)
+    return torch.where(jc == ns, acc, top).amin(dim=1)
 
 
 def _fit_plain(use_jump, m_pad, n_pad, qs, ts, allow, ns, ms, params):
     match, mis, o, e, jp = (params[0, k] for k in range(5))
     B, dev = qs.shape[0], qs.device
-    jf = torch.arange(1, n_pad + 1, device=dev, dtype=torch.float32)[None, :]
+    jf = torch.arange(1, n_pad + 1, device=dev, dtype=params.dtype)[None, :]
     jc = torch.arange(1, n_pad + 1, device=dev, dtype=torch.int32)[None, :]
     ej = e * jf
-    zcol = torch.zeros((B, 1), device=dev)
-    negcol = torch.full((B, 1), NEG, device=dev)
+    zcol = torch.zeros((B, 1), device=dev, dtype=params.dtype)
+    negcol = torch.full((B, 1), NEG, device=dev, dtype=params.dtype)
     # row 0: M = U = 0, L = J = -inf
-    mp = best = torch.zeros((B, n_pad), device=dev)
-    lp = torch.full((B, n_pad), NEG, device=dev)
-    acc = torch.full((B, n_pad), NEG, device=dev)
+    mp = best = torch.zeros((B, n_pad), device=dev, dtype=params.dtype)
+    lp = torch.full((B, n_pad), NEG, device=dev, dtype=params.dtype)
+    acc = torch.full((B, n_pad), NEG, device=dev, dtype=params.dtype)
     if use_jump:  # jp where jump entry is allowed, -inf elsewhere
         jbias = torch.where(allow > 0.0, jp, NEG)
     for i in range(1, m_pad + 1):
@@ -250,6 +274,10 @@ def _kernels():
         lib.at_score_fill.argtypes = [I, I, P, P, P, P, P, P, P, I, I, I, I,
                                       I, P]
         lib.at_score_fill.restype = ctypes.c_int
+        # qs, ts, ns, ms, params, out, B, m_pad, n_pad, threads, width,
+        # stream
+        lib.at_edit_fill64.argtypes = [P, P, P, P, P, P, I, I, I, I, I, P]
+        lib.at_edit_fill64.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -277,7 +305,8 @@ def _check(m_pad, n_pad, qs, ts, ns, ms, params, allow=None):
             ("ts", ts, torch.int32, (B, n_pad)),
             ("ns", ns, torch.int32, (B, 1)),
             ("ms", ms, torch.int32, (B, 1)),
-            ("params", params, torch.float32, (1, 8))]
+            ("params", params, torch.float64 if params.dtype == torch.float64
+             else torch.float32, (1, 8))]
     if allow is not None:
         want.append(("allow", allow, torch.float32, (B, n_pad)))
     check_tensors(want, qs.device)
@@ -288,33 +317,52 @@ def _launch_strip(mode, use_jump, m_pad, n_pad, qs, ts, allow, ns, ms,
     """Launch the register-strip score fill of ``mode`` (``allow`` read
     with fit's jump alone) on CUDA tensors at ``flat_shape(mode, n_pad)``
     on the current stream (the C entry refuses an n_pad off the 16-column
-    grid); returns (B,) float32, int32 for edit."""
-    threads, width = flat_shape(mode, n_pad)
+    grid); returns (B,) float32, int32 for edit. A float64 params row takes
+    edit's double instance (float64 out); the other modes have none."""
+    global launches64
+    f64 = params.dtype == torch.float64
+    if f64 and mode != "edit":
+        raise ValueError(f"the {mode} score fill has no double-precision "
+                         f"instance on the card (edit's alone: a pair past "
+                         f"float32's range takes the pointer fill)")
+    threads, width = flat_shape(mode, n_pad, params.dtype)
     if ts.data_ptr() % 16:
         raise ValueError("ts must be 16-byte aligned (the kernel reads it "
                          "as 16-byte words)")
     out = torch.empty(qs.shape[0], device=qs.device,
-                      dtype=torch.int32 if mode == "edit" else torch.float32)
+                      dtype=params.dtype if f64 else torch.int32
+                      if mode == "edit" else torch.float32)
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
-        err = _kernels().at_score_fill(
-            MODES.index(mode), int(bool(use_jump)), qs.data_ptr(),
-            ts.data_ptr(), allow.data_ptr() if use_jump else None,
-            ns.data_ptr(), ms.data_ptr(), params.data_ptr(), out.data_ptr(),
-            qs.shape[0], m_pad, n_pad, threads, width, stream)
+        if f64:
+            err = _kernels().at_edit_fill64(
+                qs.data_ptr(), ts.data_ptr(), ns.data_ptr(), ms.data_ptr(),
+                params.data_ptr(), out.data_ptr(), qs.shape[0], m_pad, n_pad,
+                threads, width, stream)
+        else:
+            err = _kernels().at_score_fill(
+                MODES.index(mode), int(bool(use_jump)), qs.data_ptr(),
+                ts.data_ptr(), allow.data_ptr() if use_jump else None,
+                ns.data_ptr(), ms.data_ptr(), params.data_ptr(),
+                out.data_ptr(), qs.shape[0], m_pad, n_pad, threads, width,
+                stream)
     if err != 0:
         raise RuntimeError(f"{mode} score fill kernel launch failed: CUDA "
                            f"error {err}")
-    launches["affine" if mode in ("global", "local") else mode] += 1
+    if f64:
+        launches64 += 1
+    else:
+        launches["affine" if mode in ("global", "local") else mode] += 1
     return out
 
 
 def scores(mode, m_pad, n_pad, qs, ts, ns, ms, params):
     """Score-only fill for global / local / overlap / edit (the
     counterpart of ``pallas_scores``). Returns (B,) float32, int32 for
-    edit. Targets past ``flat_cap(mode)`` run the blocked score fill at
-    ``blocked_c_blk(mode, n_pad)``."""
-    c_blk = blocked_c_blk(mode, n_pad)
+    edit; float64 for a float64 params row. Targets past ``flat_cap(mode,
+    params.dtype)`` run the blocked score fill at ``blocked_c_blk(mode,
+    n_pad, params.dtype)``."""
+    c_blk = blocked_c_blk(mode, n_pad, params.dtype)
     if c_blk:
         from aligntools_tpu_torch.ops import blocked
 
@@ -333,8 +381,8 @@ def fit_scores(use_jump, m_pad, n_pad, qs, ts, allow, ns, ms, params):
     """Fit-mode score fill (the counterpart of ``pallas_fit_scores``).
     Returns (B,) float32. ``allow`` may be None without ``use_jump`` (every
     column allowed). Targets past ``flat_cap("fit")`` columns run the
-    blocked score fill at ``blocked_c_blk("fit", n_pad)``."""
-    c_blk = blocked_c_blk("fit", n_pad)
+    blocked score fill at ``blocked_c_blk("fit", n_pad, params.dtype)``."""
+    c_blk = blocked_c_blk("fit", n_pad, params.dtype)
     if c_blk:
         from aligntools_tpu_torch.ops import blocked
 

@@ -15,7 +15,9 @@ of ``csrc/vpu_probe.cu``:
                         op/s, for a caller that divides a same-run rate by
                         it (``bench.py`` does so on the TPU);
   vpu_roofline          the same at chain 256 for every form of float32,
-                        int32, bfloat16 and int16;
+                        int32, bfloat16 and int16, and for float64 (the
+                        double instances' arithmetic: no JAX counterpart,
+                        the TPU has no float64 vector unit);
   elementwise_ceiling   the same link as eager torch ops, one launch an op:
                         the rate of eager elementwise launches, not of the
                         ALU (the JAX version is an XLA loop through HBM);
@@ -42,17 +44,20 @@ import torch
 
 # dtype name -> (torch dtype, the kernel's dtype code)
 DTYPES = {"float32": (torch.float32, 0), "int32": (torch.int32, 1),
-          "int16": (torch.int16, 2), "bfloat16": (torch.bfloat16, 3)}
+          "int16": (torch.int16, 2), "bfloat16": (torch.bfloat16, 3),
+          "float64": (torch.float64, 4)}
 # the forms of each dtype, the first its default
 FORMS = {"float32": ("plain",), "int32": ("plain", "dpx"),
-         "int16": ("plain", "dpx"), "bfloat16": ("x2",)}
+         "int16": ("plain", "dpx"), "bfloat16": ("x2",),
+         "float64": ("plain",)}
 _FORM_CODE = {"plain": 0, "dpx": 1, "x2": 2}
-# (dtype, form, width): the kernel's nine instantiations
+# (dtype, form, width): the kernel's ten instantiations (float64's, the
+# double instances' arithmetic, at the ILP width alone)
 VARIANTS = (
     ("float32", "plain", 1), ("float32", "plain", 8),
     ("int32", "plain", 1), ("int32", "plain", 8), ("int32", "dpx", 8),
     ("int16", "plain", 1), ("int16", "plain", 8), ("int16", "dpx", 8),
-    ("bfloat16", "x2", 8),
+    ("bfloat16", "x2", 8), ("float64", "plain", 8),
 )
 OPS_PER_LINK = 3
 
@@ -76,10 +81,10 @@ def _packed(dtype: str, form: str) -> bool:
 
 def ops_per_instruction(dtype: str, form: str) -> float:
     """Ops an instruction does where a link takes the fewest instructions
-    it can: 3 for float32 and bfloat16 (no instruction adds three floats,
-    or adds and maxes them), 2 for the integer forms (IADD3 adds three,
+    it can: 3 for the float forms (no instruction adds three floats, or
+    adds and maxes them), 2 for the integer forms (IADD3 adds three,
     VIADDMNMX adds and maxes), on two elements for a packed form."""
-    fewest = 3 if dtype in ("float32", "bfloat16") else 2
+    fewest = 3 if dtype in ("float32", "bfloat16", "float64") else 2
     return OPS_PER_LINK * (2 if _packed(dtype, form) else 1) / fewest
 
 
@@ -315,13 +320,13 @@ def roofline_ops_per_sec(dtype="float32", shape=(64, 2048), chain=4096,
 
 
 def vpu_roofline(shape=(64, 2048), chain=256, width=8, device="cuda"):
-    """The saturated rate of every form of float32, int32, bfloat16 and
-    int16 (a list of result dicts)."""
+    """The saturated rate of every form of float32, int32, bfloat16, int16
+    and float64 (a list of result dicts)."""
     _card(device)
     print(f"# chained max+add roofline, shape {shape}, chain {chain}, "
           f"width {width}")
     out = []
-    for dtype in ("float32", "int32", "bfloat16", "int16"):
+    for dtype in ("float32", "int32", "bfloat16", "int16", "float64"):
         for form in FORMS[dtype]:
             out.append(_ilp_rate(dtype, shape, chain, width, form, reps=2,
                                  k1=1, k2=5, device=device))

@@ -18,9 +18,9 @@ Phases, one JSON line each:
            at the SM clock nvidia-smi reads under each one's launch, and the
            fraction of PEAK_OPS, failing a reading above 105% of the issue
            ceiling (a folded chain); fill_scaling (local fill GCUPS at the
-           JAX tile-sweep cases). The measured float32 and int32 rates give
-           every later timing row its `probe_ms` (counted ops over the
-           rate), beside `bound_ms` (over the published peak);
+           JAX tile-sweep cases). The measured float32, int32 and float64
+           rates give every later timing row its `probe_ms` (counted ops
+           over the rate), beside `bound_ms` (over the published peak);
   kernels  each score kernel against its plain PyTorch version on the
            card, bit for bit, for global, local, overlap, edit, fit and
            fit+jump at B=64 ragged pairs of (512, 2048), plus local at the
@@ -164,6 +164,27 @@ Phases, one JSON line each:
            beside their bounds, the wall, true-cell GCUPS and the peak
            device memory beside the budget and the card's.
 
+  exact64  single pairs past float32's exact integers, on the double
+           instances of the fills (api.align_pair's route for them). The
+           main path, the counts set to 0 just before and read just after:
+           the per-mode commands (`MODE -m 1048573 -u -1048571 -o -3145739
+           -e -1048577 FILE` through cli.main in-process on the card) on a
+           seeded 2,048^2 pair a mode, a global 2,048 x 8,192 pair (past
+           the double pointer fill's 4,096 columns: the blocked fill) and
+           an edit 2,048 x 20,480 pair (past the double edit fill's 8,192),
+           and the global one again through the checkpoint rescan under
+           ALIGNTOOLS_HBM_BUDGET (as RSF): every double instance, the walk
+           and the paused walk launched, no float32 instance and no plain
+           version; every stdout byte for byte the native C++ CLI's
+           (native/Makefile's aligntools_cli, which computes in double),
+           the rescan's the normal route's; `batch` refuses the pair. Then
+           the double instances' registers and spills (cuobjdump) and each
+           against its float64 plain version, bit for bit, timed beside
+           its bound at the FP64 rate (PEAK_OPS_F64) and its probe_ms (the
+           probe's float64 rate): the flat pointer fill at every (mode,
+           rpb) of K1's inputs, edit's flat fill there, and at the B1
+           shape the blocked FILL (fit+jump), the CKPT forward, one SEED
+           refill with the paused walk, and edit's blocked fill;
   banded   the banded path (`--band`). BK1: the banded kernel's nine
            variants (scores for all five modes, pointers for global, local,
            fit and overlap) against their plain versions, bit for bit, at 64
@@ -191,6 +212,18 @@ Phases, one JSON line each:
            both paths against plain at W 200, where the warp path takes
            16 lanes a thread, at 64 and 2,112 pairs.
 
+Last, after the banded phase:
+
+  calibrate  engine/autotune.calibrate(force=True) into a temporary
+             ALIGNTOOLS_TORCH_CACHE (no table is left behind to change
+             later runs), under CAL_SECONDS: the table and its raw timings;
+             then a sample of S2's pairs (every eighth, rows and scores),
+             of L3's (the 8 shortest targets, fit -s rows and scores,
+             local rows) and of BS's (512 pairs, local and global rows at
+             W 128) under the measured table and under CAL_MOVED, which
+             moves every key off its default: every result byte-equal to
+             the default route's.
+
 The `--device cpu` runs of the sampled pairs go in processes of one thread
 each, beside the bucket checks, which are the longest phases.
 
@@ -210,7 +243,8 @@ TRACE.banded.json.
 
 Then the kernels' summary line (each kernel's time, launches on the main
 path, bound, probe_ms and plain time; the banded kernel's first BS
-slab beside BK1), the card's name and power limit as
+slab beside BK1; the double instances with their exact64 launches), the
+card's name and power limit as
 nvidia-smi prints them, and, last, {"ok": true, "device": {...}}. Any
 failure exits nonzero before that line; so does a host without CUDA.
 """
@@ -265,6 +299,25 @@ KERNELS = {
     "walk_pause": ("aligntools_tpu/engine/device_tb.py:56 _walk_affine, :166 "
                    "_walk_overlap(pause_at_i0=True), as engine/rescan.py:"
                    "170-242 resumes them block by block", "walk.cu", ()),
+    # the double instances: a single pair past float32's exact integers,
+    # which the JAX align_pair sends to its double-precision spec engine
+    # (aligntools_tpu/api.py:54-63)
+    "ptr64": ("aligntools_tpu/ops/pallas_ptr.py:85 _ptr_kernel (its double "
+              "instance)", "ptr_fill.cu", ()),
+    "edit64": ("aligntools_tpu/ops/pallas_scan.py:469 _edit_kernel (its "
+               "double instance)", "ptr_fill.cu", ()),
+    "blocked_ptr64": ("aligntools_tpu/ops/pallas_blocked.py:375 "
+                      "_blocked_ptr_kernel (its double instance)",
+                      "blocked_fill.cu", ()),
+    "blocked_edit64": ("aligntools_tpu/ops/pallas_blocked.py:48 "
+                       "_blocked_affine_kernel (edit; its double instance)",
+                       "blocked_fill.cu", ()),
+    "blocked_ckpt64": ("aligntools_tpu/engine/rescan.py:71 _forward_ckpt "
+                       "(its double instance; no pallas_call)",
+                       "blocked_fill.cu", ()),
+    "blocked_refill64": ("aligntools_tpu/engine/rescan.py:96 _refill_block "
+                         "(its double instance; no pallas_call)",
+                         "blocked_fill.cu", ()),
     "probe_chain": ("tools/vpu_probe.py:77 vmem_ceiling (body :90-97, call "
                     ":101)", "vpu_probe.cu", ()),
     "probe_ilp": ("tools/vpu_probe.py:124 roofline_ops_per_sec (body "
@@ -345,6 +398,26 @@ BS_BAND = 128
 # contig against its region) whose packed pointers pass the true budget by
 # a factor RSR_OVER
 RSF_SHAPE = (2048, 20480)
+# the exact64 phase: the per-mode commands' options past float32's exact
+# integers (odd params near 2^20; every 2,048^2 pair passes 2^24), the jump
+# its kernel checks use, the wide pairs (global past the double pointer
+# fill's 4,096 columns, the rescan's pair too; edit past the double edit
+# fill's 8,192) and the stride of the double CKPT / SEED checks at B1
+EXACT64_OPTS = ("-m", "1048573", "-u", "-1048571", "-o", "-3145739", "-e",
+                "-1048577")
+EXACT64_JUMP = -2097143
+EXACT64_WIDE = [("global", 2048, 8192), ("edit", 2048, 20480)]
+EXACT64_STRIDE = 256
+# the calibrate phase: its time limit, the sample it re-runs, and a valid
+# table that moves every key off its default
+CAL_SECONDS = 60
+CAL_S2_EVERY = 8
+CAL_L3_PAIRS = 8
+CAL_BS_PAIRS = 512
+CAL_MOVED = {"score_flat_cap": {"affine": 2048, "overlap": 4096,
+                                "edit": 4096},
+             "ptr_flat_cap": {"float32": 2048, "float64": 2048},
+             "blocked_c_blk": 1024, "banded_bmin": 1 << 20}
 RSR_OVER = 1.075
 RSR_ASPECT = 1.375
 # the slice phase holds the walk against plain on every bucket of the
@@ -367,6 +440,9 @@ BS_CHECK_EVERY = 2
 # moved (each input read once, each output written once) over 3.35 TB/s.
 PEAK_OPS = 33.5e12
 PEAK_BYTES = 3.35e12
+# the double instances' operations: the H100's FP64 rate outside the tensor
+# cores is half its FP32 rate (34 against 67 TFLOP/s on the data sheet)
+PEAK_OPS_F64 = PEAK_OPS / 2
 # ops per true DP cell, counted from the recurrences the kernels compute:
 #   global  sub compare 1, M = diag + sub 1, L = max(L+e, M+o) 3,
 #           U = max(M+o, U+e) 3, best = max(L, M, U) 2            -> 10
@@ -394,8 +470,9 @@ WALK_BYTES_PER_STEP = 11  # 1 pointer byte, 2 int32 chars, 2 column bytes
 WALK_CHAIN_CYCLES = 30
 
 
-def bound(ops, nbytes):
-    t_ops, t_bytes = ops / PEAK_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(ops, nbytes, f64=False):
+    t_ops = ops / (PEAK_OPS_F64 if f64 else PEAK_OPS) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -405,10 +482,12 @@ PROBE_RATES = {}
 SM_MHZ = {}  # the SM clock nvidia-smi read under the int32 roofline probe
 
 
-def probe_ms(ops, integer=False):
-    """The counted ops over the measured rate: float32's, or int32's for
-    the int32 fills (edit) and the walk."""
-    return ops / PROBE_RATES["int32" if integer else "float32"] * 1e3
+def probe_ms(ops, integer=False, f64=False):
+    """The counted ops over the measured rate: float32's, int32's for the
+    int32 fills (edit) and the walk, or float64's for the double
+    instances."""
+    key = "float64" if f64 else "int32" if integer else "float32"
+    return ops / PROBE_RATES[key] * 1e3
 
 
 T0 = time.perf_counter()
@@ -449,9 +528,13 @@ PROBE_RAGGED = (37, 129)
 PROBE_GUARD = 1.05
 LANES_PER_SM_CLOCK = 128
 CHAIN_UNROLL = 4  # the `#pragma unroll` of csrc/vpu_probe.cu's chain loop
-SASS_MAX = ("FMNMX", "IMNMX", "VIMNMX", "VIADDMNMX", "HMNMX2")
-SASS_ONE_OP = ("FADD", "VIADD", "HADD2", "HFMA2", "IMAD.IADD") + SASS_MAX
-SASS_FORMS = {"F32": ("float32", "plain"), "I32": ("int32", "plain"),
+# a double max: DMNMX, or DSETP.MAX (the compare) with its selects
+SASS_MAX = ("FMNMX", "IMNMX", "VIMNMX", "VIADDMNMX", "HMNMX2", "DMNMX",
+            "DSETP.MAX")
+SASS_ONE_OP = ("FADD", "VIADD", "HADD2", "HFMA2", "IMAD.IADD",
+               "DADD") + SASS_MAX
+SASS_FORMS = {"F32": ("float32", "plain"), "F64": ("float64", "plain"),
+              "I32": ("int32", "plain"),
               "I32Dpx": ("int32", "dpx"), "I16": ("int16", "plain"),
               "I16x2Dpx": ("int16", "dpx"), "BF16x2": ("bfloat16", "x2")}
 
@@ -631,7 +714,7 @@ def phase_probe(torch, vp, build):
 
     rate_rows("vmem_ceiling", vp.vmem_ceiling())
     rate_rows("vpu_roofline", vp.vpu_roofline())
-    for dtype in ("float32", "int32"):
+    for dtype in ("float32", "int32", "float64"):
         shape, chain, width = PROBE_SHAPES[8], 4096, 8
         PROBE_RATES[dtype] = vp.roofline_ops_per_sec(dtype)
         ops = vp.OPS_PER_LINK * width * shape[0] * shape[1] * chain
@@ -986,13 +1069,17 @@ def ptr_variants_ms(torch, ptr, mode, jump, rpb, m_pad, n_pad, args, want,
     return out
 
 
-def ptr_route(ptr, n_pad):
-    """The routed pointer fill of a rows bucket (ptr.ptr_fill): its column
-    block (None: the flat kernel) and a label."""
-    c_blk = ptr.blocked_c_blk(n_pad)
+def ptr_route(ptr, n_pad, dtype=None):
+    """The routed pointer fill of a rows bucket (ptr.ptr_fill; ``dtype``
+    float64: the double instances'): its column block (None: the flat
+    kernel) and a label."""
+    import torch
+
+    dtype = dtype or torch.float32
+    c_blk = ptr.blocked_c_blk(n_pad, dtype)
     if c_blk:
         return c_blk, f"blocked c_blk {c_blk}"
-    threads, w = ptr.launch_shape(n_pad)
+    threads, w = ptr.launch_shape(n_pad, dtype)
     return None, f"flat W {w} x {threads} threads"
 
 
@@ -1578,10 +1665,17 @@ def counts(scan, ptr, tb):
 
     return ({**scan.launches, "ptr": ptr.launches, "walk": tb.launches,
              "walk_pause": tb.pause_launches, **blocked.launches,
-             "banded": banded.launches},
+             "banded": banded.launches, "ptr64": ptr.launches64,
+             "edit64": scan.launches64},
             {"scan": scan.plain_calls, "ptr": ptr.plain_calls,
              "walk": tb.plain_calls, "blocked": blocked.plain_calls,
              "banded": banded.plain_calls})
+
+
+def check_no_double(launches, where):
+    """No double instance launched on a float32 path."""
+    double = {k: v for k, v in launches.items() if k.endswith("64") and v}
+    check(not double, f"double instances launched on {where}: {double}")
 
 
 def reset_counts(scan, ptr, tb):
@@ -1643,6 +1737,7 @@ def phase_slice(torch, scan, ptr, tb, work, trace_path):
               f"kernel {name} never launched on the score path")
     check(not any(plain.values()), f"plain versions ran on the score path: "
           f"{plain}")
+    check_no_double(score_launches, "the score path")
 
     # the rows path: its launches start here
     reset_counts(scan, ptr, tb)
@@ -1659,6 +1754,7 @@ def phase_slice(torch, scan, ptr, tb, work, trace_path):
               f"kernel {name} never launched on the rows path")
     check(not any(plain.values()), f"plain versions ran on the rows path: "
           f"{plain}")
+    check_no_double(rows_launches, "the rows path")
 
     with open(cold, "rb") as a, open(rows_tsv["local"], "rb") as b:
         check(a.read() == b.read(), "local: cold and warm rows TSVs differ")
@@ -1917,6 +2013,7 @@ def phase_single(torch, scan, ptr, tb, work):
                   f"kernel {name} never launched on the single-pair path")
         check(not any(plain.values()), f"plain versions ran on the card "
               f"on the single-pair path: {plain}")
+        check_no_double(launches, "the single-pair path in range")
         for label, argv in runs:
             if label in SINGLE_LONG:
                 continue
@@ -2658,38 +2755,46 @@ def rescore_global(r1, r2, p):
     return float(score)
 
 
-def rescan_kernel_rows(torch, tb, mode, q, t, sites, S, params):
+def rescan_kernel_rows(torch, tb, mode, q, t, sites, S, params,
+                       dtype=None, phase="rescan"):
     """The rescan's three instances against their plain versions on the
     card, at this pair's shapes and stride S as the main path gives them:
     the checkpoint forward, the refill of the row block the walk starts in,
     and the paused walk there, each timed (warm median of three) beside its
-    bound and the plain version's one call."""
+    bound and the plain version's one call. ``dtype`` float64: the double
+    instances (kernels named with "64", bound at the FP64 rate)."""
     from aligntools_tpu_torch import layout
     from aligntools_tpu_torch.convert import params_matrix
-    from aligntools_tpu_torch.engine import rescan
+    from aligntools_tpu_torch.engine import rescan, select
     from aligntools_tpu_torch.ops import blocked, ptr
 
     dev = torch.device("cuda")
+    f64 = dtype == torch.float64
     jump = mode == "fit" and sites is not None
     variant = "fit+jump" if jump else mode
     (qs, ts, allow, ns, ms), m_pad, n_pad = rescan.pair_tensors(
         mode, q, t, sites, S, dev)
-    pm = params_matrix(params, dev)
-    c_blk, rpb = blocked.C_BLK, layout.rows_per_byte(mode, jump, S)
+    pm = params_matrix(params, dev, torch.float64 if f64 else torch.float32)
+    c_blk = select.blocked_c_blk(f64)
+    rpb = layout.rows_per_byte(mode, jump, S)
     m, n = len(q), len(t)
+    val = 8 if f64 else 4  # bytes a value
     rows = []
 
     def row(kernel, fn, got, plain, ops, nbytes, **extra):
+        if f64 and kernel != "walk_pause":
+            kernel += "64"
         ms_k = statistics.median(timed_ms(torch, fn) for _ in range(3))
         want, ms_p = timed_call(torch, plain)
         eq = all(torch.equal(g, w) for g, w in zip(got, want))
         err = max(max_err(torch, g, w) for g, w in zip(got, want))
-        b_ms, b_by = bound(ops, nbytes)
-        rows.append({"phase": "rescan", "kernel": kernel, "variant": variant,
+        b_ms, b_by = bound(ops, nbytes, f64 and kernel != "walk_pause")
+        rows.append({"phase": phase, "kernel": kernel, "variant": variant,
                      "shape": f"{m}x{n}/S{S}", "bit_equal": eq,
                      "max_abs_err": err, "tolerance": TOL, "ms": ms_k,
                      "plain_ms": ms_p, "bound_ms": b_ms, "bound_by": b_by,
-                     "probe_ms": probe_ms(ops, kernel == "walk_pause"),
+                     "probe_ms": probe_ms(ops, kernel == "walk_pause",
+                                          f64 and kernel != "walk_pause"),
                      **extra})
         emit(rows[-1])
         check(eq and err == 0.0, f"{kernel} {variant} at {m}x{n}, S {S}: "
@@ -2703,7 +2808,7 @@ def rescan_kernel_rows(torch, tb, mode, q, t, sites, S, params):
     row("blocked_ckpt", ckpt, fwd, lambda: ptr.ptr_fill_plain(
         mode, jump, m_pad, n_pad, qs, ts, allow, ns, ms, pm, stride=S),
         m * n * SCORE_OPS[variant],
-        4 * (m_pad + 2 * n_pad) + 4 * fwd[3].numel() + 12)
+        4 * (m_pad + 2 * n_pad) + val * fwd[3].numel() + 8 + val)
     # the row block the walk starts in, from the start cell
     state, i, j = tb.walk_starts(mode, *fwd[:3], ms, ns)[:, 0].tolist()
     k = max(i - 1, 0) // S
@@ -2720,7 +2825,7 @@ def rescan_kernel_rows(torch, tb, mode, q, t, sites, S, params):
         lambda: (ptr.ptr_fill_plain(mode, jump, S, n_pad, q_blk, ts, allow,
                                     ns, ms, pm, rpb, seed=ck, i0=k * S),),
         S * n * (SCORE_OPS[variant] + PTR_EXTRA_OPS[variant]),
-        4 * ck.numel() + 4 * (S + 2 * n_pad) + ptrs.numel(), block=k)
+        val * ck.numel() + 4 * (S + 2 * n_pad) + ptrs.numel(), block=k)
     starts = torch.tensor([[state], [i - k * S], [j]], dtype=torch.int32,
                           device=dev)
 
@@ -2894,6 +2999,279 @@ def phase_rsr(torch, scan, ptr, tb):
     return row
 
 
+def native_cli():
+    """The native C++ CLI (native/Makefile's aligntools_cli, which computes
+    in double as the reference does), built here."""
+    ndir = os.path.join(ROOT, "native")
+    b = subprocess.run(["make", "-C", ndir, "aligntools_cli"],
+                       capture_output=True, text=True, timeout=300)
+    binary = os.path.join(ndir, "aligntools_cli")
+    check(b.returncode == 0 and os.access(binary, os.X_OK),
+          f"make aligntools_cli exited {b.returncode}: {b.stderr[-400:]}")
+    return binary
+
+
+def exact64_rows(torch, ptr, scan, tb, params):
+    """Every double instance against its float64 plain version on the
+    card, bit for bit, and timed (warm median of three; the plain version's
+    one call) beside its bound at the FP64 rate: the
+    flat pointer fill at every (mode, rpb) of K1's inputs, edit's flat
+    score fill there; at the B1 shape the blocked pointer fill (FILL,
+    fit+jump), its CKPT and SEED phases and edit's blocked score fill."""
+    from aligntools_tpu_torch.convert import params_matrix
+    from aligntools_tpu_torch.engine import select
+    from aligntools_tpu_torch.ops import blocked
+
+    pm = params_matrix(params, "cuda", torch.float64)
+    rows = []
+
+    def row(kernel, variant, shape, fn, plain, ops, nbytes, **extra):
+        got = fn()
+        torch.cuda.synchronize()
+        want, ms_p = timed_call(torch, plain)  # the plain version's one call
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        eq = all(torch.equal(g, w) for g, w in zip(got, want))
+        err = max(max_err(torch, g, w) for g, w in zip(got, want))
+        del got, want
+        ms_k = statistics.median(timed_ms(torch, fn) for _ in range(3))
+        b_ms, b_by = bound(ops, nbytes, True)
+        rows.append({"phase": "exact64", "kernel": kernel,
+                     "variant": variant, "shape": shape, "bit_equal": eq,
+                     "max_abs_err": err, "tolerance": TOL, "ms": ms_k,
+                     "plain_ms": ms_p, "bound_ms": b_ms, "bound_by": b_by,
+                     "probe_ms": probe_ms(ops, f64=True), **extra})
+        emit(rows[-1])
+        check(eq and err == 0.0, f"{kernel} {variant} at {shape}: double "
+              f"kernel != float64 plain")
+
+    B, m_pad, n_pad, ragged, _ = SHAPES[0]
+    args, cells = kernel_inputs(B, m_pad, n_pad, ragged, SEED, "cuda")
+    qs, ts, allow, ns, ms, _ = args
+    args = (qs, ts, allow, ns, ms, pm)
+    shape = f"{B}x{m_pad}x{n_pad}"
+    in_bytes = input_bytes(args, False)
+    for mode, jump, rpb in PTR_SHAPES[0][4]:
+        variant = mode + ("+jump" if jump else "")
+        row("ptr64", f"{variant}/rpb{rpb}", shape,
+            lambda: ptr.ptr_fill(mode, jump, m_pad, n_pad, qs, ts,
+                                 allow if jump else None, ns, ms, pm, rpb),
+            lambda: ptr.ptr_fill_plain(mode, jump, m_pad, n_pad, qs, ts,
+                                       allow if jump else None, ns, ms, pm,
+                                       rpb),
+            (SCORE_OPS[variant] + PTR_EXTRA_OPS[variant]) * cells,
+            in_bytes + B * m_pad // rpb * n_pad + 16 * B,
+            route=ptr_route(ptr, n_pad, torch.float64)[1])
+    row("edit64", "edit", shape,
+        lambda: scan.scores("edit", m_pad, n_pad, qs, ts, ns, ms, pm),
+        lambda: scan.scores_plain("edit", m_pad, n_pad, qs, ts, ns, ms, pm),
+        SCORE_OPS["edit"] * cells, in_bytes + 8 * B,
+        flat_shape=list(scan.flat_shape("edit", n_pad, torch.float64)))
+    del args, qs, ts, allow, ns, ms
+    B, m_pad, n_pad, m, n = BLOCKED_B1
+    args, cells = kernel_inputs(B, m_pad, n_pad, False, SEED + 3, "cuda",
+                                lengths=(m, n), sites=3)
+    qs, ts, allow, ns, ms, _ = args
+    args = (qs, ts, allow, ns, ms, pm)
+    c_blk = select.blocked_c_blk(True)
+    shape = f"{B}x{m_pad}x{n_pad}"
+    row("blocked_ptr64", "fit+jump/rpb1", shape,
+        lambda: blocked.blocked_ptr_fill("fit", True, m_pad, n_pad, c_blk,
+                                         qs, ts, allow, ns, ms, pm, 1),
+        lambda: ptr.ptr_fill_plain("fit", True, m_pad, n_pad, qs, ts, allow,
+                                   ns, ms, pm, 1),
+        (SCORE_OPS["fit+jump"] + PTR_EXTRA_OPS["fit+jump"]) * cells,
+        input_bytes(args, True) + m_pad * n_pad + 16, c_blk=c_blk)
+    row("blocked_edit64", "edit", shape,
+        lambda: blocked.blocked_scores("edit", False, m_pad, n_pad, c_blk,
+                                       qs, ts, None, ns, ms, pm),
+        lambda: scan.scores_plain("edit", m_pad, n_pad, qs, ts, ns, ms, pm),
+        SCORE_OPS["edit"] * cells, input_bytes(args, False) + 8,
+        c_blk=c_blk)
+    del args, qs, ts, allow, ns, ms
+    torch.cuda.empty_cache()
+    q, t, sites = drawn_pair(*BLOCKED_B1[3:], SEED + 20, True)
+    rows += rescan_kernel_rows(torch, tb, "fit", q, t, sites, EXACT64_STRIDE,
+                               params, torch.float64, phase="exact64")
+    return rows
+
+
+def phase_exact64(torch, scan, ptr, tb, work):
+    """Single pairs past float32's exact integers on the double instances.
+    The main path: the per-mode commands (``MODE -m ... FILE`` through
+    cli.main in-process on the card) at EXACT64_OPTS on a seeded 2,048^2
+    pair a mode, a global pair past the double pointer fill's cap (the
+    blocked fill) and an edit pair past the double edit fill's, and one
+    global pair through the checkpoint rescan under ALIGNTOOLS_HBM_BUDGET
+    (as RSF), the counts set to 0 just before and read just after: every
+    double instance, the walk and the paused walk launched, no float32
+    instance and no plain version; every stdout byte for byte the native C++
+    CLI's (which computes in double). The batch path still refuses such a
+    pair. Then the instances' registers and spills and every instance
+    against its plain version (exact64_rows)."""
+    from aligntools_tpu_torch import batch, cli, layout
+    from aligntools_tpu_torch.ops import _build
+    from aligntools_tpu_torch.params import AlignParams
+
+    kw = dict(zip(("match", "mismatch", "gap_open", "gap_extend"),
+                  (int(v) for v in EXACT64_OPTS[1::2])))
+    params = AlignParams(**kw, jump=EXACT64_JUMP)
+    runs = []
+    for k, mode in enumerate(SINGLE_MODES):
+        q, t, _ = drawn_pair(SINGLE_N, SINGLE_N, SEED + 40 + k)
+        runs.append((f"{mode}-{SINGLE_N}", mode, q, t))
+    for k, (mode, m, n) in enumerate(EXACT64_WIDE):
+        q, t, _ = drawn_pair(m, n, SEED + 50 + k)
+        runs.append((f"{mode}-{m}x{n}", mode, q, t))
+    argvs = {}
+    for label, mode, q, t in runs:
+        path = os.path.join(work, f"exact64-{label}.fa")
+        write_fasta(path, [(q, t)])
+        argvs[label] = [mode, *EXACT64_OPTS, path]
+    # the rescan: global on the wide pair, a budget just below its pointers
+    r_label, r_mode, r_q, r_t = runs[len(SINGLE_MODES)]
+    hbm, need = over_budget(batch, layout, r_mode, False, r_q, r_t)
+    reset_counts(scan, ptr, tb)
+    card = {label: run_single(cli, argv, None)[0]
+            for label, argv in argvs.items()}
+    os.environ["ALIGNTOOLS_HBM_BUDGET"] = str(hbm)
+    try:
+        rescanned = run_single(cli, argvs[r_label], None)[0]
+    finally:
+        del os.environ["ALIGNTOOLS_HBM_BUDGET"]
+    torch.cuda.synchronize()
+    launches, plain = counts(scan, ptr, tb)
+    emit({"phase": "exact64", "runs": len(argvs) + 1, "opts": EXACT64_OPTS,
+          "launches": launches, "plain_calls": plain,
+          "rescan": {"pair": r_label, "pointer_bytes": need,
+                     "hbm_budget": hbm}})
+    for name in ("ptr64", "edit64", "blocked_ptr64", "blocked_edit64",
+                 "blocked_ckpt64", "blocked_refill64", "walk", "walk_pause"):
+        check(launches[name] > 0,
+              f"kernel {name} never launched on the double route")
+    single = {k: v for k, v in launches.items() if not k.endswith("64")
+              and k not in ("walk", "walk_pause") and v}
+    check(not single, f"float32 instances launched on the double route: "
+          f"{single}")
+    check(not any(plain.values()), f"plain versions ran on the double "
+          f"route: {plain}")
+    native = native_cli()
+    for label, argv in argvs.items():
+        r = subprocess.run([native, *argv], capture_output=True, text=True,
+                           timeout=600)
+        check(r.returncode == 0, f"native {label} exited {r.returncode}")
+        check(card[label] == r.stdout, f"exact64 {label}: the card's stdout "
+              f"differs from the native C++ CLI's")
+    check(rescanned == card[r_label], "exact64: the rescan's stdout differs "
+          "from the normal route's")
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(["batch", "global", argvs[runs[0][0]][-1],
+                       *EXACT64_OPTS, "--out", os.path.join(work, "x.tsv")])
+    check(rc == 255 and "exact-integer range" in err.getvalue(),
+          f"exact64: batch did not refuse the pair (exit {rc})")
+    emit({"phase": "exact64", "stdout_equal_native": sorted(argvs),
+          "rescan_equal_normal_route": True, "batch_refuses": True})
+    usage = [r for r in resource_usage(_build.library_path(), (
+        "ptr_affine_kernel", "ptr_overlap_kernel", "edit_score_kernel",
+        "bptr_affine", "bptr_overlap", "bscore_edit"))
+        if "double" in r["kernel"] or "EdE" in r["kernel"]]
+    emit({"phase": "exact64", "resource_usage": usage})
+    check(usage, "cuobjdump listed no double instance")
+    return launches, exact64_rows(torch, ptr, scan, tb, params)
+
+
+def s2_l3_sample():
+    """The calibrate phase's sample: every CAL_S2_EVERY-th of S2's pairs
+    (with their junction sites) and the CAL_L3_PAIRS shortest-target of
+    L3's, as phase_slice and phase_long draw them; and CAL_BS_PAIRS of BS's
+    similar pairs."""
+    import numpy as np
+
+    from aligntools_tpu_torch.utils.synth import clustered_pairs
+
+    small = clustered_pairs(20000, seed=SEED)[:2000]
+    rng = np.random.default_rng(SEED)
+    sites = [sorted(int(x) for x in rng.integers(0, len(t), 3))
+             for _, t in small]
+    s2 = (small[::CAL_S2_EVERY], sites[::CAL_S2_EVERY])
+    pairs, lsites = long_pairs(LONG_PAIRS, SEED + 1)
+    order = sorted(range(len(pairs)), key=lambda k: len(pairs[k][1]))
+    take = order[:CAL_L3_PAIRS]
+    l3 = ([pairs[k] for k in take], [lsites[k] for k in take])
+    return s2, l3, similar_pairs(CAL_BS_PAIRS, SEED + 3)
+
+
+def phase_calibrate(torch):
+    """``engine/autotune.calibrate(force=True)`` into a temporary
+    ALIGNTOOLS_TORCH_CACHE (the machine keeps no table), its table and
+    timings; then a sample of S2's, L3's and BS's pairs (rows and scores)
+    under the measured table and under CAL_MOVED, which moves every key
+    off its default, each byte-equal to the default route's."""
+    from aligntools_tpu_torch import batch
+    from aligntools_tpu_torch.engine import autotune
+    from aligntools_tpu_torch.engine import banded as ebanded
+    from aligntools_tpu_torch.params import AlignParams
+
+    was_env = os.environ.get(autotune.CACHE_ENV)
+    lines = []
+    with tempfile.TemporaryDirectory() as cache:
+        os.environ[autotune.CACHE_ENV] = cache
+        try:
+            t0 = time.perf_counter()
+            table = autotune.calibrate(force=True, log=lines.append)
+            seconds = time.perf_counter() - t0
+            written = os.listdir(cache)
+        finally:
+            if was_env is None:
+                del os.environ[autotune.CACHE_ENV]
+            else:
+                os.environ[autotune.CACHE_ENV] = was_env
+            autotune.set_table(None)
+    emit({"phase": "calibrate", "seconds": seconds, "written": written,
+          "table": {k: table[k] for k in autotune.DEFAULTS},
+          "measured": table.get("measured"), "log": lines})
+    check(written and seconds < CAL_SECONDS, f"calibrate: {seconds:.1f} s, "
+          f"wrote {written}")
+    s2, l3, bs = s2_l3_sample()
+    params = AlignParams()
+    runs = [("S2 global rows", "global", s2[0], None, True),
+            ("S2 fit -s rows", "fit", s2[0], s2[1], True),
+            ("S2 overlap scores", "overlap", s2[0], None, False),
+            ("S2 edit scores", "edit", s2[0], None, False),
+            ("L3 fit -s rows", "fit", l3[0], l3[1], True),
+            ("L3 fit -s scores", "fit", l3[0], l3[1], False),
+            ("L3 local rows", "local", l3[0], None, True)]
+
+    def results(t):
+        autotune.set_table(t)
+        try:
+            out = {label: [r if isinstance(r, int) else
+                           (r.score, r.row1, r.row2) for r in
+                           batch.align_batch(mode, pairs, params, sites,
+                                             traceback=rows, device="cuda")]
+                   for label, mode, pairs, sites, rows in runs}
+            for mode in ("local", "global"):
+                out[f"BS {mode} rows"] = [
+                    (r.score, r.row1, r.row2) for r in
+                    ebanded.banded_align_batch(mode, bs, BS_BAND, params,
+                                               device="cuda")[0]]
+            torch.cuda.synchronize()
+            return out
+        finally:
+            autotune.set_table(None)
+
+    default = results(dict(autotune.DEFAULTS))
+    for name, t in (("measured", table), ("moved", CAL_MOVED)):
+        got = results(t)
+        same = {label: got[label] == default[label] for label in default}
+        emit({"phase": "calibrate", "table": name, "equal_default": same,
+              "pairs": {label: len(v) for label, v in default.items()}})
+        check(all(same.values()), f"calibrate: the {name} table changed a "
+              f"result: {same}")
+    return table
+
+
 PROFILE_GROUPS = (("fill", ("ptr_affine", "ptr_overlap", "bptr_",
                             "banded_")),
                   ("walk", ("walk_kernel",)),
@@ -3012,7 +3390,7 @@ def phase_profile(torch, cli, argv, work, trace_path):
 
 def summary(rows, ptr_rows, walk_rows, bucket_rows, launches, blocked_rows,
             long_buckets, banded_rows, banded_buckets, probe_reps,
-            rescan_rows):
+            rescan_rows, exact64_rows):
     """The kernels line: each kernel's representative timing, its launches
     on its path's main-path run, and its largest error over every check."""
     from aligntools_tpu_torch.ops.blocked import C_BLK as c_blk_own
@@ -3021,6 +3399,11 @@ def summary(rows, ptr_rows, walk_rows, bucket_rows, launches, blocked_rows,
     for name, (replaces, src, variants) in KERNELS.items():
         if name in probe_reps:
             timed = mine = [probe_reps[name]]
+        elif name.endswith("64"):
+            # the representative timing: K1's local rpb 2 for the flat
+            # pointer fill; each other instance's one shape
+            mine = [r for r in exact64_rows if r["kernel"] == name]
+            timed = [r for r in mine if r["variant"] == "local/rpb2"] or mine
         elif name == "banded":
             # the representative timing: BK1's local pointers at W = 128;
             # the main path's own shape, the first rows slab of BS local
@@ -3129,18 +3512,23 @@ def main(argv=None):
         long_launches, long_buckets, long_walks = phase_long(
             torch, scan, ptr, tb, work, trace)
         rescan_launches, rescan_rows = phase_rescan(torch, scan, ptr, tb)
+        exact64_launches, exact64_rows = phase_exact64(torch, scan, ptr, tb,
+                                                       work)
         banded_launches, banded_buckets, banded_walks = phase_banded(
             torch, scan, ptr, tb, work, trace)
+    phase_calibrate(torch)
     launches.update(blocked_scores=long_launches["blocked_scores"],
                     blocked_ptr=long_launches["blocked_ptr"],
                     banded=banded_launches["banded"], **probe_launches,
                     **{k: rescan_launches[k] for k in (
-                        "blocked_ckpt", "blocked_refill", "walk_pause")})
+                        "blocked_ckpt", "blocked_refill", "walk_pause")},
+                    **{k: exact64_launches[k] for k in KERNELS
+                       if k.endswith("64")})
     emit({"kernels": summary(rows, ptr_rows,
                              walk_rows + long_walks + banded_walks,
                              bucket_rows, launches, blocked_rows,
                              long_buckets, banded_rows, banded_buckets,
-                             probe_reps, rescan_rows)})
+                             probe_reps, rescan_rows, exact64_rows)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

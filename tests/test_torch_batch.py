@@ -345,7 +345,8 @@ def test_dispatch_rows_picks_the_fill_by_the_cap(monkeypatch):
     """A rows run with one bucket at the cap and one just past it: the
     first runs the flat pointer fill, the second the blocked one (each
     wrapper's count of plain calls on CPU tensors); the rows equal those
-    of a run with every bucket on the flat fill."""
+    of a run with every bucket on the blocked fill (the cap moved below
+    both through the crossover table, engine/select.py)."""
     from aligntools_tpu_torch.ops import blocked, ptr
 
     cap = ptr.FLAT_REG_MAX_N_PAD
@@ -360,10 +361,15 @@ def test_dispatch_rows_picks_the_fill_by_the_cap(monkeypatch):
     got = _port_rows("local", pairs, AlignParams(), None)
     # the blocked wrapper's plain version is the flat one, counted there too
     assert (ptr.plain_calls, blocked.plain_calls) == (2, 1)
-    monkeypatch.setattr(ptr, "FLAT_REG_MAX_N_PAD", cap + 128)
-    ptr.reset_counts()
-    blocked.reset_counts()
-    assert _port_rows("local", pairs, AlignParams(), None) == got
-    assert (ptr.plain_calls, blocked.plain_calls) == (2, 0)
+    from aligntools_tpu_torch.engine import autotune
+
+    was = autotune.set_table({"ptr_flat_cap": {"float32": cap - 128}})
+    try:
+        ptr.reset_counts()
+        blocked.reset_counts()
+        assert _port_rows("local", pairs, AlignParams(), None) == got
+        assert (ptr.plain_calls, blocked.plain_calls) == (2, 2)
+    finally:
+        autotune.set_table(was)
     ptr.reset_counts()
     blocked.reset_counts()

@@ -4,9 +4,10 @@
 
 The per-mode CLI against ``aligntools_tpu.cli.main`` in-process (its spec
 route): stdout, the ``FATAL ERROR`` line and the exit code, byte for byte,
-but for the port's two stated departures (empty sides follow the JAX device
-route; pairs past float32's exact integers are refused). ``align_pair``
-against ``aligntools_tpu.engine.scan.scan_align`` field by field."""
+but for the port's stated departure (empty sides follow the JAX device
+route); pairs past float32's exact integers run the port's double
+instances and print the JAX CLI's bytes. ``align_pair`` against
+``aligntools_tpu.engine.scan.scan_align`` field by field."""
 
 import os
 import subprocess
@@ -15,6 +16,7 @@ import sys
 import numpy as np
 import pytest
 
+from aligntools_tpu.api import align_pair as jax_align_pair
 from aligntools_tpu.cli import main as jax_main
 from aligntools_tpu.engine.scan import scan_align
 from aligntools_tpu.params import AlignParams as JaxParams
@@ -235,21 +237,37 @@ def test_empty_sides(capsys, tmp_path, mode, q, t):
         assert (out, rc) == ("", 255) and fatal[0].startswith(jax_says)
 
 
-@pytest.mark.parametrize("mode,opts", [("global", ("-m", "1048576")),
-                                       ("edit", ("-u", "1048576"))])
-def test_f32_range_is_refused(capsys, mode, opts):
-    """The port refuses a pair past float32's exact integers (FATAL ERROR,
-    255); the JAX CLI answers it in double precision."""
-    path = os.path.join(TEST, f"test_{mode}.fa")
-    out, fatal, rc = _port(capsys, mode, *opts, path)
-    assert (out, rc) == ("", 255)
-    assert "exact-integer range" in fatal[0] and "refuses" in fatal[0]
-    out, fatal, rc = _jax(capsys, mode, *opts, path)
+# odd params near 2^20 (-o past 2^21): every fixture pair passes float32's
+# exact integers (max|param| * (m+n+1) >= 2^24)
+BIG_OPTS = ("-m", "1048573", "-u", "-1048571", "-o", "-3145739", "-e",
+            "-1048577")
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_f32_range_is_refused(capsys, mode):
+    """A pair past float32's exact integers: the per-mode command's stdout,
+    FATAL ERROR line and exit code equal the JAX CLI's (its spec engine,
+    in double; the port's double instances), and align_pair gives the
+    spec engine's result; only the batch path refuses such a pair (FATAL
+    ERROR, 255), as ``aligntools batch`` does."""
+    fixture = {"fit": "test_fit.fa", "overlap": "test_overlap.fa"}.get(
+        mode, f"test_{mode}.fa")
+    path = os.path.join(TEST, fixture)
+    out, fatal, rc = _same(capsys, mode, *BIG_OPTS, path)
     assert rc == 0 and out and not fatal
-    with pytest.raises(ValueError, match="refuses such a pair"):
-        api.align_pair(mode, b"ACGT" * 8, b"ACGT" * 8,
-                       AlignParams(match=1 << 20, mismatch=1 << 20),
-                       device="cpu")
+    out, fatal, rc = _port(capsys, "batch", mode, path, *BIG_OPTS,
+                           "--device", "cpu")
+    assert (out, rc) == ("", 255) and "exact-integer range" in fatal[0]
+    kw = dict(match=1 << 20, mismatch=-(1 << 20) + 1, gap_open=-(1 << 21),
+              gap_extend=-(1 << 20) - 1)
+    q, t = b"ACGTTGCA" * 4, b"ACGATGCAT" * 4
+    got = api.align_pair(mode, q, t, AlignParams(**kw), device="cpu")
+    want = jax_align_pair(mode, q, t, JaxParams(**kw), engine="spec")
+    if mode == "edit":
+        assert type(got) is int and got == want
+    else:
+        assert (got.score, got.row1, got.row2) == (want.score, want.row1,
+                                                   want.row2)
 
 
 def test_api_guards():
@@ -320,10 +338,20 @@ def test_align_file_returns_the_pair():
                                     sites=pair.sites, device="cpu")
 
 
-def test_unported_commands_are_refused(capsys):
-    assert main(["calibrate"]) == 255
+def test_unported_commands_are_refused(capsys, monkeypatch):
+    """``batch --sharded`` is not ported and is refused; ``calibrate`` is
+    ported and measures the card, so without one it ends in FATAL ERROR,
+    255, and writes no table."""
+    path = os.path.join(TEST, "test_global.fa")
+    assert main(["batch", "global", path, "--device", "cpu",
+                 "--sharded"]) == 255
     err = capsys.readouterr().err
     assert "FATAL ERROR" in err and "not ported" in err
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    assert main(["calibrate", "--force"]) == 255
+    cap = capsys.readouterr()
+    assert cap.out == "" and _fatal(cap.err)
+    assert "torch.cuda.is_available() is false" in cap.err
 
 
 def test_device_unset_without_cuda_is_fatal():

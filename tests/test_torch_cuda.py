@@ -935,7 +935,7 @@ def test_probe_kernel_refuses_what_it_lacks(cuda):
         with pytest.raises(ValueError, match="no kernel variant"):
             vpu_probe.chain(x, x, 3, width, form)
     with pytest.raises(ValueError, match="unsupported dtype"):
-        vpu_probe.chain(x.double(), x.double(), 3, 1)
+        vpu_probe.chain(x.half(), x.half(), 3, 1)
     with pytest.raises(ValueError, match="4-byte aligned"):
         vpu_probe.chain(x.view(-1)[1:], x.view(-1)[1:], 3, 8, "dpx")
     # the C entry point refuses an uninstantiated (dtype, form, width)
@@ -948,7 +948,7 @@ def test_probe_kernel_refuses_what_it_lacks(cuda):
 def test_probe_main_quick_on_card(cuda, capsys):
     assert vpu_probe.main(["--quick"]) == 0
     out = capsys.readouterr().out
-    assert out.count("Tops/s") == 4 + 6  # elementwise dtypes, roofline forms
+    assert out.count("Tops/s") == 4 + 7  # elementwise dtypes, roofline forms
     assert "exact=True" in out
 
 
@@ -1120,3 +1120,170 @@ def test_forced_rescan_through_align_batch(cuda, monkeypatch, mode):
                               device="cpu")
     assert (cpu.score, cpu.row1, cpu.row2) == (got[1].score, got[1].row1,
                                                got[1].row2)
+
+
+# ---------------------------------------------------------------------------
+# The double instances: a single pair past float32's exact integers
+# ---------------------------------------------------------------------------
+
+# odd params near 2^20: every pair below passes 2^24 (max|param| * (m+n+1))
+BIG = AlignParams(match=1048573, mismatch=-1048571, gap_open=-3145739,
+                  gap_extend=-1048577, jump=-2097143)
+
+
+def _double_args(seed, B, m_pad, n_pad, cuda):
+    (m_pad, n_pad), arrs = _inputs(seed, B, m_pad, n_pad)
+    qs, ts, allow, ns, ms, _ = convert.kernel_inputs_from_numpy(*arrs, cuda)
+    pm = convert.params_matrix(BIG, cuda, torch.float64)
+    return qs, ts, allow, ns, ms, pm
+
+
+PTR_LAYOUTS = [("global", False, 1), ("global", False, 2),
+               ("local", False, 1), ("local", False, 2), ("fit", False, 1),
+               ("fit", False, 2), ("fit", True, 1), ("overlap", False, 1),
+               ("overlap", False, 2), ("overlap", False, 4)]
+
+
+@pytest.mark.parametrize("n_pad", [128, 1040, ptr.FLAT64_MAX_N_PAD])
+@pytest.mark.parametrize("mode,use_jump,rpb", PTR_LAYOUTS, ids=str)
+def test_double_ptr_kernel_equals_plain(cuda, mode, use_jump, rpb, n_pad):
+    """The flat pointer fill's double instance (W 8) against the float64
+    plain version at 32 to 512 threads, ragged pairs, m = n = 1 among
+    them."""
+    qs, ts, allow, ns, ms, pm = _double_args(11, 16, 64, n_pad, cuda)
+    allow = allow if use_jump else None
+    before = (ptr.launches64, ptr.launches)
+    got = ptr.ptr_fill(mode, use_jump, 64, n_pad, qs, ts, allow, ns, ms, pm,
+                       rpb)
+    torch.cuda.synchronize()
+    want = ptr.ptr_fill_plain(mode, use_jump, 64, n_pad, qs, ts, allow, ns,
+                              ms, pm, rpb)
+    assert got[0].dtype == torch.float64
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert (ptr.launches64, ptr.launches) == (before[0] + 1, before[1])
+
+
+@pytest.mark.parametrize("n_pad", [128, 4224, 8192])
+def test_double_edit_kernel_equals_plain(cuda, n_pad):
+    qs, ts, _, ns, ms, _ = _double_args(13, 8, 64, n_pad, cuda)
+    pm = convert.params_matrix(AlignParams(mismatch=-16777217), cuda,
+                               torch.float64)
+    before = scan.launches64
+    got = scan.scores("edit", 64, n_pad, qs, ts, ns, ms, pm)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float64
+    assert torch.equal(got, scan.scores_plain("edit", 64, n_pad, qs, ts, ns,
+                                              ms, pm))
+    assert scan.launches64 == before + 1
+
+
+@pytest.mark.parametrize("c_blk", [128, 2048, blocked.C_BLK_MAX64])
+@pytest.mark.parametrize("mode,use_jump,rpb", [
+    ("global", False, 2), ("local", False, 1), ("fit", True, 1),
+    ("fit", False, 2), ("overlap", False, 4)], ids=str)
+def test_double_blocked_kernels_equal_plain(cuda, mode, use_jump, rpb,
+                                            c_blk):
+    """The blocked pointer fill's double FILL, CKPT and SEED instances and
+    edit's double blocked score fill against the float64 plain versions, a
+    ragged last block among them."""
+    n_pad, S = 9216 + 128, 32
+    qs, ts, allow, ns, ms, pm = _double_args(17, 3, 64, n_pad, cuda)
+    allow = allow if use_jump else None
+    got = blocked.blocked_ptr_fill(mode, use_jump, 64, n_pad, c_blk, qs, ts,
+                                   allow, ns, ms, pm, rpb)
+    torch.cuda.synchronize()
+    want = ptr.ptr_fill_plain(mode, use_jump, 64, n_pad, qs, ts, allow, ns,
+                              ms, pm, rpb)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    fwd = blocked.blocked_ckpt_fill(mode, use_jump, S, 64, n_pad, c_blk, qs,
+                                    ts, allow, ns, ms, pm)
+    torch.cuda.synchronize()
+    want = ptr.ptr_fill_plain(mode, use_jump, 64, n_pad, qs, ts, allow, ns,
+                              ms, pm, stride=S)
+    for g, w in zip(fwd, want):
+        assert torch.equal(g, w)
+    ck = want[3][:, 1].contiguous()
+    q_blk = qs[:, S : 2 * S].contiguous()
+    got = blocked.blocked_refill(mode, use_jump, S, n_pad, c_blk, ck, S,
+                                 q_blk, ts, allow, ns, ms, pm, rpb)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ptr.ptr_fill_plain(
+        mode, use_jump, S, n_pad, q_blk, ts, allow, ns, ms, pm, rpb,
+        seed=ck, i0=S))
+    pe = convert.params_matrix(AlignParams(mismatch=-16777217), cuda,
+                               torch.float64)
+    got = blocked.blocked_scores("edit", False, 64, n_pad, c_blk, qs, ts,
+                                 None, ns, ms, pe)
+    torch.cuda.synchronize()
+    assert torch.equal(got, scan.scores_plain("edit", 64, n_pad, qs, ts, ns,
+                                              ms, pe))
+
+
+def test_double_instances_refuse_what_they_lack(cuda):
+    qs, ts, allow, ns, ms, pm = _double_args(19, 2, 64, 4224, cuda)
+    with pytest.raises(ValueError, match="blocked fill"):
+        ptr.launch_shape(ptr.FLAT64_MAX_N_PAD + 128, torch.float64)
+    with pytest.raises(ValueError, match="no kernel instance"):
+        ptr._launch("local", False, 64, 1024, 1, (qs, ts[:, :1024], None, ns,
+                                                  ms, pm), (64, 16))
+    with pytest.raises(ValueError, match="no double-precision instance"):
+        scan.scores("global", 64, 1024, qs, ts[:, :1024].contiguous(), ns,
+                    ms, pm)
+    with pytest.raises(ValueError, match="C_BLK_MAX64"):
+        blocked.blocked_ptr_fill("local", False, 64, 4224, 8192, qs, ts,
+                                 None, ns, ms, pm, 1)
+
+
+@pytest.mark.parametrize("mode", ["global", "local", "fit", "overlap",
+                                  "edit"])
+def test_align_pair_past_f32_on_card_equals_cpu(cuda, mode, monkeypatch):
+    """api.align_pair past float32's range on the card against its CPU
+    route (the float64 plain versions, which tests/test_torch_exact64.py
+    holds against the JAX spec engine): a flat pair, one past the double
+    pointer fill's cap (the blocked fill; edit past its own) and, but for
+    edit, one through the rescan under a small ALIGNTOOLS_HBM_BUDGET."""
+    from aligntools_tpu_torch import api
+
+    wide = (scan.flat_cap("edit", torch.float64) if mode == "edit"
+            else ptr.FLAT64_MAX_N_PAD) + 700
+    cases = [_single_pair(21, 300, 2000), _single_pair(22, 200, wide)]
+    before = (ptr.launches, dict(blocked.launches), dict(scan.launches))
+    for q, t in cases:
+        got = api.align_pair(mode, q, t, BIG, device="cuda")
+        assert got == api.align_pair(mode, q, t, BIG, device="cpu")
+    if mode != "edit":
+        q, t = cases[0]
+        monkeypatch.setenv("ALIGNTOOLS_HBM_BUDGET", "200000")
+        got = api.align_pair(mode, q, t, BIG, device="cuda")
+        monkeypatch.delenv("ALIGNTOOLS_HBM_BUDGET")
+        assert got == api.align_pair(mode, q, t, BIG, device="cpu")
+        assert blocked.launches["blocked_ckpt64"] > before[1][
+            "blocked_ckpt64"]
+    # no float32 instance ran
+    assert ptr.launches == before[0] and scan.launches == before[2]
+    assert all(blocked.launches[k] == before[1][k] for k in
+               ("blocked_scores", "blocked_ptr", "blocked_ckpt",
+                "blocked_refill"))
+
+
+def test_calibrate_on_card(cuda, tmp_path, monkeypatch):
+    """calibrate(force=True) measures every key on the card in under 60 s
+    and writes a valid table, with its timings, under the cache
+    directory; the routes read it from then on."""
+    from aligntools_tpu_torch.engine import autotune, select
+
+    monkeypatch.setenv(autotune.CACHE_ENV, str(tmp_path))
+    was = autotune.set_table(None)
+    try:
+        lines = []
+        t = autotune.calibrate(force=True, log=lines.append)
+        path = autotune.cache_path(torch.cuda.get_device_name(0))
+        assert os.path.exists(path) and t["seconds"] < 60
+        assert set(t["measured"]) == set(autotune.DEFAULTS)
+        for key, value in autotune._leaves(t):
+            assert select.problem(key, value) is None, key
+        assert autotune.calibrate(log=lines.append) == t  # cached
+    finally:
+        autotune.set_table(was)

@@ -119,7 +119,7 @@ def test_chain_refuses_variants_the_kernel_lacks(args, match):
 def test_chain_checks_its_tensors():
     x = torch.zeros((2, 4), dtype=torch.float32)
     with pytest.raises(ValueError, match="unsupported dtype"):
-        vpu_probe.chain(x.double(), x.double(), 3, 1)
+        vpu_probe.chain(x.half(), x.half(), 3, 1)
     with pytest.raises(ValueError, match="must match"):
         vpu_probe.chain(x, x.int(), 3, 1)
     with pytest.raises(ValueError, match="must match"):
@@ -138,7 +138,8 @@ def test_launcher_takes_only_cuda_tensors():
 
 def test_ops_per_instruction():
     """Three ops a link over the fewest instructions a link can take: 3 for
-    the float forms, 2 for the integer ones; a packed pair does twice."""
+    the float forms (float64's too), 2 for the integer ones; a packed pair
+    does twice."""
     got = {v: vpu_probe.ops_per_instruction(v[0], v[1])
            for v in vpu_probe.VARIANTS}
     assert got == {
@@ -146,7 +147,7 @@ def test_ops_per_instruction():
         ("int32", "plain", 1): 1.5, ("int32", "plain", 8): 1.5,
         ("int32", "dpx", 8): 1.5, ("int16", "plain", 1): 1.5,
         ("int16", "plain", 8): 1.5, ("int16", "dpx", 8): 3,
-        ("bfloat16", "x2", 8): 2,
+        ("bfloat16", "x2", 8): 2, ("float64", "plain", 8): 1,
     }
 
 
@@ -178,19 +179,25 @@ DPX_LINK = ["VIADDMNMX R16, R16, R6.reuse, R5.reuse, !PT",
             "IMAD.IADD R16, R16, 0x1, -R7"]
 IADD3_LINK = ["IADD3 R16, R6, R16, -R7", "VIMNMX R16, R5, R16, !PT"]
 F32_LINK = ["FADD R2, R2, R6", "FMNMX R2, R2, R5, !PT", "FADD R2, R2, -R7"]
+# a double max as a compare and two selects, between the two adds
+F64_LINK = ["DADD R2, R2, R6", "DSETP.MAX.AND P0, P1, R2, R8, PT",
+            "FSEL R2, R2, R8, P0", "FSEL R3, R3, R9, P0",
+            "DADD R2, R2, -R10"]
 
 
 @pytest.mark.parametrize("struct,variant,links,error", [
     ("I32Dpx", ("int32", "dpx", 8), [DPX_LINK] * 32, None),
     ("I32", ("int32", "plain", 8), [IADD3_LINK] * 32, None),
     ("F32", ("float32", "plain", 1), [F32_LINK] * 4, None),
+    ("F64", ("float64", "plain", 8), [F64_LINK] * 32, None),
     # the fold ptxas made of the fused form: no subtract
     ("I32Dpx", ("int32", "dpx", 8), [DPX_LINK[:1]] * 32, "folded"),
     ("F32", ("float32", "plain", 1), [F32_LINK[1:]] * 4, "folded"),
+    ("F64", ("float64", "plain", 8), [F64_LINK[1:]] * 32, "folded"),
     ("I32", ("int32", "plain", 8), [IADD3_LINK] * 8, "below 32"),
     ("I32", ("int32", "dpx", 8), [DPX_LINK] * 32, "no chain loop"),
-], ids=["dpx", "iadd3", "f32", "dpx-folded", "f32-folded", "few-maxes",
-        "missing"])
+], ids=["dpx", "iadd3", "f32", "f64", "dpx-folded", "f32-folded",
+        "f64-folded", "few-maxes", "missing"])
 def test_sass_check_fails_a_folded_chain(struct, variant, links, error):
     cs = _chip_smoke()
     loops = cs.sass_chain_loops(_sass(struct, variant[2], links))

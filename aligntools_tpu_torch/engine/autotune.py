@@ -20,17 +20,21 @@ counterpart of a JAX stage, measured at the shape named:
   blocked_c_blk   the column block, 1,024 to 8,192, at 8 ragged pairs in
                   1,024 x 65,536, the score and pointer fills summed: the
                   fastest (the JAX stage 9)
-  banded_bmin     the banded fill's warp path against its CTA path at W 200,
-                  1,024 rows, 64 to 2,112 pairs: the smallest batch from
-                  which the warp path wins at every batch swept, 0 where it
-                  wins at the smallest (the JAX ``banded_bmin``)
+  banded_bmin     per warp strip (5, 9 and 16 lanes a thread): the banded
+                  fill's warp path against its CTA path at one band of
+                  that strip (W 64, 128 and 200), 1,024 rows, 64 to 2,112
+                  pairs: the smallest batch from which the warp path wins
+                  at every batch swept, 0 where it wins at the smallest
+                  (the JAX ``banded_bmin``)
 
 The JAX table's other keys route to engines or options the port does not
 have (ROADMAP.md, queue 1, item 9). ``calibrate`` writes the table with its
-raw timings under "measured", atomically (a temporary file, then a
-rename); it raises without a usable Hopper card. Timing: CUDA events, the
-best of two runs of K2 launches less K1's, over K2 - K1
-(``tools/vpu_probe._amortized``).
+timings under "measured", atomically (a temporary file, then a rename); it
+raises without a usable Hopper card. Timing: CUDA events, K2 launches less
+K1's over K2 - K1, REPEATS times a kernel a point; a point keeps the
+medians and its spread, the two kernels' ranges summed. A key moves off its
+default only where the alternative wins by more than the spread at that
+point, so a near tie keeps the default.
 """
 
 from __future__ import annotations
@@ -43,11 +47,15 @@ import sys
 import time
 
 CACHE_ENV = "ALIGNTOOLS_TORCH_CACHE"
+# blocked_c_blk's 2,048 was the fastest of 8,192, 4,096 and 2,048 on the
+# reference fixture's shape, on long-target read sets and on P3 (64 x 512 x
+# 32,768 fit+jump; chip_smoke.py's blocked, long and ptr phases; PERF.md):
+# narrower blocks put more CTAs, and more of them an SM, in flight
 DEFAULTS = {
     "score_flat_cap": {"affine": 8192, "overlap": 8192, "edit": 16384},
     "ptr_flat_cap": {"float32": 8192, "float64": 4096},
     "blocked_c_blk": 2048,
-    "banded_bmin": 0,
+    "banded_bmin": {"5": 0, "9": 0, "16": 0},
 }
 # what calibrate sweeps (see the module docstring)
 SCORE_SHAPE = (64, 512)
@@ -59,8 +67,12 @@ PTR_CASES = ((128, 512, "local", False, 2), (64, 512, "fit", True, 1))
 PTR_N_PADS = {"float32": (4224, 6144, 8192), "float64": (2176, 3072, 4096)}
 C_BLK_SHAPE = (8, 1024, 65536)
 C_BLKS = (1024, 2048, 4096, 8192)
-BANDED_BAND, BANDED_ROWS = 200, 1024
+# one band a warp strip (ops/banded.WARP_STRIPS), the strip's key
+BANDED_BANDS = {"5": 64, "9": 128, "16": 200}
+BANDED_ROWS = 1024
 BANDED_BATCHES = (64, 256, 1024, 2112)
+# timings a kernel a point, and the launches each is the difference of
+REPEATS, K1, K2 = 5, 2, 10
 
 _active: dict | None = None
 
@@ -84,13 +96,16 @@ def cache_path(kind: str) -> str:
 
 
 def _leaves(t: dict):
-    """(dotted key, value) of every routed value of a table."""
+    """(dotted key, value) of every routed value of a table; a key whose
+    default is a table but whose value is not, whole (``select.problem``
+    refuses it)."""
     for key, default in DEFAULTS.items():
-        if isinstance(default, dict):
+        value = t.get(key)
+        if isinstance(default, dict) and isinstance(value, dict):
             for leaf in default:
-                yield f"{key}.{leaf}", (t.get(key) or {}).get(leaf)
+                yield f"{key}.{leaf}", value.get(leaf)
         else:
-            yield key, t.get(key)
+            yield key, value
 
 
 def merged(raw: dict, source: str) -> dict:
@@ -160,33 +175,48 @@ def set_table(t: dict | None) -> dict | None:
 # ---------------------------------------------------------------------------
 
 
+def _loses(point) -> bool:
+    """(time kept, time of the alternative[, spread]): the alternative
+    wins by more than the spread (0 where none is given)."""
+    kept, other, spread = (*point, 0.0)[:3]
+    return kept - other > spread
+
+
 def flat_cap_from(timings: dict) -> int:
-    """{n_pad: (flat s, blocked s)} -> the widest n_pad up to which the
-    flat fill is no slower at every width swept; where it loses at the
-    narrowest, the 128-column grid point below it."""
+    """{n_pad: (flat s, blocked s[, spread s])} -> the widest n_pad up to
+    which the blocked fill beats the flat one by no more than the spread
+    at every width swept; where it does at the narrowest, the 128-column
+    grid point below it."""
     cap = None
     for n_pad in sorted(timings):
-        flat, blocked = timings[n_pad]
-        if flat > blocked:
+        if _loses(timings[n_pad]):
             break
         cap = n_pad
     return cap if cap is not None else min(timings) - 128
 
 
-def fastest(timings: dict) -> int:
-    """{value: s} -> the value of the least time (the smaller on a tie)."""
-    return min(sorted(timings), key=lambda k: timings[k])
+def fastest(timings: dict, default=None) -> int:
+    """{value: s or (s, range s)} -> the value of the least time (the
+    smaller on a tie); ``default`` where the fastest beats it by no more
+    than the two ranges summed."""
+    t = {k: (v, 0.0) if isinstance(v, (int, float)) else tuple(v)
+         for k, v in timings.items()}
+    best = min(sorted(t), key=lambda k: t[k][0])
+    if default in t and not _loses((t[default][0], t[best][0],
+                                    t[default][1] + t[best][1])):
+        return default
+    return best
 
 
 def bmin_from(timings: dict) -> int:
-    """{batch: (warp s, cta s)} -> the smallest batch from which the warp
-    path is no slower at every batch swept: 0 where that is the smallest
-    batch swept, one past the largest where it wins at none."""
+    """{batch: (warp s, cta s[, spread s])} -> the smallest batch from
+    which the CTA path beats the warp path by no more than the spread at
+    every batch swept: 0 where that is the smallest batch swept, one past
+    the largest where it does at none."""
     batches = sorted(timings)
     bmin = batches[-1] + 1
     for batch in reversed(batches):
-        warp, cta = timings[batch]
-        if warp > cta:
+        if _loses(timings[batch]):
             break
         bmin = batch
     return 0 if bmin == batches[0] else bmin
@@ -197,15 +227,38 @@ def bmin_from(timings: dict) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _seconds(launch) -> float:
-    """Seconds a launch of ``launch`` (CUDA events, K2 - K1 launches)."""
-    from aligntools_tpu_torch.tools.vpu_probe import _amortized
+def _samples(launch) -> list:
+    """REPEATS timings, in seconds, of one launch of ``launch``: CUDA
+    events around K2 launches less K1's, over K2 - K1, after K2 launches
+    to warm up."""
+    from aligntools_tpu_torch.tools.vpu_probe import _event_seconds
 
-    def run_k(K):
+    def run(K):
         for _ in range(K):
             launch()
 
-    return _amortized(run_k, reps=2, k1=1, k2=3)
+    run(K2)
+    return [(_event_seconds(lambda: run(K2)) - _event_seconds(lambda: run(K1)))
+            / (K2 - K1) for _ in range(REPEATS)]
+
+
+def _median(xs) -> float:
+    return sorted(xs)[len(xs) // 2]
+
+
+def _spread(xs) -> float:
+    return max(xs) - min(xs)
+
+
+def _pair(kept, other) -> tuple:
+    """Two launches timed at one point: (median of ``kept``, median of
+    ``other``, spread), the spread the two ranges summed."""
+    a, b = _samples(kept), _samples(other)
+    return _median(a), _median(b), _spread(a) + _spread(b)
+
+
+def _ms(point) -> str:
+    return "  ".join(f"{x * 1e3:8.4f}" for x in point) + " ms"
 
 
 def _inputs(B, m_pad, n_pad, seed, dtype, ragged=False):
@@ -295,30 +348,31 @@ def _banded_inputs(B, L, band, seed):
 
 
 def _measure(log) -> dict:
-    """Every key on the card: (the table, its raw timings in seconds)."""
+    """Every key on the card: (the table, its timings in seconds: each
+    point's medians and spread)."""
     import torch
 
     from aligntools_tpu_torch.engine import select
     from aligntools_tpu_torch.ops import banded
 
     top = select.limits()
-    result = {"score_flat_cap": {}, "ptr_flat_cap": {}}
-    measured = {"score_flat_cap": {}, "ptr_flat_cap": {}}
+    result = {"score_flat_cap": {}, "ptr_flat_cap": {}, "banded_bmin": {}}
+    measured = {key: {} for key in DEFAULTS}
     B, m_pad = SCORE_SHAPE
     c_own = DEFAULTS["blocked_c_blk"]
+    log("# point: flat, blocked, spread (score and pointer caps); scores, "
+        "pointers, spread (c_blk); warp, cta, spread (banded)")
     for fam, variants in SCORE_VARIANTS.items():
         caps = []
         for variant in variants:
             t = {}
             for n_pad in SCORE_N_PADS[fam]:
                 args = _inputs(B, m_pad, n_pad, 7, torch.float32)
-                t[n_pad] = (_seconds(_score_fill(variant, m_pad, n_pad, args,
-                                                 None)),
-                            _seconds(_score_fill(variant, m_pad, n_pad, args,
-                                                 c_own)))
-                log(f"  score {variant:8s} {B}x{m_pad}x{n_pad:5d}: flat "
-                    f"{t[n_pad][0] * 1e3:8.4f} ms  blocked "
-                    f"{t[n_pad][1] * 1e3:8.4f} ms")
+                t[n_pad] = _pair(
+                    _score_fill(variant, m_pad, n_pad, args, None),
+                    _score_fill(variant, m_pad, n_pad, args, c_own))
+                log(f"  score {variant:8s} {B}x{m_pad}x{n_pad:5d}: "
+                    f"{_ms(t[n_pad])}")
             measured["score_flat_cap"][variant] = {
                 str(k): list(v) for k, v in t.items()}
             caps.append(flat_cap_from(t))
@@ -333,13 +387,11 @@ def _measure(log) -> dict:
             for n_pad in PTR_N_PADS[key]:
                 args = _inputs(B, m_pad, n_pad, 11, dtype, ragged=True)
                 c_blk = select.blocked_c_blk(key == "float64")
-                t[n_pad] = (_seconds(_ptr_fill(mode, jump, rpb, m_pad, n_pad,
-                                               args, None)),
-                            _seconds(_ptr_fill(mode, jump, rpb, m_pad, n_pad,
-                                               args, c_blk)))
-                log(f"  ptr {key} {label:13s} {B}x{m_pad}x{n_pad:5d}: flat "
-                    f"{t[n_pad][0] * 1e3:8.4f} ms  blocked "
-                    f"{t[n_pad][1] * 1e3:8.4f} ms")
+                t[n_pad] = _pair(
+                    _ptr_fill(mode, jump, rpb, m_pad, n_pad, args, None),
+                    _ptr_fill(mode, jump, rpb, m_pad, n_pad, args, c_blk))
+                log(f"  ptr {key} {label:13s} {B}x{m_pad}x{n_pad:5d}: "
+                    f"{_ms(t[n_pad])}")
                 del args
             measured["ptr_flat_cap"][f"{key}/{label}"] = {
                 str(k): list(v) for k, v in t.items()}
@@ -349,29 +401,29 @@ def _measure(log) -> dict:
     args = _inputs(B, m_pad, n_pad, 13, torch.float32, ragged=True)
     t = {}
     for c_blk in C_BLKS:
-        s = _seconds(_score_fill("local", m_pad, n_pad, args, c_blk))
-        p = _seconds(_ptr_fill("local", False, 2, m_pad, n_pad, args, c_blk))
-        t[c_blk] = s + p
-        log(f"  blocked c_blk {c_blk:4d} at {B}x{m_pad}x{n_pad}: scores "
-            f"{s * 1e3:8.4f} ms  pointers {p * 1e3:8.4f} ms")
-        measured.setdefault("blocked_c_blk", {})[str(c_blk)] = [s, p]
+        s = _samples(_score_fill("local", m_pad, n_pad, args, c_blk))
+        p = _samples(_ptr_fill("local", False, 2, m_pad, n_pad, args, c_blk))
+        point = (_median(s), _median(p), _spread(s) + _spread(p))
+        t[c_blk] = (point[0] + point[1], point[2])
+        log(f"  blocked c_blk {c_blk:4d} at {B}x{m_pad}x{n_pad}: "
+            f"{_ms(point)}")
+        measured["blocked_c_blk"][str(c_blk)] = list(point)
     del args
-    result["blocked_c_blk"] = fastest(t)
-    band = BANDED_BAND
-    t = {}
-    for batch in BANDED_BATCHES:
-        qs, te, ns, ms, pm = _banded_inputs(batch, BANDED_ROWS, band, 17)
-        shapes = {"warp": banded.launch_shape(band),
-                  "cta": banded.cta_shape(band)}
-        t[batch] = tuple(_seconds(
-            lambda s=shapes[path]: banded._launch("local", True, band, qs, te,
-                                                  ns, ms, pm, s))
-            for path in ("warp", "cta"))
-        log(f"  banded W {band} {batch:4d} x {BANDED_ROWS}: warp "
-            f"{t[batch][0] * 1e3:8.4f} ms  cta {t[batch][1] * 1e3:8.4f} ms")
-        del qs, te
-    measured["banded_bmin"] = {str(k): list(v) for k, v in t.items()}
-    result["banded_bmin"] = bmin_from(t)
+    result["blocked_c_blk"] = fastest(t, c_own)
+    for strip, band in BANDED_BANDS.items():
+        shapes = (banded.launch_shape(band), banded.cta_shape(band))
+        t = {}
+        for batch in BANDED_BATCHES:
+            qs, te, ns, ms, pm = _banded_inputs(batch, BANDED_ROWS, band, 17)
+            t[batch] = _pair(*(
+                lambda s=s: banded._launch("local", True, band, qs, te, ns,
+                                           ms, pm, s) for s in shapes))
+            log(f"  banded W {band} (strip {strip}) {batch:4d} x "
+                f"{BANDED_ROWS}: {_ms(t[batch])}")
+            del qs, te
+        measured["banded_bmin"][strip] = {str(k): list(v)
+                                          for k, v in t.items()}
+        result["banded_bmin"][strip] = bmin_from(t)
     torch.cuda.empty_cache()
     return result, measured
 

@@ -13,7 +13,8 @@ are the constants chip runs on one H100 picked):
   ptr_flat_cap(f64)         the same for the flat pointer fill, float32 and
                             the double instances (``ops/ptr.blocked_c_blk``)
   blocked_c_blk(f64)        the blocked fills' column block
-  banded_path(band, batch)  the banded fill's path, "warp" or "cta"
+  banded_path(band, batch)  the banded fill's path, "warp" or "cta", by
+                            the threshold of the band's warp strip
                             (``ops/banded._launch``)
 
 A table value outside its kernel's structural range (``problem``) is
@@ -57,15 +58,20 @@ def limits() -> dict:
 
 def problem(key: str, value) -> str | None:
     """Why ``value`` cannot stand for ``key`` (a leaf such as
-    "score_flat_cap.edit", "blocked_c_blk" or "banded_bmin"), or None: a
+    "score_flat_cap.edit", "blocked_c_blk" or "banded_bmin.16"), or None: a
     flat cap is a positive multiple of 128 up to its instance's threads_max
     x W; a column block divides BUCKET_C_BLK, is a multiple of 16 and at
-    most blocked.C_BLK_MAX; banded_bmin is a non-negative int."""
-    from aligntools_tpu_torch.ops import blocked
+    most blocked.C_BLK_MAX; banded_bmin, keyed by a warp strip of
+    ops/banded.WARP_STRIPS, is a non-negative int."""
+    from aligntools_tpu_torch.engine import autotune
+    from aligntools_tpu_torch.ops import banded, blocked
 
+    head, _, leaf = key.partition(".")
+    if isinstance(autotune.DEFAULTS.get(head), dict) and not leaf:
+        return (f"{key} = {value!r} is not a table of "
+                f"{', '.join(autotune.DEFAULTS[head])}")
     if not isinstance(value, int) or isinstance(value, bool):
         return f"{key} = {value!r} is not an int"
-    head, _, leaf = key.partition(".")
     if head in ("score_flat_cap", "ptr_flat_cap"):
         top = limits()[head].get(leaf)
         if top is None:
@@ -82,6 +88,8 @@ def problem(key: str, value) -> str | None:
                     f"{blocked.C_BLK_MAX}")
         return None
     if head == "banded_bmin":
+        if leaf not in map(str, banded.WARP_STRIPS):
+            return f"{key} is not a key of the table"
         return None if value >= 0 else f"{key} = {value} is negative"
     return f"{key} is not a key of the table"
 
@@ -138,10 +146,11 @@ def blocked_c_blk(f64: bool = False) -> int:
 
 def banded_path(band: int, batch: int) -> str:
     """The banded fill's path for ``batch`` pairs at ``band``: "warp" (a
-    warp a pair) where its window fits a warp's widest strip and the batch
-    reaches the table's banded_bmin, else "cta" (a CTA a pair)."""
+    warp a pair) where its window fits a warp strip and the batch reaches
+    the table's banded_bmin for that strip, else "cta" (a CTA a pair)."""
     from aligntools_tpu_torch.ops import banded
 
-    if 2 * band + 1 > 32 * banded.WARP_STRIPS[-1]:
+    path, _, strip = banded.launch_shape(band)
+    if path != "warp":
         return "cta"
-    return "warp" if batch >= _table()["banded_bmin"] else "cta"
+    return "warp" if batch >= _table()["banded_bmin"][str(strip)] else "cta"

@@ -65,7 +65,8 @@ MAX_LANES = 16384  # the widest window the kernel takes: W <= 8191
 # and the pairs (warps) of its CTA. By default the path depends on the band
 # alone: at 16 lanes a thread and tens of pairs the CTA path fills pointers
 # faster (PERF.md), but the main path's slabs hold thousands of pairs; a
-# calibrated table may set a batch threshold (engine/select.banded_path).
+# calibrated table may set a batch threshold for each strip
+# (engine/select.banded_path).
 WARP_STRIPS = (5, 9, 16)
 WARP_PAIRS = 4
 
@@ -88,7 +89,7 @@ def launch_shape(band: int) -> tuple[str, int, int]:
     lanes: "warp", a warp per pair and WARP_PAIRS pairs a CTA, with the
     narrowest strip of WARP_STRIPS that holds V in one warp; past 32 *
     WARP_STRIPS[-1] lanes "cta" (``cta_shape``). ``_launch`` takes the CTA
-    path below the table's batch threshold too
+    path below the table's batch threshold for the strip too
     (``engine/select.banded_path``; by default at no batch)."""
     V = 2 * band + 1
     if V > MAX_LANES:

@@ -58,18 +58,9 @@ import ctypes
 
 import torch
 
-from aligntools_tpu_torch.engine import autotune
 from aligntools_tpu_torch.ops import ptr, scan
 from aligntools_tpu_torch.params import MODES
 
-# the kernels' default column block on the H100, the one the routes read
-# from engine/select.py (blocked_c_blk) when no calibrated table says
-# otherwise: the fastest of 8,192, 4,096 and 2,048 on the reference
-# fixture's shape, on long-target read sets and on P3 (64 x 512 x 32,768
-# fit+jump, a flat bucket too wide for the flat pointer kernel;
-# chip_smoke.py's blocked, long and ptr phases; PERF.md): narrower blocks
-# put more CTAs, and more of them an SM, in flight
-C_BLK = autotune.DEFAULTS["blocked_c_blk"]
 # the widest column block whose row state and pointer staging fit one CTA's
 # shared memory (fit+jump's pointer fill: 26 bytes a column, 216 KiB at
 # 8192), and the same for the double instances (45 bytes a column: 184 KiB

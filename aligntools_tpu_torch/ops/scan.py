@@ -63,23 +63,28 @@ def reset_counts() -> None:
     launches64 = plain_calls = 0
 
 
+def _edit64(mode: str, dtype) -> bool:
+    """Whether ``mode`` at ``dtype`` is edit's double instance, the one
+    score fill with a float64 form on the card."""
+    return mode == "edit" and dtype == torch.float64
+
+
 def _widest(mode: str, dtype) -> tuple[int, int]:
     """(strip width, widest n_pad) of the register-strip score fill of
     ``mode``: MAX_THREADS strips of ptr.WIDTH, and for edit, whose CTA may
-    run more threads, EDIT_MAX_THREADS; the double instance (edit's)
-    ptr.WIDTH64 columns a strip."""
+    run more threads, EDIT_MAX_THREADS; edit's double instance ptr.WIDTH64
+    columns a strip."""
     from aligntools_tpu_torch.ops import ptr
 
-    width = ptr.WIDTH64 if dtype == torch.float64 else ptr.WIDTH
+    width = ptr.WIDTH64 if _edit64(mode, dtype) else ptr.WIDTH
     return width, (EDIT_MAX_THREADS if mode == "edit"
                    else ptr.MAX_THREADS) * width
 
 
 def flat_cap(mode: str, dtype=torch.float32) -> int:
     """The widest target (n_pad) the routes give the register-strip score
-    fill of ``mode``: ``engine/select.score_flat_cap(mode)``, in float64
-    at most the double instance's widest (edit's; the other modes have
-    none on the card)."""
+    fill of ``mode``: ``engine/select.score_flat_cap(mode)``, for edit's
+    double instance at most its widest."""
     from aligntools_tpu_torch.engine import select
 
     return min(select.score_flat_cap(mode), _widest(mode, dtype)[1])
@@ -103,7 +108,7 @@ def blocked_c_blk(mode: str, n_pad: int, dtype=torch.float32) -> int | None:
 
     if n_pad <= flat_cap(mode, dtype):
         return None
-    return select.blocked_c_blk(dtype == torch.float64)
+    return select.blocked_c_blk(_edit64(mode, dtype))
 
 
 # ---------------------------------------------------------------------------

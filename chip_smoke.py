@@ -3,6 +3,11 @@
 
     python3 chip_smoke.py      # from the repository root; one Hopper card
 
+Every phase routes by engine/autotune.DEFAULTS: the run (and every CLI
+process it starts) reads its table from an empty ALIGNTOOLS_TORCH_CACHE
+of its own, so a table `calibrate` left on the machine changes nothing the
+script checks or names.
+
 Phases, one JSON line each:
 
   device   the card (nvidia-smi name and power limit), torch and CUDA
@@ -222,7 +227,10 @@ Last, after the banded phase:
              local rows) and of BS's (512 pairs, local and global rows at
              W 128) under the measured table and under CAL_MOVED, which
              moves every key off its default: every result byte-equal to
-             the default route's.
+             the default route's. Before those, `BS-band` lines: the
+             banded kernel at W 128 (local pointers, 64 to 1,024 pairs of
+             2,048 rows) on the path each of the default and the measured
+             table picks, timed in turns.
 
 The `--device cpu` runs of the sampled pairs go in processes of one thread
 each, beside the bucket checks, which are the longest phases.
@@ -414,10 +422,15 @@ CAL_SECONDS = 60
 CAL_S2_EVERY = 8
 CAL_L3_PAIRS = 8
 CAL_BS_PAIRS = 512
+# the banded kernel at BS's band under the default and the measured table
+CAL_BS_BATCHES = (64, 256, 1024)
+CAL_BS_L = 2048
+CAL_TURNS = 3
 CAL_MOVED = {"score_flat_cap": {"affine": 2048, "overlap": 4096,
                                 "edit": 4096},
              "ptr_flat_cap": {"float32": 2048, "float64": 2048},
-             "blocked_c_blk": 1024, "banded_bmin": 1 << 20}
+             "blocked_c_blk": 1024,
+             "banded_bmin": {"5": 1 << 20, "9": 1 << 20, "16": 1 << 20}}
 RSR_OVER = 1.075
 RSR_ASPECT = 1.375
 # the slice phase holds the walk against plain on every bucket of the
@@ -935,11 +948,11 @@ def phase_kernels_cap(torch, scan):
     """The score fills' route across the register-strip kernels' caps: at
     each n_pad of SCORE_CAP_N_PADS, each variant of SCORE_CAP_VARIANTS
     through the route (scan.scores / fit_scores: the flat kernel up to
-    scan.flat_cap(mode) columns, past it the blocked fill at blocked.C_BLK,
-    ragged) against plain, bit for bit, then timed beside the blocked fill
-    at every column block of the sweep up to n_pad (ragged where it does
-    not divide n_pad), each held to the same scores; warm medians of
-    three."""
+    scan.flat_cap(mode) columns, past it the blocked fill at
+    select.blocked_c_blk(), ragged) against plain, bit for bit, then timed
+    beside the blocked fill at every column block of the sweep up to n_pad
+    (ragged where it does not divide n_pad), each held to the same scores;
+    warm medians of three."""
     from aligntools_tpu_torch.ops import ptr
 
     for n_pad in SCORE_CAP_N_PADS:
@@ -1369,7 +1382,7 @@ def phase_blocked(torch, scan, ptr):
     block; L2 and B1 at the reference fixture's shape, each timed at every
     column block. (The walk on blocked pointers is held against its plain
     version on an L3 bucket.)"""
-    from aligntools_tpu_torch.ops import blocked
+    from aligntools_tpu_torch.engine import select
 
     rows = []
     B, m_pad, n_pad = BLOCKED_L1
@@ -1378,7 +1391,7 @@ def phase_blocked(torch, scan, ptr):
     qs, ts, allow, ns, ms, pm = args
     shape = f"{B}x{m_pad}x{n_pad}"
     for variant in ("global", "local", "overlap", "edit", "fit", "fit+jump"):
-        def kernel(c_blk=blocked.C_BLK):
+        def kernel(c_blk=select.blocked_c_blk()):
             return run_variant(scan, variant, m_pad, n_pad, args, False,
                                c_blk)
 
@@ -1393,7 +1406,7 @@ def phase_blocked(torch, scan, ptr):
     for mode, jump, rpb in PTR_SHAPES[0][4]:
         variant = mode + ("+jump" if jump else "")
 
-        def kernel(c_blk=blocked.C_BLK):
+        def kernel(c_blk=select.blocked_c_blk()):
             return ptr_fill(ptr, mode, jump, m_pad, n_pad, args, rpb, c_blk)
 
         def plain():
@@ -1416,7 +1429,7 @@ def phase_blocked(torch, scan, ptr):
         qs, ts, allow, ns, ms, pm = args
         shape = f"{B}x{m_pad}x{n_pad}"
 
-        def kernel(c_blk=blocked.C_BLK):
+        def kernel(c_blk=select.blocked_c_blk()):
             return run_variant(scan, "fit+jump", m_pad, n_pad, args, False,
                                c_blk)
 
@@ -1426,7 +1439,7 @@ def phase_blocked(torch, scan, ptr):
         rows += blocked_sweep(torch, "blocked_scores", level, "fit+jump",
                               shape, cells, args, 4 * B, kernel, plain)
 
-        def kernel(c_blk=blocked.C_BLK):
+        def kernel(c_blk=select.blocked_c_blk()):
             return ptr_fill(ptr, "fit", True, m_pad, n_pad, args, 1, c_blk)
 
         def plain():
@@ -1465,8 +1478,8 @@ def blocked_sweep(torch, kernel_name, level, variant, shape, cells, args,
 def blocked_row(kernel, level, variant, shape, cells, ms_k, ms_p, args,
                 out_bytes, err=0.0, c_blk=None):
     """One blocked-kernel timing line (at column block ``c_blk``, by
-    default the kernels' own), with its bound."""
-    from aligntools_tpu_torch.ops import blocked
+    default the routes' own), with its bound."""
+    from aligntools_tpu_torch.engine import select
 
     ops = (SCORE_OPS[variant.split("/")[0]]
            + (PTR_EXTRA_OPS[variant.split("/")[0]]
@@ -1474,7 +1487,7 @@ def blocked_row(kernel, level, variant, shape, cells, ms_k, ms_p, args,
     b_ms, b_by = bound(ops, input_bytes(args, "jump" in variant) + out_bytes)
     row = {"phase": "blocked", "kernel": kernel, "level": level,
            "variant": variant, "shape": shape,
-           "c_blk": c_blk or blocked.C_BLK, "bit_equal": err == 0.0,
+           "c_blk": c_blk or select.blocked_c_blk(), "bit_equal": err == 0.0,
            "max_abs_err": err, "tolerance": TOL, "ms": ms_k, "plain_ms": ms_p,
            "bound_ms": b_ms, "bound_by": b_by,
            "probe_ms": probe_ms(ops, variant == "edit"), "true_cells": cells,
@@ -3261,6 +3274,7 @@ def phase_calibrate(torch):
         finally:
             autotune.set_table(None)
 
+    calibrate_bs_band(torch, table)
     default = results(dict(autotune.DEFAULTS))
     for name, t in (("measured", table), ("moved", CAL_MOVED)):
         got = results(t)
@@ -3270,6 +3284,40 @@ def phase_calibrate(torch):
         check(all(same.values()), f"calibrate: the {name} table changed a "
               f"result: {same}")
     return table
+
+
+def calibrate_bs_band(torch, table):
+    """The banded kernel at BS's band (local, pointers) at each batch of
+    CAL_BS_BATCHES, through the path select.banded_path picks under the
+    defaults and under the measured ``table``: warm medians of CAL_TURNS
+    turns (default, measured, measured, default), each table's path named
+    beside its time."""
+    from aligntools_tpu_torch.engine import autotune, select
+    from aligntools_tpu_torch.ops import banded
+
+    tables = {"default": dict(autotune.DEFAULTS), "measured": table}
+    for B in CAL_BS_BATCHES:
+        args = banded_kernel_inputs(torch, B, CAL_BS_L, BS_BAND, SEED + 9)
+        paths, times = {}, {name: [] for name in tables}
+        try:
+            for name in tables:
+                autotune.set_table(tables[name])
+                paths[name] = select.banded_path(BS_BAND, B)
+                banded._launch("local", True, BS_BAND, *args)  # warm
+            for _ in range(CAL_TURNS):
+                for name in ("default", "measured", "measured", "default"):
+                    autotune.set_table(tables[name])
+                    times[name].append(timed_ms(torch, lambda: banded._launch(
+                        "local", True, BS_BAND, *args)))
+        finally:
+            autotune.set_table(None)
+        emit({"phase": "calibrate", "level": "BS-band", "variant":
+              "local/ptrs", "shape": f"{B}x{CAL_BS_L}/W{BS_BAND}",
+              **{f"{name}_path": paths[name] for name in tables},
+              **{f"{name}_ms": sorted(t)[len(t) // 2]
+                 for name, t in times.items()}})
+        del args
+    torch.cuda.empty_cache()
 
 
 PROFILE_GROUPS = (("fill", ("ptr_affine", "ptr_overlap", "bptr_",
@@ -3393,7 +3441,9 @@ def summary(rows, ptr_rows, walk_rows, bucket_rows, launches, blocked_rows,
             rescan_rows, exact64_rows):
     """The kernels line: each kernel's representative timing, its launches
     on its path's main-path run, and its largest error over every check."""
-    from aligntools_tpu_torch.ops.blocked import C_BLK as c_blk_own
+    from aligntools_tpu_torch.engine import select
+
+    c_blk_own = select.blocked_c_blk()
 
     out = []
     for name, (replaces, src, variants) in KERNELS.items():
@@ -3479,8 +3529,12 @@ def main(argv=None):
     from aligntools_tpu_torch.backend import resolve_device
     from aligntools_tpu_torch.engine import device_tb as tb
     from aligntools_tpu_torch.ops import _build, ptr, scan
+    from aligntools_tpu_torch.engine import autotune
     from aligntools_tpu_torch.tools import vpu_probe
 
+    pinned = tempfile.TemporaryDirectory()
+    os.environ[autotune.CACHE_ENV] = pinned.name
+    autotune.set_table(None)
     smi = nvidia_smi_line()
     resolve_device("cuda")  # raises unless the card is sm_90
     t0 = time.perf_counter()
@@ -3529,6 +3583,7 @@ def main(argv=None):
                              bucket_rows, launches, blocked_rows,
                              long_buckets, banded_rows, banded_buckets,
                              probe_reps, rescan_rows, exact64_rows)})
+    pinned.cleanup()
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

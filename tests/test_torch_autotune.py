@@ -23,7 +23,8 @@ KIND = "NVIDIA H100 80GB HBM3"
 # a valid table that moves every key off its default
 MOVED = {"score_flat_cap": {"affine": 256, "overlap": 128, "edit": 384},
          "ptr_flat_cap": {"float32": 256, "float64": 128},
-         "blocked_c_blk": 1024, "banded_bmin": 100000}
+         "blocked_c_blk": 1024,
+         "banded_bmin": {"5": 100000, "9": 100000, "16": 100000}}
 
 
 @pytest.fixture(autouse=True)
@@ -52,7 +53,7 @@ def test_defaults_without_a_card_or_cache(monkeypatch):
     assert select.score_flat_cap("edit") == scan.EDIT_MAX_THREADS * ptr.WIDTH
     assert select.ptr_flat_cap() == ptr.FLAT_REG_MAX_N_PAD
     assert select.ptr_flat_cap(True) == ptr.FLAT64_MAX_N_PAD == 4096
-    assert select.blocked_c_blk() == blocked.C_BLK == 2048
+    assert select.blocked_c_blk() == autotune.DEFAULTS["blocked_c_blk"] == 2048
     assert select.banded_path(128, 1) == "warp"
     assert select.banded_path(256, 10 ** 6) == "cta"
 
@@ -93,8 +94,11 @@ def test_cache_is_read_by_the_cards_slug(monkeypatch, tmp_path):
     ("score_flat_cap.affine", 0),
     ("blocked_c_blk", 3072),  # does not divide 16,384
     ("blocked_c_blk", 16384),  # past C_BLK_MAX
-    ("banded_bmin", -1),
+    ("banded_bmin", -1),  # a number where a table of strips is due
     ("banded_bmin", "64"),
+    ("banded_bmin.16", -1),
+    ("banded_bmin.9", "64"),
+    ("score_flat_cap", 4096),
 ])
 def test_out_of_range_value_is_ignored_with_a_line(monkeypatch, capsys, key,
                                                    value):
@@ -164,6 +168,28 @@ def test_fastest_from_synthetic_timings():
     assert autotune.fastest({1024: 2.0, 8192: 2.0}) == 1024
 
 
+@pytest.mark.parametrize("choice,timings,want", [
+    # flat loses at 8,192 by 0.05 with a spread of 0.1: the cap stays
+    ("cap", {4224: (1, 2, 0.1), 8192: (2.05, 2, 0.1)}, 8192),
+    ("cap", {4224: (1, 2, 0.1), 8192: (2.2, 2, 0.1)}, 4224),
+    ("cap", {4224: (2.2, 2, 0.1), 8192: (1, 2, 0.1)}, 4096),
+    # the CTA path wins at 64 pairs inside the spread, then past it
+    ("bmin", {64: (1.1, 1.0, 0.2), 256: (1, 2, 0.1)}, 0),
+    ("bmin", {64: (1.5, 1.0, 0.2), 256: (1, 2, 0.1)}, 256),
+    # 1,024 beats the default 2,048 by 3% inside the ranges summed
+    ("c_blk", {1024: (0.97, 0.02), 2048: (1.0, 0.02), 4096: (0.99, 0.0)},
+     2048),
+    ("c_blk", {1024: (0.90, 0.02), 2048: (1.0, 0.02), 4096: (0.99, 0.0)},
+     1024),
+])
+def test_choices_keep_the_default_within_the_spread(choice, timings, want):
+    """A key moves off its default only where the alternative wins by more
+    than the spread measured at that point."""
+    fn = {"cap": autotune.flat_cap_from, "bmin": autotune.bmin_from,
+          "c_blk": lambda t: autotune.fastest(t, 2048)}[choice]
+    assert fn(timings) == want
+
+
 def test_problem_names_each_structural_range():
     assert select.problem("score_flat_cap.edit", 16384) is None
     assert select.problem("score_flat_cap.edit", 16512)
@@ -172,17 +198,40 @@ def test_problem_names_each_structural_range():
     assert select.problem("ptr_flat_cap.float16", 128)
     for c_blk in (16, 128, 1024, 8192):
         assert select.problem("blocked_c_blk", c_blk) is None, c_blk
-    assert select.problem("banded_bmin", 0) is None
+    assert select.problem("banded_bmin.16", 0) is None
+    assert select.problem("banded_bmin.5", 10 ** 6) is None
+    assert select.problem("banded_bmin.7", 0)  # not a warp strip
+    assert select.problem("banded_bmin", 0)  # a table of strips is due
     assert select.problem("nmax", 4096)  # not ported: not a key
     assert select.problem("blocked_c_blk", True)
 
 
 def test_banded_path_reads_the_threshold():
-    autotune.set_table({"banded_bmin": 256})
+    """Each band reads the threshold of its own warp strip: one set for
+    strip 16 (W 200) leaves W 128 (strip 9) and W 64 (strip 5) on the warp
+    path; past the widest strip the CTA path at any batch."""
+    autotune.set_table({"banded_bmin": {"16": 256}})
     assert select.banded_path(200, 255) == "cta"
     assert select.banded_path(200, 256) == "warp"
+    assert select.banded_path(128, 64) == "warp"
+    assert select.banded_path(64, 1) == "warp"
+    assert select.banded_path(256, 10 ** 6) == "cta"
     assert banded.cta_shape(200) == ("cta", 128, 4)
     assert banded.launch_shape(200) == ("warp", 128, 16)
+    autotune.set_table({"banded_bmin": {"9": 64}})
+    assert select.banded_path(128, 63) == "cta"
+    assert select.banded_path(143, 63) == "cta"  # strip 9's widest band
+    assert select.banded_path(144, 63) == "warp"  # strip 16's narrowest
+    assert select.banded_path(79, 63) == "warp"  # strip 5's widest
+
+
+def test_calibrate_times_one_band_of_each_warp_strip():
+    """calibrate's bands: one a warp strip, on that strip, and the table's
+    banded_bmin keyed by the same strips."""
+    assert set(autotune.BANDED_BANDS) == set(autotune.DEFAULTS["banded_bmin"])
+    assert set(autotune.BANDED_BANDS) == {str(s) for s in banded.WARP_STRIPS}
+    for strip, band in autotune.BANDED_BANDS.items():
+        assert banded.launch_shape(band) == ("warp", 128, int(strip)), band
 
 
 def _pairs(P, seed):

@@ -329,16 +329,17 @@ def test_empty_pairs_match_jax(mode, traceback):
 def test_rows_c_blk_routes_by_the_cap():
     """The rows path's pointer fill (ptr.ptr_fill) keeps buckets up to
     ptr.FLAT_REG_MAX_N_PAD columns on the flat pointer kernel and hands
-    wider flat ones and long targets to the blocked fill at C_BLK, which
-    need not divide a flat n_pad."""
-    from aligntools_tpu_torch.ops import blocked, ptr
+    wider flat ones and long targets to the blocked fill at
+    select.blocked_c_blk(), which need not divide a flat n_pad."""
+    from aligntools_tpu_torch.engine import select
+    from aligntools_tpu_torch.ops import ptr
 
     cap = ptr.FLAT_REG_MAX_N_PAD
     assert ptr.blocked_c_blk(128) is None and ptr.blocked_c_blk(cap) is None
     for n_pad in (cap + 128, tbatch.PALLAS_FLAT_MAX_N_PAD,
                   tbatch.PALLAS_FLAT_MAX_N_PAD + tbatch.BLOCKED_C_BLK):
-        assert ptr.blocked_c_blk(n_pad) == blocked.C_BLK, n_pad
-    assert (cap + 128) % blocked.C_BLK
+        assert ptr.blocked_c_blk(n_pad) == select.blocked_c_blk(), n_pad
+    assert (cap + 128) % select.blocked_c_blk()
 
 
 def test_dispatch_rows_picks_the_fill_by_the_cap(monkeypatch):

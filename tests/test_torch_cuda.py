@@ -17,7 +17,7 @@ import walk_cases
 
 from aligntools_tpu_torch import batch as tbatch
 from aligntools_tpu_torch import convert
-from aligntools_tpu_torch.engine import device_tb
+from aligntools_tpu_torch.engine import device_tb, select
 from aligntools_tpu_torch.ops import banded, blocked, ptr, scan
 from aligntools_tpu_torch.params import AlignParams
 from aligntools_tpu_torch.tools import vpu_probe
@@ -197,9 +197,10 @@ def test_edit_score_fill_on_ties_equals_plain(cuda, u):
 @pytest.mark.parametrize("n_pad", [scan.flat_cap("edit") + 128, 32768])
 def test_wide_edit_routes_to_the_blocked_fill(cuda, n_pad):
     """Past its cap scan.scores("edit") runs the blocked score fill at
-    blocked.C_BLK, with a ragged last block one bucket past the cap: the
-    flat plain version's distances, and no launch of the flat fill."""
-    assert scan.blocked_c_blk("edit", n_pad) == blocked.C_BLK
+    select.blocked_c_blk(), with a ragged last block one bucket past the
+    cap: the flat plain version's distances, and no launch of the flat
+    fill."""
+    assert scan.blocked_c_blk("edit", n_pad) == select.blocked_c_blk()
     qs, ts, _, ns, ms, pm = convert.kernel_inputs_from_numpy(
         *_flat_inputs(109, B=6, m_pad=64, n_pad=n_pad), cuda)
     before = dict(blocked.launches), dict(scan.launches)
@@ -216,7 +217,7 @@ def test_wide_edit_routes_to_the_blocked_fill(cuda, n_pad):
 @pytest.mark.parametrize("mode", SCORE_INSTANCES)
 def test_wide_scores_route_to_the_blocked_fill(cuda, mode, n_pad):
     """Past the cap scan.scores / fit_scores run the blocked score fill at
-    blocked.C_BLK with a ragged last block (8,320) or whole blocks
+    select.blocked_c_blk() with a ragged last block (8,320) or whole blocks
     (32,768): the flat plain version's scores."""
     arrs = _flat_inputs(101, B=6, m_pad=64, n_pad=n_pad)
     qs, ts, allow, ns, ms, pm = convert.kernel_inputs_from_numpy(*arrs, cuda)
@@ -461,7 +462,8 @@ def _blocked_inputs(seed, c_blk, fit, B=8, m_pad=64, n_pad=16384):
     return m_pad, n_pad, (qs, ts, allow, ns, ms, pm)
 
 
-@pytest.mark.parametrize("c_blk", sorted({128, 2048, 8192, blocked.C_BLK}))
+@pytest.mark.parametrize("c_blk",
+                         sorted({128, 2048, 8192, select.blocked_c_blk()}))
 @pytest.mark.parametrize("mode,use_jump", BLOCKED_SCORE_CASES)
 def test_blocked_scores_kernel_equals_plain(cuda, mode, use_jump, c_blk):
     m_pad, n_pad, arrs = _blocked_inputs(13, c_blk, mode == "fit")
@@ -479,7 +481,8 @@ def test_blocked_scores_kernel_equals_plain(cuda, mode, use_jump, c_blk):
     assert torch.equal(got, want), (got, want)
 
 
-@pytest.mark.parametrize("c_blk", sorted({128, 2048, 8192, blocked.C_BLK}))
+@pytest.mark.parametrize("c_blk",
+                         sorted({128, 2048, 8192, select.blocked_c_blk()}))
 @pytest.mark.parametrize("mode,use_jump,rpb", BLOCKED_PTR_CASES)
 def test_blocked_ptr_kernel_equals_plain(cuda, mode, use_jump, rpb, c_blk):
     """Score, a, b and every pointer byte, pad rows and columns included."""
@@ -600,7 +603,7 @@ def test_blocked_scores_ragged_trailing_blocks(cuda, mode, use_jump):
                               qs, ts, allow, ns, ms, pm, cuda))
 
 
-@pytest.mark.parametrize("c_blk", sorted({128, blocked.C_BLK}))
+@pytest.mark.parametrize("c_blk", sorted({128, select.blocked_c_blk()}))
 @pytest.mark.parametrize("kind,mode,use_jump,rpb", BLOCKED_CASES)
 def test_blocked_kernels_on_ties_equal_plain(cuda, kind, mode, use_jump, rpb,
                                              c_blk):
@@ -615,7 +618,7 @@ def test_blocked_kernels_on_ties_equal_plain(cuda, kind, mode, use_jump, rpb,
 
 @pytest.mark.parametrize("n_pad,c_blk", [
     (8576, 2048), (8576, 4096),
-    (ptr.FLAT_REG_MAX_N_PAD + 128, blocked.C_BLK)])
+    (ptr.FLAT_REG_MAX_N_PAD + 128, select.blocked_c_blk())])
 @pytest.mark.parametrize("mode,use_jump,rpb", BLOCKED_PTR_CASES)
 def test_blocked_ptr_ragged_last_block_equals_plain(cuda, mode, use_jump,
                                                     rpb, n_pad, c_blk):

@@ -23,6 +23,7 @@ from aligntools_tpu_torch.cli import main as port_main
 from aligntools_tpu_torch.convert import params_matrix
 from aligntools_tpu_torch.engine import device_tb
 from aligntools_tpu_torch.engine import rescan as trescan
+from aligntools_tpu_torch.engine import select
 from aligntools_tpu_torch.ops import blocked, ptr
 from aligntools_tpu_torch.params import AlignParams
 from aligntools_tpu_torch.serve import serve as port_serve
@@ -86,7 +87,7 @@ def test_ckpt_fill_equals_jax_forward(variant, S):
     n_pad = trescan.pad_n(n)
     args = _port_inputs(q, t, m_pad, n_pad, sites)
     score, a, b, got = blocked.blocked_ckpt_fill(
-        mode, jump, S, m_pad, n_pad, blocked.C_BLK, *args,
+        mode, jump, S, m_pad, n_pad, select.blocked_c_blk(), *args,
         params_matrix(AlignParams(**P), CPU))
     assert got.shape == (1, m_pad // S, trescan._N_STATE_ROWS[mode],
                          n_pad + 1)
@@ -120,13 +121,14 @@ def test_refill_equals_whole_fill(variant, S):
     args = _port_inputs(q, t, m_pad, n_pad, sites)
     whole = ptr.ptr_fill_plain(mode, jump, m_pad, n_pad, *args, pm, rpb)[3]
     cks = blocked.blocked_ckpt_fill(mode, jump, S, m_pad, n_pad,
-                                    blocked.C_BLK, *args, pm)[3]
+                                    select.blocked_c_blk(), *args, pm)[3]
     qs, ts, allow, ns, ms = args
     for k in range(m_pad // S):
         got = blocked.blocked_refill(
-            mode, jump, S, n_pad, blocked.C_BLK, cks[:, k].contiguous(),
-            k * S, qs[:, k * S : (k + 1) * S].contiguous(), ts, allow, ns,
-            ms, pm, rpb)
+            mode, jump, S, n_pad, select.blocked_c_blk(),
+            cks[:, k].contiguous(), k * S,
+            qs[:, k * S : (k + 1) * S].contiguous(), ts, allow, ns, ms, pm,
+            rpb)
         r = S // rpb
         assert torch.equal(got, whole[:, k * r : (k + 1) * r]), (variant, k)
 

@@ -16,6 +16,7 @@ from aligntools_tpu.ops import pallas_scan as ps
 from aligntools_tpu.params import AlignParams
 from aligntools_tpu_torch import batch as tbatch
 from aligntools_tpu_torch import convert
+from aligntools_tpu_torch.engine import select
 from aligntools_tpu_torch.ops import blocked, ptr, scan
 
 B, M_PAD, N_PAD = 8, 64, 256
@@ -264,24 +265,25 @@ def test_bucket_snap_stays_the_jax_packages():
 
 def test_scores_route_picks_flat_or_blocked_at_the_cap():
     """Global, local, overlap and fit go to the blocked fill one bucket past
-    FLAT_REG_MAX_N_PAD, at blocked.C_BLK (ragged there); edit keeps its
-    register-strip fill there, up to its own cap, and goes past that."""
+    FLAT_REG_MAX_N_PAD, at select.blocked_c_blk() (ragged there); edit
+    keeps its register-strip fill there, up to its own cap, and goes past
+    that."""
     cap = ptr.FLAT_REG_MAX_N_PAD
     for mode in ("global", "local", "overlap", "fit"):
         assert scan.flat_cap(mode) == cap
         assert scan.blocked_c_blk(mode, cap) is None
-        assert scan.blocked_c_blk(mode, cap + 128) == blocked.C_BLK
+        assert scan.blocked_c_blk(mode, cap + 128) == select.blocked_c_blk()
     edit_cap = scan.flat_cap("edit")
     assert edit_cap == scan.EDIT_MAX_THREADS * ptr.WIDTH > cap
     assert scan.blocked_c_blk("edit", cap + 128) is None
     assert scan.blocked_c_blk("edit", edit_cap) is None
-    assert scan.blocked_c_blk("edit", edit_cap + 128) == blocked.C_BLK
+    assert scan.blocked_c_blk("edit", edit_cap + 128) == select.blocked_c_blk()
     assert scan.flat_shape("edit", edit_cap) == (scan.EDIT_MAX_THREADS,
                                                  ptr.WIDTH)
     assert scan.flat_shape("edit", cap + 128) == (544, ptr.WIDTH)
     with pytest.raises(ValueError, match="blocked fill"):
         scan.flat_shape("edit", edit_cap + 128)
-    assert (cap + 128) % blocked.C_BLK  # a ragged last block
+    assert (cap + 128) % select.blocked_c_blk()  # a ragged last block
     qs, ts, ns, ms, allow = _wide_inputs(29, cap + 128, B=2, m_pad=4)
     args = convert.kernel_inputs_from_numpy(qs, ts, allow, ns, ms,
                                             _pmat(AlignParams()), "cpu")
@@ -312,7 +314,7 @@ def test_scores_route_past_the_flat_ceiling(mode):
     ceiling."""
     cap = scan.flat_cap("edit")
     base, jump = mode.split("+")[0], mode.endswith("+jump")
-    assert scan.blocked_c_blk(base, cap + 128) == blocked.C_BLK
+    assert scan.blocked_c_blk(base, cap + 128) == select.blocked_c_blk()
     assert (scan.blocked_c_blk(base, cap) is None) == (base == "edit")
     rng = np.random.default_rng(31)
     for n_pad in (cap, cap + 128):

@@ -22,6 +22,10 @@ they end in ``FATAL ERROR``.
 t2, ...); the TSV (alignment rows by default, CIGAR with ``--cigar``,
 scores with ``--scores-only``) goes to stdout or ``--out``, byte for byte
 ``aligntools batch``'s. ``--device`` picks its device (default ``cuda``).
+``--sharded`` prints scores sharded over the ranks of a process group:
+under ``torchrun --nproc-per-node N`` one card a rank (NCCL; gloo with
+``--device cpu``), alone a group of one rank; rank 0 writes the TSV, and a
+failing rank ends the job (``parallel/distributed.abort_all``).
 
 ``calibrate`` measures the card's crossover table once (``engine/
 autotune.py``; ``--force`` measures again) and caches it per card under
@@ -215,8 +219,9 @@ def run_batch(args: list[str]) -> int:
     ap.add_argument("--resume", metavar="MANIFEST",
                     help="chunk manifest for checkpoint/resume")
     ap.add_argument("--sharded", action="store_true",
-                    help="multi-device data parallelism (not ported yet: "
-                         "refused)")
+                    help="scores sharded over the ranks of a process group "
+                         "(torchrun --nproc-per-node N: N cards; alone: one "
+                         "rank)")
     ap.add_argument("--band", type=int, default=None, metavar="W",
                     help="banded fill, O(m*W) work: full rows (or scores "
                          "with --scores-only); exact when the optimal "
@@ -235,6 +240,24 @@ def run_batch(args: list[str]) -> int:
             "[batch] note: --resume without --out checkpoints chunk "
             "completion only; add --out FILE for crash-atomic output\n"
         )
+    if ns.sharded:
+        from aligntools_tpu_torch.parallel import distributed
+
+        try:
+            counters = run_pipeline(
+                ns.mode, ns.fasta, p, device=resolve_device(ns.device),
+                use_sites=ns.s, scores_only=ns.scores_only, sharded=True,
+                chunk_size=ns.chunk_size, manifest_path=ns.resume,
+                out_path=ns.out, band=ns.band, cigar=ns.cigar,
+            )
+        except (OSError, ValueError, RuntimeError) as err:
+            if not distributed.is_multihost():
+                sys.stderr.write(f"FATAL ERROR: {err}\n")
+                return 255
+            distributed.abort_all(err)  # no rank left in a collective
+        if distributed.rank() == 0:
+            counters.report()
+        return 0
     try:
         counters = run_pipeline(
             ns.mode, ns.fasta, p, device=resolve_device(ns.device),

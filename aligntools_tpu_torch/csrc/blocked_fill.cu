@@ -181,7 +181,11 @@ struct Wave {
   const T* ep;  // block c-1's edges (c > 0)
   T* en;        // this block's edges
   int seen;     // thread 0: rows of block c-1's edge seen published
-  __device__ Wave(int ticket, int nblk, int* flags, T* edges, int4* cand_, int m_pad) {
+  // `chunk` (the EDGE phase): a pair's edges hold nblk + 1 slots, slot 0
+  // the launch's left edge (block 0 reads it, ready at launch) and slot c+1
+  // block c's, the last one the right edge
+  __device__ Wave(int ticket, int nblk, int* flags, T* edges, int4* cand_, int m_pad,
+                  bool chunk = false) {
     const int B = gridDim.x / nblk;
     b = ticket % B;
     c = ticket / B;
@@ -189,7 +193,7 @@ struct Wave {
     prog = flags + 1 + (size_t)b * (nblk + 1);
     done = prog + nblk;
     cand = cand_ + (size_t)b * nblk;
-    en = edges + ((size_t)b * nblk + c) * 4 * rows;
+    en = edges + ((size_t)b * (nblk + chunk) + c + chunk) * 4 * rows;
     ep = en - (size_t)4 * rows;
     seen = 0;
   }
@@ -279,24 +283,50 @@ __device__ __forceinline__ float score_edge(int s, int c, int i, int col0, float
   return w.edge(s, i);
 }
 
+// The EDGE phase of the score fills (parallel/seqpar.py: one rank's column
+// slice, one chunk of rows a launch). The launch fills rows i0+1 .. i0+R
+// (qs (B, R)) of global columns col0g+1 .. col0g+nloc (ts, allow (B, nloc);
+// here m_pad is R and n_pad nloc) in column blocks as FILL does, every row
+// and column, pad ones included: row i0 comes from the state buffer `top`
+// (B, states, nloc), row i0+R goes to `bottom`; block 0 reads the launch's
+// left edge (the states at column col0g of rows i0 .. i0+R, slot 0 of the
+// edges) and the last block writes the right edge (slot nblk); every chain
+// continues by global column, and the column-0 border and row 0 are the
+// caller's (in `top` and the left edge). Each block's candidate is its
+// cells' over rows <= m and columns <= n (global), and the pair's last
+// block to finish raises (edit: lowers) `out` (B,), the running candidate
+// of the chunks, by their merge; the caller merges the ranks and finishes
+// (local's + 0, overlap's j = 0 candidate).
+struct Chunk {
+  const void* top;
+  void* bottom;
+  int col0g, i0;
+  int4* acc;      // the pointer fills' running start candidate (B,)
+  int slab_rows;  // the pointer fills' slab: (B, slab_rows, nloc) bytes
+};
+
 // Replaces the global / local / fit(+jump) branches of
 // _blocked_affine_kernel. Per slot: M, L, max(L, M, U[, J]) of the row, the
-// jump bias (JUMP) and the target char.
-template <int MODE, bool JUMP>
+// jump bias (JUMP) and the target char. EDGE: the chunk phase above (top and
+// bottom: M, L, max(L, M, U[, J])).
+template <int MODE, bool JUMP, bool EDGE = false>
 __global__ void __launch_bounds__(MAX_THREADS)
 bscore_affine(const int* __restrict__ qs, const int* __restrict__ ts,
               const float* __restrict__ allow, const int* __restrict__ ns,
               const int* __restrict__ ms, const float* __restrict__ params,
               float* __restrict__ out, float* edges, int* flags, int4* cand, int m_pad,
-              int n_pad, int c_blk, int W) {
+              int n_pad, int c_blk, int W, Chunk ch = {}) {
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ float tot[2][32];
   __shared__ float eg[4];  // row i's edge at col0, from thread 0
   __shared__ int ticket;
-  Wave w(take_ticket(flags, &ticket), (n_pad + c_blk - 1) / c_blk, flags, edges, cand, m_pad);
+  const int nblk = (n_pad + c_blk - 1) / c_blk;
+  Wave w(take_ticket(flags, &ticket), nblk, flags, edges, cand, m_pad, EDGE);
   const int b = w.b, c = w.c, tid = threadIdx.x;
-  const int n = min(max(ns[b], 0), n_pad), m = min(max(ms[b], 0), m_pad);
-  const int nb = max(1, (n + c_blk - 1) / c_blk);  // the blocks that hold columns <= n
+  const int n = EDGE ? max(ns[b], 0) : min(max(ns[b], 0), n_pad);
+  const int m = EDGE ? max(ms[b], 0) : min(max(ms[b], 0), m_pad);
+  // the blocks that hold columns <= n (EDGE: every block)
+  const int nb = EDGE ? nblk : max(1, (n + c_blk - 1) / c_blk);
   if (c >= nb) return;
   const size_t S = (size_t)blockDim.x * W;
   float* Mr = reinterpret_cast<float*>(smem);
@@ -306,29 +336,46 @@ bscore_affine(const int* __restrict__ qs, const int* __restrict__ ts,
   int* Tc = reinterpret_cast<int*>(Jb + (JUMP ? S : 0));
   const float match = params[0], mis = params[1], o = params[2], e = params[3];
   const float jp = params[4];
+  // columns: global col0g+1 .., at local index j - 1 - col0g of ts, allow
+  // and the state rows (FILL: col0g 0, nloc n_pad)
+  const int col0g = EDGE ? ch.col0g : 0, i0 = EDGE ? ch.i0 : 0;
   const int* q = qs + (size_t)b * m_pad;
-  const int* t = ts + (size_t)b * n_pad;
-  const float* al = allow + (size_t)b * n_pad;
-  const int col0 = c * c_blk, ncols = max(0, min(c_blk, n - col0));
-  const bool feeds = c + 1 < nb;  // block c+1 reads this block's edges
+  const int* t = ts + (size_t)b * n_pad - col0g;
+  const float* al = allow + (size_t)b * n_pad - col0g;
+  const float* top = EDGE ? static_cast<const float*>(ch.top) + (size_t)b * 3 * n_pad - col0g - 1
+                          : nullptr;
+  float* bot = EDGE ? static_cast<float*>(ch.bottom) + (size_t)b * 3 * n_pad - col0g - 1 : nullptr;
+  const int col0 = col0g + c * c_blk;
+  const int ncols = EDGE ? min(c_blk, n_pad - c * c_blk) : max(0, min(c_blk, n - col0));
+  const int lim = col0g + n_pad;  // allow's columns end here
+  const bool feeds = EDGE || c + 1 < nb;  // block c+1 (EDGE: or the right edge) reads them
   const Strip s(col0, ncols, W);
   float acc = NEG;
   // row 0: global M = L = -inf, U = o + e*j; local zeros; fit M = U = 0,
-  // L = J = -inf
+  // L = J = -inf. EDGE: row i0 from `top`.
   for (int k = 0; k < s.cnt; ++k) {
     const int j = s.j(k);
     const size_t x = s.slot(k);
     Tc[x] = t[j - 1];
-    Mr[x] = MODE == GLOBAL ? NEG : 0.f;
-    Lr[x] = MODE == LOCAL ? 0.f : NEG;
-    Br[x] = MODE == GLOBAL ? o + e * (float)j : 0.f;
-    if (JUMP) Jb[x] = (j < n_pad && al[j] > 0.f) ? jp : NEG;
+    if (EDGE) {
+      Mr[x] = top[j];
+      Lr[x] = top[n_pad + j];
+      Br[x] = top[2 * n_pad + j];
+    } else {
+      Mr[x] = MODE == GLOBAL ? NEG : 0.f;
+      Lr[x] = MODE == LOCAL ? 0.f : NEG;
+      Br[x] = MODE == GLOBAL ? o + e * (float)j : 0.f;
+    }
+    if (JUMP) Jb[x] = (j < lim && al[j] > 0.f) ? jp : NEG;
   }
-  const float jb0 = (JUMP && col0 < n_pad && al[col0] > 0.f) ? jp : NEG;
-  // thread 0's diagonal: max(L, M, U[, J]) at (i-1, col0)
-  float dB = score_edge<MODE>(SB, c, 0, col0, o, e, w);
+  const float jb0 = (JUMP && col0 < lim && al[col0] > 0.f) ? jp : NEG;
+  // thread 0's diagonal: max(L, M, U[, J]) at (i-1, col0); EDGE: the left
+  // edge's row 0 in block 0, else the previous block's last column of `top`
+  float dB = !EDGE ? score_edge<MODE>(SB, c, 0, col0, o, e, w)
+                   : (c == 0 ? w.edge(SB, 0) : top[2 * n_pad + col0]);
   __syncthreads();
-  for (int i = 1; i <= (ncols > 0 ? m : 0); ++i) {
+  for (int i = 1; i <= (EDGE ? m_pad : ncols > 0 ? m : 0); ++i) {
+    const int gi = i0 + i;  // the global row
     const int qc = q[i - 1];
     float diag = tid == 0 ? dB : (s.cnt > 0 ? Br[s.left] : NEG);
     float agg[2] = {NEG, NEG};
@@ -349,7 +396,7 @@ bscore_affine(const int* __restrict__ qs, const int* __restrict__ ts,
     if (tid == 0) {
       if (c > 0) w.wait(i);
       for (int st = SB; st <= (JUMP ? SJ : SU); ++st)
-        eg[st] = score_edge<MODE>(st, c, i, col0, o, e, w);
+        eg[st] = EDGE ? w.edge(st, i) : score_edge<MODE>(st, c, i, col0, o, e, w);
       dB = eg[SB];
     }
     const float none[2] = {NEG, NEG};
@@ -371,11 +418,11 @@ bscore_affine(const int* __restrict__ qs, const int* __restrict__ ts,
       Br[x] = best;
       run_u = fmaxf(run_u, mv + (o - e * (float)(j + 1)));
       if (JUMP) run_j = fmaxf(run_j, mv + Jb[x]);
-      if (MODE == LOCAL)
+      if (MODE == LOCAL && (!EDGE || (gi <= m && j <= n)))
         acc = fmaxf(acc, mv);
-      else if (MODE == GLOBAL && i == m && j == n)
+      else if (MODE == GLOBAL && gi == m && j == n)
         acc = best;
-      else if (MODE == FIT && i == m && j <= n - 1)  // U is excluded
+      else if (MODE == FIT && gi == m && j <= n - 1)  // U is excluded
         acc = fmaxf(acc, bml);
       if (feeds && k == s.cnt - 1 && s.owns_last(ncols)) {
         w.put(SB, i, best);
@@ -387,52 +434,73 @@ bscore_affine(const int* __restrict__ qs, const int* __restrict__ ts,
     }
     __syncthreads();
   }
+  if (EDGE)
+    for (int k = 0; k < s.cnt; ++k) {
+      const int j = s.j(k);
+      const size_t x = s.slot(k);
+      bot[j] = Mr[x];
+      bot[n_pad + j] = Lr[x];
+      bot[2 * n_pad + j] = Br[x];
+    }
   const float r = block_reduce<MaxF>(acc, tot[0]);
   if (tid == 0 && w.finish(pack(r), nb)) {
-    float v = NEG;
+    float v = EDGE ? out[b] : NEG;
     for (int k = 0; k < nb; ++k) v = fmaxf(v, __int_as_float(w.candidate(k).x));
     // + 0.f turns a -0 into +0: the score is printed with %f
-    out[b] = MODE == LOCAL ? v + 0.f : v;
+    out[b] = MODE == LOCAL && !EDGE ? v + 0.f : v;
   }
 }
 
 // Replaces the overlap branch of _blocked_affine_kernel (one matrix, linear
 // gap o). Per slot: M, the row's candidates normalized by -o*j, the char.
+// EDGE: the chunk phase (top and bottom: M).
+template <bool EDGE = false>
 __global__ void __launch_bounds__(MAX_THREADS)
 bscore_overlap(const int* __restrict__ qs, const int* __restrict__ ts,
                const int* __restrict__ ns, const int* __restrict__ ms,
                const float* __restrict__ params, float* __restrict__ out, float* edges,
-               int* flags, int4* cand, int m_pad, int n_pad, int c_blk, int W) {
+               int* flags, int4* cand, int m_pad, int n_pad, int c_blk, int W, Chunk ch = {}) {
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ float tot[1][32];
   __shared__ float eg;  // M(i, col0), from thread 0
   __shared__ int ticket;
-  Wave w(take_ticket(flags, &ticket), (n_pad + c_blk - 1) / c_blk, flags, edges, cand, m_pad);
+  const int nblk = (n_pad + c_blk - 1) / c_blk;
+  Wave w(take_ticket(flags, &ticket), nblk, flags, edges, cand, m_pad, EDGE);
   const int b = w.b, c = w.c, tid = threadIdx.x;
-  const int n = min(max(ns[b], 0), n_pad), m = min(max(ms[b], 0), m_pad);
-  const int nb = max(1, (n + c_blk - 1) / c_blk);
+  const int n = EDGE ? max(ns[b], 0) : min(max(ns[b], 0), n_pad);
+  const int m = EDGE ? max(ms[b], 0) : min(max(ms[b], 0), m_pad);
+  const int nb = EDGE ? nblk : max(1, (n + c_blk - 1) / c_blk);
   if (c >= nb) return;
   const size_t S = (size_t)blockDim.x * W;
   float* Mr = reinterpret_cast<float*>(smem);
   float* Cr = Mr + S;
   int* Tc = reinterpret_cast<int*>(Cr + S);
   const float match = params[0], mis = params[1], o = params[2];
+  const int col0g = EDGE ? ch.col0g : 0, i0 = EDGE ? ch.i0 : 0;
   const int* q = qs + (size_t)b * m_pad;
-  const int* t = ts + (size_t)b * n_pad;
-  const int col0 = c * c_blk, ncols = max(0, min(c_blk, n - col0));
-  const bool feeds = c + 1 < nb;
+  const int* t = ts + (size_t)b * n_pad - col0g;
+  const float* top = EDGE ? static_cast<const float*>(ch.top) + (size_t)b * n_pad - col0g - 1
+                          : nullptr;
+  float* bot = EDGE ? static_cast<float*>(ch.bottom) + (size_t)b * n_pad - col0g - 1 : nullptr;
+  const int col0 = col0g + c * c_blk;
+  const int ncols = EDGE ? min(c_blk, n_pad - c * c_blk) : max(0, min(c_blk, n - col0));
+  const bool feeds = EDGE || c + 1 < nb;
   const Strip s(col0, ncols, W);
   float acc = NEG;
-  // M(i, col0): the column-0 border is 0; row 0 is -inf past column 0
-  auto edge = [&](int i) { return c == 0 ? 0.f : (i == 0 ? NEG : w.edge(0, i)); };
+  // M(i, col0): the column-0 border is 0; row 0 is -inf past column 0;
+  // EDGE: the left edge (block 0) or the previous block's
+  auto edge = [&](int i) {
+    return EDGE || c > 0 ? (!EDGE && i == 0 ? NEG : w.edge(0, i)) : 0.f;
+  };
   for (int k = 0; k < s.cnt; ++k) {
     const size_t x = s.slot(k);
     Tc[x] = t[s.j(k) - 1];
-    Mr[x] = NEG;
+    Mr[x] = EDGE ? top[s.j(k)] : NEG;
   }
-  float dM = edge(0);  // thread 0: M(i-1, col0)
+  float dM = EDGE && c > 0 ? top[col0] : edge(0);  // thread 0: M(i-1, col0)
   __syncthreads();
-  for (int i = 1; i <= (ncols > 0 ? m : 0); ++i) {
+  for (int i = 1; i <= (EDGE ? m_pad : ncols > 0 ? m : 0); ++i) {
+    const int gi = i0 + i;
     const int qc = q[i - 1];
     float diag = tid == 0 ? dM : (s.cnt > 0 ? Mr[s.left] : NEG);
     float agg[1] = {NEG};
@@ -460,7 +528,7 @@ bscore_overlap(const int* __restrict__ qs, const int* __restrict__ ts,
       run = fmaxf(run, Cr[x]);
       const float mv = run + o * (float)j;
       Mr[x] = mv;
-      if (i == m && j <= n - 1) acc = fmaxf(acc, mv);
+      if (gi == m && j <= n - 1) acc = fmaxf(acc, mv);
       if (feeds && k == s.cnt - 1 && s.owns_last(ncols)) {
         w.put(0, i, mv);
         w.publish(i);
@@ -468,12 +536,15 @@ bscore_overlap(const int* __restrict__ qs, const int* __restrict__ ts,
     }
     __syncthreads();
   }
+  if (EDGE)
+    for (int k = 0; k < s.cnt; ++k) bot[s.j(k)] = Mr[s.slot(k)];
   const float r = block_reduce<MaxF>(acc, tot[0]);
   if (tid == 0 && w.finish(pack(r), nb)) {
-    float v = NEG;
+    float v = EDGE ? out[b] : NEG;
     for (int k = 0; k < nb; ++k) v = fmaxf(v, __int_as_float(w.candidate(k).x));
-    // the j = 0 border contributes its 0; + 0.f turns a -0 into +0
-    out[b] = fmaxf(v, 0.f) + 0.f;
+    // the j = 0 border contributes its 0 (EDGE: the caller's); + 0.f turns a
+    // -0 into +0
+    out[b] = EDGE ? v : fmaxf(v, 0.f) + 0.f;
   }
 }
 
@@ -482,46 +553,55 @@ bscore_overlap(const int* __restrict__ qs, const int* __restrict__ ts,
 // normalized by -j, the char; the edges are int32. T double (P double: the
 // params row in double) is the instance for a pair past float32's exact
 // range: the same function in double, +inf in place of INT_MAX, double
-// edges.
-template <class T = int, class P = float>
+// edges. EDGE (int32 only): the chunk phase (top and bottom: M).
+template <class T = int, class P = float, bool EDGE = false>
 __global__ void __launch_bounds__(MAX_THREADS)
 bscore_edit(const int* __restrict__ qs, const int* __restrict__ ts,
             const int* __restrict__ ns, const int* __restrict__ ms,
             const P* __restrict__ params, T* __restrict__ out, T* edges, int* flags,
-            int4* cand, int m_pad, int n_pad, int c_blk, int W) {
+            int4* cand, int m_pad, int n_pad, int c_blk, int W, Chunk ch = {}) {
   using Min = typename Ops<T>::Min;
   const T TOP = std::is_same<T, int>::value ? (T)INT_MAX : (T)INFINITY;
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ T tot[1][32];
   __shared__ T eg;  // M(i, col0), from thread 0
   __shared__ int ticket;
-  Wave<T> w(take_ticket(flags, &ticket), (n_pad + c_blk - 1) / c_blk, flags, edges, cand,
-            m_pad);
+  const int nblk = (n_pad + c_blk - 1) / c_blk;
+  Wave<T> w(take_ticket(flags, &ticket), nblk, flags, edges, cand, m_pad, EDGE);
   const int b = w.b, c = w.c, tid = threadIdx.x;
-  const int n = min(max(ns[b], 0), n_pad), m = min(max(ms[b], 0), m_pad);
-  const int nb = max(1, (n + c_blk - 1) / c_blk);
+  const int n = EDGE ? max(ns[b], 0) : min(max(ns[b], 0), n_pad);
+  const int m = EDGE ? max(ms[b], 0) : min(max(ms[b], 0), m_pad);
+  const int nb = EDGE ? nblk : max(1, (n + c_blk - 1) / c_blk);
   if (c >= nb) return;
   const size_t S = (size_t)blockDim.x * W;
   T* Pr = reinterpret_cast<T*>(smem);
   T* Cr = Pr + S;
   int* Tc = reinterpret_cast<int*>(Cr + S);
   const T u = (T)params[1];
+  const int col0g = EDGE ? ch.col0g : 0, i0 = EDGE ? ch.i0 : 0;
   const int* q = qs + (size_t)b * m_pad;
-  const int* t = ts + (size_t)b * n_pad;
-  const int col0 = c * c_blk, ncols = max(0, min(c_blk, n - col0));
-  const bool feeds = c + 1 < nb;
+  const int* t = ts + (size_t)b * n_pad - col0g;
+  const T* top = EDGE ? static_cast<const T*>(ch.top) + (size_t)b * n_pad - col0g - 1 : nullptr;
+  T* bot = EDGE ? static_cast<T*>(ch.bottom) + (size_t)b * n_pad - col0g - 1 : nullptr;
+  const int col0 = col0g + c * c_blk;
+  const int ncols = EDGE ? min(c_blk, n_pad - c * c_blk) : max(0, min(c_blk, n - col0));
+  const bool feeds = EDGE || c + 1 < nb;
   const Strip s(col0, ncols, W);
   T acc = TOP;
-  // M(i, col0): M(i, 0) = i, M(0, j) = j
-  auto edge = [&](int i) { return c == 0 ? (T)i : (i == 0 ? (T)col0 : w.edge(0, i)); };
+  // M(i, col0): M(i, 0) = i, M(0, j) = j; EDGE: the left edge (block 0) or
+  // the previous block's
+  auto edge = [&](int i) {
+    return EDGE || c > 0 ? (!EDGE && i == 0 ? (T)col0 : w.edge(0, i)) : (T)i;
+  };
   for (int k = 0; k < s.cnt; ++k) {
     const size_t x = s.slot(k);
     Tc[x] = t[s.j(k) - 1];
-    Pr[x] = (T)s.j(k);
+    Pr[x] = EDGE ? top[s.j(k)] : (T)s.j(k);
   }
-  T dM = edge(0);  // thread 0: M(i-1, col0)
+  T dM = EDGE && c > 0 ? top[col0] : edge(0);  // thread 0: M(i-1, col0)
   __syncthreads();
-  for (int i = 1; i <= (ncols > 0 ? m : 0); ++i) {
+  for (int i = 1; i <= (EDGE ? m_pad : ncols > 0 ? m : 0); ++i) {
+    const int gi = i0 + i;
     const int qc = q[i - 1];
     T diag = tid == 0 ? dM : (s.cnt > 0 ? Pr[s.left] : (T)0);
     T agg[1] = {TOP};
@@ -548,7 +628,7 @@ bscore_edit(const int* __restrict__ qs, const int* __restrict__ ts,
       run = Min::op(run, Cr[x]);
       const T v = run + (T)j;
       Pr[x] = v;
-      if (i == m && j == n) acc = v;
+      if (gi == m && j == n) acc = v;
       if (feeds && k == s.cnt - 1 && s.owns_last(ncols)) {
         w.put(0, i, v);
         w.publish(i);
@@ -556,13 +636,15 @@ bscore_edit(const int* __restrict__ qs, const int* __restrict__ ts,
     }
     __syncthreads();
   }
+  if (EDGE)
+    for (int k = 0; k < s.cnt; ++k) bot[s.j(k)] = Pr[s.slot(k)];
   const T r = block_reduce<Min>(acc, tot[0]);
   if (tid == 0 && w.finish(pack(r), nb)) {
-    T v = TOP;
+    T v = EDGE ? out[b] : TOP;
     for (int k = 0; k < nb; ++k) v = Min::op(v, unpack<T>(w.candidate(k)));
     // before any row, the result is M(0, n)'s latch value 0, as in the flat
     // fills; INT_MAX (+inf) when n == 0
-    out[b] = (m == 0 && n > 0) ? (T)0 : v;
+    out[b] = (!EDGE && m == 0 && n > 0) ? (T)0 : v;
   }
 }
 
@@ -575,8 +657,11 @@ bscore_edit(const int* __restrict__ qs, const int* __restrict__ ts,
 constexpr int PM = 0, PL = 1, PU = 2, PJ = 3;
 
 // The phases of the pointer fills: the whole matrix with pointers; the
-// checkpoint forward; the seeded refill of one row block.
-constexpr int FILL = 0, CKPT = 1, SEED = 2;
+// checkpoint forward; the seeded refill of one row block; one chunk of one
+// rank's column slice (as the score fills' EDGE above: top and bottom M, L,
+// U[, J] of TOP_STATES, the pointer bytes into rows i0/rpb .. of the rank's
+// slab, the start candidate merged into Chunk::acc).
+constexpr int FILL = 0, CKPT = 1, SEED = 2, EDGE = 3;
 
 // State s of (row i, column col0) as block c reads it; column 0's border is
 // taken at the global row i0 + i (i0 > 0 in a refill only).
@@ -616,8 +701,9 @@ bptr_affine(const int* __restrict__ qs, const int* __restrict__ ts,
             const int* __restrict__ ms, const T* __restrict__ params,
             T* __restrict__ score_out, int* __restrict__ a_out, int* __restrict__ b_out,
             uint8_t* __restrict__ ptrs, T* edges, int* flags, int4* cand, T* ck,
-            int m_pad, int n_pad, int c_blk, int W, int rpb, int stride, int i0) {
-  constexpr bool PTRS = PHASE != CKPT, LATCH = PHASE != SEED;
+            int m_pad, int n_pad, int c_blk, int W, int rpb, int stride, int i0,
+            Chunk ch = {}) {
+  constexpr bool PTRS = PHASE != CKPT, LATCH = PHASE != SEED, CH = PHASE == EDGE;
   constexpr T NG = (T)NEG;
   using Max = typename Ops<T>::Max;
   // a checkpoint's state rows: M, L, U, and fit's J (-inf without the jump)
@@ -630,7 +716,7 @@ bptr_affine(const int* __restrict__ qs, const int* __restrict__ ts,
   __shared__ T g_s;
   __shared__ int g_a, ticket;
   const int nblk = (n_pad + c_blk - 1) / c_blk;
-  Wave<T> w(take_ticket(flags, &ticket), nblk, flags, edges, cand, m_pad);
+  Wave<T> w(take_ticket(flags, &ticket), nblk, flags, edges, cand, m_pad, CH);
   const int b = w.b, c = w.c, tid = threadIdx.x;
   const size_t S = (size_t)blockDim.x * W;
   uint8_t* stage = smem;  // the byte-row being packed, c_blk bytes
@@ -648,14 +734,23 @@ bptr_affine(const int* __restrict__ qs, const int* __restrict__ ts,
   const int k_home = rpb > 1 ? 3 : 4, k_unset = rpb > 1 ? 3 : 7;
   const int lbit = rpb > 1 ? 1 << 2 : 1 << 3, ubit = rpb > 1 ? 1 << 3 : 1 << 4;
   const int bits = 8 / rpb, R = m_pad / rpb;
-  const int n = min(max(ns[b], 0), n_pad), m = min(max(ms[b], 0), m_pad);
+  const int n = CH ? max(ns[b], 0) : min(max(ns[b], 0), n_pad);
+  const int m = CH ? max(ms[b], 0) : min(max(ms[b], 0), m_pad);
+  // EDGE: global columns col0g+1 .., local index j - 1 - col0g of ts,
+  // allow and the state rows; the launch's rows are global i0+1 ..
+  const int col0g = CH ? ch.col0g : 0, gi0 = CH ? i0 : 0;
   const int* q = qs + (size_t)b * m_pad;
-  const int* t = ts + (size_t)b * n_pad;
-  const float* al = allow + (size_t)b * n_pad;
-  uint8_t* out = PTRS ? ptrs + (size_t)b * R * n_pad : nullptr;
-  // the block's columns: c_blk, or fewer in a ragged last block
-  const int col0 = c * c_blk, bw = min(c_blk, n_pad - col0);
-  const bool feeds = c + 1 < nblk;
+  const int* t = ts + (size_t)b * n_pad - col0g;
+  const float* al = allow + (size_t)b * n_pad - col0g;
+  const T* top = CH ? static_cast<const T*>(ch.top) + (size_t)b * ST * n_pad - col0g - 1 : nullptr;
+  uint8_t* out = !PTRS ? nullptr
+                 : CH  ? ptrs + ((size_t)b * ch.slab_rows + i0 / rpb) * n_pad
+                       : ptrs + (size_t)b * R * n_pad;
+  // the block's columns: c_blk, or fewer in a ragged last block (lc0 its
+  // first in the row's memory)
+  const int lc0 = c * c_blk, col0 = col0g + lc0, bw = min(c_blk, n_pad - lc0);
+  const int lim = col0g + n_pad;  // allow's columns end here
+  const bool feeds = CH || c + 1 < nblk;
   const Strip s(col0, bw, W);
   // the checkpoint's state rows: CKPT, of each pair and S-th row; SEED, the
   // one row this block starts from (64-bit offsets: the tensor passes 2^31)
@@ -692,14 +787,18 @@ bptr_affine(const int* __restrict__ qs, const int* __restrict__ ts,
       Mr[x] = seed[PM * ck_row + j];
       Lr[x] = seed[PL * ck_row + j];
       Ur[x] = seed[PU * ck_row + j];
+    } else if (CH) {
+      Mr[x] = top[PM * n_pad + j];
+      Lr[x] = top[PL * n_pad + j];
+      Ur[x] = top[PU * n_pad + j];
     } else {
       Mr[x] = MODE == GLOBAL ? NG : (T)0;
       Lr[x] = MODE == LOCAL ? (T)0 : NG;
       Ur[x] = MODE == GLOBAL ? o + e * (T)j : (T)0;
     }
     if (JUMP) {
-      Jr[x] = PHASE == SEED ? seed[PJ * ck_row + j] : NG;
-      Jb[x] = (j < n_pad && al[j] > 0.f) ? jp : NG;
+      Jr[x] = PHASE == SEED ? seed[PJ * ck_row + j] : CH ? top[PJ * n_pad + j] : NG;
+      Jb[x] = (j < lim && al[j] > 0.f) ? jp : NG;
     }
   }
   if (s.cnt > 0) {
@@ -709,11 +808,16 @@ bptr_affine(const int* __restrict__ qs, const int* __restrict__ ts,
   const T jb0 = (JUMP && al[col0] > 0.f) ? jp : NG;
   // thread 0's diagonal: row i-1's M, L, U, J at col0 (SEED past block 0:
   // the checkpoint's column col0)
-  const bool from_ck = PHASE == SEED && c > 0;
-  T eM0 = from_ck ? seed[PM * ck_row + col0] : ptr_edge<MODE, T>(PM, c, 0, r0, col0, o, e, w);
-  T eL0 = from_ck ? seed[PL * ck_row + col0] : ptr_edge<MODE, T>(PL, c, 0, r0, col0, o, e, w);
-  T eU0 = from_ck ? seed[PU * ck_row + col0] : ptr_edge<MODE, T>(PU, c, 0, r0, col0, o, e, w);
-  T eJ0 = (JUMP && from_ck) ? seed[PJ * ck_row + col0] : NG;
+  // (EDGE: the left edge's row 0 in block 0, else the previous block's last
+  // column of `top`)
+  const bool from_ck = PHASE == SEED && c > 0, from_top = CH && c > 0;
+  auto row0 = [&](int st) {
+    return from_ck ? seed[st * ck_row + col0]
+         : from_top ? top[st * n_pad + col0]
+         : CH ? w.edge(st, 0) : ptr_edge<MODE, T>(st, c, 0, r0, col0, o, e, w);
+  };
+  T eM0 = row0(PM), eL0 = row0(PL), eU0 = row0(PU);
+  T eJ0 = (JUMP && (from_ck || CH)) ? row0(PJ) : NG;
   if (PHASE == CKPT) put_ck(0);
   // this block's start info: local's running maximum, fit's bottom row
   T blk_s = NG;
@@ -721,8 +825,9 @@ bptr_affine(const int* __restrict__ qs, const int* __restrict__ ts,
   __syncthreads();
   for (int i = 1; i <= m_pad; ++i) {
     const int idx = i - 1, sub_row = idx % rpb, shift = sub_row * bits;
+    const int gi = gi0 + i;  // the global row (FILL, CKPT: i)
     if (PTRS && sub_row == 0 && i > 1)
-      store_row(stage, out + (size_t)(idx / rpb - 1) * n_pad + col0, bw);
+      store_row(stage, out + (size_t)(idx / rpb - 1) * n_pad + lc0, bw);
     const int qc = q[idx];
     // row i-1 at column j0-1
     T dM, dL, dU, dJ = NG;
@@ -779,10 +884,13 @@ bptr_affine(const int* __restrict__ qs, const int* __restrict__ ts,
     }
     if (tid == 0) {
       if (c > 0) w.wait(i);
-      eg[PM] = eM0 = ptr_edge<MODE, T>(PM, c, i, r0, col0, o, e, w);
-      eg[PL] = eL0 = ptr_edge<MODE, T>(PL, c, i, r0, col0, o, e, w);
-      eg[PU] = eU0 = ptr_edge<MODE, T>(PU, c, i, r0, col0, o, e, w);
-      if (JUMP) eg[PJ] = eJ0 = ptr_edge<MODE, T>(PJ, c, i, r0, col0, o, e, w);
+      auto at = [&](int st) {
+        return CH ? w.edge(st, i) : ptr_edge<MODE, T>(st, c, i, r0, col0, o, e, w);
+      };
+      eg[PM] = eM0 = at(PM);
+      eg[PL] = eL0 = at(PL);
+      eg[PU] = eU0 = at(PU);
+      if (JUMP) eg[PJ] = eJ0 = at(PJ);
     }
     const T none[3] = {NG, NG, NG};
     T total[3];
@@ -797,7 +905,7 @@ bptr_affine(const int* __restrict__ qs, const int* __restrict__ ts,
       mprev = Mr[s.left];
       if (JUMP) jcv = mprev + Jb[s.left];
     }
-    const bool last_row = i == m;
+    const bool last_row = gi == m;
     for (int k = 0; k < s.cnt; ++k) {
       const int j = s.j(k);
       const size_t x = s.slot(k);
@@ -839,14 +947,14 @@ bptr_affine(const int* __restrict__ qs, const int* __restrict__ ts,
       }
     }
     if (PHASE == CKPT && i % stride == 0 && i < m_pad) put_ck(i);
-    if (LATCH && MODE == LOCAL && i <= m && total[2] > blk_s) {
+    if (LATCH && MODE == LOCAL && gi <= m && total[2] > blk_s) {
       // a strictly greater row maximum: its first column over j <= n
       int fj = BIG;
       for (int k = 0; k < s.cnt && fj == BIG; ++k)
         if (s.j(k) <= n && Mr[s.slot(k)] == total[2]) fj = s.j(k);
       blk_b = block_reduce<MinI>(fj, red_i);
       blk_s = total[2];
-      blk_a = i;
+      blk_a = gi;
     }
     if (LATCH && MODE == FIT && last_row) {
       // this block's bottom row over columns <= n-1; L wins only when
@@ -870,8 +978,42 @@ bptr_affine(const int* __restrict__ qs, const int* __restrict__ ts,
     }
     __syncthreads();
   }
-  if (PTRS) store_row(stage, out + (size_t)(R - 1) * n_pad + col0, bw);
+  if (PTRS) store_row(stage, out + (size_t)(R - 1) * n_pad + lc0, bw);
+  if (CH) {  // row i0 + m_pad's states for the next chunk
+    T* bot = static_cast<T*>(ch.bottom) + (size_t)b * ST * n_pad - col0g - 1;
+    for (int k = 0; k < s.cnt; ++k) {
+      const int j = s.j(k);
+      const size_t x = s.slot(k);
+      bot[PM * n_pad + j] = Mr[x];
+      bot[PL * n_pad + j] = Lr[x];
+      bot[PU * n_pad + j] = Ur[x];
+      if (ST > 3) bot[PJ * n_pad + j] = JUMP ? Jr[x] : NG;
+    }
+  }
   if (!LATCH) return;
+  if (CH) {
+    if (tid == 0 && w.finish(MODE == GLOBAL ? pack(g_s, g_a) : pack(blk_s, blk_a, blk_b), nblk)) {
+      // merge into the chunks' running candidate, as FILL's merge below: the
+      // block holding (m, n); local's, after the earlier chunks'; fit's row m
+      const bool holds_m = gi0 < m && m <= gi0 + m_pad;
+      int4 acc = ch.acc[b];
+      if (MODE == GLOBAL) {
+        if (holds_m && n > col0g && n <= col0g + n_pad) acc = w.candidate((n - 1 - col0g) / c_blk);
+      } else if (MODE == LOCAL || holds_m) {
+        for (int k = 0; k < nblk; ++k) {
+          const int4 x = w.candidate(k);
+          const T fs = unpack<T>(x), as = unpack<T>(acc);
+          const bool take =
+              MODE == LOCAL
+                  ? fs > as || (fs == as && x.y < acc.y)
+                  : k == 0 || fs > as || (fs == as && (x.y < acc.y || (x.y == acc.y && x.z < acc.z)));
+          if (take) acc = x;
+        }
+      }
+      ch.acc[b] = acc;
+    }
+    return;
+  }
   if (tid == 0 && w.finish(MODE == GLOBAL ? pack(g_s, g_a) : pack(blk_s, blk_a, blk_b), nblk)) {
     T acc_s = NG;
     int acc_a = 0, acc_b = 0;
@@ -918,8 +1060,8 @@ bptr_overlap(const int* __restrict__ qs, const int* __restrict__ ts,
              const T* __restrict__ params, T* __restrict__ score_out,
              int* __restrict__ a_out, int* __restrict__ b_out, uint8_t* __restrict__ ptrs,
              T* edges, int* flags, int4* cand, T* ck, int m_pad, int n_pad, int c_blk,
-             int W, int rpb, int stride) {
-  constexpr bool PTRS = PHASE != CKPT, LATCH = PHASE != SEED;
+             int W, int rpb, int stride, int i0 = 0, Chunk ch = {}) {
+  constexpr bool PTRS = PHASE != CKPT, LATCH = PHASE != SEED, CH = PHASE == EDGE;
   constexpr T NG = (T)NEG;
   using Max = typename Ops<T>::Max;
   extern __shared__ __align__(16) uint8_t smem[];
@@ -929,7 +1071,7 @@ bptr_overlap(const int* __restrict__ qs, const int* __restrict__ ts,
   __shared__ T eg;  // M(i, col0), from thread 0
   __shared__ int ticket;
   const int nblk = (n_pad + c_blk - 1) / c_blk;
-  Wave<T> w(take_ticket(flags, &ticket), nblk, flags, edges, cand, m_pad);
+  Wave<T> w(take_ticket(flags, &ticket), nblk, flags, edges, cand, m_pad, CH);
   const int b = w.b, c = w.c, tid = threadIdx.x;
   const size_t S = (size_t)blockDim.x * W;
   uint8_t* stage = smem;
@@ -939,12 +1081,18 @@ bptr_overlap(const int* __restrict__ qs, const int* __restrict__ ts,
   uint8_t* Cd = reinterpret_cast<uint8_t*>(Tc + S);
   const T match = params[0], mis = params[1], o = params[2];
   const int bits = 8 / rpb, R = m_pad / rpb;
-  const int n = min(max(ns[b], 0), n_pad), m = min(max(ms[b], 0), m_pad);
+  const int n = CH ? max(ns[b], 0) : min(max(ns[b], 0), n_pad);
+  const int m = CH ? max(ms[b], 0) : min(max(ms[b], 0), m_pad);
+  const int col0g = CH ? ch.col0g : 0, gi0 = CH ? i0 : 0;
   const int* q = qs + (size_t)b * m_pad;
-  const int* t = ts + (size_t)b * n_pad;
-  uint8_t* out = PTRS ? ptrs + (size_t)b * R * n_pad : nullptr;
-  const int col0 = c * c_blk, bw = min(c_blk, n_pad - col0);  // a ragged last block
-  const bool feeds = c + 1 < nblk;
+  const int* t = ts + (size_t)b * n_pad - col0g;
+  const T* top = CH ? static_cast<const T*>(ch.top) + (size_t)b * n_pad - col0g - 1 : nullptr;
+  uint8_t* out = !PTRS ? nullptr
+                 : CH  ? ptrs + ((size_t)b * ch.slab_rows + i0 / rpb) * n_pad
+                       : ptrs + (size_t)b * R * n_pad;
+  // a ragged last block; lc0 its first column in the row's memory
+  const int lc0 = c * c_blk, col0 = col0g + lc0, bw = min(c_blk, n_pad - lc0);
+  const bool feeds = CH || c + 1 < nblk;
   const Strip s(col0, bw, W);
   const size_t ck_row = (size_t)n_pad + 1;
   const int nck = PHASE == CKPT ? m_pad / stride : 1;
@@ -956,14 +1104,18 @@ bptr_overlap(const int* __restrict__ qs, const int* __restrict__ ts,
     if (c == 0 && tid == 0) dst[0] = (T)0;
   };
   // M(i, col0): the column-0 border is 0; row 0 is -inf past column 0
-  auto edge = [&](int i) { return c == 0 ? (T)0 : (i == 0 ? NG : w.edge(0, i)); };
+  // (EDGE: the left edge in block 0, else the previous block's)
+  auto edge = [&](int i) {
+    return CH || c > 0 ? (!CH && i == 0 ? NG : w.edge(0, i)) : (T)0;
+  };
   for (int k = 0; k < s.cnt; ++k) {
     const size_t x = s.slot(k);
     Tc[x] = t[s.j(k) - 1];
-    Mr[x] = PHASE == SEED ? seed[s.j(k)] : NG;
+    Mr[x] = PHASE == SEED ? seed[s.j(k)] : CH ? top[s.j(k)] : NG;
   }
-  // thread 0: M(i-1, col0) (SEED past block 0: the checkpoint's column col0)
-  T dM0 = (PHASE == SEED && c > 0) ? seed[col0] : edge(0);
+  // thread 0: M(i-1, col0) (SEED past block 0: the checkpoint's column col0;
+  // EDGE past block 0: the previous block's last column of `top`)
+  T dM0 = (PHASE == SEED && c > 0) ? seed[col0] : (CH && c > 0) ? top[col0] : edge(0);
   if (PHASE == CKPT) put_ck(0);
   // this block's bottom row: its maximum over columns <= n-1, first column
   T blk_s = NG;
@@ -972,7 +1124,7 @@ bptr_overlap(const int* __restrict__ qs, const int* __restrict__ ts,
   for (int i = 1; i <= m_pad; ++i) {
     const int idx = i - 1, sub_row = idx % rpb, shift = sub_row * bits;
     if (PTRS && sub_row == 0 && i > 1)
-      store_row(stage, out + (size_t)(idx / rpb - 1) * n_pad + col0, bw);
+      store_row(stage, out + (size_t)(idx / rpb - 1) * n_pad + lc0, bw);
     const int qc = q[idx];
     // M(i-1, j0-1); Mr is rewritten only in pass 2
     T dM = tid == 0 ? dM0 : (s.cnt > 0 ? Mr[s.left] : NG);
@@ -1020,7 +1172,7 @@ bptr_overlap(const int* __restrict__ qs, const int* __restrict__ ts,
       }
     }
     if (PHASE == CKPT && i % stride == 0 && i < m_pad) put_ck(i);
-    if (LATCH && i == m) {
+    if (LATCH && gi0 + i == m) {
       T mx = NG;
       for (int k = 0; k < s.cnt && s.j(k) <= n - 1; ++k) mx = vmax(mx, Mr[s.slot(k)]);
       mx = block_reduce<Max>(mx, red_f);
@@ -1032,8 +1184,23 @@ bptr_overlap(const int* __restrict__ qs, const int* __restrict__ ts,
     }
     __syncthreads();
   }
-  if (PTRS) store_row(stage, out + (size_t)(R - 1) * n_pad + col0, bw);
+  if (PTRS) store_row(stage, out + (size_t)(R - 1) * n_pad + lc0, bw);
+  if (CH) {
+    T* bot = static_cast<T*>(ch.bottom) + (size_t)b * n_pad - col0g - 1;
+    for (int k = 0; k < s.cnt; ++k) bot[s.j(k)] = Mr[s.slot(k)];
+  }
   if (!LATCH) return;
+  if (CH) {  // row m's first greatest, raw (the j = 0 candidate is the caller's)
+    if (tid == 0 && w.finish(pack(blk_s, blk_a), nblk) && gi0 < m && m <= gi0 + m_pad) {
+      int4 acc = w.candidate(0);
+      for (int k = 1; k < nblk; ++k) {
+        const int4 x = w.candidate(k);
+        if (unpack<T>(x) > unpack<T>(acc)) acc = x;
+      }
+      ch.acc[b] = acc;
+    }
+    return;
+  }
   if (tid == 0 && w.finish(pack(blk_s, blk_a), nblk)) {
     T acc_s = NG;
     int acc_a = 0;
@@ -1101,24 +1268,61 @@ cudaError_t launch_ptr(int mode, int use_jump, int rpb, const int* qs, const int
   if (mode == OVERLAP)  // stage, M, max(DIAG, RIGHT), char, code
     return launch(bptr_overlap<PHASE, T>, ctas, threads, c_blk + S * (2 * V + 5), stream, qs, ts,
                   ns, ms, params, score, a, b, ptrs, edges, flags, cd, ck, m_pad, n_pad, c_blk,
-                  wmax, rpb, stride);
+                  wmax, rpb, stride, 0, Chunk{});
   // stage, the threads' last M and L, M, L, U[, J, jump bias], char, code
   const size_t smem = c_blk + (size_t)threads * 2 * V + S * ((use_jump ? 5 : 3) * V + 5);
   if (mode == GLOBAL)
     return launch(bptr_affine<GLOBAL, false, PHASE, T>, ctas, threads, smem, stream, qs, ts,
                   allow, ns, ms, params, score, a, b, ptrs, edges, flags, cd, ck, m_pad, n_pad,
-                  c_blk, wmax, rpb, stride, i0);
+                  c_blk, wmax, rpb, stride, i0, Chunk{});
   if (mode == LOCAL)
     return launch(bptr_affine<LOCAL, false, PHASE, T>, ctas, threads, smem, stream, qs, ts,
                   allow, ns, ms, params, score, a, b, ptrs, edges, flags, cd, ck, m_pad, n_pad,
-                  c_blk, wmax, rpb, stride, i0);
+                  c_blk, wmax, rpb, stride, i0, Chunk{});
   if (use_jump)
     return launch(bptr_affine<FIT, true, PHASE, T>, ctas, threads, smem, stream, qs, ts, allow,
                   ns, ms, params, score, a, b, ptrs, edges, flags, cd, ck, m_pad, n_pad, c_blk,
-                  wmax, rpb, stride, i0);
+                  wmax, rpb, stride, i0, Chunk{});
   return launch(bptr_affine<FIT, false, PHASE, T>, ctas, threads, smem, stream, qs, ts, allow,
                 ns, ms, params, score, a, b, ptrs, edges, flags, cd, ck, m_pad, n_pad, c_blk,
-                wmax, rpb, stride, i0);
+                wmax, rpb, stride, i0, Chunk{});
+}
+
+// One EDGE-phase pointer fill (float32): the checks, then the mode's
+// instance; the layout is launch_ptr's, with the chunk's rows (m_pad) and
+// the slice's columns (n_pad).
+cudaError_t launch_edge_ptr(int mode, int use_jump, int rpb, const int* qs, const int* ts,
+                            const float* allow, const int* ns, const int* ms,
+                            const float* params, uint8_t* slab, float* edges, int* flags,
+                            void* cand, int B, int R, int nloc, int c_blk, int threads, int wmax,
+                            Chunk ch, cudaStream_t stream) {
+  const bool bad_layout = (rpb != 1 && rpb != 2 && rpb != 4) || R % (8 * rpb) != 0 ||
+                          ch.i0 % (8 * rpb) != 0 || (rpb > 1 && use_jump) ||
+                          (rpb == 4 && mode != OVERLAP) || (use_jump && mode != FIT) ||
+                          ch.col0g < 0 || ch.col0g % 16 != 0 || ch.i0 < 0 ||
+                          ch.slab_rows < (ch.i0 + R) / rpb || ch.top == nullptr ||
+                          ch.bottom == nullptr || ch.acc == nullptr;
+  if (bad_blocks(B, threads, wmax, R, nloc, c_blk) || mode < GLOBAL || mode > OVERLAP ||
+      bad_layout)
+    return cudaErrorInvalidValue;
+  if (B == 0) return cudaSuccess;
+  const int ctas = B * ((nloc + c_blk - 1) / c_blk);
+  const size_t S = (size_t)threads * wmax, V = sizeof(float);
+  int4* cd = static_cast<int4*>(cand);
+  if (mode == OVERLAP)
+    return launch(bptr_overlap<EDGE, float>, ctas, threads, c_blk + S * (2 * V + 5), stream, qs,
+                  ts, ns, ms, params, nullptr, nullptr, nullptr, slab, edges, flags, cd, nullptr,
+                  R, nloc, c_blk, wmax, rpb, 1, ch.i0, ch);
+  const size_t smem = c_blk + (size_t)threads * 2 * V + S * ((use_jump ? 5 : 3) * V + 5);
+  auto go = [&](auto kernel) {
+    return launch(kernel, ctas, threads, smem, stream, qs, ts, allow, ns, ms, params, nullptr,
+                  nullptr, nullptr, slab, edges, flags, cd, nullptr, R, nloc, c_blk, wmax, rpb, 1,
+                  ch.i0, ch);
+  };
+  if (mode == GLOBAL) return go(bptr_affine<GLOBAL, false, EDGE, float>);
+  if (mode == LOCAL) return go(bptr_affine<LOCAL, false, EDGE, float>);
+  if (use_jump) return go(bptr_affine<FIT, true, EDGE, float>);
+  return go(bptr_affine<FIT, false, EDGE, float>);
 }
 
 }  // namespace
@@ -1149,24 +1353,24 @@ cudaError_t at_blocked_scores(int mode, int use_jump, const int* qs, const int* 
   float* f_out = static_cast<float*>(out);
   int4* cd = static_cast<int4*>(cand);
   if (mode == OVERLAP)
-    return launch(bscore_overlap, ctas, threads, S * 12, stream, qs, ts, ns, ms, params, f_out,
-                  edges, flags, cd, m_pad, n_pad, c_blk, wmax);
+    return launch(bscore_overlap<false>, ctas, threads, S * 12, stream, qs, ts, ns, ms, params,
+                  f_out, edges, flags, cd, m_pad, n_pad, c_blk, wmax, Chunk{});
   if (mode == EDIT)
     return launch(bscore_edit<int, float>, ctas, threads, S * 12, stream, qs, ts, ns, ms, params,
                   static_cast<int*>(out), reinterpret_cast<int*>(edges), flags, cd, m_pad, n_pad,
-                  c_blk, wmax);
+                  c_blk, wmax, Chunk{});
   const size_t smem = S * (use_jump ? 20 : 16);
   if (mode == GLOBAL)
     return launch(bscore_affine<GLOBAL, false>, ctas, threads, smem, stream, qs, ts, allow, ns,
-                  ms, params, f_out, edges, flags, cd, m_pad, n_pad, c_blk, wmax);
+                  ms, params, f_out, edges, flags, cd, m_pad, n_pad, c_blk, wmax, Chunk{});
   if (mode == LOCAL)
     return launch(bscore_affine<LOCAL, false>, ctas, threads, smem, stream, qs, ts, allow, ns,
-                  ms, params, f_out, edges, flags, cd, m_pad, n_pad, c_blk, wmax);
+                  ms, params, f_out, edges, flags, cd, m_pad, n_pad, c_blk, wmax, Chunk{});
   if (use_jump)
     return launch(bscore_affine<FIT, true>, ctas, threads, smem, stream, qs, ts, allow, ns, ms,
-                  params, f_out, edges, flags, cd, m_pad, n_pad, c_blk, wmax);
+                  params, f_out, edges, flags, cd, m_pad, n_pad, c_blk, wmax, Chunk{});
   return launch(bscore_affine<FIT, false>, ctas, threads, smem, stream, qs, ts, allow, ns, ms,
-                params, f_out, edges, flags, cd, m_pad, n_pad, c_blk, wmax);
+                params, f_out, edges, flags, cd, m_pad, n_pad, c_blk, wmax, Chunk{});
 }
 
 // The double instance of edit's blocked score fill (a pair past float32's
@@ -1181,7 +1385,8 @@ cudaError_t at_blocked_edit64(const int* qs, const int* ts, const int* ns, const
   const int ctas = B * ((n_pad + c_blk - 1) / c_blk);
   const size_t S = (size_t)threads * wmax;
   return launch(bscore_edit<double, double>, ctas, threads, S * 20, stream, qs, ts, ns, ms,
-                params, out, edges, flags, static_cast<int4*>(cand), m_pad, n_pad, c_blk, wmax);
+                params, out, edges, flags, static_cast<int4*>(cand), m_pad, n_pad, c_blk, wmax,
+                Chunk{});
 }
 
 // mode: 0 global, 1 local, 2 fit, 3 overlap; rpb rows per byte (1, 2, or 4
@@ -1271,6 +1476,66 @@ cudaError_t at_blocked_refill64(int mode, int use_jump, int rpb, const int* qs, 
                                   nullptr, nullptr, ptrs, edges, flags, cand,
                                   const_cast<double*>(ck), B, S, n_pad, c_blk, threads, wmax, S,
                                   i0, stream);
+}
+
+// The EDGE phase of the score fills (parallel/seqpar.py): rows i0+1 .. i0+R
+// of global columns col0+1 .. col0+nloc, qs (B, R), ts and allow (B, nloc),
+// `top`/`bottom` the (B, states, nloc) state rows of rows i0 and i0+R (3
+// states global, local and fit; 1 overlap and edit), `acc` the (B,) running
+// candidate (int32 for edit, else float32), `edges` (B, nblk + 1, 4, R + 1)
+// of the value type with the left edge in slot 0 (the right edge comes back
+// in slot nblk), `flags` (1 + B * (nblk + 1)) zeroed, `cand` (B, nblk, 4).
+cudaError_t at_blocked_edge_scores(int mode, int use_jump, const int* qs, const int* ts,
+                                   const float* allow, const int* ns, const int* ms,
+                                   const float* params, const void* top, void* bottom, void* acc,
+                                   void* edges, int* flags, void* cand, int B, int R, int nloc,
+                                   int c_blk, int threads, int wmax, int col0, int i0,
+                                   cudaStream_t stream) {
+  if (bad_blocks(B, threads, wmax, R, nloc, c_blk) || mode < GLOBAL || mode > EDIT ||
+      (use_jump && mode != FIT) || col0 < 0 || col0 % 16 != 0 || i0 < 0 || top == nullptr ||
+      bottom == nullptr || acc == nullptr)
+    return cudaErrorInvalidValue;
+  if (B == 0) return cudaSuccess;
+  const int ctas = B * ((nloc + c_blk - 1) / c_blk);
+  const size_t S = (size_t)threads * wmax;
+  const Chunk ch = {top, bottom, col0, i0, nullptr, 0};
+  float* f_acc = static_cast<float*>(acc);
+  float* f_edges = static_cast<float*>(edges);
+  int4* cd = static_cast<int4*>(cand);
+  if (mode == OVERLAP)
+    return launch(bscore_overlap<true>, ctas, threads, S * 12, stream, qs, ts, ns, ms, params,
+                  f_acc, f_edges, flags, cd, R, nloc, c_blk, wmax, ch);
+  if (mode == EDIT)
+    return launch(bscore_edit<int, float, true>, ctas, threads, S * 12, stream, qs, ts, ns, ms,
+                  params, static_cast<int*>(acc), static_cast<int*>(edges), flags, cd, R, nloc,
+                  c_blk, wmax, ch);
+  const size_t smem = S * (use_jump ? 20 : 16);
+  auto go = [&](auto kernel) {
+    return launch(kernel, ctas, threads, smem, stream, qs, ts, allow, ns, ms, params, f_acc,
+                  f_edges, flags, cd, R, nloc, c_blk, wmax, ch);
+  };
+  if (mode == GLOBAL) return go(bscore_affine<GLOBAL, false, true>);
+  if (mode == LOCAL) return go(bscore_affine<LOCAL, false, true>);
+  if (use_jump) return go(bscore_affine<FIT, true, true>);
+  return go(bscore_affine<FIT, false, true>);
+}
+
+// The EDGE phase of the pointer fills: as at_blocked_edge_scores, with rpb
+// rows per byte (R and i0 multiples of 8 * rpb), `top`/`bottom` (B,
+// states, nloc) float32 (3 states global and local, 4 fit, 1 overlap), the
+// pointer bytes into rows i0/rpb .. (i0+R)/rpb of `slab` (B, slab_rows,
+// nloc), and `acc` the (B, 4) int32 running start candidate (score bits, a,
+// b, 0): global's where the slice holds (m, n), local's strict running
+// row-major maximum, fit's and overlap's (raw) row m.
+cudaError_t at_blocked_edge_ptr(int mode, int use_jump, int rpb, const int* qs, const int* ts,
+                                const float* allow, const int* ns, const int* ms,
+                                const float* params, const float* top, float* bottom, void* acc,
+                                uint8_t* slab, int slab_rows, float* edges, int* flags,
+                                void* cand, int B, int R, int nloc, int c_blk, int threads,
+                                int wmax, int col0, int i0, cudaStream_t stream) {
+  const Chunk ch = {top, bottom, col0, i0, static_cast<int4*>(acc), slab_rows};
+  return launch_edge_ptr(mode, use_jump, rpb, qs, ts, allow, ns, ms, params, slab, edges, flags,
+                         cand, B, R, nloc, c_blk, threads, wmax, ch, stream);
 }
 
 }  // extern "C"

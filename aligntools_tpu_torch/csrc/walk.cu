@@ -66,6 +66,14 @@
 // error, stops there instead, and its final state is DONE once it has
 // ended (column 0 or an unset code), else LOW.
 //
+// COLUMN PAUSE (flat walks; parallel/seqpar.py's walk of one rank's pointer
+// slab, the columns past the rank's col0 in local coordinates): the walk
+// stops, with no error, where j reaches 0, and writes its final state as a
+// fifth scalar, so that it resumes on the left rank's slab. Fit, which walks
+// on at j <= 0 in a whole matrix, stops there too; overlap's walk, which
+// ends at column 0, leaves its state LOW there (DONE once it has ended with
+// an unset code).
+//
 // Window mode (WINDOW, band >= 0) walks the banded fill's pointers: cell
 // (i, j) at row i-1, lane k = j - i + band of a (B, m_pad, cols) byte
 // tensor (rows per byte 1), target chars from the fill's te plane at
@@ -85,6 +93,7 @@ constexpr int GLOBAL = 0, LOCAL = 1, FIT = 2, OVERLAP = 3;
 constexpr uint8_t GAP = '-';
 
 constexpr int ERR_UNSET = 1, ERR_LEFT_BAND = 2;
+constexpr int NO_PAUSE = 0, ROWS = 1, COLS = 2;  // the pauses
 
 constexpr int TILE_BYTES = 8192;     // pointer bytes a tile
 constexpr int MAX_TILE_ROWS = 256;   // byte-rows a tile, at most
@@ -187,7 +196,7 @@ __device__ void load(uint8_t* buf, const Tile& T, const uint8_t* P, const int* q
   cp_async_commit();
 }
 
-template <bool WINDOW, int MODE, int RPB, bool PAUSE>
+template <bool WINDOW, int MODE, int RPB, int PAUSE>
 __global__ void walk_kernel(const Args a) {
   constexpr bool OVL = MODE == OVERLAP;
   constexpr int LG = RPB == 4 ? 2 : RPB == 2 ? 1 : 0, BITS = 8 / RPB;
@@ -302,14 +311,14 @@ __global__ void walk_kernel(const Args a) {
   };
   if (OVL) {
     // overlap's codes move directly: the next cell waits for this byte
-    for (; k < n_steps && !done && j > 0 && (!PAUSE || i > 0); ++k) {
+    for (; k < n_steps && !done && j > 0 && (PAUSE != ROWS || i > 0); ++k) {
       int row, jc, br, raw, qch, tch;
       cell(i, j, row, jc, br, out);
       ensure(row, br, jc);
       fetch(row, jc, br, j, raw, qch, tch);
       const int code = out ? 3 : (raw >> ((row & (RPB - 1)) * BITS)) & 0x3;
       bad = code == 3 || i <= 0;
-      done = bad || (code != 2 && j == 1);  // nj == 0
+      done = bad || (PAUSE != COLS && code != 2 && j == 1);  // nj == 0
       const bool takes_q = code != 0;  // DIAG and RIGHT consume a query char
       const bool takes_t = code != 2;  // LEFT and DIAG consume a target char
       // every lane has the step's columns, lane k % 32 keeps them (a
@@ -341,7 +350,8 @@ __global__ void walk_kernel(const Args a) {
     // it). Each lane writes its step's columns; the warp takes the whole
     // run, up to 32 steps, at once.
     for (;;) {
-      if (!(k < n_steps && state < DONE && i > 0 && (MODE == FIT || j > 0))) break;
+      if (!(k < n_steps && state < DONE && i > 0 && ((MODE == FIT && PAUSE != COLS) || j > 0)))
+        break;
       int row, jc, br;
       cell(i, j, row, jc, br, out);
       if (WINDOW && out) break;  // left the band: no step
@@ -353,8 +363,8 @@ __global__ void walk_kernel(const Args a) {
       bool lout = false;
       cell(ci, cj, lrow, ljc, lbr, lout);
       const bool inside = cur.holds(lbr, ljc);
-      const bool ok = inside && k + lane < n_steps && ci > 0 && (MODE == FIT || cj > 0) &&
-                      !(WINDOW && lout);
+      const bool ok = inside && k + lane < n_steps && ci > 0 &&
+                      ((MODE == FIT && PAUSE != COLS) || cj > 0) && !(WINDOW && lout);
       int raw, qch, tch;  // a lane outside the tile reads lane 0's cell
       fetch(inside ? lrow : row, inside ? ljc : jc, inside ? lbr : br, inside ? cj : j, raw,
             qch, tch);
@@ -399,14 +409,14 @@ __global__ void walk_kernel(const Args a) {
   }
 }
 
-template <bool WINDOW, int MODE, int RPB, bool PAUSE>
+template <bool WINDOW, int MODE, int RPB, int PAUSE>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   walk_kernel<WINDOW, MODE, RPB, PAUSE><<<a.B, 32, 2 * a.buf_bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
 // The instantiation for the launch's mode (window: rows per byte 1).
-template <bool WINDOW, int RPB, bool PAUSE>
+template <bool WINDOW, int RPB, int PAUSE>
 cudaError_t launch_mode(const Args& a, cudaStream_t stream) {
   switch (a.mode) {
     case GLOBAL: return launch<WINDOW, GLOBAL, RPB, PAUSE>(a, stream);
@@ -417,7 +427,7 @@ cudaError_t launch_mode(const Args& a, cudaStream_t stream) {
 }
 
 // The flat instantiation for the launch's rows per byte.
-template <bool PAUSE>
+template <int PAUSE>
 cudaError_t launch_flat(const Args& a, int rpb, cudaStream_t stream) {
   if (rpb == 4) return launch<false, OVERLAP, 4, PAUSE>(a, stream);
   return rpb == 2 ? launch_mode<false, 2, PAUSE>(a, stream)
@@ -436,8 +446,9 @@ cudaError_t launch_flat(const Args& a, int rpb, cudaStream_t stream) {
 // tiles are copied in 16-byte chunks). One pair a CTA of one warp, two
 // tile buffers of shared memory (~20 KB). `tile_cols` (a multiple of 16,
 // >= 32) is a tile's width where the row is wider, its rows TILE_BYTES /
-// width (at most MAX_TILE_ROWS). `pause` (flat walks only): stop at row 0
-// and write the final state; scal is then (5, B), else (4, B).
+// width (at most MAX_TILE_ROWS). `pause` (flat walks only): 1 stops at row
+// 0, 2 at column 0 (the column pause), and writes the final state; scal is
+// then (5, B), else (4, B).
 extern "C" cudaError_t at_walk(int mode, int rpb, const uint8_t* ptrs, const int* qs,
                                const int* ts, const int* starts, uint8_t* cols1,
                                uint8_t* cols2, int* scal, int B, int m_pad, int n_pad,
@@ -450,7 +461,7 @@ extern "C" cudaError_t at_walk(int mode, int rpb, const uint8_t* ptrs, const int
       mode > OVERLAP || (rpb != 1 && rpb != 2 && !(rpb == 4 && overlap)) ||
       (long long)R * rpb != m_pad || cols % 16 != 0 ||
       reinterpret_cast<uintptr_t>(ptrs) % 16 != 0 || tile_cols < 32 || tile_cols % 16 != 0 ||
-      (pause && window))
+      pause < NO_PAUSE || pause > COLS || (pause && window))
     return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   Args a = {ptrs, qs, ts, starts, cols1, cols2, scal, mode, B, m_pad, n_pad, R, cols, band};
@@ -458,6 +469,7 @@ extern "C" cudaError_t at_walk(int mode, int rpb, const uint8_t* ptrs, const int
   a.tr = TILE_BYTES / a.tc < MAX_TILE_ROWS ? TILE_BYTES / a.tc : MAX_TILE_ROWS;
   a.q_max = a.tr * rpb;
   a.buf_bytes = (a.tr * a.tc + 4 * (a.q_max + a.tc + a.tr) + 15) & ~15;
-  if (window) return launch_mode<true, 1, false>(a, stream);
-  return pause ? launch_flat<true>(a, rpb, stream) : launch_flat<false>(a, rpb, stream);
+  if (window) return launch_mode<true, 1, NO_PAUSE>(a, stream);
+  if (pause == COLS) return launch_flat<COLS>(a, rpb, stream);
+  return pause ? launch_flat<ROWS>(a, rpb, stream) : launch_flat<NO_PAUSE>(a, rpb, stream);
 }

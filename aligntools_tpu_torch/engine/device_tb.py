@@ -35,6 +35,14 @@ state (below DONE; local's HOME stop is DONE); overlap, whose walk would
 flag row 0 before column 0, stops there instead, with the state DONE once
 its walk has ended (column 0 or an error), else LOW.
 
+With ``col0`` > 0 (``parallel/seqpar.py``'s walk of one rank's pointer
+slab: columns col0+1 .. col0+n_pad, ``ts`` their chars, starts and the
+final j in global columns) the walk pauses, with no error, where j reaches
+col0, and returns its final state as with ``pause``, so that it resumes on
+the left rank's slab: fit, which walks on at j <= 0 in a whole matrix,
+stops there too, and overlap's walk, which ends at column 0, leaves the
+state LOW (DONE once it has ended with an error).
+
 With ``band`` the walk reads the banded fill's pointers in window
 coordinates (``ops/banded.py``; the counterpart of
 ``aligntools_tpu/engine/banded.py:_walk_banded``, a host loop there): cell
@@ -68,12 +76,13 @@ MODES = ("global", "local", "fit", "overlap")
 
 launches = 0
 pause_launches = 0  # the launches of the resumable walk among them
+col_pause_launches = 0  # and of the column-paused walk
 plain_calls = 0
 
 
 def reset_counts() -> None:
-    global launches, pause_launches, plain_calls
-    launches = pause_launches = plain_calls = 0
+    global launches, pause_launches, col_pause_launches, plain_calls
+    launches = pause_launches = col_pause_launches = plain_calls = 0
 
 
 def walk_starts(mode, score, a, b, ms, ns):
@@ -102,10 +111,15 @@ def _chars(plane, bidx, idx):
     return plane[bidx, idx.clamp(0, plane.shape[1] - 1)].to(torch.uint8)
 
 
-def walk_plain(mode, rpb, ptrs, qs, ts, starts, band=None, pause=False):
+def walk_plain(mode, rpb, ptrs, qs, ts, starts, band=None, pause=False,
+               col0=0):
     """Plain version of ``walk`` (any device)."""
     global plain_calls
     plain_calls += 1
+    if col0:  # the slab's own columns
+        starts = starts.clone()
+        starts[2] -= col0
+    cols = col0 > 0
     B, m_pad, n_pad = qs.shape[0], qs.shape[1], ts.shape[1]
     window = band is not None
     dev = qs.device
@@ -127,7 +141,7 @@ def walk_plain(mode, rpb, ptrs, qs, ts, starts, band=None, pause=False):
                 active &= i > 0
         else:
             active = (state < DONE) & (i > 0)
-            if mode != "fit":
+            if mode != "fit" or cols:
                 active &= j > 0
         # a step with no active pair changes nothing, so the host asks
         # (and waits for the device) only every SYNC_EVERY steps
@@ -184,15 +198,15 @@ def walk_plain(mode, rpb, ptrs, qs, ts, starts, band=None, pause=False):
         cols2[k] = torch.where(active, c2, nul)
         if overlap:
             err |= torch.where(bad & (err == 0), ERR_UNSET, 0)
-            done |= bad | (nj == 0)
+            done |= bad | (nj == 0) if not cols else bad
             count += (active & ~bad).to(torch.int32)
         else:
             err |= torch.where(active & (nxt == ERR), ERR_UNSET, 0)
             state = torch.where(active, nxt, state)
             count += active.to(torch.int32)
         i, j = ni, nj
-    rows = [count, i.to(torch.int32), j.to(torch.int32), err]
-    if pause:
+    rows = [count, i.to(torch.int32), (j + col0).to(torch.int32), err]
+    if pause or cols:
         rows.append(torch.where(done, DONE, LOW).to(torch.int32) if overlap
                     else state.to(torch.int32))
     return cols1, cols2, torch.stack(rows)
@@ -221,11 +235,14 @@ def _kernel():
     return _fn
 
 
-def _check(mode, rpb, ptrs, qs, ts, starts, band, pause=False):
+def _check(mode, rpb, ptrs, qs, ts, starts, band, pause=False, col0=0):
     if mode not in MODES:
         raise ValueError(f"unknown walk mode {mode!r}")
     if pause and band is not None:
         raise ValueError("a window walk has no pause at row 0")
+    if col0 and (pause or band is not None or col0 < 0):
+        raise ValueError("a column pause is a flat walk's, without the row "
+                         "pause")
     B, m_pad = qs.shape if qs.dim() == 2 else (-1, -1)
     n_pad = ts.shape[1] if ts.dim() == 2 else -1
     if rpb not in (1, 2, 4) or m_pad % rpb or (rpb == 4 and mode != "overlap"):
@@ -243,27 +260,32 @@ def _check(mode, rpb, ptrs, qs, ts, starts, band, pause=False):
                    ("starts", starts, torch.int32, (3, B))], qs.device)
 
 
-def walk(mode, rpb, ptrs, qs, ts, starts, band=None, pause=False):
+def walk(mode, rpb, ptrs, qs, ts, starts, band=None, pause=False, col0=0):
     """Walk every pair of a bucket from ``starts`` ((3, B) int32 state, i,
     j); returns (cols1, cols2, scal) as the module docstring lays them out.
     ``qs``/``ts`` are the fill's int32 sentinel char planes; with ``band``
     the pointers are the banded fill's window and ``ts`` its ``te``; with
-    ``pause`` a flat walk stops at row 0 and returns its final state."""
+    ``pause`` a flat walk stops at row 0 and returns its final state; with
+    ``col0`` > 0 the pointers are a rank's slab past column col0, where the
+    walk pauses and returns its final state."""
     starts = starts.contiguous()
-    _check(mode, rpb, ptrs, qs, ts, starts, band, pause)
+    _check(mode, rpb, ptrs, qs, ts, starts, band, pause, col0)
     if qs.device.type == "cpu":
-        return walk_plain(mode, rpb, ptrs, qs, ts, starts, band, pause)
+        return walk_plain(mode, rpb, ptrs, qs, ts, starts, band, pause, col0)
     if ptrs.shape[2] % 16 or ptrs.data_ptr() % 16:
         raise ValueError(f"the walk kernel copies pointer rows in 16-byte "
                          f"chunks: rows of {ptrs.shape[2]} bytes at "
                          f"{ptrs.data_ptr():#x}")
-    global launches, pause_launches
+    global launches, pause_launches, col_pause_launches
     B, m_pad = qs.shape
+    if col0:  # the slab's own columns
+        starts = starts.clone()
+        starts[2] -= col0
     n_pad = ts.shape[1]
     n_steps = m_pad + n_pad + 1
     cols1 = torch.zeros((n_steps, B), dtype=torch.uint8, device=qs.device)
     cols2 = torch.zeros_like(cols1)
-    scal = torch.empty((5 if pause else 4, B), dtype=torch.int32,
+    scal = torch.empty((5 if pause or col0 else 4, B), dtype=torch.int32,
                        device=qs.device)
     with torch.cuda.device(qs.device):
         stream = torch.cuda.current_stream(qs.device).cuda_stream
@@ -272,11 +294,14 @@ def walk(mode, rpb, ptrs, qs, ts, starts, band=None, pause=False):
                         cols1.data_ptr(), cols2.data_ptr(), scal.data_ptr(),
                         B, m_pad, n_pad, ptrs.shape[1], ptrs.shape[2],
                         -1 if band is None else band, TILE_COLS,
-                        int(bool(pause)), stream)
+                        2 if col0 else int(bool(pause)), stream)
     if err != 0:
         raise RuntimeError(f"walk kernel launch failed: CUDA error {err}")
     launches += 1
     pause_launches += bool(pause)
+    col_pause_launches += bool(col0)
+    if col0:
+        scal[2] += col0
     return cols1, cols2, scal
 
 

@@ -73,7 +73,8 @@ STRIP = 8  # block columns per thread the launch shape aims for
 # the plain versions (on a CPU tensor)
 launches = {"blocked_scores": 0, "blocked_ptr": 0, "blocked_ckpt": 0,
             "blocked_refill": 0, "blocked_edit64": 0, "blocked_ptr64": 0,
-            "blocked_ckpt64": 0, "blocked_refill64": 0}
+            "blocked_ckpt64": 0, "blocked_refill64": 0, "edge_scores": 0,
+            "edge_ptr": 0}
 plain_calls = 0
 
 
@@ -297,7 +298,7 @@ def blocked_ptr_fill(mode, use_jump, m_pad, n_pad, c_blk, qs, ts, allow, ns,
 
 # a checkpoint's state rows: M, L, U (global, local), fit's J too (-inf
 # without the jump), overlap's M
-CK_STATES = {"global": 3, "local": 3, "fit": 4, "overlap": 1}
+CK_STATES = ptr.TOP_STATES
 
 
 def blocked_ckpt_fill(mode, use_jump, S, m_pad, n_pad, c_blk, qs, ts, allow,
@@ -376,3 +377,167 @@ def blocked_refill(mode, use_jump, S, n_pad, c_blk, ck, i0, qs, ts, allow,
         i0, ptrs.data_ptr(), *(x.data_ptr() for x in scratch), B, S, n_pad,
         c_blk, threads, wmax), dev)
     return ptrs
+
+
+# ---------------------------------------------------------------------------
+# The EDGE phase: one chunk of rows over one rank's column slice
+# (parallel/seqpar.py)
+# ---------------------------------------------------------------------------
+
+
+def _edge_check(mode, use_jump, col0, i0, c_blk, qs, ts, allow, ns, ms,
+                params, top, ledge, n_top, n_edge, value):
+    """Raise unless a chunk's inputs have the EDGE phase's layout (see
+    ``edge_scores``); returns (B, R, n_loc)."""
+    if params.dtype != torch.float32:
+        raise ValueError("the EDGE phase has float32 instances only (a pair "
+                         "past float32's exact range is refused)")
+    B, R = qs.shape if qs.dim() == 2 else (-1, -1)
+    n_loc = ts.shape[1] if ts.dim() == 2 else -1
+    _check_blocks(n_loc, c_blk)
+    if R < 1 or col0 < 0 or col0 % 16 or not 0 <= i0 <= scan.INT32_MAX - R:
+        raise ValueError(f"a chunk of {R} rows at row {i0}, column {col0} "
+                         f"(a multiple of 16)")
+    if use_jump and (mode != "fit" or allow is None):
+        raise ValueError("the jump state exists in fit mode only, and needs "
+                         "allow")
+    want = [("qs", qs, torch.int32, (B, R)),
+            ("ts", ts, torch.int32, (B, n_loc)),
+            ("ns", ns, torch.int32, (B, 1)), ("ms", ms, torch.int32, (B, 1)),
+            ("params", params, torch.float32, (1, 8)),
+            ("top", top, value, (B, n_top, n_loc)),
+            ("ledge", ledge, value, (B, n_edge, R + 1))]
+    if use_jump:
+        want.append(("allow", allow, torch.float32, (B, n_loc)))
+    scan.check_tensors(want, qs.device)
+    if B * (-(-n_loc // c_blk) + 1) > scan.INT32_MAX:
+        raise ValueError(f"{B} pairs is past the int32 ticket counter")
+    return B, R, n_loc
+
+
+def _edge_scratch(B, nblk, R, ledge, n_edge, dtype):
+    """The wavefront's buffers with one more edge slot a pair: (B, nblk +
+    1, 4, R + 1) edges whose slot 0 is the left edge (read by block 0) and
+    whose slot nblk the last block writes (the right edge), the counters
+    and the candidates of ``_scratch``."""
+    dev = ledge.device
+    edges = torch.empty((B, nblk + 1, 4, R + 1), dtype=dtype, device=dev)
+    edges[:, 0, :n_edge] = ledge
+    flags = torch.zeros(1 + B * (nblk + 2), dtype=torch.int32, device=dev)
+    cand = torch.empty((B, nblk, 4), dtype=torch.int32, device=dev)
+    return edges, flags, cand
+
+
+def edge_scores(mode, use_jump, col0, i0, c_blk, qs, ts, allow, ns, ms,
+                params, top, ledge, acc):
+    """The EDGE phase of the blocked score fill: rows i0+1 .. i0+R (qs (B,
+    R)) of global columns col0+1 .. col0+n_loc (ts (B, n_loc), allow (B,
+    n_loc) with fit's jump) in column blocks of c_blk, one launch. ``top``
+    (B, scan.EDGE_TOP[mode], n_loc) holds the state rows of row i0 and
+    ``ledge`` (B, scan.edge_states, R+1) the left edge, the states at
+    column col0 of rows i0 .. i0+R (both int32 for edit, else float32);
+    ``acc`` (B,) the running candidate, raised (edit: lowered) in place.
+    Returns (bottom, redge), the state rows of row i0+R and the right edge
+    (B, edge_states, R) of rows i0+1 .. i0+R; ``scan.edge_scores_plain``
+    is the plain version."""
+    global plain_calls
+    value = scan.edge_dtype(mode)
+    n_edge = scan.edge_states(mode, use_jump)
+    B, R, n_loc = _edge_check(mode, use_jump, col0, i0, c_blk, qs, ts,
+                              allow, ns, ms, params, top, ledge,
+                              scan.EDGE_TOP[mode], n_edge, value)
+    scan.check_tensors([("acc", acc, value, (B,))], qs.device)
+    if qs.device.type == "cpu":
+        plain_calls += 1
+        return scan.edge_scores_plain(mode, use_jump, col0, i0, qs, ts, allow,
+                                      ns, ms, params, top, ledge, acc)
+    threads, wmax = launch_shape(c_blk)
+    nblk = -(-n_loc // c_blk)
+    edges, flags, cand = _edge_scratch(B, nblk, R, ledge, n_edge, value)
+    bottom = torch.empty_like(top)
+    _launch("edge_scores", _edge_kernels()[0], (
+        MODES.index(mode), int(bool(use_jump)), qs.data_ptr(), ts.data_ptr(),
+        0 if allow is None else allow.data_ptr(), ns.data_ptr(),
+        ms.data_ptr(), params.data_ptr(), top.data_ptr(), bottom.data_ptr(),
+        acc.data_ptr(), edges.data_ptr(), flags.data_ptr(), cand.data_ptr(),
+        B, R, n_loc, c_blk, threads, wmax, col0, i0), qs.device)
+    return bottom, edges[:, nblk, :n_edge, 1:]
+
+
+def edge_ptr_fill(mode, use_jump, col0, i0, c_blk, qs, ts, allow, ns, ms,
+                  params, top, ledge, cand, slab, rows_per_byte=1):
+    """The EDGE phase of the blocked pointer fill: rows i0+1 .. i0+R of
+    global columns col0+1 .. col0+n_loc, as ``edge_scores`` lays them out,
+    their pointer bytes written into rows i0/rpb .. (i0+R)/rpb of ``slab``
+    (B, slab rows, n_loc) uint8; ``top`` (B, ptr.TOP_STATES[mode], n_loc)
+    and ``ledge`` (B, ptr.edge_states, R+1) float32; ``cand`` (B, 4) int32
+    the running start candidate (score bits, a, b, 0), updated in place
+    (``ptr.ptr_fill_plain``'s ``edge``). Needs i0 and R multiples of 8 *
+    rows_per_byte. Returns (bottom, redge)."""
+    global plain_calls
+    rpb = rows_per_byte
+    n_edge = ptr.edge_states(mode, use_jump)
+    B, R, n_loc = _edge_check(mode, use_jump, col0, i0, c_blk, qs, ts,
+                              allow, ns, ms, params, top, ledge,
+                              CK_STATES.get(mode, 0), n_edge,
+                              torch.float32)
+    if mode not in ptr.MODES or rpb not in (1, 2, 4) or R % (8 * rpb) or (
+            i0 % (8 * rpb)) or (rpb > 1 and use_jump) or (
+            rpb == 4 and mode != "overlap"):
+        raise ValueError(f"no {mode} pointer layout of rows_per_byte {rpb} "
+                         f"for a chunk of {R} rows at row {i0}")
+    rows = slab.shape[1] if slab.dim() == 3 else -1
+    scan.check_tensors([("cand", cand, torch.int32, (B, 4)),
+                        ("slab", slab, torch.uint8, (B, rows, n_loc))],
+                       qs.device)
+    if (i0 + R) // rpb > rows:
+        raise ValueError(f"rows {i0 + 1} .. {i0 + R} pass the slab's "
+                         f"{rows * rpb}")
+    if qs.device.type == "cpu":
+        plain_calls += 1
+        chunk, bottom, redge = ptr.ptr_fill_plain(
+            mode, use_jump, R, n_loc, qs, ts, allow, ns, ms, params, rpb,
+            seed=top, i0=i0, col0=col0, edge=ledge, cand=cand)
+        slab[:, i0 // rpb : (i0 + R) // rpb] = chunk
+        return bottom, redge
+    threads, wmax = launch_shape(c_blk)
+    nblk = -(-n_loc // c_blk)
+    edges, flags, cand_blk = _edge_scratch(B, nblk, R, ledge, n_edge,
+                                           torch.float32)
+    bottom = torch.empty_like(top)
+    _launch("edge_ptr", _edge_kernels()[1], (
+        ptr.MODES.index(mode), int(bool(use_jump)), rpb, qs.data_ptr(),
+        ts.data_ptr(), 0 if allow is None else allow.data_ptr(),
+        ns.data_ptr(), ms.data_ptr(), params.data_ptr(), top.data_ptr(),
+        bottom.data_ptr(), cand.data_ptr(), slab.data_ptr(), rows,
+        edges.data_ptr(), flags.data_ptr(), cand_blk.data_ptr(), B, R,
+        n_loc, c_blk, threads, wmax, col0, i0), qs.device)
+    return bottom, edges[:, nblk, :n_edge, 1:]
+
+
+_edge_fns = None
+
+
+def _edge_kernels():
+    """The EDGE phase's C entry points (score fill, pointer fill)."""
+    global _edge_fns
+    if _edge_fns is None:
+        from aligntools_tpu_torch.ops import _build
+
+        lib = _build.load()
+        P, I = ctypes.c_void_p, ctypes.c_int
+        # mode, use_jump, qs, ts, allow, ns, ms, params, top, bottom, acc,
+        # edges, flags, cand, B, R, n_loc, c_blk, threads, wmax, col0, i0,
+        # stream
+        lib.at_blocked_edge_scores.argtypes = [I, I] + [P] * 12 + [I] * 8 + [
+            P]
+        # mode, use_jump, rpb, qs, ts, allow, ns, ms, params, top, bottom,
+        # cand, slab, slab rows, edges, flags, cand_blk, B, R, n_loc, c_blk,
+        # threads, wmax, col0, i0, stream
+        lib.at_blocked_edge_ptr.argtypes = [I, I, I] + [P] * 10 + [I] + [
+            P] * 3 + [I] * 8 + [P]
+        fns = (lib.at_blocked_edge_scores, lib.at_blocked_edge_ptr)
+        for fn in fns:
+            fn.restype = ctypes.c_int
+        _edge_fns = fns
+    return _edge_fns

@@ -127,8 +127,21 @@ def _border(mode, r, o, e):
     return [0.0 if first else NEG, NEG, 0.0 if first else NEG, NEG]  # fit
 
 
+# the state rows of one row of the pointer fill (a checkpoint's, and the
+# EDGE phase's state buffer): M, L, U, and fit's J (-inf without the jump);
+# overlap's M
+TOP_STATES = {"global": 3, "local": 3, "fit": 4, "overlap": 1}
+
+
+def edge_states(mode: str, use_jump: bool) -> int:
+    """The edge states the EDGE phase passes a rank's right neighbour: M,
+    L, U, and J with fit's jump; overlap's M."""
+    return 1 if mode == "overlap" else 4 if use_jump else 3
+
+
 def ptr_fill_plain(mode, use_jump, m_pad, n_pad, qs, ts, allow, ns, ms,
-                   params, rows_per_byte=1, *, stride=None, seed=None, i0=0):
+                   params, rows_per_byte=1, *, stride=None, seed=None, i0=0,
+                   col0=0, edge=None, cand=None):
     """Plain version of ``ptr_fill`` (any device), and of the
     checkpoint-rescan engine's two fills (``ops/blocked.py``):
 
@@ -139,11 +152,25 @@ def ptr_fill_plain(mode, use_jump, m_pad, n_pad, qs, ts, allow, ns, ms,
                 at rows 0, S, 2S, ..., checkpoint k entering row k*S + 1;
       seed      (B, states, n_pad + 1), the state rows of row i0: the
                 refill of rows i0+1 .. i0+m_pad (qs holds their chars);
-                returns the pointers alone."""
+                returns the pointers alone;
+      edge      the EDGE phase (``ops/blocked.edge_ptr_fill``): rows
+                i0+1 .. i0+m_pad of global columns col0+1 .. col0+n_pad
+                (one rank's slice; ts, allow and ns / ms in those terms),
+                ``seed`` (B, TOP_STATES, n_pad) the state rows of row i0,
+                ``edge`` (B, edge_states, m_pad+1) the states at column
+                col0 of rows i0 .. i0+m_pad, ``cand`` (B, 4) int32 the
+                running start candidate (score bits, a, b, 0), updated in
+                place: global's latch where the slice holds (m, n), local's
+                strict running row-major maximum, fit's and overlap's row
+                m (overlap's raw, without the j = 0 candidate). Returns
+                (ptrs, bottom, redge): the pointer bytes, the state rows of
+                row i0+m_pad, and the states at column col0+n_pad of rows
+                i0+1 .. i0+m_pad (B, edge_states, m_pad)."""
     global plain_calls
     plain_calls += 1
     rpb = rows_per_byte
-    latch = seed is None
+    chunk = edge is not None
+    latch = seed is None or chunk
     match, mis, o, e, jp = (params[0, k] for k in range(5))
     B, dev = qs.shape[0], qs.device
     vals = dict(device=dev, dtype=params.dtype)
@@ -153,7 +180,8 @@ def ptr_fill_plain(mode, use_jump, m_pad, n_pad, qs, ts, allow, ns, ms,
     else:
         k_home, k_unset = L.PK_HOME, L.PK_UNSET
         lbit, ubit = L.PK_L_IS_MID, L.PK_U_IS_UPP
-    jc = torch.arange(1, n_pad + 1, device=dev, dtype=torch.int32)[None, :]
+    jc = torch.arange(col0 + 1, col0 + n_pad + 1, device=dev,
+                      dtype=torch.int32)[None, :]
     jf = jc.to(params.dtype)
     n_col, m_vec = ns, ms[:, 0]
     mask_le_n, mask_eq_n, mask_lt_n = jc <= n_col, jc == n_col, jc <= n_col - 1
@@ -172,72 +200,93 @@ def ptr_fill_plain(mode, use_jump, m_pad, n_pad, qs, ts, allow, ns, ms,
         mp = negrow
     jpr = negrow
     if seed is not None:
-        mp = seed[:, 0, 1:]
+        top = seed if chunk else seed[:, :, 1:]
+        mp = top[:, 0]
         if mode != "overlap":
-            lp, up = seed[:, 1, 1:], seed[:, 2, 1:]
-        if mode == "fit":
-            jpr = seed[:, 3, 1:]
+            lp, up = top[:, 1], top[:, 2]
+        if use_jump:
+            jpr = top[:, 3]
+
+    def border(r):
+        """(M, L, U, J) at column col0 of row i0 + r, as (B, 1) columns:
+        the left edge's, else column 0's border (its constants made once)."""
+        if chunk:
+            cols = [edge[:, k, r : r + 1] for k in range(edge.shape[1])]
+        else:
+            cols = [(zcol if v == 0.0 else negcol) if isinstance(v, float)
+                    else zcol + v for v in _border(mode, i0 + r, o, e)]
+        if not use_jump:
+            cols = cols[:3]
+        return cols + [negcol] * (4 - len(cols))
+
+    if chunk:
+        score = cand[:, 0].clone().view(params.dtype)
+        a, b = cand[:, 1].clone(), cand[:, 2].clone()
+        holds_n = (n_col[:, 0] > col0) & (n_col[:, 0] <= col0 + n_pad)
+        redge = torch.empty((B, edge_states(mode, use_jump), m_pad), **vals)
     cks = None
     if stride:
-        states = 1 if mode == "overlap" else 4 if mode == "fit" else 3
-        cks = torch.empty((B, m_pad // stride, states, n_pad + 1), **vals)
-    score = torch.full((B,), NEG, **vals)
-    a = torch.zeros(B, dtype=torch.int32, device=dev)
-    b = torch.zeros(B, dtype=torch.int32, device=dev)
+        cks = torch.empty((B, m_pad // stride, TOP_STATES[mode], n_pad + 1),
+                          **vals)
+    if not chunk:
+        score = torch.full((B,), NEG, **vals)
+        a = torch.zeros(B, dtype=torch.int32, device=dev)
+        b = torch.zeros(B, dtype=torch.int32, device=dev)
     ptrs = None if cks is not None else torch.empty(
         (B, m_pad // rpb, n_pad), dtype=torch.uint8, device=dev)
     bits = 8 // rpb
     if use_jump:
         jgate = allow > 0.0
     byte = None
+    here_border = border(0)
     for idx in range(m_pad):
         if cks is not None and idx % stride == 0:
             rows = [mp] if mode == "overlap" else [mp, lp, up] + (
                 [jpr] if mode == "fit" else [])
-            col0 = _border(mode, idx, o, e)
+            bcol = _border(mode, idx, o, e)
             for st, row in enumerate(rows):
-                cks[:, idx // stride, st, 0] = col0[st]
+                cks[:, idx // stride, st, 0] = bcol[st]
                 cks[:, idx // stride, st, 1:] = row
         i = i0 + idx + 1  # the global row
         sub = torch.where(ts == qs[:, idx : idx + 1], match, mis)
         here = m_vec == i
+        (bm, bl, bu, bj), here_border = here_border, border(idx + 1)
+        cm, _, cu, cj = here_border  # row i; the other row i-1
         if mode == "overlap":
             # argument order LEFT, DIAG, RIGHT (alignment.h:944)
-            diag = _shift_in(mp, zcol) + sub
+            diag = _shift_in(mp, bm) + sub
             right = mp + o
             dr = torch.maximum(diag, right)
             m_row = torch.maximum(
-                torch.cummax(dr - o * jf, dim=1).values, zero) + o * jf
-            left = _shift_in(m_row, zcol) + o
+                torch.cummax(dr - o * jf, dim=1).values,
+                cm - o * col0 if col0 else cm) + o * jf
+            left = _shift_in(m_row, cm) + o
             val = torch.maximum(left, dr)
             code = torch.where(left >= val, L.OV_LEFT,
                                torch.where(diag >= right, L.OV_DIAG,
                                            L.OV_RIGHT))
             code = torch.where(val > NEG, code, L.OV_UNSET)
-            if latch:
+            if chunk:  # the raw bottom-row maximum, first column
+                rowmax = _masked_max(m_row, mask_lt_n)
+                score = torch.where(here, rowmax, score)
+                a = torch.where(here, _first_eq_j(m_row, rowmax, mask_lt_n,
+                                                  jc), a)
+                b = torch.where(here, 0, b)
+            elif latch:
                 rowmax = _masked_max(m_row, mask_lt_n)
                 jarg = _first_eq_j(m_row, rowmax, mask_lt_n, jc)
                 jarg = torch.where(rowmax > 0.0, jarg, 0)
                 score = torch.where(here, torch.maximum(rowmax, zero), score)
                 a = torch.where(here, jarg, a)
             mp = m_row
+            if chunk:
+                redge[:, 0, idx] = m_row[:, -1]
         else:
-            i_f = float(i)
-            first = i == 1  # the row above is row 0
-            if mode == "global":
-                mb = zcol if first else negcol
-                lb = zcol + (o + e * (i_f - 1.0))
-                ub = zcol + o if first else negcol
-            elif mode == "local":
-                mb = lb = ub = zcol
-            else:  # fit
-                mb = ub = zcol if first else negcol
-                lb = negcol
-            cands = [_shift_in(lp, lb) + sub, _shift_in(mp, mb) + sub,
-                     _shift_in(up, ub) + sub]
+            cands = [_shift_in(lp, bl) + sub, _shift_in(mp, bm) + sub,
+                     _shift_in(up, bu) + sub]
             codes = [L.PK_LOW, L.PK_MID, L.PK_UPP]
             if use_jump:
-                cands.append(_shift_in(jpr, negcol) + sub)
+                cands.append(_shift_in(jpr, bj) + sub)
                 codes.append(L.PK_JUMP)
             if mode == "local":
                 cands.append(zrow)  # the HOME candidate, with no +sub
@@ -254,25 +303,29 @@ def ptr_fill_plain(mode, use_jump, m_pad, n_pad, qs, ts, allow, ns, ms,
             la, lb2 = lp + e, mp + o
             l_row = torch.maximum(la, lb2)
             plbit = torch.where(la >= lb2, 0, lbit)
-            # the current row's column-0 M border: 0 local, -inf otherwise
-            mbc = zcol if mode == "local" else negcol
-            sm = _shift_in(m_row, mbc)
+            # U(i, col0) seeds the chain: column 0's is 0 local, -inf
+            # otherwise
+            sm = _shift_in(m_row, cm)
             v = torch.cummax(sm + (o - e * jf), dim=1).values
-            if mode == "local":  # U(i, 0) = 0
-                v = torch.clamp_min(v, 0.0)
+            if chunk or mode == "local":  # else U(i, 0) is -inf
+                v = torch.maximum(v, cu - e * col0 if col0 else cu)
             u_row = v + e * jf
             ua = sm + o
-            ub2 = _shift_in(u_row, mbc) + e
+            ub2 = _shift_in(u_row, cu) + e
             pubit = torch.where(ua >= ub2, 0, ubit)
             code = pm | plbit | pubit
             if use_jump:
                 jcand = torch.where(jgate, sm + jp, NEG)
                 j_row = torch.cummax(jcand, dim=1).values
-                jb = _shift_in(j_row, negcol)
+                if chunk:  # J(i, col0) seeds the chain; column 0's is -inf
+                    j_row = torch.maximum(j_row, cj)
+                jb = _shift_in(j_row, cj)
                 code = code | torch.where((jcand > NEG) & (jcand >= jb), 0,
                                           L.PK_J_IS_JUMP)
                 jpr = j_row
             if latch and mode == "global":
+                if chunk:  # the slice that holds column n latches
+                    here = here & holds_n
                 ln = _masked_max(l_row, mask_eq_n)
                 mn = _masked_max(m_row, mask_eq_n)
                 un = _masked_max(u_row, mask_eq_n)
@@ -281,6 +334,7 @@ def ptr_fill_plain(mode, use_jump, m_pad, n_pad, qs, ts, allow, ns, ms,
                 score = torch.where(
                     here, torch.maximum(torch.maximum(ln, mn), un), score)
                 a = torch.where(here, st.to(torch.int32), a)
+                b = torch.where(here, 0, b)
             elif latch and mode == "local":
                 rowmax = _masked_max(m_row, mask_le_n)
                 upd = (rowmax > score) & (i <= m_vec)
@@ -299,6 +353,10 @@ def ptr_fill_plain(mode, use_jump, m_pad, n_pad, qs, ts, allow, ns, ms,
                 a = torch.where(here, use_l.to(torch.int32), a)
                 b = torch.where(here, jarg, b)
             mp, lp, up = m_row, l_row, u_row
+            if chunk:
+                for k, row in enumerate((m_row, l_row, u_row, jpr)[
+                        : redge.shape[1]]):
+                    redge[:, k, idx] = row[:, -1]
         if cks is not None:
             continue
         r, s = divmod(idx, rpb)
@@ -307,6 +365,10 @@ def ptr_fill_plain(mode, use_jump, m_pad, n_pad, qs, ts, allow, ns, ms,
             ptrs[:, r] = byte.to(torch.uint8)
     if cks is not None:
         return score, a, b, cks
+    if chunk:
+        cand[:, 0], cand[:, 1], cand[:, 2] = score.view(torch.int32), a, b
+        rows = [mp] if mode == "overlap" else [mp, lp, up, jpr]
+        return ptrs, torch.stack(rows[: TOP_STATES[mode]], dim=1), redge
     if seed is not None:
         return ptrs
     return score, a, b, ptrs

@@ -259,6 +259,192 @@ def fit_scores_plain(use_jump, m_pad, n_pad, qs, ts, allow, ns, ms, params):
 
 
 # ---------------------------------------------------------------------------
+# The EDGE phase: one chunk of rows over one rank's column slice
+# ---------------------------------------------------------------------------
+
+# the state rows a chunk leaves for the next: M, L, max(L, M, U[, J]) for
+# global, local and fit; overlap's and edit's M
+EDGE_TOP = {"global": 3, "local": 3, "fit": 3, "overlap": 1, "edit": 1}
+
+
+def edge_states(mode: str, use_jump: bool) -> int:
+    """The edge states a rank passes its right neighbour: max(L, M, U[,
+    J]), M, U, and J with fit's jump; overlap's and edit's M."""
+    return 4 if use_jump else EDGE_TOP[mode]
+
+
+def edge_dtype(mode: str):
+    return torch.int32 if mode == "edit" else torch.float32
+
+
+def edge_scores_plain(mode, use_jump, col0, i0, qs, ts, allow, ns, ms,
+                      params, top, ledge, acc):
+    """Plain version of ``ops/blocked.edge_scores`` (any device): rows i0+1
+    .. i0+R of global columns col0+1 .. col0+n_loc of the score fill.
+
+      qs     (B, R) int32, the query chars of those rows (pad -1)
+      ts     (B, n_loc) int32, the slice's target chars (pad -2)
+      allow  (B, n_loc) float32, allow[:, k] gates J's entry into column
+             col0+k+1 (fit with the jump; else None)
+      top    (B, EDGE_TOP, n_loc) the state rows of row i0 (edit int32)
+      ledge  (B, edge_states, R+1) the left edge: the states at column col0
+             of rows i0 .. i0+R (edit int32)
+      acc    (B,) the running candidate (float32; edit int32), raised to
+             the chunk's (lowered for edit) in place: local's maximum of M
+             over rows <= m and columns <= n, global's max(L, M, U) at (m,
+             n), fit's max(M, L) and overlap's M on row m over columns <=
+             n-1, edit's M(m, n)
+
+    Returns (bottom, redge): the state rows of row i0+R and the right edge
+    (B, edge_states, R), the states at column col0+n_loc of rows i0+1 ..
+    i0+R. Every row and column is filled, pad ones included."""
+    global plain_calls
+    plain_calls += 1
+    B, R = qs.shape
+    n_loc = ts.shape[1]
+    dev = qs.device
+    dt = edge_dtype(mode)
+    match, mis, o, e, jp = (params[0, k].to(torch.float32) for k in range(5))
+    jc = torch.arange(col0 + 1, col0 + n_loc + 1, device=dev,
+                      dtype=torch.int32)[None, :]
+    jf = jc.to(dt)
+    m_vec, n_col = ms[:, 0], ns
+    top = top.clone()
+    redge = torch.empty((B, edge_states(mode, use_jump), R), dtype=dt,
+                        device=dev)
+    if mode == "edit":
+        u = params[0, 1].to(torch.int32)
+        prev = top[:, 0]
+        for r in range(1, R + 1):
+            sub = torch.where(ts == qs[:, r - 1 : r], 0, u)
+            cand = torch.minimum(_shift_in(prev, ledge[:, 0, r - 1 : r]) + sub,
+                                 prev + 1) - jf
+            run = torch.minimum(torch.cummin(cand, dim=1).values,
+                                ledge[:, 0, r : r + 1] - col0)
+            prev = (run + jf).to(torch.int32)
+            redge[:, 0, r - 1] = prev[:, -1]
+            hit = (m_vec == i0 + r)[:, None] & (jc == n_col)
+            acc.copy_(torch.minimum(acc, torch.where(hit, prev, INT32_MAX)
+                                    .amin(dim=1)))
+        top[:, 0] = prev
+        return top, redge
+    if mode == "overlap":
+        mp = top[:, 0]
+        for r in range(1, R + 1):
+            sub = torch.where(ts == qs[:, r - 1 : r], match, mis)
+            dr = torch.maximum(_shift_in(mp, ledge[:, 0, r - 1 : r]) + sub,
+                               mp + o)
+            run = torch.maximum(_cummax(dr - o * jf),
+                                ledge[:, 0, r : r + 1] - o * col0)
+            mp = run + o * jf
+            redge[:, 0, r - 1] = mp[:, -1]
+            hit = (m_vec == i0 + r)[:, None] & (jc <= n_col - 1)
+            acc.copy_(torch.maximum(acc, torch.where(hit, mp, NEG)
+                                    .amax(dim=1)))
+        top[:, 0] = mp
+        return top, redge
+    local = mode == "local"
+    mp, lp, bp = top[:, 0], top[:, 1], top[:, 2]
+    if use_jump:
+        jbias = torch.where(allow > 0.0, jp, NEG)
+    for r in range(1, R + 1):
+        i = i0 + r
+        sub = torch.where(ts == qs[:, r - 1 : r], match, mis)
+        m_row = _shift_in(bp, ledge[:, 0, r - 1 : r]) + sub
+        if local:
+            m_row = torch.clamp_min(m_row, 0.0)
+        l_row = torch.maximum(lp + e, mp + o)
+        em = ledge[:, 1, r : r + 1]
+        sm = _shift_in(m_row, em)
+        u_row = torch.maximum(_cummax(sm + (o - e * jf)),
+                              ledge[:, 2, r : r + 1] - e * col0) + e * jf
+        ml = torch.maximum(m_row, l_row)
+        best = torch.maximum(ml, u_row)
+        if use_jump:
+            j_row = torch.maximum(_cummax(sm + jbias), ledge[:, 3, r : r + 1])
+            best = torch.maximum(best, j_row)
+            redge[:, 3, r - 1] = j_row[:, -1]
+        redge[:, 0, r - 1] = best[:, -1]
+        redge[:, 1, r - 1] = m_row[:, -1]
+        redge[:, 2, r - 1] = u_row[:, -1]
+        if local:
+            hit = ((m_vec >= i)[:, None] & (jc <= n_col), m_row)
+        elif mode == "global":
+            hit = ((m_vec == i)[:, None] & (jc == n_col), best)
+        else:
+            hit = ((m_vec == i)[:, None] & (jc <= n_col - 1), ml)
+        acc.copy_(torch.maximum(acc, torch.where(hit[0], hit[1], NEG)
+                                .amax(dim=1)))
+        mp, lp, bp = m_row, l_row, best
+    top[:, 0], top[:, 1], top[:, 2] = mp, lp, bp
+    return top, redge
+
+
+def edge_analytic(mode, use_jump, kind, i0, R, col0, B, o, e, device):
+    """A chunk's analytic left edge (B, states, R+1) at column col0, made
+    on ``device``: the column-0 border of rows i0 .. i0+R at col0 == 0
+    (rank 0); at col0 > 0 the row-0 values at column col0 in row 0 (zeros
+    elsewhere: those rows are the left rank's). ``kind`` "scores"
+    (``edge_states``: max(L, M, U[, J]), M, U, J; overlap and edit M) or
+    "ptr" (``ops/ptr.edge_states``: M, L, U[, J]; overlap M), in the
+    fill's value type; ``o``, ``e`` the gap params."""
+    from aligntools_tpu_torch.ops import ptr
+
+    n_st = (edge_states(mode, use_jump) if kind == "scores"
+            else ptr.edge_states(mode, use_jump))
+    i = torch.arange(i0, i0 + R + 1, device=device, dtype=torch.float64)
+    neg, zero = torch.full_like(i, NEG), torch.zeros_like(i)
+    first = i == 0
+    if col0 > 0:  # row 0 at column col0; the rest the left rank's
+        uu = o + e * col0 if mode == "global" else 0.0
+        mm = NEG if mode == "global" else 0.0
+        ll = 0.0 if mode == "local" else NEG
+        vals = {"edit": [col0], "overlap": [NEG]}.get(
+            mode, [uu, mm, uu, NEG] if kind == "scores" else [mm, ll, uu, NEG])
+        rows = [torch.where(first, v, zero) for v in vals]
+    elif mode == "edit":
+        rows = [i]  # M(i, 0) = i
+    elif mode == "overlap":
+        rows = [zero]
+    elif mode == "local":
+        rows = [zero, zero, zero, neg]
+    else:
+        # column 0: M and U live at row 0 only (global U(0, 0) = o), global
+        # L(i, 0) = o + e*i; the diagonal reads max(L, M, U), 0 at row 0
+        mm = torch.where(first, 0.0, NEG)
+        uu = torch.where(first, o if mode == "global" else 0.0, NEG)
+        ll = o + e * i if mode == "global" else neg
+        bb = torch.where(first, 0.0, ll if mode == "global" else NEG)
+        rows = [bb, mm, uu, neg] if kind == "scores" else [mm, ll, uu, neg]
+    x = torch.stack(rows[:n_st])[None].expand(B, -1, -1)
+    return x.to(edge_dtype(mode)).contiguous()
+
+
+def top_analytic(mode, kind, col0, n_loc, B, o, e, device):
+    """Row 0's state rows at global columns col0+1 .. col0+n_loc, made on
+    ``device``, the state buffer of chunk 0: ``kind`` "scores"
+    (``EDGE_TOP``: M, L, max(L, M, U), which is U on row 0; overlap and
+    edit M) or "ptr" (``ops/ptr.TOP_STATES``: M, L, U[, J]; overlap M)."""
+    from aligntools_tpu_torch.ops import ptr
+
+    jf = torch.arange(col0 + 1, col0 + n_loc + 1, device=device,
+                      dtype=torch.float64)
+    neg, zero = torch.full_like(jf, NEG), torch.zeros_like(jf)
+    if mode == "edit":
+        rows = [jf]
+    elif mode == "overlap":
+        rows = [neg]
+    else:
+        uu = o + e * jf if mode == "global" else zero
+        mm = neg if mode == "global" else zero
+        ll = zero if mode == "local" else neg
+        rows = [mm, ll, uu, neg]
+        rows = rows[: 3 if kind == "scores" else ptr.TOP_STATES[mode]]
+    x = torch.stack(rows)[None].expand(B, -1, -1)
+    return x.to(edge_dtype(mode)).contiguous()
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 

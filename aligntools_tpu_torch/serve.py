@@ -14,9 +14,10 @@ lines byte for byte ``aligntools-torch batch``'s, followed by one line:
 
     #done pairs=N seconds=S gcups=G
 
-or ``#error <message>``: a malformed request never stops the server, nor
-does ``sharded``, which the port's pipeline refuses. A ``quit`` or ``exit``
-line, or EOF, ends the loop.
+or ``#error <message>``: a malformed request never stops the server. A
+``sharded`` request prints the scores of ``aligntools-torch batch
+--sharded`` (over the server's process group: one rank unless it runs
+under torchrun). A ``quit`` or ``exit`` line, or EOF, ends the loop.
 """
 
 from __future__ import annotations

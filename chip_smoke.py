@@ -118,11 +118,28 @@ Phases, one JSON line each:
            aligntools_cli, built here) on the same command;
   serve    serve() fed one stream on the slice phase's 2,000-pair FASTA:
            overlap scores_only, global (rows), fit sites (rows), edit, the
-           first again, a malformed line, a sharded request, quit and a
-           line after it: each request's TSV byte for byte the batch TSV
-           the slice phase wrote for the same mode and output, #done
-           pairs=2000 on each, two #error lines, nothing read after quit;
+           first again, a malformed line, an overlap sharded request (a
+           one-rank NCCL group), quit and a line after it: each request's
+           TSV byte for byte the batch TSV the slice phase wrote for the
+           same mode and output (the sharded one: overlap's scores), #done
+           pairs=2000 on each, one #error line, nothing read after quit;
            each request's seconds and pairs/s, and its launches;
+  parallel the parallel package (aligntools_tpu_torch/parallel/): `batch
+           MODE --sharded` on a one-rank NCCL group for the five modes (fit
+           -s) on every 8th pair of the 2,000, each TSV byte for byte the
+           `--scores-only` one; the EDGE score instances (six variants) at
+           one 256-row chunk of rank 1 of 4 of the B1 shape, the EDGE
+           pointer instances (global, local, overlap, fit+jump) at one
+           chunk of rank 1 of 4 of a related 2,050 x 20,480 pair and the
+           column-paused walk over its rank-3 slab, each against its plain
+           version on the CPU, bit for bit, and timed; then the main path
+           (seqpar_score on B1, seqpar_batch_scores on L1's pairs,
+           seqpar_align on the related pair) at one rank, the counts set to
+           0 just before and read just after, and by 4 gloo ranks spawned on
+           the one card (the script itself with --rank), each result equal
+           to the single-device route's of the same run; seqpar_score's
+           fit+jump on B1 timed at D 1 beside the blocked route and at D 4
+           (time-sliced on one card: no scaling figure);
   long     the port's main path on long targets through cli.main (L3):
            `batch fit -s` on 256+ seeded pairs (m ~ 1,300, n 40,000 to
            131,072, three junction sites each; enough that the pointer
@@ -259,6 +276,7 @@ failure exits nonzero before that line; so does a host without CUDA.
 
 import argparse
 import contextlib
+import datetime
 import io
 import json
 import os
@@ -274,6 +292,7 @@ SEED = 7
 SAMPLES = 64
 CHUNK = 16384  # the CLI's default --chunk-size
 TOL = "bit-equal (exact integer f32 / int32; pointers and rows are bytes)"
+INT32_MAX = 2**31 - 1
 
 # kernel -> (its TPU counterpart, source, the variants that run it)
 KERNELS = {
@@ -326,6 +345,20 @@ KERNELS = {
     "blocked_refill64": ("aligntools_tpu/engine/rescan.py:96 _refill_block "
                          "(its double instance; no pallas_call)",
                          "blocked_fill.cu", ()),
+    # the EDGE phase of the blocked fills and the walk's column pause: the
+    # port's sequence parallelism, where the JAX package runs engine/scan.py's
+    # row machines under shard_map (no pallas_call)
+    "edge_scores": ("aligntools_tpu/ops/pallas_blocked.py:48 "
+                    "_blocked_affine_kernel, its EDGE phase (for "
+                    "aligntools_tpu/parallel/seqpar.py:78 _seqpar_local_fn, a "
+                    "lax.scan under shard_map)", "blocked_fill.cu", ()),
+    "edge_ptr": ("aligntools_tpu/ops/pallas_blocked.py:375 "
+                 "_blocked_ptr_kernel, its EDGE phase (for aligntools_tpu/"
+                 "parallel/seqpar.py:236 _seqpar_local_ptr_fn)",
+                 "blocked_fill.cu", ()),
+    "walk_col_pause": ("aligntools_tpu/engine/device_tb.py:56 _walk_affine, "
+                       ":166 _walk_overlap, as aligntools_tpu/parallel/"
+                       "seqpar.py:552 walks the slabs", "walk.cu", ()),
     "probe_chain": ("tools/vpu_probe.py:77 vmem_ceiling (body :90-97, call "
                     ":101)", "vpu_probe.cu", ()),
     "probe_ilp": ("tools/vpu_probe.py:124 roofline_ops_per_sec (body "
@@ -2106,8 +2139,9 @@ class StampedOut(io.StringIO):
 def phase_serve(torch, scan, ptr, tb, slice_out):
     """serve() fed one stream on the 2,000-pair FASTA of the slice phase:
     each request's TSV byte for byte the batch TSV the slice phase wrote
-    for the same mode and output; a malformed and a sharded request
-    answered with #error; nothing after quit processed."""
+    for the same mode and output (a sharded request: the scores TSV, on a
+    one-rank NCCL group); a malformed request answered with #error; nothing
+    after quit processed."""
     from aligntools_tpu_torch.serve import serve
 
     fasta = slice_out["fasta"]
@@ -2121,7 +2155,8 @@ def phase_serve(torch, scan, ptr, tb, slice_out):
         ("overlap scores_only warm", f"overlap {fasta} scores_only",
          slice_out["scores"]["overlap"]),
         ("malformed", "global", None),
-        ("sharded", f"local {fasta} sharded scores_only", None),
+        ("sharded", f"overlap {fasta} sharded",
+         slice_out["scores"]["overlap"]),
     ]
     lines = [line for _, line, _ in requests] + ["quit", f"global {fasta}"]
     handed = []
@@ -2172,12 +2207,480 @@ def phase_serve(torch, scan, ptr, tb, slice_out):
         emit({"phase": "serve", "request": label, "pairs": n,
               "seconds": seconds, "pairs_per_s": n / seconds,
               "terminator": term})
-    check(errors == 2, f"serve: {errors} #error lines, expected 2")
+    check(errors == 1, f"serve: {errors} #error lines, expected 1")
     emit({"phase": "serve", "launches": launches, "plain_calls": plain})
     for name in ("overlap", "edit", "ptr", "walk"):
         check(launches[name] > 0, f"kernel {name} never launched in serve")
     check(not any(plain.values()), f"plain versions ran in serve: {plain}")
     return launches
+
+
+# the parallel phase: --sharded at one rank (NCCL) on every
+# PAR_SAMPLE_EVERY-th pair of the slice phase's 2,000; PAR_RANKS ranks
+# (gloo) on the one card; the related pair of seqpar_align; each EDGE
+# instance checked at one chunk of PAR_CHUNK rows at row PAR_CHUNK of rank
+# 1 of PAR_RANKS (the walk at rank PAR_RANKS-1's slab, where it starts)
+PAR_SAMPLE_EVERY = 8
+PAR_RANKS = 4
+PAR_ALIGN = (2050, 20480)
+PAR_CHUNK = 256
+PAR_TIMED = 3
+PAR_SCORE_VARIANTS = ("global", "local", "overlap", "edit", "fit",
+                      "fit+jump")
+PAR_ALIGN_VARIANTS = ("global", "local", "overlap", "fit+jump")
+PAR_LAUNCHES = ("edge_scores", "edge_ptr", "walk", "walk_col_pause")
+
+
+def parallel_inputs():
+    """The parallel phase's pairs, made from SEED (every rank rebuilds
+    them): B1 (1,327 x 114,491, three junction sites), L1's eight ragged
+    pairs in (1,024, 65,536) with their sites, the related 2,050 x 20,480
+    pair of seqpar_align with its sites."""
+    import numpy as np
+
+    from aligntools_tpu_torch.utils.synth import related_pair
+
+    rng = np.random.default_rng(SEED)
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+
+    def seq(k):
+        return acgt[rng.integers(0, 4, k)].tobytes()
+
+    def sites(n, k=3):
+        return sorted(int(x) for x in rng.integers(0, n, k))
+
+    b1 = (seq(BLOCKED_B1[3]), seq(BLOCKED_B1[4]))
+    l1 = []
+    for _ in range(BLOCKED_L1[0]):
+        m = int(rng.integers(BLOCKED_L1[1] // 2, BLOCKED_L1[1] + 1))
+        n = int(rng.integers(BLOCKED_L1[2] // 2, BLOCKED_L1[2] + 1))
+        l1.append((seq(m), seq(n)))
+    # the query from the window that crosses the boundary of ranks 2 and 3
+    # (at D 4), so that every mode's walk hands over between ranks
+    rel = related_pair(*PAR_ALIGN, seed=SEED, offset=3 * PAR_ALIGN[1]
+                       // PAR_RANKS - PAR_ALIGN[0] // 2)
+    return {"b1": b1, "b1_sites": sites(len(b1[1])), "l1": l1,
+            "l1_sites": [sites(len(t)) for _, t in l1], "align": rel,
+            "align_sites": sites(len(rel[1]))}
+
+
+def par_counts():
+    from aligntools_tpu_torch.engine import device_tb as tb
+    from aligntools_tpu_torch.ops import blocked, ptr, scan
+
+    return ({"edge_scores": blocked.launches["edge_scores"],
+             "edge_ptr": blocked.launches["edge_ptr"], "walk": tb.launches,
+             "walk_col_pause": tb.col_pause_launches},
+            scan.plain_calls + ptr.plain_calls + tb.plain_calls
+            + blocked.plain_calls)
+
+
+def par_main_path(mesh_seq, mesh_grid, inp):
+    """seqpar_score on B1 (each score variant), seqpar_batch_scores on L1
+    and seqpar_align on the related pair (each align variant), as a user
+    calls them: {label: result}."""
+    from aligntools_tpu_torch.params import AlignParams
+    from aligntools_tpu_torch.parallel import seqpar
+
+    p, out = AlignParams(), {}
+    for v in PAR_SCORE_VARIANTS:
+        mode, jump = v.split("+")[0], v.endswith("+jump")
+        out[f"score/{v}"] = seqpar.seqpar_score(
+            mode, *inp["b1"], p, inp["b1_sites"] if jump else None, mesh_seq)
+        out[f"batch/{v}"] = seqpar.seqpar_batch_scores(
+            mode, inp["l1"], p, inp["l1_sites"] if jump else None,
+            mesh_grid).tolist()
+    for v in PAR_ALIGN_VARIANTS:
+        mode, jump = v.split("+")[0], v.endswith("+jump")
+        r = seqpar.seqpar_align(mode, *inp["align"], p,
+                                inp["align_sites"] if jump else None,
+                                mesh_seq)
+        out[f"align/{v}"] = [r.score, r.row1.decode(), r.row2.decode()]
+    return out
+
+
+def par_score_ms(torch, fn, barrier=lambda: None):
+    """Median host wall of PAR_TIMED calls, each between barriers and
+    ending in a synchronize, in ms."""
+    times = []
+    for _ in range(PAR_TIMED):
+        barrier()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        barrier()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def rank_main(opts):
+    """One of PAR_RANKS gloo ranks on the one card (spawned by the parallel
+    phase): the main path from counts set to 0, the counts and results to
+    rank 0, which writes them to opts.out; a failure ends every rank."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from aligntools_tpu_torch.engine import device_tb as tb
+    from aligntools_tpu_torch.ops import _build, blocked, ptr, scan
+    from aligntools_tpu_torch.params import AlignParams
+    from aligntools_tpu_torch.parallel import distributed, mesh, seqpar
+
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(opts.store, opts.world), rank=opts.rank,
+        world_size=opts.world, timeout=datetime.timedelta(seconds=300))
+    try:
+        _build.load()
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        seq = mesh.make_mesh(axis="seq", device=dev, backend="gloo")
+        grid = mesh.make_mesh(axis=("data", "seq"), shape=(2, opts.world // 2),
+                              device=dev, backend="gloo")
+        inp = parallel_inputs()
+        for m in (scan, ptr, tb, blocked):
+            m.reset_counts()
+        res = par_main_path(seq, grid, inp)
+        torch.cuda.synchronize()
+        launches, plain = par_counts()
+        fit = lambda: seqpar.seqpar_score("fit", *inp["b1"], AlignParams(),
+                                          inp["b1_sites"], seq)
+        ms = par_score_ms(torch, fit, distributed.barrier)
+        row = np.array([launches[k] for k in PAR_LAUNCHES] + [plain],
+                       np.int64)[None]
+        allc = distributed.gather_to_host0(row)
+        if opts.rank == 0:
+            res["launches"] = dict(zip(PAR_LAUNCHES,
+                                       allc[:, :-1].sum(0).tolist()))
+            res["plain_calls"] = int(allc[:, -1].sum())
+            res["fit_jump_ms"] = ms
+            with open(opts.out, "w") as f:
+                json.dump(res, f)
+        distributed.barrier("aligntools-done")
+    except Exception as err:  # every failure ends the whole job
+        distributed.abort_all(err)
+    dist.destroy_process_group()
+    return 0
+
+
+def par_kernel_rows(torch, inp):
+    """Each new instance against its plain version (on the CPU, same
+    inputs), at one chunk of the main path's shapes: the EDGE score fills
+    at rank 1 of PAR_RANKS of B1 (random integer top rows and left edge,
+    -inf among them), the EDGE pointer fills at rank 1 of the related
+    pair, the column-paused walk over rank PAR_RANKS-1's slab of the
+    related pair's whole fill, from its start (one in the middle of that
+    slab where the start lies on rank 0); each timed (warm median of three,
+    the wrapper's host work included) beside its bound and the plain
+    version's one call."""
+    import numpy as np
+
+    from aligntools_tpu_torch import layout
+    from aligntools_tpu_torch.convert import params_matrix
+    from aligntools_tpu_torch.engine import device_tb as tb
+    from aligntools_tpu_torch.ops import blocked, ptr, scan
+    from aligntools_tpu_torch.params import AlignParams
+    from aligntools_tpu_torch.parallel import seqpar
+
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    rng = np.random.default_rng(SEED)
+    rows = []
+
+    def row(kernel, variant, shape, fn, plain, args, ops, nbytes, **extra):
+        got = [x.cpu() for x in fn(*[a.to(dev) if a is not None else None
+                                     for a in args])]
+        torch.cuda.synchronize()
+        ms_k = statistics.median(timed_ms(torch, lambda: fn(*[
+            a.to(dev) if a is not None else None for a in args]))
+            for _ in range(3))
+        t0 = time.perf_counter()
+        want = plain(*[a.clone() if a is not None else None for a in args])
+        ms_p = (time.perf_counter() - t0) * 1e3
+        eq = all(torch.equal(g, w) for g, w in zip(got, want))
+        err = max(max_err(torch, g, w) for g, w in zip(got, want))
+        b_ms, b_by = bound(ops, nbytes)
+        rows.append({"phase": "parallel", "kernel": kernel,
+                     "variant": variant, "shape": shape, "bit_equal": eq,
+                     "max_abs_err": err, "tolerance": TOL, "ms": ms_k,
+                     "plain_ms": ms_p, "plain_device": "cpu",
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "probe_ms": probe_ms(ops, kernel.startswith("walk")
+                                          or variant == "edit"), **extra})
+        emit(rows[-1])
+        check(eq and err == 0.0, f"{kernel} {variant} at {shape}: "
+              f"kernel != plain")
+
+    def chunk_inputs(q, t, sites, kind, mode, jump, n_loc, col0):
+        R, i0 = PAR_CHUNK, PAR_CHUNK
+        qa = np.full(R, -1, np.int32)
+        part = np.frombuffer(q[i0 : i0 + R], np.uint8)
+        qa[: len(part)] = part
+        ta = np.full(n_loc, -2, np.int32)
+        part = np.frombuffer(t[col0 : col0 + n_loc], np.uint8)
+        ta[: len(part)] = part
+        allow = np.ones(n_loc, np.float32)
+        for s in sites or []:
+            if col0 <= s < col0 + n_loc:
+                allow[s - col0] = 0.0
+        n_top = scan.EDGE_TOP[mode] if kind == "scores" else \
+            ptr.TOP_STATES[mode]
+        n_edge = (scan.edge_states(mode, jump) if kind == "scores"
+                  else ptr.edge_states(mode, jump))
+        dt = np.int32 if mode == "edit" else np.float32
+        top = rng.integers(-60, 60, (1, n_top, n_loc)).astype(dt)
+        ledge = rng.integers(-60, 60, (1, n_edge, R + 1)).astype(dt)
+        if mode != "edit":
+            top[rng.random(top.shape) < 0.02] = -np.inf
+            ledge[rng.random(ledge.shape) < 0.02] = -np.inf
+        t_ = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+        return (t_(qa[None]), t_(ta[None]), t_(allow[None]) if jump else
+                None, torch.tensor([[len(t)]], dtype=torch.int32),
+                torch.tensor([[len(q)]], dtype=torch.int32),
+                params_matrix(AlignParams(), cpu), t_(top), t_(ledge))
+
+    q, t = inp["b1"]
+    n_loc = seqpar.slice_width(len(t), PAR_RANKS)
+    c_blk = seqpar.edge_c_blk(n_loc)
+    for v in PAR_SCORE_VARIANTS:
+        mode, jump = v.split("+")[0], v.endswith("+jump")
+        args = chunk_inputs(q, t, inp["b1_sites"], "scores", mode, jump,
+                            n_loc, n_loc)
+        acc = torch.tensor([INT32_MAX if mode == "edit" else -1e9],
+                           dtype=scan.edge_dtype(mode))
+
+        def fn(*a, mode=mode, jump=jump):
+            acc_k = acc.clone().to(a[0].device)
+            return (*blocked.edge_scores(mode, jump, n_loc, PAR_CHUNK, c_blk,
+                                         *a, acc_k), acc_k)
+
+        def plain(*a, mode=mode, jump=jump):
+            acc_p = acc.clone()
+            return (*scan.edge_scores_plain(mode, jump, n_loc, PAR_CHUNK,
+                                            *a, acc_p), acc_p)
+
+        cells = PAR_CHUNK * n_loc
+        val = 4
+        row("edge_scores", v, f"{len(q)}x{len(t)}/D{PAR_RANKS} rank 1 "
+            f"rows {PAR_CHUNK + 1}-{2 * PAR_CHUNK}", fn, plain, args,
+            SCORE_OPS[v] * cells, val * (args[6].numel() * 2 + 2 * args[7]
+                                        .numel()) + 4 * (PAR_CHUNK + n_loc
+                                                         * (2 if jump else
+                                                            1)) + 8,
+            c_blk=c_blk)
+
+    q, t = inp["align"]
+    n_loc = seqpar.slice_width(len(t), PAR_RANKS)
+    c_blk = seqpar.edge_c_blk(n_loc)
+    for v in PAR_ALIGN_VARIANTS:
+        mode, jump = v.split("+")[0], v.endswith("+jump")
+        rpb = layout.rows_per_byte(mode, jump, PAR_CHUNK)
+        args = chunk_inputs(q, t, inp["align_sites"], "ptr", mode, jump,
+                            n_loc, n_loc)
+        cand = torch.tensor([[torch.tensor(-1e9).view(torch.int32).item(),
+                              0, 0, 0]], dtype=torch.int32)
+
+        def fn(*a, mode=mode, jump=jump, rpb=rpb):
+            c = cand.clone().to(a[0].device)
+            slab = torch.zeros((1, 2 * PAR_CHUNK // rpb, n_loc),
+                               dtype=torch.uint8, device=a[0].device)
+            return (*blocked.edge_ptr_fill(mode, jump, n_loc, PAR_CHUNK,
+                                           c_blk, *a, c, slab, rpb), c, slab)
+
+        def plain(*a, mode=mode, jump=jump, rpb=rpb):
+            c = cand.clone()
+            slab = torch.zeros((1, 2 * PAR_CHUNK // rpb, n_loc),
+                               dtype=torch.uint8)
+            chunk, bottom, redge = ptr.ptr_fill_plain(
+                mode, jump, PAR_CHUNK, n_loc, *a[:6], rpb, seed=a[6],
+                i0=PAR_CHUNK, col0=n_loc, edge=a[7], cand=c)
+            slab[:, PAR_CHUNK // rpb :] = chunk
+            return bottom, redge, c, slab
+
+        cells = PAR_CHUNK * n_loc
+        row("edge_ptr", f"{v}/rpb{rpb}", f"{len(q)}x{len(t)}/D{PAR_RANKS} "
+            f"rank 1 rows {PAR_CHUNK + 1}-{2 * PAR_CHUNK}", fn, plain, args,
+            (SCORE_OPS[v] + PTR_EXTRA_OPS[v]) * cells,
+            4 * (args[6].numel() * 2 + 2 * args[7].numel() + PAR_CHUNK
+                 + n_loc * (2 if jump else 1)) + cells // rpb + 16,
+            c_blk=c_blk)
+
+    # the walk: rank PAR_RANKS-1's slab of the whole fill, from the start
+    m, n = len(q), len(t)
+    for v in PAR_ALIGN_VARIANTS:
+        mode, jump = v.split("+")[0], v.endswith("+jump")
+        from aligntools_tpu_torch import batch
+
+        sl = [inp["align_sites"]] if jump else None
+        bk = batch._bucketize([(q, t)], sl, keys=[(-(-m // 32) * 32,
+                                                   PAR_RANKS * n_loc)])
+        b = next(iter(bk.values()))
+        qs, ts, allow, ns, ms = batch._bucket_tensors(b, dev)
+        if jump and allow is None:
+            allow = torch.ones_like(ts, dtype=torch.float32)
+        rpb = layout.rows_per_byte(mode, jump, b.m_pad)
+        pm = params_matrix(AlignParams(), dev)
+        score, a, bb, ptrs = ptr.ptr_fill(mode, jump, b.m_pad, b.n_pad, qs, ts,
+                                          allow, ns, ms, pm, rpb)
+        starts = tb.walk_starts(mode, score, a, bb, ms, ns)
+        if int(starts[2, 0]) <= n_loc:
+            # a start on rank 0 (overlap's at j 0 here) takes no column
+            # pause: the walk from the middle of the last rank's slab
+            starts[2, 0] = (PAR_RANKS - 1) * n_loc + n_loc // 2
+        j0 = int(starts[2, 0])
+        d = (j0 - 1) // n_loc
+        col0 = d * n_loc
+        slab = ptrs[:, :, col0 : col0 + n_loc].contiguous()
+        tloc = ts[:, col0 : col0 + n_loc].contiguous()
+        del ptrs
+        fn = lambda *a, mode=mode, rpb=rpb, col0=col0: tb.walk(
+            mode, rpb, *a, col0=col0)
+        plain = lambda *a, mode=mode, rpb=rpb, col0=col0: tb.walk_plain(
+            mode, rpb, *a, col0=col0)
+        got = fn(slab, qs, tloc, starts)
+        steps = int(got[2][0, 0])
+        row("walk_col_pause", f"{v}/rpb{rpb}", f"{m}x{n}/D{PAR_RANKS} rank "
+            f"{d}", fn, plain, (slab.cpu(), qs.cpu(), tloc.cpu(),
+                                starts.cpu()),
+            WALK_OPS_PER_STEP * steps, WALK_BYTES_PER_STEP * steps + 32,
+            steps=steps, chain_ms=chain_ms(steps))
+    return rows
+
+
+def phase_parallel(torch, scan, ptr, tb, work, slice_out):
+    """The parallel package (aligntools_tpu_torch/parallel/) on the card.
+
+      sharded  `batch MODE --sharded` through cli.main in-process, on a
+               one-rank NCCL group, for the five modes (fit with -s), on
+               every PAR_SAMPLE_EVERY-th pair of the slice phase's 2,000:
+               each TSV byte for byte the same run's `--scores-only` TSV;
+      kernels  each new instance against its plain version (par_kernel_rows);
+      D1       the main path at one rank (seq mesh of 1, grid (1, 1)), the
+               counts set to 0 just before and read just after: each result
+               bit-equal (rows byte-equal) to the single-device route of the
+               same run; seqpar_score's fit+jump on B1 timed against the
+               blocked route (what the chunking costs);
+      ranks    PAR_RANKS gloo ranks spawned on the one card (NCCL refuses two
+               ranks a card), each the same main path over seq PAR_RANKS and
+               grid (2, PAR_RANKS / 2), held to the same single-device
+               results; their counts summed; seqpar_score's fit+jump at D
+               PAR_RANKS timed (the ranks time-slice the one card: no
+               scaling figure)."""
+    from aligntools_tpu_torch import batch, cli
+    from aligntools_tpu_torch.params import AlignParams
+    from aligntools_tpu_torch.parallel import mesh, seqpar
+
+    t_phase = time.perf_counter()
+    lines = read_lines(slice_out["fasta"])
+    sample_fa = os.path.join(work, "sharded_sample.fa")
+    keep = [lines[k : k + 4] for k in range(0, len(lines), 4)][
+        ::PAR_SAMPLE_EVERY]
+    with open(sample_fa, "w") as f:
+        f.write("\n".join(sum(keep, [])) + "\n")
+    reset_counts(scan, ptr, tb)
+    for mode in ("global", "local", "overlap", "edit", "fit"):
+        extra = ["-s"] if mode == "fit" else []
+        outs = {}
+        for flag in ("--sharded", "--scores-only"):
+            outs[flag] = os.path.join(work, f"par_{mode}{flag}.tsv")
+            wall, _ = run_cli(cli, ["batch", mode, sample_fa, flag, *extra,
+                                    "--out", outs[flag]])
+        with open(outs["--sharded"], "rb") as f1, \
+                open(outs["--scores-only"], "rb") as f2:
+            a, b = f1.read(), f2.read()
+        check(a == b and a.count(b"\n") == len(keep),
+              f"batch {mode} --sharded differs from --scores-only")
+        emit({"phase": "parallel", "sharded": mode + " -s" * bool(extra),
+              "pairs": len(keep), "byte_equal": True, "seconds": wall})
+    launches, plain = counts(scan, ptr, tb)
+    check(not any(plain.values()), f"plain versions ran in --sharded: "
+          f"{plain}")
+
+    inp = parallel_inputs()
+    rows = par_kernel_rows(torch, inp)
+
+    # the single-device route's results, before the counts are reset
+    p, want = AlignParams(), {}
+    for v in PAR_SCORE_VARIANTS:
+        mode, jump = v.split("+")[0], v.endswith("+jump")
+        want[f"score/{v}"] = float(batch.batch_scores(
+            mode, [inp["b1"]], p, [inp["b1_sites"]] if jump else None,
+            device="cuda")[0])
+        want[f"batch/{v}"] = batch.batch_scores(
+            mode, inp["l1"], p, inp["l1_sites"] if jump else None,
+            device="cuda").tolist()
+    for v in PAR_ALIGN_VARIANTS:
+        mode, jump = v.split("+")[0], v.endswith("+jump")
+        r = batch.align_batch(mode, [inp["align"]], p,
+                              [inp["align_sites"]] if jump else None,
+                              traceback=True, device="cuda")[0]
+        want[f"align/{v}"] = [r.score, r.row1.decode(), r.row2.decode()]
+
+    def held(got, where):
+        for k, w in want.items():
+            g = got[k]
+            check(g == w, f"{where}: {k} differs from the single-device "
+                  f"route")
+
+    seq1 = mesh.make_mesh(axis="seq", device="cuda")
+    grid1 = mesh.make_mesh(axis=("data", "seq"), shape=(1, 1),
+                           device="cuda")
+    check(seq1.backend == "nccl", "the one-rank mesh is not NCCL's")
+    for m in (scan, ptr, tb):
+        m.reset_counts()
+    from aligntools_tpu_torch.ops import blocked
+
+    blocked.reset_counts()
+    got = par_main_path(seq1, grid1, inp)
+    torch.cuda.synchronize()
+    d1_launches, d1_plain = par_counts()
+    held({k: (float(v) if k.startswith("score/") else v)
+          for k, v in got.items()}, "D1")
+    check(d1_plain == 0, f"plain versions ran at D1: {d1_plain}")
+    for k in ("edge_scores", "edge_ptr", "walk"):
+        check(d1_launches[k] > 0, f"{k} never launched at D1")
+    fit_args = ("fit", *inp["b1"], p, inp["b1_sites"])
+    d1_ms = par_score_ms(torch, lambda: seqpar.seqpar_score(
+        *fit_args, seq1))
+    route_ms = par_score_ms(torch, lambda: batch.batch_scores(
+        "fit", [inp["b1"]], p, [inp["b1_sites"]], device="cuda"))
+    emit({"phase": "parallel", "D": 1, "launches": d1_launches,
+          "seqpar_score_fit_jump_ms": d1_ms, "blocked_route_ms": route_ms,
+          "chunk_rows": seqpar.chunk_rows(seqpar.slice_width(
+              len(inp["b1"][1]), 1), seqpar.edge_c_blk(seqpar.slice_width(
+                  len(inp["b1"][1]), 1))), "held": sorted(want)})
+
+    out = os.path.join(work, "ranks.json")
+    store = os.path.join(work, "ranks.store")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+         "--world", str(PAR_RANKS), "--store", store, "--out", out],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(PAR_RANKS)]
+    errs = []
+    try:
+        for pr in procs:
+            errs.append(pr.communicate(timeout=600)[1])
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    rcs = [pr.returncode for pr in procs]
+    check(rcs == [0] * PAR_RANKS, f"ranks exited {rcs}: "
+          f"{[e[-2000:] for e in errs]}")
+    with open(out) as f:
+        res = json.load(f)
+    held(res, f"D{PAR_RANKS}")
+    check(res["plain_calls"] == 0, f"plain versions ran on the ranks: "
+          f"{res['plain_calls']}")
+    for k in PAR_LAUNCHES:
+        check(res["launches"][k] > 0, f"{k} never launched on the ranks")
+    emit({"phase": "parallel", "D": PAR_RANKS, "backend": "gloo",
+          "launches": res["launches"],
+          "seqpar_score_fit_jump_ms_time_sliced": res["fit_jump_ms"],
+          "held": sorted(want), "seconds": time.perf_counter() - t_phase})
+    total = {k: d1_launches[k] + res["launches"][k] for k in PAR_LAUNCHES}
+    return total, rows
 
 
 def long_pairs(P, seed):
@@ -3438,7 +3941,7 @@ def phase_profile(torch, cli, argv, work, trace_path):
 
 def summary(rows, ptr_rows, walk_rows, bucket_rows, launches, blocked_rows,
             long_buckets, banded_rows, banded_buckets, probe_reps,
-            rescan_rows, exact64_rows):
+            rescan_rows, exact64_rows, par_rows):
     """The kernels line: each kernel's representative timing, its launches
     on its path's main-path run, and its largest error over every check."""
     from aligntools_tpu_torch.engine import select
@@ -3449,6 +3952,12 @@ def summary(rows, ptr_rows, walk_rows, bucket_rows, launches, blocked_rows,
     for name, (replaces, src, variants) in KERNELS.items():
         if name in probe_reps:
             timed = mine = [probe_reps[name]]
+        elif name in ("edge_scores", "edge_ptr", "walk_col_pause"):
+            # the representative timing: fit+jump (edge_scores), global
+            # (the pointer fill and the walk)
+            mine = [r for r in par_rows if r["kernel"] == name]
+            timed = [r for r in mine if r["variant"] in (
+                "fit+jump", "global/rpb2")] or mine
         elif name.endswith("64"):
             # the representative timing: K1's local rpb 2 for the flat
             # pointer fill; each other instance's one shape
@@ -3508,6 +4017,11 @@ def summary(rows, ptr_rows, walk_rows, bucket_rows, launches, blocked_rows,
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch / "
                                              "CUDA port on one GPU")
+    # one rank of the parallel phase's gloo group (the script spawns them)
+    ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--world", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--store", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--profile", metavar="TRACE.json", default=None,
                     help="also profile one warm 20,000-pair rows local run, "
                          "one warm long-target fit -s rows run and one warm "
@@ -3525,6 +4039,8 @@ def main(argv=None):
               "run needs a CUDA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    if opts.rank is not None:
+        return rank_main(opts)
     from aligntools_tpu_torch import native
     from aligntools_tpu_torch.backend import resolve_device
     from aligntools_tpu_torch.engine import device_tb as tb
@@ -3563,6 +4079,8 @@ def main(argv=None):
                                                        work, trace)
         phase_single(torch, scan, ptr, tb, work)
         phase_serve(torch, scan, ptr, tb, slice_out)
+        par_launches, par_rows = phase_parallel(torch, scan, ptr, tb, work,
+                                                slice_out)
         long_launches, long_buckets, long_walks = phase_long(
             torch, scan, ptr, tb, work, trace)
         rescan_launches, rescan_rows = phase_rescan(torch, scan, ptr, tb)
@@ -3571,18 +4089,25 @@ def main(argv=None):
         banded_launches, banded_buckets, banded_walks = phase_banded(
             torch, scan, ptr, tb, work, trace)
     phase_calibrate(torch)
+    import torch.distributed as dist
+
+    if dist.is_initialized():  # the parallel phase's one-rank NCCL group
+        dist.destroy_process_group()
     launches.update(blocked_scores=long_launches["blocked_scores"],
                     blocked_ptr=long_launches["blocked_ptr"],
                     banded=banded_launches["banded"], **probe_launches,
                     **{k: rescan_launches[k] for k in (
                         "blocked_ckpt", "blocked_refill", "walk_pause")},
                     **{k: exact64_launches[k] for k in KERNELS
-                       if k.endswith("64")})
+                       if k.endswith("64")},
+                    **{k: par_launches[k] for k in ("edge_scores", "edge_ptr",
+                                                    "walk_col_pause")})
     emit({"kernels": summary(rows, ptr_rows,
                              walk_rows + long_walks + banded_walks,
                              bucket_rows, launches, blocked_rows,
                              long_buckets, banded_rows, banded_buckets,
-                             probe_reps, rescan_rows, exact64_rows)})
+                             probe_reps, rescan_rows, exact64_rows,
+                             par_rows)})
     pinned.cleanup()
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

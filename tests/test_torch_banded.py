@@ -548,7 +548,7 @@ def test_band_edit_on_an_empty_query_exits_255(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags,msg", [
     (["-s"], "--band does not support the fit jump state"),
-    (["--sharded"], "--sharded is not ported"),
+    (["--sharded"], "--band does not support --sharded"),
 ])
 def test_band_refusals(tmp_path, capsys, flags, msg):
     fasta = _similar_fasta(tmp_path, "fit", False)

@@ -339,14 +339,17 @@ def test_align_file_returns_the_pair():
 
 
 def test_unported_commands_are_refused(capsys, monkeypatch):
-    """``batch --sharded`` is not ported and is refused; ``calibrate`` is
-    ported and measures the card, so without one it ends in FATAL ERROR,
-    255, and writes no table."""
+    """``batch --sharded``, once refused, is ported: it prints the scores
+    (a one-rank group here), as ``aligntools batch --sharded`` does;
+    ``calibrate`` is ported and measures the card, so without one it ends
+    in FATAL ERROR, 255, and writes no table."""
     path = os.path.join(TEST, "test_global.fa")
     assert main(["batch", "global", path, "--device", "cpu",
-                 "--sharded"]) == 255
-    err = capsys.readouterr().err
-    assert "FATAL ERROR" in err and "not ported" in err
+                 "--sharded"]) == 0
+    out = capsys.readouterr().out
+    assert main(["batch", "global", path, "--device", "cpu",
+                 "--scores-only"]) == 0
+    assert out == capsys.readouterr().out and out.count("\n") == 1
     monkeypatch.setattr("torch.cuda.is_available", lambda: False)
     assert main(["calibrate", "--force"]) == 255
     cap = capsys.readouterr()

@@ -1290,3 +1290,172 @@ def test_calibrate_on_card(cuda, tmp_path, monkeypatch):
         assert autotune.calibrate(log=lines.append) == t  # cached
     finally:
         autotune.set_table(was)
+
+
+# ---------------------------------------------------------------------------
+# The EDGE phase of the blocked fills and the column-paused walk
+# (parallel/seqpar.py)
+# ---------------------------------------------------------------------------
+
+EDGE_VARIANTS = ["global", "local", "fit", "fit+jump", "overlap", "edit"]
+INT32 = 2**31 - 1
+
+
+def _edge_inputs(mode, jump, kind, col0, seed, B=5, R=40, i0=64, n_loc=1040):
+    """One chunk's inputs on the CPU: pairs whose m and n fall before,
+    inside and past the chunk's rows and the slice's columns, and top rows
+    and left edges of random integers (-inf among them)."""
+    rng = np.random.default_rng(seed)
+    alpha = np.frombuffer(b"ACGT", dtype=np.uint8).astype(np.int32)
+    ms = rng.integers(i0 - 4, i0 + R + 6, (B, 1)).astype(np.int32)
+    ns = rng.integers(max(1, col0 - 8), col0 + n_loc + 24, (B, 1)).astype(
+        np.int32)
+    qs = rng.choice(alpha, (B, R))
+    qs[np.arange(R)[None, :] + i0 >= ms] = -1
+    ts = rng.choice(alpha, (B, n_loc))
+    ts[np.arange(n_loc)[None, :] + col0 >= ns] = -2
+    allow = (rng.random((B, n_loc)) > 0.1).astype(np.float32)
+    n_top = (scan.EDGE_TOP[mode] if kind == "scores"
+             else ptr.TOP_STATES[mode])
+    n_edge = (scan.edge_states(mode, jump) if kind == "scores"
+              else ptr.edge_states(mode, jump))
+    dt = np.int32 if mode == "edit" else np.float32
+    top = rng.integers(-60, 60, (B, n_top, n_loc)).astype(dt)
+    ledge = rng.integers(-60, 60, (B, n_edge, R + 1)).astype(dt)
+    if mode != "edit":
+        top[rng.random(top.shape) < 0.05] = -np.inf
+        ledge[rng.random(ledge.shape) < 0.05] = -np.inf
+    pm = np.array([[2, -3, -4, -1, -7, 0, 0, 0]], np.float32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    return (t(qs), t(ts), t(allow) if jump else None, t(ns), t(ms), t(pm),
+            t(top), t(ledge))
+
+
+@pytest.mark.parametrize("col0", [0, 2048])
+@pytest.mark.parametrize("variant", EDGE_VARIANTS)
+def test_edge_score_kernel_equals_plain(cuda, variant, col0):
+    """The EDGE instance of each score fill against its plain version on
+    one chunk of a ragged slice (five column blocks of 256, the last 16
+    wide): the bottom state rows, the right edge and the candidate."""
+    mode, jump = variant.split("+")[0], variant.endswith("+jump")
+    i0 = 64
+    args = _edge_inputs(mode, jump, "scores", col0, 11, i0=i0)
+    acc0 = torch.tensor([5, -3, 0, INT32 if mode == "edit" else -1, 7],
+                        dtype=scan.edge_dtype(mode))
+    if mode != "edit":
+        acc0[3] = float("-inf")
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        acc = acc0.clone().to(dev)
+        before = blocked.launches["edge_scores"]
+        bottom, redge = blocked.edge_scores(
+            mode, jump, col0, i0, 256, *(None if x is None else x.to(dev)
+                                         for x in args), acc)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert blocked.launches["edge_scores"] == before + 1
+        outs.append([x.cpu() for x in (bottom, redge, acc)])
+    for got, want in zip(*outs):
+        assert torch.equal(got, want)
+
+
+EDGE_PTR_VARIANTS = [("global", False, 1), ("global", False, 2),
+                     ("local", False, 2), ("fit", False, 2),
+                     ("fit", True, 1), ("overlap", False, 4),
+                     ("overlap", False, 1)]
+
+
+@pytest.mark.parametrize("col0", [0, 2048])
+@pytest.mark.parametrize("mode,jump,rpb", EDGE_PTR_VARIANTS)
+def test_edge_ptr_kernel_equals_plain(cuda, mode, jump, rpb, col0):
+    """The EDGE instance of each pointer fill against its plain version on
+    one chunk: the chunk's pointer bytes in the slab (the rows around them
+    untouched), the bottom state rows, the right edge and the start
+    candidate."""
+    i0, R = 64, 64
+    args = _edge_inputs(mode, jump, "ptr", col0, 13, R=R, i0=i0)
+    B, n_loc = args[1].shape
+    cand0 = torch.tensor([[torch.tensor(3.0).view(torch.int32).item(), 70,
+                           2100, 0]] * B, dtype=torch.int32)
+    cand0[1, 0] = torch.tensor(float("-inf")).view(torch.int32)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        slab = torch.full((B, (i0 + R) // rpb + 8, n_loc), 0xAB,
+                          dtype=torch.uint8, device=dev)
+        cand = cand0.clone().to(dev)
+        before = blocked.launches["edge_ptr"]
+        bottom, redge = blocked.edge_ptr_fill(
+            mode, jump, col0, i0, 256, *(None if x is None else x.to(dev)
+                                         for x in args), cand, slab, rpb)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert blocked.launches["edge_ptr"] == before + 1
+        outs.append([x.cpu() for x in (slab, bottom, redge, cand)])
+    for got, want in zip(*outs):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mode,rpb", [("global", 1), ("global", 2),
+                                      ("local", 2), ("fit", 1), ("fit", 2),
+                                      ("overlap", 4), ("overlap", 1)])
+def test_col_paused_walk_kernel_equals_plain(cuda, mode, rpb):
+    """The column-paused walk against its plain version on a rank's slab of
+    a whole fill's pointers (the slice past column 272 of a 64 x 1,024
+    fill), from starts all over the slab, tiles of 128 columns."""
+    (m_pad, n_pad), arrs = _inputs(17, B=12, m_pad=64, n_pad=1024)
+    qs, ts, allow, ns, ms, pm = convert.kernel_inputs_from_numpy(
+        *arrs, torch.device("cpu"))
+    _, _, _, ptrs = ptr.ptr_fill_plain(mode, False, m_pad, n_pad, qs, ts,
+                                       allow, ns, ms, pm, rpb)
+    col0, n_loc = 272, 512
+    slab = ptrs[:, :, col0 : col0 + n_loc].contiguous()
+    tloc = ts[:, col0 : col0 + n_loc].contiguous()
+    rng = np.random.default_rng(5)
+    starts = torch.tensor(np.stack([
+        rng.integers(0, 3 if mode != "overlap" else 1, 12),
+        rng.integers(0, m_pad + 1, 12),
+        rng.integers(col0 + 1, col0 + n_loc + 1, 12)]), dtype=torch.int32)
+    want = device_tb.walk_plain(mode, rpb, slab, qs, tloc, starts, col0=col0)
+    before = device_tb.col_pause_launches
+    got = device_tb.walk(mode, rpb, slab.to(cuda), qs.to(cuda),
+                         tloc.to(cuda), starts.to(cuda), col0=col0)
+    torch.cuda.synchronize()
+    assert device_tb.col_pause_launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("mode", ["global", "local", "fit", "overlap",
+                                  "edit"])
+def test_seqpar_loopback_kernels_equal_plain(cuda, mode):
+    """seqpar_score, seqpar_batch_scores and seqpar_align in loopback over
+    three slices on the card's kernels equal their CPU run (the plain
+    versions), and the single-device route."""
+    from aligntools_tpu_torch.parallel import seqpar
+
+    rng = np.random.default_rng(21)
+    pairs = []
+    for _ in range(3):
+        m = int(rng.integers(40, 300))
+        n = int(rng.integers(m, 3000))
+        pairs.append((bytes(rng.choice(list(b"ACGT"), m).tolist()),
+                      bytes(rng.choice(list(b"ACGT"), n).tolist())))
+    p = AlignParams(match=2, mismatch=-3, gap_open=-4, gap_extend=-1)
+    sites = [[5, 90, 400]] * 3 if mode == "fit" else None
+    for k, (q, t) in enumerate(pairs):
+        s = None if sites is None else sites[k]
+        got = seqpar.seqpar_score(mode, q, t, p, s, device="cuda",
+                                  loopback=3, chunk=96)
+        assert got == seqpar.seqpar_score(mode, q, t, p, s, device="cpu",
+                                          loopback=3, chunk=96)
+        if mode != "edit":
+            a = seqpar.seqpar_align(mode, q, t, p, s, device="cuda",
+                                    loopback=3, chunk=96)
+            b = tbatch.align_batch(mode, [(q, t)], p,
+                                   None if s is None else [s],
+                                   traceback=True, device="cuda")[0]
+            assert (a.score, a.row1, a.row2) == (b.score, b.row1, b.row2)
+    got = seqpar.seqpar_batch_scores(mode, pairs, p, sites, device="cuda",
+                                     loopback=(2, 2))
+    want = tbatch.batch_scores(mode, pairs, p, sites, device="cuda")
+    assert np.array_equal(got, want)

@@ -239,11 +239,16 @@ def test_device_cuda_without_cuda_fails_clearly(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--sharded"]])
 def test_unported_options_are_refused(tmp_path, capsys, flag):
+    """``--sharded``, refused until the parallel package was ported, now
+    runs (a one-rank group here) and prints the ``--scores-only`` TSV."""
     fasta = _synthetic_fasta(tmp_path, 2)
     assert main(["batch", "local", fasta, "--scores-only", "--device", "cpu",
-                 *flag]) == 255
-    err = capsys.readouterr().err
-    assert "FATAL ERROR" in err and flag[0] in err and "not ported" in err
+                 *flag]) == 0
+    sharded = capsys.readouterr()
+    assert main(["batch", "local", fasta, "--scores-only", "--device",
+                 "cpu"]) == 0
+    assert sharded.out == capsys.readouterr().out != ""
+    assert "FATAL ERROR" not in sharded.err
 
 
 def _long_fasta(tmp_path):

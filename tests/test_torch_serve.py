@@ -85,19 +85,23 @@ def test_serve_loop(tmp_path):
 
 
 def test_sharded_and_malformed_requests_keep_serving(tmp_path):
-    """``sharded``, which the port's pipeline refuses, and a bad value are
-    answered with #error, and the server goes on to the next request."""
+    """``sharded`` is answered as the JAX serve answers it (the scores of
+    ``batch --sharded``, whatever the other flags); a bad value and sites
+    outside fit are answered with #error, and the server goes on to the
+    next request."""
     path, _ = _make_fasta(tmp_path, 3, seed=5)
-    stream = io.StringIO(f"local {path} sharded scores_only\n"
-                         f"local {path} m=two\n"
-                         f"global {path} sites\n"
-                         f"local {path} scores_only\n")
-    out = io.StringIO()
-    assert serve(stream, out, device="cpu") == 0
+    text = (f"local {path} sharded\n"
+            f"local {path} m=two\n"
+            f"global {path} sites\n"
+            f"local {path} scores_only\n")
+    out, want = io.StringIO(), io.StringIO()
+    assert serve(io.StringIO(text), out, device="cpu") == 0
+    assert jax_serve(io.StringIO(text), want) == 0
     blocks = _blocks(out.getvalue())
-    assert [t for _, t in blocks] == ["#error"] * 3 + ["#done pairs=3"]
-    assert "not ported" in out.getvalue().splitlines()[0]
-    assert len(blocks[3][0]) == 3
+    assert [t for _, t in blocks] == ["#done pairs=3"] + ["#error"] * 2 + [
+        "#done pairs=3"]
+    assert blocks == _blocks(want.getvalue())
+    assert blocks[0][0] == blocks[3][0] and len(blocks[3][0]) == 3
 
 
 def test_serve_subcommand_reads_stdin(tmp_path):

@@ -27,6 +27,10 @@ under ``torchrun --nproc-per-node N`` one card a rank (NCCL; gloo with
 ``--device cpu``), alone a group of one rank; rank 0 writes the TSV, and a
 failing rank ends the job (``parallel/distributed.abort_all``).
 
+``--trace DIR`` writes a torch.profiler Chrome trace of the run (its
+CUDA kernels too on the card) into DIR, as the JAX CLI's writes a
+jax.profiler one; the TSV is the same with or without it.
+
 ``calibrate`` measures the card's crossover table once (``engine/
 autotune.py``; ``--force`` measures again) and caches it per card under
 ``ALIGNTOOLS_TORCH_CACHE`` (default ``~/.cache/aligntools-torch``); the
@@ -229,6 +233,10 @@ def run_batch(args: list[str]) -> int:
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="where the fills run (default cuda; cpu runs the "
                          "kernels' plain PyTorch versions)")
+    ap.add_argument("--trace", metavar="DIR",
+                    help="write a torch.profiler Chrome trace of the run "
+                         "to DIR (trace.json; trace.rankN.json a rank "
+                         "with --sharded on several ranks)")
     ns = ap.parse_args(args)
     from aligntools_tpu_torch.backend import resolve_device
     from aligntools_tpu_torch.pipeline import run_pipeline
@@ -249,6 +257,7 @@ def run_batch(args: list[str]) -> int:
                 use_sites=ns.s, scores_only=ns.scores_only, sharded=True,
                 chunk_size=ns.chunk_size, manifest_path=ns.resume,
                 out_path=ns.out, band=ns.band, cigar=ns.cigar,
+                trace_dir=ns.trace,
             )
         except (OSError, ValueError, RuntimeError) as err:
             if not distributed.is_multihost():
@@ -264,6 +273,7 @@ def run_batch(args: list[str]) -> int:
             use_sites=ns.s, scores_only=ns.scores_only, sharded=ns.sharded,
             chunk_size=ns.chunk_size, manifest_path=ns.resume,
             out_path=ns.out, band=ns.band, cigar=ns.cigar,
+            trace_dir=ns.trace,
         )
     except (OSError, ValueError, RuntimeError) as err:
         sys.stderr.write(f"FATAL ERROR: {err}\n")

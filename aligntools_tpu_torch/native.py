@@ -8,6 +8,13 @@ source and the flags. The source's host traceback walkers are not bound:
 the port walks on the device (``engine/device_tb.py``). Without a compiler
 or zlib, or with ``ALIGNTOOLS_NO_NATIVE=1``, ``parse_records_native``
 returns None and ``io.fasta`` parses in Python, as the JAX package does.
+
+``cli_binary`` builds the repository's native single-pair CLI
+(``native/aligntools_cli.cpp`` with the parser and its walkers; it computes
+in double, as the reference does) into the same directory, under a name
+that carries a digest of both sources and the flags: the oracle of
+``tools/validate.py`` and the same-run anchor of ``chip_smoke.py``. It has
+no fallback: a failed build raises with the compiler's stderr.
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ SOURCE = os.path.join(_REPO, "native", "aligntools_native.cpp")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "_build")
 CXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-shared")
+
+CLI_SOURCES = (os.path.join(_REPO, "native", "aligntools_cli.cpp"), SOURCE)
 
 _lock = threading.Lock()
 _lib = None
@@ -53,6 +62,48 @@ def _compile(path: str) -> bool:
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
+
+
+def cli_flags() -> tuple:
+    """The native CLI's g++ flags (native/Makefile's, the version the
+    port's)."""
+    from aligntools_tpu_torch.version import __version__
+
+    return ("-O2", "-std=c++17", f'-DALIGNTOOLS_VERSION="{__version__}"')
+
+
+def cli_path() -> str:
+    h = hashlib.sha256(" ".join(cli_flags()).encode())
+    for src in CLI_SOURCES:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"aligntools_cli-{h.hexdigest()[:16]}")
+
+
+def cli_binary() -> str:
+    """The path of the native CLI, built at first use (a build whose
+    sources and flags are unchanged is reused); raises RuntimeError with
+    the compiler's stderr when the build fails."""
+    with _lock:
+        path = cli_path()
+        if os.path.exists(path):
+            return path
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        try:
+            r = subprocess.run(["g++", *cli_flags(), "-o", tmp,
+                                *CLI_SOURCES, "-lz"],
+                               capture_output=True, text=True, timeout=300)
+            if r.returncode != 0:
+                raise RuntimeError(f"native CLI build failed (g++ exited "
+                                   f"{r.returncode}): {r.stderr}")
+            os.replace(tmp, path)
+        except (OSError, subprocess.SubprocessError) as err:
+            raise RuntimeError(f"native CLI build failed: {err}") from err
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+        return path
 
 
 def get_lib():

@@ -36,7 +36,8 @@ from aligntools_tpu_torch.io.fasta import parse_junctions, read_records
 from aligntools_tpu_torch.params import AlignParams, AlignResult
 from aligntools_tpu_torch.utils.checkpoint import Manifest
 from aligntools_tpu_torch.utils.cigar import rows_to_cigar
-from aligntools_tpu_torch.utils.profiling import Counters, stopwatch
+from aligntools_tpu_torch.utils.profiling import (Counters, device_trace,
+                                                  stopwatch)
 
 
 def read_pair_records(path: str):
@@ -67,6 +68,7 @@ def run_pipeline(
     out_path: str | None = None,
     band: int | None = None,
     cigar: bool = False,
+    trace_dir: str | None = None,
 ) -> Counters:
     """Align every pair in ``path`` on ``device``; returns run counters.
 
@@ -83,7 +85,9 @@ def run_pipeline(
     Departure: fit ``use_sites`` with ``sharded`` passes the sites, so the
     jump state is on, where the JAX pipeline drops them. A +inf banded edit
     distance (an empty sequence) raises ValueError: it has no integer to
-    print."""
+    print. ``trace_dir``: a torch.profiler Chrome trace of the run's loop
+    (the region of ``Counters.seconds``) goes there
+    (``utils/profiling.device_trace``; a file a rank where several run)."""
     from aligntools_tpu_torch.batch import _bucket_keys, align_batch
     from aligntools_tpu_torch.engine import banded
 
@@ -181,7 +185,9 @@ def run_pipeline(
     pending = [(ci, chunk) for ci, chunk in enumerate(chunks) if not done[ci]]
     pool = ThreadPoolExecutor(1)
     try:
-        with stopwatch(counters, "seconds"):
+        with device_trace(trace_dir, device,
+                          mesh.rank if mesh is not None and mesh.size > 1
+                          else None), stopwatch(counters, "seconds"):
             fut = pool.submit(compute, *pending[0]) if pending else None
             for pi, (ci, chunk) in enumerate(pending):
                 pairs, results = fut.result()

@@ -1,1 +1,2 @@
-"""Instruments of the port that run on the card (``vpu_probe``)."""
+"""Tools of the port: the ceiling probe (``vpu_probe``) and the
+differential campaign against the native C++ CLI (``validate``)."""

@@ -1,11 +1,13 @@
 """Run counters and stage timers (copied from
-``aligntools_tpu/utils/profiling.py``, without its jax.profiler hook:
-``chip_smoke.py --profile`` traces the card with torch.profiler)."""
+``aligntools_tpu/utils/profiling.py``), and ``device_trace``, the
+counterpart of its jax.profiler hook on torch.profiler."""
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
+import os
 import sys
 import time
 
@@ -70,3 +72,49 @@ def stopwatch(counters: Counters, field: str = "seconds"):
         setattr(
             counters, field, getattr(counters, field) + time.perf_counter() - t0
         )
+
+
+# the Chrome trace's categories of work on the card
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def trace_file(trace_dir: str, rank: int | None = None) -> str:
+    """The Chrome trace ``device_trace`` writes into ``trace_dir``: one a
+    rank where several ranks run."""
+    name = "trace.json" if rank is None else f"trace.rank{rank}.json"
+    return os.path.join(trace_dir, name)
+
+
+@contextlib.contextmanager
+def device_trace(trace_dir: str | None, device, rank: int | None = None):
+    """torch.profiler over the region when a directory is given (CPU
+    activity, and CUDA activity on a CUDA device), written as a Chrome
+    trace (``trace_file``); without one it does nothing. On a CUDA device
+    a trace that holds no device event raises RuntimeError rather than
+    pass for a CPU-only trace."""
+    if not trace_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    on_card = torch.device(device).type == "cuda"
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card
+                                     else [])
+    # the pipeline's fills run on its prefetch thread: trace every thread
+    from torch._C._profiler import _ExperimentalConfig
+
+    with profile(activities=acts, experimental_config=_ExperimentalConfig(
+            profile_all_threads=True)) as prof:
+        yield
+        if on_card:
+            torch.cuda.synchronize(device)
+    os.makedirs(trace_dir, exist_ok=True)
+    path = trace_file(trace_dir, rank)
+    prof.export_chrome_trace(path)
+    if on_card:
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+        if not any(ev.get("cat") in DEVICE_CATS for ev in events):
+            raise RuntimeError(f"--trace: {path} holds no CUDA event (the "
+                               f"profiler did not trace the card)")

@@ -91,11 +91,15 @@ Phases, one JSON line each:
                      scores TSV, and 64 sampled lines of each equal the
                      port's own `--device cpu` run on those pairs (the CPU
                      tests hold that against the JAX package);
+             trace   `batch global` rows on the 2,000 once more untraced,
+                     then twice with `--trace DIR`: the Chrome trace holds
+                     kernel events of the pointer fill and the walk, every
+                     TSV equals the rows run's; the wall of each;
   buckets  meanwhile, every second bucket those runs built, on the card:
            the score kernel against plain for the score runs, and the
            pointer kernel against plain for the rows runs, with the walk
            against plain on every bucket checked of the 20,000-pair local
-           run and on every fourth bucket of the 2,000-pair runs, whose
+           run and on every 16th bucket of the 2,000-pair runs, whose
            walks cross the whole target;
   single   the per-mode commands (`global|local|fit|overlap|edit [opts]
            FILE`) through cli.main in-process on the card
@@ -114,8 +118,8 @@ Phases, one JSON line each:
            of `python3 -m aligntools_tpu_torch global test/test_global.fa`
            in a fresh process with the kernels built (one process), its
            split (import torch, the library load, the first CUDA call, the
-           command), and the native C++ CLI (native/Makefile's
-           aligntools_cli, built here) on the same command;
+           command), and the native C++ CLI (native/aligntools_cli.cpp,
+           built here by native.cli_binary) on the same command;
   serve    serve() fed one stream on the slice phase's 2,000-pair FASTA:
            overlap scores_only, global (rows), fit sites (rows), edit, the
            first again, a malformed line, an overlap sharded request (a
@@ -157,7 +161,7 @@ Phases, one JSON line each:
            torch.profiler (as `--profile` below; its trace in the work
            directory without it): the walk's time, its share of the busy
            time, its SMs in use and how much of it ran under a fill.
-           Meanwhile (`buckets` lines) every fourth L3 bucket's fill (every
+           Meanwhile (`buckets` lines) every eighth L3 bucket's fill (every
            second of the mixed run's, every one of L3g / L3l) against plain
            on the card, the walk on every flat bucket checked and on L3's
            blocked bucket of the narrowest target.
@@ -185,6 +189,16 @@ Phases, one JSON line each:
            the forward, refill and walk ms (CUDA events around each call)
            beside their bounds, the wall, true-cell GCUPS and the peak
            device memory beside the budget and the card's.
+  validate the port's differential campaign (aligntools_tpu_torch.tools.
+           validate, the counterpart of tools/validate.py) in this process
+           on the card at n_per VALIDATE_N_PER: randomized pairs (DNA,
+           binary, homopolymer, protein; degenerate parameter sets) through
+           align_pair and batches, the per-mode commands, the rescan, the
+           banded engine (full band on both paths, certified auto band),
+           seqpar on 4 and 8 loopback ranks and the routes' crossovers,
+           each result against the native C++ CLI's stdout; each section's
+           cases, skips and seconds; every kernel it reaches launched, no
+           plain version and no double instance ran.
 
   exact64  single pairs past float32's exact integers, on the double
            instances of the fills (api.align_pair's route for them). The
@@ -198,7 +212,7 @@ Phases, one JSON line each:
            ALIGNTOOLS_HBM_BUDGET (as RSF): every double instance, the walk
            and the paused walk launched, no float32 instance and no plain
            version; every stdout byte for byte the native C++ CLI's
-           (native/Makefile's aligntools_cli, which computes in double),
+           (native/aligntools_cli.cpp, which computes in double),
            the rescan's the normal route's; `batch` refuses the pair. Then
            the double instances' registers and spills (cuobjdump) and each
            against its float64 plain version, bit for bit, timed beside
@@ -223,7 +237,7 @@ Phases, one JSON line each:
            plain version ran; each rows TSV's score column equals its scores
            TSV, and 64 sampled lines equal the port's `--device cpu` run.
            Meanwhile (`buckets` lines) every slab of those runs (every
-           second of BS local and global), kernel against plain on the card (one plain call a slab holds both the
+           fourth of BS local and global), kernel against plain on the card (one plain call a slab holds both the
            rows run's pointer fill and the scores run's score fill), and the
            walk against plain on each rows run's first slab; the kernel
            timed on each mode's first rows slab and first scores slab
@@ -464,12 +478,20 @@ CAL_MOVED = {"score_flat_cap": {"affine": 2048, "overlap": 4096,
              "ptr_flat_cap": {"float32": 2048, "float64": 2048},
              "blocked_c_blk": 1024,
              "banded_bmin": {"5": 1 << 20, "9": 1 << 20, "16": 1 << 20}}
+# the validate phase: main's cases a mode (the other sections scale from
+# it), and the kernels its sections reach, each of which must launch
+VALIDATE_N_PER = 24
+VALIDATE_KERNELS = ("affine", "overlap", "edit", "fit", "ptr", "walk",
+                    "blocked_scores", "blocked_ptr", "blocked_ckpt",
+                    "blocked_refill", "walk_pause", "banded", "edge_scores",
+                    "edge_ptr", "walk_col_pause")
 RSR_OVER = 1.075
 RSR_ASPECT = 1.375
 # the slice phase holds the walk against plain on every bucket of the
 # 20,000-pair local rows run and on every SMALL_WALK_EVERY-th bucket of the
-# 2,000-pair global, overlap and fit -s rows runs
-SMALL_WALK_EVERY = 4
+# 2,000-pair global, overlap and fit -s rows runs (two walks of each: the
+# plain walk crosses the whole target, ~2-4 s a bucket)
+SMALL_WALK_EVERY = 16
 # the bucket checks on the card hold every SLICE_CHECK_EVERY-th bucket of
 # the slice phase's runs, every LONG_CHECK_EVERY[run]-th of the long
 # phase's (the narrowest blocked bucket of L3 always) and every
@@ -477,8 +499,8 @@ SMALL_WALK_EVERY = 4
 # sample that keeps every kernel, mode and route covered and the script
 # inside its time
 SLICE_CHECK_EVERY = 2
-LONG_CHECK_EVERY = {"fit": 4, "mixed": 2}
-BS_CHECK_EVERY = 2
+LONG_CHECK_EVERY = {"fit": 8, "mixed": 2}
+BS_CHECK_EVERY = 4
 
 # The least time the card could take for the same work: the
 # larger of the operations over 33.5 T op/s (67 TFLOP/s of f32 counts an
@@ -1804,6 +1826,7 @@ def phase_slice(torch, scan, ptr, tb, work, trace_path):
 
     with open(cold, "rb") as a, open(rows_tsv["local"], "rb") as b:
         check(a.read() == b.read(), "local: cold and warm rows TSVs differ")
+    traced_run(cli, small_fa, rows_tsv["global"], work)
     if trace_path:
         phase_profile(torch, cli, ["batch", "local", big], work, trace_path)
 
@@ -1843,6 +1866,48 @@ def phase_slice(torch, scan, ptr, tb, work, trace_path):
     return launches, checked_buckets, {"fasta": small_fa,
                                        "scores": scores_tsv,
                                        "rows": rows_tsv}
+
+
+def traced_run(cli, fasta, want_tsv, work):
+    """S2's `batch global` rows run once more, untraced, then twice with
+    `--trace DIR` (the first traced run of the process starts the
+    profiler's CUDA tracing): the Chrome trace parses and holds kernel
+    events of the pointer fill and of the walk, and every TSV equals
+    ``want_tsv``; the wall and the pipeline's report of each."""
+    from aligntools_tpu_torch.utils.profiling import trace_file
+
+    runs = ("untraced", "traced", "traced-again")
+    tsvs = [os.path.join(work, f"global-rows-{k}.tsv") for k in runs]
+    walls, reports = [], []
+    for k, tsv in zip(runs, tsvs):
+        trace_dir = os.path.join(work, f"trace-{k}")
+        wall, report = run_cli(cli, ["batch", "global", fasta, "--out", tsv,
+                                     *(["--trace", trace_dir] if k != runs[0]
+                                       else [])])
+        walls.append(wall)
+        reports.append(report.splitlines()[-1])
+    path = trace_file(trace_dir)
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    kernels = [ev.get("name", "") for ev in events
+               if ev.get("cat") == "kernel"]
+    fills = sum(any(k in n for k in PROFILE_GROUPS[0][1]) for n in kernels)
+    walks = sum("walk_kernel" in n for n in kernels)
+    with open(want_tsv, "rb") as f:
+        want = f.read()
+    same = []
+    for tsv in tsvs:
+        with open(tsv, "rb") as f:
+            same.append(f.read() == want)
+    emit({"phase": "slice", "run": "trace", "path": "rows", "mode": "global",
+          "untraced_s": walls[0], "traced_s": walls[1:],
+          "trace_overhead": [w / walls[0] - 1 for w in walls[1:]],
+          "trace_bytes": os.path.getsize(path), "events": len(events),
+          "kernel_events": len(kernels), "fill_kernels": fills,
+          "walk_kernels": walks, "tsv_equal": same, "counters": reports})
+    check(fills > 0 and walks > 0, f"--trace: {fills} pointer fill and "
+          f"{walks} walk kernel events in {path}")
+    check(all(same), f"--trace: the TSVs differ from the rows run's: {same}")
 
 
 # the single phase: the per-mode CLI and api.align_pair on the card, each
@@ -1948,19 +2013,10 @@ def timed_runs(cmd, reps, env=None):
 
 
 def native_anchor(card_out):
-    """The native C++ CLI (native/Makefile's aligntools_cli, the repo's
-    same-run baseline) on COLD_ARGV: built here, timed in COLD_REPS fresh
-    processes; or why it could not be."""
-    ndir = os.path.join(ROOT, "native")
-    try:
-        b = subprocess.run(["make", "-C", ndir, "aligntools_cli"],
-                           capture_output=True, text=True, timeout=300)
-    except (OSError, subprocess.SubprocessError) as err:
-        return {"native": None, "why": f"make failed to run: {err}"}
-    binary = os.path.join(ndir, "aligntools_cli")
-    if b.returncode != 0 or not os.access(binary, os.X_OK):
-        return {"native": None,
-                "why": f"make exited {b.returncode}: {b.stderr[-400:]}"}
+    """The native C++ CLI (``native_cli``, the repo's same-run baseline) on
+    COLD_ARGV, timed in COLD_REPS fresh processes; or why it could not
+    run."""
+    binary = native_cli()
     try:
         out, walls = timed_runs([binary, *COLD_ARGV], COLD_REPS)
     except (RuntimeError, OSError, subprocess.SubprocessError) as err:
@@ -3515,16 +3571,46 @@ def phase_rsr(torch, scan, ptr, tb):
     return row
 
 
+def phase_validate(torch):
+    """The port's differential campaign (aligntools_tpu_torch.tools.
+    validate) on the card: every section in this process at
+    VALIDATE_N_PER against the native C++ CLI, with seqpar on loopback
+    ranks; each section's cases, skips and seconds, and each kernel's
+    launches over the phase (every kernel of VALIDATE_KERNELS launched, no
+    plain version and no double instance ran)."""
+    from aligntools_tpu_torch.tools import validate
+
+    lines = []
+    try:
+        out = validate.run_sections(VALIDATE_N_PER, device="cuda",
+                                    log=lines.append)
+    except validate.Mismatch as err:
+        check(False, f"validate: {err}")
+    torch.cuda.synchronize()
+    launches = out["launches"]
+    emit({"phase": "validate", "n_per": VALIDATE_N_PER,
+          "seconds": out["seconds"],
+          "sections": out["sections"],
+          "launches": launches, "lines": len(lines)})
+    for name in VALIDATE_KERNELS:
+        check(launches[name] > 0, f"validate: kernel {name} never launched")
+    check(launches["plain"] == 0, f"validate: plain versions ran "
+          f"{launches['plain']} times")
+    check_no_double(launches, "the validate phase")
+    return launches
+
+
 def native_cli():
-    """The native C++ CLI (native/Makefile's aligntools_cli, which computes
-    in double as the reference does), built here."""
-    ndir = os.path.join(ROOT, "native")
-    b = subprocess.run(["make", "-C", ndir, "aligntools_cli"],
-                       capture_output=True, text=True, timeout=300)
-    binary = os.path.join(ndir, "aligntools_cli")
-    check(b.returncode == 0 and os.access(binary, os.X_OK),
-          f"make aligntools_cli exited {b.returncode}: {b.stderr[-400:]}")
-    return binary
+    """The native C++ CLI (``native/aligntools_cli.cpp``, which computes in
+    double as the reference does), built from the checkout's sources into
+    the port's build directory (``native.cli_binary``); a failed build
+    fails the run."""
+    from aligntools_tpu_torch import native
+
+    try:
+        return native.cli_binary()
+    except RuntimeError as err:
+        check(False, str(err)[-800:])
 
 
 def exact64_rows(torch, ptr, scan, tb, params):
@@ -4084,6 +4170,7 @@ def main(argv=None):
         long_launches, long_buckets, long_walks = phase_long(
             torch, scan, ptr, tb, work, trace)
         rescan_launches, rescan_rows = phase_rescan(torch, scan, ptr, tb)
+        phase_validate(torch)
         exact64_launches, exact64_rows = phase_exact64(torch, scan, ptr, tb,
                                                        work)
         banded_launches, banded_buckets, banded_walks = phase_banded(

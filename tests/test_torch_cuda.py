@@ -1459,3 +1459,40 @@ def test_seqpar_loopback_kernels_equal_plain(cuda, mode):
                                      loopback=(2, 2))
     want = tbatch.batch_scores(mode, pairs, p, sites, device="cuda")
     assert np.array_equal(got, want)
+
+
+def test_validate_main_section_on_card(cuda):
+    """The differential campaign's main section on the card's kernels
+    against the native C++ CLI: align_pair per case, then batches."""
+    from aligntools_tpu_torch.tools import validate
+
+    out = validate.run_sections(12, ["main"], "cuda", log=lambda s: None)
+    stats = out["sections"]["main"]
+    assert stats["cases"] == 60 and stats["oracle_rc"] == 0
+    launches = out["launches"]
+    assert launches["plain"] == 0
+    for name in ("affine", "overlap", "edit", "fit", "ptr", "walk"):
+        assert launches[name] > 0, name
+
+
+def test_trace_records_the_card(cuda, tmp_path, capsys):
+    """``batch --trace DIR`` on the card: the trace holds the pointer fill's
+    and the walk's kernels, and the TSV is the untraced run's."""
+    import json
+
+    from aligntools_tpu_torch.cli import main
+
+    pairs = clustered_pairs(64, seed=5)
+    fa = tmp_path / "pairs.fa"
+    fa.write_text("".join(f">q{k}\n{q.decode()}\n>t{k}\n{t.decode()}\n"
+                          for k, (q, t) in enumerate(pairs)))
+    d = tmp_path / "trace"
+    assert main(["batch", "global", str(fa), "--trace", str(d)]) == 0
+    traced = capsys.readouterr().out
+    assert main(["batch", "global", str(fa)]) == 0
+    assert capsys.readouterr().out == traced
+    with open(d / "trace.json") as f:
+        names = [ev.get("name", "") for ev in json.load(f)["traceEvents"]
+                 if ev.get("cat") == "kernel"]
+    assert any("ptr_affine" in n for n in names)
+    assert any("walk_kernel" in n for n in names)

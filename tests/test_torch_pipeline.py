@@ -157,6 +157,32 @@ def test_port_imports_no_jax():
     assert r.returncode == 0, r.stderr
 
 
+def test_validate_campaign_imports_no_jax():
+    """The differential campaign (``tools/validate.py`` of the port) runs a
+    section on the CPU with jax, jaxlib, the JAX package and its
+    ``tools/`` blocked, and leaves none of them in sys.modules."""
+    code = (
+        "import sys\n"
+        f"BLOCKED = {BLOCKED!r}\n"
+        "for k in [k for k in sys.modules if k.split('.')[0] in BLOCKED]:\n"
+        "    del sys.modules[k]\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in BLOCKED:\n"
+        "            raise ImportError('blocked import: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "from aligntools_tpu_torch.tools import validate\n"
+        "assert validate.main(['2', '--device', 'cpu', '--section',\n"
+        "                      'main']) == 0\n"
+        "left = [k for k in sys.modules if k.split('.')[0] in BLOCKED]\n"
+        "assert not left, left\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert '"validate"' in r.stdout.splitlines()[-1]
+
+
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_port_source_names_no_jax_import(path):

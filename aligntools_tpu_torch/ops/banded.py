@@ -37,8 +37,10 @@ matrix product, because Mosaic can neither slice lanes nor index them
 dynamically; the CUDA kernel reads both straight from ``qs`` and ``te``.
 
 On a CUDA tensor the wrappers launch ``csrc/banded_fill.cu`` (a warp per
-pair for windows up to 32 * WARP_STRIPS[-1] lanes, a CTA per pair beyond:
-``launch_shape``; a strip of lanes per thread; see its header) or raise;
+pair for windows up to 32 * WARP_STRIPS[-1] lanes, a team of warps per pair
+beyond, several pairs a CTA or a cluster of CTAs a pair, up to MAX_LANES:
+``launch_shape``, ``cta_shape``; a strip of lanes per thread; see its
+header) or raise;
 on a CPU tensor they run the plain version, which repeats the Pallas kernel's
 arithmetic row by row over whole (B, V) windows. Values are integer-valued
 float32 with true infinite borders and every pointer is a comparison of
@@ -60,7 +62,22 @@ NEG = float("-inf")
 POS = float("inf")
 BIG = 1 << 30  # the start column when no column qualifies
 PTR_MODES = ("global", "local", "fit", "overlap")
-MAX_LANES = 16384  # the widest window the kernel takes: W <= 8191
+# the CTA path: strips of CTA_STRIPS lanes a thread (the narrowest whose
+# team fits a cluster: a row's chain grows with the strip, and on one H100 a
+# team of 4-lane warps was the fastest at every band it holds, PERF.md), at
+# most CTA_WARPS warps a CTA (its instances' launch bound: 256
+# threads of up to 255 registers), pairs that need fewer sharing a CTA, and
+# a pair wider than a CTA spanning a cluster of up to CLUSTER_MAX CTAs (past
+# 8 a non-portable size, which the H100 takes); so the widest window it
+# takes
+CTA_STRIPS = (4, 8, 16)
+CTA_WARPS = 8
+CLUSTER_MAX = 16
+# the H100's SMs: a CTA of ~200-register threads fills one, so teams share a
+# CTA only where the batch leaves every SM a CTA
+SMS = 132
+# 65,536 lanes: W <= 32,767
+MAX_LANES = CLUSTER_MAX * CTA_WARPS * 32 * CTA_STRIPS[-1]
 # the warp path's strips (lanes a thread: a warp holds V <= 32 * S lanes),
 # and the pairs (warps) of its CTA. By default the path depends on the band
 # alone: at 16 lanes a thread and tens of pairs the CTA path fills pointers
@@ -71,12 +88,13 @@ WARP_STRIPS = (5, 9, 16)
 WARP_PAIRS = 4
 
 launches = 0
+launches_cta = 0  # those of them on the CTA path
 plain_calls = 0
 
 
 def reset_counts() -> None:
-    global launches, plain_calls
-    launches = plain_calls = 0
+    global launches, launches_cta, plain_calls
+    launches = launches_cta = plain_calls = 0
 
 
 def lanes_padded(band: int) -> int:
@@ -88,25 +106,61 @@ def launch_shape(band: int) -> tuple[str, int, int]:
     """(path, threads per CTA, lanes per thread) for a window of V = 2W+1
     lanes: "warp", a warp per pair and WARP_PAIRS pairs a CTA, with the
     narrowest strip of WARP_STRIPS that holds V in one warp; past 32 *
-    WARP_STRIPS[-1] lanes "cta" (``cta_shape``). ``_launch`` takes the CTA
-    path below the table's batch threshold for the strip too
-    (``engine/select.banded_path``; by default at no batch)."""
+    WARP_STRIPS[-1] lanes "cta" (``cta_shape``; ValueError past
+    MAX_LANES). ``_launch`` takes the CTA path below the table's batch
+    threshold for the strip too (``engine/select.banded_path``; by default
+    at no batch)."""
     V = 2 * band + 1
-    if V > MAX_LANES:
-        raise ValueError(f"band {band} is wider than the banded kernel's "
-                         f"{MAX_LANES} lanes (W <= {(MAX_LANES - 1) // 2})")
     strip = next((s for s in WARP_STRIPS if 32 * s >= V), None)
     if strip:
         return "warp", 32 * WARP_PAIRS, strip
     return cta_shape(band)
 
 
-def cta_shape(band: int) -> tuple[str, int, int]:
-    """The CTA path's shape at ``band``: a CTA per pair with 4 lanes a
-    thread (16 past 4,096 lanes)."""
+def cta_shape(band: int, batch: int | None = None) -> tuple[str, int, int]:
+    """The CTA path's shape at ``band``: (path, threads a CTA, lanes a
+    thread). A pair takes the fewest warps that hold V (its team) at the
+    narrowest strip of CTA_STRIPS whose team fits a cluster of CLUSTER_MAX
+    CTAs; teams of up to CTA_WARPS / 2 warps share a CTA of up to
+    CTA_WARPS warps (with ``batch``, only as many as leave every SM a
+    CTA), and a team wider than a CTA spans a cluster of CTAs of equal
+    warps (``cta_geometry``). Past MAX_LANES lanes no instance takes the
+    band: ValueError."""
     V = 2 * band + 1
-    strip = 4 if V <= 4096 else 16
-    return "cta", -(-V // (32 * strip)) * 32, strip
+    if V > MAX_LANES:
+        raise ValueError(f"band {band} is wider than the banded kernel's "
+                         f"{MAX_LANES} lanes (W <= {(MAX_LANES - 1) // 2})")
+    strip = next(s for s in CTA_STRIPS
+                 if V <= CLUSTER_MAX * CTA_WARPS * 32 * s)
+    need = -(-V // (32 * strip))
+    if need <= CTA_WARPS:
+        pairs = CTA_WARPS // need
+        if batch is not None:
+            pairs = max(1, min(pairs, batch // SMS))
+        return "cta", 32 * need * pairs, strip
+    return "cta", 32 * -(-need // -(-need // CTA_WARPS)), strip
+
+
+def cta_geometry(band: int, threads: int,
+                 strip: int) -> tuple[int, int, int]:
+    """(warps a pair, pairs a CTA, CTAs a pair) of a CTA-path launch of
+    ``threads`` of ``strip`` lanes at ``band``, as ``at_banded_fill``
+    derives it: a CTA holding a multiple of the team's warps takes that
+    many pairs; else a pair spans a cluster of CTAs, its team every warp of
+    them (those past the window hold pad lanes only). ValueError where the
+    kernel has no instance for the launch."""
+    V = 2 * band + 1
+    need, wpc = -(-V // (32 * strip)), threads // 32
+    if (V > MAX_LANES or strip not in CTA_STRIPS or threads % 32
+            or not 0 < wpc <= CTA_WARPS
+            or (wpc >= need and wpc % need)
+            or -(-need // wpc) > CLUSTER_MAX):
+        raise ValueError(f"no CTA-path launch of {threads} threads of "
+                         f"{strip} lanes at band {band}")
+    if wpc >= need:
+        return need, wpc // need, 1
+    C = -(-need // wpc)
+    return C * wpc, 1, C
 
 
 # ---------------------------------------------------------------------------
@@ -116,12 +170,12 @@ def cta_shape(band: int) -> tuple[str, int, int]:
 
 def _shl(x, fill):
     """[x[:, 1:], fill]: lane k reads lane k+1 (the vertical predecessor)."""
-    return torch.cat([x[:, 1:], torch.full_like(x[:, :1], fill)], dim=1)
+    return torch.nn.functional.pad(x[:, 1:], (0, 1), value=fill)
 
 
 def _shr(x, fill):
     """[fill, x[:, :-1]]: lane k reads lane k-1 (the horizontal one)."""
-    return torch.cat([torch.full_like(x[:, :1], fill), x[:, :-1]], dim=1)
+    return torch.nn.functional.pad(x[:, :-1], (1, 0), value=fill)
 
 
 def _first_j(hit, jcol):
@@ -139,6 +193,8 @@ def _fill_plain(mode, band, emit, qs, te, ns, ms, params):
     lanes = torch.arange(V, device=dev)
     j0 = kidx - W
     n_col, m_col = ns, ms
+    # the rows where a pair ends: start info latches there only
+    ends = set(ms.flatten().tolist())
     bad = POS if mode == "edit" else NEG
     best = torch.full((B, 1), bad, device=dev)
     edge = torch.full((B, 1), bad, device=dev)
@@ -171,48 +227,65 @@ def _fill_plain(mode, band, emit, qs, te, ns, ms, params):
     for idx in range(m_pad):
         i = idx + 1
         i_f = float(i)
-        tw = te[:, torch.clamp(lanes + idx, max=n_ext - 1)]
+        tw = (te[:, idx : idx + V] if idx + V <= n_ext
+              else te[:, torch.clamp(lanes + idx, max=n_ext - 1)])
         qc = qs[:, idx : idx + 1]
         jcol = i - W + kidx
         jf = jcol.to(torch.float32)
         in_mat = (jcol >= 1) & (jcol <= n_col) & (i <= m_col)
-        at_j0, at_j0_diag = jcol == 0, jcol == 1
-        latch = m_col == i
+        # columns 0 and 1 lie in the window only while i - W <= 1; past
+        # that the border selects below would change nothing
+        border = i - W <= 1
+        if border:
+            at_j0, at_j0_diag = jcol == 0, jcol == 1
+        latch = m_col == i if i in ends else None
         if mode == "edit":
             sub = torch.where(tw == qc, zero, mis)
-            diag = torch.where(at_j0_diag, i_f - 1.0, mp)
+            diag = torch.where(at_j0_diag, i_f - 1.0, mp) if border else mp
             cand2 = torch.minimum(diag + sub, _shl(mp, POS) + 1.0)
             cand2 = torch.where(in_mat, cand2, POS)
-            cd = torch.where(at_j0, i_f, torch.where(
-                at_j0_diag, torch.clamp_max(cand2 - jf, i_f), cand2 - jf))
+            cd = cand2 - jf
+            if border:
+                cd = torch.where(at_j0, i_f, torch.where(
+                    at_j0_diag, torch.clamp_max(cd, i_f), cd))
             row = torch.cummin(cd, dim=1).values + jf
             row = torch.where(in_mat, torch.minimum(row, cand2), POS)
-            fin = torch.where(jcol == n_col, row, POS).amin(1, keepdim=True)
-            best = torch.where(latch, fin, best)
+            if latch is not None:
+                fin = torch.where(jcol == n_col, row, POS).amin(
+                    1, keepdim=True)
+                best = torch.where(latch, fin, best)
             edge = torch.minimum(edge, torch.minimum(row[:, :1],
                                                      row[:, V - 1 :]))
             mp = row
             continue
         sub = torch.where(tw == qc, match, mis)
         if mode == "overlap":
-            diag = torch.where(at_j0_diag, 0.0, mp)
-            vert = torch.where(at_j0, 0.0, _shl(mp, NEG))
+            diag, vert = mp, _shl(mp, NEG)
+            if border:
+                diag = torch.where(at_j0_diag, 0.0, diag)
+                vert = torch.where(at_j0, 0.0, vert)
             dd, vv = diag + sub, vert + o
             cand = torch.where(in_mat, torch.maximum(dd, vv), NEG)
-            cd = torch.where(at_j0, 0.0, cand - o * jf)
+            cd = cand - o * jf
+            if border:
+                cd = torch.where(at_j0, 0.0, cd)
             row = torch.cummax(cd, dim=1).values + o * jf
             row = torch.where(in_mat, row, NEG)
-            lt_n = jcol <= n_col - 1
-            rowmax = torch.where(lt_n, row, NEG).amax(1, keepdim=True)
-            best = torch.where(latch, torch.clamp_min(rowmax, 0.0), best)
+            if latch is not None:
+                lt_n = jcol <= n_col - 1
+                rowmax = torch.where(lt_n, row, NEG).amax(1, keepdim=True)
+                best = torch.where(latch, torch.clamp_min(rowmax, 0.0), best)
             if emit:
                 # codes in argument order LEFT, DIAG, RIGHT
-                lh = torch.where(at_j0_diag, 0.0, _shr(row, NEG))
+                lh = _shr(row, NEG)
+                if border:
+                    lh = torch.where(at_j0_diag, 0.0, lh)
                 code = torch.where(lh + o >= row, L.OV_LEFT,
                                    torch.where(dd >= vv, L.OV_DIAG,
                                                L.OV_RIGHT))
                 code = torch.where(row > NEG, code, L.OV_UNSET)
                 ptrs[:, idx, :V] = code.to(torch.uint8)
+            if emit and latch is not None:
                 jarg = _first_j((row == rowmax) & lt_n & in_mat, jcol)
                 jarg = torch.where(rowmax > 0.0, jarg, 0)
                 a = torch.where(latch, jarg, a)
@@ -223,26 +296,28 @@ def _fill_plain(mode, band, emit, qs, te, ns, ms, params):
         # the affine family: global / local / fit
         diag_m, diag_l, diag_u = mp, lp, up
         vert_m, vert_l = _shl(mp, NEG), _shl(lp, NEG)
-        if mode == "global":
-            b_l = o + e * (i_f - 1.0)  # L(i-1, 0)
-            diag_m = torch.where(at_j0_diag, 0.0 if i == 1 else NEG, diag_m)
-            diag_l = torch.where(at_j0_diag, b_l, diag_l)
-            diag_u = torch.where(at_j0_diag, o if i == 1 else NEG, diag_u)
-            vert_m = torch.where(at_j0, NEG, vert_m)
-            vert_l = torch.where(at_j0, b_l, vert_l)
-        elif mode == "fit":
-            b_mu = 0.0 if i == 1 else NEG  # M(i-1, 0) = U(i-1, 0)
-            diag_m = torch.where(at_j0_diag, b_mu, diag_m)
-            diag_l = torch.where(at_j0_diag, NEG, diag_l)
-            diag_u = torch.where(at_j0_diag, b_mu, diag_u)
-            vert_m = torch.where(at_j0, b_mu, vert_m)
-            vert_l = torch.where(at_j0, NEG, vert_l)
-        else:
-            diag_m = torch.where(at_j0_diag, 0.0, diag_m)
-            diag_l = torch.where(at_j0_diag, 0.0, diag_l)
-            diag_u = torch.where(at_j0_diag, 0.0, diag_u)
-            vert_m = torch.where(at_j0, 0.0, vert_m)
-            vert_l = torch.where(at_j0, 0.0, vert_l)
+        if border:
+            if mode == "global":
+                b_l = o + e * (i_f - 1.0)  # L(i-1, 0)
+                diag_m = torch.where(at_j0_diag, 0.0 if i == 1 else NEG,
+                                     diag_m)
+                diag_l = torch.where(at_j0_diag, b_l, diag_l)
+                diag_u = torch.where(at_j0_diag, o if i == 1 else NEG, diag_u)
+                vert_m = torch.where(at_j0, NEG, vert_m)
+                vert_l = torch.where(at_j0, b_l, vert_l)
+            elif mode == "fit":
+                b_mu = 0.0 if i == 1 else NEG  # M(i-1, 0) = U(i-1, 0)
+                diag_m = torch.where(at_j0_diag, b_mu, diag_m)
+                diag_l = torch.where(at_j0_diag, NEG, diag_l)
+                diag_u = torch.where(at_j0_diag, b_mu, diag_u)
+                vert_m = torch.where(at_j0, b_mu, vert_m)
+                vert_l = torch.where(at_j0, NEG, vert_l)
+            else:
+                diag_m = torch.where(at_j0_diag, 0.0, diag_m)
+                diag_l = torch.where(at_j0_diag, 0.0, diag_l)
+                diag_u = torch.where(at_j0_diag, 0.0, diag_u)
+                vert_m = torch.where(at_j0, 0.0, vert_m)
+                vert_l = torch.where(at_j0, 0.0, vert_l)
         cand_l, cand_m, cand_u = diag_l + sub, diag_m + sub, diag_u + sub
         best3 = torch.maximum(torch.maximum(cand_l, cand_m), cand_u)
         m_row = torch.clamp_min(best3, 0.0) if mode == "local" else best3
@@ -250,7 +325,7 @@ def _fill_plain(mode, band, emit, qs, te, ns, ms, params):
         la, lb = vert_l + e, vert_m + o
         l_row = torch.where(in_mat, torch.maximum(la, lb), NEG)
         cand = _shr(m_row, NEG) + o - e * jf
-        if mode == "local":
+        if mode == "local" and border:
             cand = torch.where(at_j0, 0.0 - e * jf, cand)
             cand = torch.where(at_j0_diag,
                                torch.maximum(cand, 0.0 + o - e * jf), cand)
@@ -266,32 +341,34 @@ def _fill_plain(mode, band, emit, qs, te, ns, ms, params):
             pm = torch.where(m_row > NEG, pm, L.PK_UNSET)
             plb = torch.where(la >= lb, 0, L.PK_L_IS_MID)
             mh, uh = _shr(m_row, NEG), _shr(u_row, NEG)
-            if mode == "local":
+            if mode == "local" and border:
                 mh = torch.where(at_j0_diag, 0.0, mh)
                 uh = torch.where(at_j0_diag, 0.0, uh)
             pub = torch.where(mh + o >= uh + e, 0, L.PK_U_IS_UPP)
             ptrs[:, idx, :V] = (pm | plb | pub).to(torch.uint8)
         if mode == "fit":
-            lt_n = jcol <= n_col - 1
-            mb = torch.where(lt_n, m_row, NEG).amax(1, keepdim=True)
-            lb3 = torch.where(lt_n, l_row, NEG).amax(1, keepdim=True)
-            fin = torch.maximum(mb, lb3)
-            best = torch.where(latch, fin, best)
-            use_l = lb3 > mb  # M wins ties
-            win = torch.where(use_l, l_row, m_row)
-            jarg = _first_j((win == fin) & lt_n & in_mat, jcol)
-            a = torch.where(latch, use_l.to(torch.int32), a)
-            b = torch.where(latch, jarg, b)
+            if latch is not None:
+                lt_n = jcol <= n_col - 1
+                mb = torch.where(lt_n, m_row, NEG).amax(1, keepdim=True)
+                lb3 = torch.where(lt_n, l_row, NEG).amax(1, keepdim=True)
+                fin = torch.maximum(mb, lb3)
+                best = torch.where(latch, fin, best)
+                use_l = lb3 > mb  # M wins ties
+                win = torch.where(use_l, l_row, m_row)
+                jarg = _first_j((win == fin) & lt_n & in_mat, jcol)
+                a = torch.where(latch, use_l.to(torch.int32), a)
+                b = torch.where(latch, jarg, b)
         elif mode == "global":
-            at_n = jcol == n_col
-            ln = torch.where(at_n, l_row, NEG).amax(1, keepdim=True)
-            mn = torch.where(at_n, m_row, NEG).amax(1, keepdim=True)
-            un = torch.where(at_n, u_row, NEG).amax(1, keepdim=True)
-            st = torch.where((ln >= mn) & (ln >= un), 0,
-                             torch.where(mn >= un, 1, 2)).to(torch.int32)
-            best = torch.where(latch, torch.maximum(torch.maximum(ln, mn),
-                                                    un), best)
-            a = torch.where(latch, st, a)
+            if latch is not None:
+                at_n = jcol == n_col
+                ln = torch.where(at_n, l_row, NEG).amax(1, keepdim=True)
+                mn = torch.where(at_n, m_row, NEG).amax(1, keepdim=True)
+                un = torch.where(at_n, u_row, NEG).amax(1, keepdim=True)
+                st = torch.where((ln >= mn) & (ln >= un), 0,
+                                 torch.where(mn >= un, 1, 2)).to(torch.int32)
+                best = torch.where(latch, torch.maximum(torch.maximum(ln, mn),
+                                                        un), best)
+                a = torch.where(latch, st, a)
         else:  # local: running max of M, row-major, strict >
             rowmax = m_row.amax(1, keepdim=True)
             upd = rowmax > best
@@ -357,16 +434,16 @@ def _check(mode, modes, band, qs, te, ns, ms, params):
 def _launch(mode, emit, band, qs, te, ns, ms, params, shape=None):
     """Launch the kernel on CUDA tensors at ``shape`` = (path, threads,
     strip), by default the path ``engine/select.banded_path(band, B)``
-    picks (``launch_shape(band)``, or ``cta_shape(band)``); the C entry
+    picks (``launch_shape(band)``, or ``cta_shape(band, B)``); the C entry
     refuses a shape it has no instance for."""
-    global launches
+    global launches, launches_cta
     from aligntools_tpu_torch.engine import select
 
     B, m_pad = qs.shape
     dev = qs.device
     if shape is None:
         shape = (launch_shape(band) if select.banded_path(band, B) == "warp"
-                 else cta_shape(band))
+                 else cta_shape(band, B))
     path, threads, strip = shape
     best = torch.empty(B, dtype=torch.float32, device=dev)
     edge = torch.empty(B, dtype=torch.float32, device=dev)
@@ -387,6 +464,7 @@ def _launch(mode, emit, band, qs, te, ns, ms, params, shape=None):
         raise RuntimeError(f"banded fill kernel launch failed: CUDA error "
                            f"{err}")
     launches += 1
+    launches_cta += path == "cta"
     return best, edge, a, b, ptrs
 
 

@@ -69,6 +69,10 @@ BATCH_CASES = 60  # main: the cases a mode that also run in batches
 STRIDES = (8, 16, 24)
 SEQPAR_RANKS = (4, 8)
 CTA_BAND = 256  # the narrowest band past the warp path's 512 lanes
+# a band past the 8,191 the CTA path once capped (a cluster of CTAs a
+# pair), for the first WIDE_CASES pairs of each mode
+WIDE_BAND = 9000
+WIDE_CASES = 4
 ROUTE_M = (256, 512)
 QUANTUM = 128  # the batch path's n_pad step (batch._align_n)
 
@@ -396,15 +400,17 @@ def section_banded_full(run, n_per):
         prs = [(c.q, c.t) for c in cases]
         full = max(max(len(q), len(t)) for q, t in prs)
         paths = []
-        for band in (full, max(full, CTA_BAND)):
-            paths.append(select.banded_path(band, len(prs)))
-            res, _ = banded.banded_align_batch(mode, prs, band, p,
-                                               device=run.device)
-            for c, r in zip(cases, res):
+        for band, some in ((full, cases), (max(full, CTA_BAND), cases),
+                           (WIDE_BAND, cases[:WIDE_CASES])):
+            paths.append(select.banded_path(band, len(some)))
+            res, _ = banded.banded_align_batch(
+                mode, [(c.q, c.t) for c in some], band, p, device=run.device)
+            for c, r in zip(some, res):
                 c.expect_result(r, f"banded_align_batch at band {band} "
                                    f"({paths[-1]} path)")
         run.log(f"banded-full {mode}: OK ({len(cases)} cases, bands {full} "
-                f"and {max(full, CTA_BAND)}: {' and '.join(paths)} paths)")
+                f"and {max(full, CTA_BAND)}, {min(len(cases), WIDE_CASES)} "
+                f"at {WIDE_BAND}: {' and '.join(paths)} paths)")
 
 
 def section_banded_auto(run, n_per):
@@ -548,7 +554,8 @@ def launch_counts() -> dict:
     return {**scan.launches, "ptr": ptr.launches, "walk": tb.launches,
             "walk_pause": tb.pause_launches,
             "walk_col_pause": tb.col_pause_launches, **blocked.launches,
-            "banded": banded.launches, "ptr64": ptr.launches64,
+            "banded": banded.launches, "banded_cta": banded.launches_cta,
+            "ptr64": ptr.launches64,
             "edit64": scan.launches64,
             "plain": (scan.plain_calls + ptr.plain_calls + tb.plain_calls
                       + blocked.plain_calls + banded.plain_calls)}

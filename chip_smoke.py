@@ -95,11 +95,11 @@ Phases, one JSON line each:
                      then twice with `--trace DIR`: the Chrome trace holds
                      kernel events of the pointer fill and the walk, every
                      TSV equals the rows run's; the wall of each;
-  buckets  meanwhile, every second bucket those runs built, on the card:
+  buckets  meanwhile, every fourth bucket those runs built, on the card:
            the score kernel against plain for the score runs, and the
            pointer kernel against plain for the rows runs, with the walk
            against plain on every bucket checked of the 20,000-pair local
-           run and on every 16th bucket of the 2,000-pair runs, whose
+           run and on every 32nd bucket of the 2,000-pair runs, whose
            walks cross the whole target;
   single   the per-mode commands (`global|local|fit|overlap|edit [opts]
            FILE`) through cli.main in-process on the card
@@ -237,7 +237,7 @@ Phases, one JSON line each:
            plain version ran; each rows TSV's score column equals its scores
            TSV, and 64 sampled lines equal the port's `--device cpu` run.
            Meanwhile (`buckets` lines) every slab of those runs (every
-           fourth of BS local and global), kernel against plain on the card (one plain call a slab holds both the
+           eighth of BS local and global), kernel against plain on the card (one plain call a slab holds both the
            rows run's pointer fill and the scores run's score fill), and the
            walk against plain on each rows run's first slab; the kernel
            timed on each mode's first rows slab and first scores slab
@@ -246,7 +246,25 @@ Phases, one JSON line each:
            each BK1 row names its launch's path and strip and holds the
            CTA path too against plain (`cta_ms`); after it (`paths` lines)
            both paths against plain at W 200, where the warp path takes
-           16 lanes a thread, at 64 and 2,112 pairs.
+           16 lanes a thread, at 64 pairs of 512 rows; then
+           BKW, the CTA path at the bands only it serves (W 256 and 1,000
+           at 64 x 4,096, W 2,048 at 16 x 4,096, W 8,191 at 8 x 2,048 rows
+           against targets 8,191 bases longer: a cluster of 16 CTAs), the
+           nine variants against plain (one plain call a mode), timed
+           beside the bound, probe_ms, the team's geometry and the parent
+           commit's time (BKW_PARENT_MS). After BS, BW: the CTA path on
+           the main path, `batch local|global --band 512` rows and scores
+           through cli.main on 512 noisy long reads against their draft
+           (lognormal, median 10,000, sigma 0.2; 5% substitutions, 3%
+           deletions, 1% insertions), its launches counted from 0 (the
+           CTA path and the walk launched, every banded fill on the CTA
+           path, no plain version), each rows TSV's score column equal to
+           its scores TSV; a local rows run with `--trace DIR` in a fresh
+           process, its TSV the rows run's (the device's busy share of
+           its pipeline's seconds, from the trace: a `BW` `trace` line);
+           local's first slab, the pointer and score fills against one
+           plain call, the kernel timed there (`BW-slab` lines: ms, bound,
+           band-GCUPS).
 
 Last, after the banded phase:
 
@@ -282,7 +300,9 @@ TRACE.banded.json.
 
 Then the kernels' summary line (each kernel's time, launches on the main
 path, bound, probe_ms and plain time; the banded kernel's first BS
-slab beside BK1; the double instances with their exact64 launches), the
+slab beside BK1; its CTA path, `banded_cta`, at BKW's W 1,000 with BW's
+launches and first slab; the double instances with their exact64
+launches), the
 card's name and power limit as
 nvidia-smi prints them, and, last, {"ok": true, "device": {...}}. Any
 failure exits nonzero before that line; so does a host without CUDA.
@@ -331,6 +351,11 @@ KERNELS = {
     "banded": ("aligntools_tpu/ops/pallas_banded.py:61 _banded_kernel "
                "(entries banded_pallas_scores:356, banded_pallas_full:369)",
                "banded_fill.cu", ()),
+    # the banded fill's CTA path: a team of warps a pair (clusters past a
+    # CTA), every band past W 255 and batches below a strip's threshold
+    "banded_cta": ("aligntools_tpu/ops/pallas_banded.py:61 _banded_kernel "
+                   "(entries banded_pallas_scores:356, banded_pallas_full:"
+                   "369), its CTA path", "banded_fill.cu", ()),
     "blocked_ckpt": ("aligntools_tpu/engine/rescan.py:71 _forward_ckpt (a "
                      "lax.scan over engine/scan.py's row machines; no "
                      "pallas_call)", "blocked_fill.cu", ()),
@@ -433,17 +458,74 @@ LONG_FAR_N = 100000
 # the banded phase: BK1 (B, m = n, W), benchmarks/probe_banded.py's shapes;
 # BS pairs, the run's band, and the share of the pairs the slower modes run
 BANDED_BK1 = [(64, 4096, 128), (2048, 512, 64)]
-# the warp path's widest strip (16 lanes a thread) against the CTA path, a
-# few pairs and many: the nine variants at BANDED_PATHS_L rows, each
-# (band, pairs); BK1 holds the CTA path at its own shapes
-BANDED_PATHS = [(200, 64), (200, 2112)]
-BANDED_PATHS_L = 1024
+# the warp path's widest strip (16 lanes a thread) against the CTA path at
+# a few pairs: the nine variants at BANDED_PATHS_L rows, each (band,
+# pairs); BK1 holds the CTA path at its own shapes
+BANDED_PATHS = [(200, 64)]
+BANDED_PATHS_L = 512
 BANDED_VARIANTS = [("global", True), ("local", True), ("fit", True),
                    ("overlap", True), ("global", False), ("local", False),
                    ("fit", False), ("overlap", False), ("edit", False)]
 BS_PAIRS = 20000
 BS_SMALL = 2000
 BS_BAND = 128
+# BKW: the CTA path at bands only it serves, (B, m, W, target bases past
+# m): a team of 5 warps in a CTA (W 256) and a cluster of 2 CTAs (W 1,000)
+# at 64 x 4,096, one of 5 at W 2,048 (where the old kernel took 16-lane
+# strips), and one of 16 at W 8,191, the widest band the old kernel took,
+# against targets 8,191 bases longer
+BANDED_BKW = [(64, 4096, 256, 0), (64, 4096, 1000, 0), (16, 4096, 2048, 0),
+              (8, 2048, 8191, 8191)]
+# the parent commit's (0df2deb) CTA kernels at BKW, ms by "variant shape":
+# this script's BKW level (`--only bkw`) run on that commit's package, one
+# H100 80GB HBM3 at 700 W
+BKW_PARENT_MS = {
+    "global/ptrs 64x4096/W256": 4.1087,
+    "local/ptrs 64x4096/W256": 4.569,
+    "fit/ptrs 64x4096/W256": 4.197,
+    "overlap/ptrs 64x4096/W256": 3.4564,
+    "global 64x4096/W256": 3.2857,
+    "local 64x4096/W256": 4.0162,
+    "fit 64x4096/W256": 3.3511,
+    "overlap 64x4096/W256": 3.2632,
+    "edit 64x4096/W256": 3.424,
+    "global/ptrs 64x4096/W1000": 6.9392,
+    "local/ptrs 64x4096/W1000": 7.483,
+    "fit/ptrs 64x4096/W1000": 6.9111,
+    "overlap/ptrs 64x4096/W1000": 5.515,
+    "global 64x4096/W1000": 5.5112,
+    "local 64x4096/W1000": 6.3283,
+    "fit 64x4096/W1000": 5.5204,
+    "overlap 64x4096/W1000": 4.9269,
+    "edit 64x4096/W1000": 5.0775,
+    "global/ptrs 16x4096/W2048": 32.5148,
+    "local/ptrs 16x4096/W2048": 20.0521,
+    "fit/ptrs 16x4096/W2048": 28.5879,
+    "overlap/ptrs 16x4096/W2048": 13.3711,
+    "global 16x4096/W2048": 12.6458,
+    "local 16x4096/W2048": 15.7097,
+    "fit 16x4096/W2048": 12.9477,
+    "overlap 16x4096/W2048": 11.3092,
+    "edit 16x4096/W2048": 14.0325,
+    "global/ptrs 8x2048/W8191/n+8191": 34.5563,
+    "local/ptrs 8x2048/W8191/n+8191": 23.4161,
+    "fit/ptrs 8x2048/W8191/n+8191": 30.4987,
+    "overlap/ptrs 8x2048/W8191/n+8191": 18.5471,
+    "global 8x2048/W8191/n+8191": 15.5268,
+    "local 8x2048/W8191/n+8191": 16.3026,
+    "fit 8x2048/W8191/n+8191": 15.7742,
+    "overlap 8x2048/W8191/n+8191": 10.3593,
+    "edit 8x2048/W8191/n+8191": 13.9013,
+}
+# BW: noisy long reads against their draft at a band past the warp path
+# (the CTA path: a cluster of 2 CTAs a pair); pairs, band, the draft's
+# median length and sigma, and the read's substitution, deletion and
+# insertion rates
+BW_PAIRS = 512
+BW_BAND = 512
+BW_MEDIAN = 10000
+BW_SIGMA = 0.2
+BW_ERRORS = (0.05, 0.03, 0.01)
 # the rescan phase: RSF, the rows path's checkpoint rescan forced by an
 # ALIGNTOOLS_HBM_BUDGET just below one pair's pointer bytes, on the B1 shape
 # (fit -s) and on seeded related RSF_SHAPE pairs in global, local and
@@ -483,24 +565,24 @@ CAL_MOVED = {"score_flat_cap": {"affine": 2048, "overlap": 4096,
 VALIDATE_N_PER = 24
 VALIDATE_KERNELS = ("affine", "overlap", "edit", "fit", "ptr", "walk",
                     "blocked_scores", "blocked_ptr", "blocked_ckpt",
-                    "blocked_refill", "walk_pause", "banded", "edge_scores",
-                    "edge_ptr", "walk_col_pause")
+                    "blocked_refill", "walk_pause", "banded", "banded_cta",
+                    "edge_scores", "edge_ptr", "walk_col_pause")
 RSR_OVER = 1.075
 RSR_ASPECT = 1.375
 # the slice phase holds the walk against plain on every bucket of the
 # 20,000-pair local rows run and on every SMALL_WALK_EVERY-th bucket of the
 # 2,000-pair global, overlap and fit -s rows runs (two walks of each: the
 # plain walk crosses the whole target, ~2-4 s a bucket)
-SMALL_WALK_EVERY = 16
+SMALL_WALK_EVERY = 32
 # the bucket checks on the card hold every SLICE_CHECK_EVERY-th bucket of
 # the slice phase's runs, every LONG_CHECK_EVERY[run]-th of the long
 # phase's (the narrowest blocked bucket of L3 always) and every
 # BS_CHECK_EVERY-th slab of BS local and global (the first always): a
 # sample that keeps every kernel, mode and route covered and the script
 # inside its time
-SLICE_CHECK_EVERY = 2
-LONG_CHECK_EVERY = {"fit": 8, "mixed": 2}
-BS_CHECK_EVERY = 4
+SLICE_CHECK_EVERY = 4
+LONG_CHECK_EVERY = {"fit": 16, "mixed": 2}
+BS_CHECK_EVERY = 8
 
 # The least time the card could take for the same work: the
 # larger of the operations over 33.5 T op/s (67 TFLOP/s of f32 counts an
@@ -1580,6 +1662,19 @@ def sample(pool, k):
     return sorted(random.Random(SEED).sample(list(pool), k))
 
 
+def rows_match_scores(tag, rows_tsv, scores_tsv, pairs):
+    """The rows TSV's names and score column equal the scores TSV's, a
+    line a pair; returns the rows TSV's lines."""
+    rows, scores = read_lines(rows_tsv), read_lines(scores_tsv)
+    check(len(rows) == len(scores) == len(pairs),
+          f"{tag}: {len(rows)} rows lines, {len(scores)} score lines "
+          f"for {len(pairs)} pairs")
+    for k, (r, sc) in enumerate(zip(rows, scores)):
+        check(r.split("\t")[:3] == sc.split("\t"),
+              f"{tag}: line {k}: rows and scores runs disagree")
+    return rows
+
+
 def start_cpu_checks(work, runs):
     """For each run (tag, mode, rows TSV, scores TSV, pairs, sites, groups
     of sampled pair indices[, more CLI arguments]): check that the rows
@@ -1592,13 +1687,7 @@ def start_cpu_checks(work, runs):
     try:
         for tag, mode, rows_tsv, scores_tsv, pairs, sites, groups, *more in (
                 runs):
-            rows, scores = read_lines(rows_tsv), read_lines(scores_tsv)
-            check(len(rows) == len(scores) == len(pairs),
-                  f"{tag}: {len(rows)} rows lines, {len(scores)} score lines "
-                  f"for {len(pairs)} pairs")
-            for k, (r, sc) in enumerate(zip(rows, scores)):
-                check(r.split("\t")[:3] == sc.split("\t"),
-                      f"{tag}: line {k}: rows and scores runs disagree")
+            rows = rows_match_scores(tag, rows_tsv, scores_tsv, pairs)
             for g, picks in enumerate(groups):
                 name = f"{tag}-sample{g}"
                 fasta = os.path.join(work, f"{name}.fa")
@@ -1733,8 +1822,8 @@ def counts(scan, ptr, tb):
 
     return ({**scan.launches, "ptr": ptr.launches, "walk": tb.launches,
              "walk_pause": tb.pause_launches, **blocked.launches,
-             "banded": banded.launches, "ptr64": ptr.launches64,
-             "edit64": scan.launches64},
+             "banded": banded.launches, "banded_cta": banded.launches_cta,
+             "ptr64": ptr.launches64, "edit64": scan.launches64},
             {"scan": scan.plain_calls, "ptr": ptr.plain_calls,
              "walk": tb.plain_calls, "blocked": blocked.plain_calls,
              "banded": banded.plain_calls})
@@ -2876,10 +2965,11 @@ def phase_long(torch, scan, ptr, tb, work, trace_path):
     return launches, checked_buckets, long_walks
 
 
-def banded_kernel_inputs(torch, B, L, band, seed):
+def banded_kernel_inputs(torch, B, L, band, seed, extra=0):
     """BK1's inputs on the card: B queries of L random bases, each target
-    the query with 1% substitutions (m = n = L), in the banded kernel's
-    layout, default parameters."""
+    the query with 1% substitutions and ``extra`` random bases after it
+    (m = L, n = L + extra), in the banded kernel's layout, default
+    parameters."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -2888,13 +2978,16 @@ def banded_kernel_inputs(torch, B, L, band, seed):
     ts = qs.copy()
     mut = rng.random((B, L)) < 0.01
     ts[mut] = rng.choice(alpha, int(mut.sum()))
-    te = np.full((B, band + L + 2 * band + 2), -2, np.int32)
-    te[:, band : band + L] = ts
-    lens = np.full((B, 1), L, np.int32)
+    ts = np.concatenate([ts, rng.choice(alpha, (B, extra))], axis=1)
+    n = L + extra
+    te = np.full((B, band + n + 2 * band + 2), -2, np.int32)
+    te[:, band : band + n] = ts
     pm = np.array([[1, -2, -5, -1, 0, 0, 0, 0]], np.float32)
     return [torch.from_numpy(np.ascontiguousarray(x, dtype)).cuda()
-            for x, dtype in ((qs, np.int32), (te, np.int32), (lens, np.int32),
-                             (lens, np.int32), (pm, np.float32))]
+            for x, dtype in ((qs, np.int32), (te, np.int32),
+                             (np.full((B, 1), n), np.int32),
+                             (np.full((B, 1), L), np.int32),
+                             (pm, np.float32))]
 
 
 def band_cells(ms, ns, band):
@@ -2907,12 +3000,6 @@ def band_cells(ms, ns, band):
         total += int(np.clip(np.minimum(n, i + band) - np.maximum(1, i - band)
                              + 1, 0, None).sum())
     return total
-
-
-def cta_shape(band):
-    """The CTA path's launch shape at ``band`` (what launch_shape gives
-    past the warp path's widest window): 4 lanes a thread."""
-    return "cta", -(-(2 * band + 1) // 128) * 32, 4
 
 
 def banded_variant_check(torch, banded, mode, with_ptrs, band, args, want,
@@ -2937,11 +3024,12 @@ def phase_banded_kernels(torch, banded):
     """The registers and local (spill) bytes of each instance of
     csrc/banded_fill.cu; BK1: the nine variants against plain, bit for bit,
     and timed, on the path launch_shape gives (the warp path) and on the
-    CTA path, with each launch's path and strip."""
+    CTA path, with each launch's path and strip. One plain call a mode, as
+    in BKW (a score-only variant's plain_ms is its pointer fill's)."""
     from aligntools_tpu_torch.ops import _build
 
     emit({"phase": "banded", "resource_usage": resource_usage(
-        _build.library_path(), ("banded_affine", "banded_linear"))})
+        _build.library_path(), ("banded_",))})
     rows = []
     for B, L, band in BANDED_BK1:
         args = banded_kernel_inputs(torch, B, L, band, SEED + 3)
@@ -2949,14 +3037,19 @@ def phase_banded_kernels(torch, banded):
         need = band_cells([L] * B, [L] * B, band)
         in_bytes = sum(x.numel() * x.element_size() for x in args)
         shape = f"{B}x{L}/W{band}"
-        for mode, with_ptrs in BANDED_VARIANTS:
+        wants = {}
+        for mode, with_ptrs in BANDED_VARIANTS:  # each mode's pointers first
             fn = banded.banded_full if with_ptrs else banded.banded_scores
             plain = (banded.banded_full_plain if with_ptrs
                      else banded.banded_scores_plain)
             got = fn(mode, band, *args)
             torch.cuda.synchronize()
             # the plain version's time is its one comparison call's
-            want, ms_p = timed_call(torch, lambda: plain(mode, band, *args))
+            if mode not in wants:
+                wants[mode] = timed_call(
+                    torch, lambda: plain(mode, band, *args))
+            want, ms_p = wants[mode]
+            want = want[:5 if with_ptrs else 2]
             equal = all(torch.equal(g, w) for g, w in zip(got, want))
             err = max([max_err(torch, g, w) for g, w in zip(got[:4], want)]
                       + [0.0 if not with_ptrs or torch.equal(got[4], want[4])
@@ -2965,10 +3058,9 @@ def phase_banded_kernels(torch, banded):
             ms_k = statistics.median(
                 timed_ms(torch, lambda: fn(mode, band, *args))
                 for _ in range(3))
-            cta = cta_shape(band)
+            cta = banded.cta_shape(band)
             cta_eq, cta_err, cta_ms = banded_variant_check(
                 torch, banded, mode, with_ptrs, band, args, want, cta)
-            del want
             out_bytes = 8 * B + (8 * B + B * L * banded.lanes_padded(band)
                                  if with_ptrs else 0)
             ops = (SCORE_OPS[mode]
@@ -2995,9 +3087,64 @@ def phase_banded_kernels(torch, banded):
                   f"banded {row['variant']} at {shape}, CTA path: kernel != "
                   f"plain")
             rows.append(row)
-        del args
+        del args, wants
         torch.cuda.empty_cache()
     phase_banded_paths(torch, banded)
+    return rows + phase_banded_wide(torch, banded)
+
+
+def phase_banded_wide(torch, banded):
+    """BKW: the CTA path at the bands only it serves (BANDED_BKW), the nine
+    variants through the wrapper's own route against plain, bit for bit,
+    and timed (warm median of three) beside their bound, probe_ms, the
+    parent commit's time (BKW_PARENT_MS) and the launch's shape and team
+    geometry. One plain call a mode: the plain pointer fill holds the
+    score-only variant's best and edge too (its plain_ms is that call's)."""
+    rows = []
+    for B, L, band, extra in BANDED_BKW:
+        args = banded_kernel_inputs(torch, B, L, band, SEED + 11, extra)
+        n, V = L + extra, 2 * band + 1
+        need = band_cells([L] * B, [n] * B, band)
+        in_bytes = sum(x.numel() * x.element_size() for x in args)
+        shape = f"{B}x{L}/W{band}" + (f"/n+{extra}" if extra else "")
+        try:  # the shape the wrapper launches (a parent's takes no batch)
+            cta = banded.cta_shape(band, B)
+            geometry = banded.cta_geometry(band, cta[1], cta[2])
+        except TypeError:
+            cta, geometry = banded.cta_shape(band), None
+        wants = {}
+        for mode, with_ptrs in BANDED_VARIANTS:  # each mode's pointers first
+            if mode not in wants:
+                plain = (banded.banded_full_plain if with_ptrs
+                         else banded.banded_scores_plain)
+                wants[mode] = timed_call(
+                    torch, lambda: plain(mode, band, *args))
+            want, ms_p = wants[mode]
+            equal, err, ms_k = banded_variant_check(
+                torch, banded, mode, with_ptrs, band, args,
+                want[:5 if with_ptrs else 2], None)
+            out_bytes = 8 * B + (8 * B + B * L * banded.lanes_padded(band)
+                                 if with_ptrs else 0)
+            ops = (SCORE_OPS[mode]
+                   + (PTR_EXTRA_OPS[mode] if with_ptrs else 0)) * need
+            b_ms, b_by = bound(ops, in_bytes + out_bytes)
+            variant = f"{mode}/ptrs" if with_ptrs else mode
+            row = {"phase": "banded", "level": "BKW", "variant": variant,
+                   "shape": shape, "route": f"cta {cta[1]} threads",
+                   "strip": cta[2], "geometry": geometry,
+                   "bit_equal": equal, "max_abs_err": err, "tolerance": TOL,
+                   "ms": ms_k,
+                   "parent_ms": BKW_PARENT_MS.get(f"{variant} {shape}"),
+                   "plain_ms": ms_p, "bound_ms": b_ms, "bound_by": b_by,
+                   "probe_ms": probe_ms(ops, mode == "edit"),
+                   "band_cells": B * L * V, "band_cells_in_matrix": need,
+                   "gcups_band": B * L * V / ms_k / 1e6}
+            emit(row)
+            check(equal and err == 0.0,
+                  f"banded {variant} at {shape}, CTA path: kernel != plain")
+            rows.append(row)
+        del args, wants
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -3009,18 +3156,22 @@ def phase_banded_paths(torch, banded):
     for band, B in BANDED_PATHS:
         args = banded_kernel_inputs(torch, B, BANDED_PATHS_L, band, SEED + 7)
         shapes = {"warp": banded.launch_shape(band),
-                  "cta": cta_shape(band)}
+                  "cta": banded.cta_shape(band)}
         check(shapes["warp"][0] == "warp",
               f"launch_shape({band}) does not take the warp path")
         shape = f"{B}x{BANDED_PATHS_L}/W{band}"
-        for mode, with_ptrs in BANDED_VARIANTS:
+        wants = {}
+        for mode, with_ptrs in BANDED_VARIANTS:  # one plain call a mode
             plain = (banded.banded_full_plain if with_ptrs
                      else banded.banded_scores_plain)
-            want, ms_p = timed_call(torch, lambda: plain(mode, band, *args))
+            if mode not in wants:
+                wants[mode] = timed_call(
+                    torch, lambda: plain(mode, band, *args))
+            want, ms_p = wants[mode]
+            want = want[:5 if with_ptrs else 2]
             res = {path: banded_variant_check(torch, banded, mode, with_ptrs,
                                               band, args, want, sh)
                    for path, sh in shapes.items()}
-            del want
             variant = f"{mode}/ptrs" if with_ptrs else mode
             emit({"phase": "banded", "level": "paths", "variant": variant,
                   "shape": shape, "warp_ms": res["warp"][2],
@@ -3033,7 +3184,7 @@ def phase_banded_paths(torch, banded):
             for path, (equal, err, _) in res.items():
                 check(equal and err == 0.0, f"banded {variant} at {shape}, "
                       f"{path} path: kernel != plain")
-        del args
+        del args, wants
     torch.cuda.empty_cache()
 
 
@@ -3065,9 +3216,11 @@ def similar_pairs(P, seed):
 
 
 def banded_slab_checks(torch, tb, ebanded, banded, mode, pairs, params,
-                       walk_rows=None, slab_rows=None, check_every=1):
+                       walk_rows=None, slab_rows=None, check_every=1,
+                       band=BS_BAND, level="BS-slab", walk=True):
     """Kernel vs plain on every ``check_every``-th slab (the first always)
-    the BS runs of ``mode`` fill: one plain
+    the BS runs (BW's at ``band``, without the walk check: ``walk``) of
+    ``mode`` fill: one plain
     call a slab holds the pointer-emitting fill of the rows run (every byte)
     and the score fill of the scores run (best and edge) where both fill it
     (the pointer budget cuts no slab at BS's size), and the walk is held
@@ -3080,8 +3233,8 @@ def banded_slab_checks(torch, tb, ebanded, banded, mode, pairs, params,
     dev = torch.device("cuda")
     pm = params_matrix(params, dev)
     budget = int(batch._hbm_budget(dev) * batch.PTR_BUDGET_FRAC)
-    score_plan = ebanded.plan(pairs, BS_BAND)
-    rows_plan = (ebanded.plan(pairs, BS_BAND, budget) if mode != "edit"
+    score_plan = ebanded.plan(pairs, band)
+    rows_plan = (ebanded.plan(pairs, band, budget) if mode != "edit"
                  else [])
     slabs = ([(sl, True, sl in score_plan) for sl in rows_plan]
              + [(sl, False, True) for sl in score_plan
@@ -3089,9 +3242,9 @@ def banded_slab_checks(torch, tb, ebanded, banded, mode, pairs, params,
     shapes, worst, walks, timed = [], 0.0, 0, set()
     for (idx, m_pad), rows, scores in slabs:
         s = ebanded._slab(idx, pairs, m_pad)
-        qs, te, ns, ms = ebanded._slab_tensors(s, BS_BAND, dev)
-        args = (mode, BS_BAND, qs, te, ns, ms, pm)
-        shape = f"{len(idx)}x{m_pad}/W{BS_BAND}"
+        qs, te, ns, ms = ebanded._slab_tensors(s, band, dev)
+        args = (mode, band, qs, te, ns, ms, pm)
+        shape = f"{len(idx)}x{m_pad}/W{band}"
         got = banded.banded_full(*args) if rows else ()
         got_s = banded.banded_scores(*args) if scores else ()
         torch.cuda.synchronize()
@@ -3111,14 +3264,14 @@ def banded_slab_checks(torch, tb, ebanded, banded, mode, pairs, params,
                 continue
             timed.add(kind)
             slab_rows.append(slab_row(torch, banded, fn, kind, args, shape,
-                                      s, ms_p, err))
+                                      s, ms_p, err, level))
         del want, got_s
-        if rows and not walks:
+        if walk and rows and not walks:
             starts = tb.walk_starts(mode, got[0], got[2], got[3], ms, ns)
-            w_k = tb.walk(mode, 1, got[4], qs, te, starts, BS_BAND)
+            w_k = tb.walk(mode, 1, got[4], qs, te, starts, band)
             torch.cuda.synchronize()
             w_p, w_plain = timed_call(torch, lambda: tb.walk_plain(
-                mode, 1, got[4], qs, te, starts, BS_BAND))
+                mode, 1, got[4], qs, te, starts, band))
             w_eq = all(torch.equal(k, p) for k, p in zip(w_k, w_p))
             w_err = max([max_err(torch, w_k[2], w_p[2])]
                         + [0.0 if torch.equal(k, p) else float("inf")
@@ -3127,7 +3280,7 @@ def banded_slab_checks(torch, tb, ebanded, banded, mode, pairs, params,
                 walk_rows.append(walk_row(
                     torch, tb, mode, 1, f"{mode}/banded", f"{shape}/BS",
                     got[4], qs, te, starts, w_k, w_eq, w_err, w_plain,
-                    BS_BAND))
+                    band))
             walks += 1
             equal, err = equal and w_eq, max(err, w_err)
             del w_k, w_p
@@ -3145,8 +3298,10 @@ def banded_slab_checks(torch, tb, ebanded, banded, mode, pairs, params,
     return row
 
 
-def slab_row(torch, banded, fn, kind, args, shape, slab, plain_ms, err):
-    """A BS slab's kernel timing (warm median of three) beside its bound:
+def slab_row(torch, banded, fn, kind, args, shape, slab, plain_ms, err,
+             level="BS-slab"):
+    """A BS (BW) slab's kernel timing (warm median of three) beside its
+    bound:
     the counted ops over the band's cells inside the matrices, and the
     bytes of the inputs and outputs."""
     mode, band, qs, te, ns, ms, pm = args
@@ -3162,7 +3317,7 @@ def slab_row(torch, banded, fn, kind, args, shape, slab, plain_ms, err):
     b_ms, b_by = bound(ops, in_bytes + out_bytes)
     path, threads, strip = banded.launch_shape(band)
     V = 2 * band + 1
-    row = {"phase": "banded", "level": "BS-slab",
+    row = {"phase": "banded", "level": level,
            "variant": f"{mode}/ptrs" if ptrs else mode, "shape": shape,
            "route": f"{path} {threads} threads", "strip": strip,
            "max_abs_err": err, "tolerance": TOL, "ms": ms_k,
@@ -3271,6 +3426,122 @@ def phase_banded(torch, scan, ptr, tb, work, trace_path):
           "rows_equal_scores": sorted(m for m in rows_tsv if m != "edit"),
           "cpu_checked": checked})
     return launches, checked_buckets + slabs, walks
+
+
+def noisy_reads(P, seed):
+    """BW: noisy long reads (the query) against their draft (the target).
+    The draft: lognormal(median BW_MEDIAN, sigma BW_SIGMA) random bases;
+    the read: the draft with BW_ERRORS' substitutions, deletions and
+    insertions (5%, 3%, 1%: a net drift of ~200 bases over 10,000)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    alpha = np.frombuffer(b"ACGT", dtype=np.uint8)
+    sub, dele, ins = BW_ERRORS
+    pairs = []
+    for n in np.exp(rng.normal(np.log(BW_MEDIAN), BW_SIGMA, P)).astype(int):
+        draft = alpha[rng.integers(0, 4, n)]
+        read = draft.copy()
+        hit = rng.random(n) < sub
+        read[hit] = alpha[rng.integers(0, 4, int(hit.sum()))]
+        copies = np.ones(n, int)
+        copies[rng.random(n) < dele] = 0
+        grow = (copies == 1) & (rng.random(n) < ins)
+        copies[grow] = 2
+        read = np.repeat(read, copies)
+        # an inserted base follows its position's own
+        read[(np.cumsum(copies) - 1)[grow]] = alpha[
+            rng.integers(0, 4, int(grow.sum()))]
+        pairs.append((read.tobytes(), draft.tobytes()))
+    return pairs
+
+
+def phase_banded_bw(torch, scan, ptr, tb, work):
+    """BW: the CTA path on the main path, `batch local|global --band
+    BW_BAND` rows and scores through cli.main on BW_PAIRS noisy long reads
+    against their draft, the launches counted from 0 just before and read
+    just after (the CTA path and the walk launched, no plain version, every
+    fill on the CTA path); each rows TSV's score column equals its scores
+    TSV; a local rows run with `--trace DIR` in a fresh process (its
+    profiler sees the card from the start; one started late in this
+    process has recorded no device activity), its TSV the rows run's, the
+    device's busy share of its pipeline's seconds from the trace; then
+    local's first slab, the pointer and the score fill against one plain
+    call, the kernel timed on it (`BW-slab` lines: ms, bound, band-GCUPS);
+    not the walk, whose plain version would walk ~20,000 steps a pair (the
+    card tests hold the walk over rows this wide against plain)."""
+    import re
+
+    from aligntools_tpu_torch import cli
+    from aligntools_tpu_torch.engine import banded as ebanded
+    from aligntools_tpu_torch.ops import banded
+    from aligntools_tpu_torch.params import AlignParams
+
+    pairs = noisy_reads(BW_PAIRS, SEED + 13)
+    fasta = os.path.join(work, "bw.fa")
+    write_fasta(fasta, pairs)
+    ms, ns = [len(q) for q, _ in pairs], [len(t) for _, t in pairs]
+    emit({"phase": "banded", "level": "BW", "pairs": len(pairs),
+          "band": BW_BAND, "m_median": statistics.median(ms),
+          "net_drift_median": statistics.median(
+              n - m for m, n in zip(ms, ns)),
+          "cta_shape": list(banded.cta_shape(BW_BAND)),
+          "true_cells": sum(m * n for m, n in zip(ms, ns)),
+          "band_cells_in_matrix": band_cells(ms, ns, BW_BAND)})
+    tsv = {}
+    reset_counts(scan, ptr, tb)
+    for mode in ("local", "global"):
+        for rows in (True, False):
+            tsv[mode, rows] = os.path.join(
+                work, f"bw-{mode}-{'rows' if rows else 'scores'}.tsv")
+            argv = ["batch", mode, fasta, "--band", str(BW_BAND),
+                    *([] if rows else ["--scores-only"]), "--out",
+                    tsv[mode, rows]]
+            wall, report = run_cli(cli, argv)
+            emit({"phase": "banded", "level": "BW",
+                  "path": "rows" if rows else "scores", "mode": mode,
+                  "pairs": len(pairs), "seconds": wall,
+                  "pairs_per_s": len(pairs) / wall,
+                  "band_gcups": band_cells(ms, ns, BW_BAND) / wall / 1e9,
+                  "counters": report})
+    torch.cuda.synchronize()
+    launches, plain = counts(scan, ptr, tb)
+    emit({"phase": "banded", "level": "BW", "launches": launches,
+          "plain_calls": plain})
+    for name in ("banded_cta", "walk"):
+        check(launches[name] > 0, f"kernel {name} never launched on BW")
+    check(launches["banded"] == launches["banded_cta"],
+          f"BW: {launches['banded'] - launches['banded_cta']} banded fills "
+          f"off the CTA path")
+    check(not any(plain.values()), f"plain versions ran on BW: {plain}")
+    for mode in ("local", "global"):
+        rows_match_scores(f"bw-{mode}", tsv[mode, True], tsv[mode, False],
+                          pairs)
+    trace_dir, traced = os.path.join(work, "bw-trace"), os.path.join(
+        work, "bw-traced.tsv")
+    run = subprocess.run(
+        [sys.executable, "-m", "aligntools_tpu_torch", "batch", "local",
+         fasta, "--band", str(BW_BAND), "--trace", trace_dir, "--out",
+         traced], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    check(run.returncode == 0, f"BW traced run exited {run.returncode}: "
+          f"{run.stderr[-2000:]}")
+    with open(traced, "rb") as a, open(tsv["local", True], "rb") as b:
+        check(a.read() == b.read(), "BW: the traced rows TSV differs")
+    report = [ln for ln in run.stderr.splitlines() if "Gcells in" in ln]
+    seconds = float(re.search(r"Gcells in ([0-9.]+)s", report[-1]).group(1))
+    spans = trace_overlap(os.path.join(trace_dir, "trace.json"))
+    emit({"phase": "banded", "level": "BW", "path": "rows", "mode": "local",
+          "run": "trace", "pipeline_s": seconds,
+          "device_busy_ms": spans["busy_ms"],
+          "busy_share": spans["busy_ms"] / 1000 / seconds,
+          "walk": {k: v for k, v in spans.items() if k != "busy_ms"},
+          "counters": report[-1]})
+    check(spans["busy_ms"] > 0, "BW: the trace holds no device activity")
+    slabs = []
+    checked = banded_slab_checks(torch, tb, ebanded, banded, "local", pairs,
+                                 AlignParams(), None, slabs, 1 << 30,
+                                 BW_BAND, "BW-slab", walk=False)
+    return launches, [checked] + slabs
 
 
 @contextlib.contextmanager
@@ -4027,7 +4298,7 @@ def phase_profile(torch, cli, argv, work, trace_path):
 
 def summary(rows, ptr_rows, walk_rows, bucket_rows, launches, blocked_rows,
             long_buckets, banded_rows, banded_buckets, probe_reps,
-            rescan_rows, exact64_rows, par_rows):
+            rescan_rows, exact64_rows, par_rows, bw_rows):
     """The kernels line: each kernel's representative timing, its launches
     on its path's main-path run, and its largest error over every check."""
     from aligntools_tpu_torch.engine import select
@@ -4053,10 +4324,19 @@ def summary(rows, ptr_rows, walk_rows, bucket_rows, launches, blocked_rows,
             # the representative timing: BK1's local pointers at W = 128;
             # the main path's own shape, the first rows slab of BS local
             # (--band 128), stands beside it
-            timed, mine = banded_rows, banded_rows + banded_buckets
+            timed = [r for r in banded_rows if r["level"] != "BKW"]
+            mine = timed + banded_buckets
             timed = [r for r in timed if r["variant"] == "local/ptrs"]
             slab = next(r for r in banded_buckets if r.get("level")
                         == "BS-slab" and r["variant"] == "local/ptrs")
+        elif name == "banded_cta":
+            # the representative timing: BKW's local pointers at W 1,000;
+            # the first rows slab of BW local (--band 512) beside it
+            mine = [r for r in banded_rows if r["level"] == "BKW"] + bw_rows
+            timed = [r for r in mine if r.get("level") == "BKW" and r[
+                "variant"] == "local/ptrs" and "/W1000" in r["shape"]]
+            slab = next(r for r in bw_rows if r.get("level") == "BW-slab"
+                        and r["variant"] == "local/ptrs")
         elif name in ("blocked_ckpt", "blocked_refill", "walk_pause"):
             # the representative timing: RSF's global pair at S 256
             mine = [r for r in rescan_rows if r["kernel"] == name]
@@ -4093,9 +4373,10 @@ def summary(rows, ptr_rows, walk_rows, bucket_rows, launches, blocked_rows,
             "probe_ms": rep["probe_ms"], "library_ms": None,
             "variant": rep["variant"], "shape": rep["shape"],
             **({"chain_ms": rep["chain_ms"]} if "chain_ms" in rep else {}),
-            **({"bs_slab": {k: slab[k] for k in (
-                "shape", "ms", "plain_ms", "bound_ms", "bound_by")}}
-               if name == "banded" else {}),
+            **({"bs_slab" if name == "banded" else "bw_slab": {
+                k: slab[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                     "bound_by")}}
+               if name in ("banded", "banded_cta") else {}),
         })
     return out
 
@@ -4114,6 +4395,12 @@ def main(argv=None):
                          "banded local rows run, and write their Chrome "
                          "traces here (the second and third with .long and "
                          ".banded before the extension)")
+    ap.add_argument("--only", choices=("bkw",), default=None,
+                    help="run the device and probe phases and the banded "
+                         "phase's BKW level alone (the CTA path at "
+                         "BANDED_BKW, with the banded instances' registers): "
+                         "from a copy of this script in another commit's "
+                         "checkout, that commit's kernels")
     opts = ap.parse_args(argv)
     try:
         import torch
@@ -4151,6 +4438,14 @@ def main(argv=None):
           "native_parser": parser, "parser_build_s": time.perf_counter() - t1})
 
     probe_launches, probe_reps = phase_probe(torch, vpu_probe, _build)
+    if opts.only == "bkw":
+        from aligntools_tpu_torch.ops import banded
+
+        emit({"phase": "banded", "resource_usage": resource_usage(
+            _build.library_path(), ("banded_",))})
+        phase_banded_wide(torch, banded)
+        print(smi, flush=True)
+        return 0
     rows = phase_kernels(torch, scan)
     ptr_rows, walk_rows = phase_ptr(torch, ptr, tb)
     phase_walk_cases(torch, tb)
@@ -4175,6 +4470,7 @@ def main(argv=None):
                                                        work)
         banded_launches, banded_buckets, banded_walks = phase_banded(
             torch, scan, ptr, tb, work, trace)
+        bw_launches, bw_rows = phase_banded_bw(torch, scan, ptr, tb, work)
     phase_calibrate(torch)
     import torch.distributed as dist
 
@@ -4182,7 +4478,8 @@ def main(argv=None):
         dist.destroy_process_group()
     launches.update(blocked_scores=long_launches["blocked_scores"],
                     blocked_ptr=long_launches["blocked_ptr"],
-                    banded=banded_launches["banded"], **probe_launches,
+                    banded=banded_launches["banded"],
+                    banded_cta=bw_launches["banded_cta"], **probe_launches,
                     **{k: rescan_launches[k] for k in (
                         "blocked_ckpt", "blocked_refill", "walk_pause")},
                     **{k: exact64_launches[k] for k in KERNELS
@@ -4194,7 +4491,7 @@ def main(argv=None):
                              bucket_rows, launches, blocked_rows,
                              long_buckets, banded_rows, banded_buckets,
                              probe_reps, rescan_rows, exact64_rows,
-                             par_rows)})
+                             par_rows, bw_rows)})
     pinned.cleanup()
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -216,7 +216,7 @@ def test_banded_path_reads_the_threshold():
     assert select.banded_path(128, 64) == "warp"
     assert select.banded_path(64, 1) == "warp"
     assert select.banded_path(256, 10 ** 6) == "cta"
-    assert banded.cta_shape(200) == ("cta", 128, 4)
+    assert banded.cta_shape(200) == ("cta", 256, 4)  # two teams of four
     assert banded.launch_shape(200) == ("warp", 128, 16)
     autotune.set_table({"banded_bmin": {"9": 64}})
     assert select.banded_path(128, 63) == "cta"

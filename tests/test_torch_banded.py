@@ -196,9 +196,11 @@ def test_kernel_entries_check_their_inputs():
     with pytest.raises(ValueError, match="ns"):
         tops.banded_scores("local", 8, args[0], args[1], args[2].long(),
                            *args[3:])
-    assert tops.launch_shape(1000) == ("cta", 512, 4)  # V = 2,001
-    with pytest.raises(ValueError, match="wider"):
-        tops.launch_shape(8192)
+    assert tops.launch_shape(1000) == ("cta", 256, 4)  # V = 2,001: 2 CTAs
+    assert tops.launch_shape(8192) == ("cta", 256, 8)  # 9 CTAs of 8 lanes
+    assert tops.launch_shape(32767) == ("cta", 256, 16)  # of 16: the widest
+    with pytest.raises(ValueError, match="65536 lanes"):
+        tops.launch_shape(32768)
 
 
 # ---------------------------------------------------------------------------
@@ -574,7 +576,9 @@ def test_band_too_narrow_for_the_end_cell_exits_255(tmp_path, capsys):
 def test_launch_shape_takes_the_warp_path_up_to_its_widest_strip():
     """Every band up to W = 255 (V = 511 <= 32 x 16) takes the warp path
     with the narrowest strip that holds V in one warp; wider bands the CTA
-    path, 4 lanes a thread up to 4,096 lanes and 16 beyond."""
+    path, 4, 8 or 16 lanes a thread (the narrowest whose team fits a
+    cluster of 16 CTAs of 8 warps: V up to 16,384, 32,768, 65,536), teams
+    sharing a CTA or spanning a cluster of up to 16 CTAs."""
     for band in range(256):
         V = 2 * band + 1
         path, threads, strip = tops.launch_shape(band)
@@ -584,8 +588,12 @@ def test_launch_shape_takes_the_warp_path_up_to_its_widest_strip():
     assert tops.launch_shape(128) == ("warp", 128, 9)  # BK1's first, BS
     assert tops.launch_shape(255) == ("warp", 128, 16)
     assert tops.launch_shape(256) == ("cta", 160, 4)  # one past the warp
-    assert tops.launch_shape(2047) == ("cta", 1024, 4)  # V = 4,095
-    assert tops.launch_shape(2048) == ("cta", 288, 16)  # V = 4,097
+    assert tops.launch_shape(511) == ("cta", 256, 4)  # V = 1,023: a CTA
+    assert tops.launch_shape(512) == ("cta", 160, 4)  # 2 CTAs of 5 warps
+    assert tops.launch_shape(2048) == ("cta", 224, 4)  # 5 CTAs of 7
+    assert tops.launch_shape(8191) == ("cta", 256, 4)  # 16 CTAs of 8
+    assert tops.launch_shape(8192) == ("cta", 256, 8)  # 9 CTAs, 8 lanes
+    assert tops.launch_shape(16384) == ("cta", 256, 16)  # 9, 16 lanes
 
 
 def test_launch_shape_of_a_small_batch():
@@ -604,14 +612,82 @@ def test_launch_shape_of_a_small_batch():
     assert tops.WARP_STRIPS == (5, 9, 16)
 
 
+# bands at the CTA path's edges: teams of 4-lane warps sharing a CTA (W 0
+# to 255), filling one (W 511), clusters of 2 (W 512), 8 and 9 CTAs (W
+# 4,095 / 4,096: the portable size and one past) and 16 (W 8,191); 8-lane
+# ones from W 8,192 (9 CTAs) to 16,383 (16); 16-lane ones from W 16,384 (9)
+# to 32,767 (16)
+CTA_EDGE_BANDS = [0, 255, 256, 511, 512, 1000, 1023, 1024, 2047, 2048, 4095,
+                  4096, 8191, 8192, 12000, 16383, 16384, 32767]
+
+
+@pytest.mark.parametrize("band", CTA_EDGE_BANDS)
+def test_cta_shape_covers_the_window(band):
+    """The CTA path's team holds V in the fewest warps of the narrowest
+    strip whose team fits a CTA, or a cluster's CTAs of equal 16-lane warps
+    (at most 256 threads, 16 CTAs); narrow teams share a CTA of up to 8
+    warps. The geometry is the C entry's."""
+    V = 2 * band + 1
+    path, threads, strip = tops.cta_shape(band)
+    assert path == "cta" and strip in tops.CTA_STRIPS and threads % 32 == 0
+    assert V <= 16 * 8 * 32 * strip
+    assert strip == 4 or V > 16 * 8 * 32 * (strip // 2)
+    gw, pairs, ctas = tops.cta_geometry(band, threads, strip)
+    need = -(-V // (32 * strip))
+    assert gw * 32 * strip >= V and threads <= 256 and ctas <= 16
+    if ctas == 1:
+        assert gw == need and pairs * gw == threads // 32
+        assert pairs == 8 // need
+    else:
+        assert pairs == 1 and gw == ctas * threads // 32
+        assert gw - need < ctas  # pad warps: fewer than one a CTA
+    if band > 255:
+        assert tops.launch_shape(band) == tops.cta_shape(band)
+
+
+def test_cta_shape_shares_a_cta_once_the_batch_fills_the_card():
+    """With the batch given, teams share a CTA only as far as every SM
+    still gets one (a CTA of ~200-register threads fills an SM); a team of
+    more than 4 warps, or a cluster, takes no batch into account."""
+    assert tops.cta_shape(128, 64) == ("cta", 96, 4)  # 64 CTAs of 1 pair
+    assert tops.cta_shape(128, 2 * tops.SMS) == ("cta", 192, 4)
+    assert tops.cta_shape(128, 10**6) == tops.cta_shape(128) == ("cta", 192,
+                                                                 4)
+    assert tops.cta_shape(20, 3 * tops.SMS) == ("cta", 96, 4)
+    assert tops.cta_shape(512, 512) == ("cta", 160, 4)  # BW: 2 CTAs of 5
+    for band in (20, 1000, 2047, 2048, 32767):
+        assert tops.cta_shape(band, 10**6) == tops.cta_shape(band)
+        sh = tops.cta_shape(band, 1)
+        assert tops.cta_geometry(band, sh[1], sh[2])[1] == 1
+
+
+def test_cta_geometry_refuses_what_no_instance_takes():
+    """Threads that are no whole number of teams, too many threads, a
+    cluster past 16 CTAs, a band past the cap: no launch."""
+    assert tops.cta_geometry(256, 32, 4) == (5, 1, 5)  # one-warp CTAs
+    assert tops.cta_geometry(600, 64, 8) == (6, 1, 3)  # and a pad warp
+    assert tops.cta_geometry(256, 128, 16) == (2, 2, 1)
+    assert tops.cta_geometry(32767, 256, 16) == (128, 1, 16)
+    assert tops.cta_geometry(8191, 256, 4) == (128, 1, 16)
+    for band, threads, strip in ((256, 96, 16), (256, 288, 16),
+                                 (256, 48, 16), (8191, 32, 16),
+                                 (32767, 128, 16), (32768, 256, 16),
+                                 (20, 0, 4), (256, 64, 5), (8192, 256, 4)):
+        with pytest.raises(ValueError, match="no CTA-path launch"):
+            tops.cta_geometry(band, threads, strip)
+    with pytest.raises(ValueError, match="W <= 32767"):
+        tops.cta_shape(32768)
+
+
 @pytest.mark.parametrize("band", [128, 256], ids=["warp-W128", "cta-W256"])
 @pytest.mark.parametrize("mode", ["global", "local", "fit", "overlap"])
 def test_plain_full_on_tie_inputs_matches_jax(mode, band):
     """tests/banded_ties.py's pairs at the launch's strip and warp edges
     (W 128: the warp path at 9 lanes a thread; W 256: one past its widest
-    strip, the CTA path): best, edge, a, b and every pointer byte equal the
-    JAX routes', and each designed pair of ``mode`` gives its stated start
-    (the tie's winner)."""
+    strip, the CTA path, a team of five 128-lane warps; a cluster's CTA
+    edge: tests/test_torch_banded_wide_rows.py): best, edge, a, b and every
+    pointer byte equal the JAX routes', and each designed pair of ``mode``
+    gives its stated start (the tie's winner)."""
     path, _, strip = tops.launch_shape(band)
     assert path == ("warp" if band == 128 else "cta")
     (qs, te, ns, ms), ties = banded_ties.tie_inputs(band, strip, 32 * strip,

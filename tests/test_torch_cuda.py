@@ -741,7 +741,8 @@ ALPHA_I32 = np.frombuffer(b"ACGT", dtype=np.uint8).astype(np.int32)
 @pytest.mark.parametrize("mode,emit", BANDED_VARIANTS)
 def test_banded_kernel_equals_plain(cuda, mode, emit, band):
     """best, edge (and a, b, every pointer byte, pad lanes included); at
-    W = 1,000 the window's 2,001 lanes take 512 threads of 4 lanes."""
+    W = 1,000 the window's 2,001 lanes take the CTA path's team of sixteen
+    4-lane warps, a cluster of two CTAs."""
     args = _banded_inputs(23 + band, band, mode == "fit")
     before = banded.launches
     fn = banded.banded_full if emit else banded.banded_scores
@@ -798,15 +799,19 @@ def test_banded_kernel_fast_rows_equal_plain(cuda, mode, emit, band):
                          banded.launch_shape(band))
 
 
-@pytest.mark.parametrize("band", [128, 256])
+@pytest.mark.parametrize("band,edge", [(128, None), (256, None), (4096, 1024),
+                                       (4096, 128)],
+                         ids=["128", "256", "4096-cta", "4096-warp"])
 @pytest.mark.parametrize("mode,emit", BANDED_VARIANTS)
-def test_banded_kernel_on_ties_equals_plain(cuda, mode, emit, band):
+def test_banded_kernel_on_ties_equals_plain(cuda, mode, emit, band, edge):
     """tests/banded_ties.py's pairs (held against the JAX routes on the
     CPU): ties on both sides of a strip edge, a warp edge and the band's
     last lane, end cells on them; W 128 the warp path, W 256 the CTA
-    path."""
+    path's team of five warps, W 4,096 a cluster of nine CTAs of 8 warps,
+    the tie across its CTA edge (lane 1,024) or a warp edge."""
     _, _, strip = banded.launch_shape(band)
-    (qs, te, ns, ms), _ = banded_ties.tie_inputs(band, strip, 32 * strip, 7)
+    (qs, te, ns, ms), _ = banded_ties.tie_inputs(band, strip,
+                                                 edge or 32 * strip, 7)
     pm = banded_ties.pmat("local" if mode == "edit" else mode)
     if mode == "edit":
         pm[0, 1] = 1.0  # the substitution cost
@@ -827,16 +832,127 @@ def test_banded_kernel_more_ctas_than_resident(cuda, mode, emit):
 @pytest.mark.parametrize("mode,emit", [("local", True), ("edit", False)])
 def test_banded_entry_refuses_a_shape_it_lacks(cuda, mode, emit):
     """No instance, no launch: a strip the warp path lacks, a warp too
-    narrow for the window, a CTA too large, and the CTA path's strips."""
+    narrow for the window, a CTA too large, a strip the CTA path lacks,
+    threads no whole number of teams, a cluster past 16 CTAs."""
     args = _banded_inputs(47, 128, False, B=4, m_pad=8)
     for shape in (("warp", 128, 8), ("warp", 128, 5), ("warp", 256, 9),
-                  ("cta", 96, 9), ("cta", 32, 4)):
+                  ("cta", 96, 9), ("cta", 128, 5), ("cta", 288, 16)):
         with pytest.raises(RuntimeError, match="banded fill kernel launch"):
             banded._launch(mode, emit, 128, *args, shape=shape)
+    for band, shape in ((256, ("cta", 96, 16)), (8191, ("cta", 32, 16))):
+        args = _banded_inputs(47, band, False, B=3, m_pad=8)
+        with pytest.raises(RuntimeError, match="banded fill kernel launch"):
+            banded._launch(mode, emit, band, *args, shape=shape)
     # a strip of 4 would hold W 8's 17 lanes, but the warp path has none
     args = _banded_inputs(47, 8, False, B=4, m_pad=8)
     with pytest.raises(RuntimeError, match="banded fill kernel launch"):
         banded._launch(mode, emit, 8, *args, shape=("warp", 128, 4))
+
+
+# the CTA path at the bands only it serves: a team of 5 warps in a CTA (W
+# 256), clusters of 2, 4 and 5 CTAs (W 1,000, 2,047, 2,048), of 16 at the
+# old cap's W 8,191, 8-lane ones past it (9 CTAs at W 8,192, 12 at 12,000)
+# and 16-lane ones at the cap (16 CTAs at W 32,767)
+CTA_BANDS = [256, 1000, 2047, 2048, 8191, 8192, 12000, 32767]
+
+
+@pytest.mark.parametrize("band", CTA_BANDS)
+@pytest.mark.parametrize("mode,emit", BANDED_VARIANTS)
+def test_banded_cta_path_equals_plain(cuda, mode, emit, band):
+    """Ragged pairs (an empty query, |n - m| == W, rows past m) at the
+    band's own launch, every variant bit-equal to plain; CTA launches
+    counted."""
+    shape = banded.launch_shape(band)
+    assert shape[0] == "cta"
+    before = banded.launches_cta
+    _banded_equals_plain(mode, emit, band, _banded_inputs(
+        61 + band, band, mode == "fit", B=7 if band < 4096 else 4,
+        m_pad=96 if band < 16384 else 48), shape)
+    assert banded.launches_cta == before + 1
+
+
+# (band, threads) at the CTA path's own edges: one warp a team, 8 pairs a
+# CTA with a partial last CTA (13 pairs); two pairs a CTA (255); a CTA of 8
+# warps (511) and a cluster of two one past it (512); clusters with pad
+# warps (2,048: 5 x 7 warps for 33; 4,096: 9 x 8 for 65), of one-warp CTAs
+# (256 at 32 threads: 5; 1,023 at 64: 8 CTAs of 2), of 8 and 9 CTAs
+# (4,095 and 4,096: the portable size and one past), of 16 (8,191); the
+# 8-lane and 16-lane strips from their first band (8,192, 16,384)
+CTA_EDGES = [(20, None), (255, None), (256, 32), (511, None), (512, None),
+             (600, 64), (1023, 64), (2048, None), (4095, None), (4096, None),
+             (8191, None), (8192, None), (16384, None)]
+
+
+@pytest.mark.parametrize("band,threads", CTA_EDGES)
+@pytest.mark.parametrize("mode,emit", BANDED_VARIANTS)
+def test_banded_cta_path_at_its_edges_equals_plain(cuda, mode, emit, band,
+                                                   threads):
+    _, own, strip = banded.cta_shape(band)
+    shape = ("cta", threads or own, strip)
+    banded.cta_geometry(band, shape[1], strip)  # an instance takes it
+    _banded_equals_plain(mode, emit, band, _banded_inputs(
+        67 + band, band, mode == "fit", B=13 if band < 4096 else 3,
+        m_pad=96 if band < 4096 else 64), shape)
+
+
+@pytest.mark.parametrize("band", [256, 1000])
+@pytest.mark.parametrize("mode,emit", [("local", True), ("overlap", True),
+                                       ("fit", False), ("edit", False)])
+def test_banded_cta_path_more_ctas_than_resident(cuda, mode, emit, band):
+    """5,000 pairs of ragged rows on teams sharing CTAs, long enough rows
+    (640) for FAST rows on every warp between border rows."""
+    _banded_equals_plain(mode, emit, band, _banded_inputs(
+        71 + band, band, mode == "fit", B=5000 if band == 256 else 1200,
+        m_pad=640), banded.launch_shape(band))
+
+
+@pytest.mark.parametrize("mode", ["local", "fit", "overlap"])
+def test_banded_score_auto_past_the_old_cap(cuda, mode):
+    """An unrelated ~10,000-base pair: the band doubles past 8,191 (a
+    cluster of CTAs) before it is certified (these modes' certificate is
+    the perfect score, so the band grows to cover the matrix), and the
+    score equals the unbanded route's."""
+    from aligntools_tpu_torch.engine import banded as ebanded
+
+    rng = np.random.default_rng(73)
+    q = bytes(rng.choice(list(b"ACGT"), 9800).tolist())
+    t = bytes(rng.choice(list(b"ACGT"), 10100).tolist())
+    banded.reset_counts()
+    score, band, cert = ebanded.banded_score_auto(mode, q, t, device="cuda")
+    assert cert and band > 8191
+    assert banded.launches_cta > 0 and banded.plain_calls == 0
+    want = tbatch.batch_scores(mode, [(q, t)], AlignParams(), device="cuda")
+    assert score == float(want[0])
+
+
+def test_batch_local_band_9000_on_card_equals_cpu(cuda, tmp_path):
+    """`aligntools-torch batch local --band 9000`: a cluster of CTAs a pair
+    for the fill, the window walk over 18,001-lane pointer rows; the TSV
+    equals the same command's on --device cpu."""
+    from aligntools_tpu_torch.cli import main
+
+    rng = np.random.default_rng(79)
+    lines = []
+    for k in range(4):
+        m = int(rng.integers(1000, 2000))
+        q = rng.choice(list(b"ACGT"), m)
+        t = np.concatenate([rng.choice(list(b"ACGT"), int(rng.integers(
+            0, 7000))), q, rng.choice(list(b"ACGT"), 500)])
+        t[rng.random(len(t)) < 0.05] = ord("A")
+        lines += [f">q{k}", bytes(q.tolist()).decode(), f">t{k}",
+                  bytes(t.tolist()).decode()]
+    fasta = tmp_path / "wide.fa"
+    fasta.write_text("\n".join(lines) + "\n")
+    out = {}
+    banded.reset_counts()
+    for dev in ("cuda", "cpu"):
+        out[dev] = tmp_path / f"{dev}.tsv"
+        assert main(["batch", "local", str(fasta), "--band", "9000",
+                     "--device", dev, "--out", str(out[dev])]) == 0
+        if dev == "cuda":
+            assert banded.launches_cta > 0 and banded.plain_calls == 0
+    assert out["cuda"].read_bytes() == out["cpu"].read_bytes()
+    assert len(out["cuda"].read_bytes().splitlines()) == 4
 
 
 @pytest.mark.parametrize("m_pad", [0, 1])

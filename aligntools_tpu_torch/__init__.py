@@ -1,13 +1,16 @@
 """aligntools_tpu_torch — the PyTorch / CUDA port of aligntools_tpu.
 
-Every entry point of the JAX package but its calibration and sharding, on
-one NVIDIA Hopper GPU with hand-written CUDA fills and walk, held bit for
-bit against the JAX package: the per-mode commands
-(``aligntools-torch global|local|fit|overlap|edit FILE``, on
-``align_pair`` / ``align_file``), the batch path (``aligntools-torch batch
-MODE FASTA``: alignment rows, CIGAR or scores, long targets, ``--band``,
-on ``align_batch`` / ``batch_scores``) and the request loop
-(``aligntools-torch serve``). Importing this package loads neither torch
+Every entry point of the JAX package on NVIDIA Hopper GPUs with
+hand-written CUDA fills and walk, held bit for bit against the JAX
+package: the per-mode commands (``aligntools-torch
+global|local|fit|overlap|edit FILE``, on ``align_pair`` / ``align_file``),
+the batch path (``aligntools-torch batch MODE FASTA``: alignment rows,
+CIGAR or scores, long targets, ``--band`` at any width, ``--sharded``
+across ranks, on ``align_batch`` / ``batch_scores``), the request loop
+(``aligntools-torch serve``), the card's crossover table
+(``aligntools-torch calibrate``), sequence parallelism
+(``parallel/seqpar.py``) and the differential campaign
+(``tools/validate.py``). Importing this package loads neither torch
 nor jax; the entry points load torch on first use.
 """
 

@@ -53,7 +53,8 @@
 // warp-uniform) runs a FAST instance of the row with no column-0 border and
 // no matrix test but the pad lanes'.
 //
-// CTA path (wider windows, up to MAX_LANES = 65,536: W <= 32,767; also the
+// CTA path (wider windows, any width: one pass of the team up to MAX_LANES =
+// 65,536 lanes, W <= 32,767, and chunks past it, below; also the
 // narrower ones of a batch below engine/select.banded_path's threshold). A
 // CTA a pair with one __syncthreads and a block-wide scan a row makes every
 // warp of the pair wait for the slowest each row, and a 1,024-thread launch
@@ -98,6 +99,27 @@
 // its start info by shuffles and the team merges it along the same chain,
 // left to right, by the same orders; the last warp writes the pair's.
 //
+// Chunks (CHUNKED instances, V past MAX_LANES): a team of one cluster of up
+// to 16 CTAs of 8 warps of CTA_STRIP_MAX lanes a thread, each warp owning
+// R = ceil(V / MAX_LANES) consecutive chunks of 512 lanes (warp w the lanes
+// [w R 512, (w+1) R 512)), as many warps as hold V. A chained team cannot
+// grow past one cluster: its hand-offs run both ways, so every warp of a
+// pair must be resident at once, and one warp taking chunk c of every
+// R-th strip would send each row's carry around the team R times. So a
+// warp runs its chunks left to right with the same row code, the carry
+// passing from chunk to chunk in registers; chunk c+1 still holds row i-1
+// when chunk c reads its first lane for the vertical predecessor, so only
+// the first chunk sends left and only the last receives from the right,
+// and a row costs about R chunk-rows plus the team's two hand-offs. The
+// chunks' row state (M, L, U; overlap's and edit's row value) lives in a
+// scratch buffer the wrapper allocates, (B, states, lanes) floats, lane
+// l's value s of chunk q at q 512 + 32 s + l (a warp's loads coalesce);
+// each chunk loads its state and target chars at the start of its row and
+// stores its state after it, and a __syncwarp orders those stores before
+// the next chunk-row's reads by other lanes. Start info is latched per
+// thread over every chunk; fit's and overlap's bottom row are reduced per
+// chunk and merged left to right by Team::finish's order.
+//
 // Exactness: values are integer-valued f32 with true infinite borders,
 // built with --fmad=false and no fast math; every pointer is an explicit
 // >= in the Pallas code's argument order. Both paths compute the same
@@ -130,6 +152,8 @@ constexpr int CTA_WARPS = 8;
 constexpr int CTA_THREADS = 32 * CTA_WARPS;
 constexpr int CLUSTER_MAX = 16;
 constexpr int CLUSTER_PORTABLE = 8;
+// The widest window one pass of a team holds; past it each warp takes
+// ceil(V / MAX_LANES) chunks of 32 x CTA_STRIP_MAX lanes.
 constexpr int MAX_LANES = CLUSTER_MAX * CTA_THREADS * CTA_STRIP_MAX;  // ops/banded.MAX_LANES
 
 struct MinF {
@@ -148,6 +172,11 @@ struct Args {
   int* b;
   uint8_t* ptrs;  // (B, m_pad, v_pad)
   int m_pad, n_ext, W, v_pad, B;
+  // CHUNKED: R chunks a warp; the row state, a pair's `pair_floats` from
+  // scratch, one state's `lanes` (the team's) after another
+  float* scratch;
+  long long pair_floats;
+  int R, lanes;
 };
 
 // One pair's view: row i's target char at lane k is te[i-1+k], clipped to
@@ -606,27 +635,49 @@ struct Solo {
   static constexpr bool has_left = false, has_right = false;
 };
 
+// A CHUNKED pair's row state in scratch: state st's value s of this
+// thread's strip of the chunk whose first lane is kw, and a chunk's first
+// lane.
+struct Slots {
+  float* p;
+  int lanes;
+  __device__ float& at(int st, int kw, int s) const {
+    return p[(size_t)st * lanes + kw + 32 * s + (threadIdx.x & 31)];
+  }
+  __device__ float first(int st, int kw) const { return p[(size_t)st * lanes + kw]; }
+};
+
 // ---------------------------------------------------------------------------
 // The fills: one warp's strip of 32 * S lanes of pair t.b, lane l holding
-// the window lanes [k0, k0 + S); TEAM: warp t.w of a team (CTA path)
+// the window lanes [k0, k0 + S); TEAM: warp t.w of a team (CTA path);
+// CHUNKED: the warp's R chunks of such strips in turn, each row
 // ---------------------------------------------------------------------------
 
 // global / local / fit
-template <int MODE, bool EMIT, int S, bool TEAM, class T>
+template <int MODE, bool EMIT, int S, bool TEAM, bool CHUNKED, class T>
 __device__ __forceinline__ void fill_affine(const Args& x, const T& t, int w) {
+  static_assert(!CHUNKED || TEAM, "chunks are a team's");
   const Pair p(x, t.b);
-  const int lane = threadIdx.x & 31, kw = w * 32 * S, k0 = kw + lane * S, V = p.V, W = p.W;
-  const int top = kw + 32 * S - 1;  // the warp's last lane
+  const int R = CHUNKED ? x.R : 1;  // chunks a warp
+  const int lane = threadIdx.x & 31, V = p.V, W = p.W;
+  // the chunk's first lane, this thread's first and the chunk's last (one
+  // chunk, the warp's strip, unless CHUNKED)
+  int kw = w * R * 32 * S, k0 = kw + lane * S, top = kw + 32 * S - 1;
+  const Slots sc = {CHUNKED ? x.scratch + (size_t)t.b * x.pair_floats : nullptr, x.lanes};
   const float match = x.params[0], mis = x.params[1], o = x.params[2], e = x.params[3];
   uint8_t* out = EMIT ? x.ptrs + (size_t)t.b * x.m_pad * x.v_pad : nullptr;
   float M[S], L[S], U[S];
   int tc[S];  // row i's chars at lanes k0 .. k0+S-1
+  int nxt = 0;
+  if constexpr (!CHUNKED) {
 #pragma unroll
-  for (int s = 0; s < S; ++s) {
-    affine_row0<MODE>(k0 + s, W, V, o, e, M[s], L[s], U[s]);
-    tc[s] = p.tchar(1, k0 + s);
+    for (int s = 0; s < S; ++s) {
+      affine_row0<MODE>(k0 + s, W, V, o, e, M[s], L[s], U[s]);
+      tc[s] = p.tchar(1, k0 + s);
+    }
+    nxt = p.tchar(2, top);
   }
-  int nxt = p.tchar(2, top);
+  float cx = NEG, cm = NEG;  // CHUNKED: the carry into the next chunk
   float edge = NEG, g_s = NEG;
   bool g_set = false;
   int g_a = 0;
@@ -641,17 +692,22 @@ __device__ __forceinline__ void fill_affine(const Args& x, const T& t, int w) {
   // One row; FAST (warp-uniform): every window lane of the warp lies at a
   // column in [2, n] and i <= m, so a lane is in the matrix unless it is a
   // pad lane, and no column-0 border reaches the row.
-  auto row = [&](int i, int qc, auto fast) {
+  auto row = [&](int i, int qc, int c, auto fast) {
     constexpr bool FAST = decltype(fast)::value;
+    // the warp's first chunk trades with the left warp, its last with the right
+    const bool first = !CHUNKED || c == 0, last = !CHUNKED || c + 1 == R;
     // lane k0+S of row i-1, the right neighbour's first
     float rM = __shfl_down_sync(FULL, M[0], 1), rL = __shfl_down_sync(FULL, L[0], 1);
     if (lane == 31) {
       rM = rL = NEG;
       if constexpr (TEAM) {
-        if (!t.has_right) {
+        if (last && !t.has_right) {
         } else if (i == 1) {
           float u;
           affine_row0<MODE>(k0 + S, W, V, o, e, rM, rL, u);
+        } else if (!last) {  // the next chunk's first lane, still row i-1's
+          rM = sc.first(0, kw + 32 * S);
+          rL = sc.first(1, kw + 32 * S);
         } else {
           const float2 r = t.recv_right(i - 1);
           rM = r.x;
@@ -681,7 +737,7 @@ __device__ __forceinline__ void fill_affine(const Args& x, const T& t, int w) {
       if (k == 0 || k == V - 1) edge = fmaxf(edge, mv);
     }
     if constexpr (TEAM)
-      if (lane == 0 && t.has_left && i < rows) t.send_left(i, M[0], L[0]);
+      if (lane == 0 && t.has_left && i < rows && first) t.send_left(i, M[0], L[0]);
     // M at lane k0-1 of row i: the U chain's candidate and the pU bit at k0
     float nlM = __shfl_up_sync(FULL, M[S - 1], 1);
     if (lane == 0) nlM = NEG;
@@ -709,18 +765,26 @@ __device__ __forceinline__ void fill_affine(const Args& x, const T& t, int w) {
                                                o, e));
       const float incl = warp_inclusive<MaxF>(red);
       float X = NEG;  // the cummax through lane k0-1 (lane 0)
-      if (lane == 0 && t.has_left) {
-        const float2 c = t.recv_carry(i);
-        X = c.x;
-        nlM = c.y;
+      if (lane == 0 && !first) {  // the previous chunk's carry
+        X = cx;
+        nlM = cm;
+      } else if (lane == 0 && t.has_left) {
+        const float2 cl = t.recv_carry(i);
+        X = cl.x;
+        nlM = cl.y;
       }
       // through lane 0's first candidate
       const float X1 = __shfl_sync(FULL, fmaxf(X, u_cand<MODE, !FAST>(nlM, j0, jf0, o, e)), 0);
       const float below = __shfl_up_sync(FULL, incl, 1);
       run = lane == 0 ? X : fmaxf(X1, below);
-      if (lane == 31 && t.has_right) t.send_right(i, fmaxf(X1, incl), M[S - 1]);
+      if (!last) {  // to the next chunk (warp-uniform)
+        cx = __shfl_sync(FULL, fmaxf(X1, incl), 31);
+        cm = __shfl_sync(FULL, M[S - 1], 31);
+      } else if (lane == 31 && t.has_right) {
+        t.send_right(i, fmaxf(X1, incl), M[S - 1]);
+      }
     }
-    const bool has_l = (lane > 0 || t.has_left) && k0 - 1 < V;
+    const bool has_l = (lane > 0 || !first || t.has_left) && k0 - 1 < V;
     const bool l_in = has_l && (FAST || p.in_mat(i, j0 - 1));
     float mh = has_l ? nlM : NEG;
     float uh = l_in ? (MODE == LOCAL ? fmaxf(run, 0.f) : run) + e * (jf0 - 1.f) : NEG;
@@ -772,10 +836,18 @@ __device__ __forceinline__ void fill_affine(const Args& x, const T& t, int w) {
             if (jl == BIG && L[s] == mx1) jl = jcol;
           }
         }
-        fm = mx0;
-        fl = mx1;
-        fjm = warp_min(jm);
-        fjl = warp_min(jl);
+        // a later chunk's wins on a larger value or, at an equal one, a
+        // smaller column (Team::finish's order)
+        jm = warp_min(jm);
+        jl = warp_min(jl);
+        if (first || mx0 > fm || (mx0 == fm && jm < fjm)) {
+          fm = mx0;
+          fjm = jm;
+        }
+        if (first || mx1 > fl || (mx1 == fl && jl < fjl)) {
+          fl = mx1;
+          fjl = jl;
+        }
       } else {  // the winner's first column, in fjm
         const bool use_l = mx1 > mx0;
         const float f_s = fmaxf(mx0, mx1);
@@ -796,12 +868,42 @@ __device__ __forceinline__ void fill_affine(const Args& x, const T& t, int w) {
   for (int i = 1; i <= rows; ++i) {
     const int qc = qn;
     if (i < rows) qn = p.q[i];
-    const int jlo = i - W + kw, jhi = i - W + min(top, V - 1);
-    if (jlo >= 2 && jhi <= p.n && i <= p.m)
-      row(i, qc, std::true_type{});
-    else
-      row(i, qc, std::false_type{});
-    slide_chars<S>(tc, nxt, p, i, top);
+    for (int c = 0; c < R; ++c) {
+      if constexpr (CHUNKED) {  // the chunk's row i-1 and row i's chars
+        kw = (w * R + c) * 32 * S;
+        k0 = kw + lane * S;
+        top = kw + 32 * S - 1;
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          if (i == 1) {
+            affine_row0<MODE>(k0 + s, W, V, o, e, M[s], L[s], U[s]);
+          } else {
+            M[s] = sc.at(0, kw, s);
+            L[s] = sc.at(1, kw, s);
+            U[s] = sc.at(2, kw, s);
+          }
+          tc[s] = p.tchar(i, k0 + s);
+        }
+      }
+      const int jlo = i - W + kw, jhi = i - W + min(top, V - 1);
+      if (jlo >= 2 && jhi <= p.n && i <= p.m)
+        row(i, qc, c, std::true_type{});
+      else
+        row(i, qc, c, std::false_type{});
+      if constexpr (CHUNKED) {
+        if (i < rows) {
+#pragma unroll
+          for (int s = 0; s < S; ++s) {
+            sc.at(0, kw, s) = M[s];
+            sc.at(1, kw, s) = L[s];
+            sc.at(2, kw, s) = U[s];
+          }
+          __syncwarp();  // before another lane reads the chunk's first lane
+        }
+      } else {
+        slide_chars<S>(tc, nxt, p, i, top);
+      }
+    }
   }
   Fin f;
   f.edge = warp_max(edge);
@@ -835,24 +937,32 @@ __device__ __forceinline__ void fill_affine(const Args& x, const T& t, int w) {
 // itself. Lane k0+S's value of row i-1 is the right neighbour's, by
 // shuffle; a team's last lane finishes it from the right warp's scan input
 // (and edit's cand2) and the carry it sent that row, as the right warp did.
-template <bool EDIT_MODE, bool EMIT, int S, bool TEAM, class T>
+template <bool EDIT_MODE, bool EMIT, int S, bool TEAM, bool CHUNKED, class T>
 __device__ __forceinline__ void fill_linear(const Args& x, const T& t, int w) {
+  static_assert(!CHUNKED || TEAM, "chunks are a team's");
   using Op = std::conditional_t<EDIT_MODE, MinF, MaxF>;
   const Pair p(x, t.b);
-  const int lane = threadIdx.x & 31, kw = w * 32 * S, k0 = kw + lane * S, V = p.V, W = p.W;
-  const int top = kw + 32 * S - 1;
+  const int R = CHUNKED ? x.R : 1;
+  const int lane = threadIdx.x & 31, V = p.V, W = p.W;
+  int kw = w * R * 32 * S, k0 = kw + lane * S, top = kw + 32 * S - 1;  // as in fill_affine
+  const Slots sc = {CHUNKED ? x.scratch + (size_t)t.b * x.pair_floats : nullptr, x.lanes};
   const float match = x.params[0], mis = x.params[1], o = x.params[2];
   const float bad = EDIT_MODE ? POS : NEG;
   uint8_t* out = EMIT ? x.ptrs + (size_t)t.b * x.m_pad * x.v_pad : nullptr;
   float M[S];
   int tc[S];
+  int nxt = 0;
+  if constexpr (!CHUNKED) {
 #pragma unroll
-  for (int s = 0; s < S; ++s) {
-    M[s] = linear_row0<EDIT_MODE>(k0 + s, W, V);
-    tc[s] = p.tchar(1, k0 + s);
+    for (int s = 0; s < S; ++s) {
+      M[s] = linear_row0<EDIT_MODE>(k0 + s, W, V);
+      tc[s] = p.tchar(1, k0 + s);
+    }
+    nxt = p.tchar(2, top);
   }
-  int nxt = p.tchar(2, top);
-  float edge = bad, g_s = POS, carry = bad;  // carry: lane 31's last, sent right
+  // carry: the last chunk's lane 31's, sent right; cx: CHUNKED, the carry
+  // into the next chunk
+  float edge = bad, g_s = POS, carry = bad, cx = bad;
   bool g_set = false;
   float om = NEG;  // overlap's row m: the max, its first column, whether it came
   int oj = BIG;
@@ -861,17 +971,20 @@ __device__ __forceinline__ void fill_linear(const Args& x, const T& t, int w) {
   int qn = rows > 0 ? p.q[0] : 0;
   // One row; FAST as in fill_affine: no column-0 border, and every lane but
   // the pad lanes in the matrix.
-  auto row = [&](int i, int qc, auto fast) {
+  auto row = [&](int i, int qc, int c, auto fast) {
     constexpr bool FAST = decltype(fast)::value;
+    const bool first = !CHUNKED || c == 0, last = !CHUNKED || c + 1 == R;
     const float i_f = (float)i;
     float rM = __shfl_down_sync(FULL, M[0], 1);  // lane k0+S of row i-1
     if (lane == 31) {
       rM = bad;
       if constexpr (TEAM) {
         const int kr = k0 + S, jr = i - 1 - W + kr;
-        if (!t.has_right) {
+        if (last && !t.has_right) {
         } else if (i == 1) {
           rM = linear_row0<EDIT_MODE>(kr, W, V);
+        } else if (!last) {  // the next chunk's first lane, still row i-1's
+          rM = sc.first(0, kw + 32 * S);
         } else {
           const float2 r = t.recv_right(i - 1);  // its scan input, cand2
           if (kr < V && p.in_mat(i - 1, jr))
@@ -915,22 +1028,29 @@ __device__ __forceinline__ void fill_linear(const Args& x, const T& t, int w) {
     if constexpr (!TEAM) {
       excl = warp_exclusive<Op>(red, bad);
     } else {
-      if (lane == 0 && t.has_left && i < rows) t.send_left(i, CD[0], EDIT_MODE ? C2[0] : 0.f);
+      if (lane == 0 && t.has_left && i < rows && first)
+        t.send_left(i, CD[0], EDIT_MODE ? C2[0] : 0.f);
       const float incl = warp_inclusive<Op>(red);
       float X = bad;  // the row's scan through lane k0-1 (lane 0)
-      if (lane == 0 && t.has_left) X = t.recv_carry(i).x;
+      if (lane == 0 && !first)
+        X = cx;  // the previous chunk's
+      else if (lane == 0 && t.has_left)
+        X = t.recv_carry(i).x;
       X = __shfl_sync(FULL, X, 0);
       const float below = __shfl_up_sync(FULL, incl, 1);
       excl = lane == 0 ? X : Op::op(X, below);
-      if (lane == 31) {
+      if (!last) {  // to the next chunk (warp-uniform)
+        cx = __shfl_sync(FULL, Op::op(X, incl), 31);
+      } else if (lane == 31) {
         carry = Op::op(X, incl);
         if (t.has_right) t.send_right(i, carry, 0.f);
       }
     }
     float run = excl;
     // overlap's LEFT pointer: the row's value at lane k0-1
-    float lh = (lane > 0 || t.has_left) && (FAST || p.in_mat(i, j0 - 1)) ? excl + o * (jf0 - 1.f)
-                                                                         : NEG;
+    float lh = (lane > 0 || !first || t.has_left) && (FAST || p.in_mat(i, j0 - 1))
+                   ? excl + o * (jf0 - 1.f)
+                   : NEG;
     int code[S];
 #pragma unroll
     for (int s = 0; s < S; ++s) {
@@ -975,20 +1095,43 @@ __device__ __forceinline__ void fill_linear(const Args& x, const T& t, int w) {
         if (k0 + s < V && fj == BIG && jcol <= p.n - 1 && p.in_mat(i, jcol) && M[s] == mx)
           fj = jcol;
       }
-      om = mx;
-      oj = warp_min(fj);
+      fj = warp_min(fj);
+      if (first || mx > om || (mx == om && fj < oj)) {  // chunks as in fill_affine's fit
+        om = mx;
+        oj = fj;
+      }
       oset = true;
     }
   };
   for (int i = 1; i <= rows; ++i) {
     const int qc = qn;
     if (i < rows) qn = p.q[i];
-    const int jlo = i - W + kw, jhi = i - W + min(top, V - 1);
-    if (jlo >= 2 && jhi <= p.n && i <= p.m)
-      row(i, qc, std::true_type{});
-    else
-      row(i, qc, std::false_type{});
-    slide_chars<S>(tc, nxt, p, i, top);
+    for (int c = 0; c < R; ++c) {
+      if constexpr (CHUNKED) {
+        kw = (w * R + c) * 32 * S;
+        k0 = kw + lane * S;
+        top = kw + 32 * S - 1;
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          M[s] = i == 1 ? linear_row0<EDIT_MODE>(k0 + s, W, V) : sc.at(0, kw, s);
+          tc[s] = p.tchar(i, k0 + s);
+        }
+      }
+      const int jlo = i - W + kw, jhi = i - W + min(top, V - 1);
+      if (jlo >= 2 && jhi <= p.n && i <= p.m)
+        row(i, qc, c, std::true_type{});
+      else
+        row(i, qc, c, std::false_type{});
+      if constexpr (CHUNKED) {
+        if (i < rows) {
+#pragma unroll
+          for (int s = 0; s < S; ++s) sc.at(0, kw, s) = M[s];
+          __syncwarp();
+        }
+      } else {
+        slide_chars<S>(tc, nxt, p, i, top);
+      }
+    }
   }
   Fin f = {om, NEG, EDIT_MODE ? warp_min(edge) : warp_max(edge), oj, 0, oset};
   if (EDIT_MODE) {  // the one lane that held column n at row m
@@ -1023,29 +1166,30 @@ __device__ __forceinline__ bool warp_pair(const Args& x, Solo& t) {
 template <int MODE, bool EMIT, int S>
 __global__ void __launch_bounds__(WARP_MAX_THREADS, 1) banded_affine_warp(Args x) {
   Solo t;
-  if (warp_pair(x, t)) fill_affine<MODE, EMIT, S, false>(x, t, 0);
+  if (warp_pair(x, t)) fill_affine<MODE, EMIT, S, false, false>(x, t, 0);
 }
 
 template <bool EDIT_MODE, bool EMIT, int S>
 __global__ void __launch_bounds__(WARP_MAX_THREADS, 1) banded_linear_warp(Args x) {
   Solo t;
-  if (warp_pair(x, t)) fill_linear<EDIT_MODE, EMIT, S, false>(x, t, 0);
+  if (warp_pair(x, t)) fill_linear<EDIT_MODE, EMIT, S, false, false>(x, t, 0);
 }
 
-// The CTA path: a team of g.gw warps per pair, S lanes a thread.
-template <int MODE, bool EMIT, int S>
+// The CTA path: a team of g.gw warps per pair, S lanes a thread; CHUNKED,
+// x.R chunks a warp.
+template <int MODE, bool EMIT, int S, bool CHUNKED>
 __global__ void __launch_bounds__(CTA_THREADS, 1) banded_affine_cta(Args x, Geo g) {
   __shared__ Inbox boxes[CTA_WARPS];
   const Team t(g, boxes);
-  if (t.b < x.B) fill_affine<MODE, EMIT, S, true>(x, t, t.w);
+  if (t.b < x.B) fill_affine<MODE, EMIT, S, true, CHUNKED>(x, t, t.w);
   if (g.C > 1) cluster_sync();  // no CTA leaves while a neighbour may write to it
 }
 
-template <bool EDIT_MODE, bool EMIT, int S>
+template <bool EDIT_MODE, bool EMIT, int S, bool CHUNKED>
 __global__ void __launch_bounds__(CTA_THREADS, 1) banded_linear_cta(Args x, Geo g) {
   __shared__ Inbox boxes[CTA_WARPS];
   const Team t(g, boxes);
-  if (t.b < x.B) fill_linear<EDIT_MODE, EMIT, S, true>(x, t, t.w);
+  if (t.b < x.B) fill_linear<EDIT_MODE, EMIT, S, true, CHUNKED>(x, t, t.w);
   if (g.C > 1) cluster_sync();
 }
 
@@ -1078,12 +1222,13 @@ void launch_warp(int mode, bool emit, int threads, cudaStream_t st, const Args& 
 }
 
 // The CTA path's geometry for V lanes at `threads` a CTA of `strip`-lane
-// threads: gw, the fewest warps that hold V, share a CTA P at a time
-// where a CTA holds them (its warps a multiple of gw), else a pair spans
-// a cluster of C CTAs (the team's warps then C x wpc). False where no
-// instance takes the shape.
-bool cta_geometry(long long V, int threads, int strip, Geo& g) {
-  const int need = (int)((V + 32 * strip - 1) / (32 * strip));
+// threads, R chunks a warp: gw, the fewest warps that hold V, share a CTA
+// P at a time where a CTA holds them (its warps a multiple of gw), else a
+// pair spans a cluster of C CTAs (the team's warps then C x wpc). False
+// where no instance takes the shape.
+bool cta_geometry(long long V, int threads, int strip, int R, Geo& g) {
+  const long long span = 32LL * strip * R;  // a warp's lanes
+  const int need = (int)((V + span - 1) / span);
   g.wpc = threads / 32;
   if (threads > CTA_THREADS) return false;
   if (g.wpc >= need) {
@@ -1122,21 +1267,23 @@ cudaError_t launch_cta_kernel(void (*kernel)(Args, Geo), const Geo& g, cudaStrea
   return cudaLaunchKernelEx(&cfg, kernel, x, g);
 }
 
-template <int S>
+template <int S, bool C = false>
 cudaError_t launch_cta(int mode, bool emit, const Geo& g, cudaStream_t st, const Args& x) {
   if (mode == OVERLAP)
-    return launch_cta_kernel(
-        emit ? &banded_linear_cta<false, true, S> : &banded_linear_cta<false, false, S>, g, st, x);
-  if (mode == EDIT) return launch_cta_kernel(&banded_linear_cta<true, false, S>, g, st, x);
+    return launch_cta_kernel(emit ? &banded_linear_cta<false, true, S, C>
+                                  : &banded_linear_cta<false, false, S, C>,
+                             g, st, x);
+  if (mode == EDIT) return launch_cta_kernel(&banded_linear_cta<true, false, S, C>, g, st, x);
   if (mode == GLOBAL)
-    return launch_cta_kernel(
-        emit ? &banded_affine_cta<GLOBAL, true, S> : &banded_affine_cta<GLOBAL, false, S>, g, st,
-        x);
+    return launch_cta_kernel(emit ? &banded_affine_cta<GLOBAL, true, S, C>
+                                  : &banded_affine_cta<GLOBAL, false, S, C>,
+                             g, st, x);
   if (mode == LOCAL)
-    return launch_cta_kernel(
-        emit ? &banded_affine_cta<LOCAL, true, S> : &banded_affine_cta<LOCAL, false, S>, g, st, x);
+    return launch_cta_kernel(emit ? &banded_affine_cta<LOCAL, true, S, C>
+                                  : &banded_affine_cta<LOCAL, false, S, C>,
+                             g, st, x);
   return launch_cta_kernel(
-      emit ? &banded_affine_cta<FIT, true, S> : &banded_affine_cta<FIT, false, S>, g, st, x);
+      emit ? &banded_affine_cta<FIT, true, S, C> : &banded_affine_cta<FIT, false, S, C>, g, st, x);
 }
 
 }  // namespace
@@ -1148,29 +1295,44 @@ cudaError_t launch_cta(int mode, bool emit, const Geo& g, cudaStream_t st, const
 // WARP_MAX_THREADS), `strip` lanes a thread (5, 9 or 16), 32 * strip >= V;
 // `warp` 0: the CTA path, `strip` 4, 8 or CTA_STRIP_MAX, `threads` a CTA
 // (at most CTA_THREADS; cta_geometry: several pairs a CTA, or a cluster of
-// CTAs a pair, up to MAX_LANES). With pointers the lanes also cover v_pad.
+// CTAs a pair). Past MAX_LANES lanes each warp takes R = ceil(V /
+// MAX_LANES) chunks (strip CTA_STRIP_MAX only) and `scratch` holds the
+// chunks' row state, `pair_floats` a pair: at least 3 (overlap and edit 1)
+// times the team's lanes, 32 x warps x R x strip. With pointers the lanes
+// also cover v_pad.
 extern "C" cudaError_t at_banded_fill(int mode, int emit, const int* qs, const int* te,
                                       const int* ns, const int* ms, const float* params,
                                       float* best, float* edge, int* a, int* b, uint8_t* ptrs,
-                                      int B, int m_pad, int n_ext, int band, int v_pad,
-                                      int threads, int strip, int warp, cudaStream_t stream) {
+                                      float* scratch, long long pair_floats, int B, int m_pad,
+                                      int n_ext, int band, int v_pad, int threads, int strip,
+                                      int warp, cudaStream_t stream) {
   const long long V = 2LL * band + 1;
+  const int R = (int)((V + MAX_LANES - 1) / MAX_LANES);  // chunks a warp
   Geo g = {};
   const bool cta_ok = !warp && (strip == 4 || strip == 8 || strip == CTA_STRIP_MAX) &&
-                      threads >= 32 && cta_geometry(V, threads, strip, g);
-  const long long lanes = (long long)(warp ? 32 : 32 * g.gw) * strip;
+                      (R == 1 || strip == CTA_STRIP_MAX) && threads >= 32 &&
+                      cta_geometry(V, threads, strip, R, g);
+  const long long lanes = (long long)(warp ? 32 : 32 * g.gw * R) * strip;
   const bool bad_ptrs = emit && (mode == EDIT || v_pad < V || v_pad % 16 != 0 || lanes < v_pad);
   const bool bad_shape =
       warp ? (strip != 5 && strip != 9 && strip != WARP_STRIP_MAX) || threads > WARP_MAX_THREADS
            : !cta_ok;
-  if (B < 0 || m_pad < 0 || n_ext < 1 || band < 0 || V > MAX_LANES || bad_shape ||
-      threads < 32 || threads % 32 != 0 || lanes < V || mode < GLOBAL || mode > EDIT || bad_ptrs)
+  const int states = mode == OVERLAP || mode == EDIT ? 1 : 3;
+  const bool bad_scratch =
+      !warp && R > 1 && (scratch == nullptr || pair_floats < states * lanes);
+  // window lanes and their scratch offsets are 32-bit
+  if (B < 0 || m_pad < 0 || n_ext < 1 || band < 0 || V > INT32_MAX - MAX_LANES || bad_shape ||
+      threads < 32 || threads % 32 != 0 || lanes < V || mode < GLOBAL || mode > EDIT ||
+      bad_ptrs || bad_scratch)
     return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
-  const Args x{qs, te, ns, ms, params, best, edge, a, b, ptrs, m_pad, n_ext, band, v_pad, B};
+  const Args x{qs,    te,    ns,   ms,    params, best,    edge,        a, b,
+               ptrs,  m_pad, n_ext, band, v_pad,  B,       scratch, pair_floats, R,
+               (int)lanes};
   const bool em = emit != 0;
   if (!warp) {
-    const cudaError_t err = strip == 4   ? launch_cta<4>(mode, em, g, stream, x)
+    const cudaError_t err = R > 1       ? launch_cta<CTA_STRIP_MAX, true>(mode, em, g, stream, x)
+                            : strip == 4 ? launch_cta<4>(mode, em, g, stream, x)
                             : strip == 8 ? launch_cta<8>(mode, em, g, stream, x)
                                          : launch_cta<CTA_STRIP_MAX>(mode, em, g, stream, x);
     if (err != cudaSuccess) return err;

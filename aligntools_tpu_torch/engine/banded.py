@@ -18,7 +18,9 @@ Results do not depend on how pairs are padded or grouped: rows past a
 pair's m are -inf, and target reads past its n are pads. So pairs are
 grouped by query length (``GROUPS``) to cut padded rows, and a group's
 pointer tensor, the only O(B*m*V) allocation, is sliced to the rows path's
-device-memory budget (``batch.PTR_BUDGET_FRAC``).
+device-memory budget (``batch.PTR_BUDGET_FRAC``), with the fill's scratch
+beside it past the kernel's one-pass width (``ops/banded.scratch_bytes``).
+Every band runs; only that budget refuses a slab.
 
 Semantics are the JAX banded routes', empty sequences included: a pair
 with m = 0 or n = 0 runs through the fill like any other (global, local,
@@ -131,22 +133,28 @@ def _m_pad(idx, pairs):
     return -(-max(max(len(pairs[k][0]) for k in idx), 1) // 16) * 16
 
 
+def _slab_bytes(m_pad, band):
+    """A pair's device bytes in a rows slab: its (m_pad, V_pad) pointers
+    and the fill's scratch (0 up to the kernel's one-pass width)."""
+    return m_pad * kern.lanes_padded(band) + kern.scratch_bytes(band)
+
+
 def plan(pairs, band, budget=None):
     """The slabs a run fills, as (positions, m_pad): the groups, each cut
-    into equal slices whose (B, m_pad, V_pad) pointer bytes stay within
-    ``budget`` (no cut without one)."""
+    into equal slices whose (B, m_pad, V_pad) pointer bytes and fill
+    scratch stay within ``budget`` (no cut without one)."""
     out = []
     for idx in _groups(pairs):
         m_pad = _m_pad(idx, pairs)
         step = len(idx)
         if budget is not None:
-            bytes_pp = m_pad * kern.lanes_padded(band)
+            bytes_pp = _slab_bytes(m_pad, band)
             cap = budget // bytes_pp
             if cap == 0:
                 raise ValueError(
-                    f"a pair's {bytes_pp} banded pointer bytes ({m_pad} rows "
-                    f"x {kern.lanes_padded(band)} lanes) exceed the device "
-                    f"budget of {budget}")
+                    f"a pair's {bytes_pp} banded pointer and scratch bytes "
+                    f"({m_pad} rows x {kern.lanes_padded(band)} lanes) "
+                    f"exceed the device budget of {budget}")
             step = -(-step // -(-step // cap))  # equal slices of <= cap
         out += [(idx[lo : lo + step], m_pad)
                 for lo in range(0, len(idx), step)]
@@ -368,7 +376,7 @@ def banded_align_batch(
     out = {}
     pending, outstanding = [], 0
     for idx, m_pad in plan(pairs, band, budget):
-        est = m_pad * kern.lanes_padded(band) * len(idx)
+        est = _slab_bytes(m_pad, band) * len(idx)
         if pending and outstanding + est > budget:
             t0 = batch._tick(counters, "fill_seconds", t0)
             _collect(mode, pending, pairs, out)

@@ -38,9 +38,11 @@ dynamically; the CUDA kernel reads both straight from ``qs`` and ``te``.
 
 On a CUDA tensor the wrappers launch ``csrc/banded_fill.cu`` (a warp per
 pair for windows up to 32 * WARP_STRIPS[-1] lanes, a team of warps per pair
-beyond, several pairs a CTA or a cluster of CTAs a pair, up to MAX_LANES:
-``launch_shape``, ``cta_shape``; a strip of lanes per thread; see its
-header) or raise;
+beyond, several pairs a CTA or a cluster of CTAs a pair, and past MAX_LANES
+``chunks(band)`` chunks of 512 lanes a warp, their row state in a scratch
+buffer the wrapper allocates: ``launch_shape``, ``cta_shape``,
+``cta_geometry``; a strip of lanes per thread; see its header) or raise;
+every band has a launch;
 on a CPU tensor they run the plain version, which repeats the Pallas kernel's
 arithmetic row by row over whole (B, V) windows. Values are integer-valued
 float32 with true infinite borders and every pointer is a comparison of
@@ -68,16 +70,20 @@ PTR_MODES = ("global", "local", "fit", "overlap")
 # most CTA_WARPS warps a CTA (its instances' launch bound: 256
 # threads of up to 255 registers), pairs that need fewer sharing a CTA, and
 # a pair wider than a CTA spanning a cluster of up to CLUSTER_MAX CTAs (past
-# 8 a non-portable size, which the H100 takes); so the widest window it
-# takes
+# 8 a non-portable size, which the H100 takes)
 CTA_STRIPS = (4, 8, 16)
 CTA_WARPS = 8
 CLUSTER_MAX = 16
 # the H100's SMs: a CTA of ~200-register threads fills one, so teams share a
 # CTA only where the batch leaves every SM a CTA
 SMS = 132
-# 65,536 lanes: W <= 32,767
+# the widest window one pass of a team holds, 65,536 lanes (W <= 32,767);
+# past it each warp of a cluster's team of 16-lane warps takes chunks(band)
+# consecutive chunks of 512 lanes a row
 MAX_LANES = CLUSTER_MAX * CTA_WARPS * 32 * CTA_STRIPS[-1]
+# the row-state floats a lane of a chunked team keeps in scratch: M, L and
+# U for the affine family, the row value for overlap and edit
+STATES = {"global": 3, "local": 3, "fit": 3, "overlap": 1, "edit": 1}
 # the warp path's strips (lanes a thread: a warp holds V <= 32 * S lanes),
 # and the pairs (warps) of its CTA. By default the path depends on the band
 # alone: at 16 lanes a thread and tens of pairs the CTA path fills pointers
@@ -89,12 +95,13 @@ WARP_PAIRS = 4
 
 launches = 0
 launches_cta = 0  # those of them on the CTA path
+launches_chunked = 0  # and of those the ones in chunks (past MAX_LANES)
 plain_calls = 0
 
 
 def reset_counts() -> None:
-    global launches, launches_cta, plain_calls
-    launches = launches_cta = plain_calls = 0
+    global launches, launches_cta, launches_chunked, plain_calls
+    launches = launches_cta = launches_chunked = plain_calls = 0
 
 
 def lanes_padded(band: int) -> int:
@@ -102,14 +109,21 @@ def lanes_padded(band: int) -> int:
     return -(-(2 * band + 1) // 16) * 16
 
 
+def chunks(band: int) -> int:
+    """R, the chunks of 32 x CTA_STRIPS[-1] lanes each warp of the CTA
+    path's team takes a row: ceil(V / MAX_LANES), 1 (one pass) up to
+    MAX_LANES lanes."""
+    return -(-(2 * band + 1) // MAX_LANES)
+
+
 def launch_shape(band: int) -> tuple[str, int, int]:
     """(path, threads per CTA, lanes per thread) for a window of V = 2W+1
-    lanes: "warp", a warp per pair and WARP_PAIRS pairs a CTA, with the
-    narrowest strip of WARP_STRIPS that holds V in one warp; past 32 *
-    WARP_STRIPS[-1] lanes "cta" (``cta_shape``; ValueError past
-    MAX_LANES). ``_launch`` takes the CTA path below the table's batch
-    threshold for the strip too (``engine/select.banded_path``; by default
-    at no batch)."""
+    lanes, any W >= 0: "warp", a warp per pair and WARP_PAIRS pairs a CTA,
+    with the narrowest strip of WARP_STRIPS that holds V in one warp; past
+    32 * WARP_STRIPS[-1] lanes "cta" (``cta_shape``; past MAX_LANES in
+    ``chunks(band)`` chunks). ``_launch`` takes the CTA path below the
+    table's batch threshold for the strip too
+    (``engine/select.banded_path``; by default at no batch)."""
     V = 2 * band + 1
     strip = next((s for s in WARP_STRIPS if 32 * s >= V), None)
     if strip:
@@ -124,12 +138,12 @@ def cta_shape(band: int, batch: int | None = None) -> tuple[str, int, int]:
     CTAs; teams of up to CTA_WARPS / 2 warps share a CTA of up to
     CTA_WARPS warps (with ``batch``, only as many as leave every SM a
     CTA), and a team wider than a CTA spans a cluster of CTAs of equal
-    warps (``cta_geometry``). Past MAX_LANES lanes no instance takes the
-    band: ValueError."""
+    warps (``cta_geometry``). Past MAX_LANES lanes: CTAs of CTA_WARPS
+    warps of the widest strip, a cluster's team whose warps take
+    ``chunks(band)`` chunks each."""
     V = 2 * band + 1
     if V > MAX_LANES:
-        raise ValueError(f"band {band} is wider than the banded kernel's "
-                         f"{MAX_LANES} lanes (W <= {(MAX_LANES - 1) // 2})")
+        return "cta", 32 * CTA_WARPS, CTA_STRIPS[-1]
     strip = next(s for s in CTA_STRIPS
                  if V <= CLUSTER_MAX * CTA_WARPS * 32 * s)
     need = -(-V // (32 * strip))
@@ -142,25 +156,43 @@ def cta_shape(band: int, batch: int | None = None) -> tuple[str, int, int]:
 
 
 def cta_geometry(band: int, threads: int,
-                 strip: int) -> tuple[int, int, int]:
-    """(warps a pair, pairs a CTA, CTAs a pair) of a CTA-path launch of
-    ``threads`` of ``strip`` lanes at ``band``, as ``at_banded_fill``
-    derives it: a CTA holding a multiple of the team's warps takes that
-    many pairs; else a pair spans a cluster of CTAs, its team every warp of
-    them (those past the window hold pad lanes only). ValueError where the
-    kernel has no instance for the launch."""
-    V = 2 * band + 1
-    need, wpc = -(-V // (32 * strip)), threads // 32
-    if (V > MAX_LANES or strip not in CTA_STRIPS or threads % 32
-            or not 0 < wpc <= CTA_WARPS
+                 strip: int) -> tuple[int, int, int, int]:
+    """(warps a pair, pairs a CTA, CTAs a pair, chunks a warp) of a
+    CTA-path launch of ``threads`` of ``strip`` lanes at ``band``, as
+    ``at_banded_fill`` derives it: a team of the fewest warps that hold V
+    in ``chunks(band)`` chunks of 32 x ``strip`` lanes each (chunks past 1
+    at the widest strip only); a CTA holding a multiple of the team's warps
+    takes that many pairs; else a pair spans a cluster of CTAs, its team
+    every warp of them (those past the window hold pad lanes only).
+    ValueError where the kernel has no instance for the launch."""
+    V, R = 2 * band + 1, chunks(band)
+    need, wpc = -(-V // (32 * strip * R)), threads // 32
+    if (strip not in CTA_STRIPS or (R > 1 and strip != CTA_STRIPS[-1])
+            or threads % 32 or not 0 < wpc <= CTA_WARPS
             or (wpc >= need and wpc % need)
             or -(-need // wpc) > CLUSTER_MAX):
         raise ValueError(f"no CTA-path launch of {threads} threads of "
                          f"{strip} lanes at band {band}")
     if wpc >= need:
-        return need, wpc // need, 1
+        return need, wpc // need, 1, R
     C = -(-need // wpc)
-    return C * wpc, 1, C
+    return C * wpc, 1, C, R
+
+
+def scratch_floats(mode: str, band: int, threads: int, strip: int) -> int:
+    """A pair's floats of the chunks' row state for a CTA-path launch of
+    ``threads`` of ``strip`` lanes at ``band``: STATES[mode] times the
+    team's lanes where its warps take chunks, else 0 (no scratch)."""
+    gw, _, _, R = cta_geometry(band, threads, strip)
+    return STATES[mode] * gw * R * 32 * strip if R > 1 else 0
+
+
+def scratch_bytes(band: int) -> int:
+    """A pair's scratch bytes at ``band`` on its own CTA-path shape, for
+    the mode that keeps the most (0 up to MAX_LANES lanes): what a slab
+    needs beside its pointers."""
+    _, threads, strip = cta_shape(band)
+    return 4 * scratch_floats("global", band, threads, strip)
 
 
 # ---------------------------------------------------------------------------
@@ -406,10 +438,11 @@ def _kernel():
 
         fn = _build.load().at_banded_fill
         P, I = ctypes.c_void_p, ctypes.c_int
-        # mode, emit, qs, te, ns, ms, params, best, edge, a, b, ptrs, B,
-        # m_pad, n_ext, band, v_pad, threads, strip, warp, stream
-        fn.argtypes = [I, I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
-                       I, I, P]
+        # mode, emit, qs, te, ns, ms, params, best, edge, a, b, ptrs,
+        # scratch, pair_floats, B, m_pad, n_ext, band, v_pad, threads,
+        # strip, warp, stream
+        fn.argtypes = [I, I, P, P, P, P, P, P, P, P, P, P, P,
+                       ctypes.c_longlong, I, I, I, I, I, I, I, I, P]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -434,9 +467,10 @@ def _check(mode, modes, band, qs, te, ns, ms, params):
 def _launch(mode, emit, band, qs, te, ns, ms, params, shape=None):
     """Launch the kernel on CUDA tensors at ``shape`` = (path, threads,
     strip), by default the path ``engine/select.banded_path(band, B)``
-    picks (``launch_shape(band)``, or ``cta_shape(band, B)``); the C entry
-    refuses a shape it has no instance for."""
-    global launches, launches_cta
+    picks (``launch_shape(band)``, or ``cta_shape(band, B)``); a team
+    whose warps take chunks gets its scratch here, on the pair's device;
+    the C entry refuses a shape it has no instance for."""
+    global launches, launches_cta, launches_chunked
     from aligntools_tpu_torch.engine import select
 
     B, m_pad = qs.shape
@@ -452,19 +486,26 @@ def _launch(mode, emit, band, qs, te, ns, ms, params, shape=None):
     v_pad = lanes_padded(band)
     ptrs = (torch.empty((B, m_pad, v_pad), dtype=torch.uint8, device=dev)
             if emit else None)
+    floats = (scratch_floats(mode, band, threads, strip)
+              if path == "cta" and chunks(band) > 1 else 0)
+    scratch = (torch.empty((B, floats), dtype=torch.float32, device=dev)
+               if floats else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _kernel()(
             MODES.index(mode), int(emit), qs.data_ptr(), te.data_ptr(),
             ns.data_ptr(), ms.data_ptr(), params.data_ptr(), best.data_ptr(),
             edge.data_ptr(), a.data_ptr(), b.data_ptr(),
-            ptrs.data_ptr() if emit else 0, B, m_pad, te.shape[1], band,
-            v_pad, threads, strip, int(path == "warp"), stream)
+            ptrs.data_ptr() if emit else 0,
+            scratch.data_ptr() if floats else 0, floats, B, m_pad,
+            te.shape[1], band, v_pad, threads, strip, int(path == "warp"),
+            stream)
     if err != 0:
         raise RuntimeError(f"banded fill kernel launch failed: CUDA error "
                            f"{err}")
     launches += 1
     launches_cta += path == "cta"
+    launches_chunked += floats > 0
     return best, edge, a, b, ptrs
 
 

@@ -264,7 +264,20 @@ Phases, one JSON line each:
            its pipeline's seconds, from the trace: a `BW` `trace` line);
            local's first slab, the pointer and score fills against one
            plain call, the kernel timed there (`BW-slab` lines: ms, bound,
-           band-GCUPS).
+           band-GCUPS). BKW also holds the CTA path in chunks past the
+           one-pass width (W 32,768 and 40,000 at 2 x 256 rows, 2 chunks a
+           warp; W 131,071 at 1 x 256, 4) beside one pass at W 32,767 (2 x
+           256), targets W bases longer. After
+           BW, BU: the CTA path in chunks on the main path, `batch local
+           --band 40000` through cli.main (cold, then warm) on 4 reads of
+           200-400 bases inside targets of ~40,300, its launches counted
+           from 0 (the chunked CTA instances and the walk launched, no
+           plain version), its TSV equal to the port's `--device cpu` run
+           of the same command (started before BS, beside BS and BW); then
+           engine/banded.banded_score_auto on an unrelated 64 x 40,064
+           local pair, counted alike (two chunked fills as the band
+           doubles to cover the matrix): its score the unbanded route's,
+           (score, band, certified) the plain route's on the CPU.
 
 Last, after the banded phase:
 
@@ -301,7 +314,8 @@ TRACE.banded.json.
 Then the kernels' summary line (each kernel's time, launches on the main
 path, bound, probe_ms and plain time; the banded kernel's first BS
 slab beside BK1; its CTA path, `banded_cta`, at BKW's W 1,000 with BW's
-launches and first slab; the double instances with their exact64
+launches and first slab, and BKW's widest shapes (W 32,767 to 131,071)
+with BU's chunked launches beside; the double instances with their exact64
 launches), the
 card's name and power limit as
 nvidia-smi prints them, and, last, {"ok": true, "device": {...}}. Any
@@ -472,50 +486,57 @@ BS_BAND = 128
 # BKW: the CTA path at bands only it serves, (B, m, W, target bases past
 # m): a team of 5 warps in a CTA (W 256) and a cluster of 2 CTAs (W 1,000)
 # at 64 x 4,096, one of 5 at W 2,048 (where the old kernel took 16-lane
-# strips), and one of 16 at W 8,191, the widest band the old kernel took,
-# against targets 8,191 bases longer
+# strips), and one of 16 at W 8,191, against targets 8,191 bases longer;
+# then 2 x 256 rows at the one-pass width (W 32,767, a cluster of 16 CTAs)
+# and one past it, W 32,768 and 40,000 (two chunks a warp), and 1 x 256 at
+# W 131,071 (four), targets W bases longer
 BANDED_BKW = [(64, 4096, 256, 0), (64, 4096, 1000, 0), (16, 4096, 2048, 0),
-              (8, 2048, 8191, 8191)]
-# the parent commit's (0df2deb) CTA kernels at BKW, ms by "variant shape":
-# this script's BKW level (`--only bkw`) run on that commit's package, one
-# H100 80GB HBM3 at 700 W
+              (8, 2048, 8191, 8191), (2, 256, 32767, 32767),
+              (2, 256, 32768, 32768), (2, 256, 40000, 40000),
+              (1, 256, 131071, 131071)]
+# the widest ones, one pass at W 32,767 and the chunked ones past it, which
+# the kernels line carries
+BKW_WIDE = ("/W32767/", "/W32768/", "/W40000/", "/W131071/")
+# the parent commit's (7532830) CTA kernels at BKW, ms by "variant shape":
+# the mean of two runs of this script's BKW level (`--only bkw`) on that
+# commit's package, in turns with this one, one H100 80GB HBM3 at 700 W
 BKW_PARENT_MS = {
-    "global/ptrs 64x4096/W256": 4.1087,
-    "local/ptrs 64x4096/W256": 4.569,
-    "fit/ptrs 64x4096/W256": 4.197,
-    "overlap/ptrs 64x4096/W256": 3.4564,
-    "global 64x4096/W256": 3.2857,
-    "local 64x4096/W256": 4.0162,
-    "fit 64x4096/W256": 3.3511,
-    "overlap 64x4096/W256": 3.2632,
-    "edit 64x4096/W256": 3.424,
-    "global/ptrs 64x4096/W1000": 6.9392,
-    "local/ptrs 64x4096/W1000": 7.483,
-    "fit/ptrs 64x4096/W1000": 6.9111,
-    "overlap/ptrs 64x4096/W1000": 5.515,
-    "global 64x4096/W1000": 5.5112,
-    "local 64x4096/W1000": 6.3283,
-    "fit 64x4096/W1000": 5.5204,
-    "overlap 64x4096/W1000": 4.9269,
-    "edit 64x4096/W1000": 5.0775,
-    "global/ptrs 16x4096/W2048": 32.5148,
-    "local/ptrs 16x4096/W2048": 20.0521,
-    "fit/ptrs 16x4096/W2048": 28.5879,
-    "overlap/ptrs 16x4096/W2048": 13.3711,
-    "global 16x4096/W2048": 12.6458,
-    "local 16x4096/W2048": 15.7097,
-    "fit 16x4096/W2048": 12.9477,
-    "overlap 16x4096/W2048": 11.3092,
-    "edit 16x4096/W2048": 14.0325,
-    "global/ptrs 8x2048/W8191/n+8191": 34.5563,
-    "local/ptrs 8x2048/W8191/n+8191": 23.4161,
-    "fit/ptrs 8x2048/W8191/n+8191": 30.4987,
-    "overlap/ptrs 8x2048/W8191/n+8191": 18.5471,
-    "global 8x2048/W8191/n+8191": 15.5268,
-    "local 8x2048/W8191/n+8191": 16.3026,
-    "fit 8x2048/W8191/n+8191": 15.7742,
-    "overlap 8x2048/W8191/n+8191": 10.3593,
-    "edit 8x2048/W8191/n+8191": 13.9013,
+    "global/ptrs 64x4096/W256": 9.1476,
+    "local/ptrs 64x4096/W256": 9.0305,
+    "fit/ptrs 64x4096/W256": 8.7793,
+    "overlap/ptrs 64x4096/W256": 7.7072,
+    "global 64x4096/W256": 7.8486,
+    "local 64x4096/W256": 7.7493,
+    "fit 64x4096/W256": 7.7800,
+    "overlap 64x4096/W256": 7.5643,
+    "edit 64x4096/W256": 7.5693,
+    "global/ptrs 64x4096/W1000": 10.7176,
+    "local/ptrs 64x4096/W1000": 11.1320,
+    "fit/ptrs 64x4096/W1000": 10.7281,
+    "overlap/ptrs 64x4096/W1000": 9.6971,
+    "global 64x4096/W1000": 9.7952,
+    "local 64x4096/W1000": 10.0970,
+    "fit 64x4096/W1000": 9.7734,
+    "overlap 64x4096/W1000": 9.5853,
+    "edit 64x4096/W1000": 9.5268,
+    "global/ptrs 16x4096/W2048": 11.3180,
+    "local/ptrs 16x4096/W2048": 12.2548,
+    "fit/ptrs 16x4096/W2048": 10.9027,
+    "overlap/ptrs 16x4096/W2048": 10.4217,
+    "global 16x4096/W2048": 10.1705,
+    "local 16x4096/W2048": 11.2667,
+    "fit 16x4096/W2048": 10.1810,
+    "overlap 16x4096/W2048": 10.0011,
+    "edit 16x4096/W2048": 10.2304,
+    "global/ptrs 8x2048/W8191/n+8191": 6.6763,
+    "local/ptrs 8x2048/W8191/n+8191": 7.4394,
+    "fit/ptrs 8x2048/W8191/n+8191": 6.4678,
+    "overlap/ptrs 8x2048/W8191/n+8191": 6.1400,
+    "global 8x2048/W8191/n+8191": 5.8144,
+    "local 8x2048/W8191/n+8191": 6.6409,
+    "fit 8x2048/W8191/n+8191": 5.8013,
+    "overlap 8x2048/W8191/n+8191": 5.6656,
+    "edit 8x2048/W8191/n+8191": 5.8119,
 }
 # BW: noisy long reads against their draft at a band past the warp path
 # (the CTA path: a cluster of 2 CTAs a pair); pairs, band, the draft's
@@ -526,6 +547,11 @@ BW_BAND = 512
 BW_MEDIAN = 10000
 BW_SIGMA = 0.2
 BW_ERRORS = (0.05, 0.03, 0.01)
+# BU: reads of 200-400 bases inside targets of ~40,300 at a band past the
+# one-pass width (two chunks a warp), and the auto pair's (m, n)
+BU_BAND = 40000
+BU_PAIRS = 4
+BU_AUTO = (64, 40064)
 # the rescan phase: RSF, the rows path's checkpoint rescan forced by an
 # ALIGNTOOLS_HBM_BUDGET just below one pair's pointer bytes, on the B1 shape
 # (fit -s) and on seeded related RSF_SHAPE pairs in global, local and
@@ -1823,6 +1849,7 @@ def counts(scan, ptr, tb):
     return ({**scan.launches, "ptr": ptr.launches, "walk": tb.launches,
              "walk_pause": tb.pause_launches, **blocked.launches,
              "banded": banded.launches, "banded_cta": banded.launches_cta,
+             "banded_chunked": banded.launches_chunked,
              "ptr64": ptr.launches64, "edit64": scan.launches64},
             {"scan": scan.plain_calls, "ptr": ptr.plain_calls,
              "walk": tb.plain_calls, "blocked": blocked.plain_calls,
@@ -3102,6 +3129,8 @@ def phase_banded_wide(torch, banded):
     score-only variant's best and edge too (its plain_ms is that call's)."""
     rows = []
     for B, L, band, extra in BANDED_BKW:
+        if 2 * band + 1 > banded.MAX_LANES and not hasattr(banded, "chunks"):
+            continue  # `--only bkw` on a package that takes no chunks
         args = banded_kernel_inputs(torch, B, L, band, SEED + 11, extra)
         n, V = L + extra, 2 * band + 1
         need = band_cells([L] * B, [n] * B, band)
@@ -3542,6 +3571,130 @@ def phase_banded_bw(torch, scan, ptr, tb, work):
                                  AlignParams(), None, slabs, 1 << 30,
                                  BW_BAND, "BW-slab", walk=False)
     return launches, [checked] + slabs
+
+
+def uncapped_reads(P, seed):
+    """BU: reads of 200-400 random bases, 5% of them set to A, near the
+    end of targets of random bases (40,000 - m - up to 200 before the read,
+    500 after): a diagonal offset of ~40,000 - m, inside a band of
+    BU_BAND."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    alpha = np.frombuffer(b"ACGT", dtype=np.uint8)
+    pairs = []
+    for _ in range(P):
+        m = int(rng.integers(200, 401))
+        q = alpha[rng.integers(0, 4, m)]
+        r = q.copy()
+        r[rng.random(m) < 0.05] = ord("A")
+        t = np.concatenate([alpha[rng.integers(0, 4, 40000 - m - int(
+            rng.integers(0, 200)))], r, alpha[rng.integers(0, 4, 500)]])
+        pairs.append((q.tobytes(), t.tobytes()))
+    return pairs
+
+
+def start_banded_uncapped(work):
+    """BU's reference: the port's `batch local --band BU_BAND --device cpu`
+    on the BU reads in a process of four threads, started before BS so
+    that it runs beside BS and BW. Returns (pairs, FASTA, the CPU TSV, the
+    job)."""
+    pairs = uncapped_reads(BU_PAIRS, SEED + 17)
+    fasta = os.path.join(work, "bu.fa")
+    write_fasta(fasta, pairs)
+    out = os.path.join(work, "bu.cpu.tsv")
+    cmd = [sys.executable, "-m", "aligntools_tpu_torch", "batch", "local",
+           fasta, "--band", str(BU_BAND), "--device", "cpu", "--out", out]
+    job = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.DEVNULL,
+                           stderr=subprocess.PIPE, text=True,
+                           env=dict(os.environ, OMP_NUM_THREADS="4"))
+    return pairs, fasta, out, job
+
+
+def phase_banded_uncapped(torch, scan, ptr, tb, work, started):
+    """BU: the CTA path in chunks (past the kernel's one-pass width) on the
+    main path. `batch local --band BU_BAND` through cli.main, cold then
+    warm, the launches counted from 0 just before and read just after:
+    every banded fill chunked, the walk launched, no plain version; both
+    TSVs equal the `--device cpu` run's (``started`` before BS). Then
+    banded_score_auto on an unrelated BU_AUTO local pair, counted alike:
+    the band doubles from n - m + 16 to cover the matrix, two chunked
+    fills; the score equals the unbanded route's on the card and
+    (score, band, certified) the plain route's on the CPU. Returns the
+    main path's launches."""
+    import numpy as np
+
+    from aligntools_tpu_torch import batch, cli
+    from aligntools_tpu_torch.engine import banded as ebanded
+    from aligntools_tpu_torch.ops import banded
+    from aligntools_tpu_torch.params import AlignParams
+
+    pairs, fasta, cpu_tsv, job = started
+    ms, ns = [len(q) for q, _ in pairs], [len(t) for _, t in pairs]
+    cells = band_cells(ms, ns, BU_BAND)
+    emit({"phase": "banded", "level": "BU", "pairs": len(pairs),
+          "band": BU_BAND, "chunks": banded.chunks(BU_BAND),
+          "cta_shape": list(banded.cta_shape(BU_BAND)),
+          "geometry": list(banded.cta_geometry(BU_BAND, *banded.cta_shape(
+              BU_BAND)[1:])), "m": ms, "n": ns,
+          "true_cells": sum(m * n for m, n in zip(ms, ns)),
+          "band_cells_in_matrix": cells})
+    tsv = {}
+    try:
+        reset_counts(scan, ptr, tb)
+        for run in ("cold", "warm"):
+            tsv[run] = os.path.join(work, f"bu-{run}.tsv")
+            wall, report = run_cli(cli, ["batch", "local", fasta, "--band",
+                                         str(BU_BAND), "--out", tsv[run]])
+            emit({"phase": "banded", "level": "BU", "path": "rows",
+                  "mode": "local", "run": run, "seconds": wall,
+                  "pairs_per_s": len(pairs) / wall,
+                  "band_gcups": cells / wall / 1e9, "counters": report})
+        torch.cuda.synchronize()
+        launches, plain = counts(scan, ptr, tb)
+        emit({"phase": "banded", "level": "BU", "launches": launches,
+              "plain_calls": plain})
+        for name in ("banded_chunked", "walk"):
+            check(launches[name] > 0, f"kernel {name} never launched on BU")
+        check(launches["banded"] == launches["banded_chunked"],
+              f"BU: {launches['banded'] - launches['banded_chunked']} "
+              f"banded fills not in chunks")
+        check(not any(plain.values()), f"plain versions ran on BU: {plain}")
+        err = job.communicate(timeout=900)[1]
+        check(job.returncode == 0, f"BU --device cpu exited "
+              f"{job.returncode}: {err[-2000:]}")
+    finally:
+        stop_cpu_checks([(job,)])
+    want = read_lines(cpu_tsv)
+    check(len(want) == len(pairs), f"BU: {len(want)} CPU lines")
+    for run in tsv:
+        check(read_lines(tsv[run]) == want,
+              f"BU: the card's {run} TSV differs from --device cpu's")
+
+    rng = np.random.default_rng(SEED + 19)
+    alpha = np.frombuffer(b"ACGT", dtype=np.uint8)
+    q, t = (alpha[rng.integers(0, 4, k)].tobytes() for k in BU_AUTO)
+    reset_counts(scan, ptr, tb)
+    t0 = time.perf_counter()
+    got = ebanded.banded_score_auto("local", q, t, device="cuda")
+    wall = time.perf_counter() - t0
+    auto, plain = counts(scan, ptr, tb)
+    unbanded = float(batch.batch_scores("local", [(q, t)], AlignParams(),
+                                        device="cuda")[0])
+    want = ebanded.banded_score_auto("local", q, t, device="cpu")
+    emit({"phase": "banded", "level": "BU", "run": "auto", "mode": "local",
+          "m": BU_AUTO[0], "n": BU_AUTO[1], "score": got[0],
+          "band": got[1], "certified": got[2], "seconds": wall,
+          "unbanded": unbanded, "plain_route": list(want),
+          "launches": auto, "plain_calls": plain})
+    check(auto["banded_chunked"] == auto["banded"] == 2,
+          f"BU auto: {auto['banded']} fills, {auto['banded_chunked']} "
+          f"chunked")
+    check(not any(plain.values()), f"plain versions ran on BU auto: {plain}")
+    check(got[2] and got[0] == unbanded,
+          f"BU auto: {got} against the unbanded {unbanded}")
+    check(got == want, f"BU auto: {got} against the plain route's {want}")
+    return launches
 
 
 @contextlib.contextmanager
@@ -4298,9 +4451,11 @@ def phase_profile(torch, cli, argv, work, trace_path):
 
 def summary(rows, ptr_rows, walk_rows, bucket_rows, launches, blocked_rows,
             long_buckets, banded_rows, banded_buckets, probe_reps,
-            rescan_rows, exact64_rows, par_rows, bw_rows):
+            rescan_rows, exact64_rows, par_rows, bw_rows, bu_launches):
     """The kernels line: each kernel's representative timing, its launches
-    on its path's main-path run, and its largest error over every check."""
+    on its path's main-path run, and its largest error over every check.
+    ``banded_cta`` also carries BKW's widest shapes (local pointers: one
+    pass at W 32,767 and the chunked widths) and BU's chunked launches."""
     from aligntools_tpu_torch.engine import select
 
     c_blk_own = select.blocked_c_blk()
@@ -4377,6 +4532,14 @@ def summary(rows, ptr_rows, walk_rows, bucket_rows, launches, blocked_rows,
                 k: slab[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
                                      "bound_by")}}
                if name in ("banded", "banded_cta") else {}),
+            **({"wide": {
+                "bu_chunked_launches": bu_launches["banded_chunked"],
+                "bkw": [{k: r[k] for k in ("shape", "ms", "plain_ms",
+                                           "bound_ms", "bound_by")}
+                        for r in mine if r.get("level") == "BKW"
+                        and r["variant"] == "local/ptrs" and any(
+                            w in r["shape"] + "/" for w in BKW_WIDE)]}}
+               if name == "banded_cta" else {}),
         })
     return out
 
@@ -4468,9 +4631,16 @@ def main(argv=None):
         phase_validate(torch)
         exact64_launches, exact64_rows = phase_exact64(torch, scan, ptr, tb,
                                                        work)
-        banded_launches, banded_buckets, banded_walks = phase_banded(
-            torch, scan, ptr, tb, work, trace)
-        bw_launches, bw_rows = phase_banded_bw(torch, scan, ptr, tb, work)
+        bu_started = start_banded_uncapped(work)
+        try:
+            banded_launches, banded_buckets, banded_walks = phase_banded(
+                torch, scan, ptr, tb, work, trace)
+            bw_launches, bw_rows = phase_banded_bw(torch, scan, ptr, tb,
+                                                   work)
+            bu_launches = phase_banded_uncapped(torch, scan, ptr, tb, work,
+                                                bu_started)
+        finally:
+            stop_cpu_checks([(bu_started[3],)])
     phase_calibrate(torch)
     import torch.distributed as dist
 
@@ -4491,7 +4661,7 @@ def main(argv=None):
                              bucket_rows, launches, blocked_rows,
                              long_buckets, banded_rows, banded_buckets,
                              probe_reps, rescan_rows, exact64_rows,
-                             par_rows, bw_rows)})
+                             par_rows, bw_rows, bu_launches)})
     pinned.cleanup()
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -198,9 +198,9 @@ def test_kernel_entries_check_their_inputs():
                            *args[3:])
     assert tops.launch_shape(1000) == ("cta", 256, 4)  # V = 2,001: 2 CTAs
     assert tops.launch_shape(8192) == ("cta", 256, 8)  # 9 CTAs of 8 lanes
-    assert tops.launch_shape(32767) == ("cta", 256, 16)  # of 16: the widest
-    with pytest.raises(ValueError, match="65536 lanes"):
-        tops.launch_shape(32768)
+    assert tops.launch_shape(32767) == ("cta", 256, 16)  # of 16: one pass
+    assert tops.launch_shape(32768) == ("cta", 256, 16)  # 2 chunks a warp
+    assert (tops.chunks(32767), tops.chunks(32768)) == (1, 2)
 
 
 # ---------------------------------------------------------------------------
@@ -632,8 +632,9 @@ def test_cta_shape_covers_the_window(band):
     assert path == "cta" and strip in tops.CTA_STRIPS and threads % 32 == 0
     assert V <= 16 * 8 * 32 * strip
     assert strip == 4 or V > 16 * 8 * 32 * (strip // 2)
-    gw, pairs, ctas = tops.cta_geometry(band, threads, strip)
+    gw, pairs, ctas, chunks = tops.cta_geometry(band, threads, strip)
     need = -(-V // (32 * strip))
+    assert chunks == 1  # one pass up to 65,536 lanes
     assert gw * 32 * strip >= V and threads <= 256 and ctas <= 16
     if ctas == 1:
         assert gw == need and pairs * gw == threads // 32
@@ -663,20 +664,22 @@ def test_cta_shape_shares_a_cta_once_the_batch_fills_the_card():
 
 def test_cta_geometry_refuses_what_no_instance_takes():
     """Threads that are no whole number of teams, too many threads, a
-    cluster past 16 CTAs, a band past the cap: no launch."""
-    assert tops.cta_geometry(256, 32, 4) == (5, 1, 5)  # one-warp CTAs
-    assert tops.cta_geometry(600, 64, 8) == (6, 1, 3)  # and a pad warp
-    assert tops.cta_geometry(256, 128, 16) == (2, 2, 1)
-    assert tops.cta_geometry(32767, 256, 16) == (128, 1, 16)
-    assert tops.cta_geometry(8191, 256, 4) == (128, 1, 16)
+    cluster past 16 CTAs, chunks at a strip narrower than 16 lanes: no
+    launch. Past the one-pass width (W 32,767) every band has one, in
+    chunks (tests/test_torch_banded_uncapped.py)."""
+    assert tops.cta_geometry(256, 32, 4) == (5, 1, 5, 1)  # one-warp CTAs
+    assert tops.cta_geometry(600, 64, 8) == (6, 1, 3, 1)  # and a pad warp
+    assert tops.cta_geometry(256, 128, 16) == (2, 2, 1, 1)
+    assert tops.cta_geometry(32767, 256, 16) == (128, 1, 16, 1)
+    assert tops.cta_geometry(8191, 256, 4) == (128, 1, 16, 1)
     for band, threads, strip in ((256, 96, 16), (256, 288, 16),
                                  (256, 48, 16), (8191, 32, 16),
-                                 (32767, 128, 16), (32768, 256, 16),
+                                 (32767, 128, 16), (32768, 256, 8),
                                  (20, 0, 4), (256, 64, 5), (8192, 256, 4)):
         with pytest.raises(ValueError, match="no CTA-path launch"):
             tops.cta_geometry(band, threads, strip)
-    with pytest.raises(ValueError, match="W <= 32767"):
-        tops.cta_shape(32768)
+    assert tops.cta_shape(32768) == ("cta", 256, 16)
+    assert tops.cta_geometry(32768, 256, 16) == (72, 1, 9, 2)
 
 
 @pytest.mark.parametrize("band", [128, 256], ids=["warp-W128", "cta-W256"])

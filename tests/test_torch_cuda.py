@@ -850,10 +850,12 @@ def test_banded_entry_refuses_a_shape_it_lacks(cuda, mode, emit):
 
 
 # the CTA path at the bands only it serves: a team of 5 warps in a CTA (W
-# 256), clusters of 2, 4 and 5 CTAs (W 1,000, 2,047, 2,048), of 16 at the
-# old cap's W 8,191, 8-lane ones past it (9 CTAs at W 8,192, 12 at 12,000)
-# and 16-lane ones at the cap (16 CTAs at W 32,767)
-CTA_BANDS = [256, 1000, 2047, 2048, 8191, 8192, 12000, 32767]
+# 256), clusters of 2, 4 and 5 CTAs (W 1,000, 2,047, 2,048), of 16 at
+# W 8,191, 8-lane ones past it (9 CTAs at W 8,192, 12 at 12,000), 16-lane
+# ones at the one-pass width (16 CTAs at W 32,767), and past it in chunks:
+# 2 a warp (9 CTAs at W 32,768, 10 at 40,000) and 4 (16 CTAs at 131,071)
+CTA_BANDS = [256, 1000, 2047, 2048, 8191, 8192, 12000, 32767, 32768, 40000,
+             131071]
 
 
 @pytest.mark.parametrize("band", CTA_BANDS)
@@ -861,14 +863,15 @@ CTA_BANDS = [256, 1000, 2047, 2048, 8191, 8192, 12000, 32767]
 def test_banded_cta_path_equals_plain(cuda, mode, emit, band):
     """Ragged pairs (an empty query, |n - m| == W, rows past m) at the
     band's own launch, every variant bit-equal to plain; CTA launches
-    counted."""
+    counted, and past W 32,767 the chunked ones."""
     shape = banded.launch_shape(band)
     assert shape[0] == "cta"
-    before = banded.launches_cta
+    before = banded.launches_cta, banded.launches_chunked
     _banded_equals_plain(mode, emit, band, _banded_inputs(
         61 + band, band, mode == "fit", B=7 if band < 4096 else 4,
         m_pad=96 if band < 16384 else 48), shape)
-    assert banded.launches_cta == before + 1
+    assert banded.launches_cta == before[0] + 1
+    assert banded.launches_chunked == before[1] + (banded.chunks(band) > 1)
 
 
 # (band, threads) at the CTA path's own edges: one warp a team, 8 pairs a
@@ -923,6 +926,64 @@ def test_banded_score_auto_past_the_old_cap(cuda, mode):
     assert banded.launches_cta > 0 and banded.plain_calls == 0
     want = tbatch.batch_scores(mode, [(q, t)], AlignParams(), device="cuda")
     assert score == float(want[0])
+
+
+@pytest.mark.parametrize("mode", ["local", "fit", "overlap"])
+def test_banded_score_auto_past_the_one_pass_width(cuda, mode):
+    """An unrelated 64 x 40,064 pair: the band doubles from 40,016 to
+    cover the matrix (W 40,064, two chunks a warp); the score equals the
+    unbanded route's, and (score, band, certified) the plain route's."""
+    from aligntools_tpu_torch.engine import banded as ebanded
+
+    rng = np.random.default_rng(83)
+    q = bytes(rng.choice(list(b"ACGT"), 64).tolist())
+    t = bytes(rng.choice(list(b"ACGT"), 40064).tolist())
+    banded.reset_counts()
+    got = ebanded.banded_score_auto(mode, q, t, device="cuda")
+    assert got[1] == 40064 and got[2]
+    assert banded.launches_chunked == 2 and banded.plain_calls == 0
+    assert got == ebanded.banded_score_auto(mode, q, t, device="cpu")
+    want = tbatch.batch_scores(mode, [(q, t)], AlignParams(), device="cuda")
+    assert got[0] == float(want[0])
+
+
+def uncapped_fasta(path, seed, pairs=4):
+    """Reads of 200-400 bases (5% of them mutated) inside targets of
+    40,100-40,500 bases, each read near the target's end: the diagonal
+    offset ~40,000 - m fits a band of 40,000."""
+    rng = np.random.default_rng(seed)
+    lines = []
+    for k in range(pairs):
+        m = int(rng.integers(200, 401))
+        q = rng.choice(list(b"ACGT"), m)
+        r = q.copy()
+        r[rng.random(m) < 0.05] = ord("A")
+        t = np.concatenate([rng.choice(list(b"ACGT"), 40000 - m - int(
+            rng.integers(0, 200))), r, rng.choice(list(b"ACGT"), 500)])
+        lines += [f">q{k}", bytes(q.tolist()).decode(), f">t{k}",
+                  bytes(t.tolist()).decode()]
+    path.write_text("\n".join(lines) + "\n")
+
+
+def test_batch_local_band_40000_on_card_equals_cpu(cuda, tmp_path):
+    """`aligntools-torch batch local --band 40000` on reads inside targets
+    past 40,000 bases: the fill in chunks (two a warp of a 10-CTA
+    cluster's team), the window walk over 80,001-lane pointer rows; the
+    TSV equals the same command's on --device cpu."""
+    from aligntools_tpu_torch.cli import main
+
+    fasta = tmp_path / "uncapped.fa"
+    uncapped_fasta(fasta, 89)
+    out = {}
+    banded.reset_counts()
+    for dev in ("cuda", "cpu"):
+        out[dev] = tmp_path / f"{dev}.tsv"
+        assert main(["batch", "local", str(fasta), "--band", "40000",
+                     "--device", dev, "--out", str(out[dev])]) == 0
+        if dev == "cuda":
+            assert banded.launches_chunked > 0 and banded.plain_calls == 0
+    assert out["cuda"].read_bytes() == out["cpu"].read_bytes()
+    assert len(out["cuda"].read_bytes().splitlines()) == 4
 
 
 def test_batch_local_band_9000_on_card_equals_cpu(cuda, tmp_path):

@@ -1,7 +1,7 @@
 """Inputs on which the banded fill's start info ties, for the CPU tests
-(tests/test_torch_banded.py, against the JAX package's banded routes) and
-the card tests (tests/test_torch_cuda.py, kernel against plain). numpy
-only: the card's machine has no jax.
+(tests/test_torch_banded_full.py, against the JAX package's banded
+routes) and the card tests (tests/test_torch_cuda.py, kernel against
+plain). numpy only: the card's machine has no jax.
 
 The kernel latches each thread's start-info candidate and reduces them
 once after the last row (csrc/banded_fill.cu), across the lanes of one

@@ -7,6 +7,8 @@ one stderr line; the crossover choices as pure functions of synthetic
 timings; results equal with and without an injected table (every route is
 bit-equal, so a table moves time alone); ``calibrate`` off the card."""
 
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
+
 import json
 import os
 

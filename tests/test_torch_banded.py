@@ -1,38 +1,36 @@
-"""The port's banded path against the JAX package's banded engine.
+"""The port's banded path against the JAX package's banded engine: the
+plain scores, the kernel entries' checks, the engines and the launch
+shapes.
 
 The same seeded numpy inputs go through the JAX package's two banded
 routes, ``pallas_banded.banded_pallas_scores`` / ``banded_pallas_full``
 (interpret mode on the CPU) and the vmapped XLA ``banded_fill``, and
 through the port's ``ops/banded.py`` on CPU tensors (its plain version):
-best, edge, the start info a/b and every pointer byte at lanes < V must be
-equal. Then the engines (scores, rows, single-pair entries, the
-certificate, the input checks and the empty-sequence results), the window
-walk against ``_walk_banded`` (on the fills' pointers and on the drawn
-walks of tests/walk_cases.py), and ``aligntools-torch batch MODE --band W
---device cpu`` byte for byte against ``aligntools batch MODE --band W``."""
+best and edge must be equal. Then the engines (scores, rows, the
+certificate, the input checks and the empty-sequence results) and the
+launch shapes and CTA geometry of the card's kernel. The pointer fill, its
+tie inputs and the window walk are in tests/test_torch_banded_full.py; the
+single-pair entries and ``aligntools-torch batch MODE --band W --device
+cpu`` in tests/test_torch_banded_entries.py. Three files, so that a test
+run with workers takes them side by side; the helpers are this file's."""
+
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
 
 import inspect
-import os
 
-import banded_ties
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-import walk_cases
 
 from aligntools_tpu.engine import banded as jbanded
 from aligntools_tpu.ops import pallas_banded as jpb
 from aligntools_tpu.params import AlignParams as JParams
-from aligntools_tpu.pipeline import run_pipeline as jax_run_pipeline
-from aligntools_tpu_torch.cli import main
 from aligntools_tpu_torch.engine import banded as tbanded
-from aligntools_tpu_torch.engine import device_tb
 from aligntools_tpu_torch.ops import banded as tops
 from aligntools_tpu_torch.params import AlignParams
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ALPHA = list(b"ACGT")
 # tests/test_banded.py's parameter sets (the second has o > e) and bands
 PARAM_SETS = [(dict(match=2, mismatch=-2, gap_open=-4, gap_extend=-1), 32),
@@ -64,23 +62,6 @@ def _pairs(mode, band, seed, count=12):
         q, t = _similar_pair(rng, int(rng.integers(20, 150)), 6, 3)
         if mode in ("global", "edit") and abs(len(t) - len(q)) > band:
             q = q[: len(t)]
-        if mode == "fit" and len(q) > len(t):
-            q, t = t, q
-        pairs.append((q, t))
-    return pairs
-
-
-def _tie_pairs(mode, seed=311, count=12):
-    """tests/test_banded.py's tie-heavy mix: two letters in two of three
-    pairs."""
-    rng = np.random.default_rng(seed)
-    pairs = []
-    for k in range(count):
-        alpha = [65, 66] if k % 3 else ALPHA
-        q = bytes(rng.choice(alpha, int(rng.integers(3, 90))).tolist())
-        t = bytes(rng.choice(alpha, int(rng.integers(3, 110))).tolist())
-        if mode == "global":
-            t = q[: max(1, len(q) - 5)]
         if mode == "fit" and len(q) > len(t):
             q, t = t, q
         pairs.append((q, t))
@@ -156,32 +137,6 @@ def test_plain_scores_match_jax(mode, pset):
                  _jax_xla(mode, band, enc, False)):
         _same(got[0], want[0], "best")
         _same(got[1], want[1], "edge")
-
-
-@pytest.mark.parametrize("case", ["o<e-W32", "o>e-W17", "ties-W32"])
-@pytest.mark.parametrize("mode", ["global", "local", "fit", "overlap"])
-def test_plain_full_matches_jax(mode, case):
-    """best, edge, a, b and every pointer byte at lanes < V; pad lanes are
-    unset in the port."""
-    if case == "ties-W32":
-        pd, band = PARAM_SETS[0]
-        pairs = _tie_pairs(mode)
-    else:
-        pd, band = PARAM_SETS[SET_IDS.index(case)]
-        pairs = _pairs(mode, band, 311 + SET_IDS.index(case))
-    enc = _encode(pairs, band, AlignParams(**pd))
-    V = 2 * band + 1
-    best, edge, a, b, ptrs = _port(mode, band, enc, True)
-    assert a.dtype == b.dtype == np.int32 and ptrs.dtype == np.uint8
-    assert ptrs.shape == enc[0].shape + (tops.lanes_padded(band),)
-    unset = 3 if mode == "overlap" else 7
-    assert (ptrs[:, :, V:] == unset).all()
-    for want in (_jax_pallas(mode, band, enc, True),
-                 _jax_xla(mode, band, enc, True)):
-        for name, g, w in zip(("best", "edge", "a", "b"), (best, edge, a, b),
-                              want):
-            _same(g, w, name)
-        assert np.array_equal(ptrs[:, :, :V], want[4][:, :, :V]), "ptrs"
 
 
 def test_kernel_entries_check_their_inputs():
@@ -314,35 +269,6 @@ def test_engine_errors_match_jax(kind, mode, pairs, band):
         assert str(got.value) == str(want.value)
 
 
-@pytest.mark.parametrize("mode", ["global", "local", "fit", "overlap",
-                                  "edit"])
-def test_single_pair_entries_match_jax(mode):
-    rng = np.random.default_rng(601)
-    p = dict(match=2, mismatch=-2, gap_open=-4, gap_extend=-1)
-    for _ in range(2):
-        q, t = _similar_pair(rng, int(rng.integers(30, 90)), 4, 2)
-        if mode == "fit" and len(q) > len(t):
-            q, t = t, q
-        want = jbanded.banded_score_auto(mode, q, t, JParams(**p), band0=4)
-        got = tbanded.banded_score_auto(mode, q, t, AlignParams(**p),
-                                        band0=4, device="cpu")
-        assert got == want
-        band = max(abs(len(t) - len(q)), 6)
-        assert tbanded.banded_score(mode, q, t, band, AlignParams(**p),
-                                    device="cpu") == jbanded.banded_score(
-            mode, q, t, band, JParams(**p))
-        if mode != "edit":
-            g, ge = tbanded.banded_align(mode, q, t, band, AlignParams(**p),
-                                         device="cpu")
-            w, we = jbanded.banded_align(mode, q, t, band, JParams(**p))
-            assert (g.score, g.row1, g.row2, ge) == (w.score, w.row1,
-                                                      w.row2, we)
-    if mode in ("global", "edit"):
-        for fn in (jbanded.banded_score, tbanded.banded_score):
-            with pytest.raises(ValueError, match=r"\|n-m\|=36"):
-                fn(mode, b"ACGT", b"ACGT" * 10, 8)
-
-
 def test_band_certificate_matches_jax():
     sets = [dict(), dict(match=2, mismatch=-3, gap_open=-1, gap_extend=-2),
             dict(mismatch=1), dict(gap_open=2), dict(match=-1, mismatch=-2)]
@@ -357,219 +283,7 @@ def test_band_certificate_matches_jax():
 
 
 # ---------------------------------------------------------------------------
-# The walk in window coordinates
-# ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("case", ["o<e-W32", "ties-W32"])
-@pytest.mark.parametrize("mode", ["global", "local", "fit", "overlap"])
-def test_window_walk_matches_jax(mode, case):
-    """The port's walk over the plain fill's pointers (its plain version on
-    the CPU) gives ``_walk_banded``'s rows on the same pointer slabs."""
-    pd, band = PARAM_SETS[0]
-    pairs = _tie_pairs(mode) if case == "ties-W32" else _pairs(mode, band,
-                                                               701)
-    enc = _encode(pairs, band, AlignParams(**pd))
-    qs, te, ns, ms = (torch.from_numpy(x) for x in enc[:4])
-    best, edge, a, b, ptrs = tops.banded_full(
-        mode, band, qs, te, ns, ms, torch.from_numpy(enc[4]))
-    starts = device_tb.walk_starts(mode, best, a, b, ms, ns)
-    before = device_tb.plain_calls
-    cols1, cols2, scal = device_tb.walk(mode, 1, ptrs, qs, te, starts, band)
-    assert device_tb.plain_calls == before + 1
-    assert cols1.shape == (qs.shape[1] + te.shape[1] + 1, len(pairs))
-    scal = scal.numpy()
-    assert not scal[3].any()
-    rows = device_tb.assemble(mode, cols1.numpy(), cols2.numpy(), scal,
-                              pairs)
-    V = 2 * band + 1
-    st = starts.numpy()
-    for k, (q, t) in enumerate(pairs):
-        want = jbanded._walk_banded(q, t, ptrs[k, :, :V].numpy(), band, mode,
-                                    int(st[0, k]), int(st[1, k]),
-                                    int(st[2, k]))
-        assert rows[k] == want, (k, q, t)
-
-
-@pytest.mark.parametrize("mode,byte", [("global", 0x00), ("fit", 0x00),
-                                       ("local", 0x10), ("overlap", 0x02)])
-def test_window_walk_that_leaves_the_band(mode, byte):
-    """Pointers that keep the walk moving off the diagonal (L extending up,
-    U extending left, overlap RIGHT): ``_walk_banded`` raises and the port
-    flags the left-band bit, which the engine raises as the same error."""
-    band = 3
-    pairs = [(b"ACGTACGTAC", b"ACGTACGTAC")] * 2
-    enc = _encode(pairs, band, AlignParams())
-    qs, te = torch.from_numpy(enc[0]), torch.from_numpy(enc[1])
-    ptrs = torch.full((2, qs.shape[1], tops.lanes_padded(band)), byte,
-                      dtype=torch.uint8)
-    state = {"local": device_tb.UPP, "overlap": 0}.get(mode, device_tb.LOW)
-    starts = torch.tensor([[state] * 2, [10] * 2, [10] * 2],
-                          dtype=torch.int32)
-    _, _, scal = device_tb.walk(mode, 1, ptrs, qs, te, starts, band)
-    assert (scal[3].numpy() & device_tb.ERR_LEFT_BAND).all()
-    with pytest.raises(RuntimeError) as want:
-        jbanded._walk_banded(*pairs[0], ptrs[0, :, : 2 * band + 1].numpy(),
-                             band, mode, state, 10, 10)
-    assert str(tbanded._walk_error(mode, int(scal[3, 0]))) == str(
-        want.value)
-
-
-@pytest.mark.parametrize("case", walk_cases.window_cases(),
-                         ids=lambda c: f"{c.name}-{c.mode}")
-def test_window_walk_cases_match_jax(case):
-    """Window walks drawn across the kernel's tiles (tests/walk_cases.py):
-    diagonals over row tiles, L and U runs in the band, and runs that leave
-    it. Each pair's rows equal ``_walk_banded``'s, or both walks fail with
-    the same error."""
-    ptrs, qs, te, starts = (torch.from_numpy(x) for x in (
-        case.ptrs, case.qs, case.ts, case.starts))
-    cols1, cols2, scal = (x.numpy() for x in device_tb.walk(
-        case.mode, 1, ptrs, qs, te, starts, case.band))
-    V = 2 * case.band + 1
-    failed = 0
-    for k, (q, t) in enumerate(case.pairs):
-        try:
-            want = jbanded._walk_banded(q, t, case.ptrs[k, :, :V],
-                                        case.band, case.mode,
-                                        *map(int, case.starts[:, k]))
-        except RuntimeError as e:
-            failed += 1
-            assert scal[3, k] and str(tbanded._walk_error(
-                case.mode, int(scal[3, k]))) == str(e), k
-            continue
-        assert not scal[3, k], k
-        got = device_tb.assemble(case.mode, cols1[:, k : k + 1],
-                                 cols2[:, k : k + 1], scal[:, k : k + 1],
-                                 [(q, t)])
-        assert got[0] == want, k
-    assert 0 < failed < len(case.pairs)
-
-
-def test_window_walk_rejects_bad_layouts():
-    enc = _encode([(b"ACGT", b"ACGT")], 4, AlignParams())
-    qs, te = torch.from_numpy(enc[0]), torch.from_numpy(enc[1])
-    ptrs = torch.zeros((1, qs.shape[1], 16), dtype=torch.uint8)
-    starts = torch.zeros((3, 1), dtype=torch.int32)
-    with pytest.raises(ValueError, match="window walk"):
-        device_tb.walk("local", 2, ptrs, qs, te, starts, 4)
-    with pytest.raises(ValueError, match="window walk"):
-        device_tb.walk("local", 1, ptrs[:, :, :8], qs, te, starts, 4)
-
-
-# ---------------------------------------------------------------------------
-# aligntools-torch batch --band
-# ---------------------------------------------------------------------------
-
-OUTPUTS = {"scores": ("--scores-only",), "rows": (), "cigar": ("--cigar",)}
-
-
-def _params_of(args):
-    p = JParams()
-    flags = {"-m": "match", "-u": "mismatch", "-o": "gap_open",
-             "-e": "gap_extend"}
-    for k in range(len(args) - 1):
-        if args[k] in flags:
-            p = p.replace(**{flags[args[k]]: int(args[k + 1])})
-    return p
-
-
-def _compare(tmp_path, mode, fasta, band, output, args=(), chunk=16384):
-    want_path = tmp_path / f"{mode}.{output}.jax.tsv"
-    got_path = tmp_path / f"{mode}.{output}.torch.tsv"
-    jax_run_pipeline(mode, fasta, _params_of(args), band=band,
-                     scores_only=output == "scores", cigar=output == "cigar",
-                     chunk_size=chunk, out_path=str(want_path))
-    rc = main(["batch", mode, fasta, *args, "--band", str(band),
-               *OUTPUTS[output], "--device", "cpu", "--chunk-size",
-               str(chunk), "--out", str(got_path)])
-    assert rc == 0
-    want = want_path.read_bytes()
-    assert want and got_path.read_bytes() == want
-    return want
-
-
-# (mode, band, args) on test/test_MODE.fa: each band holds the end cell
-FIXTURE_CASES = [("global", 16, ()), ("local", 16, ()), ("overlap", 16, ()),
-                 ("fit", 32, ("-m", "2", "-u", "-2")), ("edit", 64, ())]
-
-
-@pytest.mark.parametrize("mode,band,args,output", [
-    (*c, output) for c in FIXTURE_CASES
-    for output in (("scores",) if c[0] == "edit" else OUTPUTS)])
-def test_band_fixture_tsv_matches_jax(tmp_path, mode, band, args, output):
-    _compare(tmp_path, mode, os.path.join(REPO, "test", f"test_{mode}.fa"),
-             band, output, args)
-
-
-def _similar_fasta(tmp_path, mode, empty):
-    """Seeded similar pairs of 10-120 (end cells in band 24 for global and
-    edit, m <= n for fit), with empty records when ``empty``."""
-    pairs = _pairs(mode, 24, 809, 20)
-    for k in range(len(pairs)):
-        q, t = pairs[k]
-        pairs[k] = (q[: 10 + k * 5], t[: 10 + k * 5 + (k % 3)])
-    if empty:
-        pairs[3:3] = [(b"", b"ACGT"), (b"", b"")]
-        if mode != "fit":
-            pairs.insert(9, (b"ACG", b""))
-    path = tmp_path / "similar.fa"
-    path.write_text("".join(f">q{k}\n{q.decode()}\n>t{k}\n{t.decode()}\n"
-                            for k, (q, t) in enumerate(pairs)))
-    return str(path)
-
-
-@pytest.mark.parametrize("mode,output", [
-    (mode, output) for mode in ("global", "local", "overlap", "fit", "edit")
-    for output in (("scores",) if mode == "edit" else OUTPUTS)])
-def test_band_similar_tsv_matches_jax(tmp_path, mode, output):
-    """Similar pairs in chunks of 8; empty records wherever the JAX
-    pipeline prints a line for them (not edit, whose +inf it cannot print,
-    and not fit rows, which have no finite start)."""
-    empty = mode != "edit" and not (mode == "fit" and output != "scores")
-    want = _compare(tmp_path, mode, _similar_fasta(tmp_path, mode, empty),
-                    24, output, ("-o", "-3"), chunk=8)
-    if empty:
-        assert b"\t-inf" in want
-
-
-def test_band_edit_on_an_empty_query_exits_255(tmp_path, capsys):
-    """The JAX pipeline dies on int(+inf); the port refuses with FATAL
-    ERROR."""
-    fasta = str(tmp_path / "e.fa")
-    with open(fasta, "w") as f:
-        f.write(">q0\n\n>t0\nACGT\n>q1\nACGT\n>t1\nACGA\n")
-    with pytest.raises(OverflowError):
-        jax_run_pipeline("edit", fasta, JParams(), band=4,
-                         out_path=str(tmp_path / "jax.tsv"))
-    assert main(["batch", "edit", fasta, "--band", "4", "--device",
-                 "cpu"]) == 255
-    err = capsys.readouterr().err
-    assert "FATAL ERROR" in err and "+inf" in err
-
-
-@pytest.mark.parametrize("flags,msg", [
-    (["-s"], "--band does not support the fit jump state"),
-    (["--sharded"], "--band does not support --sharded"),
-])
-def test_band_refusals(tmp_path, capsys, flags, msg):
-    fasta = _similar_fasta(tmp_path, "fit", False)
-    assert main(["batch", "fit", fasta, "--band", "8", *flags, "--device",
-                 "cpu"]) == 255
-    assert msg in capsys.readouterr().err
-
-
-def test_band_too_narrow_for_the_end_cell_exits_255(tmp_path, capsys):
-    fasta = str(tmp_path / "w.fa")
-    with open(fasta, "w") as f:
-        f.write(">q0\nACGT\n>t0\n" + "ACGT" * 10 + "\n")
-    assert main(["batch", "global", fasta, "--band", "8", "--device",
-                 "cpu"]) == 255
-    assert "band cannot contain the end cell" in capsys.readouterr().err
-
-
-# ---------------------------------------------------------------------------
-# Launch shapes and tie inputs at the kernel's strip and warp edges
+# Launch shapes and the CTA path's geometry
 # ---------------------------------------------------------------------------
 
 
@@ -680,32 +394,3 @@ def test_cta_geometry_refuses_what_no_instance_takes():
             tops.cta_geometry(band, threads, strip)
     assert tops.cta_shape(32768) == ("cta", 256, 16)
     assert tops.cta_geometry(32768, 256, 16) == (72, 1, 9, 2)
-
-
-@pytest.mark.parametrize("band", [128, 256], ids=["warp-W128", "cta-W256"])
-@pytest.mark.parametrize("mode", ["global", "local", "fit", "overlap"])
-def test_plain_full_on_tie_inputs_matches_jax(mode, band):
-    """tests/banded_ties.py's pairs at the launch's strip and warp edges
-    (W 128: the warp path at 9 lanes a thread; W 256: one past its widest
-    strip, the CTA path, a team of five 128-lane warps; a cluster's CTA
-    edge: tests/test_torch_banded_wide_rows.py): best, edge, a, b and every
-    pointer byte equal the JAX routes', and each designed pair of ``mode``
-    gives its stated start (the tie's winner)."""
-    path, _, strip = tops.launch_shape(band)
-    assert path == ("warp" if band == 128 else "cta")
-    (qs, te, ns, ms), ties = banded_ties.tie_inputs(band, strip, 32 * strip,
-                                                    5)
-    pm = banded_ties.pmat(mode)
-    ps = np.repeat(pm, qs.shape[0], axis=0)
-    ps[:, 5] = ms[:, 0]
-    enc = (qs, te, ns, ms, pm, ps)
-    V = 2 * band + 1
-    best, edge, a, b, ptrs = got = _port(mode, band, enc, True)
-    for want in (_jax_pallas(mode, band, enc, True),
-                 _jax_xla(mode, band, enc, True)):
-        for name, g, w in zip(("best", "edge", "a", "b"), got, want):
-            _same(g, w, name)
-        assert np.array_equal(ptrs[:, :, :V], want[4][:, :, :V]), "ptrs"
-    for pair, (tmode, ab) in ties.items():
-        if tmode == mode:
-            assert (a[pair], b[pair]) == ab, (pair, a[pair], b[pair])

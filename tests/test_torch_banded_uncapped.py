@@ -12,6 +12,8 @@ exactly; every band has a launch shape, and a rows slab's budget counts
 the chunks' scratch. A file of its own, so that a test run with workers
 takes it beside the other banded files."""
 
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
+
 import numpy as np
 import pytest
 

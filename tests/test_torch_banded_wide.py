@@ -13,6 +13,8 @@ and a cluster's tie: tests/test_torch_banded_wide_rows.py). Files of
 their own, so that a test run with workers takes them beside
 tests/test_torch_banded.py."""
 
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
+
 import numpy as np
 import pytest
 

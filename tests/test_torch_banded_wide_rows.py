@@ -5,6 +5,8 @@ a cluster (W 4,096: nine CTAs of 8 warps of 4 lanes on the card), against
 the JAX package's vmapped XLA route (``engine="xla"``), exactly. See
 tests/test_torch_banded_wide.py."""
 
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
+
 import banded_ties
 import jax
 import jax.numpy as jnp

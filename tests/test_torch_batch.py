@@ -6,6 +6,8 @@ kernels' plain versions) must equal ``aligntools_tpu.batch.batch_scores(
 traceback=True)`` must give the JAX package's AlignResults (score and both
 rows), under every pointer-budget slicing."""
 
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
+
 import numpy as np
 import pytest
 import torch

@@ -10,6 +10,8 @@ pad rows and pad columns included. The same holds on inputs whose start-info
 candidates tie across blocks (``tests/blocked_ties.py``), which the
 wavefront kernels merge in block order."""
 
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
+
 import importlib.util
 import json
 import os

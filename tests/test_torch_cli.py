@@ -9,6 +9,8 @@ route); pairs past float32's exact integers run the port's double
 instances and print the JAX CLI's bytes. ``align_pair`` against
 ``aligntools_tpu.engine.scan.scan_align`` field by field."""
 
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
+
 import os
 import subprocess
 import sys

@@ -5,6 +5,8 @@ CUDA device (a CUDA kernel has no interpret mode). On a Hopper card:
 ``ALIGNTOOLS_TEST_TPU=1 python -m pytest tests/test_torch_cuda.py -o
 addopts="" -q`` (the variable keeps tests/conftest.py from importing jax)."""
 
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
+
 import os
 
 import banded_ties

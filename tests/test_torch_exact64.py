@@ -14,6 +14,8 @@ and through the checkpoint rescan (forced by ALIGNTOOLS_HBM_BUDGET). Each
 case also shows that the float32 route, run past its range, gives another
 answer: the double route is needed."""
 
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
+
 import numpy as np
 import pytest
 import torch

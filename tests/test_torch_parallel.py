@@ -6,6 +6,8 @@ tests/conftest.py), and one spawn of 8 CPU ranks on a FileStore (no port
 taken) running the dry run of ``__graft_entry__.dryrun_multichip``, held
 against the JAX package, exactly."""
 
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
+
 import json
 import os
 import subprocess

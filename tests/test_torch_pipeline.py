@@ -2,6 +2,8 @@
 port's import boundary, its copies of the JAX package's pure modules, and
 its refusals of the options it does not port."""
 
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
+
 import ast
 import glob
 import gzip

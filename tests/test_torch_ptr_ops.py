@@ -10,6 +10,8 @@ info the kernel's per-thread latches must resolve as the plain version's
 running row maximum does) are checked to tie and held to the Pallas kernel
 too; the kernel's launch shapes are checked for every flat bucket."""
 
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
+
 import jax.numpy as jnp
 import numpy as np
 import ptr_ties as ties

@@ -4,6 +4,8 @@ the CPU, held against the JAX package's ``engine/rescan.py`` and against
 the port's own whole-matrix fill. Exact throughout: scores bit-equal,
 checkpoints bit-equal float32, pointer bytes and rows byte-equal."""
 
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
+
 import io
 
 import jax.numpy as jnp

@@ -6,6 +6,8 @@ The same seeded numpy inputs go through ``pallas_scores`` /
 PyTorch versions. Scores are integer-valued float32 with -inf borders, so
 the comparison is exact (``np.array_equal``; edit as integers)."""
 
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

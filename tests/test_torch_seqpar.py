@@ -5,6 +5,8 @@ versions of the EDGE phase and the column-paused walk, against the JAX
 8-device CPU mesh (tests/conftest.py) and against the port's
 single-device route, exactly: scores bit-equal, rows byte-equal."""
 
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
+
 import functools
 
 import jax

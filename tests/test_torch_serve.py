@@ -2,6 +2,8 @@
 request's TSV held against the JAX package's ``serve`` on the same stream
 (the ``#done`` lines without their times)."""
 
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
+
 import io
 import os
 import subprocess

@@ -2,6 +2,8 @@
 Chrome trace of the run's loop, with the TSV byte-equal to the untraced
 run's; without the flag no trace and no profiler."""
 
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
+
 import json
 import os
 

@@ -9,6 +9,8 @@ the campaign's own cases the native CLI agrees with the JAX spec engine
 (the oracle tied to the JAX package); ``native.cli_binary`` builds, reuses
 and refuses."""
 
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
+
 import dataclasses
 import importlib.util
 import os

@@ -7,6 +7,8 @@ The test captures each kernel body by standing a fake in for
 interpret mode, and holds ``chain_plain`` bit-equal to it. The measuring
 functions of the port raise here: they measure the card only."""
 
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
+
 import importlib.util
 import os
 

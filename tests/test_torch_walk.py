@@ -8,6 +8,8 @@ The same tensors and starts go through ``device_tb._walk_affine`` /
 (its plain version); the whole (n_steps, B) column buffers and every
 scalar must be equal."""
 
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -1,8 +1,8 @@
 """Walks drawn to cross the walk kernel's pointer tiles, for the CPU tests
 (tests/test_torch_walk.py against the JAX package's device walks,
-tests/test_torch_banded.py against its banded host walk) and the card
-tests (tests/test_torch_cuda.py, kernel against plain). numpy only: the
-card's machine has no jax.
+tests/test_torch_banded_full.py against its banded host walk) and the
+card tests (tests/test_torch_cuda.py, kernel against plain). numpy only:
+the card's machine has no jax.
 
 A case is synthetic pointer bytes: random bytes, with a path drawn over
 them from its start as runs of states (``draw``), so that every byte the

@@ -14,15 +14,29 @@
 // plain versions ops/scan.py and ops/ptr.py): the same
 // scores, start info and pointer bytes, pad rows and pad columns included.
 //
-// Design. The grid holds one CTA for each (pair, column block). Inside its
-// block a CTA runs the flat kernels' strip machinery over c_blk columns:
-// thread t owns the block-local columns [t*W, (t+1)*W), and each query row
-// is a serial pass, a block scan for the in-row chain (U, fit's J, overlap's
-// and edit's left chains), a second serial pass and a barrier. The block's
-// row state (the previous row's values, the block's target chars, the jump
-// bias, the pointer codes and the byte-row being packed) lives in dynamic
-// shared memory, strip-transposed (block-local column t*W + k at slot
-// k*T + t), so a cell's loads and stores never leave the SM.
+// Design. The grid holds one CTA for each (pair, column block); thread t
+// owns the block-local columns [t*W, (t+1)*W).
+//   Pointer fills: the flat pointer fill's row (ptr_fill.cu, its header;
+//     strip_row.cuh) over the block's columns, W 16 (8 for double) and the
+//     fewest warps that cover c_blk (ops/ptr.launch_shape applied to
+//     c_blk: 128 threads at 2,048, 512 at 8,192). The row
+//     state lives in registers for the whole fill: the chars, M and L of
+//     the previous row, D = max(L, M, U[, J]) with its earliest-argument
+//     argmax, U's term offsets and fit's jump gate. Per row: pass 1 (M, L,
+//     their bits, the strip's chain terms), a warp scan with shuffles, the
+//     row's one __syncthreads(), the scan of the warps' aggregates, pass 2
+//     (U, J, their bits, D); every shared slot is double-buffered by row
+//     parity. The block's left edge stands where the flat fill has column
+//     0's border: row i-1's edge gives thread 0's diagonal D(i-1, col0), row
+//     i's the chains' seeds before warp 0. Threads past the block's width
+//     (a ragged last block, a small c_blk) compute on pad and store nothing.
+//   Score fills: each query row is a serial pass, a block scan for the
+//     in-row chain (U, fit's J, overlap's and edit's left chains), a second
+//     serial pass and a barrier (ops/blocked.score_launch_shape: 8 columns a
+//     thread). The block's row state (the previous row's values, the
+//     block's target chars, the jump bias) lives in dynamic shared memory,
+//     strip-transposed (block-local column t*W + k at slot k*T + t), so a
+//     cell's loads and stores never leave the SM.
 //
 // Between blocks the only state is each row's values at a block's last
 // column: M, L, U, J (the score fills keep max(L, M, U, J) in place of L,
@@ -40,7 +54,11 @@
 // in block 0 only; the row-0 edge is analytic in every block; every in-row
 // chain continues across blocks by its global column index (U's seed
 // U(i, col0) - e*col0, overlap's M(i, col0) - o*col0, edit's
-// M(i, col0) - col0, fit's J carried flat).
+// M(i, col0) - col0, fit's J carried flat). In the pointer fills thread 0
+// polls once it has finished its own pass 1 and leaves the chains' seeds
+// in a parity slot before the row's barrier, so the row keeps one barrier;
+// the thread that owns the block's last column, (bw - 1) / W, stores row
+// i's M, L, U[, J] to the block's edge slice and then the count.
 //
 // No CTA waits on one that is not running, whatever order the hardware
 // starts CTAs in: each CTA takes a ticket from a per-launch counter on entry
@@ -63,28 +81,31 @@
 // its block's candidate in a (pair, block) slot, and the CTA that finishes
 // the pair's last block (a per-pair done counter behind __threadfence, as in
 // CUDA's threadFenceReduction sample) merges them and writes the outputs.
-// Pointer bytes are staged in shared memory as one c_blk-wide byte-row
-// (row rpb*k in the low bits) and stored to ptrs[b, r, col0 : col0 + c_blk]
-// as 16-byte words; every offset into the pointer tensor is 64-bit (a
-// long-target bucket's tensor passes 2^31 bytes). The pointer fills take an
-// n_pad that c_blk does not divide (flat buckets past
-// ops/ptr.FLAT_REG_MAX_N_PAD): the last block is n_pad - col0 columns wide
-// (a multiple of 16), which bounds its strips, its staged byte-row and its
-// stores. So do the score fills (flat global / local buckets past
+// The pointer fills latch start info per thread in registers and reduce it
+// once after the last row into the block's candidate. Pointer bytes are
+// packed in registers across rpb rows (row rpb*k in the low bits) and each
+// thread stores its strip as one 16-byte word (8 bytes at double's W 8);
+// every offset into the pointer tensor is 64-bit (a long-target bucket's
+// tensor passes 2^31 bytes). The pointer fills take an n_pad that c_blk
+// does not divide (flat buckets past ops/ptr.FLAT_REG_MAX_N_PAD): the last
+// block is n_pad - col0 columns wide (a multiple of 16, so a strip lies
+// wholly inside it or past it). So do the score fills (flat global / local
+// buckets past
 // ops/ptr.FLAT_REG_MAX_N_PAD): a block covers at most the pair's n columns,
 // so the ragged last block only changes the grid.
 //
-// What bounds it on this card: the per-row chain, as in the flat fills: two
-// barriers and a block scan per row and block, and W serial cells a thread
-// in each pass, with the row state in shared memory; across blocks, one
-// release store a row in the publishing block and an acquire poll a row in
-// the next, which sit on that chain. The pointer bytes (m_pad*n_pad/rpb a
-// pair) are far below HBM's rate. The grid is B x ceil(n_pad/c_blk) CTAs (a
-// long-target bucket of ~10 pairs at c_blk 2,048: 240-640), in flight as
-// far as shared memory allows (fit+jump's pointer fill takes 26 bytes a
-// column: four CTAs an SM at 2,048) and, in a pair, by the wavefront's fill
-// and drain: its last block starts its first row n_pad/c_blk - 1 rows after
-// block 0.
+// What bounds it on this card: the per-row chain, as in the flat fills: a
+// barrier, the warps' scans and W serial cells a thread in each pass (the
+// score fills: two barriers and a block scan, the row state in shared
+// memory); across blocks, one release store a row in the publishing block
+// and an acquire poll a row in the next, which sit on that chain. The
+// pointer bytes (m_pad*n_pad/rpb a pair) are far below HBM's rate. The grid
+// is B x ceil(n_pad/c_blk) CTAs (a long-target bucket of ~10 pairs at c_blk
+// 2,048: 240-640), in flight as far as registers allow (a pointer fill's
+// thread takes up to 128: four CTAs of 128 threads an SM at 2,048; the
+// score fills as shared memory allows) and, in a pair, by the wavefront's
+// fill and drain: its last block starts its first row n_pad/c_blk - 1 rows
+// after block 0.
 //
 // Exactness: values are integer-valued f32 below 2^24 with true -inf
 // borders (edit: int32; the double instances below 2^53), built with
@@ -111,15 +132,16 @@
 //
 // Double instances (the *64 entries). A single pair past float32's exact
 // integers runs the pointer fill's three phases and edit's score fill with
-// the value type T = double: params, row state in shared memory, block
-// edges and checkpoints in double, exact integers below 2^53 with true -inf
-// borders; a block candidate's double rides its int4 slot as two words (x
-// and w). Each edge is a plain 8-byte store before the owner's
-// st.release.gpu of the row count, and its reader's ld.acquire.gpu comes
-// before its __ldcg, so the 8-byte values are ordered as the 4-byte ones
-// are. Shared memory takes 45 bytes a column at fit+jump (184 KiB at 4,096
-// columns), so the double column block is at most 4,096
-// (ops/blocked.C_BLK_MAX64).
+// the value type T = double: params, row state, block edges and
+// checkpoints in double, exact integers below 2^53 with true -inf borders;
+// a block candidate's double rides its int4 slot as two words (x and w).
+// Each edge is a plain 8-byte store before the owner's st.release.gpu of
+// the row count, and its reader's ld.acquire.gpu comes before its __ldcg,
+// so the 8-byte values are ordered as the 4-byte ones are. The double
+// pointer fills run strips of W 8 (a double takes two registers), so the
+// double column block is at most 512 x 8 = 4,096 (ops/blocked.C_BLK_MAX64);
+// edit's double score fill keeps its row in shared memory (20 bytes a
+// column).
 
 #include <climits>
 #include <cmath>
@@ -128,10 +150,10 @@
 #include <type_traits>
 
 #include "block_scan.cuh"
+#include "strip_row.cuh"
 
 namespace {
 
-constexpr int BIG = 1 << 30;
 constexpr int GLOBAL = 0, LOCAL = 1, FIT = 2, OVERLAP = 3, EDIT = 4;
 constexpr int MAX_THREADS = 1024;
 
@@ -236,19 +258,11 @@ __device__ __forceinline__ double unpack<double>(int4 x) { return __hiloint2doub
 template <>
 __device__ __forceinline__ int unpack<int>(int4 x) { return x.x; }
 
-// max / min of the value types (FMNMX for float32, as before) and their
-// block-scan operators
-__device__ __forceinline__ float vmax(float a, float b) { return fmaxf(a, b); }
-__device__ __forceinline__ double vmax(double a, double b) { return fmax(a, b); }
+// the block-scan minimum of edit's value types
 template <class T>
 struct Ops;
 template <>
-struct Ops<float> {
-  using Max = MaxF;
-};
-template <>
 struct Ops<double> {
-  using Max = MaxD;
   using Min = MinD;
 };
 template <>
@@ -688,311 +702,357 @@ __device__ __forceinline__ T ptr_edge(int s, int c, int i, int i0, int col0, T o
 
 // Replaces the global / local / fit(+jump) branches of _blocked_ptr_kernel
 // (JUMP: fit's junction-gated J state, entry allowed where allow > 0 — the
-// reference's inverted enum-bool quirk). Per slot: M, L, U[, J, the jump
-// bias] of the row, the target char and pass 1's part of the pointer code;
-// per thread its last column's M and L of the previous row. PHASE: FILL;
-// CKPT (no pointers; the state rows of every stride-th row into `ck`, (B,
-// m_pad/S, states, n_pad+1)); SEED (rows i0+1 .. i0+m_pad from `ck`, (B,
-// states, n_pad+1); no start info).
-template <int MODE, bool JUMP, int PHASE, class T = float>
-__global__ void __launch_bounds__(MAX_THREADS)
+// reference's inverted enum-bool quirk), as ptr_fill.cu's ptr_affine_kernel
+// runs them over the block's columns (the header's design): per thread its
+// strip's chars, M, L, D = max(L, M, U[, J]) and D's argmax in registers.
+// PHASE: FILL; CKPT (no pointers; the state rows of every stride-th row into
+// `ck`, (B, m_pad/S, states, n_pad+1)); SEED (rows i0+1 .. i0+m_pad from
+// `ck`, (B, states, n_pad+1); no start info); EDGE (Chunk).
+template <int MODE, bool JUMP, int PHASE, int W, class T>
+__global__ void __launch_bounds__(kMaxThreads)
 bptr_affine(const int* __restrict__ qs, const int* __restrict__ ts,
             const float* __restrict__ allow, const int* __restrict__ ns,
             const int* __restrict__ ms, const T* __restrict__ params,
             T* __restrict__ score_out, int* __restrict__ a_out, int* __restrict__ b_out,
             uint8_t* __restrict__ ptrs, T* edges, int* flags, int4* cand, T* ck,
-            int m_pad, int n_pad, int c_blk, int W, int rpb, int stride, int i0,
-            Chunk ch = {}) {
+            int m_pad, int n_pad, int c_blk, int rpb, int stride, int i0, Chunk ch) {
   constexpr bool PTRS = PHASE != CKPT, LATCH = PHASE != SEED, CH = PHASE == EDGE;
+  constexpr int NC = JUMP ? 2 : 1;  // in-row chains: U, fit's J
   constexpr T NG = (T)NEG;
-  using Max = typename Ops<T>::Max;
   // a checkpoint's state rows: M, L, U, and fit's J (-inf without the jump)
   constexpr int ST = MODE == FIT ? 4 : 3;
-  extern __shared__ __align__(16) uint8_t smem[];
-  __shared__ T tot[3][32];
-  __shared__ T red_f[2][32];
-  __shared__ int red_i[32];
-  __shared__ T eg[4];  // row i's edge at col0, from thread 0
-  __shared__ T g_s;
-  __shared__ int g_a, ticket;
+  // by row parity: each warp's aggregate, its aggregate without the warp's
+  // last column, that column's M and L; the chains' seeds at column col0
+  // (thread 0's, from the block's left edge)
+  __shared__ T s_agg[2][NC][32], s_wo[2][NC][32], s_m[2][32], s_l[2][32];
+  __shared__ T s_seed[2][NC];
+  __shared__ Cand<T> s_red[2][32];
+  __shared__ int4 s_glob;  // global's candidate: D(m, n) and its argmax
+  __shared__ int ticket;
   const int nblk = (n_pad + c_blk - 1) / c_blk;
   Wave<T> w(take_ticket(flags, &ticket), nblk, flags, edges, cand, m_pad, CH);
-  const int b = w.b, c = w.c, tid = threadIdx.x;
-  const size_t S = (size_t)blockDim.x * W;
-  uint8_t* stage = smem;  // the byte-row being packed, c_blk bytes
-  T* eM = reinterpret_cast<T*>(smem + c_blk);  // row i-1, last column
-  T* eL = eM + blockDim.x;
-  T* Mr = eL + blockDim.x;
-  T* Lr = Mr + S;
-  T* Ur = Lr + S;
-  T* Jr = Ur + S;
-  T* Jb = Jr + (JUMP ? S : 0);  // jp where entry into column j+1 is allowed
-  int* Tc = reinterpret_cast<int*>(Jb + (JUMP ? S : 0));
-  uint8_t* Cd = reinterpret_cast<uint8_t*>(Tc + S);
+  const int b = w.b, c = w.c, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nw = blockDim.x >> 5;
   const T match = params[0], mis = params[1], o = params[2], e = params[3];
   const T jp = params[4];
   const int k_home = rpb > 1 ? 3 : 4, k_unset = rpb > 1 ? 3 : 7;
   const int lbit = rpb > 1 ? 1 << 2 : 1 << 3, ubit = rpb > 1 ? 1 << 3 : 1 << 4;
-  const int bits = 8 / rpb, R = m_pad / rpb;
+  const int bits = 8 / rpb;
   const int n = CH ? max(ns[b], 0) : min(max(ns[b], 0), n_pad);
   const int m = CH ? max(ms[b], 0) : min(max(ms[b], 0), m_pad);
   // EDGE: global columns col0g+1 .., local index j - 1 - col0g of ts,
   // allow and the state rows; the launch's rows are global i0+1 ..
   const int col0g = CH ? ch.col0g : 0, gi0 = CH ? i0 : 0;
-  const int* q = qs + (size_t)b * m_pad;
-  const int* t = ts + (size_t)b * n_pad - col0g;
-  const float* al = allow + (size_t)b * n_pad - col0g;
-  const T* top = CH ? static_cast<const T*>(ch.top) + (size_t)b * ST * n_pad - col0g - 1 : nullptr;
-  uint8_t* out = !PTRS ? nullptr
-                 : CH  ? ptrs + ((size_t)b * ch.slab_rows + i0 / rpb) * n_pad
-                       : ptrs + (size_t)b * R * n_pad;
+  const int r0 = PHASE == SEED ? i0 : 0;  // the global row of row 0 (SEED)
   // the block's columns: c_blk, or fewer in a ragged last block (lc0 its
-  // first in the row's memory)
+  // first in the row's memory); this thread's strip, global columns j0 ..
+  // j0+W-1, lies wholly inside them (bw and c_blk are multiples of 16) or
+  // past them
   const int lc0 = c * c_blk, col0 = col0g + lc0, bw = min(c_blk, n_pad - lc0);
-  const int lim = col0g + n_pad;  // allow's columns end here
   const bool feeds = CH || c + 1 < nblk;
-  const Strip s(col0, bw, W);
+  const int j0 = col0 + 1 + tid * W;
+  const bool active = tid * W < bw, owner = tid == (bw - 1) / W;  // owner: the last column
+  const int* q = qs + (size_t)b * m_pad;
+  uint8_t* out = nullptr;  // this strip's bytes of pointer row 0 (64-bit offsets)
+  if (PTRS)
+    out = (CH ? ptrs + ((size_t)b * ch.slab_rows + i0 / rpb) * n_pad
+              : ptrs + (size_t)b * (m_pad / rpb) * n_pad) + lc0 + (size_t)tid * W;
   // the checkpoint's state rows: CKPT, of each pair and S-th row; SEED, the
   // one row this block starts from (64-bit offsets: the tensor passes 2^31)
   const size_t ck_row = (size_t)n_pad + 1;
   const int nck = PHASE == CKPT ? m_pad / stride : 1;
   const T* seed = PHASE == SEED ? ck + (size_t)b * ST * ck_row : nullptr;
-  const int r0 = PHASE == SEED ? i0 : 0;  // the global row of row 0
-  // CKPT: this thread's columns (and column 0's border, block 0's thread 0)
-  // of row i as checkpoint i / stride
-  auto put_ck = [&](int i) {
-    T* dst = ck + ((size_t)b * nck + i / stride) * ST * ck_row;
-    for (int k = 0; k < s.cnt; ++k) {
-      const int j = s.j(k);
-      const size_t x = s.slot(k);
-      dst[PM * ck_row + j] = Mr[x];
-      dst[PL * ck_row + j] = Lr[x];
-      dst[PU * ck_row + j] = Ur[x];
-      if (ST > 3) dst[PJ * ck_row + j] = JUMP ? Jr[x] : NG;
-    }
-    if (c == 0 && tid == 0)
-      for (int st = 0; st < ST; ++st) dst[st * ck_row] = ptr_edge<MODE, T>(st, 0, i, 0, 0, o, e, w);
+  const T* top = CH ? static_cast<const T*>(ch.top) + (size_t)b * ST * n_pad - col0g - 1 : nullptr;
+  T* bot = CH ? static_cast<T*>(ch.bottom) + (size_t)b * ST * n_pad - col0g - 1 : nullptr;
+  // row 0's state s at column j > col0: global M = L = -inf, U = o + e*j;
+  // local zeros; fit M = U = 0, L = -inf; J = -inf. SEED: the checkpoint's
+  // row; EDGE: `top`.
+  auto state0 = [&](int s, int j) -> T {
+    if (PHASE == SEED) return seed[s * ck_row + j];
+    if (CH) return top[(size_t)s * n_pad + j];
+    if (s == PJ) return NG;
+    if (s == PM) return MODE == GLOBAL ? NG : (T)0;
+    if (s == PL) return MODE == LOCAL ? (T)0 : NG;
+    return MODE == GLOBAL ? o + e * (T)j : (T)0;
   };
-  if (tid == 0) {
-    g_s = NG;
-    g_a = 0;
-  }
-  // row 0: global M = L = -inf, U = o + e*j; local zeros; fit M = U = 0,
-  // L = -inf; J = -inf. SEED: the checkpoint's row.
-  for (int k = 0; k < s.cnt; ++k) {
-    const int j = s.j(k);
-    const size_t x = s.slot(k);
-    Tc[x] = t[j - 1];
-    if (PHASE == SEED) {
-      Mr[x] = seed[PM * ck_row + j];
-      Lr[x] = seed[PL * ck_row + j];
-      Ur[x] = seed[PU * ck_row + j];
-    } else if (CH) {
-      Mr[x] = top[PM * n_pad + j];
-      Lr[x] = top[PL * n_pad + j];
-      Ur[x] = top[PU * n_pad + j];
-    } else {
-      Mr[x] = MODE == GLOBAL ? NG : (T)0;
-      Lr[x] = MODE == LOCAL ? (T)0 : NG;
-      Ur[x] = MODE == GLOBAL ? o + e * (T)j : (T)0;
-    }
-    if (JUMP) {
-      Jr[x] = PHASE == SEED ? seed[PJ * ck_row + j] : CH ? top[PJ * n_pad + j] : NG;
-      Jb[x] = (j < lim && al[j] > 0.f) ? jp : NG;
-    }
-  }
-  if (s.cnt > 0) {
-    eM[tid] = Mr[s.slot(s.cnt - 1)];
-    eL[tid] = Lr[s.slot(s.cnt - 1)];
-  }
-  const T jb0 = (JUMP && al[col0] > 0.f) ? jp : NG;
-  // thread 0's diagonal: row i-1's M, L, U, J at col0 (SEED past block 0:
-  // the checkpoint's column col0)
-  // (EDGE: the left edge's row 0 in block 0, else the previous block's last
-  // column of `top`)
-  const bool from_ck = PHASE == SEED && c > 0, from_top = CH && c > 0;
-  auto row0 = [&](int st) {
-    return from_ck ? seed[st * ck_row + col0]
-         : from_top ? top[st * n_pad + col0]
-         : CH ? w.edge(st, 0) : ptr_edge<MODE, T>(st, c, 0, r0, col0, o, e, w);
+  // row i's state s at column col0, the block's left edge (ptr_edge; SEED
+  // and EDGE past block 0 read row 0 from the checkpoint or `top`, EDGE's
+  // block 0 the launch's left edge, slot 0)
+  auto edge_at = [&](int s, int i) -> T {
+    if (i == 0 && c > 0 && (PHASE == SEED || CH)) return state0(s, col0);
+    return CH ? w.edge(s, i) : ptr_edge<MODE, T>(s, c, i, r0, col0, o, e, w);
   };
-  T eM0 = row0(PM), eL0 = row0(PL), eU0 = row0(PU);
-  T eJ0 = (JUMP && (from_ck || CH)) ? row0(PJ) : NG;
-  if (PHASE == CKPT) put_ck(0);
-  // this block's start info: local's running maximum, fit's bottom row
-  T blk_s = NG;
-  int blk_a = 0, blk_b = 0;
-  __syncthreads();
-  for (int i = 1; i <= m_pad; ++i) {
-    const int idx = i - 1, sub_row = idx % rpb, shift = sub_row * bits;
-    const int gi = gi0 + i;  // the global row (FILL, CKPT: i)
-    if (PTRS && sub_row == 0 && i > 1)
-      store_row(stage, out + (size_t)(idx / rpb - 1) * n_pad + lc0, bw);
-    const int qc = q[idx];
-    // row i-1 at column j0-1
-    T dM, dL, dU, dJ = NG;
-    if (tid == 0) {
-      dM = eM0;
-      dL = eL0;
-      dU = eU0;
-      dJ = eJ0;
-    } else if (s.cnt > 0) {
-      dM = eM[tid - 1];
-      dL = eL[tid - 1];
-      dU = Ur[s.left];
-      if (JUMP) dJ = Jr[s.left];
-    } else {
-      dM = dL = dU = NG;
-    }
-    T v[3] = {NG, NG, NG};  // U chain, J chain, local row max (j <= n)
-    for (int k = 0; k < s.cnt; ++k) {
-      const int j = s.j(k);
-      const size_t x = s.slot(k);
-      const T mo = Mr[x], lo = Lr[x], uo = Ur[x];
-      const T jo = JUMP ? Jr[x] : NG;
-      const T sub = Tc[x] == qc ? match : mis;
-      // earliest-argument strict argmax: L, M, U, J, HOME
-      T best = dL + sub;
-      int pm = 0;
-      T cv = dM + sub;
-      if (cv > best) pm = 1;
-      best = vmax(best, cv);
-      cv = dU + sub;
-      if (cv > best) pm = 2;
-      best = vmax(best, cv);
-      if (JUMP) {
-        cv = dJ + sub;
-        if (cv > best) pm = 3;
-        best = vmax(best, cv);
+
+  int tc[W];
+  load_chars<W>(ts + (size_t)b * n_pad + lc0 + (size_t)tid * W, active, tc);
+  T cu[W];  // o - e*(j+1): the U chain's term offset of column j
+#pragma unroll
+  for (int k = 0; k < W; ++k) cu[k] = o - e * (T)(j0 + k + 1);
+  const T ej0 = e * (T)j0;
+  // JUMP: bit k where J may be entered into column j0+k+1; into column j0
+  uint32_t gate = 0;
+  bool gate0 = false;
+  if (JUMP && active) {
+    const float* al = allow + (size_t)b * n_pad - col0g;  // al[j]: entry into column j+1
+#pragma unroll
+    for (int k = 0; k < W; ++k)
+      if (j0 + k < col0g + n_pad && al[j0 + k] > 0.f) gate |= 1u << k;
+    gate0 = al[j0 - 1] > 0.f;
+  }
+  // row 0 (CKPT: checkpoint 0, and column 0's border in block 0)
+  T M[W], L[W], D[W];
+  uint32_t A = 0;  // argmax of D, two bits a column
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    T u = NG, jj = NG;
+    M[k] = L[k] = NG;
+    if (active) {
+      M[k] = state0(PM, j0 + k);
+      L[k] = state0(PL, j0 + k);
+      u = state0(PU, j0 + k);
+      if (JUMP) jj = state0(PJ, j0 + k);
+      if (PHASE == CKPT) {
+        T* dst = ck + (size_t)b * nck * ST * ck_row + j0 + k;
+        dst[PM * ck_row] = M[k];
+        dst[PL * ck_row] = L[k];
+        dst[PU * ck_row] = u;
+        if (ST > 3) dst[PJ * ck_row] = jj;
       }
+    }
+    int a;
+    D[k] = lmuj_max<JUMP, T>(L[k], M[k], u, jj, a);
+    A |= (uint32_t)a << (2 * k);
+  }
+  if (PHASE == CKPT && c == 0 && tid == 0)
+    for (int s = 0; s < ST; ++s)
+      ck[((size_t)b * nck * ST + s) * ck_row] = ptr_edge<MODE, T>(s, 0, 0, 0, 0, o, e, w);
+  // lane 0's diagonal, D(i-1, j0-1) and its argmax: thread 0's from the
+  // block's left edge (polled each row), a later warp's lane 0 from the
+  // previous warp's slots (built after each row's barrier)
+  T eD = NG;
+  int eA = 0;
+  if (lane == 0) {
+    T lm = NG, ll = NG, lu = NG, lj = NG;
+    if (tid == 0) {
+      lm = edge_at(PM, 0);
+      ll = edge_at(PL, 0);
+      lu = edge_at(PU, 0);
+      if (JUMP) lj = edge_at(PJ, 0);
+    } else if (active) {
+      lm = state0(PM, j0 - 1);
+      ll = state0(PL, j0 - 1);
+      lu = state0(PU, j0 - 1);
+      if (JUMP) lj = state0(PJ, j0 - 1);
+    }
+    eD = lmuj_max<JUMP, T>(ll, lm, lu, lj, eA);
+  }
+  // start info: local's latch; fit's row-m M and L (the strip's columns
+  // <= n); global's (m, n) in s_glob
+  const int kn = active ? n - j0 + 1 : 0;
+  Cand<T> lat = {NG, 0, 0}, cm = {NG, 0, BIG}, cl = {NG, 0, BIG};
+  if (tid == 0) s_glob = pack(NG);
+  T mb = NG;  // thread 0: M(i, col0)
+  uint32_t acc[W / 4];
+  int qn = q[0];
+  for (int i = 1; i <= m_pad; ++i) {
+    const int p = i & 1, sub_row = (i - 1) % rpb, shift = sub_row * bits;
+    const int gi = gi0 + i;  // the global row (FILL, CKPT, SEED: i)
+    const int qc = qn;
+    if (i < m_pad) qn = q[i];
+    if (PTRS && sub_row == 0) {
+#pragma unroll
+      for (int x = 0; x < W / 4; ++x) acc[x] = 0;
+    }
+    // row i-1 at column j0-1: lane l-1's last column, or lane 0's own
+    T dD = __shfl_up_sync(FULL, D[W - 1], 1);
+    int dA = (int)(__shfl_up_sync(FULL, A, 1) >> (2 * (W - 1))) & 3;
+    if (lane == 0) {
+      dD = eD;
+      dA = eA;
+    }
+    // pass 1: M, L and their bits; the strip's chain terms
+    T vu = NG, vu_wo = NG, vj = NG, vj_wo = NG, rmax = NG;
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      const T sub = tc[k] == qc ? match : mis;
+      // earliest-argument strict argmax: L, M, U, J (D's), then HOME
+      T best = dD + sub;
+      int pm = dA;
       if (MODE == LOCAL) {
         if ((T)0 > best) pm = k_home;  // the HOME candidate has no +sub
-        best = vmax(best, (T)0);
+        best = vmax(best, (T)0);      // and so is never unset
+      } else if (!(best > NG)) {
+        pm = k_unset;
       }
-      if (!(best > NG)) pm = k_unset;
-      const T la = lo + e, lb2 = mo + o;
-      Mr[x] = best;
-      Lr[x] = vmax(la, lb2);
-      if (PTRS) Cd[x] = (uint8_t)(pm | (la >= lb2 ? 0 : lbit));
-      v[0] = vmax(v[0], best + (o - e * (T)(j + 1)));
-      if (JUMP) v[1] = vmax(v[1], best + Jb[x]);
-      if (MODE == LOCAL && j <= n) v[2] = vmax(v[2], best);
-      dM = mo;
-      dL = lo;
-      dU = uo;
-      dJ = jo;
+      dD = D[k];
+      dA = (int)(A >> (2 * k)) & 3;
+      const T la = L[k] + e, lb = M[k] + o;
+      L[k] = vmax(la, lb);
+      M[k] = best;
+      if (PTRS) acc[k >> 2] |= (uint32_t)(pm | (la >= lb ? 0 : lbit)) << (8 * (k & 3) + shift);
+      if (k == W - 1) {
+        vu_wo = vu;
+        vj_wo = vj;
+      }
+      vu = vmax(vu, best + cu[k]);
+      if (JUMP) vj = vmax(vj, (gate >> k & 1) ? best + jp : NG);
+      if (MODE == LOCAL) rmax = vmax(rmax, best);
+    }
+    if (LATCH && MODE == LOCAL && gi <= m) {
+      // the strict row-major first occurrence of the strip's maximum
+      if (kn < W) {  // the strip holds column n, or lies past it
+        rmax = NG;
+#pragma unroll
+        for (int k = 0; k < W; ++k)
+          if (k < kn) rmax = vmax(rmax, M[k]);
+      }
+      if (rmax > lat.v) {
+        int fj = BIG;
+#pragma unroll
+        for (int k = W - 1; k >= 0; --k)
+          if (k < kn && M[k] == rmax) fj = j0 + k;
+        lat = {rmax, gi, fj};
+      }
+    }
+    if (LATCH && MODE == FIT && gi == m) {  // the bottom row over columns <= n-1
+      first_max<W, T>(M, kn - 1, j0, cm);
+      first_max<W, T>(L, kn - 1, j0, cl);
+    }
+    // the warps' scans; lane 31 leaves the warp's part in shared memory
+    const T in_u = warp_incl_max(vu), below_u = __shfl_up_sync(FULL, in_u, 1);
+    T in_j = NG, below_j = NG;
+    if (JUMP) {
+      in_j = warp_incl_max(vj);
+      below_j = __shfl_up_sync(FULL, in_j, 1);
+    }
+    if (lane == 31) {
+      s_agg[p][0][warp] = in_u;
+      s_wo[p][0][warp] = vmax(below_u, vu_wo);
+      if (JUMP) {
+        s_agg[p][NC - 1][warp] = in_j;
+        s_wo[p][NC - 1][warp] = vmax(below_j, vj_wo);
+      }
+      s_m[p][warp] = M[W - 1];
+      s_l[p][warp] = L[W - 1];
     }
     if (tid == 0) {
+      // row i of the left edge: the chains' seeds before warp 0 (U's
+      // U(i, col0) - e*col0 and M(i, col0)'s term; J(i, col0) and its entry
+      // from M(i, col0)), and the next row's diagonal
       if (c > 0) w.wait(i);
-      auto at = [&](int st) {
-        return CH ? w.edge(st, i) : ptr_edge<MODE, T>(st, c, i, r0, col0, o, e, w);
-      };
-      eg[PM] = eM0 = at(PM);
-      eg[PL] = eL0 = at(PL);
-      eg[PU] = eU0 = at(PU);
-      if (JUMP) eg[PJ] = eJ0 = at(PJ);
+      const T em = edge_at(PM, i), el = edge_at(PL, i), eu = edge_at(PU, i);
+      const T ej = JUMP ? edge_at(PJ, i) : NG;
+      s_seed[p][0] = vmax(eu - e * (T)col0, em + (o - e * (T)(col0 + 1)));
+      if (JUMP) s_seed[p][NC - 1] = vmax(ej, gate0 ? em + jp : NG);
+      eD = lmuj_max<JUMP, T>(el, em, eu, ej, eA);
+      mb = em;
     }
-    const T none[3] = {NG, NG, NG};
-    T total[3];
-    block_exclusive<Max>(v, none, total, tot);
-    // the chains' column-col0 terms (as in bscore_affine)
-    const T em = eg[PM];
-    T run_u = vmax(vmax(eg[PU] - e * (T)col0, em + (o - e * (T)(col0 + 1))), v[0]);
-    T run_j = JUMP ? vmax(vmax(eg[PJ], em + jb0), v[1]) : NG;
-    // M(i, j-1) and J's entry into column j, at the strip's first column
-    T mprev = em, jcv = JUMP ? em + jb0 : NG;
-    if (tid > 0 && s.cnt > 0) {
-      mprev = Mr[s.left];
-      if (JUMP) jcv = mprev + Jb[s.left];
+    __syncthreads();  // the row's one barrier
+    // the exclusive prefixes: U's over columns < j0 (terms up to j0), J's
+    // likewise (J(i, j0)); lane 0's left column's, without warp w-1's last
+    const T useed = s_seed[p][0];
+    const T yu = warps_incl_max(s_agg[p][0], lane, nw);
+    const T pu = __shfl_sync(FULL, yu, max(warp - 1, 0));
+    const T pu2 = __shfl_sync(FULL, yu, max(warp - 2, 0));
+    T run_u = vmax(useed, warp > 0 ? pu : NG);
+    if (lane > 0) run_u = vmax(run_u, below_u);
+    T run_j = NG, pj2 = NG, jseed = NG;
+    if (JUMP) {
+      jseed = s_seed[p][NC - 1];
+      const T yj = warps_incl_max(s_agg[p][NC - 1], lane, nw);
+      const T pj = __shfl_sync(FULL, yj, max(warp - 1, 0));
+      pj2 = __shfl_sync(FULL, yj, max(warp - 2, 0));
+      run_j = vmax(jseed, warp > 0 ? pj : NG);
+      if (lane > 0) run_j = vmax(run_j, below_j);
     }
-    const bool last_row = gi == m;
-    for (int k = 0; k < s.cnt; ++k) {
-      const int j = s.j(k);
-      const size_t x = s.slot(k);
-      const T mv = Mr[x];
-      const T uv = run_u + e * (T)j;
+    T mprev = __shfl_up_sync(FULL, M[W - 1], 1);  // M(i, j0-1)
+    if (lane == 0) {
+      if (tid == 0) {
+        mprev = mb;
+      } else {
+        // row i at column j0-1, the next row's diagonal
+        mprev = s_m[p][warp - 1];
+        const T uq = vmax(vmax(useed, warp > 1 ? pu2 : NG), s_wo[p][0][warp - 1]);
+        const T jl =
+            JUMP ? vmax(vmax(jseed, warp > 1 ? pj2 : NG), s_wo[p][NC - 1][warp - 1]) : NG;
+        eD = lmuj_max<JUMP, T>(s_l[p][warp - 1], mprev, uq + e * (T)(j0 - 1), jl, eA);
+      }
+    }
+    // pass 2: U and J, their bits, D and its argmax; the owner of the
+    // block's last column publishes row i's edge; CKPT's every stride-th
+    // row and EDGE's last go out as state rows
+    const bool put = (PHASE == CKPT && i % stride == 0 && i < m_pad) || (CH && i == m_pad);
+    T* dst = PHASE == CKPT ? ck + ((size_t)b * nck + i / stride) * ST * ck_row + j0 : bot + j0;
+    const size_t rs = PHASE == CKPT ? ck_row : (size_t)n_pad;
+    T jcv = JUMP && gate0 ? mprev + jp : NG;  // J's entry into column j
+    uint32_t an = 0;
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      const T uv = run_u + (k == 0 ? ej0 : o - cu[k > 0 ? k - 1 : 0]);  // + e*j
       const T ua = mprev + o;
       // U(i,j) = max(ua, U(i,j-1) + e), so ua >= U(i,j-1) + e iff ua >= U(i,j)
-      int code = PTRS ? Cd[x] | (ua >= uv ? 0 : ubit) : 0;
-      Ur[x] = uv;
+      int code = ua >= uv ? 0 : ubit;
+      T jv = NG;
       if (JUMP) {
         // J(i,j) = max(J(i,j-1), jcv): jcv >= J(i,j-1) iff jcv >= J(i,j)
         code |= (jcv > NG && jcv >= run_j) ? 0 : 1 << 5;
-        Jr[x] = run_j;
-        jcv = mv + Jb[x];
+        jv = run_j;
+        jcv = (gate >> k & 1) ? M[k] + jp : NG;
         run_j = vmax(run_j, jcv);
       }
-      if (PTRS) {
-        const int col = s.k0 + k;
-        stage[col] = (uint8_t)(sub_row == 0 ? code : stage[col] | (code << shift));
+      if (PTRS) acc[k >> 2] |= (uint32_t)code << (8 * (k & 3) + shift);
+      int a;
+      D[k] = lmuj_max<JUMP, T>(L[k], M[k], uv, jv, a);
+      an |= (uint32_t)a << (2 * k);
+      if ((PHASE == CKPT || CH) && put && active) {
+        dst[PM * rs + k] = M[k];
+        dst[PL * rs + k] = L[k];
+        dst[PU * rs + k] = uv;
+        if (ST > 3) dst[PJ * rs + k] = jv;
       }
-      if (LATCH && MODE == GLOBAL && last_row && j == n) {
-        const T ln = Lr[x];
-        g_s = vmax(vmax(ln, mv), uv);
-        g_a = (ln >= mv && ln >= uv) ? 0 : (mv >= uv ? 1 : 2);
-      }
-      run_u = vmax(run_u, mv + (o - e * (T)(j + 1)));
-      mprev = mv;
-    }
-    if (s.cnt > 0) {
-      const size_t x = s.slot(s.cnt - 1);
-      eM[tid] = Mr[x];
-      eL[tid] = Lr[x];
-      if (feeds && s.owns_last(bw)) {
-        w.put(PM, i, Mr[x]);
-        w.put(PL, i, Lr[x]);
-        w.put(PU, i, Ur[x]);
-        if (JUMP) w.put(PJ, i, Jr[x]);
+      if (k == W - 1 && feeds && owner) {
+        w.put(PM, i, M[k]);
+        w.put(PL, i, L[k]);
+        w.put(PU, i, uv);
+        if (JUMP) w.put(PJ, i, jv);
         w.publish(i);
       }
+      run_u = vmax(run_u, M[k] + cu[k]);
+      mprev = M[k];
     }
-    if (PHASE == CKPT && i % stride == 0 && i < m_pad) put_ck(i);
-    if (LATCH && MODE == LOCAL && gi <= m && total[2] > blk_s) {
-      // a strictly greater row maximum: its first column over j <= n
-      int fj = BIG;
-      for (int k = 0; k < s.cnt && fj == BIG; ++k)
-        if (s.j(k) <= n && Mr[s.slot(k)] == total[2]) fj = s.j(k);
-      blk_b = block_reduce<MinI>(fj, red_i);
-      blk_s = total[2];
-      blk_a = gi;
+    A = an;
+    if (PHASE == CKPT && put && c == 0 && tid == 0)
+      for (int s = 0; s < ST; ++s)
+        ck[(((size_t)b * nck + i / stride) * ST + s) * ck_row] =
+            ptr_edge<MODE, T>(s, 0, i, 0, 0, o, e, w);
+    if (LATCH && MODE == GLOBAL && gi == m && kn >= 1 && kn <= W) {
+      // (m, n): the start state is D's argmax at column n
+#pragma unroll
+      for (int k = 0; k < W; ++k)
+        if (k == kn - 1) s_glob = pack(D[k], (int)(A >> (2 * k)) & 3);
     }
-    if (LATCH && MODE == FIT && last_row) {
-      // this block's bottom row over columns <= n-1; L wins only when
-      // strictly greater
-      T mx[2] = {NG, NG};
-      for (int k = 0; k < s.cnt && s.j(k) <= n - 1; ++k) {
-        mx[0] = vmax(mx[0], Mr[s.slot(k)]);
-        mx[1] = vmax(mx[1], Lr[s.slot(k)]);
-      }
-      mx[0] = block_reduce<Max>(mx[0], red_f[0]);
-      mx[1] = block_reduce<Max>(mx[1], red_f[1]);
-      const bool use_l = mx[1] > mx[0];
-      const T want = use_l ? mx[1] : mx[0];
-      const T* row = use_l ? Lr : Mr;
-      int fj = BIG;
-      for (int k = 0; k < s.cnt && fj == BIG; ++k)
-        if (s.j(k) <= n - 1 && row[s.slot(k)] == want) fj = s.j(k);
-      blk_b = block_reduce<MinI>(fj, red_i);
-      blk_s = vmax(mx[0], mx[1]);
-      blk_a = use_l ? 1 : 0;
-    }
-    __syncthreads();
-  }
-  if (PTRS) store_row(stage, out + (size_t)(R - 1) * n_pad + lc0, bw);
-  if (CH) {  // row i0 + m_pad's states for the next chunk
-    T* bot = static_cast<T*>(ch.bottom) + (size_t)b * ST * n_pad - col0g - 1;
-    for (int k = 0; k < s.cnt; ++k) {
-      const int j = s.j(k);
-      const size_t x = s.slot(k);
-      bot[PM * n_pad + j] = Mr[x];
-      bot[PL * n_pad + j] = Lr[x];
-      bot[PU * n_pad + j] = Ur[x];
-      if (ST > 3) bot[PJ * n_pad + j] = JUMP ? Jr[x] : NG;
-    }
+    if (PTRS && sub_row == rpb - 1 && active)
+      store_strip<W>(out + (size_t)((i - 1) / rpb) * n_pad, acc);
   }
   if (!LATCH) return;
+  // this block's candidate, reduced once: global's (m, n) where it holds
+  // column n; local's strict running row-major maximum; fit's bottom row
+  // (L wins only when strictly greater)
+  int4 mine;
+  if (MODE == GLOBAL) {
+    __syncthreads();
+    mine = s_glob;
+  } else if (MODE == LOCAL) {
+    const Cand<T> r = block_best(lat, s_red[0]);
+    mine = pack(r.v, r.i, r.j);
+  } else {
+    const Cand<T> rm = block_best(cm, s_red[0]), rl = block_best(cl, s_red[1]);
+    const bool use_l = rl.v > rm.v;
+    mine = gi0 < m && m <= gi0 + m_pad ? pack(vmax(rm.v, rl.v), use_l ? 1 : 0, use_l ? rl.j : rm.j)
+                                       : pack(NG);
+  }
   if (CH) {
-    if (tid == 0 && w.finish(MODE == GLOBAL ? pack(g_s, g_a) : pack(blk_s, blk_a, blk_b), nblk)) {
+    if (tid == 0 && w.finish(mine, nblk)) {
       // merge into the chunks' running candidate, as FILL's merge below: the
       // block holding (m, n); local's, after the earlier chunks'; fit's row m
       const bool holds_m = gi0 < m && m <= gi0 + m_pad;
@@ -1014,7 +1074,7 @@ bptr_affine(const int* __restrict__ qs, const int* __restrict__ ts,
     }
     return;
   }
-  if (tid == 0 && w.finish(MODE == GLOBAL ? pack(g_s, g_a) : pack(blk_s, blk_a, blk_b), nblk)) {
+  if (tid == 0 && w.finish(mine, nblk)) {
     T acc_s = NG;
     int acc_a = 0, acc_b = 0;
     if (MODE == GLOBAL) {
@@ -1051,147 +1111,150 @@ bptr_affine(const int* __restrict__ qs, const int* __restrict__ ts,
 
 // Replaces the overlap branch of _blocked_ptr_kernel: one matrix, linear gap
 // o; codes LEFT/DIAG/RIGHT = 0/1/2, 3 where the cell is -inf (alignment.h:944's
-// argument order). Per slot: M, max(DIAG, RIGHT), the char, DIAG or RIGHT.
-// PHASE as in bptr_affine, with M the one state row.
-template <int PHASE, class T = float>
-__global__ void __launch_bounds__(MAX_THREADS)
+// argument order), as ptr_fill.cu's ptr_overlap_kernel runs them over the
+// block's columns: per thread its strip's chars and M in registers; M(i,
+// j0-1) is the thread's own scan result plus o*(j0-1), seeded before warp 0
+// by the block's left edge M(i, col0) - o*col0. PHASE as in bptr_affine,
+// with M the one state row; the arguments are bptr_affine's (allow unread),
+// so that one launch serves both.
+template <int PHASE, int W, class T>
+__global__ void __launch_bounds__(kMaxThreads)
 bptr_overlap(const int* __restrict__ qs, const int* __restrict__ ts,
-             const int* __restrict__ ns, const int* __restrict__ ms,
-             const T* __restrict__ params, T* __restrict__ score_out,
-             int* __restrict__ a_out, int* __restrict__ b_out, uint8_t* __restrict__ ptrs,
-             T* edges, int* flags, int4* cand, T* ck, int m_pad, int n_pad, int c_blk,
-             int W, int rpb, int stride, int i0 = 0, Chunk ch = {}) {
+             const float* __restrict__ allow, const int* __restrict__ ns,
+             const int* __restrict__ ms, const T* __restrict__ params,
+             T* __restrict__ score_out, int* __restrict__ a_out, int* __restrict__ b_out,
+             uint8_t* __restrict__ ptrs, T* edges, int* flags, int4* cand, T* ck, int m_pad,
+             int n_pad, int c_blk, int rpb, int stride, int i0, Chunk ch) {
   constexpr bool PTRS = PHASE != CKPT, LATCH = PHASE != SEED, CH = PHASE == EDGE;
   constexpr T NG = (T)NEG;
-  using Max = typename Ops<T>::Max;
-  extern __shared__ __align__(16) uint8_t smem[];
-  __shared__ T tot[1][32];
-  __shared__ T red_f[32];
-  __shared__ int red_i[32];
-  __shared__ T eg;  // M(i, col0), from thread 0
+  __shared__ T s_agg[2][32], s_seed[2];
+  __shared__ Cand<T> s_red[32];
   __shared__ int ticket;
   const int nblk = (n_pad + c_blk - 1) / c_blk;
   Wave<T> w(take_ticket(flags, &ticket), nblk, flags, edges, cand, m_pad, CH);
-  const int b = w.b, c = w.c, tid = threadIdx.x;
-  const size_t S = (size_t)blockDim.x * W;
-  uint8_t* stage = smem;
-  T* Mr = reinterpret_cast<T*>(smem + c_blk);
-  T* Dr = Mr + S;
-  int* Tc = reinterpret_cast<int*>(Dr + S);
-  uint8_t* Cd = reinterpret_cast<uint8_t*>(Tc + S);
+  const int b = w.b, c = w.c, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nw = blockDim.x >> 5;
   const T match = params[0], mis = params[1], o = params[2];
-  const int bits = 8 / rpb, R = m_pad / rpb;
+  const int bits = 8 / rpb;
   const int n = CH ? max(ns[b], 0) : min(max(ns[b], 0), n_pad);
   const int m = CH ? max(ms[b], 0) : min(max(ms[b], 0), m_pad);
   const int col0g = CH ? ch.col0g : 0, gi0 = CH ? i0 : 0;
-  const int* q = qs + (size_t)b * m_pad;
-  const int* t = ts + (size_t)b * n_pad - col0g;
-  const T* top = CH ? static_cast<const T*>(ch.top) + (size_t)b * n_pad - col0g - 1 : nullptr;
-  uint8_t* out = !PTRS ? nullptr
-                 : CH  ? ptrs + ((size_t)b * ch.slab_rows + i0 / rpb) * n_pad
-                       : ptrs + (size_t)b * R * n_pad;
-  // a ragged last block; lc0 its first column in the row's memory
   const int lc0 = c * c_blk, col0 = col0g + lc0, bw = min(c_blk, n_pad - lc0);
   const bool feeds = CH || c + 1 < nblk;
-  const Strip s(col0, bw, W);
+  const int j0 = col0 + 1 + tid * W;
+  const bool active = tid * W < bw, owner = tid == (bw - 1) / W;
+  const int* q = qs + (size_t)b * m_pad;
+  uint8_t* out = nullptr;
+  if (PTRS)
+    out = (CH ? ptrs + ((size_t)b * ch.slab_rows + i0 / rpb) * n_pad
+              : ptrs + (size_t)b * (m_pad / rpb) * n_pad) + lc0 + (size_t)tid * W;
   const size_t ck_row = (size_t)n_pad + 1;
   const int nck = PHASE == CKPT ? m_pad / stride : 1;
   const T* seed = PHASE == SEED ? ck + (size_t)b * ck_row : nullptr;
+  const T* top = CH ? static_cast<const T*>(ch.top) + (size_t)b * n_pad - col0g - 1 : nullptr;
+  // row 0's M at column j > col0: -inf past column 0; SEED the checkpoint's,
+  // EDGE `top`'s
+  auto state0 = [&](int j) -> T { return PHASE == SEED ? seed[j] : CH ? top[j] : NG; };
+  // M(i, col0): the column-0 border is 0; row 0 is -inf past column 0
+  // (SEED and EDGE past block 0: the checkpoint's or `top`'s; EDGE's block
+  // 0: the left edge, slot 0), else the previous block's edge
+  auto edge_at = [&](int i) -> T {
+    if (i == 0 && c > 0 && (PHASE == SEED || CH)) return state0(col0);
+    return CH || c > 0 ? (!CH && i == 0 ? NG : w.edge(0, i)) : (T)0;
+  };
+  int tc[W];
+  load_chars<W>(ts + (size_t)b * n_pad + lc0 + (size_t)tid * W, active, tc);
+  T M[W], oj[W];  // M of the previous row; o*j
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    M[k] = active ? state0(j0 + k) : NG;
+    oj[k] = o * (T)(j0 + k);
+  }
   // CKPT: this thread's columns of row i as checkpoint i / stride; M(i, 0) = 0
   auto put_ck = [&](int i) {
     T* dst = ck + ((size_t)b * nck + i / stride) * ck_row;
-    for (int k = 0; k < s.cnt; ++k) dst[s.j(k)] = Mr[s.slot(k)];
+    if (active)
+#pragma unroll
+      for (int k = 0; k < W; ++k) dst[j0 + k] = M[k];
     if (c == 0 && tid == 0) dst[0] = (T)0;
   };
-  // M(i, col0): the column-0 border is 0; row 0 is -inf past column 0
-  // (EDGE: the left edge in block 0, else the previous block's)
-  auto edge = [&](int i) {
-    return CH || c > 0 ? (!CH && i == 0 ? NG : w.edge(0, i)) : (T)0;
-  };
-  for (int k = 0; k < s.cnt; ++k) {
-    const size_t x = s.slot(k);
-    Tc[x] = t[s.j(k) - 1];
-    Mr[x] = PHASE == SEED ? seed[s.j(k)] : CH ? top[s.j(k)] : NG;
-  }
-  // thread 0: M(i-1, col0) (SEED past block 0: the checkpoint's column col0;
-  // EDGE past block 0: the previous block's last column of `top`)
-  T dM0 = (PHASE == SEED && c > 0) ? seed[col0] : (CH && c > 0) ? top[col0] : edge(0);
   if (PHASE == CKPT) put_ck(0);
-  // this block's bottom row: its maximum over columns <= n-1, first column
-  T blk_s = NG;
-  int blk_a = 0;
-  __syncthreads();
+  const T oj_left = o * (T)(j0 - 1);
+  // M(i-1, j0-1): thread 0's the left edge's, the others' row 0's, then
+  // their own scan's
+  T mleft = tid == 0 ? edge_at(0) : active ? state0(j0 - 1) : NG;
+  Cand<T> best = {NG, 0, BIG};  // row m's first maximum over j <= n-1
+  const int kn = active ? n - j0 : 0;
+  uint32_t acc[W / 4];
+  int qn = q[0];
   for (int i = 1; i <= m_pad; ++i) {
-    const int idx = i - 1, sub_row = idx % rpb, shift = sub_row * bits;
-    if (PTRS && sub_row == 0 && i > 1)
-      store_row(stage, out + (size_t)(idx / rpb - 1) * n_pad + lc0, bw);
-    const int qc = q[idx];
-    // M(i-1, j0-1); Mr is rewritten only in pass 2
-    T dM = tid == 0 ? dM0 : (s.cnt > 0 ? Mr[s.left] : NG);
-    T v[1] = {NG};
-    for (int k = 0; k < s.cnt; ++k) {
-      const int j = s.j(k);
-      const size_t x = s.slot(k);
-      const T mp = Mr[x];
-      const T sub = Tc[x] == qc ? match : mis;
-      const T diag = dM + sub, right = mp + o;
-      const T dr = vmax(diag, right);
-      Dr[x] = dr;
-      if (PTRS) Cd[x] = diag >= right ? 1 : 2;
-      v[0] = vmax(v[0], dr - o * (T)j);
-      dM = mp;
+    const int p = i & 1, sub_row = (i - 1) % rpb, shift = sub_row * bits;
+    const int qc = qn;
+    if (i < m_pad) qn = q[i];
+    if (PTRS && sub_row == 0) {
+#pragma unroll
+      for (int x = 0; x < W / 4; ++x) acc[x] = 0;
     }
-    if (tid == 0) {
+    // pass 1: max(DIAG, RIGHT) and which of the two; the left chain's terms
+    T dM = mleft, dr[W], v = NG;
+    uint32_t diag_wins = 0;
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      const T sub = tc[k] == qc ? match : mis;
+      const T diag = dM + sub, right = M[k] + o;
+      dr[k] = vmax(diag, right);
+      if (PTRS && diag >= right) diag_wins |= 1u << k;
+      v = vmax(v, dr[k] - oj[k]);
+      dM = M[k];
+    }
+    const T in = warp_incl_max(v), below = __shfl_up_sync(FULL, in, 1);
+    if (lane == 31) s_agg[p][warp] = in;
+    if (tid == 0) {  // M(i, col0) seeds the chain
       if (c > 0) w.wait(i);
-      dM0 = eg = edge(i);
+      s_seed[p] = edge_at(i) - o * (T)col0;
     }
-    const T none[1] = {NG};
-    block_exclusive<Max>(v, none, tot);
-    T run = vmax(eg - o * (T)col0, v[0]);  // M(i, col0) seeds the chain
-    // M(i, j0-1), as the left neighbour (or the previous block) has it
-    T mprev = run + o * (T)(s.j(0) - 1);
-    for (int k = 0; k < s.cnt; ++k) {
-      const int j = s.j(k);
-      const size_t x = s.slot(k);
-      const T dr = Dr[x];
+    __syncthreads();  // the row's one barrier
+    const T y = warps_incl_max(s_agg[p], lane, nw);
+    const T pw = __shfl_sync(FULL, y, max(warp - 1, 0));
+    T run = vmax(s_seed[p], warp > 0 ? pw : NG);
+    if (lane > 0) run = vmax(run, below);
+    // pass 2: M(i, j) and the codes; M(i, j0-1) is run + o*(j0-1)
+    T mprev = run + oj_left;
+    mleft = mprev;
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
       if (PTRS) {
         const T left = mprev + o;
-        const T val = vmax(left, dr);
-        int code = left >= val ? 0 : Cd[x];
+        const T val = vmax(left, dr[k]);
+        int code = left >= val ? 0 : ((diag_wins >> k & 1) ? 1 : 2);
         if (!(val > NG)) code = 3;
-        const int col = s.k0 + k;
-        stage[col] = (uint8_t)(sub_row == 0 ? code : stage[col] | (code << shift));
+        acc[k >> 2] |= (uint32_t)code << (8 * (k & 3) + shift);
       }
-      run = vmax(run, dr - o * (T)j);
-      const T mv = run + o * (T)j;
-      Mr[x] = mv;
-      mprev = mv;
-      if (feeds && k == s.cnt - 1 && s.owns_last(bw)) {
-        w.put(0, i, mv);
-        w.publish(i);
-      }
+      run = vmax(run, dr[k] - oj[k]);
+      M[k] = run + oj[k];
+      mprev = M[k];
+    }
+    if (feeds && owner) {
+      w.put(0, i, M[W - 1]);
+      w.publish(i);
     }
     if (PHASE == CKPT && i % stride == 0 && i < m_pad) put_ck(i);
-    if (LATCH && gi0 + i == m) {
-      T mx = NG;
-      for (int k = 0; k < s.cnt && s.j(k) <= n - 1; ++k) mx = vmax(mx, Mr[s.slot(k)]);
-      mx = block_reduce<Max>(mx, red_f);
-      int fj = BIG;
-      for (int k = 0; k < s.cnt && fj == BIG; ++k)
-        if (s.j(k) <= n - 1 && Mr[s.slot(k)] == mx) fj = s.j(k);
-      blk_a = block_reduce<MinI>(fj, red_i);
-      blk_s = mx;
-    }
-    __syncthreads();
+    if (LATCH && gi0 + i == m)  // the bottom row over j <= n-1
+      first_max<W, T>(M, kn, j0, best);
+    if (PTRS && sub_row == rpb - 1 && active)
+      store_strip<W>(out + (size_t)((i - 1) / rpb) * n_pad, acc);
   }
-  if (PTRS) store_row(stage, out + (size_t)(R - 1) * n_pad + lc0, bw);
-  if (CH) {
+  if (CH && active) {
     T* bot = static_cast<T*>(ch.bottom) + (size_t)b * n_pad - col0g - 1;
-    for (int k = 0; k < s.cnt; ++k) bot[s.j(k)] = Mr[s.slot(k)];
+#pragma unroll
+    for (int k = 0; k < W; ++k) bot[j0 + k] = M[k];
   }
   if (!LATCH) return;
+  const bool holds_m = gi0 < m && m <= gi0 + m_pad;
+  const Cand<T> r = block_best(best, s_red);
+  const int4 mine = holds_m ? pack(r.v, r.j) : pack(NG);
   if (CH) {  // row m's first greatest, raw (the j = 0 candidate is the caller's)
-    if (tid == 0 && w.finish(pack(blk_s, blk_a), nblk) && gi0 < m && m <= gi0 + m_pad) {
+    if (tid == 0 && w.finish(mine, nblk) && holds_m) {
       int4 acc = w.candidate(0);
       for (int k = 1; k < nblk; ++k) {
         const int4 x = w.candidate(k);
@@ -1201,7 +1264,7 @@ bptr_overlap(const int* __restrict__ qs, const int* __restrict__ ts,
     }
     return;
   }
-  if (tid == 0 && w.finish(pack(blk_s, blk_a), nblk)) {
+  if (tid == 0 && w.finish(mine, nblk)) {
     T acc_s = NG;
     int acc_a = 0;
     for (int k = 0; k < (m > 0 ? nblk : 0); ++k) {
@@ -1246,83 +1309,50 @@ bool bad_blocks(int B, int threads, int wmax, int m_pad, int n_pad, int c_blk) {
          (long long)B * ((n_pad + c_blk - 1) / c_blk) > INT_MAX;
 }
 
-// One pointer fill of `PHASE` (FILL, CKPT or SEED) in value type T: the
-// checks of the layout, then the mode's instance; returns the launch's error
-// code.
+// The pointer fills' launch shapes: `width` the strip width W of the value
+// type (kWidth for float32, kWidth64 for double), `threads` a multiple of 32
+// up to kMaxThreads with threads * W >= c_blk; the last column block may be
+// ragged (n_pad % 16 == 0).
+bool bad_ptr_blocks(int B, int threads, int width, int want, int m_pad, int n_pad, int c_blk) {
+  return width != want || B < 0 || threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
+         m_pad <= 0 || c_blk <= 0 || c_blk % 16 != 0 || n_pad <= 0 || n_pad % 16 != 0 ||
+         (long long)threads * width < c_blk ||
+         (long long)B * ((n_pad + c_blk - 1) / c_blk) > INT_MAX;
+}
+
+// One pointer fill of `PHASE` in value type T (EDGE: float32, with the
+// chunk's rows as m_pad and the slice's columns as n_pad): the checks of the
+// layout, then the mode's instance, one CTA per (pair, column block) and no
+// dynamic shared memory; returns the launch's error code.
 template <int PHASE, class T>
 cudaError_t launch_ptr(int mode, int use_jump, int rpb, const int* qs, const int* ts,
                        const float* allow, const int* ns, const int* ms, const T* params,
                        T* score, int* a, int* b, uint8_t* ptrs, T* edges, int* flags, void* cand,
-                       T* ck, int B, int m_pad, int n_pad, int c_blk, int threads, int wmax,
-                       int stride, int i0, cudaStream_t stream) {
-  const bool bad_layout = (rpb != 1 && rpb != 2 && rpb != 4) || m_pad % (8 * rpb) != 0 ||
-                          (rpb > 1 && use_jump) || (rpb == 4 && mode != OVERLAP) ||
-                          (use_jump && mode != FIT);
-  if (bad_blocks(B, threads, wmax, m_pad, n_pad, c_blk) || mode < GLOBAL || mode > OVERLAP ||
-      bad_layout)
+                       T* ck, int B, int m_pad, int n_pad, int c_blk, int threads, int width,
+                       int stride, int i0, Chunk ch, cudaStream_t stream) {
+  constexpr int W = sizeof(T) == 8 ? kWidth64 : kWidth;
+  const bool bad_layout =
+      (rpb != 1 && rpb != 2 && rpb != 4) || m_pad % (8 * rpb) != 0 || (rpb > 1 && use_jump) ||
+      (rpb == 4 && mode != OVERLAP) || (use_jump && mode != FIT) ||
+      (PHASE == EDGE && (ch.i0 % (8 * rpb) != 0 || ch.col0g < 0 || ch.col0g % 16 != 0 ||
+                         ch.i0 < 0 || ch.slab_rows < (ch.i0 + m_pad) / rpb ||
+                         ch.top == nullptr || ch.bottom == nullptr || ch.acc == nullptr));
+  if (bad_ptr_blocks(B, threads, width, W, m_pad, n_pad, c_blk) || mode < GLOBAL ||
+      mode > OVERLAP || bad_layout)
     return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   const int ctas = B * ((n_pad + c_blk - 1) / c_blk);
-  const size_t S = (size_t)threads * wmax, V = sizeof(T);
   int4* cd = static_cast<int4*>(cand);
-  if (mode == OVERLAP)  // stage, M, max(DIAG, RIGHT), char, code
-    return launch(bptr_overlap<PHASE, T>, ctas, threads, c_blk + S * (2 * V + 5), stream, qs, ts,
-                  ns, ms, params, score, a, b, ptrs, edges, flags, cd, ck, m_pad, n_pad, c_blk,
-                  wmax, rpb, stride, 0, Chunk{});
-  // stage, the threads' last M and L, M, L, U[, J, jump bias], char, code
-  const size_t smem = c_blk + (size_t)threads * 2 * V + S * ((use_jump ? 5 : 3) * V + 5);
-  if (mode == GLOBAL)
-    return launch(bptr_affine<GLOBAL, false, PHASE, T>, ctas, threads, smem, stream, qs, ts,
-                  allow, ns, ms, params, score, a, b, ptrs, edges, flags, cd, ck, m_pad, n_pad,
-                  c_blk, wmax, rpb, stride, i0, Chunk{});
-  if (mode == LOCAL)
-    return launch(bptr_affine<LOCAL, false, PHASE, T>, ctas, threads, smem, stream, qs, ts,
-                  allow, ns, ms, params, score, a, b, ptrs, edges, flags, cd, ck, m_pad, n_pad,
-                  c_blk, wmax, rpb, stride, i0, Chunk{});
-  if (use_jump)
-    return launch(bptr_affine<FIT, true, PHASE, T>, ctas, threads, smem, stream, qs, ts, allow,
-                  ns, ms, params, score, a, b, ptrs, edges, flags, cd, ck, m_pad, n_pad, c_blk,
-                  wmax, rpb, stride, i0, Chunk{});
-  return launch(bptr_affine<FIT, false, PHASE, T>, ctas, threads, smem, stream, qs, ts, allow,
-                ns, ms, params, score, a, b, ptrs, edges, flags, cd, ck, m_pad, n_pad, c_blk,
-                wmax, rpb, stride, i0, Chunk{});
-}
-
-// One EDGE-phase pointer fill (float32): the checks, then the mode's
-// instance; the layout is launch_ptr's, with the chunk's rows (m_pad) and
-// the slice's columns (n_pad).
-cudaError_t launch_edge_ptr(int mode, int use_jump, int rpb, const int* qs, const int* ts,
-                            const float* allow, const int* ns, const int* ms,
-                            const float* params, uint8_t* slab, float* edges, int* flags,
-                            void* cand, int B, int R, int nloc, int c_blk, int threads, int wmax,
-                            Chunk ch, cudaStream_t stream) {
-  const bool bad_layout = (rpb != 1 && rpb != 2 && rpb != 4) || R % (8 * rpb) != 0 ||
-                          ch.i0 % (8 * rpb) != 0 || (rpb > 1 && use_jump) ||
-                          (rpb == 4 && mode != OVERLAP) || (use_jump && mode != FIT) ||
-                          ch.col0g < 0 || ch.col0g % 16 != 0 || ch.i0 < 0 ||
-                          ch.slab_rows < (ch.i0 + R) / rpb || ch.top == nullptr ||
-                          ch.bottom == nullptr || ch.acc == nullptr;
-  if (bad_blocks(B, threads, wmax, R, nloc, c_blk) || mode < GLOBAL || mode > OVERLAP ||
-      bad_layout)
-    return cudaErrorInvalidValue;
-  if (B == 0) return cudaSuccess;
-  const int ctas = B * ((nloc + c_blk - 1) / c_blk);
-  const size_t S = (size_t)threads * wmax, V = sizeof(float);
-  int4* cd = static_cast<int4*>(cand);
-  if (mode == OVERLAP)
-    return launch(bptr_overlap<EDGE, float>, ctas, threads, c_blk + S * (2 * V + 5), stream, qs,
-                  ts, ns, ms, params, nullptr, nullptr, nullptr, slab, edges, flags, cd, nullptr,
-                  R, nloc, c_blk, wmax, rpb, 1, ch.i0, ch);
-  const size_t smem = c_blk + (size_t)threads * 2 * V + S * ((use_jump ? 5 : 3) * V + 5);
   auto go = [&](auto kernel) {
-    return launch(kernel, ctas, threads, smem, stream, qs, ts, allow, ns, ms, params, nullptr,
-                  nullptr, nullptr, slab, edges, flags, cd, nullptr, R, nloc, c_blk, wmax, rpb, 1,
-                  ch.i0, ch);
+    kernel<<<ctas, threads, 0, stream>>>(qs, ts, allow, ns, ms, params, score, a, b, ptrs, edges,
+                                         flags, cd, ck, m_pad, n_pad, c_blk, rpb, stride, i0, ch);
+    return cudaGetLastError();
   };
-  if (mode == GLOBAL) return go(bptr_affine<GLOBAL, false, EDGE, float>);
-  if (mode == LOCAL) return go(bptr_affine<LOCAL, false, EDGE, float>);
-  if (use_jump) return go(bptr_affine<FIT, true, EDGE, float>);
-  return go(bptr_affine<FIT, false, EDGE, float>);
+  if (mode == OVERLAP) return go(bptr_overlap<PHASE, W, T>);
+  if (mode == GLOBAL) return go(bptr_affine<GLOBAL, false, PHASE, W, T>);
+  if (mode == LOCAL) return go(bptr_affine<LOCAL, false, PHASE, W, T>);
+  if (use_jump) return go(bptr_affine<FIT, true, PHASE, W, T>);
+  return go(bptr_affine<FIT, false, PHASE, W, T>);
 }
 
 }  // namespace
@@ -1396,11 +1426,11 @@ cudaError_t at_blocked_ptr_fill(int mode, int use_jump, int rpb, const int* qs, 
                                 const float* allow, const int* ns, const int* ms,
                                 const float* params, float* score, int* a, int* b,
                                 uint8_t* ptrs, float* edges, int* flags, void* cand, int B,
-                                int m_pad, int n_pad, int c_blk, int threads, int wmax,
+                                int m_pad, int n_pad, int c_blk, int threads, int width,
                                 cudaStream_t stream) {
   return launch_ptr<FILL, float>(mode, use_jump, rpb, qs, ts, allow, ns, ms, params, score, a, b,
                                  ptrs, edges, flags, cand, nullptr, B, m_pad, n_pad, c_blk,
-                                 threads, wmax, 1, 0, stream);
+                                 threads, width, 1, 0, Chunk{}, stream);
 }
 
 // at_blocked_ptr_fill's double instance: `params` the (1, 8) float64 row,
@@ -1409,11 +1439,11 @@ cudaError_t at_blocked_ptr_fill64(int mode, int use_jump, int rpb, const int* qs
                                   const float* allow, const int* ns, const int* ms,
                                   const double* params, double* score, int* a, int* b,
                                   uint8_t* ptrs, double* edges, int* flags, void* cand, int B,
-                                  int m_pad, int n_pad, int c_blk, int threads, int wmax,
+                                  int m_pad, int n_pad, int c_blk, int threads, int width,
                                   cudaStream_t stream) {
   return launch_ptr<FILL, double>(mode, use_jump, rpb, qs, ts, allow, ns, ms, params, score, a,
                                   b, ptrs, edges, flags, cand, nullptr, B, m_pad, n_pad, c_blk,
-                                  threads, wmax, 1, 0, stream);
+                                  threads, width, 1, 0, Chunk{}, stream);
 }
 
 // The checkpoint forward (CKPT) of the pointer fill: score, a and b as
@@ -1424,13 +1454,14 @@ cudaError_t at_blocked_ckpt_fill(int mode, int use_jump, const int* qs, const in
                                  const float* allow, const int* ns, const int* ms,
                                  const float* params, float* score, int* a, int* b, float* ck,
                                  float* edges, int* flags, void* cand, int B, int m_pad,
-                                 int n_pad, int c_blk, int threads, int wmax, int stride,
+                                 int n_pad, int c_blk, int threads, int width, int stride,
                                  cudaStream_t stream) {
   if (stride <= 0 || stride % 8 != 0 || m_pad % stride != 0 || ck == nullptr)
     return cudaErrorInvalidValue;
   return launch_ptr<CKPT, float>(mode, use_jump, 1, qs, ts, allow, ns, ms, params, score, a, b,
                                  nullptr, edges, flags, cand, ck, B, m_pad, n_pad, c_blk,
-                                 threads, wmax, stride, 0, stream);
+                                 threads, width, stride, 0, Chunk{},
+                                 stream);
 }
 
 // at_blocked_ckpt_fill's double instance: params, score, ck and edges
@@ -1439,13 +1470,14 @@ cudaError_t at_blocked_ckpt_fill64(int mode, int use_jump, const int* qs, const 
                                    const float* allow, const int* ns, const int* ms,
                                    const double* params, double* score, int* a, int* b,
                                    double* ck, double* edges, int* flags, void* cand, int B,
-                                   int m_pad, int n_pad, int c_blk, int threads, int wmax,
+                                   int m_pad, int n_pad, int c_blk, int threads, int width,
                                    int stride, cudaStream_t stream) {
   if (stride <= 0 || stride % 8 != 0 || m_pad % stride != 0 || ck == nullptr)
     return cudaErrorInvalidValue;
   return launch_ptr<CKPT, double>(mode, use_jump, 1, qs, ts, allow, ns, ms, params, score, a, b,
                                   nullptr, edges, flags, cand, ck, B, m_pad, n_pad, c_blk,
-                                  threads, wmax, stride, 0, stream);
+                                  threads, width, stride, 0, Chunk{},
+                                 stream);
 }
 
 // The seeded refill (SEED) of rows i0+1 .. i0+S of the pointer fill: qs the
@@ -1457,12 +1489,12 @@ cudaError_t at_blocked_refill(int mode, int use_jump, int rpb, const int* qs, co
                               const float* allow, const int* ns, const int* ms,
                               const float* params, const float* ck, int i0, uint8_t* ptrs,
                               float* edges, int* flags, void* cand, int B, int S, int n_pad,
-                              int c_blk, int threads, int wmax, cudaStream_t stream) {
+                              int c_blk, int threads, int width, cudaStream_t stream) {
   if (i0 < 0 || ck == nullptr) return cudaErrorInvalidValue;
   return launch_ptr<SEED, float>(mode, use_jump, rpb, qs, ts, allow, ns, ms, params, nullptr,
                                  nullptr, nullptr, ptrs, edges, flags, cand,
-                                 const_cast<float*>(ck), B, S, n_pad, c_blk, threads, wmax, S, i0,
-                                 stream);
+                                 const_cast<float*>(ck), B, S, n_pad, c_blk, threads, width, S, i0,
+                                 Chunk{}, stream);
 }
 
 // at_blocked_refill's double instance: params, ck and edges float64.
@@ -1470,12 +1502,12 @@ cudaError_t at_blocked_refill64(int mode, int use_jump, int rpb, const int* qs, 
                                 const float* allow, const int* ns, const int* ms,
                                 const double* params, const double* ck, int i0, uint8_t* ptrs,
                                 double* edges, int* flags, void* cand, int B, int S, int n_pad,
-                                int c_blk, int threads, int wmax, cudaStream_t stream) {
+                                int c_blk, int threads, int width, cudaStream_t stream) {
   if (i0 < 0 || ck == nullptr) return cudaErrorInvalidValue;
   return launch_ptr<SEED, double>(mode, use_jump, rpb, qs, ts, allow, ns, ms, params, nullptr,
                                   nullptr, nullptr, ptrs, edges, flags, cand,
-                                  const_cast<double*>(ck), B, S, n_pad, c_blk, threads, wmax, S,
-                                  i0, stream);
+                                  const_cast<double*>(ck), B, S, n_pad, c_blk, threads, width, S,
+                                  i0, Chunk{}, stream);
 }
 
 // The EDGE phase of the score fills (parallel/seqpar.py): rows i0+1 .. i0+R
@@ -1532,10 +1564,11 @@ cudaError_t at_blocked_edge_ptr(int mode, int use_jump, int rpb, const int* qs, 
                                 const float* params, const float* top, float* bottom, void* acc,
                                 uint8_t* slab, int slab_rows, float* edges, int* flags,
                                 void* cand, int B, int R, int nloc, int c_blk, int threads,
-                                int wmax, int col0, int i0, cudaStream_t stream) {
+                                int width, int col0, int i0, cudaStream_t stream) {
   const Chunk ch = {top, bottom, col0, i0, static_cast<int4*>(acc), slab_rows};
-  return launch_edge_ptr(mode, use_jump, rpb, qs, ts, allow, ns, ms, params, slab, edges, flags,
-                         cand, B, R, nloc, c_blk, threads, wmax, ch, stream);
+  return launch_ptr<EDGE, float>(mode, use_jump, rpb, qs, ts, allow, ns, ms, params, nullptr,
+                                 nullptr, nullptr, slab, edges, flags, cand, nullptr, B, R, nloc,
+                                 c_blk, threads, width, 1, i0, ch, stream);
 }
 
 }  // extern "C"

@@ -125,8 +125,8 @@ def ptr_flat_cap(f64: bool = False) -> int:
 def blocked_c_blk(f64: bool = False) -> int:
     """The blocked fills' column block: ALIGNTOOLS_BLOCKED_CBLK (at least
     128, as the JAX package reads it), then the table. With ``f64`` (the
-    double instances) at most ``blocked.C_BLK_MAX64``, whose row state
-    fits a CTA's shared memory."""
+    double instances) at most ``blocked.C_BLK_MAX64``, the widest block
+    one CTA of their W 8 strips covers."""
     from aligntools_tpu_torch.ops import blocked
 
     c_blk = _table()["blocked_c_blk"]

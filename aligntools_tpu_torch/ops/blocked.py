@@ -40,9 +40,11 @@ with a checkpoint stride and with a seed row:
                      bit for bit (the JAX ``_refill_block``)
 
 On a CUDA tensor the wrappers launch ``csrc/blocked_fill.cu`` (a wavefront
-across column blocks: one CTA per (pair, column block), the row state of
-a block in shared memory, each row's edge passed to the next block behind
-a release/acquire progress counter; see its header) or raise; on a CPU
+across column blocks: one CTA per (pair, column block), each row's edge
+passed to the next block behind a release/acquire progress counter; the
+pointer fills' row state in registers, the flat pointer fill's strips at
+``ptr.launch_shape`` of the column block; the score fills' in shared
+memory at ``score_launch_shape``; see its header) or raise; on a CPU
 tensor they run the plain versions.
 
 A float64 params row (a pair past float32's exact integers, sent by
@@ -61,13 +63,14 @@ import torch
 from aligntools_tpu_torch.ops import ptr, scan
 from aligntools_tpu_torch.params import MODES
 
-# the widest column block whose row state and pointer staging fit one CTA's
-# shared memory (fit+jump's pointer fill: 26 bytes a column, 216 KiB at
-# 8192), and the same for the double instances (45 bytes a column: 184 KiB
-# at 4,096)
+# the widest column block one CTA of the pointer fills covers: 512 threads
+# (128 registers a thread) of ptr.WIDTH columns, and of ptr.WIDTH64 for the
+# double instances (ptr.FLAT_REG_MAX_N_PAD, ptr.FLAT64_MAX_N_PAD); the
+# score fills take the same caps (their row state in shared memory: 20
+# bytes a column at fit+jump)
 C_BLK_MAX = 8192
 C_BLK_MAX64 = 4096
-STRIP = 8  # block columns per thread the launch shape aims for
+SCORE_STRIP = 8  # block columns per thread the score fills' shape aims for
 
 # launches of each kernel through its wrapper, and wrapper calls that ran
 # the plain versions (on a CPU tensor)
@@ -85,11 +88,23 @@ def reset_counts() -> None:
     plain_calls = 0
 
 
-def launch_shape(c_blk: int) -> tuple[int, int]:
-    """(threads per CTA, strip slots per thread) of a column block of
-    c_blk columns."""
-    threads = min(1024, max(32, -(-c_blk // (32 * STRIP)) * 32))
+def score_launch_shape(c_blk: int) -> tuple[int, int]:
+    """(threads per CTA, strip slots per thread) of the score fills at a
+    column block of c_blk columns."""
+    threads = min(1024, max(32, -(-c_blk // (32 * SCORE_STRIP)) * 32))
     return threads, -(-c_blk // threads)
+
+
+def edge_thread(width: int, dtype=torch.float32) -> int:
+    """The thread of a pointer fill's CTA that owns the last column of a
+    block ``width`` columns wide (a multiple of 16) and so stores the
+    block's edge a row and publishes its count: (width - 1) // W. The
+    pointer fills launch ``ptr.launch_shape(c_blk, dtype)``, the flat
+    fill's rule on the column block (W ``ptr.WIDTH``, ``ptr.WIDTH64`` for
+    float64); threads past a block's width, in a ragged last block or at a
+    c_blk below 32 strips, compute on pad and store nothing."""
+    return (width - 1) // (ptr.WIDTH64 if dtype == torch.float64
+                           else ptr.WIDTH)
 
 
 def _check_blocks(n_pad, c_blk, dtype=torch.float32):
@@ -103,8 +118,7 @@ def _check_blocks(n_pad, c_blk, dtype=torch.float32):
     top = C_BLK_MAX64 if f64 else C_BLK_MAX
     if c_blk > top:
         raise ValueError(f"c_blk {c_blk} is past C_BLK_MAX{'64' if f64 else ''}"
-                         f" {top}: a block's row state would not fit a CTA's "
-                         f"shared memory")
+                         f" {top}: a block's strips would not fit one CTA")
 
 
 _fns = None
@@ -129,17 +143,17 @@ def _kernels(f64=False):
         lib.at_blocked_edit64.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I,
                                           I, I, I, P]
         # mode, use_jump, rpb, qs, ts, allow, ns, ms, params, score, a, b,
-        # ptrs, edges, flags, cand, B, m_pad, n_pad, c_blk, threads, wmax,
+        # ptrs, edges, flags, cand, B, m_pad, n_pad, c_blk, threads, width,
         # stream
         ptr_args = [I, I, I, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I,
                     I, I, I, P]
         # mode, use_jump, qs, ts, allow, ns, ms, params, score, a, b, ck,
-        # edges, flags, cand, B, m_pad, n_pad, c_blk, threads, wmax, S,
+        # edges, flags, cand, B, m_pad, n_pad, c_blk, threads, width, S,
         # stream
         ckpt_args = [I, I, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I,
                      I, I, I, P]
         # mode, use_jump, rpb, qs, ts, allow, ns, ms, params, ck, i0, ptrs,
-        # edges, flags, cand, B, S, n_pad, c_blk, threads, wmax, stream
+        # edges, flags, cand, B, S, n_pad, c_blk, threads, width, stream
         refill_args = [I, I, I, P, P, P, P, P, P, P, I, P, P, P, P, I, I, I,
                        I, I, I, P]
         for name, args in (("ptr_fill", ptr_args), ("ckpt_fill", ckpt_args),
@@ -231,7 +245,7 @@ def blocked_scores(mode, use_jump, m_pad, n_pad, c_blk, qs, ts, allow, ns,
     B, dev = qs.shape[0], qs.device
     out = torch.empty(B, dtype=params.dtype if f64 else torch.int32
                       if mode == "edit" else torch.float32, device=dev)
-    threads, wmax = launch_shape(c_blk)
+    threads, wmax = score_launch_shape(c_blk)
     nblk = -(-n_pad // c_blk)
     scratch = _scratch(B, nblk, m_pad, dev, params.dtype)
     _check_scratch(*scratch, B, nblk, m_pad, params.dtype)
@@ -249,6 +263,15 @@ def blocked_scores(mode, use_jump, m_pad, n_pad, c_blk, qs, ts, allow, ns,
         *(x.data_ptr() for x in scratch), B, m_pad, n_pad, c_blk, threads,
         wmax), dev)
     return out
+
+
+def _ptr_shape(c_blk, dtype, ts):
+    """The pointer fills' launch shape (threads, W) at c_blk; raises unless
+    ts is 16-byte aligned (a strip's chars are read as 16-byte words)."""
+    if ts.data_ptr() % 16:
+        raise ValueError("ts must be 16-byte aligned (the kernel reads it "
+                         "as 16-byte words)")
+    return ptr.launch_shape(c_blk, dtype)
 
 
 def _name(kernel, params):
@@ -281,7 +304,7 @@ def blocked_ptr_fill(mode, use_jump, m_pad, n_pad, c_blk, qs, ts, allow, ns,
     b = torch.empty(B, dtype=torch.int32, device=dev)
     ptrs = torch.empty((B, m_pad // rpb, n_pad), dtype=torch.uint8,
                        device=dev)
-    threads, wmax = launch_shape(c_blk)
+    threads, width = _ptr_shape(c_blk, params.dtype, ts)
     nblk = -(-n_pad // c_blk)
     scratch = _scratch(B, nblk, m_pad, dev, params.dtype)
     _check_scratch(*scratch, B, nblk, m_pad, params.dtype)
@@ -292,7 +315,7 @@ def blocked_ptr_fill(mode, use_jump, m_pad, n_pad, c_blk, qs, ts, allow, ns,
         ns.data_ptr(), ms.data_ptr(), params.data_ptr(), score.data_ptr(),
         a.data_ptr(), b.data_ptr(), ptrs.data_ptr(),
         *(x.data_ptr() for x in scratch), B, m_pad, n_pad, c_blk, threads,
-        wmax), dev)
+        width), dev)
     return score, a, b, ptrs
 
 
@@ -325,7 +348,7 @@ def blocked_ckpt_fill(mode, use_jump, S, m_pad, n_pad, c_blk, qs, ts, allow,
     b = torch.empty(B, dtype=torch.int32, device=dev)
     cks = torch.empty((B, m_pad // S, CK_STATES[mode], n_pad + 1),
                       dtype=params.dtype, device=dev)
-    threads, wmax = launch_shape(c_blk)
+    threads, width = _ptr_shape(c_blk, params.dtype, ts)
     nblk = -(-n_pad // c_blk)
     scratch = _scratch(B, nblk, m_pad, dev, params.dtype)
     _check_scratch(*scratch, B, nblk, m_pad, params.dtype)
@@ -336,7 +359,7 @@ def blocked_ckpt_fill(mode, use_jump, S, m_pad, n_pad, c_blk, qs, ts, allow,
         ns.data_ptr(), ms.data_ptr(), params.data_ptr(), score.data_ptr(),
         a.data_ptr(), b.data_ptr(), cks.data_ptr(),
         *(x.data_ptr() for x in scratch), B, m_pad, n_pad, c_blk, threads,
-        wmax, S), dev)
+        width, S), dev)
     return score, a, b, cks
 
 
@@ -365,7 +388,7 @@ def blocked_refill(mode, use_jump, S, n_pad, c_blk, ck, i0, qs, ts, allow,
                                   ns, ms, params, rpb, seed=ck, i0=i0)
     dev = qs.device
     ptrs = torch.empty((B, S // rpb, n_pad), dtype=torch.uint8, device=dev)
-    threads, wmax = launch_shape(c_blk)
+    threads, width = _ptr_shape(c_blk, params.dtype, ts)
     nblk = -(-n_pad // c_blk)
     scratch = _scratch(B, nblk, S, dev, params.dtype)
     _check_scratch(*scratch, B, nblk, S, params.dtype)
@@ -375,7 +398,7 @@ def blocked_refill(mode, use_jump, S, n_pad, c_blk, ck, i0, qs, ts, allow,
         ts.data_ptr(), 0 if allow is None else allow.data_ptr(),
         ns.data_ptr(), ms.data_ptr(), params.data_ptr(), ck.data_ptr(),
         i0, ptrs.data_ptr(), *(x.data_ptr() for x in scratch), B, S, n_pad,
-        c_blk, threads, wmax), dev)
+        c_blk, threads, width), dev)
     return ptrs
 
 
@@ -451,7 +474,7 @@ def edge_scores(mode, use_jump, col0, i0, c_blk, qs, ts, allow, ns, ms,
         plain_calls += 1
         return scan.edge_scores_plain(mode, use_jump, col0, i0, qs, ts, allow,
                                       ns, ms, params, top, ledge, acc)
-    threads, wmax = launch_shape(c_blk)
+    threads, wmax = score_launch_shape(c_blk)
     nblk = -(-n_loc // c_blk)
     edges, flags, cand = _edge_scratch(B, nblk, R, ledge, n_edge, value)
     bottom = torch.empty_like(top)
@@ -500,7 +523,7 @@ def edge_ptr_fill(mode, use_jump, col0, i0, c_blk, qs, ts, allow, ns, ms,
             seed=top, i0=i0, col0=col0, edge=ledge, cand=cand)
         slab[:, i0 // rpb : (i0 + R) // rpb] = chunk
         return bottom, redge
-    threads, wmax = launch_shape(c_blk)
+    threads, width = _ptr_shape(c_blk, params.dtype, ts)
     nblk = -(-n_loc // c_blk)
     edges, flags, cand_blk = _edge_scratch(B, nblk, R, ledge, n_edge,
                                            torch.float32)
@@ -511,7 +534,7 @@ def edge_ptr_fill(mode, use_jump, col0, i0, c_blk, qs, ts, allow, ns, ms,
         ns.data_ptr(), ms.data_ptr(), params.data_ptr(), top.data_ptr(),
         bottom.data_ptr(), cand.data_ptr(), slab.data_ptr(), rows,
         edges.data_ptr(), flags.data_ptr(), cand_blk.data_ptr(), B, R,
-        n_loc, c_blk, threads, wmax, col0, i0), qs.device)
+        n_loc, c_blk, threads, width, col0, i0), qs.device)
     return bottom, edges[:, nblk, :n_edge, 1:]
 
 
@@ -533,7 +556,7 @@ def _edge_kernels():
             P]
         # mode, use_jump, rpb, qs, ts, allow, ns, ms, params, top, bottom,
         # cand, slab, slab rows, edges, flags, cand_blk, B, R, n_loc, c_blk,
-        # threads, wmax, col0, i0, stream
+        # threads, width, col0, i0, stream
         lib.at_blocked_edge_ptr.argtypes = [I, I, I] + [P] * 10 + [I] + [
             P] * 3 + [I] * 8 + [P]
         fns = (lib.at_blocked_edge_scores, lib.at_blocked_edge_ptr)

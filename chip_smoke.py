@@ -538,6 +538,36 @@ BKW_PARENT_MS = {
     "overlap 8x2048/W8191/n+8191": 5.6656,
     "edit 8x2048/W8191/n+8191": 5.8119,
 }
+# the parent commit's (afc544e) blocked pointer fills, ms by key: "L2 |
+# B1 fit+jump/rpb1 c_blk C" (the blocked phase's sweep), "RSF blocked_ckpt
+# | blocked_refill VARIANT" (the rescan phase's kernel rows), "RSR forward |
+# refills" (summed over the refills) and "EDGE VARIANT" (the parallel
+# phase's edge_ptr rows, their host copies timed with the chunk): the mean
+# of four runs of this script's BLOCKED level (`--only blocked`) on that
+# commit's package, in turns with this one in two calls, one H100 80GB
+# HBM3 at 700 W
+BLOCKED_PARENT_MS = {
+    "L2 fit+jump/rpb1 c_blk8192": 68.5149,
+    "L2 fit+jump/rpb1 c_blk4096": 59.7377,
+    "L2 fit+jump/rpb1 c_blk2048": 53.8857,
+    "B1 fit+jump/rpb1 c_blk8192": 10.7841,
+    "B1 fit+jump/rpb1 c_blk4096": 6.8972,
+    "B1 fit+jump/rpb1 c_blk2048": 5.6570,
+    "RSF blocked_ckpt fit+jump": 5.2834,
+    "RSF blocked_refill fit+jump": 1.3443,
+    "RSF blocked_ckpt global": 5.5058,
+    "RSF blocked_refill global": 0.8184,
+    "RSF blocked_ckpt local": 7.2419,
+    "RSF blocked_refill local": 0.8673,
+    "RSF blocked_ckpt overlap": 4.4954,
+    "RSF blocked_refill overlap": 0.8336,
+    "RSR forward": 614.9729,
+    "RSR refills": 897.8201,
+    "EDGE global/rpb2": 0.9842,
+    "EDGE local/rpb2": 1.1200,
+    "EDGE overlap/rpb4": 0.9442,
+    "EDGE fit+jump/rpb1": 1.1375,
+}
 # BW: noisy long reads against their draft at a band past the warp path
 # (the CTA path: a cluster of 2 CTAs a pair); pairs, band, the draft's
 # median length and sigma, and the read's substitution, deletion and
@@ -1546,7 +1576,17 @@ def phase_blocked(torch, scan, ptr):
     column block. (The walk on blocked pointers is held against its plain
     version on an L3 bucket.)"""
     from aligntools_tpu_torch.engine import select
+    from aligntools_tpu_torch.ops import _build
 
+    from aligntools_tpu_torch.ops import blocked
+
+    # the pointer fills' shape at each column block of the sweep: threads,
+    # strip width and the thread that publishes a full block's edge
+    emit({"phase": "blocked", "resource_usage": resource_usage(
+        _build.library_path(), ("bptr_affine", "bptr_overlap")),
+        "ptr_shapes": [{"c_blk": c, "shape": ptr.launch_shape(c),
+                        "edge_thread": blocked.edge_thread(c)}
+                       for c in C_BLK_SWEEP]})
     rows = []
     B, m_pad, n_pad = BLOCKED_L1
     args, cells = kernel_inputs(B, m_pad, n_pad, True, SEED + 1, "cuda",
@@ -1655,6 +1695,9 @@ def blocked_row(kernel, level, variant, shape, cells, ms_k, ms_p, args,
            "bound_ms": b_ms, "bound_by": b_by,
            "probe_ms": probe_ms(ops, variant == "edit"), "true_cells": cells,
            "gcups": cells / ms_k / 1e6}
+    if kernel == "blocked_ptr":
+        row["parent_ms"] = BLOCKED_PARENT_MS.get(
+            f"{level} {variant} c_blk{row['c_blk']}")
     emit(row)
     return row
 
@@ -2674,7 +2717,8 @@ def par_kernel_rows(torch, inp):
             (SCORE_OPS[v] + PTR_EXTRA_OPS[v]) * cells,
             4 * (args[6].numel() * 2 + 2 * args[7].numel() + PAR_CHUNK
                  + n_loc * (2 if jump else 1)) + cells // rpb + 16,
-            c_blk=c_blk)
+            c_blk=c_blk,
+            parent_ms=BLOCKED_PARENT_MS.get(f"EDGE {v}/rpb{rpb}"))
 
     # the walk: rank PAR_RANKS-1's slab of the whole fill, from the start
     m, n = len(q), len(t)
@@ -3788,6 +3832,8 @@ def rescan_kernel_rows(torch, tb, mode, q, t, sites, S, params,
         rows.append({"phase": phase, "kernel": kernel, "variant": variant,
                      "shape": f"{m}x{n}/S{S}", "bit_equal": eq,
                      "max_abs_err": err, "tolerance": TOL, "ms": ms_k,
+                     "parent_ms": BLOCKED_PARENT_MS.get(
+                         f"RSF {kernel} {variant}"),
                      "plain_ms": ms_p, "bound_ms": b_ms, "bound_by": b_by,
                      "probe_ms": probe_ms(ops, kernel == "walk_pause",
                                           f64 and kernel != "walk_pause"),
@@ -3837,6 +3883,79 @@ def rescan_kernel_rows(torch, tb, mode, q, t, sites, S, params,
     return rows
 
 
+def rsf_cases():
+    """RSF's pairs, (mode, q, t, junction sites or None): B1 as fit -s and
+    the related RSF_SHAPE pair in global, local and overlap (the query drawn
+    from the target's start for overlap, whose alignment ends the query on
+    the target's start: a dovetail); and each one's (stride S, packed
+    pointer bytes, budget) under an ALIGNTOOLS_HBM_BUDGET just below them."""
+    from aligntools_tpu_torch import batch, layout
+    from aligntools_tpu_torch.utils.synth import related_pair
+
+    cases = [("fit", *drawn_pair(*BLOCKED_B1[3:], SEED + 20, True))]
+    q, t = related_pair(*RSF_SHAPE, SEED + 21)
+    cases += [(mode, q, t, None) for mode in ("global", "local")]
+    cases.append(("overlap", *related_pair(*RSF_SHAPE, SEED + 21, offset=0),
+                  None))
+    plan = []
+    for mode, q, t, s in cases:
+        hbm, need = over_budget(batch, layout, mode, s is not None, q, t)
+        budget = int(hbm * batch.PTR_BUDGET_FRAC)
+        plan.append((batch._auto_stride(len(q), batch.pad_len(len(t)),
+                                        budget), need, budget))
+    return cases, plan
+
+
+def phase_blocked_level(torch, scan, ptr, tb):
+    """BLOCKED (`--only blocked`): the blocked pointer fills alone, each
+    against plain and timed as the default run times it: L2 and B1 fit+jump
+    at every column block of C_BLK_SWEEP (the blocked phase's sweep), RSF's
+    forward and refill (the rescan phase's kernel rows), RSR's forward and
+    refills (CUDA events around each call) and one EDGE chunk of each
+    pointer variant (the parallel phase's kernel rows); from a copy of this
+    script in another commit's checkout, that commit's kernels
+    (BLOCKED_PARENT_MS)."""
+    from aligntools_tpu_torch.engine import select
+    from aligntools_tpu_torch.ops import _build
+    from aligntools_tpu_torch.params import AlignParams
+
+    emit({"phase": "blocked", "resource_usage": resource_usage(
+        _build.library_path(), ("bptr_affine", "bptr_overlap"))})
+    out = {}
+    for level, (B, m_pad, n_pad, m, n) in (("L2", BLOCKED_L2),
+                                           ("B1", BLOCKED_B1)):
+        args, cells = kernel_inputs(B, m_pad, n_pad, False, SEED + 2, "cuda",
+                                    lengths=(m, n), sites=3)
+        qs, ts, allow, ns, ms, pm = args
+
+        def kernel(c_blk=select.blocked_c_blk()):
+            return ptr_fill(ptr, "fit", True, m_pad, n_pad, args, 1, c_blk)
+
+        def plain():
+            return ptr.ptr_fill_plain("fit", True, m_pad, n_pad, qs, ts, allow,
+                                      ns, ms, pm, 1)
+
+        for r in blocked_sweep(torch, "blocked_ptr", level, "fit+jump/rpb1",
+                               f"{B}x{m_pad}x{n_pad}", cells, args,
+                               12 * B + B * m_pad * n_pad, kernel, plain):
+            out[f"{level} {r['variant']} c_blk{r['c_blk']}"] = r["ms"]
+        del args, qs, ts, allow, ns, ms, pm
+        torch.cuda.empty_cache()
+    cases, plan = rsf_cases()
+    for (mode, q, t, s), (S, _, _) in zip(cases, plan):
+        for r in rescan_kernel_rows(torch, tb, mode, q, t, s, S,
+                                    AlignParams()):
+            if r["kernel"] != "walk_pause":
+                out[f"RSF {r['kernel']} {r['variant']}"] = r["ms"]
+    rsr = phase_rsr(torch, scan, ptr, tb)
+    out["RSR forward"], out["RSR refills"] = rsr["forward_ms"], rsr[
+        "refill_ms"]
+    for r in par_kernel_rows(torch, parallel_inputs()):
+        if r["kernel"] == "edge_ptr":
+            out[f"EDGE {r['variant']}"] = r["ms"]
+    emit({"phase": "blocked", "level": "BLOCKED", "ms": out})
+
+
 def phase_rescan(torch, scan, ptr, tb):
     """The checkpoint-rescan route of the rows path. RSF: the route forced
     through batch.align_batch by an ALIGNTOOLS_HBM_BUDGET just below each
@@ -3846,27 +3965,17 @@ def phase_rescan(torch, scan, ptr, tb):
     those pairs' shapes. RSR: a pair past the true budget."""
     from aligntools_tpu_torch import batch, layout
     from aligntools_tpu_torch.params import AlignParams
-    from aligntools_tpu_torch.utils.synth import related_pair
 
     params = AlignParams()
     dev = torch.device("cuda")
-    cases = [("fit", *drawn_pair(*BLOCKED_B1[3:], SEED + 20, True))]
-    q, t = related_pair(*RSF_SHAPE, SEED + 21)
-    cases += [(mode, q, t, None) for mode in ("global", "local")]
-    # overlap's alignment ends the query on the target's start (a dovetail):
-    # the query is drawn from there
-    cases.append(("overlap", *related_pair(*RSF_SHAPE, SEED + 21, offset=0),
-                  None))
+    cases, plan = rsf_cases()
     normal = [batch.align_batch(mode, [(q, t)], params,
                                 [s] if s else None, traceback=True,
                                 device=dev)[0] for mode, q, t, s in cases]
-    forced, plan = [], []
+    forced = []
     reset_counts(scan, ptr, tb)
     for mode, q, t, s in cases:
-        hbm, need = over_budget(batch, layout, mode, s is not None, q, t)
-        budget = int(hbm * batch.PTR_BUDGET_FRAC)
-        S = batch._auto_stride(len(q), batch.pad_len(len(t)), budget)
-        plan.append((S, need, budget))
+        hbm = over_budget(batch, layout, mode, s is not None, q, t)[0]
         os.environ["ALIGNTOOLS_HBM_BUDGET"] = str(hbm)
         try:
             forced.append(batch.align_batch(mode, [(q, t)], params,
@@ -3972,8 +4081,10 @@ def phase_rsr(torch, scan, ptr, tb):
            "budget": budget, "device_memory": total, "stride": S,
            "blocks": blocks, "checkpoint_rows": -(-m // S),
            "forward_ms": ms["blocked_ckpt_fill"][0],
+           "forward_parent_ms": BLOCKED_PARENT_MS.get("RSR forward"),
            "forward_bound_ms": f_bound[0], "forward_bound_by": f_bound[1],
            "refill_ms": sum(ms["blocked_refill"]),
+           "refill_parent_ms": BLOCKED_PARENT_MS.get("RSR refills"),
            "refill_bound_ms": r_bound[0], "refill_bound_by": r_bound[1],
            "walk_ms": sum(ms["walk"]), "walk_bound_ms": w_bound[0],
            "walk_bound_by": w_bound[1], "walk_chain_ms": chain_ms(steps),
@@ -4558,12 +4669,15 @@ def main(argv=None):
                          "banded local rows run, and write their Chrome "
                          "traces here (the second and third with .long and "
                          ".banded before the extension)")
-    ap.add_argument("--only", choices=("bkw",), default=None,
-                    help="run the device and probe phases and the banded "
-                         "phase's BKW level alone (the CTA path at "
-                         "BANDED_BKW, with the banded instances' registers): "
-                         "from a copy of this script in another commit's "
-                         "checkout, that commit's kernels")
+    ap.add_argument("--only", choices=("bkw", "blocked"), default=None,
+                    help="run the device and probe phases and one level "
+                         "alone: bkw, the banded phase's BKW level (the CTA "
+                         "path at BANDED_BKW, with the banded instances' "
+                         "registers); blocked, the blocked pointer fills at "
+                         "L2, B1, RSF, RSR and one EDGE chunk, with their "
+                         "instances' registers. From a copy of this script "
+                         "in another commit's checkout, that commit's "
+                         "kernels")
     opts = ap.parse_args(argv)
     try:
         import torch
@@ -4607,6 +4721,10 @@ def main(argv=None):
         emit({"phase": "banded", "resource_usage": resource_usage(
             _build.library_path(), ("banded_",))})
         phase_banded_wide(torch, banded)
+        print(smi, flush=True)
+        return 0
+    if opts.only == "blocked":
+        phase_blocked_level(torch, scan, ptr, tb)
         print(smi, flush=True)
         return 0
     rows = phase_kernels(torch, scan)

@@ -10,6 +10,7 @@ import torch_cpu  # noqa: F401  (first: one torch thread a worker)
 import os
 
 import banded_ties
+import blocked_strip_ties as strip_ties
 import blocked_ties as ties
 import numpy as np
 import ptr_ties
@@ -629,6 +630,188 @@ def test_blocked_ptr_ragged_last_block_equals_plain(cuda, mode, use_jump,
     arrs = _flat_inputs(89, B=4, n_pad=n_pad)
     _blocked_equals_plain("ptr", mode, use_jump, rpb, 64, n_pad, c_blk,
                           convert.kernel_inputs_from_numpy(*arrs, cuda))
+
+
+# the pointer fills' phases on their register-strip row: (c_blk, n_pad)
+# with a ragged last block (one block at c_blk 8,192), and the stride of the
+# CKPT / SEED checks (two row blocks at m_pad 64; rpb up to 4 divides it)
+STRIP_SHAPES = [(32, 32 * 5 + 16), (128, 128 * 3 + 48), (2048, 2048 * 2 + 384),
+                (8192, 8192 + 128)]
+STRIP_S = 32
+
+
+def _strip_inputs(seed, c_blk, n_pad, B=8, m_pad=64):
+    """Ragged pairs across the blocks: a full pair, m = 0 and n = 0 pairs
+    (alone and together), one ending on a block edge and one a column past
+    it, the rest drawn."""
+    rng = np.random.default_rng(seed)
+    ms = rng.integers(1, m_pad + 1, (B, 1)).astype(np.int32)
+    ns = rng.integers(1, n_pad + 1, (B, 1)).astype(np.int32)
+    ms[:6, 0] = [m_pad, 0, 9, 0, m_pad, 17]
+    ns[:6, 0] = [n_pad, 21, 0, 0, c_blk, min(c_blk + 1, n_pad)]
+    qs = rng.choice(ALPHA_I32, (B, m_pad))
+    ts = rng.choice(ALPHA_I32, (B, n_pad))
+    qs[np.arange(m_pad)[None, :] >= ms] = -1
+    ts[np.arange(n_pad)[None, :] >= ns] = -2
+    allow = (rng.random((B, n_pad)) > 0.1).astype(np.float32)
+    pm = np.array([[2, 3, -4, -1, -7, 0, 0, 0]], np.float32)
+    return qs, ts, allow, ns, ms, pm
+
+
+def _phases_equal_plain(mode, use_jump, rpb, m_pad, n_pad, c_blk, args):
+    """FILL, CKPT (stride STRIP_S) and SEED (every row block from the
+    plain checkpoints) against their plain versions, every output bit for
+    bit; each refill also against the rows of the whole plain fill. The
+    launch counts move by one a launch (the double instances' under
+    their "64" names)."""
+    qs, ts, allow, ns, ms, pm = args
+    allow = allow if use_jump else None
+    suffix = "64" if pm.dtype == torch.float64 else ""
+    before = dict(blocked.launches)
+    got = blocked.blocked_ptr_fill(mode, use_jump, m_pad, n_pad, c_blk, qs, ts,
+                                   allow, ns, ms, pm, rpb)
+    torch.cuda.synchronize()
+    whole = ptr.ptr_fill_plain(mode, use_jump, m_pad, n_pad, qs, ts, allow,
+                               ns, ms, pm, rpb)
+    for name, g, w in zip(("score", "a", "b", "ptrs"), got, whole):
+        bad = (g != w).nonzero()
+        assert torch.equal(g, w), ("FILL", name, bad[:8].tolist(), len(bad))
+    got = blocked.blocked_ckpt_fill(mode, use_jump, STRIP_S, m_pad, n_pad,
+                                    c_blk, qs, ts, allow, ns, ms, pm)
+    torch.cuda.synchronize()
+    want = ptr.ptr_fill_plain(mode, use_jump, m_pad, n_pad, qs, ts, allow,
+                              ns, ms, pm, stride=STRIP_S)
+    for name, g, w in zip(("score", "a", "b", "cks"), got, want):
+        bad = (g != w).nonzero()
+        assert torch.equal(g, w), ("CKPT", name, bad[:8].tolist(), len(bad))
+    r = STRIP_S // rpb
+    for k in range(m_pad // STRIP_S):
+        ck = want[3][:, k].contiguous()
+        q_blk = qs[:, k * STRIP_S : (k + 1) * STRIP_S].contiguous()
+        got = blocked.blocked_refill(mode, use_jump, STRIP_S, n_pad, c_blk,
+                                     ck, k * STRIP_S, q_blk, ts, allow, ns, ms,
+                                     pm, rpb)
+        torch.cuda.synchronize()
+        plain = ptr.ptr_fill_plain(mode, use_jump, STRIP_S, n_pad, q_blk, ts,
+                                   allow, ns, ms, pm, rpb, seed=ck,
+                                   i0=k * STRIP_S)
+        assert torch.equal(got, plain), ("SEED", k)
+        assert torch.equal(got, whole[3][:, k * r : (k + 1) * r]), ("SEED", k)
+    for kernel, more in (("blocked_ptr", 1), ("blocked_ckpt", 1),
+                         ("blocked_refill", m_pad // STRIP_S)):
+        assert blocked.launches[kernel + suffix] == (
+            before[kernel + suffix] + more), kernel
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("c_blk,n_pad", STRIP_SHAPES)
+@pytest.mark.parametrize("mode,use_jump,rpb", BLOCKED_PTR_CASES)
+def test_blocked_ptr_phases_on_strips_equal_plain(cuda, mode, use_jump, rpb,
+                                                  c_blk, n_pad, dtype):
+    """Every phase of the blocked pointer fill (FILL, CKPT, SEED), mode,
+    rpb and value type on the register-strip row at c_blk 32 (2 of 32
+    threads active), 128, 2,048 and 8,192 (512 threads; float32 only, past
+    C_BLK_MAX64), each with a ragged last block, m = 0 and n = 0 pairs
+    among the pairs."""
+    arrs = _strip_inputs(71 + c_blk, c_blk, n_pad)
+    args = list(convert.kernel_inputs_from_numpy(*arrs, cuda))
+    if dtype == "float64":
+        args[5] = convert.params_matrix(BIG, cuda, torch.float64)
+        if c_blk > blocked.C_BLK_MAX64:
+            with pytest.raises(ValueError, match="C_BLK_MAX64"):
+                blocked.blocked_ptr_fill(mode, use_jump, 64, n_pad, c_blk,
+                                         *args, rpb)
+            return
+    _phases_equal_plain(mode, use_jump, rpb, 64, n_pad, c_blk, args)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("mode,use_jump,rpb", BLOCKED_PTR_CASES)
+def test_blocked_ptr_phases_on_strip_ties_equal_plain(cuda, mode, use_jump,
+                                                      rpb, dtype):
+    """The tie inputs of tests/blocked_strip_ties.py (held against the JAX
+    package on the CPU): equal candidates at the strip and warp edges
+    inside a block of 1,024 columns and across its block edge; every
+    phase."""
+    arrs = strip_ties.tie_inputs(3)
+    args = list(convert.kernel_inputs_from_numpy(
+        *arrs, strip_ties.pmat(mode), cuda))
+    if dtype == "float64":
+        args[5] = args[5].double()
+    _phases_equal_plain(mode, use_jump, rpb, strip_ties.M_PAD,
+                        strip_ties.N_PAD, strip_ties.C_BLK, args)
+
+
+@pytest.mark.parametrize("shape", ["one pair, 32 blocks", "8192 CTAs"])
+@pytest.mark.parametrize("mode,use_jump,rpb", [
+    ("global", False, 2), ("local", False, 1), ("fit", True, 1),
+    ("overlap", False, 4)])
+def test_blocked_ptr_phases_wavefront(cuda, mode, use_jump, rpb, shape):
+    """Every phase over the longest chain of waits (one pair over 32
+    blocks of 128 columns) and over more CTAs than the card holds at once
+    (64 pairs over 128 blocks of 128 columns)."""
+    B, n_pad = (1, 4096) if shape.startswith("one") else (64, 16384)
+    arrs = _strip_inputs(83, 128, n_pad, B=max(B, 6))
+    arrs = tuple(x[:B] if x.shape[0] > 1 else x for x in arrs)
+    _phases_equal_plain(mode, use_jump, rpb, 64, n_pad, 128,
+                        convert.kernel_inputs_from_numpy(*arrs, cuda))
+
+
+def test_blocked_ptr_phases_refuse_misaligned_ts(cuda):
+    """The pointer fills read a strip's chars as 16-byte words: a ts four
+    bytes off a 16-byte boundary is refused before any launch."""
+    qs, ts, allow, ns, ms, pm = convert.kernel_inputs_from_numpy(
+        *_strip_inputs(89, 128, 256), cuda)
+    off = torch.empty(ts.numel() + 4, dtype=torch.int32, device=cuda)
+    off = off[1 : 1 + ts.numel()].view(ts.shape)
+    off.copy_(ts)
+    assert off.data_ptr() % 16 == 4
+    ck = torch.zeros((qs.shape[0], blocked.CK_STATES["global"], 257),
+                     dtype=torch.float32, device=cuda)
+    before = dict(blocked.launches)
+    for fill in (lambda: blocked.blocked_ptr_fill(
+                     "global", False, 64, 256, 128, qs, off, None, ns, ms, pm),
+                 lambda: blocked.blocked_ckpt_fill(
+                     "global", False, STRIP_S, 64, 256, 128, qs, off, None,
+                     ns, ms, pm),
+                 lambda: blocked.blocked_refill(
+                     "global", False, STRIP_S, 256, 128, ck, 0,
+                     qs[:, :STRIP_S].contiguous(), off, None, ns, ms, pm)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fill()
+    assert dict(blocked.launches) == before
+
+
+@pytest.mark.parametrize("c_blk", [32, 1024])
+@pytest.mark.parametrize("mode,jump,rpb", [("global", False, 2),
+                                           ("local", False, 2),
+                                           ("fit", True, 1),
+                                           ("overlap", False, 4)])
+def test_edge_ptr_kernel_on_strips_equals_plain(cuda, mode, jump, rpb, c_blk):
+    """The EDGE pointer fill at c_blk 32 (33 blocks, the last ragged, 2 of
+    32 threads active) and 1,024 (two warps a block, the last block 16
+    columns wide): the slab's bytes, the bottom rows, the right edge and
+    the candidate against the plain version."""
+    i0, R = 64, 64
+    args = _edge_inputs(mode, jump, "ptr", 2048, 29, R=R, i0=i0)
+    B, n_loc = args[1].shape
+    cand0 = torch.tensor([[torch.tensor(3.0).view(torch.int32).item(), 70,
+                           2100, 0]] * B, dtype=torch.int32)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        slab = torch.full((B, (i0 + R) // rpb + 8, n_loc), 0xAB,
+                          dtype=torch.uint8, device=dev)
+        cand = cand0.clone().to(dev)
+        before = blocked.launches["edge_ptr"]
+        bottom, redge = blocked.edge_ptr_fill(
+            mode, jump, 2048, i0, c_blk, *(None if x is None else x.to(dev)
+                                           for x in args), cand, slab, rpb)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert blocked.launches["edge_ptr"] == before + 1
+        outs.append([x.cpu() for x in (slab, bottom, redge, cand)])
+    for got, want in zip(*outs):
+        assert torch.equal(got, want)
 
 
 def test_rows_route_on_card_equals_cpu(cuda):

@@ -125,7 +125,7 @@ def test_wrapper_rejects_bad_inputs():
 
 @pytest.mark.parametrize("n_pad", [128, 2048, 4096, 32768, 65536])
 def test_launch_shape_covers_the_row(n_pad):
-    threads, wmax = blocked.launch_shape(n_pad)
+    threads, wmax = blocked.score_launch_shape(n_pad)
     assert threads % 32 == 0 and 32 <= threads <= 1024
     assert threads * wmax >= n_pad
     assert threads * (wmax - 1) < n_pad

@@ -41,10 +41,10 @@ with a checkpoint stride and with a seed row:
 
 On a CUDA tensor the wrappers launch ``csrc/blocked_fill.cu`` (a wavefront
 across column blocks: one CTA per (pair, column block), each row's edge
-passed to the next block behind a release/acquire progress counter; the
-pointer fills' row state in registers, the flat pointer fill's strips at
-``ptr.launch_shape`` of the column block; the score fills' in shared
-memory at ``score_launch_shape``; see its header) or raise; on a CPU
+passed to the next block behind a release/acquire progress counter; in
+each block the flat fills' register-strip row, ``csrc/strip_row.cuh``:
+the pointer fills at ``ptr.launch_shape`` of the column block, the score
+fills at ``scan.flat_shape`` of it; see its header) or raise; on a CPU
 tensor they run the plain versions.
 
 A float64 params row (a pair past float32's exact integers, sent by
@@ -63,14 +63,12 @@ import torch
 from aligntools_tpu_torch.ops import ptr, scan
 from aligntools_tpu_torch.params import MODES
 
-# the widest column block one CTA of the pointer fills covers: 512 threads
-# (128 registers a thread) of ptr.WIDTH columns, and of ptr.WIDTH64 for the
+# the widest column block one CTA of the fills covers: 512 threads (128
+# registers a thread) of ptr.WIDTH columns, and of ptr.WIDTH64 for the
 # double instances (ptr.FLAT_REG_MAX_N_PAD, ptr.FLAT64_MAX_N_PAD); the
-# score fills take the same caps (their row state in shared memory: 20
-# bytes a column at fit+jump)
+# score fills take the same caps (edit's CTA could run 1,024 threads)
 C_BLK_MAX = 8192
 C_BLK_MAX64 = 4096
-SCORE_STRIP = 8  # block columns per thread the score fills' shape aims for
 
 # launches of each kernel through its wrapper, and wrapper calls that ran
 # the plain versions (on a CPU tensor)
@@ -86,13 +84,6 @@ def reset_counts() -> None:
     for k in launches:
         launches[k] = 0
     plain_calls = 0
-
-
-def score_launch_shape(c_blk: int) -> tuple[int, int]:
-    """(threads per CTA, strip slots per thread) of the score fills at a
-    column block of c_blk columns."""
-    threads = min(1024, max(32, -(-c_blk // (32 * SCORE_STRIP)) * 32))
-    return threads, -(-c_blk // threads)
 
 
 def edge_thread(width: int, dtype=torch.float32) -> int:
@@ -135,11 +126,11 @@ def _kernels(f64=False):
         lib = _build.load()
         P, I = ctypes.c_void_p, ctypes.c_int
         # mode, use_jump, qs, ts, allow, ns, ms, params, out, edges, flags,
-        # cand, B, m_pad, n_pad, c_blk, threads, wmax, stream
+        # cand, B, m_pad, n_pad, c_blk, threads, width, stream
         lib.at_blocked_scores.argtypes = [I, I, P, P, P, P, P, P, P, P, P, P,
                                           I, I, I, I, I, I, P]
         # qs, ts, ns, ms, params, out, edges, flags, cand, B, m_pad, n_pad,
-        # c_blk, threads, wmax, stream
+        # c_blk, threads, width, stream
         lib.at_blocked_edit64.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I,
                                           I, I, I, P]
         # mode, use_jump, rpb, qs, ts, allow, ns, ms, params, score, a, b,
@@ -245,7 +236,7 @@ def blocked_scores(mode, use_jump, m_pad, n_pad, c_blk, qs, ts, allow, ns,
     B, dev = qs.shape[0], qs.device
     out = torch.empty(B, dtype=params.dtype if f64 else torch.int32
                       if mode == "edit" else torch.float32, device=dev)
-    threads, wmax = score_launch_shape(c_blk)
+    threads, width = _score_shape(mode, c_blk, params.dtype, ts)
     nblk = -(-n_pad // c_blk)
     scratch = _scratch(B, nblk, m_pad, dev, params.dtype)
     _check_scratch(*scratch, B, nblk, m_pad, params.dtype)
@@ -254,24 +245,38 @@ def blocked_scores(mode, use_jump, m_pad, n_pad, c_blk, qs, ts, allow, ns,
             qs.data_ptr(), ts.data_ptr(), ns.data_ptr(), ms.data_ptr(),
             params.data_ptr(), out.data_ptr(),
             *(x.data_ptr() for x in scratch), B, m_pad, n_pad, c_blk,
-            threads, wmax), dev)
+            threads, width), dev)
         return out
     _launch("blocked_scores", _kernels()[0], (
         MODES.index(mode), int(bool(use_jump)), qs.data_ptr(),
         ts.data_ptr(), 0 if allow is None else allow.data_ptr(),
         ns.data_ptr(), ms.data_ptr(), params.data_ptr(), out.data_ptr(),
         *(x.data_ptr() for x in scratch), B, m_pad, n_pad, c_blk, threads,
-        wmax), dev)
+        width), dev)
     return out
 
 
-def _ptr_shape(c_blk, dtype, ts):
-    """The pointer fills' launch shape (threads, W) at c_blk; raises unless
-    ts is 16-byte aligned (a strip's chars are read as 16-byte words)."""
+def _aligned(ts):
+    """Raise unless ts is 16-byte aligned (a strip's chars are read as
+    16-byte words)."""
     if ts.data_ptr() % 16:
         raise ValueError("ts must be 16-byte aligned (the kernel reads it "
                          "as 16-byte words)")
+
+
+def _ptr_shape(c_blk, dtype, ts):
+    """The pointer fills' launch shape (threads, W) at c_blk: the flat
+    pointer fill's rule on the column block."""
+    _aligned(ts)
     return ptr.launch_shape(c_blk, dtype)
+
+
+def _score_shape(mode, c_blk, dtype, ts):
+    """The score fills' launch shape (threads, W) at c_blk: the flat score
+    fill's rule on the column block (``scan.flat_shape``: W 16, 8 for edit's
+    double instance; edit's CTA up to 1,024 threads)."""
+    _aligned(ts)
+    return scan.flat_shape(mode, c_blk, dtype)
 
 
 def _name(kernel, params):
@@ -474,7 +479,7 @@ def edge_scores(mode, use_jump, col0, i0, c_blk, qs, ts, allow, ns, ms,
         plain_calls += 1
         return scan.edge_scores_plain(mode, use_jump, col0, i0, qs, ts, allow,
                                       ns, ms, params, top, ledge, acc)
-    threads, wmax = score_launch_shape(c_blk)
+    threads, width = _score_shape(mode, c_blk, torch.float32, ts)
     nblk = -(-n_loc // c_blk)
     edges, flags, cand = _edge_scratch(B, nblk, R, ledge, n_edge, value)
     bottom = torch.empty_like(top)
@@ -483,7 +488,7 @@ def edge_scores(mode, use_jump, col0, i0, c_blk, qs, ts, allow, ns, ms,
         0 if allow is None else allow.data_ptr(), ns.data_ptr(),
         ms.data_ptr(), params.data_ptr(), top.data_ptr(), bottom.data_ptr(),
         acc.data_ptr(), edges.data_ptr(), flags.data_ptr(), cand.data_ptr(),
-        B, R, n_loc, c_blk, threads, wmax, col0, i0), qs.device)
+        B, R, n_loc, c_blk, threads, width, col0, i0), qs.device)
     return bottom, edges[:, nblk, :n_edge, 1:]
 
 
@@ -550,7 +555,7 @@ def _edge_kernels():
         lib = _build.load()
         P, I = ctypes.c_void_p, ctypes.c_int
         # mode, use_jump, qs, ts, allow, ns, ms, params, top, bottom, acc,
-        # edges, flags, cand, B, R, n_loc, c_blk, threads, wmax, col0, i0,
+        # edges, flags, cand, B, R, n_loc, c_blk, threads, width, col0, i0,
         # stream
         lib.at_blocked_edge_scores.argtypes = [I, I] + [P] * 12 + [I] * 8 + [
             P]

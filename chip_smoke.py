@@ -458,6 +458,12 @@ BLOCKED_L1 = (8, 1024, 65536)
 BLOCKED_L2 = (64, 1328, 114688, 1327, 114491)
 BLOCKED_B1 = (1, 1328, 114688, 1327, 114491)
 C_BLK_SWEEP = (8192, 4096, 2048)
+# the instances of the register-strip row (csrc/strip_row.cuh) whose
+# registers and stack the blocked phase and the BLOCKED level list: the
+# flat and blocked fills, pointers and scores
+BLOCKED_INSTANCES = ("ptr_affine_kernel", "ptr_overlap_kernel",
+                     "edit_score_kernel", "bptr_affine", "bptr_overlap",
+                     "bscore_edit")
 FLAT_AS_BLOCKED_C_BLK = 8192
 # the long-target slice (L3): pairs; the CPU-checked samples are drawn
 # from the LONG_POOL cheapest long pairs (m * n) with a target of at most
@@ -538,35 +544,56 @@ BKW_PARENT_MS = {
     "overlap 8x2048/W8191/n+8191": 5.6656,
     "edit 8x2048/W8191/n+8191": 5.8119,
 }
-# the parent commit's (afc544e) blocked pointer fills, ms by key: "L2 |
-# B1 fit+jump/rpb1 c_blk C" (the blocked phase's sweep), "RSF blocked_ckpt
-# | blocked_refill VARIANT" (the rescan phase's kernel rows), "RSR forward |
+# the parent commit's (66c597e) blocked fills, ms by key: "L1 VARIANT
+# c_blk C" (the L1 score fills), "L2 | B1 fit+jump c_blk C" and "L2 | B1
+# fit+jump/rpb1 c_blk C" (the blocked phase's score and pointer sweeps), "B1
+# edit64" (the exact64 phase's blocked_edit64 row), "RSF blocked_ckpt |
+# blocked_refill VARIANT" (the rescan phase's kernel rows), "RSR forward |
 # refills" (summed over the refills) and "EDGE VARIANT" (the parallel
-# phase's edge_ptr rows, their host copies timed with the chunk): the mean
-# of four runs of this script's BLOCKED level (`--only blocked`) on that
-# commit's package, in turns with this one in two calls, one H100 80GB
-# HBM3 at 700 W
+# phase's edge_scores and edge_ptr rows, their host copies timed with the
+# chunk): the mean of two runs of this script's BLOCKED level (`--only
+# blocked`) on that commit's package, in turns with this one in one call,
+# one H100 80GB HBM3 at 700 W
 BLOCKED_PARENT_MS = {
-    "L2 fit+jump/rpb1 c_blk8192": 68.5149,
-    "L2 fit+jump/rpb1 c_blk4096": 59.7377,
-    "L2 fit+jump/rpb1 c_blk2048": 53.8857,
-    "B1 fit+jump/rpb1 c_blk8192": 10.7841,
-    "B1 fit+jump/rpb1 c_blk4096": 6.8972,
-    "B1 fit+jump/rpb1 c_blk2048": 5.6570,
-    "RSF blocked_ckpt fit+jump": 5.2834,
-    "RSF blocked_refill fit+jump": 1.3443,
-    "RSF blocked_ckpt global": 5.5058,
-    "RSF blocked_refill global": 0.8184,
-    "RSF blocked_ckpt local": 7.2419,
-    "RSF blocked_refill local": 0.8673,
-    "RSF blocked_ckpt overlap": 4.4954,
-    "RSF blocked_refill overlap": 0.8336,
-    "RSR forward": 614.9729,
-    "RSR refills": 897.8201,
-    "EDGE global/rpb2": 0.9842,
-    "EDGE local/rpb2": 1.1200,
-    "EDGE overlap/rpb4": 0.9442,
-    "EDGE fit+jump/rpb1": 1.1375,
+    "L1 global c_blk2048": 2.9159,
+    "L1 local c_blk2048": 2.9011,
+    "L1 overlap c_blk2048": 2.6687,
+    "L1 edit c_blk2048": 2.4417,
+    "L1 fit c_blk2048": 3.0188,
+    "L1 fit+jump c_blk2048": 3.4334,
+    "L2 fit+jump c_blk8192": 41.1971,
+    "L2 fit+jump c_blk4096": 36.6334,
+    "L2 fit+jump c_blk2048": 34.1671,
+    "L2 fit+jump/rpb1 c_blk8192": 33.7091,
+    "L2 fit+jump/rpb1 c_blk4096": 31.7521,
+    "L2 fit+jump/rpb1 c_blk2048": 30.1993,
+    "B1 fit+jump c_blk8192": 6.6005,
+    "B1 fit+jump c_blk4096": 4.6406,
+    "B1 fit+jump c_blk2048": 4.0999,
+    "B1 fit+jump/rpb1 c_blk8192": 5.1956,
+    "B1 fit+jump/rpb1 c_blk4096": 3.4881,
+    "B1 fit+jump/rpb1 c_blk2048": 2.7988,
+    "B1 edit64": 3.9711,
+    "RSF blocked_ckpt fit+jump": 2.6162,
+    "RSF blocked_refill fit+jump": 0.6102,
+    "RSF blocked_ckpt global": 3.1459,
+    "RSF blocked_refill global": 0.3786,
+    "RSF blocked_ckpt local": 2.8432,
+    "RSF blocked_refill local": 0.4192,
+    "RSF blocked_ckpt overlap": 1.7989,
+    "RSF blocked_refill overlap": 0.3742,
+    "RSR forward": 358.8769,
+    "RSR refills": 479.5633,
+    "EDGE global": 1.1341,
+    "EDGE local": 1.0618,
+    "EDGE overlap": 0.9868,
+    "EDGE edit": 0.9205,
+    "EDGE fit": 1.1153,
+    "EDGE fit+jump": 1.3167,
+    "EDGE global/rpb2": 0.7583,
+    "EDGE local/rpb2": 0.6748,
+    "EDGE overlap/rpb4": 0.6187,
+    "EDGE fit+jump/rpb1": 0.8682,
 }
 # BW: noisy long reads against their draft at a band past the warp path
 # (the CTA path: a cluster of 2 CTAs a pair); pairs, band, the draft's
@@ -1583,7 +1610,7 @@ def phase_blocked(torch, scan, ptr):
     # the pointer fills' shape at each column block of the sweep: threads,
     # strip width and the thread that publishes a full block's edge
     emit({"phase": "blocked", "resource_usage": resource_usage(
-        _build.library_path(), ("bptr_affine", "bptr_overlap")),
+        _build.library_path(), BLOCKED_INSTANCES),
         "ptr_shapes": [{"c_blk": c, "shape": ptr.launch_shape(c),
                         "edge_thread": blocked.edge_thread(c)}
                        for c in C_BLK_SWEEP]})
@@ -1695,9 +1722,8 @@ def blocked_row(kernel, level, variant, shape, cells, ms_k, ms_p, args,
            "bound_ms": b_ms, "bound_by": b_by,
            "probe_ms": probe_ms(ops, variant == "edit"), "true_cells": cells,
            "gcups": cells / ms_k / 1e6}
-    if kernel == "blocked_ptr":
-        row["parent_ms"] = BLOCKED_PARENT_MS.get(
-            f"{level} {variant} c_blk{row['c_blk']}")
+    row["parent_ms"] = BLOCKED_PARENT_MS.get(
+        f"{level} {variant} c_blk{row['c_blk']}")
     emit(row)
     return row
 
@@ -2681,7 +2707,7 @@ def par_kernel_rows(torch, inp):
                                         .numel()) + 4 * (PAR_CHUNK + n_loc
                                                          * (2 if jump else
                                                             1)) + 8,
-            c_blk=c_blk)
+            c_blk=c_blk, parent_ms=BLOCKED_PARENT_MS.get(f"EDGE {v}"))
 
     q, t = inp["align"]
     n_loc = seqpar.slice_width(len(t), PAR_RANKS)
@@ -3907,26 +3933,59 @@ def rsf_cases():
 
 
 def phase_blocked_level(torch, scan, ptr, tb):
-    """BLOCKED (`--only blocked`): the blocked pointer fills alone, each
-    against plain and timed as the default run times it: L2 and B1 fit+jump
-    at every column block of C_BLK_SWEEP (the blocked phase's sweep), RSF's
-    forward and refill (the rescan phase's kernel rows), RSR's forward and
-    refills (CUDA events around each call) and one EDGE chunk of each
-    pointer variant (the parallel phase's kernel rows); from a copy of this
-    script in another commit's checkout, that commit's kernels
-    (BLOCKED_PARENT_MS)."""
+    """BLOCKED (`--only blocked`): the blocked fills alone, each against
+    plain and timed as the default run times it: the score fills at L1
+    (every variant, the routes' column block), L2 and B1 fit+jump scores
+    and pointers at every column block of C_BLK_SWEEP (the blocked phase's
+    sweep), RSF's forward and refill (the rescan phase's kernel rows), RSR's
+    forward and refills (CUDA events around each call), one EDGE chunk of
+    each score and pointer variant (the parallel phase's kernel rows) and
+    edit's double blocked score fill at B1 (the exact64 phase's row); with
+    the instances' registers. From a copy of this script in another
+    commit's checkout, that commit's kernels (BLOCKED_PARENT_MS)."""
+    from aligntools_tpu_torch.convert import params_matrix
     from aligntools_tpu_torch.engine import select
-    from aligntools_tpu_torch.ops import _build
+    from aligntools_tpu_torch.ops import _build, blocked
     from aligntools_tpu_torch.params import AlignParams
 
     emit({"phase": "blocked", "resource_usage": resource_usage(
-        _build.library_path(), ("bptr_affine", "bptr_overlap"))})
+        _build.library_path(), BLOCKED_INSTANCES)})
     out = {}
+    B, m_pad, n_pad = BLOCKED_L1
+    args, cells = kernel_inputs(B, m_pad, n_pad, True, SEED + 1, "cuda",
+                                sites=3)
+    for variant in ("global", "local", "overlap", "edit", "fit", "fit+jump"):
+        def kernel():
+            return run_variant(scan, variant, m_pad, n_pad, args, False,
+                               select.blocked_c_blk())
+
+        def plain():
+            return run_variant(scan, variant, m_pad, n_pad, args, True)
+
+        err = blocked_check(torch, f"blocked scores {variant} at L1",
+                            lambda c: kernel(), plain, [None])
+        ms_k, ms_p = turns(torch, kernel, plain)
+        r = blocked_row("blocked_scores", "L1", variant, f"{B}x{m_pad}x"
+                        f"{n_pad}", cells, ms_k, ms_p, args, 4 * B, err)
+        out[f"L1 {variant} c_blk{r['c_blk']}"] = ms_k
+    del args
     for level, (B, m_pad, n_pad, m, n) in (("L2", BLOCKED_L2),
                                            ("B1", BLOCKED_B1)):
         args, cells = kernel_inputs(B, m_pad, n_pad, False, SEED + 2, "cuda",
                                     lengths=(m, n), sites=3)
         qs, ts, allow, ns, ms, pm = args
+        shape = f"{B}x{m_pad}x{n_pad}"
+
+        def kernel(c_blk=select.blocked_c_blk()):
+            return run_variant(scan, "fit+jump", m_pad, n_pad, args, False,
+                               c_blk)
+
+        def plain():
+            return run_variant(scan, "fit+jump", m_pad, n_pad, args, True)
+
+        for r in blocked_sweep(torch, "blocked_scores", level, "fit+jump",
+                               shape, cells, args, 4 * B, kernel, plain):
+            out[f"{level} {r['variant']} c_blk{r['c_blk']}"] = r["ms"]
 
         def kernel(c_blk=select.blocked_c_blk()):
             return ptr_fill(ptr, "fit", True, m_pad, n_pad, args, 1, c_blk)
@@ -3936,11 +3995,31 @@ def phase_blocked_level(torch, scan, ptr, tb):
                                       ns, ms, pm, 1)
 
         for r in blocked_sweep(torch, "blocked_ptr", level, "fit+jump/rpb1",
-                               f"{B}x{m_pad}x{n_pad}", cells, args,
+                               shape, cells, args,
                                12 * B + B * m_pad * n_pad, kernel, plain):
             out[f"{level} {r['variant']} c_blk{r['c_blk']}"] = r["ms"]
         del args, qs, ts, allow, ns, ms, pm
         torch.cuda.empty_cache()
+    # edit's double blocked score fill at B1, as exact64_rows runs it
+    B, m_pad, n_pad, m, n = BLOCKED_B1
+    args, cells = kernel_inputs(B, m_pad, n_pad, False, SEED + 3, "cuda",
+                                lengths=(m, n), sites=3)
+    qs, ts, _, ns, ms, _ = args
+    pm = params_matrix(exact64_params(), "cuda", torch.float64)
+    c_blk = select.blocked_c_blk(True)
+
+    def edit64():
+        return blocked.blocked_scores("edit", False, m_pad, n_pad, c_blk, qs,
+                                      ts, None, ns, ms, pm)
+
+    got = edit64()
+    torch.cuda.synchronize()
+    check(torch.equal(got, scan.scores_plain("edit", m_pad, n_pad, qs, ts, ns,
+                                             ms, pm)),
+          "blocked_edit64 at B1: kernel != float64 plain")
+    out["B1 edit64"] = statistics.median(timed_ms(torch, edit64)
+                                         for _ in range(3))
+    del args, qs, ts, ns, ms, got
     cases, plan = rsf_cases()
     for (mode, q, t, s), (S, _, _) in zip(cases, plan):
         for r in rescan_kernel_rows(torch, tb, mode, q, t, s, S,
@@ -3951,7 +4030,7 @@ def phase_blocked_level(torch, scan, ptr, tb):
     out["RSR forward"], out["RSR refills"] = rsr["forward_ms"], rsr[
         "refill_ms"]
     for r in par_kernel_rows(torch, parallel_inputs()):
-        if r["kernel"] == "edge_ptr":
+        if r["kernel"] in ("edge_ptr", "edge_scores"):
             out[f"EDGE {r['variant']}"] = r["ms"]
     emit({"phase": "blocked", "level": "BLOCKED", "ms": out})
 
@@ -4224,13 +4303,22 @@ def exact64_rows(torch, ptr, scan, tb, params):
                                        qs, ts, None, ns, ms, pm),
         lambda: scan.scores_plain("edit", m_pad, n_pad, qs, ts, ns, ms, pm),
         SCORE_OPS["edit"] * cells, input_bytes(args, False) + 8,
-        c_blk=c_blk)
+        c_blk=c_blk, parent_ms=BLOCKED_PARENT_MS.get("B1 edit64"))
     del args, qs, ts, allow, ns, ms
     torch.cuda.empty_cache()
     q, t, sites = drawn_pair(*BLOCKED_B1[3:], SEED + 20, True)
     rows += rescan_kernel_rows(torch, tb, "fit", q, t, sites, EXACT64_STRIDE,
                                params, torch.float64, phase="exact64")
     return rows
+
+
+def exact64_params():
+    """The exact64 phase's AlignParams: EXACT64_OPTS and EXACT64_JUMP."""
+    from aligntools_tpu_torch.params import AlignParams
+
+    kw = dict(zip(("match", "mismatch", "gap_open", "gap_extend"),
+                  (int(v) for v in EXACT64_OPTS[1::2])))
+    return AlignParams(**kw, jump=EXACT64_JUMP)
 
 
 def phase_exact64(torch, scan, ptr, tb, work):
@@ -4248,11 +4336,8 @@ def phase_exact64(torch, scan, ptr, tb, work):
     against its plain version (exact64_rows)."""
     from aligntools_tpu_torch import batch, cli, layout
     from aligntools_tpu_torch.ops import _build
-    from aligntools_tpu_torch.params import AlignParams
 
-    kw = dict(zip(("match", "mismatch", "gap_open", "gap_extend"),
-                  (int(v) for v in EXACT64_OPTS[1::2])))
-    params = AlignParams(**kw, jump=EXACT64_JUMP)
+    params = exact64_params()
     runs = []
     for k, mode in enumerate(SINGLE_MODES):
         q, t, _ = drawn_pair(SINGLE_N, SINGLE_N, SEED + 40 + k)
@@ -4669,15 +4754,19 @@ def main(argv=None):
                          "banded local rows run, and write their Chrome "
                          "traces here (the second and third with .long and "
                          ".banded before the extension)")
-    ap.add_argument("--only", choices=("bkw", "blocked"), default=None,
+    ap.add_argument("--only", choices=("bkw", "blocked", "flat"),
+                    default=None,
                     help="run the device and probe phases and one level "
                          "alone: bkw, the banded phase's BKW level (the CTA "
                          "path at BANDED_BKW, with the banded instances' "
                          "registers); blocked, the blocked pointer fills at "
-                         "L2, B1, RSF, RSR and one EDGE chunk, with their "
-                         "instances' registers. From a copy of this script "
-                         "in another commit's checkout, that commit's "
-                         "kernels")
+                         "L2, B1, RSF, RSR and one EDGE chunk, and the "
+                         "blocked score fills at L1, L2, B1, one EDGE chunk "
+                         "and B1's edit64, with their instances' registers; "
+                         "flat, the kernels and ptr phases (the flat score "
+                         "and pointer fills: K1-K3, KC, KT, P1-P3, R1B, PW, "
+                         "PC, PT). From a copy of this script in another "
+                         "commit's checkout, that commit's kernels")
     opts = ap.parse_args(argv)
     try:
         import torch
@@ -4725,6 +4814,11 @@ def main(argv=None):
         return 0
     if opts.only == "blocked":
         phase_blocked_level(torch, scan, ptr, tb)
+        print(smi, flush=True)
+        return 0
+    if opts.only == "flat":
+        phase_kernels(torch, scan)
+        phase_ptr(torch, ptr, tb)
         print(smi, flush=True)
         return 0
     rows = phase_kernels(torch, scan)

@@ -1,29 +1,35 @@
-"""The blocked pointer fill's register-strip row, on the CPU.
+"""The blocked fills' register-strip row, on the CPU.
 
-Its CUDA kernel (``csrc/blocked_fill.cu``) runs each column block on the
-flat pointer fill's strips of 16 columns (8 for double), latches start
-info per thread and merges the blocks' candidates in block order. The tie
-inputs of ``tests/blocked_strip_ties.py`` put equal candidates at the
-strip and warp edges inside a block and across a block edge; here they
-are checked to tie, and the port's entries on CPU tensors (the plain
-versions) are held to the JAX package's Pallas blocked pointer fill
-(interpret mode) and to its rescan's ``_forward_ckpt`` and
-``_refill_block`` on them, exactly. The card tests hold the kernel to the
-same plain versions on the same inputs. The pointer fills' launch shapes
-and their refusals are checked too."""
+Their CUDA kernels (``csrc/blocked_fill.cu``) run each column block on the
+flat fills' strips of 16 columns (8 for double; ``csrc/strip_row.cuh``),
+latch start info per thread and merge the blocks' candidates in block
+order. The tie inputs of ``tests/blocked_strip_ties.py`` put equal
+candidates at the strip and warp edges inside a block and across a block
+edge; here they are checked to tie, and the port's entries on CPU tensors
+(the plain versions) are held to the JAX package's Pallas blocked pointer
+and score fills (interpret mode), to its rescan's ``_forward_ckpt`` and
+``_refill_block`` and to its ``seqpar_score`` on them, exactly. The card
+tests hold the kernels to the same plain versions on the same inputs. The
+pointer fills' launch shapes and their refusals are checked too."""
 
 import torch_cpu  # noqa: F401  (first: one torch thread a worker)
 
 import blocked_strip_ties as ties
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.sharding import Mesh
 
 from aligntools_tpu.engine import rescan as jrescan
 from aligntools_tpu.ops import pallas_blocked as jblocked
+from aligntools_tpu.parallel import seqpar as jseqpar
+from aligntools_tpu.params import AlignParams as JParams
 from aligntools_tpu_torch import convert
 from aligntools_tpu_torch.ops import blocked, ptr
+from aligntools_tpu_torch.parallel import seqpar
+from aligntools_tpu_torch.params import AlignParams
 
 M_PAD, N_PAD, C_BLK = ties.M_PAD, ties.N_PAD, ties.C_BLK
 PTR_CASES = [
@@ -32,6 +38,7 @@ PTR_CASES = [
     ("fit", False, 2), ("overlap", False, 2), ("overlap", False, 4),
 ]
 F32, F64 = torch.float32, torch.float64
+SCORE_VARIANTS = ["global", "local", "fit", "fit+jump", "overlap", "edit"]
 
 
 def _port(arrs, mode):
@@ -133,6 +140,65 @@ def test_ckpt_and_refill_on_strip_ties_match_jax(variant):
                 jnp.asarray(allow[k] > 0))
             assert np.array_equal(got[0].numpy(), np.asarray(want)[:, 1:]), (
                 k, blk)
+
+
+def _score_pmat(mode):
+    """The strip ties' params of ``mode``; edit's substitution cost 1."""
+    if mode == "edit":
+        return np.array([[0, 1, 0, 0, 0, 0, 0, 0]], np.float32)
+    return ties.pmat(mode)
+
+
+@pytest.mark.parametrize("c_blk", [C_BLK, 768])
+@pytest.mark.parametrize("variant", SCORE_VARIANTS)
+def test_blocked_scores_on_strip_ties_match_jax(variant, c_blk):
+    """The port's blocked score fill (its plain version) equals the Pallas
+    blocked score fill (interpret mode, at the ties' column block) on the
+    strip tie inputs, every pair's score bit for bit; at c_blk 768 the
+    2,048 columns are three blocks, the last one ragged (512 wide)."""
+    mode, jump = variant.split("+")[0], variant.endswith("+jump")
+    arrs = ties.tie_inputs(11)
+    pm = _score_pmat(mode)
+    want = jblocked.blocked_scores(
+        mode, jump, M_PAD, N_PAD, C_BLK, True,
+        *(jnp.asarray(x) for x in (*arrs, pm)))
+    qs, ts, allow, ns, ms, tp = convert.kernel_inputs_from_numpy(*arrs, pm,
+                                                                 "cpu")
+    got = blocked.blocked_scores(mode, jump, M_PAD, N_PAD, c_blk, qs, ts,
+                                 allow if jump else None, ns, ms, tp)
+    assert got.dtype == (torch.int32 if mode == "edit" else F32)
+    assert np.array_equal(got.numpy().astype(np.float64),
+                          np.asarray(want).ravel().astype(np.float64))
+
+
+def _pair_params(mode):
+    """``_score_pmat(mode)`` as AlignParams (the port's and the JAX
+    package's)."""
+    pm = _score_pmat(mode)[0]
+    kw = dict(match=pm[0], mismatch=pm[1], gap_open=pm[2], gap_extend=pm[3],
+              jump=pm[4])
+    return AlignParams(**kw), JParams(**kw)
+
+
+@pytest.mark.parametrize("variant", SCORE_VARIANTS)
+def test_edge_scores_on_strip_ties_match_seqpar(variant):
+    """The port's EDGE score fill (its plain version), chained by
+    ``seqpar_score`` over two column slices of 1,024 (the ties' block edge
+    is the slice edge) in chunks of 16 rows, gives the JAX seqpar_score of
+    every tie pair on a mesh of two devices, bit for bit (fit+jump with no
+    junction site: every column allowed)."""
+    mode, jump = variant.split("+")[0], variant.endswith("+jump")
+    qs, ts, allow, ns, ms = ties.tie_inputs(13)
+    tp, jp = _pair_params(mode)
+    mesh = Mesh(np.asarray(jax.devices()[:2]), ("seq",))
+    sites = [] if jump else None
+    for k in range(ties.B):
+        q = bytes(qs[k, : ms[k, 0]].astype(np.uint8))
+        t = bytes(ts[k, : ns[k, 0]].astype(np.uint8))
+        want = jseqpar.seqpar_score(mode, q, t, jp, sites=sites, mesh=mesh)
+        got = seqpar.seqpar_score(mode, q, t, tp, sites, device="cpu",
+                                  loopback=2, chunk=16)
+        assert got == want, (k, got, want)
 
 
 @pytest.mark.parametrize("c_blk,dtype,shape", [

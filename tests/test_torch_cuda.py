@@ -814,6 +814,123 @@ def test_edge_ptr_kernel_on_strips_equals_plain(cuda, mode, jump, rpb, c_blk):
         assert torch.equal(got, want)
 
 
+# the blocked score fills on the register-strip row: the column blocks of
+# chip_smoke.py's sweep (C_BLK_SWEEP), and every score variant
+C_BLK_SWEEP = (8192, 4096, 2048)
+SCORE_VARIANTS = ["global", "local", "fit", "fit+jump", "overlap", "edit"]
+
+
+def _tie_params(mode):
+    """The strip ties' params of ``mode``; edit's substitution cost 1."""
+    if mode == "edit":
+        return np.array([[0, 1, 0, 0, 0, 0, 0, 0]], np.float32)
+    return strip_ties.pmat(mode)
+
+
+def _scores_equal_plain(variant, m_pad, n_pad, c_blk, args):
+    """The blocked score fill (edit's double instance with a float64 row)
+    against its plain version, bit for bit; one launch counted."""
+    mode, jump = variant.split("+")[0], variant.endswith("+jump")
+    qs, ts, allow, ns, ms, pm = args
+    key = "blocked_edit64" if pm.dtype == torch.float64 else "blocked_scores"
+    before = blocked.launches[key]
+    got = blocked.blocked_scores(mode, jump, m_pad, n_pad, c_blk, qs, ts,
+                                 allow if jump else None, ns, ms, pm)
+    torch.cuda.synchronize()
+    assert blocked.launches[key] == before + 1
+    if mode == "fit":
+        want = scan.fit_scores_plain(jump, m_pad, n_pad, qs, ts, allow, ns,
+                                     ms, pm)
+    else:
+        want = scan.scores_plain(mode, m_pad, n_pad, qs, ts, ns, ms, pm)
+    assert got.dtype == want.dtype
+    bad = (got != want).nonzero()
+    assert torch.equal(got, want), (bad[:8].tolist(), got[bad[:8, 0]],
+                                    want[bad[:8, 0]])
+
+
+def _edge_chunks_equal_plain(variant, m_pad, n_pad, c_blk, args, R=32):
+    """The EDGE score fill over the whole target in chunks of R rows from
+    the analytic row 0 and left edge, each chunk's bottom rows, right edge
+    and running candidate against the plain version's on the same inputs."""
+    mode, jump = variant.split("+")[0], variant.endswith("+jump")
+    qs, ts, allow, ns, ms, pm = args
+    B = qs.shape[0]
+    o, e = float(pm[0, 2]), float(pm[0, 3])
+    value = scan.edge_dtype(mode)
+    top = scan.top_analytic(mode, "scores", 0, n_pad, B, o, e, qs.device)
+    acc = torch.full((B,), INT32 if mode == "edit" else float("-inf"),
+                     dtype=value, device=qs.device)
+    want_acc = acc.clone()
+    for i0 in range(0, m_pad, R):
+        q = qs[:, i0 : i0 + R].contiguous()
+        ledge = scan.edge_analytic(mode, jump, "scores", i0, R, 0, B, o, e,
+                                   qs.device)
+        before = blocked.launches["edge_scores"]
+        got = blocked.edge_scores(mode, jump, 0, i0, c_blk, q, ts,
+                                  allow if jump else None, ns, ms, pm, top,
+                                  ledge, acc)
+        torch.cuda.synchronize()
+        assert blocked.launches["edge_scores"] == before + 1
+        want = scan.edge_scores_plain(mode, jump, 0, i0, q, ts,
+                                      allow if jump else None, ns, ms, pm,
+                                      top, ledge, want_acc)
+        for name, g, w in zip(("bottom", "redge"), got, want):
+            assert torch.equal(g, w), (name, i0)
+        assert torch.equal(acc, want_acc), i0
+        top = want[0]
+
+
+@pytest.mark.parametrize("c_blk", (strip_ties.C_BLK,) + C_BLK_SWEEP)
+@pytest.mark.parametrize("variant", SCORE_VARIANTS)
+def test_blocked_scores_on_strip_ties_equal_plain(cuda, variant, c_blk):
+    """The SCORE and EDGE-score instances on tests/blocked_strip_ties.py's
+    inputs (held against the JAX package on the CPU): equal candidates at
+    the strip and warp edges inside a block of 1,024 columns and across its
+    edge; at the sweep's column blocks the 2,048 columns are one block
+    (ragged at 4,096 and 8,192)."""
+    mode = variant.split("+")[0]
+    arrs = strip_ties.tie_inputs(3)
+    args = convert.kernel_inputs_from_numpy(*arrs, _tie_params(mode), cuda)
+    _scores_equal_plain(variant, strip_ties.M_PAD, strip_ties.N_PAD, c_blk,
+                        args)
+    _edge_chunks_equal_plain(variant, strip_ties.M_PAD, strip_ties.N_PAD,
+                             c_blk, args)
+
+
+@pytest.mark.parametrize("c_blk", C_BLK_SWEEP)
+@pytest.mark.parametrize("variant", SCORE_VARIANTS)
+def test_blocked_scores_on_strips_equal_plain(cuda, variant, c_blk):
+    """The SCORE and EDGE-score instances over three blocks, the last
+    ragged: m = 0 and n = 0 pairs (alone and together), a target ending on
+    a block edge and one a column past it, and blocks past n (a score
+    fill's exit at once; a chunk's run)."""
+    n_pad = 2 * c_blk + 384
+    args = convert.kernel_inputs_from_numpy(
+        *_strip_inputs(97 + c_blk, c_blk, n_pad), cuda)
+    _scores_equal_plain(variant, 64, n_pad, c_blk, args)
+    _edge_chunks_equal_plain(variant, 64, n_pad, c_blk, args)
+
+
+@pytest.mark.parametrize("c_blk", (strip_ties.C_BLK,) + C_BLK_SWEEP[1:])
+def test_blocked_edit64_on_strips_equal_plain(cuda, c_blk):
+    """Edit's double blocked score fill (W 8) on the strip ties and on
+    three blocks with m = 0, n = 0 and blocks past n, against float64
+    plain."""
+    arrs = strip_ties.tie_inputs(3)
+    args = list(convert.kernel_inputs_from_numpy(*arrs, _tie_params("edit"),
+                                                 cuda))
+    args[5] = args[5].double()
+    _scores_equal_plain("edit", strip_ties.M_PAD, strip_ties.N_PAD, c_blk,
+                        args)
+    n_pad = 2 * c_blk + 384
+    args = list(convert.kernel_inputs_from_numpy(
+        *_strip_inputs(101 + c_blk, c_blk, n_pad), cuda))
+    args[5] = convert.params_matrix(AlignParams(mismatch=-16777217), cuda,
+                                    torch.float64)
+    _scores_equal_plain("edit", 64, n_pad, c_blk, args)
+
+
 def test_rows_route_on_card_equals_cpu(cuda):
     """Rows of one bucket at the cap and one past it: the flat kernel and
     the blocked one each launched, the rows the CPU run's."""

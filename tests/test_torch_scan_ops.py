@@ -123,12 +123,33 @@ def test_wrapper_rejects_bad_inputs():
         scan.scores("fit", M_PAD, N_PAD, tq, tt, tn, tm, tp)
 
 
-@pytest.mark.parametrize("n_pad", [128, 2048, 4096, 32768, 65536])
-def test_launch_shape_covers_the_row(n_pad):
-    threads, wmax = blocked.score_launch_shape(n_pad)
-    assert threads % 32 == 0 and 32 <= threads <= 1024
-    assert threads * wmax >= n_pad
-    assert threads * (wmax - 1) < n_pad
+@pytest.mark.parametrize("mode,c_blk,dtype,shape", [
+    ("global", 32, torch.float32, (32, 16)),
+    ("fit", 2048, torch.float32, (128, 16)),
+    ("local", blocked.C_BLK_MAX, torch.float32, (512, 16)),
+    ("edit", blocked.C_BLK_MAX, torch.float32, (512, 16)),
+    ("edit", 16384, torch.float32, (1024, 16)),
+    ("edit", 2048, torch.float64, (256, 8)),
+    ("edit", blocked.C_BLK_MAX64, torch.float64, (512, 8))])
+def test_blocked_score_launch_shape(mode, c_blk, dtype, shape):
+    """The blocked score fills' launch shape: the register-strip score
+    fill's rule (scan.flat_shape) on the column block, the fewest whole
+    warps of W-column strips (W 16; 8 for edit's double instance), edit's
+    CTA up to 1,024 threads."""
+    assert scan.flat_shape(mode, c_blk, dtype) == shape
+    threads, width = shape
+    assert threads * width >= c_blk > (threads - 32) * width
+
+
+@pytest.mark.parametrize("mode,c_blk,dtype", [
+    ("overlap", blocked.C_BLK_MAX + 16, torch.float32),
+    ("edit", 16384 + 16, torch.float32),
+    ("edit", 8192 + 16, torch.float64)])
+def test_blocked_score_launch_shape_refuses_past_its_cta(mode, c_blk, dtype):
+    """No shape covers a column block past a CTA's strips: 512 threads (edit
+    1,024) of W columns."""
+    with pytest.raises(ValueError, match="blocked fill"):
+        scan.flat_shape(mode, c_blk, dtype)
 
 
 def _wide_inputs(seed, n_pad, B=8, m_pad=16):
